@@ -7,9 +7,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. setup    — the card's name and power limit, the kernels' parallel build.
 2. K1 + K2  — the rowwise fused posit divide against its plain twin,
-              bit-exact: posit16 srt_r4_cs_of_fr on 2^20 random pairs plus
-              the special values, posit8 exhaustive, every one-word
-              (format, variant) sampled.
+              bit-exact: the RMSNorm rows of decode (8x960), prefill
+              (256x960) and training (2048x960), posit16 srt_r4_cs_of_fr
+              on 2^20 random pairs plus the special values, posit8
+              exhaustive, every one-word (format, variant) sampled.
 3. K3       — flash attention against its plain twin at the main path's
               shapes (decode B=8, Sk=512; prefill P=128) and for every
               posit16 plan it is built for: max|diff| within FLASH_TOL,
@@ -17,14 +18,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    model    — the smoke config on the card (kernels) against the same
               weights on the CPU (plain twins, which the CPU tests hold
               against the reference): logits within LOGIT_ULPS bf16 ulps.
+   K6-K8    — the training forward (K6) and the recompute backward (K7 dq,
+              K8 dk/dv) against their twins at the training path's shapes
+              (B=8, S=256, 15/5 heads, hd 64) for the default plan and at
+              B=2 for every posit16 plan: o within FLASH_TOL, lse within
+              LSE_TOL, gradients within BWD_TOL and the same bits on a
+              second run; fully masked rows give zero gradients.
+   train    — one train step of the smoke config on the card against the
+              same f32 weights and batch on the CPU: loss within LOSS_RTOL,
+              every gradient leaf within GRAD_REL_L2 relative L2.
 4. main     — SmolLM-360M at full width (all 32 layers, random weights from
               a seed) served by ``ServeEngine`` (8 slots, max_seq 512): 16
               greedy requests, prompts of 16-200 tokens, 32 new tokens each.
               Launch counters are zeroed before and read after: K2 must run
               2L+1 times and K3 L times per forward.  Two requests must be
               bit-identical solo and batched.
+   training — SmolLM-360M at full width trained by ``Trainer`` for 4 steps
+              (global batch 8 x 256, lr 1e-3, warmup 1, remat "full", seed
+              0): finite losses, the last below the first, and per step K6
+              2L (forward and recompute), K7 L, K8 L and K2 4L+1 launches.
+              One more step is profiled: device busy and idle share.
 5. timing   — each kernel, its plain twin and a library yardstick at the
-              main path's shapes (the kernel's device time from
+              main paths' shapes (the kernel's device time from
               torch.profiler, which must see it; per-call times from CUDA
               events), and one full-width decode step broken down by
               kernel class.
@@ -53,6 +68,16 @@ SRC = os.path.join(ROOT, "src")
 # step (2^-11 = 4.9e-4 in [1, 2)); observed 1.2e-4
 FLASH_TOL = 5e-4
 LOGIT_ULPS = 8          # card vs CPU logits, in bf16 ulps of max|logit|
+# K6's lse = m + log l against its twin (the reference's residual bound)
+LSE_TOL = 1e-5
+# K7/K8 against their twin: p is a posit16 quantization of e, so a one-ulp
+# change in e can move it one posit16 step (the reference's bound between
+# its own two backward backends)
+BWD_TOL = 5e-3
+# smoke train step, card against CPU: the CPU tests' bounds against the
+# reference (bf16 products and posit16 roundings fall at other places)
+LOSS_RTOL = 1e-3
+GRAD_REL_L2 = 2e-2
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 # 32-bit integer operations of the posit datapath per element (a static
@@ -150,8 +175,9 @@ def phase_rowwise(torch, dev):
         worst[0] = max(worst[0], max_abs_err(k, p))
         check(diff == 0, f"K2 {fmt}/{variant}: {diff} elements differ from the twin")
 
-    # the main path's shapes: a decode step's and a prefill's RMSNorm rows
-    for R in (8, 256):
+    # the main paths' shapes: a decode step's, a prefill's and a training
+    # step's (8 x 256 tokens) RMSNorm rows
+    for R in (8, 256, 2048):
         compare(POSIT16, "srt_r4_cs_of_fr", torch.randn(R, 960, generator=g),
                 torch.rand(R, 1, generator=g) + 0.01)
     # posit16 default variant: 2^20 random pairs + the special values
@@ -270,6 +296,129 @@ def phase_model_small(torch, dev):
           f"{LOGIT_ULPS}-ulp bound of the CPU path (prefill + 3 decode steps)")
 
 
+def training_inputs(torch, dev, B, S, seed, H=15, KV=5, hd=64):
+    """q and dO in f32 (q holds bf16 values, as the model gives them), k/v
+    in bf16: the training path's attention operands."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(B, S, H, hd, generator=g).to(torch.bfloat16).float().to(dev)
+    k = torch.randn(B, S, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    v = torch.randn(B, S, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    co = torch.randn(B, S, H, hd, generator=g).to(dev)
+    return q, k, v, co
+
+
+def backward_args(F, co, o, m, l, q, k, v):
+    return (q, k, v, co, m, l, F._row_sums(co, o), True, 0, 0, 1.0 / math.sqrt(q.shape[-1]))
+
+
+def phase_flash_train(torch, dev):
+    """K6, K7 and K8 against their twins: the default plan at the training
+    path's shapes (B=8, S=256), every posit16 plan at B=2, S=256."""
+    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels import posit_flash_attn as F
+    from repro_torch.kernels.posit_div import KERNEL_VARIANTS
+
+    worst = {"K6": 0.0, "lse": 0.0, "K7": 0.0, "K8": 0.0}
+
+    def compare(variant, q, k, v, co):
+        where = f"{variant} B={q.shape[0]}"
+        o, m, l = F.posit_flash_attention_fwd(POSIT16, q, k, v, True, variant=variant)
+        po, pm, pl = F.posit_flash_attention_fwd_plain(POSIT16, q, k, v, True,
+                                                       variant=variant)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(o).all()), f"K6 {where}: non-finite output")
+        err = max_abs_err(o, po)
+        worst["K6"] = max(worst["K6"], err)
+        lse_err = float((m + torch.log(l) - pm - torch.log(pl)).abs().max())
+        worst["lse"] = max(worst["lse"], lse_err)
+        check(err <= FLASH_TOL, f"K6 {where}: max|o diff| {err} > {FLASH_TOL}")
+        check(lse_err <= LSE_TOL, f"K6 {where}: max|lse diff| {lse_err} > {LSE_TOL}")
+        plan = F.one_word_plan(POSIT16, variant)
+        args = backward_args(F, co, o, m, l, q, k, v)
+        runs = [(F.flash_backward_dq(POSIT16, plan, *args),
+                 *F.flash_backward_dkv(POSIT16, plan, *args)) for _ in range(2)]
+        twin = F.flash_backward_plain(POSIT16, q, k.float(), v.float(), o, co, m, l, True,
+                                      variant=variant)
+        torch.cuda.synchronize()
+        for name, got, again, want in zip(("dq", "dk", "dv"), runs[0], runs[1], twin):
+            kern = "K7" if name == "dq" else "K8"
+            check(bool(torch.isfinite(got).all()), f"{kern} {where}: non-finite {name}")
+            check(torch.equal(got, again), f"{kern} {where}: {name} differs run to run")
+            err = max_abs_err(got, want)
+            worst[kern] = max(worst[kern], err)
+            check(err <= BWD_TOL, f"{kern} {where}: max|{name} diff| {err} > {BWD_TOL}")
+
+    # the training path's shapes and plan: B=8 sequences of 256, 15/5 heads
+    compare("srt_r4_cs_of_fr", *training_inputs(torch, dev, 8, 256, 22))
+    q, k, v, co = training_inputs(torch, dev, 2, 256, 21)
+    for variant in KERNEL_VARIANTS:
+        compare(variant, q, k, v, co)
+    # every row fully masked (q_offset = -S puts each query before every key)
+    S = q.shape[1]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = F.posit_flash_attention_ste(16, "srt_r4_cs_of_fr", True, 0, -S, 0.0, *leaves)
+    grads = torch.autograd.grad((out * co).sum(), leaves)
+    torch.cuda.synchronize()
+    check(bool((out == 0).all()), "K6: fully masked rows are not 0")
+    for name, gr in zip(("dq", "dk", "dv"), grads):
+        check(bool(torch.isfinite(gr).all()) and bool((gr == 0).all()),
+              f"fully masked rows: {name} is not finite zeros")
+    print(f"K6: within {FLASH_TOL} (o, max|diff| {worst['K6']:.3g}) and {LSE_TOL} (lse, "
+          f"{worst['lse']:.3g}) of its twin; K7 max|dq diff| {worst['K7']:.3g}, K8 "
+          f"max|dk, dv diff| {worst['K8']:.3g} (within {BWD_TOL}), bit-identical run to "
+          f"run, at B=8 x 256 (default plan) and B=2 x 256 ({len(KERNEL_VARIANTS)} "
+          "posit16 plans); fully masked rows give zero gradients")
+    return worst
+
+
+def phase_train_small(torch, dev):
+    """One train step of the smoke config on the card against the CPU path."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.optim.tree import tree_items, tree_leaves, tree_map
+    from repro_torch.train.trainer import (
+        TrainConfig,
+        init_train_state,
+        loss_and_grads,
+        make_train_step,
+    )
+
+    cfg = get_config("smollm_360m", smoke=True)
+    tc = TrainConfig(steps=4, lr=1e-3, warmup=1)
+    cpu = init_train_state(cfg, tc, device="cpu")
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    batch = SyntheticLMDataset(DataConfig(2, 64), cfg).batch_at(0)
+    runs = {}
+    for name, state, d in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+        b = {n: torch.from_numpy(np.asarray(x)).to(d) for n, x in batch.items()}
+        (loss, _), grads = loss_and_grads(state["params"], cfg, b)
+        new_state, metrics = make_train_step(cfg, tc)(state, b)
+        runs[name] = (float(loss), grads, float(metrics["loss"]), new_state)
+    c_loss, c_grads, _, _ = runs["cpu"]
+    g_loss, g_grads, g_step_loss, g_state = runs["gpu"]
+    rel = abs(g_loss - c_loss) / abs(c_loss)
+    check(math.isfinite(g_loss) and rel <= LOSS_RTOL,
+          f"smoke train: card loss {g_loss} vs CPU {c_loss} (rel {rel:.3g} > {LOSS_RTOL})")
+    check(math.isfinite(g_step_loss), "smoke train: the train step's loss is not finite")
+    errs = {}
+    for (key, g), c in zip(tree_items(g_grads), tree_leaves(c_grads)):
+        g = g.cpu()
+        check(bool(torch.isfinite(g).all()), f"smoke train: non-finite gradient {key}")
+        errs[key] = float(torch.linalg.vector_norm(g - c) / torch.linalg.vector_norm(c))
+    worst_key = max(errs, key=errs.get)
+    worst = errs[worst_key]
+    check(worst <= GRAD_REL_L2,
+          f"smoke train: gradient {worst_key} rel L2 {worst:.3g} > {GRAD_REL_L2}")
+    rest = max(v for k, v in errs.items() if k != "tok")
+    check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(g_state)),
+          "smoke train: non-finite state after the step")
+    print(f"train: smoke step on the card: loss {g_loss:.6f} vs CPU {c_loss:.6f} (rel "
+          f"{rel:.3g}, bound {LOSS_RTOL}); worst gradient leaf {worst_key} rel L2 "
+          f"{worst:.3g} (bound {GRAD_REL_L2}); worst leaf other than tok {rest:.3g}")
+
+
 # --------------------------------------------------------------- phase 4
 
 
@@ -330,6 +479,85 @@ def phase_main(torch, dev):
     print("main: requests 0 and 7 bit-identical solo and batched")
     return {"rowwise": k2, "flash": k3, "tokens_per_s": n_tok / wall,
             "forwards": forwards}
+
+
+def phase_train_main(torch, dev):
+    """SmolLM-360M at full width trained for 4 steps through K2, K6, K7, K8."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import posit_flash_attn as F
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = get_config("smollm_360m")
+    B, S, steps = 8, 256, 4
+    tc = TrainConfig(steps=steps, lr=1e-3, warmup=1, log_every=1, seed=0)
+    ds = SyntheticLMDataset(DataConfig(B, S, seed=0), cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, tc, ds, device=dev)
+    counters = (ops.posit_div_fused_rowwise, F.posit_flash_attention,
+                F.posit_flash_attention_fwd, F.flash_backward_dq, F.flash_backward_dkv)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2, k3, k6, k7, k8 = (c.launches for c in counters)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    losses = [h["loss"] for h in res["history"]]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"training: losses {losses}")
+    check(losses[-1] < losses[0], f"training: loss did not fall: {losses}")
+    for name, got, per_step in (("K6", k6, 2 * L), ("K7", k7, L), ("K8", k8, L),
+                                ("K2", k2, 4 * L + 1), ("K3", k3, 0)):
+        check(got == per_step * steps,
+              f"training: {name} launched {got} times, the path implies {per_step * steps}")
+    secs = [h["sec"] for h in res["history"]]
+    print(f"training: SmolLM-360M ({L} layers, f32 masters, remat full), {steps} steps "
+          f"of {B}x{S} tokens in {wall:.2f} s; losses {[round(x, 4) for x in losses]}; "
+          f"step wall times {[round(x, 3) for x in secs]} s; {B * S / min(secs):.1f} "
+          f"tokens/s at the fastest step; launches K2 {k2} (4L+1 per step), K6 {k6} (2L), "
+          f"K7 {k7} (L), K8 {k8} (L); peak device memory {peak / 2**30:.2f} GiB")
+
+    # one more step under the profiler (not counted above)
+    batch = {n: torch.from_numpy(x).to(dev) for n, x in ds.batch_at(steps).items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.state, metrics = trainer.step_fn(trainer.state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3
+    by = {"K6 flash fwd": 0.0, "K7 flash dq": 0.0, "K8 flash dk/dv": 0.0, "K2 rowwise": 0.0,
+          "matmul": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        t = e.self_device_time_total / 1e3
+        key = e.key.lower()
+        if "flash_bwd_dq_kernel" in key:
+            by["K7 flash dq"] += t
+        elif "flash_bwd_dkv_kernel" in key:
+            by["K8 flash dk/dv"] += t
+        elif "flash_kernel" in key:
+            by["K6 flash fwd"] += t
+        elif "rowwise_kernel" in key:
+            by["K2 rowwise"] += t
+        elif any(w in key for w in ("gemm", "gemv", "cutlass", "nvjet", "xmma", "sm90")):
+            by["matmul"] += t
+        else:
+            by["other"] += t
+    busy = sum(by.values())
+    check(by["K6 flash fwd"] > 0 and by["K7 flash dq"] > 0 and by["K8 flash dk/dv"] > 0,
+          "torch.profiler saw no K6/K7/K8 time in the training step")
+    print("training step (traced): wall %.1f ms, device busy %.1f ms, idle share %.3f; %s" % (
+        traced, busy, 1 - busy / traced, ", ".join(f"{k} {v:.2f} ms" for k, v in by.items())))
+    return {"rowwise": k2, "K6": k6, "K7": k7, "K8": k8, "losses": losses,
+            "step_s": secs, "peak_bytes": peak, "busy_ms": busy, "traced_ms": traced}
 
 
 # --------------------------------------------------------------- phase 5
@@ -421,10 +649,64 @@ def phase_timing(torch, dev):
     rows["K3 decode"] = flash_row(8, 1, 512, [47, 63, 92, 120, 151, 178, 199, 231],
                                   [0, 0, 5, 3, 9, 0, 14, 31])
     rows["K3 prefill"] = flash_row(1, 256, 256, [0], [56])
+    rows.update(training_rows(torch, dev, plan))
     for name, r in rows.items():
         print(f"timing {name} {r['shape']}: device {r['ms']} ms, per call "
               f"{r['call_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library {r['library_ms']}")
+    return rows
+
+
+def training_rows(torch, dev, plan):
+    """K6, K7 and K8 at the training path's shapes (B=8, S=256, causal)."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels import posit_flash_attn as F
+
+    B, S, H, KV, hd = 8, 256, 15, 5, 64
+    q, k, v, co = training_inputs(torch, dev, B, S, 9)
+    o, m, l = F.posit_flash_attention_fwd(POSIT16, q, k, v, True)
+    args = backward_args(F, co, o, m, l, q, k, v)
+    pairs = B * H * S * (S + 1) // 2            # attended (row, key) pairs
+    qo = B * S * H * hd * 4                     # one f32 (B, S, H, hd) tensor
+    kv = B * S * KV * hd * 2                    # one bf16 (B, S, KV, hd) tensor
+    rowv = B * H * S * 4                        # one f32 (B*H, S) row vector
+    # library yardsticks: SDPA forward, and SDPA backward for K7 and K8
+    # together, on the same causal mask with f32 inputs
+    qs, ks, vs = (t.float().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    sdpa = lambda: Fn.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                   enable_gqa=True)
+    lib_fwd = cuda_time_ms(lambda: sdpa().detach())
+    out = sdpa()
+    gs = co.transpose(1, 2).contiguous()
+    lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), gs,
+                                                       retain_graph=True))
+    plain_bwd = cuda_time_ms(lambda: F.flash_backward_plain(POSIT16, q, k, v, o, co, m, l,
+                                                            True), iters=3)
+
+    def row(call, names, nbytes, ops_, plain_ms, library_ms):
+        dev_ms = device_kernel_ms(torch, call, names)
+        check(dev_ms is not None, f"torch.profiler saw no {names} on the device")
+        bms, by = bound_ms(nbytes, ops_)
+        return {"shape": [B, S, S, H, KV, hd], "ms": dev_ms, "call_ms": cuda_time_ms(call),
+                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                "library_ms": library_ms}
+
+    rows = {
+        "K6": row(lambda: F.posit_flash_attention_fwd(POSIT16, q, k, v, True),
+                  ["flash_kernel"], 2 * qo + 2 * kv + 2 * rowv,
+                  pairs * 4 * hd + div_ops(plan, B * S * H * hd),
+                  cuda_time_ms(lambda: F.posit_flash_attention_fwd_plain(
+                      POSIT16, q, k, v, True), iters=3), lib_fwd),
+        "K7": row(lambda: F.flash_backward_dq(POSIT16, plan, *args),
+                  ["flash_bwd_dq_kernel"], 3 * qo + 2 * kv + 3 * rowv,
+                  pairs * 6 * hd + div_ops(plan, pairs), plain_bwd, lib_bwd),
+        "K8": row(lambda: F.flash_backward_dkv(POSIT16, plan, *args),
+                  ["flash_bwd_dkv_kernel"], 2 * qo + 2 * kv + 3 * rowv + 2 * 2 * kv,
+                  pairs * 8 * hd + div_ops(plan, pairs), plain_bwd, lib_bwd),
+    }
     return rows
 
 
@@ -495,10 +777,15 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     sys.path.insert(0, SRC)
     from repro_torch.kernels import _build
+    from repro_torch.models.transformer import resolve_device
 
-    # bf16 products reduce in f32, as the reference's do
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    dev = torch.device("cuda", 0)
+    # the port's entry points resolve their device here, which keeps bf16
+    # products reducing in f32 (as the reference's do) and TF32 off
+    dev = resolve_device("cuda:0")
+    check(not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+          and not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32,
+          "resolving a CUDA device left reduced-precision matmuls on")
     card = gpu_line()
     print(f"setup: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -515,7 +802,10 @@ def main() -> int:
     div_err = phase_rowwise(torch, dev)
     flash_err = phase_flash(torch, dev)
     phase_model_small(torch, dev)
+    train_err = phase_flash_train(torch, dev)
+    phase_train_small(torch, dev)
     path = phase_main(torch, dev)
+    train = phase_train_main(torch, dev)
     rows = phase_timing(torch, dev)
     decode_breakdown(torch, dev)
 
@@ -528,15 +818,25 @@ def main() -> int:
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
-        entry("K1 posit SRT datapath (inlined in K2 and K3)", csrc + "posit_srt.cuh",
-              "src/repro/kernels/posit_div.py:433", path["rowwise"] + path["flash"], div_err,
-              rows["K1"]),
+        entry("K1 posit SRT datapath (inlined in K2, K3, K6, K7, K8)",
+              csrc + "posit_srt.cuh", "src/repro/kernels/posit_div.py:433",
+              path["rowwise"] + path["flash"] + train["rowwise"] + train["K6"] + train["K7"]
+              + train["K8"], div_err, rows["K1"]),
         entry("K2 rowwise fused posit divide", csrc + "posit_fused_div.cu",
-              "src/repro/kernels/posit_fused_div.py:149", path["rowwise"], div_err,
-              rows["K2 decode"]),
+              "src/repro/kernels/posit_fused_div.py:149", path["rowwise"] + train["rowwise"],
+              div_err, rows["K2 decode"]),
         entry("K3 posit flash attention, dense", csrc + "posit_flash_attn.cu",
               "src/repro/kernels/posit_flash_attn.py:330", path["flash"], flash_err,
               rows["K3 decode"]),
+        entry("K6 posit flash attention forward saving (m, l)", csrc + "posit_flash_attn.cu",
+              "src/repro/kernels/posit_flash_attn.py:330", train["K6"], train_err["K6"],
+              rows["K6"]),
+        entry("K7 posit flash attention backward, dq", csrc + "posit_flash_bwd.cu",
+              "src/repro/kernels/posit_flash_attn.py:601", train["K7"], train_err["K7"],
+              rows["K7"]),
+        entry("K8 posit flash attention backward, dk and dv", csrc + "posit_flash_bwd.cu",
+              "src/repro/kernels/posit_flash_attn.py:626", train["K8"], train_err["K8"],
+              rows["K8"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,8 +1,11 @@
-// K3: flash-attention forward with the posit SRT normalizer (dense layout).
+// K3 / K6: flash-attention forward with the posit SRT normalizer (dense
+// layout), optionally saving the row residuals (m, l).
 //
-// Replaces the dense branch (pages = 0, has_seg = False, save_res = False) of
-// _flash_kernel / _flash_call (src/repro/kernels/posit_flash_attn.py :96-
-// :357, pallas_call :330), reached through posit_flash_attention: the
+// Replaces the dense branch (pages = 0, has_seg = False) of _flash_kernel /
+// _flash_call (src/repro/kernels/posit_flash_attn.py :96-:357, pallas_call
+// :330): save_res = False reached through posit_flash_attention (K3, the
+// serving path), save_res = True through posit_flash_attention_fwd :424
+// (K6, the training forward).  It computes the
 // online-softmax kv scan carrying (m, l, acc), GQA by head index, the
 // causal / window / kv_start / kv_len / q_pos masks, and the final acc / l
 // through K1 as a rowwise posit divide, minpos for fully masked rows.
@@ -19,7 +22,10 @@
 //     [kv_start + t*kBK, kv_start + (t+1)*kBK).  A request's real keys then
 //     fall into the same tiles whatever its left-pad length, so its rows are
 //     bit-identical solo, batched or admitted mid-flight.  Tiles past kv_len
-//     (and past the causal limit) are skipped; they would be exact no-ops.
+//     (and past the causal limit) are skipped; they would be exact no-ops;
+//   * K6 is the same kernel with two more outputs: each row's final m and l,
+//     f32, laid out (B*H, Sq).  Null pointers mean no residuals, so K3 and
+//     K6 share every instantiation (build time follows their count).
 //
 // Instantiated for the posit16 plans only, with bf16 K/V (what the serving
 // path runs: posit16 numerics over the bf16 cache); other formats and f32
@@ -55,6 +61,7 @@ template <class P>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ m_out, float* __restrict__ l_out,
                  const int* __restrict__ kv_start, const int* __restrict__ kv_len,
                  const int* __restrict__ q_pos, int bq, int Sq, int Sk, int H, int KVH,
                  int hd, float scale, int causal, int window, int q_offset, float eps) {
@@ -169,12 +176,21 @@ __global__ void __launch_bounds__(kThreads)
     out[((static_cast<size_t>(b) * Sq + q0 + r) * H + h) * hd + d] =
         posit::divide_float<P>(sQ[i], sDiv[r]);
   }
+  // K6: each row's final m and l, stored last.  Stored before the output
+  // loop, the same store left K3 (null pointers) 5-11% slower on an H100:
+  // ptxas then scheduled the tile loop worse (PERF.md, section 6).
+  if (m_out != nullptr && tid < rows) {
+    const size_t row = static_cast<size_t>(bh) * Sq + q0 + tid;
+    m_out[row] = sM[tid];
+    l_out[row] = sL[tid];
+  }
 }
 
 template <class P>
 int launch(const float* q, const __nv_bfloat16* k, const __nv_bfloat16* v, float* out,
-           const int* kv_start, const int* kv_len, const int* q_pos, int B, int Sq, int Sk,
-           int H, int KVH, int hd, float scale, int causal, int window, int q_offset, float eps,
+           float* m_out, float* l_out, const int* kv_start, const int* kv_len,
+           const int* q_pos, int B, int Sq, int Sk, int H, int KVH, int hd, float scale,
+           int causal, int window, int q_offset, float eps,
            cudaStream_t s) {
   auto kern = flash_kernel<P>;
   const int bq = Sq == 1 ? 1 : kBQMax;
@@ -183,21 +199,24 @@ int launch(const float* q, const __nv_bfloat16* k, const __nv_bfloat16* v, float
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + bq - 1) / bq, B * H);
-  kern<<<grid, kThreads, bytes, s>>>(q, k, v, out, kv_start, kv_len, q_pos, bq, Sq, Sk, H, KVH,
-                                     hd, scale, causal, window, q_offset, eps);
+  kern<<<grid, kThreads, bytes, s>>>(q, k, v, out, m_out, l_out, kv_start, kv_len, q_pos, bq,
+                                     Sq, Sk, H, KVH, hd, scale, causal, window, q_offset,
+                                     eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q: (B, Sq, H, hd) f32; k, v: (B, Sk, KVH, hd) bf16; out: (B, Sq, H, hd)
-// f32; kv_start / kv_len / q_pos: (B,) int32; all contiguous on the device.
+// f32; m_out / l_out: (B*H, Sq) f32, or both null (K3: no residuals);
+// kv_start / kv_len / q_pos: (B,) int32; all contiguous on the device.
 // Returns 0, a cudaError_t, -1 when no compiled posit16 plan matches, -2 for
 // a head_dim above kHdMax or a bad head split.
 extern "C" int posit_flash_attn_fwd(int n, int radix, int red, int otf, int scaled, int nonrest,
                                     int it, int shift, int gbits, const float* q,
-                                    const void* k, const void* v, float* out,
-                                    const int* kv_start, const int* kv_len, const int* q_pos,
+                                    const void* k, const void* v, float* out, float* m_out,
+                                    float* l_out, const int* kv_start, const int* kv_len,
+                                    const int* q_pos,
                                     int B, int Sq, int Sk, int H, int KVH, int hd, float scale,
                                     int causal, int window, int q_offset, float eps,
                                     void* stream) {
@@ -209,8 +228,8 @@ extern "C" int posit_flash_attn_fwd(int n, int radix, int red, int otf, int scal
     using P = decltype(plan);
     if constexpr (P::n == 16) {
       rc = launch<P>(q, static_cast<const __nv_bfloat16*>(k),
-                     static_cast<const __nv_bfloat16*>(v), out, kv_start, kv_len, q_pos, B, Sq,
-                     Sk, H, KVH, hd, scale, causal, window, q_offset, eps, s);
+                     static_cast<const __nv_bfloat16*>(v), out, m_out, l_out, kv_start,
+                     kv_len, q_pos, B, Sq, Sk, H, KVH, hd, scale, causal, window, q_offset, eps, s);
     }
   });
   return rc;

@@ -1,10 +1,12 @@
-"""Model configuration: the dense-family fields the serving path reads.
+"""Model configuration: the dense-family fields the serving and training
+paths read.
 
 Port of the reference package's ``models/config.py``, cut to what the
-dense fused-posit serving path reads: attention always runs on the posit
-flash kernel (the reference's ``attn_backend="fused"``) and the divisions on
-the fused SRT kernels.  Other families (moe, ssm, hybrid,
-encdec, vlm), tensor parallelism and the training switches come with later
+dense fused-posit paths read: attention always runs on the posit flash
+kernel (the reference's ``attn_backend="fused"``) and the divisions on the
+fused SRT kernels, and its backward is always the recompute flash backward
+(the reference's ``attn_bwd="fused"``).  Other families (moe, ssm, hybrid,
+encdec, vlm), tensor parallelism and ``remat="dots"`` come with later
 slices (``ROADMAP.md``).
 """
 
@@ -38,11 +40,17 @@ class ModelConfig:
     numerics: NumericsConfig = dataclasses.field(default_factory=NumericsConfig)
     serve_max_batch: int = 8     # persistent decode slots in the engine
     serve_max_seq: int = 512     # per-slot KV-cache rows (prompt + new)
+    remat: str = "full"          # full (recompute each block in the
+    #                              backward) | none
 
     def __post_init__(self):
         if self.head_dim is None and self.n_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         self.numerics.validate()
+        if self.remat == "dots":
+            raise NotImplementedError("remat='dots' is not ported (ROADMAP.md)")
+        if self.remat not in ("full", "none"):
+            raise ValueError(f"unknown remat {self.remat!r}; expected 'full' or 'none'")
 
     @property
     def padded_vocab(self) -> int:

@@ -1,17 +1,21 @@
-"""Dense layers of the serving path: RMSNorm, RoPE, GQA attention, MLP.
+"""Dense layers of the serving and training paths: RMSNorm, RoPE, GQA
+attention, MLP.
 
 Port of the dense pieces of the reference package's ``models/layers.py``.
 Compute dtype is bf16 (``COMPUTE_DTYPE``); the projections, the MLP and the
 logits are plain bf16 ``torch.matmul`` products, as the reference leaves
-its einsums to XLA.  The reference casts its f32 weights to bf16 at every
-use; the port keeps bf16 copies of them, which holds the same values.
-Callers that compare outputs with the reference should set
-``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction =
-False`` so cuBLAS reduces bf16 products in f32 (``chip_smoke.py`` does).
+its einsums to XLA.  Every weight is cast to the activations' dtype at its
+use, as the reference casts: training keeps f32 master weights, serving
+keeps bf16 copies (the cast is then a no-op and holds the same values).
+cuBLAS reduces the bf16 products in f32: the entry points turn its
+reduced-precision bf16 reductions off when they resolve a CUDA device
+(``transformer.resolve_device``).
 
 The divisions (RMSNorm's ``x / rms`` and attention's ``o / l``) run on the
-posit SRT kernels, and attention on the posit flash kernel (K3): the
-reference's ``fused=True`` path.  Its float-division and chunked jnp
+posit SRT kernels, and attention on the posit flash kernels: K3 when serving
+from a cache, and through :func:`posit_flash_attention_ste` (K6 forward,
+K7/K8 backward) in :func:`attention_block`, the training path.  This is the
+reference's ``fused=True`` path; its float-division and chunked jnp
 attention paths are not ported.
 
 Unlike the reference's pure functions, the cache-writing layers update the
@@ -24,7 +28,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as Fn
 
-from repro_torch.kernels.posit_flash_attn import posit_flash_attention
+from repro_torch.kernels.posit_flash_attn import (
+    posit_flash_attention,
+    posit_flash_attention_ste,
+)
 from repro_torch.numerics.posit_ops import posit_rmsnorm_div
 from .config import ModelConfig
 
@@ -56,7 +63,7 @@ def apply_rope(x, positions, theta: float):
 def _proj(x, w, heads: int):
     """``einsum("bsd,dhk->bshk")`` with the weight stored as (d, h*k)."""
     B, S, _ = x.shape
-    return torch.matmul(x, w).reshape(B, S, heads, -1)
+    return torch.matmul(x, w.to(x.dtype)).reshape(B, S, heads, -1)
 
 
 def _qkv(p, x, cfg: ModelConfig, positions):
@@ -69,7 +76,19 @@ def _qkv(p, x, cfg: ModelConfig, positions):
 def wo_project(o, wo):
     """Attention output projection ``einsum("bshk,hkd->bsd", o, wo)``."""
     B, S = o.shape[:2]
-    return torch.matmul(o.reshape(B, S, -1), wo)
+    return torch.matmul(o.reshape(B, S, -1), wo.to(o.dtype))
+
+
+def attention_block(p, x, cfg: ModelConfig, positions, causal: bool = True,
+                    window: int = 0):
+    """Whole-sequence attention with no cache (the training path): the
+    posit flash kernels through the straight-through wrapper (K6 forward,
+    K7/K8 recompute backward; the reference's ``attn_bwd="fused"``)."""
+    q, k, v = _qkv(p, x, cfg, positions)
+    nm = cfg.numerics
+    o = posit_flash_attention_ste(nm.div_fmt.n, nm.div_algo, causal, window, 0, 0.0,
+                                  q, k, v)
+    return wo_project(o.to(x.dtype), p["wo"])
 
 
 def prefill_attention(p, x, cache_k, cache_v, cfg: ModelConfig, positions,
@@ -113,14 +132,15 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig, start=None):
 
 
 def mlp_block(p, x):
-    h = torch.matmul(x, p["w1"])
-    g = torch.matmul(x, p["w3"])
-    return torch.matmul(Fn.silu(h) * g, p["w2"])
+    dt = x.dtype
+    h = torch.matmul(x, p["w1"].to(dt))
+    g = torch.matmul(x, p["w3"].to(dt))
+    return torch.matmul(Fn.silu(h) * g, p["w2"].to(dt))
 
 
 def embed(tok, tokens):
-    return tok[tokens]
+    return tok.to(COMPUTE_DTYPE)[tokens]
 
 
 def logits(head, x):
-    return torch.matmul(x, head)
+    return torch.matmul(x, head.to(x.dtype))

@@ -1,10 +1,12 @@
 """Model ops whose divisions run through the digit-recurrence divider.
 
-Port of the inference side of the reference package's
-``numerics/posit_ops.py``: values are quantized to the configured posit
-format, divided with the configured Table IV variant and dequantized, in
-one launch of the rowwise kernel (K2).  Inference only: the straight-
-through gradients come with the training path.
+Port of the reference package's ``numerics/posit_ops.py`` for the rowwise
+division: values are quantized to the configured posit format, divided with
+the configured Table IV variant and dequantized, in one launch of the
+rowwise kernel (K2).  Gradients flow straight through the quantization (the
+posit division is a fake-quant of the true one), as the reference's
+``_posit_div_rowwise_ste`` custom_vjp: ``ga = g / b`` and ``gb = sum(-g *
+out / b)`` over the row, in plain torch.
 """
 
 from __future__ import annotations
@@ -15,8 +17,25 @@ from repro_torch.kernels.ops import posit_div_fused_rowwise, rowwise_applicable
 from .formats import NumericsConfig
 
 
+class _RowwiseSTE(torch.autograd.Function):
+    """``a[..., C] / bcol[..., 1]`` on K2, straight-through gradients."""
+
+    @staticmethod
+    def forward(ctx, a, bcol, fmt, variant):
+        out = posit_div_fused_rowwise(fmt, a, bcol, variant)
+        ctx.save_for_backward(bcol, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        bcol, out = ctx.saved_tensors
+        ga = g / bcol
+        gb = torch.sum(-g * out / bcol, dim=-1, keepdim=True)
+        return ga, gb, None, None
+
+
 def posit_div_values(a, b, cfg: NumericsConfig):
-    """``a / b`` in posit arithmetic (float in, float32 out).
+    """``a / b`` in posit arithmetic (float in, float32 out, STE grads).
 
     A row-broadcast divisor (size-1 or absent last axis) runs on the rowwise
     kernel with no materialized broadcast.  Same-shape division needs the
@@ -28,7 +47,7 @@ def posit_div_values(a, b, cfg: NumericsConfig):
             f"elementwise posit division ({tuple(a.shape)} / {tuple(b.shape)}) "
             "needs the elementwise fused kernel, not ported yet (ROADMAP.md)")
     bcol = b.broadcast_to(tuple(a.shape[:-1]) + (1,))
-    return posit_div_fused_rowwise(cfg.div_fmt, a, bcol, cfg.div_algo)
+    return _RowwiseSTE.apply(a, bcol, cfg.div_fmt, cfg.div_algo)
 
 
 def posit_rmsnorm_div(x, rms, cfg: NumericsConfig):

@@ -1,12 +1,14 @@
 """Shared helpers for the PyTorch port's tests (tests/test_torch_*.py).
 
 The reference's Pallas kernels read ``pltpu.TPUCompilerParams``, a name
-the installed JAX no longer has (it is ``pltpu.CompilerParams`` there), so
-the reference kernels raise before they run.  The port's tests still hold
-the port against those kernels, in interpret mode, by aliasing the old
-name to the new one — but only inside a monkeypatch scope, and with JAX's
+the installed JAX no longer has (it is ``pltpu.CompilerParams`` there), and
+its dk/dv backward kernel calls ``pl.load``, which the installed JAX no
+longer has either (a ref is indexed directly there), so the reference
+kernels raise before they run.  The port's tests still hold the port
+against those kernels, in interpret mode, by aliasing the old names to
+their replacements — but only inside a monkeypatch scope, and with JAX's
 compile caches cleared on the way out, so no reference test that runs
-later in the same worker sees the alias or anything traced under it.
+later in the same worker sees an alias or anything traced under it.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import contextlib
 import jax
 import numpy as np
 import pytest
+from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 
@@ -25,6 +28,8 @@ def reference_kernels():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams,
                    raising=False)
+        if not hasattr(pl, "load"):
+            mp.setattr(pl, "load", lambda ref, idx: ref[idx], raising=False)
         try:
             yield
         finally:

@@ -12,6 +12,7 @@ import torch
 from repro_torch.core.posit import POSIT8, POSIT16, posit_to_float
 from repro_torch.kernels import ops
 from repro_torch.kernels.posit_div import KERNEL_VARIANTS, one_word_pairs
+from repro_torch.kernels import posit_flash_attn as F
 from repro_torch.kernels.posit_flash_attn import (
     posit_flash_attention,
     posit_flash_attention_plain,
@@ -22,6 +23,12 @@ pytestmark = pytest.mark.cuda
 # rounding in exp and the sums, which can move a quotient by one posit16
 # step (2^-11 = 4.9e-4 in [1, 2))
 FLASH_TOL = 5e-4
+# lse = m + log l of K6 against its twin (the reference's residual bound)
+LSE_TOL = 1e-5
+# K7/K8 against their twin: p is a posit16 quantization of e, and the twin's
+# f32 products round in another order, so one p may move a posit16 step
+# (the reference's bound between its own two backward backends)
+BWD_TOL = 5e-3
 SPECIALS = torch.tensor([1.5, -2.25, 0.0, -0.0, math.inf, -math.inf, math.nan, 1e30,
                          -1e-30, 3.0, 1e-45, -3e-39])
 
@@ -98,3 +105,66 @@ def test_launch_counters_count_kernel_launches_only(dev):
     ops.posit_div_rowwise_plain(POSIT16, a, a[:, :1])
     ops.posit_div_fused_rowwise(POSIT16, a, a[:, :1])
     assert ops.posit_div_fused_rowwise.launches == before + 1
+
+
+def _train_inputs(dev, B=2, S=200, H=15, KV=5, hd=64, seed=3):
+    """Training-shaped attention inputs: q and dO in f32 (q holds bf16
+    values, as the model gives them), k/v in bf16."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(B, S, H, hd, generator=g).to(torch.bfloat16).float().to(dev)
+    k = torch.randn(B, S, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    v = torch.randn(B, S, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    co = torch.randn(B, S, H, hd, generator=g).to(dev)
+    return q, k, v, co
+
+
+@pytest.mark.parametrize("variant", KERNEL_VARIANTS)
+def test_forward_residual_kernel_matches_twin(dev, variant):
+    """K6: o within FLASH_TOL and lse within LSE_TOL of its twin."""
+    q, k, v, _ = _train_inputs(dev)
+    o, m, l = F.posit_flash_attention_fwd(POSIT16, q, k, v, True, variant=variant)
+    po, pm, pl = F.posit_flash_attention_fwd_plain(POSIT16, q, k, v, True, variant=variant)
+    assert (o - po).abs().max() <= FLASH_TOL
+    assert (m + torch.log(l) - pm - torch.log(pl)).abs().max() <= LSE_TOL
+
+
+@pytest.mark.parametrize("variant", KERNEL_VARIANTS)
+def test_backward_kernels_match_twin(dev, variant):
+    """K7 and K8 (float32 outputs) within BWD_TOL of their twin, the same
+    bits on a second run."""
+    q, k, v, co = _train_inputs(dev)
+    o, m, l = F.posit_flash_attention_fwd(POSIT16, q, k, v, True, variant=variant)
+    plan = F.one_word_plan(POSIT16, variant)
+    args = (q, k, v, co, m, l, F._row_sums(co, o), True, 0, 0, 1 / 8)
+    runs = [(F.flash_backward_dq(POSIT16, plan, *args),
+             *F.flash_backward_dkv(POSIT16, plan, *args)) for _ in range(2)]
+    twin = F.flash_backward_plain(POSIT16, q, k.float(), v.float(), o, co, m, l, True,
+                                  variant=variant)
+    for got, again, want in zip(runs[0], runs[1], twin):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= BWD_TOL
+        assert torch.equal(got, again)
+
+
+def test_backward_fully_masked_rows_are_zero(dev):
+    q, k, v, co = _train_inputs(dev, S=40)
+    grads = [t.requires_grad_() for t in (q, k, v)]
+    out = F.posit_flash_attention_ste(16, "srt_r4_cs_of_fr", True, 0, -40, 0.0, *grads)
+    assert (out == 0).all()
+    for gr in torch.autograd.grad((out * co).sum(), grads):
+        assert torch.isfinite(gr).all() and (gr == 0).all()
+
+
+def test_training_kernel_counters(dev):
+    q, k, v, co = _train_inputs(dev, S=32)
+    before = (F.posit_flash_attention.launches, F.posit_flash_attention_fwd.launches,
+              F.flash_backward_dq.launches, F.flash_backward_dkv.launches)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    out = F.posit_flash_attention_ste(16, "srt_r4_cs_of_fr", True, 0, 0, 0.0, *leaves)
+    torch.autograd.grad((out * co).sum(), leaves)
+    F.flash_backward_plain(POSIT16, q.detach(), k.detach(), v.detach(), out.detach(), co,
+                           *F.posit_flash_attention_fwd_plain(POSIT16, q.detach(), k.detach(),
+                                                              v.detach())[1:])
+    after = (F.posit_flash_attention.launches, F.posit_flash_attention_fwd.launches,
+             F.flash_backward_dq.launches, F.flash_backward_dkv.launches)
+    assert [a - b for a, b in zip(after, before)] == [0, 1, 1, 1]

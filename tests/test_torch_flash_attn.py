@@ -92,7 +92,7 @@ def test_division_stage_bit_exact(name, Sq, Sk, kw):
     B = len(next(iter(kw.values())))
     q, k, v = (torch.from_numpy(x) for x in _inputs(B, Sq, Sk))
     tkw = {n: torch.tensor(x, dtype=torch.int32) for n, x in kw.items()}
-    acc, l = flash_scan_plain(q, k, v, True, **tkw)
+    acc, l, _ = flash_scan_plain(q, k, v, True, **tkw)
     l_safe = torch.where(l > 0, l, minpos_eps(PositFormat(16)))
     div = jax.jit(lambda a, b: JD.divide_floats_block(JFmt(16), a, b))
     ref = div(jnp.asarray(acc.numpy()), jnp.asarray(l_safe[..., None].numpy()))

@@ -39,7 +39,9 @@ def test_port_has_every_slice_module():
                 "kernels/csrc/posit_fused_div.cu", "kernels/csrc/posit_flash_attn.cu",
                 "numerics/formats.py", "numerics/posit_ops.py", "models/config.py",
                 "models/layers.py", "models/transformer.py", "configs/smollm_360m.py",
-                "serve/engine.py"):
+                "serve/engine.py", "kernels/csrc/posit_flash_bwd.cu", "optim/tree.py",
+                "optim/adamw.py", "optim/schedule.py", "data/pipeline.py",
+                "train/trainer.py", "train/checkpoint.py", "launch/train.py"):
         assert (pkg / rel).is_file(), rel
 
 

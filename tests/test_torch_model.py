@@ -99,6 +99,21 @@ def test_entry_points_default_to_cuda():
     assert p["layers"][0]["wq"].device.type == "cpu"
 
 
+def test_cuda_device_keeps_f32_reductions(monkeypatch):
+    """Resolving a CUDA device (every entry point does) turns cuBLAS's
+    reduced-precision bf16 reductions and TF32 off, so the launched path
+    reduces bf16 products in f32 as the reference and the tests do."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for mod, flag in ((torch.backends.cuda.matmul, "allow_bf16_reduced_precision_reduction"),
+                      (torch.backends.cuda.matmul, "allow_tf32"),
+                      (torch.backends.cudnn, "allow_tf32")):
+        monkeypatch.setattr(mod, flag, True)
+    assert TT.resolve_device("cuda").type == "cuda"
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
 def test_config_registry():
     cfg = tget("smollm-360m", fused=True)
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
