@@ -40,9 +40,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               One more step is profiled: device busy and idle share.
 5. timing   — each kernel, its plain twin and a library yardstick at the
               main paths' shapes (the kernel's device time from
-              torch.profiler, which must see it; per-call times from CUDA
-              events), and one full-width decode step broken down by
-              kernel class.
+              torch.profiler; per-call times from CUDA events), and one
+              full-width decode step broken down by kernel class.  A
+              profiler session that shows none of the kernels it traced is
+              taken again, twice at most; where none shows them, the device
+              time is the CUDA events' and the busy share "not measured".
 
 It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``.  Without a
@@ -483,8 +485,6 @@ def phase_main(torch, dev):
 
 def phase_train_main(torch, dev):
     """SmolLM-360M at full width trained for 4 steps through K2, K6, K7, K8."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMDataset
     from repro_torch.kernels import ops
@@ -526,36 +526,23 @@ def phase_train_main(torch, dev):
 
     # one more step under the profiler (not counted above)
     batch = {n: torch.from_numpy(x).to(dev) for n, x in ds.batch_at(steps).items()}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def step():
         trainer.state, metrics = trainer.step_fn(trainer.state, batch)
         float(metrics["loss"])
-        torch.cuda.synchronize()
-        traced = (time.perf_counter() - t0) * 1e3
-    by = {"K6 flash fwd": 0.0, "K7 flash dq": 0.0, "K8 flash dk/dv": 0.0, "K2 rowwise": 0.0,
-          "matmul": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        t = e.self_device_time_total / 1e3
-        key = e.key.lower()
-        if "flash_bwd_dq_kernel" in key:
-            by["K7 flash dq"] += t
-        elif "flash_bwd_dkv_kernel" in key:
-            by["K8 flash dk/dv"] += t
-        elif "flash_kernel" in key:
-            by["K6 flash fwd"] += t
-        elif "rowwise_kernel" in key:
-            by["K2 rowwise"] += t
-        elif any(w in key for w in ("gemm", "gemv", "cutlass", "nvjet", "xmma", "sm90")):
-            by["matmul"] += t
-        else:
-            by["other"] += t
-    busy = sum(by.values())
-    check(by["K6 flash fwd"] > 0 and by["K7 flash dq"] > 0 and by["K8 flash dk/dv"] > 0,
-          "torch.profiler saw no K6/K7/K8 time in the training step")
-    print("training step (traced): wall %.1f ms, device busy %.1f ms, idle share %.3f; %s" % (
-        traced, busy, 1 - busy / traced, ", ".join(f"{k} {v:.2f} ms" for k, v in by.items())))
+
+    times, traced = profiled(torch, step, ["flash_kernel", "flash_bwd"])
+    by = by_class(times, (("K7 flash dq", "flash_bwd_dq_kernel"),
+                          ("K8 flash dk/dv", "flash_bwd_dkv_kernel"),
+                          ("K6 flash fwd", "flash_kernel"), ("K2 rowwise", "rowwise_kernel")))
+    busy = sum(by.values()) if times else None
+    if busy is None:
+        print(f"training step (traced): wall {traced:.1f} ms; torch.profiler showed no "
+              f"device records in {PROFILE_TRIES} tries: busy and idle share not measured")
+    else:
+        print("training step (traced): wall %.1f ms, device busy %.1f ms, idle share %.3f; "
+              "%s" % (traced, busy, 1 - busy / traced,
+                      ", ".join(f"{k} {v:.2f} ms" for k, v in by.items())))
     return {"rowwise": k2, "K6": k6, "K7": k7, "K8": k8, "losses": losses,
             "step_s": secs, "peak_bytes": peak, "busy_ms": busy, "traced_ms": traced}
 
@@ -563,24 +550,66 @@ def phase_train_main(torch, dev):
 # --------------------------------------------------------------- phase 5
 
 
-def device_kernel_ms(torch, fn, names, iters=20):
-    """Device time per call of the CUDA kernels whose name contains one of
-    ``names``, from torch.profiler (None if the trace shows none)."""
+PROFILE_TRIES = 3
+MATMUL_NAMES = ("gemm", "gemv", "cutlass", "nvjet", "xmma", "sm90")
+
+
+def profiled(torch, fn, want):
+    """Run ``fn()`` under torch.profiler; return ``({kernel: device ms}, wall
+    ms)`` over the CUDA kernels the trace shows.  A trace that shows none of
+    the kernels named in ``want`` is taken again, up to PROFILE_TRIES times:
+    on the card a session has come back without the device records of
+    kernels that did run.  The dict is empty when every try came back so."""
     from torch.profiler import ProfilerActivity, profile
 
+    for attempt in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        times, events = {}, 0
+        for e in prof.key_averages():
+            events += 1
+            if str(getattr(e, "device_type", "")).endswith("CUDA") and e.self_device_time_total:
+                times[e.key] = times.get(e.key, 0.0) + e.self_device_time_total / 1e3
+        if any(w in k for k in times for w in want):
+            return times, wall
+        print(f"profiler: try {attempt + 1} of {PROFILE_TRIES} showed no {want} among "
+              f"{len(times)} device kernels ({events} events)", file=sys.stderr)
+    return {}, wall
+
+
+def by_class(times, classes):
+    """Sum ``times`` into the named classes (the first whose substring the
+    kernel's name holds), then matmul and other."""
+    by = dict.fromkeys([c for c, _ in classes] + ["matmul", "other"], 0.0)
+    for key, t in times.items():
+        k = key.lower()
+        cls = next((c for c, sub in classes if sub in k), None)
+        if cls is None:
+            cls = "matmul" if any(w in k for w in MATMUL_NAMES) else "other"
+        by[cls] += t
+    return by
+
+
+def device_kernel_ms(torch, fn, names, iters=20):
+    """Device time per call of the CUDA kernels whose name holds one of
+    ``names``, and where it comes from: torch.profiler, or, where no trace
+    shows them, CUDA events around the calls (launch gaps included)."""
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA") and any(
-                n in e.key for n in names):
-            total += e.self_device_time_total
-    return total / iters / 1e3 if total > 0 else None
+
+    times, _ = profiled(torch, calls, names)
+    total = sum(t for k, t in times.items() if any(n in k for n in names))
+    if total > 0:
+        return total / iters, "torch.profiler"
+    return cuda_time_ms(fn, iters), "CUDA events"
 
 
 def phase_timing(torch, dev):
@@ -602,10 +631,10 @@ def phase_timing(torch, dev):
         a = torch.randn(R, C, generator=g).to(dev)
         b = (torch.rand(R, 1, generator=g) + 0.5).to(dev)
         call = lambda: ops.posit_div_fused_rowwise(POSIT16, a, b)
-        dev_ms = device_kernel_ms(torch, call, ["rowwise_kernel"])
-        check(dev_ms is not None, "torch.profiler saw no rowwise_kernel on the device")
+        dev_ms, src = device_kernel_ms(torch, call, ["rowwise_kernel"])
         bms, by = bound_ms(8 * R * C + 4 * R, div_ops(plan, R * C))
-        return {"shape": [R, C], "ms": dev_ms, "call_ms": cuda_time_ms(call),
+        return {"shape": [R, C], "ms": dev_ms, "ms_from": src,
+                "call_ms": cuda_time_ms(call),
                 "plain_ms": cuda_time_ms(lambda: ops.posit_div_rowwise_plain(POSIT16, a, b),
                                          iters=5),
                 "bound_ms": bms, "bound_by": by, "library_ms": None}
@@ -628,8 +657,7 @@ def phase_timing(torch, dev):
             valid = [sum(max(0, i + 1 - s) for i in range(Sq)) / Sq for s in start]
             qp = torch.arange(Sq, device=dev)[None, :].expand(B, Sq)
         call = lambda: posit_flash_attention(POSIT16, q, k, v, True, **kw)
-        dev_ms = device_kernel_ms(torch, call, ["flash_kernel"])
-        check(dev_ms is not None, "torch.profiler saw no flash_kernel on the device")
+        dev_ms, src = device_kernel_ms(torch, call, ["flash_kernel"])
         keys = sum(valid) * Sq
         nbytes = 4 * B * Sq * H * hd * 2 + 2 * 2 * sum(
             min(Sk, p + 1) - s if Sq == 1 else Sk - s for p, s in zip(pos, start)) * KV * hd
@@ -641,7 +669,8 @@ def phase_timing(torch, dev):
         qs, ks, vs = (t.float().transpose(1, 2).contiguous() for t in (q, k, v))
         lib = lambda: Fn.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask[:, None],
                                                        enable_gqa=True)
-        return {"shape": [B, Sq, Sk, H, KV, hd], "ms": dev_ms, "call_ms": cuda_time_ms(call),
+        return {"shape": [B, Sq, Sk, H, KV, hd], "ms": dev_ms, "ms_from": src,
+                "call_ms": cuda_time_ms(call),
                 "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(
                     POSIT16, q, k, v, True, **kw), iters=3),
                 "bound_ms": bms, "bound_by": by, "library_ms": cuda_time_ms(lib)}
@@ -651,7 +680,7 @@ def phase_timing(torch, dev):
     rows["K3 prefill"] = flash_row(1, 256, 256, [0], [56])
     rows.update(training_rows(torch, dev, plan))
     for name, r in rows.items():
-        print(f"timing {name} {r['shape']}: device {r['ms']} ms, per call "
+        print(f"timing {name} {r['shape']}: device {r['ms']} ms ({r['ms_from']}), per call "
               f"{r['call_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library {r['library_ms']}")
     return rows
@@ -687,10 +716,10 @@ def training_rows(torch, dev, plan):
                                                             True), iters=3)
 
     def row(call, names, nbytes, ops_, plain_ms, library_ms):
-        dev_ms = device_kernel_ms(torch, call, names)
-        check(dev_ms is not None, f"torch.profiler saw no {names} on the device")
+        dev_ms, src = device_kernel_ms(torch, call, names)
         bms, by = bound_ms(nbytes, ops_)
-        return {"shape": [B, S, S, H, KV, hd], "ms": dev_ms, "call_ms": cuda_time_ms(call),
+        return {"shape": [B, S, S, H, KV, hd], "ms": dev_ms, "ms_from": src,
+                "call_ms": cuda_time_ms(call),
                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                 "library_ms": library_ms}
 
@@ -714,7 +743,6 @@ def decode_breakdown(torch, dev):
     """Profile decode steps of the full model at 8 slots: device time by
     kernel class, wall time, and the device's idle share."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
@@ -736,35 +764,27 @@ def decode_breakdown(torch, dev):
             step()
         torch.cuda.synchronize()
         wall_plain = (time.perf_counter() - t0) / n * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+
+        def steps():
             for _ in range(n):
                 step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / n * 1e3
-    by = {"K2 rowwise": 0.0, "K3 flash": 0.0, "matmul": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        t = e.self_device_time_total / n / 1e3
-        k = e.key.lower()
-        if "rowwise_kernel" in k:
-            by["K2 rowwise"] += t
-        elif "flash_kernel" in k:
-            by["K3 flash"] += t
-        elif any(w in k for w in ("gemm", "gemv", "cutlass", "nvjet", "xmma", "sm90")):
-            by["matmul"] += t
-        else:
-            by["other"] += t
-    busy = sum(by.values())
+
+        times, wall = profiled(torch, steps, ["flash_kernel", "rowwise_kernel"])
+    by = by_class({k: t / n for k, t in times.items()},
+                  (("K2 rowwise", "rowwise_kernel"), ("K3 flash", "flash_kernel")))
+    busy = sum(by.values()) if times else None
     # every decode step reads all layer weights and the head once
     weight_bytes = sum(w.numel() * w.element_size() for lay in params["layers"]
                        for w in lay.values()) + params["head"].numel() * 2
-    print("decode step (8 slots, full width): wall %.3f ms (%.3f ms traced), device "
-          "busy %.3f ms, idle share %.3f; %s; weights read %.1f MB, bound %.4f ms" % (
-              wall_plain, wall, busy, 1 - busy / wall_plain,
-              ", ".join(f"{k} {v:.3f} ms" for k, v in by.items()),
-              weight_bytes / 1e6, weight_bytes / HBM_BYTES_PER_S * 1e3))
+    if busy is None:
+        device = (f"torch.profiler showed no device records in {PROFILE_TRIES} tries: "
+                  "busy and idle share not measured")
+    else:
+        device = "device busy %.3f ms, idle share %.3f; %s" % (
+            busy, 1 - busy / wall_plain, ", ".join(f"{k} {v:.3f} ms" for k, v in by.items()))
+    print("decode step (8 slots, full width): wall %.3f ms (%.3f ms traced), %s; weights "
+          "read %.1f MB, bound %.4f ms" % (wall_plain, wall / n, device, weight_bytes / 1e6,
+                                           weight_bytes / HBM_BYTES_PER_S * 1e3))
     return {"wall_ms": wall_plain, "busy_ms": busy, **by}
 
 

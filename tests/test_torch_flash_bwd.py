@@ -97,13 +97,13 @@ BWD_CASES = [  # (fmt_n, variant, causal, window, q_offset)
 BWD_IDS = ["causal", "bidirectional", "windowed", "suffix_block", "radix2", "posit32"]
 
 
-def _ste_grads(fmt_n, variant, causal, window, q_offset, seed):
+def _ste_grads(fmt_n, variant, causal, window, q_offset, seed, bwd_impl="fused"):
     seq = 8 if q_offset else 24
     kv_seq = q_offset + seq if q_offset else seq
     q, k, v, co = _arrays(seed, seq, kv_seq)
 
     def loss(q, k, v):
-        out = jste(fmt_n, variant, causal, window, q_offset, 0.0, q, k, v, "fused")
+        out = jste(fmt_n, variant, causal, window, q_offset, 0.0, q, k, v, bwd_impl)
         return (out * jnp.asarray(co)).sum()
 
     ref = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
@@ -117,7 +117,20 @@ def _ste_grads(fmt_n, variant, causal, window, q_offset, seed):
 def test_backward_matches_reference(ref_kernels, fmt_n, variant, causal, window,
                                     q_offset):
     """The port's K6 + K7/K8 twins against the reference's fused backward."""
-    ref, got = _ste_grads(fmt_n, variant, causal, window, q_offset, seed=5)
+    _check_grads(fmt_n, *_ste_grads(fmt_n, variant, causal, window, q_offset, seed=5))
+
+
+@pytest.mark.parametrize("fmt_n,variant,causal,window,q_offset", BWD_CASES, ids=BWD_IDS)
+def test_backward_matches_float_reference(ref_kernels, fmt_n, variant, causal, window,
+                                          q_offset):
+    """The port's K6 + K7/K8 twins against the reference's other backward
+    (``bwd_impl="reference"``: the gradient of a plain float attention), at
+    the bound the reference holds its own two backends to."""
+    _check_grads(fmt_n, *_ste_grads(fmt_n, variant, causal, window, q_offset, seed=5,
+                                    bwd_impl="reference"))
+
+
+def _check_grads(fmt_n, ref, got):
     for name, r, g in zip(("dq", "dk", "dv"), ref, got):
         err = float(np.abs(r - g).max())
         print(f"posit{fmt_n} {name}: max|port - reference| {err:.3g}")
