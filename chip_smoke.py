@@ -15,6 +15,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               shapes (decode B=8, Sk=512; prefill P=128) and for every
               posit16 plan it is built for: max|diff| within FLASH_TOL,
               fully masked rows exactly 0.
+   K4       — paged decode attention (B=8, max_seq 512 in pages of 16,
+              a shuffled table with shared pages and a parked all-zero
+              row, kv_start 0 and above 0; every posit16 plan at B=4): the
+              same bits as K3 on the gathered dense cache, within FLASH_TOL
+              of its twin, fully masked rows exactly 0.
+   K5       — packed prefill attention on packs of 4 x 64 and 8 x 8 (left-
+              and right-padded, a dummy segment, a shared prefix): every
+              segment the same bits as a solo K3 prefill of it, within
+              FLASH_TOL of its twin.
    model    — the smoke config on the card (kernels) against the same
               weights on the CPU (plain twins, which the CPU tests hold
               against the reference): logits within LOGIT_ULPS bf16 ulps.
@@ -33,6 +42,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               Launch counters are zeroed before and read after: K2 must run
               2L+1 times and K3 L times per forward.  Two requests must be
               bit-identical solo and batched.
+   paged    — the same model and weights served with kv_layout="paged"
+              (pages of 16) and packed_prefill=True: the 16 requests plus 8
+              that share one 128-token prefix and add 16-64 tokens.  Per
+              decode step L K4 launches (no K3), per pack L K5, per
+              prefix-shared solo admission L K3; prefix hit rate above 0.
+              Its tokens are compared with a dense solo-admission run of
+              the same requests (where they differ: the first such token,
+              the logits gap in bf16 ulps, whether the attention kernel and
+              the products keep their bits across the two layouts' shapes).
    training — SmolLM-360M at full width trained by ``Trainer`` for 4 steps
               (global batch 8 x 256, lr 1e-3, warmup 1, remat "full", seed
               0): finite losses, the last below the first, and per step K6
@@ -41,7 +59,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 5. timing   — each kernel, its plain twin and a library yardstick at the
               main paths' shapes (the kernel's device time from
               torch.profiler; per-call times from CUDA events), and one
-              full-width decode step broken down by kernel class.  A
+              full-width decode step, dense and paged, broken down by
+              kernel class.  A
               profiler session that shows none of the kernels it traced is
               taken again, twice at most; where none shows them, the device
               time is the CUDA events' and the busy share "not measured".
@@ -50,6 +69,14 @@ It prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
 power-limit line, and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository's ``src/`` beside it, it exits
 non-zero and prints no result.
+
+    python3 chip_smoke.py --time-k3 [--src DIR]
+
+only builds K3 from the package under ``DIR`` (default: this checkout's
+``src``) and prints its device times at the timing phase's decode and
+prefill rows: run it on a parent checkout and on this one in turns (parent,
+change, change, parent) in one call, after any edit to
+``posit_flash_attn.cu``.
 """
 
 from __future__ import annotations
@@ -62,6 +89,7 @@ import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
@@ -260,6 +288,128 @@ def phase_flash(torch, dev):
     return max(worst.values())
 
 
+def paged_inputs(torch, dev, B, max_blocks, bs, H, KV, hd, seed):
+    """q (B, 1, H, hd) f32, bf16 block pools and a shuffled (B, max_blocks)
+    table: sequences 0 and 1 share their first two pages, the last sequence
+    is parked (an all-zero row: the sink)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    NB = B * max_blocks + 1
+    q = torch.randn(B, 1, H, hd, generator=g).to(dev)
+    pk = torch.randn(NB, bs, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    pv = torch.randn(NB, bs, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    bt = (1 + torch.randperm(NB - 1, generator=g)[:B * max_blocks]).reshape(B, max_blocks)
+    bt[1, :2] = bt[0, :2]
+    bt[-1] = 0
+    return q, pk, pv, bt.to(torch.int32).to(dev)
+
+
+def phase_paged_kernel(torch, dev):
+    """K4 against K3 on the gathered dense cache (the same bits) and against
+    its twin (within FLASH_TOL): decode shapes, kv_start 0 and above 0, and
+    every posit16 plan at a small size."""
+    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels.posit_div import KERNEL_VARIANTS
+    from repro_torch.kernels.posit_flash_attn import (
+        gather_pages,
+        posit_flash_attention,
+        posit_flash_attention_plain,
+    )
+
+    worst = [0.0]
+
+    def compare(name, q, pk, pv, bt, pos, start, variant="srt_r4_cs_of_fr"):
+        kw = dict(kv_start=torch.tensor(start, dtype=torch.int32, device=dev),
+                  kv_len=pos + 1, q_pos=pos, variant=variant)
+        o = posit_flash_attention(POSIT16, q, pk, pv, True, block_tables=bt, **kw)
+        d = posit_flash_attention(POSIT16, q, gather_pages(pk, bt), gather_pages(pv, bt),
+                                  True, **kw)
+        p = posit_flash_attention_plain(POSIT16, q, pk, pv, True, block_tables=bt, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(o).all()), f"K4 {name}: non-finite output")
+        diff = int((bits(o) != bits(d)).sum())
+        check(diff == 0, f"K4 {name}: {diff} elements differ from K3 on the gathered cache")
+        err = max_abs_err(o, p)
+        worst[0] = max(worst[0], err)
+        check(err <= FLASH_TOL, f"K4 {name}: max|diff| {err} from its twin > {FLASH_TOL}")
+        return o
+
+    # decode: 8 slots, max_seq 512 in pages of 16, 15/5 heads, hd 64
+    q, pk, pv, bt = paged_inputs(torch, dev, 8, 32, 16, 15, 5, 64, 31)
+    pos = torch.tensor([511, 0, 17, 130, 255, 64, 300, 40], dtype=torch.int32, device=dev)
+    compare("decode start 0", q, pk, pv, bt, pos, [0] * 8)
+    o = compare("decode left pads", q, pk, pv, bt, pos, [0, 0, 5, 100, 250, 64, 0, 41])
+    check(bool((o[7] == 0).all()), "K4 decode: fully masked row is not 0")
+    q, pk, pv, bt = paged_inputs(torch, dev, 4, 8, 16, 15, 5, 64, 32)
+    pos = torch.tensor([127, 40, 77, 60], dtype=torch.int32, device=dev)
+    for variant in KERNEL_VARIANTS:
+        compare(f"{variant}", q, pk, pv, bt, pos, [5, 0, 70, 0], variant)
+    print(f"K4: the same bits as K3 on the gathered cache and within {FLASH_TOL} of its "
+          f"twin (max|diff| {worst[0]:.3g}): decode B=8 x 512 in pages of 16, shuffled "
+          f"shared pages and a parked row, kv_start 0 and above, {len(KERNEL_VARIANTS)} "
+          "posit16 plans")
+    return worst[0]
+
+
+def packed_inputs(torch, dev, N, P, seed, H=15, KV=5, hd=64, left=True):
+    """A pack of N segments of width P (left-padded as the dense layout packs
+    them, or right-padded as the paged layout does): segment 0 a dummy,
+    segment 2 sharing segment 1's first half.  Returns q, k, v, seg_q,
+    seg_kv and each segment's (offset, length, solo kv_start)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    S = N * P
+    q = torch.randn(1, S, H, hd, generator=g)
+    k = torch.randn(1, S, KV, hd, generator=g).to(torch.bfloat16)
+    v = torch.randn(1, S, KV, hd, generator=g).to(torch.bfloat16)
+    lens = [0] + [P - (3 * i) % P for i in range(1, N)]
+    lens[2] = lens[1]
+    seg = torch.full((1, S), -1, dtype=torch.int32)
+    segs = []
+    for i, n in enumerate(lens):
+        off = i * P + (P - n if left else 0)
+        if n:
+            seg[0, off:off + n] = i
+            segs.append((off, n))
+    for t in (q, k, v):   # the shared prefix: segment 2 repeats segment 1's start
+        (o1, _), (o2, _) = segs[0], segs[1]
+        t[:, o2:o2 + P // 2] = t[:, o1:o1 + P // 2]
+    seg_q = torch.where(seg < 0, torch.full_like(seg, -2), seg)
+    return [t.to(dev) for t in (q, k, v, seg_q, seg)] + [segs]
+
+
+def phase_packed_kernel(torch, dev):
+    """K5 against its twin (within FLASH_TOL), and each segment's rows against
+    a solo K3 prefill of that prompt (the same bits)."""
+    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels.posit_flash_attn import (
+        posit_flash_attention,
+        posit_flash_attention_plain,
+    )
+
+    worst = [0.0]
+    for N, P, left in ((4, 64, True), (8, 8, True), (4, 64, False)):
+        name = f"N={N} P={P} {'left' if left else 'right'}-padded"
+        q, k, v, seg_q, seg, segs = packed_inputs(torch, dev, N, P, 40 + N, left=left)
+        o = posit_flash_attention(POSIT16, q, k, v, True, seg_q=seg_q, seg_kv=seg, seg_len=P)
+        p = posit_flash_attention_plain(POSIT16, q, k, v, True, seg_q=seg_q, seg_kv=seg)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(o).all()), f"K5 {name}: non-finite output")
+        err = max_abs_err(o, p)
+        worst[0] = max(worst[0], err)
+        check(err <= FLASH_TOL, f"K5 {name}: max|diff| {err} from its twin > {FLASH_TOL}")
+        check(bool((o[:, :P] == 0).all()), f"K5 {name}: the dummy segment's rows are not 0")
+        for off, n in segs:
+            solo = posit_flash_attention(POSIT16, q[:, off:off + n], k[:, off:off + n],
+                                         v[:, off:off + n], True)
+            torch.cuda.synchronize()
+            diff = int((bits(o[:, off:off + n]) != bits(solo)).sum())
+            check(diff == 0, f"K5 {name}: segment at {off} differs from solo K3 in {diff} "
+                             "elements")
+    print(f"K5: every segment the same bits as a solo K3 prefill and within {FLASH_TOL} of "
+          f"its twin (max|diff| {worst[0]:.3g}): packs of 4 x 64 and 8 x 8, left- and "
+          "right-padded, with a dummy segment and a shared prefix")
+    return worst[0]
+
+
 def phase_model_small(torch, dev):
     """The smoke model on the card against the same weights on the CPU."""
     import numpy as np
@@ -424,14 +574,10 @@ def phase_train_small(torch, dev):
 # --------------------------------------------------------------- phase 4
 
 
-def phase_main(torch, dev):
-    import numpy as np
-
+def full_model(torch, dev):
+    """SmolLM-360M at full width and depth, random bf16 weights from seed 0."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.posit_flash_attn import posit_flash_attention
     from repro_torch.models import transformer as T
-    from repro_torch.serve import FinishReason, Request, ServeEngine
 
     cfg = get_config("smollm_360m", fused=True)
     t0 = time.perf_counter()
@@ -440,11 +586,32 @@ def phase_main(torch, dev):
     print(f"main: SmolLM-360M ({cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}) random "
           f"weights in {time.perf_counter() - t0:.1f} s")
-    eng = ServeEngine(cfg, params, device=dev)
+    return cfg, params
+
+
+def request_mix(cfg):
+    """The main serving mix: 16 greedy requests, prompts of 16-200 tokens,
+    32 new tokens each (seed 0)."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
     rng = np.random.default_rng(0)
     lens = rng.integers(16, 201, 16)
-    reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), max_new=32)
+    return [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), max_new=32)
             for n in lens]
+
+
+def phase_main(torch, dev, cfg, params):
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posit_flash_attn import posit_flash_attention
+    from repro_torch.serve import FinishReason, Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, device=dev)
+    reqs = request_mix(cfg)
+    lens = np.array([len(r.tokens) for r in reqs])
     eng.serve([Request(reqs[0].tokens, max_new=2)])   # warm-up, not counted
     torch.cuda.synchronize()
 
@@ -481,6 +648,156 @@ def phase_main(torch, dev):
     print("main: requests 0 and 7 bit-identical solo and batched")
     return {"rowwise": k2, "flash": k3, "tokens_per_s": n_tok / wall,
             "forwards": forwards}
+
+
+PREFIX_LEN = 128            # the shared system prompt of the paged phase
+PAGED_BLOCK = 16
+
+
+def paged_mix(cfg):
+    """The main mix plus 8 requests that share one 128-token prefix followed
+    by 16-64 tokens of their own (a system prompt, as a chat deployment
+    sends), interleaved so that later ones find the prefix registered."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab, PREFIX_LEN)
+    chat = [Request(np.concatenate([prefix, rng.integers(0, cfg.vocab, n)]).astype(np.int32),
+                    max_new=32) for n in rng.integers(16, 65, 8)]
+    mix = request_mix(cfg)
+    out = []
+    for i in range(8):
+        out += [chat[i]] + mix[2 * i:2 * i + 2]
+    return out
+
+
+def phase_paged(torch, dev, cfg, params):
+    """Full-width serving from the paged, prefix-shared pool with packed
+    prefill (K4 decode, K5 packed admissions, K3 suffix prefills), counted
+    and compared with a dense solo-admission run of the same requests."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posit_flash_attn import posit_flash_attention as F
+    from repro_torch.serve import FinishReason, ServeConfig, ServeEngine
+
+    reqs = paged_mix(cfg)
+    sc = ServeConfig.from_model(cfg, kv_layout="paged", block_size=PAGED_BLOCK,
+                                packed_prefill=True)
+    eng = ServeEngine(cfg, params, sc, device=dev)
+    eng.serve([reqs[1]])                                  # warm-up, not counted
+    torch.cuda.synchronize()
+    ops.posit_div_fused_rowwise.launches = 0
+    F.launches = F.paged_launches = F.packed_launches = 0
+    t0 = time.perf_counter()
+    outs = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2, k3, k4, k5 = (ops.posit_div_fused_rowwise.launches, F.launches, F.paged_launches,
+                      F.packed_launches)
+    st = eng.last_serve_stats
+    L = cfg.n_layers
+    solo = st["admissions"] - st["packed_segments"]
+    check(k4 == L * st["decode_steps"],
+          f"paged: K4 launched {k4} times, {st['decode_steps']} decode steps imply "
+          f"{L * st['decode_steps']}")
+    check(k5 == L * st["packed_packs"],
+          f"paged: K5 launched {k5} times, {st['packed_packs']} packs imply "
+          f"{L * st['packed_packs']}")
+    check(k3 == L * solo, f"paged: K3 launched {k3} times, {solo} solo (prefix-shared) "
+                          f"admissions imply {L * solo} (none in decode)")
+    forwards = st["decode_steps"] + st["packed_packs"] + solo
+    check(k2 == (2 * L + 1) * forwards,
+          f"paged: K2 launched {k2} times, the path implies {(2 * L + 1) * forwards}")
+    check(solo > 0 and st["prefix_hit_rate"] > 0,
+          f"paged: {solo} prefix-shared solo admissions, hit rate {st['prefix_hit_rate']}")
+    check(st["faults"] == 0 and st["shed"] == 0, f"paged: faults or sheds: {st}")
+    for r in eng.last_results:
+        check(r.finish is FinishReason.MAX_NEW and len(r.tokens) == 32,
+              f"paged: request {r.rid} finished {r.finish} with {len(r.tokens)} tokens")
+        check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()),
+              f"paged: request {r.rid}: token out of the vocabulary")
+    n_tok = sum(len(o) for o in outs)
+    peak_rows = st["peak_blocks_in_use"] * PAGED_BLOCK
+    print(f"paged: served {len(reqs)} requests (16 of the main mix, 8 sharing a "
+          f"{PREFIX_LEN}-token prefix) on {sc.max_batch} slots, pages of {PAGED_BLOCK}: "
+          f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s, "
+          f"{wall / st['decode_steps'] * 1e3:.2f} ms a decode step (wall over steps, "
+          f"admissions included); {st['packed_packs']} packs of {st['packed_segments']} "
+          f"requests ({st['packed_dummies']} dummies), {solo} prefix-shared solo "
+          f"admissions, {st['decode_steps']} decode steps; prefix hit rate "
+          f"{st['prefix_hit_rate']:.4f} ({st['prefix_hit_tokens']} of "
+          f"{st['prompt_tokens']} prompt tokens); peak {st['peak_blocks_in_use']} blocks "
+          f"= {peak_rows} rows against the dense layout's {sc.max_batch} x {sc.max_seq} = "
+          f"{sc.max_batch * sc.max_seq}; launches K2 {k2}, K3 {k3}, K4 {k4}, K5 {k5}")
+
+    dense = ServeEngine(cfg, params, device=dev)
+    ref = dense.serve(reqs)
+    differ = [i for i, (a, b) in enumerate(zip(ref, outs)) if not np.array_equal(a, b)]
+    if not differ:
+        print(f"paged: tokens bit-identical to a dense solo-admission run of the same "
+              f"{len(reqs)} requests")
+    else:
+        paged_difference(torch, dev, cfg, params, reqs, ref, outs, differ)
+    return {"rowwise": k2, "K3": k3, "K4": k4, "K5": k5, "tokens_per_s": n_tok / wall,
+            "differ": len(differ), "stats": st}
+
+
+def paged_difference(torch, dev, cfg, params, reqs, ref, outs, differ):
+    """Where the paged run's tokens leave the dense run's: the first such
+    token, the logits gap there in bf16 ulps, and whether the attention
+    kernel and the bf16 products give the same bits at the two layouts'
+    shapes (a dense admission's left-padded bucket, a paged one's unpadded
+    prompt)."""
+    import numpy as np
+
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import _bucket
+
+    i = differ[0]
+    j = int(np.flatnonzero(ref[i] != outs[i])[0])
+    seq = np.concatenate([reqs[i].tokens, ref[i][:j]]).astype(np.int64)
+    n = len(seq)
+    P = _bucket(n, 4 * n + 8)
+    padded = np.zeros(P, np.int64)
+    padded[P - n:] = seq
+    with torch.inference_mode():
+        lg_d, _ = T.prefill(params, cfg, torch.as_tensor(padded[None], device=dev),
+                            T.init_cache(cfg, 1, P, device=dev),
+                            torch.tensor([P - n], dtype=torch.int32, device=dev))
+        lg_p, _ = T.prefill(params, cfg, torch.as_tensor(seq[None], device=dev),
+                            T.init_cache(cfg, 1, n, device=dev))
+        # layer 0: the q projection's real rows at both shapes, and K3 on the
+        # same q/k/v at both layouts
+        p0 = params["layers"][0]
+        x = Lyr.rmsnorm(Lyr.embed(params["tok"], torch.as_tensor(padded[None], device=dev)),
+                        p0["ln1"], cfg)
+        pos = torch.arange(P, device=dev)[None] - (P - n)
+        q_pad, k_pad, v_pad = Lyr._qkv(p0, x, cfg, pos)
+        q_un, k_un, v_un = Lyr._qkv(p0, x[:, P - n:].contiguous(), cfg, pos[:, P - n:])
+        products_equal = (torch.equal(q_pad[:, P - n:], q_un)
+                          and torch.equal(k_pad[:, P - n:], k_un))
+        nm = cfg.numerics
+        F = Lyr.posit_flash_attention
+        pad = lambda t_pad, t_un: torch.cat([t_pad[:, :P - n], t_un], 1)
+        a_pad = F(nm.div_fmt, pad(q_pad, q_un), pad(k_pad, k_un), pad(v_pad, v_un), True,
+                  variant=nm.div_algo,
+                  kv_start=torch.tensor([P - n], dtype=torch.int32, device=dev))
+        a_un = F(nm.div_fmt, q_un, k_un, v_un, True, variant=nm.div_algo)
+        attn_equal = torch.equal(a_pad[:, P - n:], a_un)
+    a, b = lg_d[0, -1, :cfg.vocab].float(), lg_p[0, -1, :cfg.vocab].float()
+    ulp = 2.0 ** (math.floor(math.log2(float(a.abs().max()))) - 7)
+    gap = float((a - b).abs().max())
+    top2 = torch.topk(a, 2).values
+    print(f"paged: tokens differ from the dense solo-admission run in {len(differ)} of "
+          f"{len(reqs)} requests; first at request {i}, token {j}: the logits of the two "
+          f"layouts' prefill shapes (left-padded {P} rows, unpadded {n}) differ by {gap:.4g} "
+          f"= {gap / ulp:.2f} bf16 ulps of max|logit| (top-2 margin {float(top2[0] - top2[1]):.4g}); "
+          f"attention kernel at the two layouts bit-identical: {attn_equal}; layer-0 q/k "
+          f"products bit-identical: {products_equal}")
 
 
 def phase_train_main(torch, dev):
@@ -678,11 +995,73 @@ def phase_timing(torch, dev):
     rows["K3 decode"] = flash_row(8, 1, 512, [47, 63, 92, 120, 151, 178, 199, 231],
                                   [0, 0, 5, 3, 9, 0, 14, 31])
     rows["K3 prefill"] = flash_row(1, 256, 256, [0], [56])
+    rows.update(layout_rows(torch, dev, plan))
     rows.update(training_rows(torch, dev, plan))
     for name, r in rows.items():
         print(f"timing {name} {r['shape']}: device {r['ms']} ms ({r['ms_from']}), per call "
               f"{r['call_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library {r['library_ms']}")
+    return rows
+
+
+def layout_rows(torch, dev, plan):
+    """K4 at the paged decode's shapes (8 slots, max_seq 512 in pages of 16,
+    paged admissions at start 0) and K5 on a pack of 4 prompts of 64."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels.posit_flash_attn import (
+        gather_pages,
+        posit_flash_attention,
+        posit_flash_attention_plain,
+    )
+
+    H, KV, hd, bs = 15, 5, 64, PAGED_BLOCK
+    rows = {}
+    q, pk, pv, bt = paged_inputs(torch, dev, 8, 512 // bs, bs, H, KV, hd, 8)
+    pos_l = [47, 63, 92, 120, 151, 178, 199, 231]
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    kw = dict(kv_start=torch.zeros(8, dtype=torch.int32, device=dev), kv_len=pos + 1,
+              q_pos=pos, block_tables=bt)
+    call = lambda: posit_flash_attention(POSIT16, q, pk, pv, True, **kw)
+    dev_ms, src = device_kernel_ms(torch, call, ["flash_kernel"])
+    keys = sum(p + 1 for p in pos_l)
+    pages = sum(p // bs + 1 for p in pos_l)               # pages each slot attends
+    nbytes = 2 * 4 * 8 * H * hd + 2 * 2 * pages * bs * KV * hd + 4 * pages + 3 * 4 * 8
+    bms, by = bound_ms(nbytes, 4 * H * keys * hd + div_ops(plan, 8 * H * hd))
+    kd, vd = gather_pages(pk, bt), gather_pages(pv, bt)
+    kp = torch.arange(kd.shape[1], device=dev)
+    mask = (kp[None, :] <= pos[:, None])[:, None, None, :]
+    qs, ks, vs = (t.float().transpose(1, 2).contiguous() for t in (q, kd, vd))
+    lib = lambda: Fn.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    rows["K4 decode"] = {
+        "shape": [8, 1, 512, H, KV, hd], "ms": dev_ms, "ms_from": src,
+        "call_ms": cuda_time_ms(call),
+        "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(POSIT16, q, pk, pv, True,
+                                                                     **kw), iters=3),
+        "bound_ms": bms, "bound_by": by, "library_ms": cuda_time_ms(lib)}
+
+    N, P = 4, 64
+    q, k, v, seg_q, seg, segs = packed_inputs(torch, dev, N, P, 9)
+    kw = dict(seg_q=seg_q, seg_kv=seg)
+    call = lambda: posit_flash_attention(POSIT16, q, k, v, True, seg_len=P, **kw)
+    dev_ms, src = device_kernel_ms(torch, call, ["flash_kernel"])
+    pairs = sum(n * (n + 1) // 2 for _, n in segs)        # block-diagonal causal pairs
+    S = N * P
+    nbytes = 2 * 4 * S * H * hd + 2 * 2 * S * KV * hd + 2 * 4 * S
+    bms, by = bound_ms(nbytes, 4 * H * pairs * hd + div_ops(plan, S * H * hd))
+    ids = torch.arange(S, device=dev)
+    mask = ((seg[0][None, :] == seg_q[0][:, None]) & (ids[None, :] <= ids[:, None]))
+    mask = mask | (seg_q[0] < 0)[:, None]   # SDPA's fully masked rows are NaN: let pads attend
+    qs, ks, vs = (t.float().transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = lambda: Fn.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask[None, None],
+                                                  enable_gqa=True)
+    rows["K5 packed prefill"] = {
+        "shape": [1, S, S, H, KV, hd], "ms": dev_ms, "ms_from": src,
+        "call_ms": cuda_time_ms(call),
+        "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(POSIT16, q, k, v, True,
+                                                                     **kw), iters=3),
+        "bound_ms": bms, "bound_by": by, "library_ms": cuda_time_ms(lib)}
     return rows
 
 
@@ -739,21 +1118,25 @@ def training_rows(torch, dev, plan):
     return rows
 
 
-def decode_breakdown(torch, dev):
-    """Profile decode steps of the full model at 8 slots: device time by
-    kernel class, wall time, and the device's idle share."""
+def decode_breakdown(torch, dev, cfg, params, paged: bool = False):
+    """Profile decode steps of the full model at 8 slots (dense slots, or a
+    paged pool in pages of 16 on identity tables): device time by kernel
+    class, wall time, and the device's idle share."""
     import numpy as np
 
-    from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
-    cfg = get_config("smollm_360m", fused=True)
-    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    cache = T.init_cache(cfg, 8, 512, device=dev)
+    bt = None
+    if paged:
+        mb = 512 // PAGED_BLOCK
+        cache = T.init_paged_cache(cfg, 8 * mb + 1, PAGED_BLOCK, device=dev)
+        bt = torch.arange(1, 8 * mb + 1, dtype=torch.int32, device=dev).reshape(8, mb)
+    else:
+        cache = T.init_cache(cfg, 8, 512, device=dev)
     pos = torch.tensor([47, 63, 92, 120, 151, 178, 199, 231], dtype=torch.int32, device=dev)
     start = torch.zeros(8, dtype=torch.int32, device=dev)
     tok = torch.from_numpy(np.arange(8, dtype=np.int64)[:, None] + 100).to(dev)
-    step = lambda: T.decode_step(params, cfg, cache, tok, pos, start, with_health=True)
+    step = lambda: T.decode_step(params, cfg, cache, tok, pos, start, bt, with_health=True)
     with torch.inference_mode():
         for _ in range(3):
             step()
@@ -771,7 +1154,8 @@ def decode_breakdown(torch, dev):
 
         times, wall = profiled(torch, steps, ["flash_kernel", "rowwise_kernel"])
     by = by_class({k: t / n for k, t in times.items()},
-                  (("K2 rowwise", "rowwise_kernel"), ("K3 flash", "flash_kernel")))
+                  (("K2 rowwise", "rowwise_kernel"),
+                   (("K4 flash, paged" if paged else "K3 flash"), "flash_kernel")))
     busy = sum(by.values()) if times else None
     # every decode step reads all layer weights and the head once
     weight_bytes = sum(w.numel() * w.element_size() for lay in params["layers"]
@@ -782,20 +1166,60 @@ def decode_breakdown(torch, dev):
     else:
         device = "device busy %.3f ms, idle share %.3f; %s" % (
             busy, 1 - busy / wall_plain, ", ".join(f"{k} {v:.3f} ms" for k, v in by.items()))
-    print("decode step (8 slots, full width): wall %.3f ms (%.3f ms traced), %s; weights "
-          "read %.1f MB, bound %.4f ms" % (wall_plain, wall / n, device, weight_bytes / 1e6,
-                                           weight_bytes / HBM_BYTES_PER_S * 1e3))
+    print("decode step (8 slots, full width, %s): wall %.3f ms (%.3f ms traced), %s; "
+          "weights read %.1f MB, bound %.4f ms" % (
+              "paged" if paged else "dense", wall_plain, wall / n, device, weight_bytes / 1e6,
+              weight_bytes / HBM_BYTES_PER_S * 1e3))
     return {"wall_ms": wall_plain, "busy_ms": busy, **by}
 
 
+def time_k3(torch, dev, src: str, repeats: int = 3) -> None:
+    """K3's device time per launch at the timing phase's decode and prefill
+    rows, from the package under ``src``: run it from a parent checkout's
+    ``src`` and from this one, in turns, on one card, for an A/B after an
+    edit to ``posit_flash_attn.cu``."""
+    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.posit_flash_attn import posit_flash_attention
+
+    secs = _build.build(["posit_flash_attn"])
+    H, KV, hd = 15, 5, 64
+    q, k, v = flash_inputs(torch, dev, 8, 1, 512, H, KV, hd, 7)
+    pos = torch.tensor([47, 63, 92, 120, 151, 178, 199, 231], dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 0, 5, 3, 9, 0, 14, 31], dtype=torch.int32, device=dev)
+    decode = lambda: posit_flash_attention(POSIT16, q, k, v, True, kv_start=start,
+                                           kv_len=pos + 1, q_pos=pos)
+    qp, kp, vp = flash_inputs(torch, dev, 1, 256, 256, H, KV, hd, 7)
+    s56 = torch.tensor([56], dtype=torch.int32, device=dev)
+    prefill = lambda: posit_flash_attention(POSIT16, qp, kp, vp, True, kv_start=s56)
+    out = {"src": src, "build_s": secs["posit_flash_attn"], "decode_ms": [],
+           "prefill_ms": [], "from": []}
+    for _ in range(repeats):
+        for name, fn in (("decode_ms", decode), ("prefill_ms", prefill)):
+            ms, how = device_kernel_ms(torch, fn, ["flash_kernel"])
+            out[name].append(ms)
+            out["from"].append(how)
+    print(json.dumps({"k3_timing": out}))
+
+
 def main() -> int:
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
-        fail(f"{SRC}/repro_torch not found: run from a checkout of the repository")
+    src = SRC
+    k3_only = "--time-k3" in sys.argv[1:]
+    if "--src" in sys.argv[1:]:
+        src = os.path.abspath(sys.argv[sys.argv.index("--src") + 1])
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        fail(f"{src}/repro_torch not found: run from a checkout of the repository")
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
-    sys.path.insert(0, SRC)
+    sys.path.insert(0, src)
+    if k3_only:
+        from repro_torch.models.transformer import resolve_device
+
+        time_k3(torch, resolve_device("cuda:0"), src)
+        print(gpu_line())
+        return 0
     from repro_torch.kernels import _build
     from repro_torch.models.transformer import resolve_device
 
@@ -819,15 +1243,30 @@ def main() -> int:
         print(f"setup: ptxas {n}: {len(regs)} kernels, at most {max(regs, default=0)} "
               f"registers, {spills} bytes of spill stores")
 
-    div_err = phase_rowwise(torch, dev)
-    flash_err = phase_flash(torch, dev)
-    phase_model_small(torch, dev)
-    train_err = phase_flash_train(torch, dev)
-    phase_train_small(torch, dev)
-    path = phase_main(torch, dev)
-    train = phase_train_main(torch, dev)
-    rows = phase_timing(torch, dev)
-    decode_breakdown(torch, dev)
+    took = {"setup": time.perf_counter() - T_START}
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        took[name] = took.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    div_err = timed("K1+K2", phase_rowwise, torch, dev)
+    flash_err = timed("K3", phase_flash, torch, dev)
+    paged_err = timed("K4", phase_paged_kernel, torch, dev)
+    packed_err = timed("K5", phase_packed_kernel, torch, dev)
+    timed("model", phase_model_small, torch, dev)
+    train_err = timed("K6-K8", phase_flash_train, torch, dev)
+    timed("train", phase_train_small, torch, dev)
+    cfg, params = timed("main", full_model, torch, dev)
+    path = timed("main", phase_main, torch, dev, cfg, params)
+    paged = timed("paged", phase_paged, torch, dev, cfg, params)
+    train = timed("training", phase_train_main, torch, dev)
+    rows = timed("timing", phase_timing, torch, dev)
+    timed("timing", decode_breakdown, torch, dev, cfg, params)
+    timed("timing", decode_breakdown, torch, dev, cfg, params, paged=True)
+    print("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
+          + f"; total {time.perf_counter() - T_START:.1f} s")
 
     def entry(name, source, replaces, launches, err, row):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -838,16 +1277,23 @@ def main() -> int:
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
-        entry("K1 posit SRT datapath (inlined in K2, K3, K6, K7, K8)",
+        entry("K1 posit SRT datapath (inlined in K2-K8)",
               csrc + "posit_srt.cuh", "src/repro/kernels/posit_div.py:433",
-              path["rowwise"] + path["flash"] + train["rowwise"] + train["K6"] + train["K7"]
-              + train["K8"], div_err, rows["K1"]),
+              path["rowwise"] + path["flash"] + paged["rowwise"] + paged["K3"] + paged["K4"]
+              + paged["K5"] + train["rowwise"] + train["K6"] + train["K7"] + train["K8"],
+              div_err, rows["K1"]),
         entry("K2 rowwise fused posit divide", csrc + "posit_fused_div.cu",
-              "src/repro/kernels/posit_fused_div.py:149", path["rowwise"] + train["rowwise"],
-              div_err, rows["K2 decode"]),
+              "src/repro/kernels/posit_fused_div.py:149",
+              path["rowwise"] + paged["rowwise"] + train["rowwise"], div_err, rows["K2 decode"]),
         entry("K3 posit flash attention, dense", csrc + "posit_flash_attn.cu",
-              "src/repro/kernels/posit_flash_attn.py:330", path["flash"], flash_err,
-              rows["K3 decode"]),
+              "src/repro/kernels/posit_flash_attn.py:330", path["flash"] + paged["K3"],
+              flash_err, rows["K3 decode"]),
+        entry("K4 posit flash attention, paged decode", csrc + "posit_flash_attn.cu",
+              "src/repro/kernels/posit_flash_attn.py:330", paged["K4"], paged_err,
+              rows["K4 decode"]),
+        entry("K5 posit flash attention, packed prefill", csrc + "posit_flash_attn.cu",
+              "src/repro/kernels/posit_flash_attn.py:330", paged["K5"], packed_err,
+              rows["K5 packed prefill"]),
         entry("K6 posit flash attention forward saving (m, l)", csrc + "posit_flash_attn.cu",
               "src/repro/kernels/posit_flash_attn.py:330", train["K6"], train_err["K6"],
               rows["K6"]),

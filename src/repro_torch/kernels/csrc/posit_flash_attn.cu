@@ -1,11 +1,17 @@
-// K3 / K6: flash-attention forward with the posit SRT normalizer (dense
-// layout), optionally saving the row residuals (m, l).
+// K3 / K4 / K5 / K6: flash-attention forward with the posit SRT normalizer,
+// over a dense, a paged or a packed kv layout, optionally saving the row
+// residuals (m, l).
 //
-// Replaces the dense branch (pages = 0, has_seg = False) of _flash_kernel /
-// _flash_call (src/repro/kernels/posit_flash_attn.py :96-:357, pallas_call
-// :330): save_res = False reached through posit_flash_attention (K3, the
-// serving path), save_res = True through posit_flash_attention_fwd :424
-// (K6, the training forward).  It computes the
+// Replaces _flash_kernel / _flash_call (src/repro/kernels/posit_flash_attn.py
+// :96-:357, pallas_call :330) in its three layouts:
+//   * dense (pages = 0, has_seg = False): save_res = False reached through
+//     posit_flash_attention (K3, the serving path), save_res = True through
+//     posit_flash_attention_fwd :424 (K6, the training forward);
+//   * paged (pages > 0, :116-121, :145-163, :242-273): K4, the paged decode,
+//     k/v read in place from the block pools through the block table;
+//   * packed (has_seg, :123-133, :176-181, :285-306): K5, the packed
+//     multi-prompt prefill with a block-diagonal segment mask.
+// It computes the
 // online-softmax kv scan carrying (m, l, acc), GQA by head index, the
 // causal / window / kv_start / kv_len / q_pos masks, and the final acc / l
 // through K1 as a rowwise posit divide, minpos for fully masked rows.
@@ -27,13 +33,33 @@
 //     f32, laid out (B*H, Sq).  Null pointers mean no residuals, so K3 and
 //     K6 share every instantiation (build time follows their count).
 //
+//   * K4 (paged) changes only the tile load: key kp of sequence b is pool
+//     row bt[b*max_blocks + kp/bs] (clamped to [0, NB)), offset kp % bs.
+//     Each tile's pool rows are looked up once into shared memory; keys
+//     outside [kv_start, kv_len) load as 0 (a page row past a sequence's
+//     end may hold a previous owner's values).  The tiles, the masks and
+//     every sum are K3's, so K4 gives K3's bits on a dense cache that holds
+//     the same logical rows; block_size is free of the tile size (the
+//     gather is per key);
+//   * K5 (packed) takes per-position segment ids seg_q (B, Sq) and seg_kv
+//     (B, Sk).  The wrapper picks bq so that no block of query rows
+//     straddles two segments; each block takes its segment from its rows
+//     (query pads carry -2 and attend nothing), anchors its kv tiles at the
+//     segment's first key and masks every key of another segment (loaded as
+//     0).  A segment then walks the tiles its solo K3 prefill walks, and
+//     masked keys are exact no-ops (p = 0, corr = exp(0) = 1): its rows are
+//     the bits of a solo K3 prefill of that prompt.
+// The layout is a template flag, so K3/K6's instantiation holds none of the
+// paged or packed code (its schedule is ptxas-sensitive, PERF.md section 6).
+//
 // Instantiated for the posit16 plans only, with bf16 K/V (what the serving
 // path runs: posit16 numerics over the bf16 cache); other formats and f32
 // K/V return -1.
 //
-// Bound: decode reads the bf16 KV cache once (B*Sk*KV*hd*2 bytes per K and
-// per V) and is memory-bound; prefill does 4*B*H*Sq*Sk*hd f32 FMA flops.
-// Tensor cores are left for a later version.
+// Bound: decode reads the bf16 KV cache (or the pages each sequence
+// attends) once and is memory-bound; prefill does 4*B*H*Sq*Sk*hd f32 FMA
+// flops (K5: over the block-diagonal causal pairs).  Tensor cores are left
+// for a later version.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,23 +74,39 @@ constexpr int kHdMax = 128;    // largest head_dim the kernel takes
 constexpr int kBQMax = 16;     // query rows per block (prefill)
 constexpr float kNegInf = -1e30f;
 
+enum Layout { kDense = 0, kPaged = 1, kPacked = 2 };
 
-inline size_t smem_bytes(int bq, int hd) {
-  return sizeof(posit::Divisor) * bq                       // per-row divisor
-         + sizeof(float) * (bq * hd + kBK * (hd + 1) + kBK * hd + bq * kBK + 3 * bq)
-         + bq * kBK;                                       // mask bytes
+inline size_t smem_bytes(int bq, int hd, int layout) {
+  const size_t bytes = sizeof(posit::Divisor) * bq          // per-row divisor
+                       + sizeof(float) * (bq * hd + kBK * (hd + 1) + kBK * hd + bq * kBK + 3 * bq)
+                       + bq * kBK;                          // mask bytes
+  if (layout == kDense) return bytes;
+  // a tile's key index (paged: pool row; packed: segment id), the rows'
+  // segment ids, and two scalars, after the mask bytes at int alignment
+  return (bytes + 3) / 4 * 4 + sizeof(int) * (kBK + kBQMax + 2);
 }
 
-// bq (1 or kBQMax) is the number of query rows of a block's tile; a row's
-// result does not depend on it, so decode (Sq == 1) takes one-row tiles.
-template <class P>
+// Where the paged and packed layouts find their keys.  Sk is the virtual
+// kv length (paged: max_blocks * bs).
+struct KvIndex {
+  const int* bt;      // paged: (B, max_blocks) block table
+  int max_blocks, bs, NB;
+  const int* seg_q;   // packed: (B, Sq) and (B, Sk) segment ids
+  const int* seg_kv;
+};
+
+// bq (1, kBQMax, or for K5 a divisor of the segment width) is the number of
+// query rows of a block's tile; a row's result does not depend on it, so
+// decode (Sq == 1) takes one-row tiles.
+template <class P, int kLayout>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ m_out, float* __restrict__ l_out,
                  const int* __restrict__ kv_start, const int* __restrict__ kv_len,
                  const int* __restrict__ q_pos, int bq, int Sq, int Sk, int H, int KVH,
-                 int hd, float scale, int causal, int window, int q_offset, float eps) {
+                 int hd, float scale, int causal, int window, int q_offset, float eps,
+                 KvIndex ix) {
   extern __shared__ __align__(16) unsigned char smem[];
   posit::Divisor* sDiv = reinterpret_cast<posit::Divisor*>(smem);
   float* sQ = reinterpret_cast<float*>(sDiv + bq);
@@ -75,6 +117,11 @@ __global__ void __launch_bounds__(kThreads)
   float* sL = sM + bq;
   float* sC = sL + bq;
   unsigned char* sMask = reinterpret_cast<unsigned char*>(sC + bq);
+  // paged / packed only (smem_bytes reserves them for those layouts)
+  int* sKey = reinterpret_cast<int*>(
+      (reinterpret_cast<uintptr_t>(sMask + bq * kBK) + 3) & ~uintptr_t(3));
+  int* sRowSeg = sKey + kBK;
+  int* sSeg = sRowSeg + kBQMax;  // [0]: the block's segment, [1]: its first key
 
   constexpr int kAcc = (kBQMax * kHdMax + kThreads - 1) / kThreads;
   const int tid = threadIdx.x;
@@ -83,9 +130,34 @@ __global__ void __launch_bounds__(kThreads)
   const int kvh = h / (H / KVH);
   const int q0 = blockIdx.x * bq;
   const int rows = min(bq, Sq - q0);
-  const int ks = kv_start[b];
+  int ks = kv_start[b];
   const int kl = min(kv_len[b], Sk);
   const int qp0 = q_pos[b] + q_offset + q0;
+  int seg = 0;
+  if constexpr (kLayout == kPacked) {
+    // the block's segment (its rows hold one id, or -2 for query pads) and
+    // the segment's first key, where its kv tiles are anchored
+    if (tid < bq) sRowSeg[tid] = tid < rows ? ix.seg_q[static_cast<size_t>(b) * Sq + q0 + tid] : -2;
+    if (tid == 0) sSeg[1] = Sk;
+    __syncthreads();
+    if (tid == 0) {
+      int s = -2;
+      for (int r = 0; r < rows; ++r) s = max(s, sRowSeg[r]);
+      sSeg[0] = s;
+    }
+    __syncthreads();
+    seg = sSeg[0];
+    if (seg >= 0) {
+      for (int kp = tid; kp < Sk; kp += kThreads) {
+        if (ix.seg_kv[static_cast<size_t>(b) * Sk + kp] == seg) {
+          atomicMin(&sSeg[1], kp);
+          break;
+        }
+      }
+    }
+    __syncthreads();
+    ks = sSeg[1];  // Sk (no tiles) when the block holds only pads
+  }
 
   for (int i = tid; i < bq * hd; i += kThreads) {
     const int r = i / hd, d = i % hd;
@@ -105,12 +177,40 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int t = 0; t < ntiles; ++t) {
     const int base = ks + t * kBK;
+    if constexpr (kLayout == kPaged) {
+      // this tile's pool rows (-1: a masked key, loaded as 0 so no stale
+      // page row reaches a sum); the previous tile's loads finished before
+      // its second barrier
+      if (tid < kBK) {
+        const int kp = base + tid;
+        int row = -1;
+        if (kp >= ks && kp < kl) {
+          const int blk = ix.bt[static_cast<size_t>(b) * ix.max_blocks + kp / ix.bs];
+          row = min(max(blk, 0), ix.NB - 1) * ix.bs + kp % ix.bs;
+        }
+        sKey[tid] = row;
+      }
+    } else if constexpr (kLayout == kPacked) {
+      if (tid < kBK) {
+        const int kp = base + tid;
+        sKey[tid] = kp >= 0 && kp < Sk ? ix.seg_kv[static_cast<size_t>(b) * Sk + kp] : -1;
+      }
+    }
     __syncthreads();
     for (int i = tid; i < kBK * hd; i += kThreads) {
       const int j = i / hd, d = i % hd;
       const int kp = base + j;
-      const bool in = kp >= 0 && kp < Sk;
-      const size_t off = ((static_cast<size_t>(b) * Sk + (in ? kp : 0)) * KVH + kvh) * hd + d;
+      bool in;
+      size_t off;
+      if constexpr (kLayout == kPaged) {
+        const int row = sKey[j];
+        in = row >= 0;
+        off = ((static_cast<size_t>(in ? row : 0)) * KVH + kvh) * hd + d;
+      } else {
+        in = kp >= 0 && kp < Sk;
+        if constexpr (kLayout == kPacked) in = in && sKey[j] == seg;
+        off = ((static_cast<size_t>(b) * Sk + (in ? kp : 0)) * KVH + kvh) * hd + d;
+      }
       sK[j * (hd + 1) + d] = in ? __bfloat162float(k[off]) : 0.f;
       sV[i] = in ? __bfloat162float(v[off]) : 0.f;
     }
@@ -122,6 +222,7 @@ __global__ void __launch_bounds__(kThreads)
       bool valid = r < rows && kp >= ks && kp < kl;
       if (causal) valid = valid && qp >= kp;
       if (window) valid = valid && qp - kp < window;
+      if constexpr (kLayout == kPacked) valid = valid && sRowSeg[r] == sKey[j];
       float s = 0.f;
       for (int d = 0; d < hd; ++d) s += sQ[r * hd + d] * sK[j * (hd + 1) + d];
       sS[i] = valid ? s * scale : kNegInf;
@@ -186,23 +287,45 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <class P>
+template <class P, int kLayout>
 int launch(const float* q, const __nv_bfloat16* k, const __nv_bfloat16* v, float* out,
            float* m_out, float* l_out, const int* kv_start, const int* kv_len,
            const int* q_pos, int B, int Sq, int Sk, int H, int KVH, int hd, float scale,
-           int causal, int window, int q_offset, float eps,
+           int causal, int window, int q_offset, float eps, int bq, const KvIndex& ix,
            cudaStream_t s) {
-  auto kern = flash_kernel<P>;
-  const int bq = Sq == 1 ? 1 : kBQMax;
-  const size_t bytes = smem_bytes(bq, hd);
+  auto kern = flash_kernel<P, kLayout>;
+  const size_t bytes = smem_bytes(bq, hd, kLayout);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + bq - 1) / bq, B * H);
   kern<<<grid, kThreads, bytes, s>>>(q, k, v, out, m_out, l_out, kv_start, kv_len, q_pos, bq,
                                      Sq, Sk, H, KVH, hd, scale, causal, window, q_offset,
-                                     eps);
+                                     eps, ix);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kLayout>
+int dispatch(int n, int radix, int red, int otf, int scaled, int nonrest, int it, int shift,
+             int gbits, const float* q, const void* k, const void* v, float* out,
+             float* m_out, float* l_out, const int* kv_start, const int* kv_len,
+             const int* q_pos, int B, int Sq, int Sk, int H, int KVH, int hd, float scale,
+             int causal, int window, int q_offset, float eps, int bq, const KvIndex& ix,
+             void* stream) {
+  if (hd > kHdMax || hd <= 0 || KVH <= 0 || H % KVH || bq < 1 || bq > kBQMax) return -2;
+  if (B <= 0 || Sq <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = -1;
+  posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits, [&](auto plan) {
+    using P = decltype(plan);
+    if constexpr (P::n == 16) {
+      rc = launch<P, kLayout>(q, static_cast<const __nv_bfloat16*>(k),
+                              static_cast<const __nv_bfloat16*>(v), out, m_out, l_out,
+                              kv_start, kv_len, q_pos, B, Sq, Sk, H, KVH, hd, scale, causal,
+                              window, q_offset, eps, bq, ix, s);
+    }
+  });
+  return rc;
 }
 
 }  // namespace
@@ -220,17 +343,46 @@ extern "C" int posit_flash_attn_fwd(int n, int radix, int red, int otf, int scal
                                     int B, int Sq, int Sk, int H, int KVH, int hd, float scale,
                                     int causal, int window, int q_offset, float eps,
                                     void* stream) {
-  if (hd > kHdMax || hd <= 0 || KVH <= 0 || H % KVH) return -2;
-  if (B <= 0 || Sq <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = -1;
-  posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits, [&](auto plan) {
-    using P = decltype(plan);
-    if constexpr (P::n == 16) {
-      rc = launch<P>(q, static_cast<const __nv_bfloat16*>(k),
-                     static_cast<const __nv_bfloat16*>(v), out, m_out, l_out, kv_start,
-                     kv_len, q_pos, B, Sq, Sk, H, KVH, hd, scale, causal, window, q_offset, eps, s);
-    }
-  });
-  return rc;
+  const KvIndex ix{nullptr, 0, 0, 0, nullptr, nullptr};
+  return dispatch<kDense>(n, radix, red, otf, scaled, nonrest, it, shift, gbits, q, k, v, out,
+                          m_out, l_out, kv_start, kv_len, q_pos, B, Sq, Sk, H, KVH, hd, scale,
+                          causal, window, q_offset, eps, Sq == 1 ? 1 : kBQMax, ix, stream);
+}
+
+// K4: k, v are block pools (NB, bs, KVH, hd) bf16 and block_tables (B,
+// max_blocks) int32 maps logical row r of sequence b to pool row
+// (block_tables[b, r / bs], r % bs); the virtual kv length is max_blocks * bs.
+// Everything else as posit_flash_attn_fwd (no residuals).
+extern "C" int posit_flash_attn_paged(int n, int radix, int red, int otf, int scaled,
+                                      int nonrest, int it, int shift, int gbits, const float* q,
+                                      const void* k, const void* v, const int* block_tables,
+                                      float* out, const int* kv_start, const int* kv_len,
+                                      const int* q_pos, int B, int Sq, int NB, int bs,
+                                      int max_blocks, int H, int KVH, int hd, float scale,
+                                      int causal, int window, int q_offset, float eps,
+                                      void* stream) {
+  if (NB <= 0 || bs <= 0 || max_blocks <= 0) return -2;
+  const KvIndex ix{block_tables, max_blocks, bs, NB, nullptr, nullptr};
+  return dispatch<kPaged>(n, radix, red, otf, scaled, nonrest, it, shift, gbits, q, k, v, out,
+                          nullptr, nullptr, kv_start, kv_len, q_pos, B, Sq, max_blocks * bs, H,
+                          KVH, hd, scale, causal, window, q_offset, eps,
+                          Sq == 1 ? 1 : kBQMax, ix, stream);
+}
+
+// K5: seg_q (B, Sq) and seg_kv (B, Sk) int32 segment ids (query pads -2, key
+// pads -1); bq query rows per block, chosen by the caller so that no block
+// straddles two segments.  Everything else as posit_flash_attn_fwd (no
+// residuals; kv_start is replaced by each segment's first key).
+extern "C" int posit_flash_attn_packed(int n, int radix, int red, int otf, int scaled,
+                                       int nonrest, int it, int shift, int gbits,
+                                       const float* q, const void* k, const void* v,
+                                       const int* seg_q, const int* seg_kv, float* out,
+                                       const int* kv_start, const int* kv_len,
+                                       const int* q_pos, int B, int Sq, int Sk, int H, int KVH,
+                                       int hd, float scale, int causal, int window,
+                                       int q_offset, float eps, int bq, void* stream) {
+  const KvIndex ix{nullptr, 0, 0, 0, seg_q, seg_kv};
+  return dispatch<kPacked>(n, radix, red, otf, scaled, nonrest, it, shift, gbits, q, k, v, out,
+                           nullptr, nullptr, kv_start, kv_len, q_pos, B, Sq, Sk, H, KVH, hd,
+                           scale, causal, window, q_offset, eps, bq, ix, stream);
 }

@@ -1,9 +1,11 @@
-"""Flash attention with the posit SRT normalizer, dense layout: the forward
-(K3, and K6 which also saves the row residuals) and the recompute backward
-(K7 for dq, K8 for dk/dv), with the straight-through autograd wrapper.
+"""Flash attention with the posit SRT normalizer: the forward over a dense
+cache (K3, and K6 which also saves the row residuals), over a paged block
+pool (K4) and over a packed multi-prompt sequence (K5), and the recompute
+backward (K7 for dq, K8 for dk/dv), with the straight-through autograd
+wrapper.
 
-Port of the dense branch of the reference package's
-``kernels/posit_flash_attn.py`` ``posit_flash_attention``: online-softmax kv
+Port of the reference package's ``kernels/posit_flash_attn.py``
+``posit_flash_attention``: online-softmax kv
 scan carrying ``(m, l, acc)``, GQA by head index, causal / window masks and
 the per-sequence ``kv_start`` / ``kv_len`` / ``q_pos`` masks, and the final
 ``acc / l`` as a rowwise posit divide through the SRT datapath, with the
@@ -25,8 +27,18 @@ each row's final ``m`` and ``l``) and its backward :func:`flash_backward`
 l`` through the SRT datapath from those residuals, as the reference's
 ``_flash_backward`` does.  Each has a plain twin for CPU tensors.
 
-The paged and packed-prefill branches (K4, K5) are not ported yet
-(``ROADMAP.md``).
+``block_tables`` switches the kv side to the paged layout (K4): k/v are
+block pools (num_blocks, block_size, KV, hd) and logical row ``r`` of
+sequence ``b`` is pool row ``(block_tables[b, r // block_size], r %
+block_size)``.  The kernel reads each key in place through the table and
+otherwise runs K3's tiles and sums, so it gives K3's bits on the gathered
+dense cache; the twin gathers (:func:`gather_pages`) and runs K3's twin.
+
+``seg_q``/``seg_kv`` (per-position segment ids, query pads -2, key pads -1)
+switch on the packed layout (K5): a query attends only keys of its own
+segment, and each segment's kv tiles are anchored at its first key, so a
+segment's rows are the bits of a solo prefill of that prompt whatever
+packs beside it.
 """
 
 from __future__ import annotations
@@ -77,11 +89,89 @@ def _check_shapes(q, k, v):
     return B, Sq, H, hd, Sk, KV
 
 
+def _check_paged(q, k, v, block_tables):
+    """Shapes of the paged layout: q (B, Sq, H, hd), pools (NB, bs, KV, hd)
+    and an int (B, max_blocks) table."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q (B, Sq, H, hd) and block pools (NB, bs, KV, hd) expected; "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    if (block_tables.dim() != 2 or block_tables.shape[0] != B or k.shape[3] != hd
+            or KV == 0 or H % KV or block_tables.dtype.is_floating_point):
+        raise ValueError(f"incompatible q {tuple(q.shape)}, pools {tuple(k.shape)} and "
+                         f"block table {tuple(block_tables.shape)} ({block_tables.dtype})")
+
+
+def gather_pages(pool, block_tables):
+    """The dense (B, max_blocks * block_size, KV, hd) view of a block pool
+    (NB, block_size, KV, hd) through a (B, max_blocks) table, ids clamped to
+    [0, NB) as the kernel clamps them."""
+    NB, bs = pool.shape[:2]
+    bt = block_tables.to(device=pool.device, dtype=torch.long).clamp(0, NB - 1)
+    B, mb = bt.shape
+    return pool[bt].reshape(B, mb * bs, *pool.shape[2:])
+
+
+def _mm(a, b):
+    """``a @ b`` with every row of ``a`` reduced the same way however many
+    rows share the call: the CPU's single-row product takes a path that sums
+    in another order, so a single row runs as two (solo, packed and suffix
+    prefills then give a row the same bits)."""
+    if a.shape[-2] != 1:
+        return torch.matmul(a, b)
+    return torch.matmul(torch.cat([a, a], dim=-2), b)[..., :1, :]
+
+
+def _scan_rows(qb, kb, vb, qp, ks: int, kv_end: int, kl: int, causal: bool, window: int,
+               scale: float, keys=None):
+    """The online-softmax scan of one sequence's query rows ``qb`` (H, R, hd)
+    at positions ``qp`` (R,) over the kv tiles anchored at key ``ks`` that
+    reach ``kv_end``: ``(acc, l, m)``.  ``keys`` (Sk,) bool admits a subset of
+    the keys (K5's segment); the others are masked and load as 0."""
+    H, R, hd = qb.shape
+    Sk = kb.shape[1]
+    dev = qb.device
+    m = torch.full((H, R), _NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((H, R), dtype=torch.float32, device=dev)
+    acc = torch.zeros((H, R, hd), dtype=torch.float32, device=dev)
+    ntiles = -(-(kv_end - ks) // BLOCK_K) if kv_end > ks else 0
+    for t in range(ntiles):
+        kp = ks + t * BLOCK_K + torch.arange(BLOCK_K, device=dev)
+        inr = (kp >= 0) & (kp < Sk)
+        idx = kp.clamp(0, Sk - 1)
+        if keys is not None:
+            inr = inr & keys[idx]
+        kt = torch.where(inr[None, :, None], kb[:, idx], 0.0)
+        vt = torch.where(inr[None, :, None], vb[:, idx], 0.0)
+        s = _mm(qb, kt.transpose(1, 2)) * scale                 # (H, R, BK)
+        mask = ((kp >= ks) & (kp < kl))[None, :].expand(R, BLOCK_K)
+        if keys is not None:
+            mask = mask & inr[None, :]
+        if causal:
+            mask = mask & (qp[:, None] >= kp[None, :])
+        if window:
+            mask = mask & (qp[:, None] - kp[None, :] < window)
+        s = torch.where(mask, s, _NEG_INF)
+        m_new = torch.maximum(m, s.max(dim=-1).values)
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + _mm(p, vt)
+        m = m_new
+    return acc, l, m
+
+
 def flash_scan_plain(q, k, v, causal: bool = True, window: int = 0,
                      q_offset: int = 0, scale: float = 0.0, kv_start=None,
-                     kv_len=None, q_pos=None):
+                     kv_len=None, q_pos=None, seg_q=None, seg_kv=None):
     """The kv scan of the plain twin: the final ``(acc, l, m)``, shaped
-    (B, H, Sq, hd), (B, H, Sq) and (B, H, Sq), before the posit division."""
+    (B, H, Sq, hd), (B, H, Sq) and (B, H, Sq), before the posit division.
+
+    With ``seg_q``/``seg_kv`` (B, Sq)/(B, Sk) segment ids (K5) each segment's
+    rows scan the tiles anchored at the segment's first key, admitting its
+    own keys only; rows with a negative id attend nothing.  ``kv_start`` is
+    then unused."""
     B, Sq, H, hd, Sk, KV = _check_shapes(q, k, v)
     G = H // KV
     if scale <= 0.0:
@@ -91,51 +181,69 @@ def flash_scan_plain(q, k, v, causal: bool = True, window: int = 0,
     kl_all = _per_seq(kv_len, B, Sk, dev).tolist()
     qp_all = _per_seq(q_pos, B, 0, dev).tolist()
     heads = torch.arange(H, device=dev) // G
-    acc_all = torch.empty((B, H, Sq, hd), dtype=torch.float32, device=dev)
-    l_all = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-    m_all = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    acc_all = torch.zeros((B, H, Sq, hd), dtype=torch.float32, device=dev)
+    l_all = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
+    m_all = torch.full((B, H, Sq), _NEG_INF, dtype=torch.float32, device=dev)
     for b in range(B):
-        ks, kl = ks_all[b], min(kl_all[b], Sk)
+        kl = min(kl_all[b], Sk)
         qp = qp_all[b] + q_offset + torch.arange(Sq, device=dev)
         qb = q[b].to(torch.float32).transpose(0, 1)            # (H, Sq, hd)
         kb = k[b].to(torch.float32)[:, heads].transpose(0, 1)  # (H, Sk, hd)
         vb = v[b].to(torch.float32)[:, heads].transpose(0, 1)
-        m = torch.full((H, Sq), _NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((H, Sq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((H, Sq, hd), dtype=torch.float32, device=dev)
-        kv_end = min(kl, qp_all[b] + q_offset + Sq) if causal else kl
-        ntiles = -(-(kv_end - ks) // BLOCK_K) if kv_end > ks else 0
-        for t in range(ntiles):
-            kp = ks + t * BLOCK_K + torch.arange(BLOCK_K, device=dev)
-            inr = (kp >= 0) & (kp < Sk)
-            idx = kp.clamp(0, Sk - 1)
-            kt = torch.where(inr[None, :, None], kb[:, idx], 0.0)
-            vt = torch.where(inr[None, :, None], vb[:, idx], 0.0)
-            s = torch.matmul(qb, kt.transpose(1, 2)) * scale    # (H, Sq, BK)
-            mask = ((kp >= ks) & (kp < kl))[None, :].expand(Sq, BLOCK_K)
-            if causal:
-                mask = mask & (qp[:, None] >= kp[None, :])
-            if window:
-                mask = mask & (qp[:, None] - kp[None, :] < window)
-            s = torch.where(mask, s, _NEG_INF)
-            m_new = torch.maximum(m, s.max(dim=-1).values)
-            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.matmul(p, vt)
-            m = m_new
-        acc_all[b], l_all[b], m_all[b] = acc, l, m
+        if seg_q is None:
+            kv_end = min(kl, qp_all[b] + q_offset + Sq) if causal else kl
+            acc_all[b], l_all[b], m_all[b] = _scan_rows(
+                qb, kb, vb, qp, ks_all[b], kv_end, kl, causal, window, scale)
+            continue
+        sq, skv = seg_q[b].to(dev), seg_kv[b].to(dev)
+        for s in torch.unique(sq[sq >= 0]).tolist():
+            rows = torch.nonzero(sq == s)[:, 0]
+            keys = skv == s
+            first = torch.nonzero(keys)
+            if first.numel() == 0:
+                continue
+            kv_end = min(kl, int(qp[rows].max()) + 1) if causal else kl
+            acc, l, m = _scan_rows(qb[:, rows], kb, vb, qp[rows], int(first[0, 0]), kv_end,
+                                   kl, causal, window, scale, keys)
+            acc_all[b][:, rows], l_all[b][:, rows], m_all[b][:, rows] = acc, l, m
     return acc_all, l_all, m_all
+
+
+def _check_packed(q, k, seg_q, seg_kv, seg_len: int, kv_start) -> int:
+    """Validates K5's inputs; returns its query rows per block,
+    ``min(16, seg_len)``, which must divide ``seg_len`` so that no block
+    straddles two segments (``Sq`` is a whole number of segments)."""
+    B, Sq = q.shape[:2]
+    Sk = k.shape[1]
+    if seg_kv is None or tuple(seg_q.shape) != (B, Sq) or tuple(seg_kv.shape) != (B, Sk):
+        raise ValueError(f"seg_q ({B}, {Sq}) and seg_kv ({B}, {Sk}) expected; got "
+                         f"{None if seg_q is None else tuple(seg_q.shape)} and "
+                         f"{None if seg_kv is None else tuple(seg_kv.shape)}")
+    if kv_start is not None:
+        raise ValueError("packed attention anchors each segment at its first key and "
+                         "takes no kv_start")
+    if seg_len <= 0 or Sq % seg_len:
+        raise ValueError(f"packed attention needs seg_len > 0 dividing Sq={Sq}; "
+                         f"got seg_len={seg_len}")
+    bq = min(16, seg_len)
+    if seg_len % bq:
+        raise ValueError(f"seg_len={seg_len} must be below 16 or a multiple of 16")
+    return bq
 
 
 def posit_flash_attention_plain(fmt: PositFormat, q, k, v, causal: bool = True,
                                 window: int = 0, q_offset: int = 0,
                                 scale: float = 0.0,
                                 variant: str = DEFAULT_KERNEL_VARIANT,
-                                kv_start=None, kv_len=None, q_pos=None):
-    """The plain PyTorch twin of K3 (any device): float32 (B, Sq, H, hd)."""
+                                kv_start=None, kv_len=None, q_pos=None,
+                                block_tables=None, seg_q=None, seg_kv=None):
+    """The plain PyTorch twin of K3, K4 (``block_tables``: the pools are
+    gathered into the dense view first) and K5 (``seg_q``/``seg_kv``), on
+    any device: float32 (B, Sq, H, hd)."""
+    if block_tables is not None:
+        k, v = gather_pages(k, block_tables), gather_pages(v, block_tables)
     acc, l, _ = flash_scan_plain(q, k, v, causal, window, q_offset, scale,
-                                 kv_start, kv_len, q_pos)
+                                 kv_start, kv_len, q_pos, seg_q, seg_kv)
     l_safe = torch.where(l > 0, l, minpos_eps(fmt))
     o = divide_floats_block(fmt, acc, l_safe[..., None], variant)
     return o.transpose(1, 2).contiguous()
@@ -219,11 +327,67 @@ def _launch_forward(fmt: PositFormat, plan, q, k, v, causal, window, q_offset, s
     return out, m, l
 
 
+@functools.lru_cache(maxsize=None)
+def _layout_fns():
+    """The C entry points of K4 (paged) and K5 (packed)."""
+    lib = _build.load("posit_flash_attn")
+    paged, packed = lib.posit_flash_attn_paged, lib.posit_flash_attn_packed
+    paged.argtypes = (PLAN_ARGTYPES + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                      + [ctypes.c_float] + [ctypes.c_int] * 3
+                      + [ctypes.c_float, ctypes.c_void_p])
+    packed.argtypes = (PLAN_ARGTYPES + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                       + [ctypes.c_float] + [ctypes.c_int] * 3
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    paged.restype = packed.restype = ctypes.c_int
+    return paged, packed
+
+
+def _launch_layout(fmt: PositFormat, plan, q, k, v, causal, window, q_offset, scale,
+                   kv_start, kv_len, q_pos, block_tables=None, seg_q=None, seg_kv=None,
+                   bq: int = 0):
+    """One launch of K4 (``block_tables``) or K5 (``seg_q``/``seg_kv``, ``bq``
+    query rows per block): float32 (B, Sq, H, hd)."""
+    B, Sq, H, hd = q.shape
+    _check_kernel_inputs(plan, q, k, v, hd)
+    if scale <= 0.0:
+        scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    qf = q.to(torch.float32).contiguous()
+    kc, vc = k.contiguous(), v.contiguous()
+    paged_fn, packed_fn = _layout_fns()
+    out = torch.empty((B, Sq, H, hd), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tail = (float(scale), int(bool(causal)), int(window), int(q_offset), minpos_eps(fmt))
+    if block_tables is not None:
+        NB, bs, KV, _ = k.shape
+        bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
+        Sk = bt.shape[1] * bs
+        ptrs = (qf, kc, vc, bt, out, _per_seq(kv_start, B, 0, dev),
+                _per_seq(kv_len, B, Sk, dev), _per_seq(q_pos, B, 0, dev))
+        with torch.cuda.device(dev):
+            rc = paged_fn(*plan_args(plan), *(t.data_ptr() for t in ptrs), B, Sq, NB, bs,
+                          bt.shape[1], H, KV, hd, *tail, stream)
+    else:
+        _, Sk, KV, _ = k.shape
+        sq = seg_q.to(device=dev, dtype=torch.int32).contiguous()
+        skv = seg_kv.to(device=dev, dtype=torch.int32).contiguous()
+        ptrs = (qf, kc, vc, sq, skv, out, _per_seq(None, B, 0, dev),
+                _per_seq(kv_len, B, Sk, dev), _per_seq(q_pos, B, 0, dev))
+        with torch.cuda.device(dev):
+            rc = packed_fn(*plan_args(plan), *(t.data_ptr() for t in ptrs), B, Sq, Sk, H, KV,
+                           hd, *tail, int(bq), stream)
+    if rc != 0:
+        raise RuntimeError(f"posit_flash_attn_{'paged' if block_tables is not None else 'packed'}"
+                           f" launch failed ({rc})")
+    return out
+
+
 def posit_flash_attention(fmt: PositFormat, q, k, v, causal: bool = True,
                           window: int = 0, q_offset: int = 0, scale: float = 0.0,
                           variant: str = DEFAULT_KERNEL_VARIANT,
-                          kv_start=None, kv_len=None, q_pos=None):
-    """Flash attention with the posit SRT normalizer, one kernel launch (K3).
+                          kv_start=None, kv_len=None, q_pos=None, block_tables=None,
+                          seg_q=None, seg_kv=None, seg_len: int = 0):
+    """Flash attention with the posit SRT normalizer, one kernel launch.
 
     ``q``: (B, Sq, H, hd); ``k``/``v``: (B, Sk, KV, hd) with H % KV == 0.
     Returns float32 (B, Sq, H, hd).  ``scale <= 0`` means 1/sqrt(hd).
@@ -231,17 +395,45 @@ def posit_flash_attention(fmt: PositFormat, q, k, v, causal: bool = True,
     outside ``[kv_start[b], kv_len[b])`` are masked and ``q_pos[b]`` offsets
     the sequence's query positions (on top of ``q_offset``).
 
-    CUDA tensors launch the hand-written kernel (counted in
-    ``posit_flash_attention.launches``); it takes posit16 plans and bf16
-    k/v (upcast in registers, exactly), and raises for anything else.  CPU
-    tensors run the plain twin, for every one-word plan and k/v dtype.
+    ``block_tables`` (B, max_blocks) int32 makes ``k``/``v`` block pools
+    (num_blocks, block_size, KV, hd) read through the table (K4; the virtual
+    kv length is ``max_blocks * block_size``).  ``seg_q`` (B, Sq) and
+    ``seg_kv`` (B, Sk) int32 segment ids make attention block-diagonal over
+    ``seg_len``-wide packed segments (K5; query pads -2, key pads -1; no
+    ``kv_start``): each segment's rows are those of a solo call on its
+    prompt.
+
+    CUDA tensors launch the hand-written kernel, counted per layout in
+    ``posit_flash_attention.launches`` (K3), ``.paged_launches`` (K4) and
+    ``.packed_launches`` (K5); it takes posit16 plans and bf16 k/v (upcast
+    in registers, exactly), and raises for anything else.  CPU tensors run
+    the plain twin, for every one-word plan and k/v dtype.
     """
     plan = one_word_plan(fmt, variant)
-    _check_shapes(q, k, v)
+    if block_tables is not None and seg_q is not None:
+        raise NotImplementedError("paged and packed attention in one call")
+    bq = 0
+    if block_tables is not None:
+        _check_paged(q, k, v, block_tables)
+    else:
+        _check_shapes(q, k, v)
+        if seg_q is not None or seg_kv is not None:
+            bq = _check_packed(q, k, seg_q, seg_kv, seg_len, kv_start)
     if q.device.type == "cpu":
         return posit_flash_attention_plain(fmt, q, k, v, causal, window,
                                            q_offset, scale, variant,
-                                           kv_start, kv_len, q_pos)
+                                           kv_start, kv_len, q_pos,
+                                           block_tables, seg_q, seg_kv)
+    if block_tables is not None:
+        out = _launch_layout(fmt, plan, q, k, v, causal, window, q_offset, scale, kv_start,
+                             kv_len, q_pos, block_tables=block_tables)
+        posit_flash_attention.paged_launches += 1
+        return out
+    if bq:
+        out = _launch_layout(fmt, plan, q, k, v, causal, window, q_offset, scale, None,
+                             kv_len, q_pos, seg_q=seg_q, seg_kv=seg_kv, bq=bq)
+        posit_flash_attention.packed_launches += 1
+        return out
     out, _, _ = _launch_forward(fmt, plan, q, k, v, causal, window, q_offset, scale,
                                 kv_start, kv_len, q_pos, residuals=False)
     posit_flash_attention.launches += 1
@@ -249,6 +441,8 @@ def posit_flash_attention(fmt: PositFormat, q, k, v, causal: bool = True,
 
 
 posit_flash_attention.launches = 0
+posit_flash_attention.paged_launches = 0
+posit_flash_attention.packed_launches = 0
 
 
 def posit_flash_attention_fwd(fmt: PositFormat, q, k, v, causal: bool = True,

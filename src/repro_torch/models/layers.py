@@ -13,8 +13,10 @@ reduced-precision bf16 reductions off when they resolve a CUDA device
 
 The divisions (RMSNorm's ``x / rms`` and attention's ``o / l``) run on the
 posit SRT kernels, and attention on the posit flash kernels: K3 when serving
-from a cache, and through :func:`posit_flash_attention_ste` (K6 forward,
-K7/K8 backward) in :func:`attention_block`, the training path.  This is the
+from a dense cache (and for a prefix-sharing suffix prefill), K4 when
+decoding from a paged block pool, K5 for a packed multi-prompt prefill, and
+through :func:`posit_flash_attention_ste` (K6 forward, K7/K8 backward) in
+:func:`attention_block`, the training path.  This is the
 reference's ``fused=True`` path; its float-division and chunked jnp
 attention paths are not ported.
 
@@ -92,10 +94,14 @@ def attention_block(p, x, cfg: ModelConfig, positions, causal: bool = True,
 
 
 def prefill_attention(p, x, cache_k, cache_v, cfg: ModelConfig, positions,
-                      start=None):
+                      start=None, seg_q=None, seg_kv=None, seg_len: int = 0):
     """Whole-prompt attention filling cache rows [0, S) of ``cache_k`` /
-    ``cache_v`` in place (the reference's ``prefill_suffix_attention`` at
-    ``t0 = 0``); ``start`` masks per-sequence pad prefixes."""
+    ``cache_v`` in place; ``start`` masks per-sequence pad prefixes.
+
+    ``seg_q``/``seg_kv``/``seg_len`` switch on packed multi-prompt prefill
+    (K5): (B, S) int32 per-position segment ids (query pads -2, key pads -1)
+    make the concatenated sequence attend block-diagonally, each segment's
+    rows the bits of its solo prefill."""
     dt = x.dtype
     q, k, v = _qkv(p, x, cfg, positions)
     S = x.shape[1]
@@ -103,8 +109,38 @@ def prefill_attention(p, x, cache_k, cache_v, cfg: ModelConfig, positions,
     cache_v[:, :S] = v.to(cache_v.dtype)
     nm = cfg.numerics
     o = posit_flash_attention(nm.div_fmt, q, k, v, True, variant=nm.div_algo,
-                              kv_start=start)
+                              kv_start=start, seg_q=seg_q, seg_kv=seg_kv, seg_len=seg_len)
     return wo_project(o.to(dt), p["wo"])
+
+
+def prefill_suffix_attention(p, x, cache_k, cache_v, cfg: ModelConfig, positions,
+                             start, t0: int):
+    """Prefix-sharing prefill: the suffix tokens ``[t0, t0 + S)`` attend a
+    cache whose rows ``[0, t0)`` already hold a shared prefix.
+
+    The suffix's K/V land at cache rows ``[t0, t0 + S)`` and the queries
+    (offset ``t0``) attend rows ``[0, t0 + S)`` through K3: the same keys,
+    in the same order and tiles, as a full prefill of the prompt, so the
+    suffix's rows are its bits (the prefix rows come from an unpadded
+    start-0 prefill in the cache's dtype, the compute dtype).  With
+    ``t0 == 0`` this is :func:`prefill_attention`."""
+    if t0 == 0:
+        return prefill_attention(p, x, cache_k, cache_v, cfg, positions, start)
+    dt = x.dtype
+    q, k, v = _qkv(p, x, cfg, positions)
+    end = t0 + x.shape[1]
+    cache_k[:, t0:end] = k.to(cache_k.dtype)
+    cache_v[:, t0:end] = v.to(cache_v.dtype)
+    nm = cfg.numerics
+    o = posit_flash_attention(nm.div_fmt, q, cache_k[:, :end].to(dt),
+                              cache_v[:, :end].to(dt), True, q_offset=t0,
+                              variant=nm.div_algo, kv_start=start)
+    return wo_project(o.to(dt), p["wo"])
+
+
+def _decode_qkv(p, x, pos, start, cfg: ModelConfig):
+    positions = pos[:, None] if start is None else (pos - start)[:, None]
+    return _qkv(p, x, cfg, positions)
 
 
 def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig, start=None):
@@ -118,8 +154,7 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig, start=None):
     """
     dt = x.dtype
     B, S = cache_k.shape[:2]
-    positions = pos[:, None] if start is None else (pos - start)[:, None]
-    q, k, v = _qkv(p, x, cfg, positions)
+    q, k, v = _decode_qkv(p, x, pos, start, cfg)
     bidx = torch.arange(B, device=x.device)
     pos_c = torch.clamp(pos, max=S - 1).long()
     cache_k[bidx, pos_c] = k[:, 0].to(cache_k.dtype)
@@ -128,6 +163,33 @@ def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig, start=None):
     o = posit_flash_attention(nm.div_fmt, q, cache_k, cache_v, True,
                               variant=nm.div_algo, kv_start=start,
                               kv_len=pos + 1, q_pos=pos)
+    return wo_project(o.to(dt), p["wo"])
+
+
+def decode_attention_paged(p, x, pool_k, pool_v, block_tables, pos, cfg: ModelConfig,
+                           start=None):
+    """Single-token attention against a paged cache: block pools
+    (num_blocks, block_size, KV, hd) shared by every slot and a (B,
+    max_blocks) int32 table mapping slot b's logical row r to pool row
+    ``(block_tables[b, r // block_size], r % block_size)``.
+
+    Slot b writes its new K/V into the page of its row ``pos[b]`` in place
+    (parked slots, all-zero table rows, write the block-0 sink) and attends
+    through one launch of K4, which reads the pages in place: the output is
+    :func:`decode_attention`'s on the equivalent dense cache."""
+    dt = x.dtype
+    bs = pool_k.shape[1]
+    S = block_tables.shape[1] * bs
+    q, k, v = _decode_qkv(p, x, pos, start, cfg)
+    pos_c = torch.clamp(pos, max=S - 1).long()
+    bid = torch.gather(block_tables.long(), 1, (pos_c // bs)[:, None])[:, 0]
+    row = pos_c % bs
+    pool_k[bid, row] = k[:, 0].to(pool_k.dtype)
+    pool_v[bid, row] = v[:, 0].to(pool_v.dtype)
+    nm = cfg.numerics
+    o = posit_flash_attention(nm.div_fmt, q, pool_k, pool_v, True,
+                              variant=nm.div_algo, kv_start=start,
+                              kv_len=pos + 1, q_pos=pos, block_tables=block_tables)
     return wo_project(o.to(dt), p["wo"])
 
 

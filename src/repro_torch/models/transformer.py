@@ -9,9 +9,19 @@ Port of the dense-family entry points of the reference package's
   forward(params, cfg, batch)              -> final-norm hidden states
   train_loss(params, cfg, batch)           -> (loss, metrics)
   init_cache(cfg, batch, seq_len, device)  -> {"k", "v"}: (L, B, S, KV, hd)
-  prefill(params, cfg, tokens, cache, start)     -> (logits, cache)
-  decode_step(params, cfg, cache, token, pos, start, with_health)
+  init_paged_cache(cfg, num_blocks, block_size, device)
+                                           -> {"k", "v"}: (L, NB, bs, KV, hd)
+  prefill(params, cfg, tokens, cache, start, t0) -> (logits, cache)
+  prefill_packed(params, cfg, tokens, cache, positions, seg_ids, last_idx,
+                 seg_len)                  -> ((N, 1, V) logits, cache)
+  decode_step(params, cfg, cache, token, pos, start, block_tables,
+              with_health)
   write_cache_slot(cfg, cache, mini, slot) -> cache
+  write_cache_slot_segments(cfg, cache, mini, slots, seg_len)
+  write_cache_blocks(cfg, cache, mini, block_ids, first_block)
+  mini_cache_with_prefix(cfg, cache, block_ids, rows)
+  scatter_dense_to_pool(cfg, cache, dense, block_tables)
+  scatter_segments_to_pool(cfg, cache, mini, block_ids, seg_len)
   logits_health(cfg, logits)               -> (B,) bool
 
 Parameters are a dict: ``tok`` (padded_vocab, D), ``head`` (D,
@@ -21,6 +31,12 @@ of matrices (``wq`` (D, H*hd), ``wk``/``wv`` (D, KV*hd), ``wo`` (H*hd, D),
 matrices are bf16 for serving (the default ``dtype``) and f32 masters for
 training; layers cast them to the compute dtype at use.  The cache is
 updated in place and also returned.
+
+The paged cache keeps one block pool per layer, stacked (L, num_blocks,
+block_size, KV, hd); block ids form one id space across layers (a slot's
+logical block j is the same pool index in every layer), so one (B,
+max_blocks) int32 table serves all layers.  Block 0 is the write sink of
+parked slots and is never handed out (``serve.engine.BlockAllocator``).
 """
 
 from __future__ import annotations
@@ -187,10 +203,98 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cuda",
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device="cuda",
+                     dtype=torch.bfloat16):
+    """Paged decode cache: per layer one block pool of ``num_blocks`` pages
+    of ``block_size`` rows shared by every slot, stacked over layers."""
+    _require_dense(cfg)
+    device = resolve_device(device)
+    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def write_cache_slot(cfg: ModelConfig, cache, mini, slot: int):
     """Copy a batch=1 ``mini`` cache into batch slot ``slot`` (admission)."""
     for name in ("k", "v"):
         cache[name][:, slot] = mini[name][:, 0]
+    return cache
+
+
+def write_cache_slot_segments(cfg: ModelConfig, cache, mini, slots, seg_len: int):
+    """Copy each ``seg_len``-wide segment of a packed batch=1 ``mini`` cache
+    (L, 1, N * seg_len, KV, hd) into its slot ``slots[i]``, rows beyond the
+    segment zeroed (as a solo admission's fresh mini cache leaves them).
+    Writes go in pack order, so a later segment wins a shared slot (the
+    engine points dummy segments at a real segment's slot, first)."""
+    for i, slot in enumerate(slots):
+        for name in ("k", "v"):
+            c = cache[name]
+            c[:, slot] = 0
+            c[:, slot, :seg_len] = mini[name][:, 0, i * seg_len:(i + 1) * seg_len]
+    return cache
+
+
+def write_cache_blocks(cfg: ModelConfig, cache, mini, block_ids, first_block: int):
+    """Write whole blocks ``[first_block, first_block + len(block_ids))`` of a
+    batch=1 dense ``mini`` cache (L, 1, rows, KV, hd) into the pool pages
+    ``block_ids`` of a paged ``cache`` (paged admission: the owned blocks
+    after a shared prefix)."""
+    ids = torch.as_tensor(block_ids, dtype=torch.long, device=cache["k"].device)
+    nb = ids.numel()
+    for name in ("k", "v"):
+        pool = cache[name]
+        L_, _, bs = pool.shape[:3]
+        blocks = mini[name][:, 0].reshape(L_, -1, bs, *pool.shape[3:])
+        pool[:, ids] = blocks[:, first_block:first_block + nb].to(pool.dtype)
+    return cache
+
+
+def mini_cache_with_prefix(cfg: ModelConfig, cache, block_ids, rows: int):
+    """A batch=1 dense mini cache (L, 1, rows, KV, hd) holding the pool pages
+    ``block_ids`` in its first rows and zeros beyond: the shared prefix a
+    prefix-sharing admission extends (also the copy-on-write source of a
+    partly shared last block, which then lands in an owned page)."""
+    ids = torch.as_tensor(block_ids, dtype=torch.long, device=cache["k"].device)
+    out = {}
+    for name in ("k", "v"):
+        pool = cache[name]
+        L_ = pool.shape[0]
+        g = pool[:, ids].reshape(L_, 1, -1, *pool.shape[3:])
+        m = torch.zeros((L_, 1, rows) + tuple(pool.shape[3:]), dtype=pool.dtype,
+                        device=pool.device)
+        m[:, :, :g.shape[2]] = g
+        out[name] = m
+    return out
+
+
+def scatter_dense_to_pool(cfg: ModelConfig, cache, dense, block_tables):
+    """Lay a dense (L, B, S, KV, hd) cache out blockwise into the pools
+    through ``block_tables`` (B, S // block_size): static-batch paged decode
+    prefills densely, then decodes from the pages."""
+    bt = torch.as_tensor(block_tables, dtype=torch.long, device=cache["k"].device)
+    for name in ("k", "v"):
+        pool = cache[name]
+        L_, _, bs = pool.shape[:3]
+        d = dense[name]
+        B = d.shape[1]
+        pool[:, bt] = d.reshape(L_, B, -1, bs, *pool.shape[3:]).to(pool.dtype)
+    return cache
+
+
+def scatter_segments_to_pool(cfg: ModelConfig, cache, mini, block_ids, seg_len: int):
+    """Write each segment of a packed batch=1 ``mini`` cache (L, 1, N *
+    seg_len, KV, hd) blockwise into the pool: ``block_ids`` (N, seg_len //
+    block_size) names the page of segment i's block j, with block 0 (the
+    sink) wherever the segment owns no page (shared prefix blocks, blocks
+    past its prompt, a faulted segment), so shared pages are never written."""
+    ids = torch.as_tensor(block_ids, dtype=torch.long, device=cache["k"].device)
+    keep = ids.reshape(-1) > 0
+    for name in ("k", "v"):
+        pool = cache[name]
+        L_, _, bs = pool.shape[:3]
+        blocks = mini[name].reshape(L_, -1, bs, *pool.shape[3:])
+        pool[:, ids.reshape(-1)[keep]] = blocks[:, keep].to(pool.dtype)
     return cache
 
 
@@ -201,32 +305,64 @@ def logits_health(cfg: ModelConfig, lg) -> torch.Tensor:
     return torch.isfinite(row).all(dim=-1)
 
 
-def prefill(params: Params, cfg: ModelConfig, tokens, cache, start=None):
+def prefill(params: Params, cfg: ModelConfig, tokens, cache, start=None, t0: int = 0):
     """Fill the cache from whole prompts in one pass per layer.
 
     ``tokens``: (B, S) int; ``start``: optional (B,) int32 pad-prefix
     lengths of left-padded prompts (RoPE positions are relative to it and
-    pads are masked).  Returns ``(logits at the last position, cache)``.
+    pads are masked).  ``t0 > 0`` prefills only tokens ``[t0, S)`` after a
+    shared prefix whose K/V already fill cache rows ``[0, t0)``
+    (:func:`mini_cache_with_prefix`); the suffix's logits are those of the
+    full prefill.  Returns ``(logits at the last position, cache)``.
     """
     B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    positions = torch.arange(t0, S, dtype=torch.int32, device=tokens.device).expand(B, S - t0)
     if start is not None:
         positions = positions - start[:, None]
-    x = L.embed(params["tok"], tokens)
+    x = L.embed(params["tok"], tokens[:, t0:])
     for i, p in enumerate(params["layers"]):
         a = L.rmsnorm(x, p["ln1"], cfg)
-        x = x + L.prefill_attention(p, a, cache["k"][i], cache["v"][i], cfg,
-                                    positions, start)
+        x = x + L.prefill_suffix_attention(p, a, cache["k"][i], cache["v"][i], cfg,
+                                           positions, start, t0)
         a = L.rmsnorm(x, p["ln2"], cfg)
         x = x + L.mlp_block(p, a)
     x = L.rmsnorm(x[:, -1:], params["ln_f"], cfg)
     return L.logits(params["head"], x), cache
 
 
+def prefill_packed(params: Params, cfg: ModelConfig, tokens, cache, positions, seg_ids,
+                   last_idx, seg_len: int):
+    """Packed admission prefill: N prompts concatenated into one (1, N *
+    seg_len) sequence.
+
+    Segment i takes positions ``[i * seg_len, (i + 1) * seg_len)`` with its
+    own relative RoPE ``positions`` and id ``i`` on its real tokens (pads
+    -1; as queries they become -2 and attend nothing).  Attention is
+    block-diagonal (K5), so each segment's rows, and its cache rows in the
+    batch=1 ``cache`` (L, 1, N * seg_len, KV, hd), are those of a solo
+    prefill of width ``seg_len``.  ``last_idx`` (N,) names each segment's
+    last real position; returns ``((N, 1, V) logits, cache)``."""
+    seg_q = torch.where(seg_ids < 0, torch.full_like(seg_ids, -2), seg_ids)
+    x = L.embed(params["tok"], tokens)
+    for i, p in enumerate(params["layers"]):
+        a = L.rmsnorm(x, p["ln1"], cfg)
+        x = x + L.prefill_attention(p, a, cache["k"][i], cache["v"][i], cfg, positions,
+                                    seg_q=seg_q, seg_kv=seg_ids, seg_len=seg_len)
+        a = L.rmsnorm(x, p["ln2"], cfg)
+        x = x + L.mlp_block(p, a)
+    idx = torch.as_tensor(last_idx, dtype=torch.long, device=x.device)
+    x = L.rmsnorm(x[:, idx], params["ln_f"], cfg)             # (1, N, D)
+    return L.logits(params["head"], x).transpose(0, 1), cache
+
+
 def decode_step(params: Params, cfg: ModelConfig, cache, token, pos,
-                start=None, with_health: bool = False):
+                start=None, block_tables=None, with_health: bool = False):
     """One-token decode. ``token``: (B, 1) int; ``pos``: per-slot (B,) int32
     positions; ``start``: optional (B,) int32 start offsets.
+
+    ``block_tables`` (B, max_blocks) int32 switches ``cache`` to the paged
+    layout of :func:`init_paged_cache` (K4 reads the pages in place); the
+    logits are those of the dense layout holding the same rows.
 
     Returns ``(logits, cache)``, plus the (B,) :func:`logits_health` probe
     when ``with_health``.
@@ -234,8 +370,12 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token, pos,
     x = L.embed(params["tok"], token)
     for i, p in enumerate(params["layers"]):
         a = L.rmsnorm(x, p["ln1"], cfg)
-        x = x + L.decode_attention(p, a, cache["k"][i], cache["v"][i], pos, cfg,
-                                   start)
+        if block_tables is None:
+            o = L.decode_attention(p, a, cache["k"][i], cache["v"][i], pos, cfg, start)
+        else:
+            o = L.decode_attention_paged(p, a, cache["k"][i], cache["v"][i], block_tables,
+                                         pos, cfg, start)
+        x = x + o
         a = L.rmsnorm(x, p["ln2"], cfg)
         x = x + L.mlp_block(p, a)
     x = L.rmsnorm(x, params["ln_f"], cfg)

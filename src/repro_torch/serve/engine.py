@@ -1,32 +1,64 @@
-"""Continuous-batching serve engine on dense KV slots.
+"""Continuous-batching serve engine on dense KV slots or a paged,
+prefix-shared block pool, with packed multi-prompt prefill.
 
-Port of the dense-slot core of the reference package's ``serve/engine.py``:
-``ServeConfig``, ``Request``, ``ServeResult``, ``FinishReason``, the
-``Scheduler`` and ``ServeEngine.generate`` / ``ServeEngine.serve``.
+Port of the reference package's ``serve/engine.py``: ``ServeConfig``,
+``Request``, ``ServeResult``, ``FinishReason``, the ``Scheduler`` (with its
+packing planner), the ``BlockAllocator`` and ``ServeEngine.generate`` /
+``ServeEngine.serve``.
 
-The engine owns ``B = ServeConfig.max_batch`` persistent decode SLOTS over
-one preallocated cache (``T.init_cache(cfg, B, max_seq)``).  One
+The engine owns ``B = ServeConfig.max_batch`` persistent decode SLOTS.  One
 ``decode_step`` serves all slots at their own positions through per-slot
-``pos``/``start`` vectors.  A request is admitted into a free slot by
-prefilling its prompt, left-padded to a power-of-two bucket, into a fresh
-batch=1 cache and copying that into the slot; the other slots keep
-decoding.  A slot frees at its request's ``eos_id`` or token budget.
+``pos``/``start`` vectors.  A slot frees at its request's ``eos_id`` or
+token budget.
 
-Batch invariance: a request's greedy tokens are the same bits solo or
-admitted mid-flight next to other requests.  Pad keys are masked, RoPE
-phases are relative to ``start``, the flash kernel anchors its kv tiles at
-``start`` and reduces each row in a fixed order with no atomics, and every
-other op is row-wise; both runs give every op the same shapes (decode over
-``max_batch`` slots, prefill at batch 1).  A static batch (``generate``)
-changes the bf16 products' shapes: on the CPU its tokens are the same bits
-too (tests/test_torch_serve.py), on the card cuBLAS may pick another
-reduction order for another shape.  Sampled requests draw from a generator
-of their own (seeded from ``ServeConfig.seed`` and the request's key id),
-once per token, so their stream does not depend on the slot or step.
+Dense layout (``kv_layout="dense"``): one preallocated cache
+``T.init_cache(cfg, B, max_seq)``.  A request is admitted into a free slot
+by prefilling its prompt, left-padded to a power-of-two bucket, into a
+fresh batch=1 cache and copying that into the slot; the other slots keep
+decoding.
+
+Paged layout (``kv_layout="paged"``): one block pool per layer
+(``T.init_paged_cache``) and a host-side (B, max_blocks) block table; slot
+b's logical row r lives in page ``table[b, r // block_size]``.  Admission
+prefills the prompt unpadded at start 0, so a full block's rows are a pure
+function of its prefix tokens; the :class:`BlockAllocator` maps the longest
+registered prefix of full blocks (prefix sharing, refcounted), the prefill
+runs from the first unshared token ``t0``, and the owned blocks are
+written to fresh pages (a partly shared last block is copied, never
+written in place).  A slot's table grows a block at a time as it decodes,
+so the pool holds the tokens written, not ``max_seq`` per slot; eviction
+drops the slot's references (registered prefix blocks park in an LRU list,
+still matchable).  Decode reads the pages in place through K4.
+
+Packed prefill (``packed_prefill=True``): each admission sweep groups the
+queue head (one request per free slot) by bucket width and prefills each
+group as ONE concatenated sequence with a block-diagonal segment mask
+(K5), padded to a power-of-two count of segments with dummies; each
+segment's rows and logits are those of its solo admission.  A segment whose
+logits are not finite is quarantined (in the paged layout its rows go to
+the block-0 sink and nothing of it is registered).  In the paged layout a
+request whose prompt starts with an already registered prefix is admitted
+solo, so that it prefills only its suffix (the reference packs it too and
+recomputes the shared blocks); prompts sharing a prefix within one sweep
+still pack together.
+
+Batch invariance: a request's greedy tokens are the same bits solo,
+admitted mid-flight next to other requests, packed, paged or sharing a
+prefix.  Pad keys are masked, RoPE phases are relative to ``start``, the
+flash kernels anchor their kv tiles at ``start`` (a packed segment at its
+first key) and reduce each row in a fixed order with no atomics, and every
+other op is row-wise.  On the CPU the tests hold it bit for bit.  On the
+card, a run that gives the bf16 products other shapes (a static batch, a
+paged admission's unpadded prompt, a suffix prefill, a pack) may see cuBLAS
+pick another reduction order for them.  Sampled requests draw from a
+generator of their own (seeded from ``ServeConfig.seed`` and the request's
+key id), once per token, so their stream does not depend on the slot, the
+pack or the step.
 
 Not ported yet (``ROADMAP.md``): streaming (``submit``/``serve_stream``),
-deadlines, backpressure, snapshot/restore, the paged cache, packed prefill,
-tensor-parallel meshes.  ``FinishReason`` carries EOS, MAX_NEW, SHED, FAULT.
+deadlines, backpressure, snapshot/restore, ``warmup``, the batch-axis packs
+of the scanned families, the quantized KV cache, tensor-parallel meshes.
+``FinishReason`` carries EOS, MAX_NEW, SHED, FAULT.
 """
 
 from __future__ import annotations
@@ -34,7 +66,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import enum
-from typing import List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -66,6 +98,14 @@ def _bucket(n: int, max_seq: int) -> int:
     return p if p + 1 <= max_seq else n
 
 
+def _pow2_ceil(n: int, floor: int = 1) -> int:
+    """Smallest power of two >= max(n, floor) (pack-size bucketing)."""
+    p = floor
+    while p < n:
+        p *= 2
+    return p
+
+
 class FinishReason(str, enum.Enum):
     """Terminal status of a served request."""
 
@@ -92,6 +132,12 @@ class ServeConfig:
     temperature: Union[float, Sequence[float]] = 0.0  # 0 = greedy
     eos_id: Union[int, Sequence[int]] = -1            # -1 = never stop early
     seed: int = 0
+    # "dense": per-slot (B, max_seq) cache regions; "paged": the refcounted
+    # block pool with prefix sharing
+    kv_layout: str = "dense"
+    block_size: int = 16                 # pool page rows (power of two, 8..128)
+    num_blocks: Optional[int] = None     # pool size; None = worst case + sink
+    packed_prefill: bool = False         # pack each admission sweep
     strict: bool = False                 # raise on invalid requests
     health_checks: bool = True           # non-finite logits quarantine
 
@@ -112,6 +158,126 @@ class Request:
     temperature: Optional[float] = None
     eos_id: Optional[int] = None
     seed: Optional[int] = None
+
+
+class BlockAllocator:
+    """Refcounted KV block pool with prefix-hash reuse (host-side).
+
+    Owns the ids ``[1, num_blocks)`` of a paged cache's pool (block 0 is the
+    parked-slot sink and is never handed out).  A block is **free** (on the
+    free deque), **live** (``refcount > 0``, mapped by slot tables) or
+    **cached** (refcount 0 but registered as a prefix block: parked in an
+    LRU list, still matchable, reclaimed by :meth:`alloc` only when the
+    free deque is empty).
+
+    Prefix identity is a rolling chain hash over full token blocks, and every
+    table entry keeps the FULL prefix tuple: a match requires tuple
+    equality, so a hash collision can cost a lookup but never alias two
+    prefixes (``hasher`` lets a test force collisions).
+    """
+
+    def __init__(self, num_blocks: int, block_size: int, hasher=None):
+        if num_blocks < 2:
+            raise ValueError(f"need >= 2 blocks (sink + 1), got {num_blocks}")
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self._hash = hash if hasher is None else hasher
+        self.refcount = np.zeros(num_blocks, np.int64)
+        self.free: collections.deque = collections.deque(range(1, num_blocks))
+        self.cached: collections.OrderedDict = collections.OrderedDict()
+        self.table: Dict[int, list] = {}   # chain hash -> [(prefix tuple, block)]
+        self.owner: Dict[int, tuple] = {}  # registered block -> (hash, prefix)
+        self.hits = 0      # match_prefix calls that shared >= 1 block
+        self.lookups = 0
+
+    def alloc(self) -> int:
+        """A fresh block at refcount 1, reclaiming the LRU cached prefix
+        block when the free deque is empty; ``ValueError`` when every block
+        is live."""
+        if self.free:
+            bid = self.free.popleft()
+        elif self.cached:
+            bid, _ = self.cached.popitem(last=False)
+            self._unregister(bid)
+        else:
+            raise ValueError(f"paged KV pool exhausted: all {self.num_blocks - 1} "
+                             "usable blocks are mapped by live requests")
+        self.refcount[bid] = 1
+        return bid
+
+    def incref(self, bid: int) -> None:
+        self.refcount[bid] += 1
+        self.cached.pop(bid, None)       # reactivated from the LRU park
+
+    def decref(self, bid: int) -> None:
+        assert self.refcount[bid] > 0, bid
+        self.refcount[bid] -= 1
+        if self.refcount[bid] == 0:
+            if bid in self.owner:
+                self.cached[bid] = None  # registered: park, stay matchable
+            else:
+                self.free.append(bid)
+
+    def quarantine(self, bid: int) -> None:
+        """Fault path (after the owning slot's decref): a parked registered
+        block of a quarantined slot is unregistered and freed, so no future
+        prefix match serves its possibly poisoned rows; a block still
+        mapped elsewhere stays."""
+        if self.refcount[bid] == 0 and bid in self.owner:
+            self.cached.pop(bid, None)
+            self._unregister(bid)
+            self.free.append(bid)
+
+    def blocks_in_use(self) -> int:
+        return int((self.refcount > 0).sum())
+
+    def _unregister(self, bid: int) -> None:
+        h, _ = self.owner.pop(bid)
+        bucket = self.table[h]
+        bucket[:] = [e for e in bucket if e[1] != bid]
+        if not bucket:
+            del self.table[h]
+
+    def _chain(self, tokens):
+        """(chain hash, full prefix tuple, block index) per full block."""
+        bs = self.block_size
+        h = None
+        for j in range(len(tokens) // bs):
+            h = self._hash((h, tuple(tokens[j * bs:(j + 1) * bs])))
+            yield h, tuple(tokens[:(j + 1) * bs]), j
+
+    def _longest_chain(self, tokens) -> List[int]:
+        shared: List[int] = []
+        for h, full, _ in self._chain(tokens):
+            bid = next((b for p, b in self.table.get(h, ()) if p == full), None)
+            if bid is None:
+                break
+            shared.append(bid)
+        return shared
+
+    def match_prefix(self, tokens) -> List[int]:
+        """The longest registered chain of full blocks for this prompt."""
+        shared = self._longest_chain(tokens)
+        self.lookups += 1
+        self.hits += bool(shared)
+        return shared
+
+    def has_prefix(self, tokens) -> bool:
+        """Does the prompt start with a registered full block?  (A look
+        that leaves the hit counters alone.)"""
+        return bool(self._longest_chain(tokens[:self.block_size]))
+
+    def register_prefix(self, tokens, block_ids) -> None:
+        """Publish this prompt's full-block chain.  First writer wins: a
+        registered prefix keeps its page, and a registered block is never
+        registered again."""
+        for h, full, j in self._chain(tokens):
+            bid = int(block_ids[j])
+            bucket = self.table.setdefault(h, [])
+            if any(p == full for p, _ in bucket) or bid in self.owner:
+                continue
+            bucket.append((full, bid))
+            self.owner[bid] = (h, full)
 
 
 class Scheduler:
@@ -161,22 +327,97 @@ class Scheduler:
         self.slot_req[slot] = -1
         return out
 
+    @staticmethod
+    def plan_packs(head):
+        """Packing planner: ``head`` is ``[(rid, key | None)]``, at most one
+        queue entry per free slot in FIFO order (``None``: the entry cannot
+        be packed).  Returns ``(packs, rest)``: ``[(key, [rids])]`` grouping
+        same-key entries in first-seen order, and the unpackable rids in
+        FIFO order."""
+        packs: Dict = {}
+        order: List = []
+        rest: List[int] = []
+        for rid, key in head:
+            if key is None:
+                rest.append(rid)
+                continue
+            if key not in packs:
+                packs[key] = []
+                order.append(key)
+            packs[key].append(rid)
+        return [(key, packs[key]) for key in order], rest
+
     @property
     def any_active(self) -> bool:
         return bool(self.active.any())
 
 
+class _ServeState:
+    """One ``serve`` call: the caches, the per-slot mirrors shipped to the
+    device each step, the allocator and the counters."""
+
+    def __init__(self, eng: "ServeEngine", reqs: List[Request], plans: Dict[int, tuple],
+                 temp: List[float], eos: List[int], gens: Dict[int, torch.Generator]):
+        sc, dev = eng.sc, eng.device
+        B = sc.max_batch
+        self.reqs, self.plans = reqs, plans
+        self.req_temp, self.req_eos, self.req_gen = temp, eos, gens
+        self.results: Dict[int, ServeResult] = {}
+        self.queue: collections.deque = collections.deque()
+        self.sched = Scheduler(B, 1)
+        self.pos = np.zeros(B, np.int32)
+        self.start = np.zeros(B, np.int32)
+        self.cur = np.zeros(B, np.int32)
+        self.temps = np.zeros(B, np.float32)
+        self.eos = np.full(B, -1, np.int32)
+        self.gens: list = [None] * B
+        self.stats = collections.Counter()
+        if eng._paged:
+            self.cache = T.init_paged_cache(eng.cfg, eng._num_blocks, sc.block_size,
+                                            device=dev)
+            self.alloc = BlockAllocator(eng._num_blocks, sc.block_size)
+            self.bt_host = np.zeros((B, eng._max_blocks), np.int32)
+            self.slot_blocks: List[List[int]] = [[] for _ in range(B)]
+            self.peak_blocks = 0
+        else:
+            self.cache = T.init_cache(eng.cfg, B, sc.max_seq, device=dev)
+            self.mini = T.init_cache(eng.cfg, 1, sc.max_seq, device=dev)
+
+    def finish(self, rid: int, tokens, reason: FinishReason, detail: str = "") -> None:
+        self.results[rid] = ServeResult(rid, np.asarray(tokens, np.int32), reason, detail)
+
+
 class ServeEngine:
-    """Greedy / temperature serving of a dense model on ``device``."""
+    """Greedy / temperature serving of a dense model on ``device``, over
+    dense slots or a paged block pool (``ServeConfig.kv_layout``), with
+    solo or packed admission (``ServeConfig.packed_prefill``)."""
 
     def __init__(self, cfg: ModelConfig, params, sc: Optional[ServeConfig] = None,
                  device="cuda"):
         self.cfg = cfg
         self.params = params
-        self.sc = sc if sc is not None else ServeConfig.from_model(cfg)
+        self.sc = sc = sc if sc is not None else ServeConfig.from_model(cfg)
         self.device = T.resolve_device(device)
         self.last_results: Optional[List[ServeResult]] = None
         self.last_serve_stats: Optional[dict] = None
+        if sc.kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout must be 'dense' or 'paged', got {sc.kv_layout!r}")
+        self._paged = sc.kv_layout == "paged"
+        self._packed = bool(sc.packed_prefill)
+        if self._paged:
+            bs = sc.block_size
+            if bs < 8 or bs > 128 or bs & (bs - 1):
+                raise ValueError(f"block_size must be a power of two in [8, 128], got {bs}")
+            if sc.max_seq % bs:
+                raise ValueError(f"max_seq={sc.max_seq} must be a multiple of "
+                                 f"block_size={bs} (the table's virtual length is "
+                                 "the dense max_seq)")
+            self._max_blocks = sc.max_seq // bs
+            # worst case: every slot maps max_blocks pages of its own, + sink 0
+            self._num_blocks = (sc.num_blocks if sc.num_blocks is not None
+                                else sc.max_batch * self._max_blocks + 1)
+            if self._num_blocks < 2:
+                raise ValueError(f"num_blocks={self._num_blocks} < 2")
 
     # ------------------------------------------------------------- sampling
 
@@ -249,9 +490,19 @@ class ServeEngine:
             dev = self.device
             start = torch.as_tensor(starts, device=dev)
             cache = T.init_cache(self.cfg, Bw, sc.max_seq, device=dev)
+            bt = None
             with torch.inference_mode():
                 lg, cache = T.prefill(self.params, self.cfg,
                                       torch.as_tensor(toks, device=dev), cache, start)
+                if self._paged:
+                    # the same dense prefill, laid out blockwise onto identity
+                    # tables (left pads kept), then paged decode
+                    mb = self._max_blocks
+                    bt = torch.arange(1, Bw * mb + 1, dtype=torch.int32,
+                                      device=dev).reshape(Bw, mb)
+                    pool = T.init_paged_cache(self.cfg, Bw * mb + 1, sc.block_size,
+                                              device=dev)
+                    cache = T.scatter_dense_to_pool(self.cfg, pool, cache, bt)
                 cur = self._sample(lg, temps, gens)
                 emitted = []
                 done = np.zeros(Bw, bool)
@@ -263,7 +514,7 @@ class ServeEngine:
                     pos = torch.full((Bw,), plen + step, dtype=torch.int32, device=dev)
                     lg, cache = T.decode_step(
                         self.params, self.cfg, cache,
-                        torch.as_tensor(cur[:, None], device=dev), pos, start)
+                        torch.as_tensor(cur[:, None], device=dev), pos, start, bt)
                     cur = self._sample(lg, temps, gens)
             mat = np.stack(emitted, axis=1)
             outs = []
@@ -287,7 +538,9 @@ class ServeEngine:
     # --------------------------------------------------- continuous batching
 
     def _plan(self, r: Request) -> tuple:
-        """Validate one request -> admission plan ``(P, start, budget)``."""
+        """Validate one request -> admission plan ``(P, start, budget)``.
+        A paged admission prefills unpadded at start 0 (``P`` = prompt
+        length): prefix pages are then a pure function of the prefix."""
         sc = self.sc
         plen = len(r.tokens)
         if plen == 0:
@@ -298,6 +551,8 @@ class ServeEngine:
         if r.max_new < 1:
             raise ValueError(f"max_new={r.max_new} < 1")
         budget = min(r.max_new, sc.max_seq - plen)
+        if self._paged:
+            return plen, 0, budget
         P = _bucket(plen, sc.max_seq)
         if sc.max_seq - P < budget:
             P = plen
@@ -308,7 +563,7 @@ class ServeEngine:
         """Serve a request stream with continuous batching on the engine's
         ``max_batch`` slots.  Returns outputs in request order;
         ``self.last_results`` carries a :class:`ServeResult` per request and
-        ``self.last_serve_stats`` the scheduler's counters."""
+        ``self.last_serve_stats`` the scheduler's (and the pool's) counters."""
         sc = self.sc
         strict = sc.strict if strict is None else strict
         reqs = [r if isinstance(r, Request)
@@ -319,97 +574,413 @@ class ServeEngine:
             return []
         def_temp = _broadcast(sc.temperature, n, np.float32, "temperature")
         def_eos = _broadcast(sc.eos_id, n, np.int32, "eos_id")
-        results: dict = {}
-        plans, queue = {}, collections.deque()
+        shed, plans = {}, {}
         for rid, r in enumerate(reqs):
             try:
                 plans[rid] = self._plan(r)
-                queue.append(rid)
             except ValueError as e:
                 if strict:
                     raise ValueError(f"request {rid}: {e}") from None
-                results[rid] = ServeResult(rid, np.zeros(0, np.int32),
-                                           FinishReason.SHED, str(e))
+                shed[rid] = str(e)
         temp = [float(r.temperature) if r.temperature is not None else float(def_temp[i])
                 for i, r in enumerate(reqs)]
         eos_r = [int(r.eos_id) if r.eos_id is not None else int(def_eos[i])
                  for i, r in enumerate(reqs)]
-        gen_r = {rid: self._generator(reqs[rid].seed if reqs[rid].seed is not None
-                                      else rid) for rid in queue}
-
-        B, dev = sc.max_batch, self.device
-        sched = Scheduler(B, 1)
-        cache = T.init_cache(self.cfg, B, sc.max_seq, device=dev)
-        mini = T.init_cache(self.cfg, 1, sc.max_seq, device=dev)
-        pos = np.zeros(B, np.int32)
-        start = np.zeros(B, np.int32)
-        cur = np.zeros(B, np.int32)
-        temps = np.zeros(B, np.float32)
-        eos = np.full(B, -1, np.int32)
-        gens: list = [None] * B
-        stats = collections.Counter()
-
-        def finish(rid, tokens, reason, detail=""):
-            results[rid] = ServeResult(rid, np.asarray(tokens, np.int32), reason, detail)
-
-        def evict(slot, reason, detail=""):
-            rid = int(sched.slot_req[slot])
-            finish(rid, sched.evict(slot), reason, detail)
-            temps[slot] = 0.0
-
+        gens = {rid: self._generator(reqs[rid].seed if reqs[rid].seed is not None
+                                     else rid) for rid in plans}
+        st = _ServeState(self, reqs, plans, temp, eos_r, gens)
+        for rid, detail in shed.items():
+            st.finish(rid, np.zeros(0, np.int32), FinishReason.SHED, detail)
+        st.queue.extend(plans)
         with torch.inference_mode():
-            while queue or sched.any_active:
-                # admission into free slots, FIFO
-                for slot in sched.free_slots():
-                    if not queue:
+            while st.queue or st.sched.any_active:
+                if self._packed and st.queue:
+                    self._admit_packed_sweep(st)
+                for slot in st.sched.free_slots():
+                    if not st.queue:
                         break
-                    slot, rid = int(slot), queue.popleft()
-                    P, s0, budget = plans[rid]
-                    toks = np.zeros((1, P), np.int32)
-                    toks[0, s0:] = reqs[rid].tokens
-                    for t in mini.values():
-                        t.zero_()
-                    lg, mini = T.prefill(self.params, self.cfg,
-                                         torch.as_tensor(toks, device=dev), mini,
-                                         torch.tensor([s0], dtype=torch.int32, device=dev))
-                    stats["admissions"] += 1
-                    if sc.health_checks and not bool(T.logits_health(self.cfg, lg)[0]):
-                        stats["faults"] += 1
-                        finish(rid, np.zeros(0, np.int32), FinishReason.FAULT,
-                               "non-finite prefill logits quarantined")
-                        continue
-                    T.write_cache_slot(self.cfg, cache, mini, slot)
-                    tok = int(self._sample(lg, np.asarray([temp[rid]], np.float32),
-                                           [gen_r[rid]])[0])
-                    pos[slot], start[slot], cur[slot] = P, s0, tok
-                    temps[slot], eos[slot], gens[slot] = temp[rid], eos_r[rid], gen_r[rid]
-                    sched.admit(slot, rid, budget)
-                    if sched.record_one(slot, tok, eos_r[rid]):
-                        evict(slot, FinishReason.EOS if tok == eos_r[rid]
-                              else FinishReason.MAX_NEW)
-                if not sched.any_active:
-                    continue
-                # ONE decode step for all slots at their own positions
-                stats["decode_steps"] += 1
-                stats["active_slot_steps"] += int(sched.active.sum())
-                lg, cache, health = T.decode_step(
-                    self.params, self.cfg, cache,
-                    torch.as_tensor(cur[:, None], device=dev),
-                    torch.as_tensor(pos, device=dev),
-                    torch.as_tensor(start, device=dev), with_health=True)
-                tok = self._sample(lg, np.where(sched.active, temps, 0.0), gens)
-                healthy = health.cpu().numpy()
-                np.minimum(pos + 1, sc.max_seq - 1, out=pos)
-                cur = tok.copy()
-                if sc.health_checks:
-                    for slot in np.flatnonzero(sched.active & ~healthy):
-                        stats["faults"] += 1
-                        evict(int(slot), FinishReason.FAULT,
-                              "non-finite logits quarantined mid-decode")
-                for slot in sched.record(tok, eos):
-                    evict(int(slot), FinishReason.EOS if tok[slot] == eos[slot]
-                          else FinishReason.MAX_NEW)
-        stats["slot_steps"] = stats["decode_steps"] * B
-        self.last_serve_stats = dict(stats)
-        self.last_results = [results[rid] for rid in range(n)]
-        return [results[rid].tokens for rid in range(n)]
+                    if self._paged:
+                        if not self._admit_paged(st, int(slot), st.queue[0]):
+                            if st.sched.any_active:
+                                break        # deferred until an eviction frees blocks
+                            rid = st.queue.popleft()
+                            msg = (f"request {rid} needs more KV blocks than the pool "
+                                   f"can ever free (num_blocks={self._num_blocks}); "
+                                   "raise ServeConfig.num_blocks")
+                            if strict:
+                                raise ValueError(msg)
+                            st.stats["shed"] += 1
+                            st.finish(rid, np.zeros(0, np.int32), FinishReason.SHED, msg)
+                            continue
+                        st.queue.popleft()
+                    else:
+                        self._admit_dense(st, int(slot), st.queue.popleft())
+                if st.sched.any_active:
+                    self._decode(st)
+        self._finalize_stats(st)
+        self.last_results = [st.results[rid] for rid in range(n)]
+        return [st.results[rid].tokens for rid in range(n)]
+
+    # ----------------------------------------------------------- admission
+
+    def _healthy(self, lg) -> np.ndarray:
+        """(N,) bool: the rows of ``lg`` that pass the health probe."""
+        if not self.sc.health_checks:
+            return np.ones(lg.shape[0], bool)
+        return T.logits_health(self.cfg, lg).cpu().numpy()
+
+    def _fault(self, st: _ServeState, rid: int) -> None:
+        st.stats["faults"] += 1
+        st.finish(rid, np.zeros(0, np.int32), FinishReason.FAULT,
+                  "non-finite prefill logits quarantined")
+
+    def _admit_dense(self, st: _ServeState, slot: int, rid: int) -> None:
+        """Solo admission into a dense slot: prefill the left-padded prompt
+        into the zeroed batch=1 cache, copy it into the slot."""
+        P, s0, budget = st.plans[rid]
+        dev = self.device
+        toks = np.zeros((1, P), np.int32)
+        toks[0, s0:] = st.reqs[rid].tokens
+        for t in st.mini.values():
+            t.zero_()
+        lg, st.mini = T.prefill(self.params, self.cfg, torch.as_tensor(toks, device=dev),
+                                st.mini, torch.tensor([s0], dtype=torch.int32, device=dev))
+        st.stats["admissions"] += 1
+        if not self._healthy(lg)[0]:
+            self._fault(st, rid)
+            return
+        T.write_cache_slot(self.cfg, st.cache, st.mini, slot)
+        tok = int(self._sample(lg, np.asarray([st.req_temp[rid]], np.float32),
+                               [st.req_gen[rid]])[0])
+        self._arm_slot(st, slot, rid, tok, P, s0, budget)
+
+    def _map_blocks(self, st: _ServeState, rid: int):
+        """The paged admission plan of one request: ``(shared, owned, t0,
+        total)`` with the fully shared prefix blocks increfed and the owned
+        ones allocated, or None (nothing held) when the pool cannot supply
+        them.  ``t0`` leaves at least one token to prefill; a partly shared
+        last block is recomputed into an owned page (copy-on-write)."""
+        alloc, bs = st.alloc, self.sc.block_size
+        plen = st.plans[rid][0]
+        shared = alloc.match_prefix(tuple(int(t) for t in st.reqs[rid].tokens))
+        t0 = min(len(shared) * bs, plen - 1)
+        s_blk = t0 // bs
+        total = -(-plen // bs)
+        for b in shared[:s_blk]:
+            alloc.incref(b)
+        owned: List[int] = []
+        try:
+            for _ in range(total - s_blk):
+                owned.append(alloc.alloc())
+        except ValueError:
+            for b in owned + shared[:s_blk]:
+                alloc.decref(b)
+            return None
+        return shared[:-(-t0 // bs)], owned, t0, total
+
+    def _map_slot(self, st: _ServeState, slot: int, rid: int, chain: List[int],
+                  n_owned: int, t0: int) -> None:
+        """Register a healthy paged admission's chain and map it to ``slot``."""
+        plen = st.plans[rid][0]
+        st.alloc.register_prefix(tuple(int(t) for t in st.reqs[rid].tokens), chain)
+        st.bt_host[slot, :] = 0
+        st.bt_host[slot, :len(chain)] = chain
+        st.slot_blocks[slot] = list(chain)
+        st.stats["prefix_hit_tokens"] += t0
+        st.stats["prefill_tokens"] += plen - t0
+        st.stats["prompt_tokens"] += plen
+        st.stats["owned_blocks"] += n_owned
+        st.stats["shared_blocks"] += len(chain) - n_owned
+        st.peak_blocks = max(st.peak_blocks, st.alloc.blocks_in_use())
+
+    def _drop_blocks(self, st: _ServeState, owned: List[int], shared: List[int]) -> None:
+        """Release a faulted admission's blocks; the shared prefix pages it
+        read are suspect and leave the prefix table."""
+        for b in owned:
+            st.alloc.decref(b)
+        for b in shared:
+            st.alloc.decref(b)
+            st.alloc.quarantine(b)
+
+    def _admit_paged(self, st: _ServeState, slot: int, rid: int) -> bool:
+        """Solo paged admission; False (nothing changed) when the pool
+        cannot supply the blocks.  The shared prefix (and a partly shared
+        copy-on-write source block) is gathered into a dense mini cache, the
+        suffix from ``t0`` prefilled (K3 with ``q_offset = t0``), the owned
+        blocks written to their pages and the chain registered."""
+        m = self._map_blocks(st, rid)
+        if m is None:
+            return False
+        gathered, owned, t0, total = m
+        plen, _, budget = st.plans[rid]
+        dev, bs = self.device, self.sc.block_size
+        s_blk = t0 // bs
+        if t0:
+            mini = T.mini_cache_with_prefix(self.cfg, st.cache, gathered, total * bs)
+        else:
+            mini = T.init_cache(self.cfg, 1, total * bs, device=dev)
+        toks = torch.as_tensor(np.asarray(st.reqs[rid].tokens, np.int32)[None], device=dev)
+        lg, mini = T.prefill(self.params, self.cfg, toks, mini,
+                             torch.zeros(1, dtype=torch.int32, device=dev), t0)
+        st.stats["admissions"] += 1
+        if not self._healthy(lg)[0]:
+            self._drop_blocks(st, owned, gathered[:s_blk])
+            self._fault(st, rid)
+            return True
+        T.write_cache_blocks(self.cfg, st.cache, mini, owned, s_blk)
+        self._map_slot(st, slot, rid, gathered[:s_blk] + owned, len(owned), t0)
+        tok = int(self._sample(lg, np.asarray([st.req_temp[rid]], np.float32),
+                               [st.req_gen[rid]])[0])
+        self._arm_slot(st, slot, rid, tok, plen, 0, budget)
+        return True
+
+    def _arm_slot(self, st: _ServeState, slot: int, rid: int, tok: int, P: int, s0: int,
+                  budget: int) -> None:
+        """Arm a slot with its already-sampled first token (evicting it at
+        once if that finishes the request)."""
+        st.pos[slot], st.start[slot], st.cur[slot] = P, s0, tok
+        st.temps[slot], st.eos[slot] = st.req_temp[rid], st.req_eos[rid]
+        st.gens[slot] = st.req_gen[rid]
+        st.sched.admit(slot, rid, budget)
+        if st.sched.record_one(slot, tok, st.req_eos[rid]):
+            self._evict(st, slot, FinishReason.EOS if tok == st.req_eos[rid]
+                        else FinishReason.MAX_NEW)
+
+    # ----------------------------------------------------- packed admission
+
+    def _pack_key(self, st: _ServeState, rid: int) -> Optional[int]:
+        """The packing bin (segment width) of a queued request, or None when
+        it is admitted solo: its bucket fell back to the exact length, or
+        (paged) its prompt starts with a registered prefix, whose solo
+        admission prefills only the unshared suffix (a pack recomputes
+        every segment whole).  Paged segments are rounded up to the block
+        size, so each covers whole blocks."""
+        if self._paged:
+            P = _bucket(st.plans[rid][0], self.sc.max_seq)
+            toks = tuple(int(t) for t in st.reqs[rid].tokens)
+            if P & (P - 1) or st.alloc.has_prefix(toks):
+                return None
+            return max(P, self.sc.block_size)
+        P = st.plans[rid][0]
+        return None if P & (P - 1) else P
+
+    def _admit_packed_sweep(self, st: _ServeState) -> None:
+        """One packed admission sweep over the queue head (one entry per
+        free slot); unpackable entries, and those behind a pool starvation,
+        stay queued for the solo loop or a later sweep."""
+        free = st.sched.free_slots()
+        n = min(len(free), len(st.queue))
+        if n == 0:
+            return
+        head = [(rid, self._pack_key(st, rid)) for rid in list(st.queue)[:n]]
+        packs, _ = Scheduler.plan_packs(head)
+        admitted: set = set()
+        si = 0
+        for P, rids in packs:
+            slots = [int(s) for s in free[si:si + len(rids)]]
+            if self._paged:
+                done = self._admit_packed_paged(st, slots, rids, P)
+            else:
+                self._admit_packed_dense(st, slots, rids, P)
+                done = rids
+            admitted.update(done)
+            si += len(done)
+            if len(done) < len(rids):
+                break                # pool starvation: defer the rest
+        if admitted:
+            st.queue = collections.deque(r for r in st.queue if r not in admitted)
+
+    def _pack_inputs(self, N: int, W: int):
+        """Zeroed (1, N * W) token, segment-id (pads -1) and position arrays
+        and the (N,) last-position vector of an N-segment pack of width W."""
+        toks = np.zeros((1, N * W), np.int32)
+        segs = np.full((1, N * W), -1, np.int32)
+        pos = np.tile(np.arange(W, dtype=np.int32), N)[None]
+        last = np.arange(1, N + 1, dtype=np.int32) * W - 1
+        return toks, segs, pos, last
+
+    def _prefill_pack(self, toks, segs, pos, last, W: int):
+        dev = self.device
+        N = len(last)
+        mini = T.init_cache(self.cfg, 1, N * W, device=dev)
+        t = lambda a: torch.as_tensor(a, device=dev)
+        return T.prefill_packed(self.params, self.cfg, t(toks), mini, t(pos), t(segs),
+                                t(last), W)
+
+    def _admit_packed_dense(self, st: _ServeState, slots: List[int], rids: List[int],
+                            P: int) -> None:
+        """Dense-layout packed admission: the left-padded segments
+        concatenated into one (1, N * P) sequence (N a power of two; the
+        dummy segments come first and write the first real slot, which its
+        real segment then overwrites), one K5 prefill, each segment copied
+        into its slot."""
+        N = _pow2_ceil(len(rids))
+        nd = N - len(rids)
+        toks, segs, pos, last = self._pack_inputs(N, P)
+        slot_of = [slots[0]] * nd + list(slots)
+        for j, rid in enumerate(rids):
+            i, tk = nd + j, st.reqs[rid].tokens
+            s0, off = P - len(tk), (nd + j) * P
+            toks[0, off + s0:off + P] = tk
+            segs[0, off + s0:off + P] = i
+            pos[0, off:off + P] -= s0
+        lg, mini = self._prefill_pack(toks, segs, pos, last, P)
+        # a faulted segment's rows land in a slot that stays free; the next
+        # admission there overwrites them all
+        T.write_cache_slot_segments(self.cfg, st.cache, mini, slot_of, P)
+        healthy = self._healthy(lg)
+        toks_s = self._sample_pack(st, rids, nd, lg)
+        self._count_pack(st, len(rids), nd)
+        for j, rid in enumerate(rids):
+            st.stats["admissions"] += 1
+            if not healthy[nd + j]:
+                self._fault(st, rid)
+                continue
+            P_, s0, budget = st.plans[rid]
+            self._arm_slot(st, slots[j], rid, int(toks_s[nd + j]), P_, s0, budget)
+
+    def _admit_packed_paged(self, st: _ServeState, slots: List[int], rids: List[int],
+                            W: int) -> List[int]:
+        """Paged packed admission; returns the admitted rids.  Blocks are
+        mapped FIFO until the pool runs short (the rest stay queued).  Each
+        segment is right-padded to the block-aligned width ``W`` at start 0
+        and recomputed whole (its shared prefix blocks are mapped, never
+        written); the owned blocks go to their pages in one scatter, a
+        faulted segment's to the block-0 sink, and each healthy segment's
+        chain is registered after the health probe, as a solo admission's."""
+        bs = self.sc.block_size
+        maps = []
+        for rid in rids:
+            m = self._map_blocks(st, rid)
+            if m is None:
+                break
+            maps.append((rid,) + m)
+        if not maps:
+            return []
+        N = _pow2_ceil(len(maps))
+        nd = N - len(maps)
+        toks, segs, pos, last = self._pack_inputs(N, W)
+        for j, (rid, *_) in enumerate(maps):
+            i, tk = nd + j, st.reqs[rid].tokens
+            toks[0, i * W:i * W + len(tk)] = tk
+            segs[0, i * W:i * W + len(tk)] = i
+            last[i] = i * W + len(tk) - 1
+        lg, mini = self._prefill_pack(toks, segs, pos, last, W)
+        healthy = self._healthy(lg)
+        bids = np.zeros((N, W // bs), np.int32)          # 0: the sink
+        for j, (rid, gathered, owned, t0, total) in enumerate(maps):
+            if healthy[nd + j]:
+                bids[nd + j, t0 // bs:total] = owned
+        T.scatter_segments_to_pool(self.cfg, st.cache, mini, bids, W)
+        toks_s = self._sample_pack(st, [m[0] for m in maps], nd, lg)
+        self._count_pack(st, len(maps), nd)
+        for j, (rid, gathered, owned, t0, total) in enumerate(maps):
+            st.stats["admissions"] += 1
+            s_blk = t0 // bs
+            if not healthy[nd + j]:
+                self._drop_blocks(st, owned, gathered[:s_blk])
+                self._fault(st, rid)
+                continue
+            self._map_slot(st, slots[j], rid, gathered[:s_blk] + owned, len(owned), t0)
+            plen, _, budget = st.plans[rid]
+            self._arm_slot(st, slots[j], rid, int(toks_s[nd + j]), plen, 0, budget)
+        return [m[0] for m in maps]
+
+    def _sample_pack(self, st: _ServeState, rids: List[int], nd: int, lg) -> np.ndarray:
+        """One first-token sample for a whole pack: row ``nd + j`` with
+        request ``rids[j]``'s temperature and generator, as its solo
+        admission samples (dummy rows take argmax, which nothing reads)."""
+        N = nd + len(rids)
+        temps = np.zeros(N, np.float32)
+        gens: list = [None] * N
+        for j, rid in enumerate(rids):
+            temps[nd + j], gens[nd + j] = st.req_temp[rid], st.req_gen[rid]
+        return self._sample(lg, temps, gens)
+
+    @staticmethod
+    def _count_pack(st: _ServeState, n_real: int, nd: int) -> None:
+        st.stats["packed_packs"] += 1
+        st.stats["packed_segments"] += n_real
+        st.stats["packed_dummies"] += nd
+
+    # --------------------------------------------------------------- decode
+
+    def _evict(self, st: _ServeState, slot: int, reason: FinishReason,
+               detail: str = "") -> None:
+        rid = int(st.sched.slot_req[slot])
+        st.finish(rid, st.sched.evict(slot), reason, detail)
+        st.temps[slot] = 0.0
+        if self._paged:
+            self._release_blocks(st, slot, quarantine=reason is FinishReason.FAULT)
+
+    def _release_blocks(self, st: _ServeState, slot: int, quarantine: bool = False) -> None:
+        """Drop an evicted slot's block references (a registered prefix block
+        parks in the LRU list, an unregistered one frees) and zero its table
+        row, so the parked slot writes the block-0 sink.  A FAULT eviction
+        also unregisters the slot's now unmapped prefix blocks."""
+        blocks = st.slot_blocks[slot]
+        for b in blocks:
+            st.alloc.decref(b)
+        if quarantine:
+            for b in blocks:
+                st.alloc.quarantine(b)
+        st.slot_blocks[slot] = []
+        st.bt_host[slot, :] = 0
+
+    def _decode(self, st: _ServeState) -> None:
+        """ONE decode step for all slots at their own positions."""
+        sc, dev, sched = self.sc, self.device, st.sched
+        st.stats["decode_steps"] += 1
+        st.stats["active_slot_steps"] += int(sched.active.sum())
+        bt = None
+        if self._paged:
+            # grow each active slot's table before the row it writes crosses
+            # into an unmapped block (the default pool never runs short)
+            for slot in np.flatnonzero(sched.active):
+                need = int(st.pos[slot]) // sc.block_size
+                if need >= len(st.slot_blocks[slot]):
+                    b = st.alloc.alloc()
+                    st.slot_blocks[slot].append(b)
+                    st.bt_host[slot, need] = b
+                    st.peak_blocks = max(st.peak_blocks, st.alloc.blocks_in_use())
+            bt = torch.as_tensor(st.bt_host, device=dev)
+        lg, st.cache, health = T.decode_step(
+            self.params, self.cfg, st.cache, torch.as_tensor(st.cur[:, None], device=dev),
+            torch.as_tensor(st.pos, device=dev), torch.as_tensor(st.start, device=dev),
+            bt, with_health=True)
+        tok = self._sample(lg, np.where(sched.active, st.temps, 0.0), st.gens)
+        healthy = health.cpu().numpy()
+        np.minimum(st.pos + 1, sc.max_seq - 1, out=st.pos)
+        st.cur = tok.copy()
+        if sc.health_checks:
+            for slot in np.flatnonzero(sched.active & ~healthy):
+                st.stats["faults"] += 1
+                self._evict(st, int(slot), FinishReason.FAULT,
+                            "non-finite logits quarantined mid-decode")
+        for slot in sched.record(tok, st.eos):
+            self._evict(st, int(slot), FinishReason.EOS if tok[slot] == st.eos[slot]
+                        else FinishReason.MAX_NEW)
+
+    def _finalize_stats(self, st: _ServeState) -> None:
+        sc = self.sc
+        stats = {k: st.stats[k] for k in ("admissions", "decode_steps", "active_slot_steps",
+                                          "faults", "shed", "packed_packs",
+                                          "packed_segments", "packed_dummies")}
+        stats.update(slot_steps=stats["decode_steps"] * sc.max_batch,
+                     kv_layout=sc.kv_layout, packed_prefill=self._packed)
+        if self._paged:
+            prompt = st.stats["prompt_tokens"]
+            stats.update({
+                "block_size": sc.block_size,
+                "pool_blocks": self._num_blocks - 1,
+                "peak_blocks_in_use": st.peak_blocks,
+                "prompt_tokens": prompt,
+                "prefill_tokens": st.stats["prefill_tokens"],
+                "prefix_hit_tokens": st.stats["prefix_hit_tokens"],
+                "prefix_hit_rate": st.stats["prefix_hit_tokens"] / max(prompt, 1),
+                "owned_blocks": st.stats["owned_blocks"],
+                "shared_blocks": st.stats["shared_blocks"],
+                "prefix_lookups": st.alloc.lookups,
+                "prefix_matches": st.alloc.hits,
+            })
+        self.last_serve_stats = stats

@@ -168,3 +168,87 @@ def test_training_kernel_counters(dev):
     after = (F.posit_flash_attention.launches, F.posit_flash_attention_fwd.launches,
              F.flash_backward_dq.launches, F.flash_backward_dkv.launches)
     assert [a - b for a, b in zip(after, before)] == [0, 1, 1, 1]
+
+
+def _paged_case(dev, B=4, bs=16, max_blocks=8, H=15, KV=5, hd=64, seed=5):
+    """Block pools with a shuffled table: sequences 0 and 1 share their
+    first two pages, the last sequence is parked (an all-zero row)."""
+    g = torch.Generator().manual_seed(seed)
+    NB = B * max_blocks + 1
+    pool_k = torch.randn(NB, bs, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    pool_v = torch.randn(NB, bs, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    bt = (1 + torch.randperm(NB - 1, generator=g)[:B * max_blocks]).reshape(B, max_blocks)
+    bt[1, :2] = bt[0, :2]
+    bt[-1] = 0
+    q = torch.randn(B, 1, H, hd, generator=g).to(dev)
+    return q, pool_k, pool_v, bt.to(torch.int32).to(dev)
+
+
+@pytest.mark.parametrize("variant", KERNEL_VARIANTS)
+def test_paged_kernel_is_dense_kernel_on_gathered_cache(dev, variant):
+    """K4 gives K3's bits on the gathered dense cache, within FLASH_TOL of
+    its twin, for kv_start 0 (paged admission) and above (left pads)."""
+    q, pk, pv, bt = _paged_case(dev)
+    pos = torch.tensor([127, 40, 77, 60], dtype=torch.int32, device=dev)
+    k, v = F.gather_pages(pk, bt), F.gather_pages(pv, bt)
+    for start in ([0, 0, 0, 0], [5, 0, 70, 61]):
+        kw = dict(kv_start=torch.tensor(start, dtype=torch.int32, device=dev),
+                  kv_len=pos + 1, q_pos=pos, variant=variant)
+        o = posit_flash_attention(POSIT16, q, pk, pv, True, block_tables=bt, **kw)
+        d = posit_flash_attention(POSIT16, q, k, v, True, **kw)
+        p = posit_flash_attention_plain(POSIT16, q, pk, pv, True, block_tables=bt, **kw)
+        assert torch.equal(o.view(torch.int32), d.view(torch.int32))
+        assert (o - p).abs().max() <= FLASH_TOL
+    assert (o[3] == 0).all()
+
+
+def _packed_case(dev, N, P, H=15, KV=5, hd=64, seed=6):
+    """A left-padded pack of N segments of width P: segment 0 a dummy,
+    segment 2 sharing segment 1's first half."""
+    g = torch.Generator().manual_seed(seed)
+    S = N * P
+    q = torch.randn(1, S, H, hd, generator=g)
+    k = torch.randn(1, S, KV, hd, generator=g).to(torch.bfloat16)
+    v = torch.randn(1, S, KV, hd, generator=g).to(torch.bfloat16)
+    half = P // 2
+    for t in (q, k, v):
+        t[:, 2 * P:2 * P + half] = t[:, P:P + half]
+    lens = [0] + [P - (3 * i) % P for i in range(1, N)]
+    lens[2] = lens[1]
+    seg = torch.full((1, S), -1, dtype=torch.int32)
+    for i, n in enumerate(lens):
+        if n:
+            seg[0, (i + 1) * P - n:(i + 1) * P] = i
+    seg_q = torch.where(seg < 0, torch.full_like(seg, -2), seg)
+    return [t.to(dev) for t in (q, k, v, seg_q, seg)] + [lens]
+
+
+@pytest.mark.parametrize("N,P", [(4, 64), (8, 8)])
+def test_packed_kernel_segments_are_solo_kernel(dev, N, P):
+    """K5: each segment's rows are the bits of a solo K3 prefill of it, the
+    dummy segment's rows 0, all within FLASH_TOL of the twin."""
+    q, k, v, seg_q, seg, lens = _packed_case(dev, N, P)
+    kw = dict(seg_q=seg_q, seg_kv=seg, seg_len=P)
+    o = posit_flash_attention(POSIT16, q, k, v, True, **kw)
+    p = posit_flash_attention_plain(POSIT16, q, k, v, True, seg_q=seg_q, seg_kv=seg)
+    assert (o - p).abs().max() <= FLASH_TOL
+    assert (o[:, :P] == 0).all()
+    for i, n in enumerate(lens[1:], 1):
+        sl = slice(i * P, (i + 1) * P)
+        solo = posit_flash_attention(POSIT16, q[:, sl], k[:, sl], v[:, sl], True,
+                                     kv_start=torch.tensor([P - n], dtype=torch.int32,
+                                                           device=dev))
+        assert torch.equal(o[:, sl].view(torch.int32), solo.view(torch.int32))
+
+
+def test_layout_counters_are_apart(dev):
+    q, pk, pv, bt = _paged_case(dev)
+    before = (F.posit_flash_attention.launches, F.posit_flash_attention.paged_launches,
+              F.posit_flash_attention.packed_launches)
+    posit_flash_attention(POSIT16, q, pk, pv, True, block_tables=bt)
+    qq, k, v, seg_q, seg, _ = _packed_case(dev, 4, 8)
+    posit_flash_attention(POSIT16, qq, k, v, True, seg_q=seg_q, seg_kv=seg, seg_len=8)
+    posit_flash_attention_plain(POSIT16, q, pk, pv, True, block_tables=bt)
+    after = (F.posit_flash_attention.launches, F.posit_flash_attention.paged_launches,
+             F.posit_flash_attention.packed_launches)
+    assert [a - b for a, b in zip(after, before)] == [0, 1, 1]
