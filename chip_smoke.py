@@ -20,10 +20,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               row, kv_start 0 and above 0; every posit16 plan at B=4): the
               same bits as K3 on the gathered dense cache, within FLASH_TOL
               of its twin, fully masked rows exactly 0.
-   K5       — packed prefill attention on packs of 4 x 64 and 8 x 8 (left-
-              and right-padded, a dummy segment, a shared prefix): every
-              segment the same bits as a solo K3 prefill of it, within
-              FLASH_TOL of its twin.
+   K5       — packed prefill attention on every pack the paged phase can
+              form (1, 2, 4 or 8 segments of width 16-256, right-padded,
+              dummies first) and on five left-padded packs, with a shared
+              prefix: every segment the same bits as a solo K3 prefill of
+              it, within FLASH_TOL of its twin.
    model    — the smoke config on the card (kernels) against the same
               weights on the CPU (plain twins, which the CPU tests hold
               against the reference): logits within LOGIT_ULPS bf16 ulps.
@@ -46,9 +47,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               (pages of 16) and packed_prefill=True: the 16 requests plus 8
               that share one 128-token prefix and add 16-64 tokens.  Per
               decode step L K4 launches (no K3), per pack L K5, per
-              prefix-shared solo admission L K3; prefix hit rate above 0.
-              Its tokens are compared with a dense solo-admission run of
-              the same requests (where they differ: the first such token,
+              prefix-shared solo admission L K3; prefix hit rate above 0;
+              every pack of a shape the K5 phase held.  Its tokens are
+              compared with a dense solo-admission run of the same
+              requests (where they differ: the first such token,
               the logits gap in bf16 ulps, whether the attention kernel and
               the products keep their bits across the two layouts' shapes).
    training — SmolLM-360M at full width trained by ``Trainer`` for 4 steps
@@ -81,6 +83,7 @@ change, change, parent) in one call, after any edit to
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -350,18 +353,38 @@ def phase_paged_kernel(torch, dev):
     return worst[0]
 
 
-def packed_inputs(torch, dev, N, P, seed, H=15, KV=5, hd=64, left=True):
-    """A pack of N segments of width P (left-padded as the dense layout packs
-    them, or right-padded as the paged layout does): segment 0 a dummy,
-    segment 2 sharing segment 1's first half.  Returns q, k, v, seg_q,
-    seg_kv and each segment's (offset, length, solo kv_start)."""
+# K5 is held against its twin and solo K3 at every pack the paged phase can
+# form: N = 1-8 segments (a power of two, dummies first, as the engine packs
+# 5-8 requests into 8) of width 16-256 (the buckets of its 16-200-token
+# prompts, at least a page); each real segment is longer than half its
+# width, so from 128 up it spans several kv tiles.  Dense-layout packs are
+# left-padded, and checked at a few shapes.
+PACK_WIDTHS = (16, 32, 64, 128, 256)
+PACK_DUMMIES = {1: 0, 2: 0, 4: 1, 8: 3}
+PACKS_LEFT = ((4, 64), (8, 8), (4, 128), (4, 256), (2, 256))
+
+
+def pack_lens(N, P):
+    """Segment lengths of a test pack: the dummies (0), then prompts in
+    (P/2, P], the first two of one length (they share a prefix)."""
+    d = PACK_DUMMIES.get(N, 1)
+    lens = [0] * d + [P - (3 * i + 1) % (P // 2) for i in range(N - d)]
+    if N - d > 1:
+        lens[d + 1] = lens[d]
+    return lens
+
+
+def packed_inputs(torch, dev, lens, P, seed, H=15, KV=5, hd=64, left=True):
+    """A pack of segments of width P with the given lengths (0: a dummy),
+    left-padded as the dense layout packs them or right-padded as the paged
+    layout does; the second real segment repeats the first one's first half
+    (a shared prefix).  Returns q, k, v, seg_q, seg_kv and each real
+    segment's (offset, length)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    S = N * P
+    S = len(lens) * P
     q = torch.randn(1, S, H, hd, generator=g)
     k = torch.randn(1, S, KV, hd, generator=g).to(torch.bfloat16)
     v = torch.randn(1, S, KV, hd, generator=g).to(torch.bfloat16)
-    lens = [0] + [P - (3 * i) % P for i in range(1, N)]
-    lens[2] = lens[1]
     seg = torch.full((1, S), -1, dtype=torch.int32)
     segs = []
     for i, n in enumerate(lens):
@@ -369,34 +392,40 @@ def packed_inputs(torch, dev, N, P, seed, H=15, KV=5, hd=64, left=True):
         if n:
             seg[0, off:off + n] = i
             segs.append((off, n))
-    for t in (q, k, v):   # the shared prefix: segment 2 repeats segment 1's start
-        (o1, _), (o2, _) = segs[0], segs[1]
-        t[:, o2:o2 + P // 2] = t[:, o1:o1 + P // 2]
+    if len(segs) > 1:
+        (o1, n1), (o2, _) = segs[:2]
+        for t in (q, k, v):
+            t[:, o2:o2 + n1 // 2] = t[:, o1:o1 + n1 // 2]
     seg_q = torch.where(seg < 0, torch.full_like(seg, -2), seg)
     return [t.to(dev) for t in (q, k, v, seg_q, seg)] + [segs]
 
 
 def phase_packed_kernel(torch, dev):
     """K5 against its twin (within FLASH_TOL), and each segment's rows against
-    a solo K3 prefill of that prompt (the same bits)."""
+    a solo K3 prefill of that prompt (the same bits), at every (N, P) in
+    PACK_DUMMIES x PACK_WIDTHS right-padded and PACKS_LEFT left-padded.
+    Returns the worst error and the right-padded shapes held."""
     from repro_torch.core.posit import POSIT16
     from repro_torch.kernels.posit_flash_attn import (
         posit_flash_attention,
         posit_flash_attention_plain,
     )
 
-    worst = [0.0]
-    for N, P, left in ((4, 64, True), (8, 8, True), (4, 64, False)):
+    worst = 0.0
+    held = [(N, P, False) for N in PACK_DUMMIES for P in PACK_WIDTHS]
+    for N, P, left in held + [(N, P, True) for N, P in PACKS_LEFT]:
         name = f"N={N} P={P} {'left' if left else 'right'}-padded"
-        q, k, v, seg_q, seg, segs = packed_inputs(torch, dev, N, P, 40 + N, left=left)
+        lens = pack_lens(N, P)
+        q, k, v, seg_q, seg, segs = packed_inputs(torch, dev, lens, P, 40 + N + P, left=left)
         o = posit_flash_attention(POSIT16, q, k, v, True, seg_q=seg_q, seg_kv=seg, seg_len=P)
         p = posit_flash_attention_plain(POSIT16, q, k, v, True, seg_q=seg_q, seg_kv=seg)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(o).all()), f"K5 {name}: non-finite output")
         err = max_abs_err(o, p)
-        worst[0] = max(worst[0], err)
+        worst = max(worst, err)
         check(err <= FLASH_TOL, f"K5 {name}: max|diff| {err} from its twin > {FLASH_TOL}")
-        check(bool((o[:, :P] == 0).all()), f"K5 {name}: the dummy segment's rows are not 0")
+        check(bool((o[0][seg_q[0] < 0] == 0).all()),
+              f"K5 {name}: the dummy segments' and the pads' rows are not 0")
         for off, n in segs:
             solo = posit_flash_attention(POSIT16, q[:, off:off + n], k[:, off:off + n],
                                          v[:, off:off + n], True)
@@ -405,9 +434,11 @@ def phase_packed_kernel(torch, dev):
             check(diff == 0, f"K5 {name}: segment at {off} differs from solo K3 in {diff} "
                              "elements")
     print(f"K5: every segment the same bits as a solo K3 prefill and within {FLASH_TOL} of "
-          f"its twin (max|diff| {worst[0]:.3g}): packs of 4 x 64 and 8 x 8, left- and "
-          "right-padded, with a dummy segment and a shared prefix")
-    return worst[0]
+          f"its twin (max|diff| {worst:.3g}): right-padded packs of "
+          f"{'/'.join(map(str, PACK_DUMMIES))} segments x widths "
+          f"{'/'.join(map(str, PACK_WIDTHS))}, left-padded "
+          f"{', '.join(f'{N} x {P}' for N, P in PACKS_LEFT)}, with dummies and a shared prefix")
+    return worst, {(N, P) for N, P, _ in held}
 
 
 def phase_model_small(torch, dev):
@@ -673,10 +704,12 @@ def paged_mix(cfg):
     return out
 
 
-def phase_paged(torch, dev, cfg, params):
+def phase_paged(torch, dev, cfg, params, packs_held):
     """Full-width serving from the paged, prefix-shared pool with packed
     prefill (K4 decode, K5 packed admissions, K3 suffix prefills), counted
-    and compared with a dense solo-admission run of the same requests."""
+    and compared with a dense solo-admission run of the same requests.
+    Every pack it forms must have a shape in ``packs_held`` (those the K5
+    phase checked)."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -689,6 +722,15 @@ def phase_paged(torch, dev, cfg, params):
     eng = ServeEngine(cfg, params, sc, device=dev)
     eng.serve([reqs[1]])                                  # warm-up, not counted
     torch.cuda.synchronize()
+    packs = []                  # (N, width, segment lengths) of each packed prefill
+    prefill_pack = eng._prefill_pack
+
+    def recorded(toks, segs, pos, last, W):
+        packs.append((len(last), W, [int((segs[0, i * W:(i + 1) * W] >= 0).sum())
+                                     for i in range(len(last))]))
+        return prefill_pack(toks, segs, pos, last, W)
+
+    eng._prefill_pack = recorded
     ops.posit_div_fused_rowwise.launches = 0
     F.launches = F.paged_launches = F.packed_launches = 0
     t0 = time.perf_counter()
@@ -714,6 +756,9 @@ def phase_paged(torch, dev, cfg, params):
     check(solo > 0 and st["prefix_hit_rate"] > 0,
           f"paged: {solo} prefix-shared solo admissions, hit rate {st['prefix_hit_rate']}")
     check(st["faults"] == 0 and st["shed"] == 0, f"paged: faults or sheds: {st}")
+    shapes = collections.Counter((N, W) for N, W, _ in packs)
+    check(len(packs) == st["packed_packs"] and set(shapes) <= packs_held,
+          f"paged: packs {dict(shapes)} not all among those the K5 phase held")
     for r in eng.last_results:
         check(r.finish is FinishReason.MAX_NEW and len(r.tokens) == 32,
               f"paged: request {r.rid} finished {r.finish} with {len(r.tokens)} tokens")
@@ -726,7 +771,9 @@ def phase_paged(torch, dev, cfg, params):
           f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s, "
           f"{wall / st['decode_steps'] * 1e3:.2f} ms a decode step (wall over steps, "
           f"admissions included); {st['packed_packs']} packs of {st['packed_segments']} "
-          f"requests ({st['packed_dummies']} dummies), {solo} prefix-shared solo "
+          f"requests ({st['packed_dummies']} dummies; N x width: "
+          f"{', '.join(f'{n} {N} x {W}' for (N, W), n in sorted(shapes.items()))}), "
+          f"{solo} prefix-shared solo "
           f"admissions, {st['decode_steps']} decode steps; prefix hit rate "
           f"{st['prefix_hit_rate']:.4f} ({st['prefix_hit_tokens']} of "
           f"{st['prompt_tokens']} prompt tokens); peak {st['peak_blocks_in_use']} blocks "
@@ -741,8 +788,11 @@ def phase_paged(torch, dev, cfg, params):
               f"{len(reqs)} requests")
     else:
         paged_difference(torch, dev, cfg, params, reqs, ref, outs, differ)
+    # the timing phase times K5 on the path's most frequent pack shape
+    N, W = max(shapes, key=lambda nw: (shapes[nw], nw[0] * nw[1]))
+    pack = next(p for p in packs if p[:2] == (N, W))
     return {"rowwise": k2, "K3": k3, "K4": k4, "K5": k5, "tokens_per_s": n_tok / wall,
-            "differ": len(differ), "stats": st}
+            "differ": len(differ), "stats": st, "pack": pack}
 
 
 def paged_difference(torch, dev, cfg, params, reqs, ref, outs, differ):
@@ -795,7 +845,8 @@ def paged_difference(torch, dev, cfg, params, reqs, ref, outs, differ):
     print(f"paged: tokens differ from the dense solo-admission run in {len(differ)} of "
           f"{len(reqs)} requests; first at request {i}, token {j}: the logits of the two "
           f"layouts' prefill shapes (left-padded {P} rows, unpadded {n}) differ by {gap:.4g} "
-          f"= {gap / ulp:.2f} bf16 ulps of max|logit| (top-2 margin {float(top2[0] - top2[1]):.4g}); "
+          f"= {gap / ulp:.2f} bf16 ulps of max|logit| (top-2 margin "
+          f"{float(top2[0] - top2[1]):.4g}); "
           f"attention kernel at the two layouts bit-identical: {attn_equal}; layer-0 q/k "
           f"products bit-identical: {products_equal}")
 
@@ -929,7 +980,7 @@ def device_kernel_ms(torch, fn, names, iters=20):
     return cuda_time_ms(fn, iters), "CUDA events"
 
 
-def phase_timing(torch, dev):
+def phase_timing(torch, dev, pack):
     import torch.nn.functional as Fn
 
     from repro_torch.core.posit import POSIT16
@@ -967,18 +1018,20 @@ def phase_timing(torch, dev):
         start_t = torch.tensor(start, dtype=torch.int32, device=dev)
         if Sq == 1:
             kw = dict(kv_start=start_t, kv_len=pos_t + 1, q_pos=pos_t)
-            valid = [p + 1 - s for p, s in zip(pos, start)]       # keys per row
+            keys = sum(p + 1 - s for p, s in zip(pos, start))  # attended (row, key) pairs
+            real = sum(p >= s for p, s in zip(pos, start))      # rows that attend a key
             qp = pos_t[:, None]
         else:
             kw = dict(kv_start=start_t)
-            valid = [sum(max(0, i + 1 - s) for i in range(Sq)) / Sq for s in start]
+            keys = sum(max(0, i + 1 - s) for i in range(Sq) for s in start)
+            real = sum(max(0, Sq - s) for s in start)
             qp = torch.arange(Sq, device=dev)[None, :].expand(B, Sq)
         call = lambda: posit_flash_attention(POSIT16, q, k, v, True, **kw)
         dev_ms, src = device_kernel_ms(torch, call, ["flash_kernel"])
-        keys = sum(valid) * Sq
-        nbytes = 4 * B * Sq * H * hd * 2 + 2 * 2 * sum(
+        # q of the real rows read, every output row written, the keys read
+        nbytes = 4 * (real + B * Sq) * H * hd + 2 * 2 * sum(
             min(Sk, p + 1) - s if Sq == 1 else Sk - s for p, s in zip(pos, start)) * KV * hd
-        ops_ = 4 * H * keys * hd + div_ops(plan, B * Sq * H * hd)
+        ops_ = 4 * H * keys * hd + div_ops(plan, real * H * hd)
         bms, by = bound_ms(nbytes, ops_)
         # library yardstick: one SDPA call with the same masks, f32 inputs
         kp = torch.arange(Sk, device=dev)
@@ -995,18 +1048,20 @@ def phase_timing(torch, dev):
     rows["K3 decode"] = flash_row(8, 1, 512, [47, 63, 92, 120, 151, 178, 199, 231],
                                   [0, 0, 5, 3, 9, 0, 14, 31])
     rows["K3 prefill"] = flash_row(1, 256, 256, [0], [56])
-    rows.update(layout_rows(torch, dev, plan))
+    rows.update(layout_rows(torch, dev, plan, pack))
     rows.update(training_rows(torch, dev, plan))
     for name, r in rows.items():
-        print(f"timing {name} {r['shape']}: device {r['ms']} ms ({r['ms_from']}), per call "
+        lens = f" segments {r['lens']}" if "lens" in r else ""
+        print(f"timing {name} {r['shape']}{lens}: device {r['ms']} ms ({r['ms_from']}), per call "
               f"{r['call_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library {r['library_ms']}")
     return rows
 
 
-def layout_rows(torch, dev, plan):
+def layout_rows(torch, dev, plan, pack):
     """K4 at the paged decode's shapes (8 slots, max_seq 512 in pages of 16,
-    paged admissions at start 0) and K5 on a pack of 4 prompts of 64."""
+    paged admissions at start 0) and K5 on a pack of the paged phase's most
+    frequent shape, ``pack`` = (N, width, segment lengths), right-padded."""
     import torch.nn.functional as Fn
 
     from repro_torch.core.posit import POSIT16
@@ -1019,15 +1074,16 @@ def layout_rows(torch, dev, plan):
     H, KV, hd, bs = 15, 5, 64, PAGED_BLOCK
     rows = {}
     q, pk, pv, bt = paged_inputs(torch, dev, 8, 512 // bs, bs, H, KV, hd, 8)
-    pos_l = [47, 63, 92, 120, 151, 178, 199, 231]
+    pos_l, start_l = [47, 63, 92, 120, 151, 178, 199, 231], [0] * 8
     pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
-    kw = dict(kv_start=torch.zeros(8, dtype=torch.int32, device=dev), kv_len=pos + 1,
-              q_pos=pos, block_tables=bt)
+    kw = dict(kv_start=torch.tensor(start_l, dtype=torch.int32, device=dev),
+              kv_len=pos + 1, q_pos=pos, block_tables=bt)
     call = lambda: posit_flash_attention(POSIT16, q, pk, pv, True, **kw)
     dev_ms, src = device_kernel_ms(torch, call, ["flash_kernel"])
-    keys = sum(p + 1 for p in pos_l)
-    pages = sum(p // bs + 1 for p in pos_l)               # pages each slot attends
-    nbytes = 2 * 4 * 8 * H * hd + 2 * 2 * pages * bs * KV * hd + 4 * pages + 3 * 4 * 8
+    # the keys each slot attends, and one table entry per page they touch
+    keys = sum(p + 1 - s for p, s in zip(pos_l, start_l))
+    pages = sum(p // bs - s // bs + 1 for p, s in zip(pos_l, start_l))
+    nbytes = 2 * 4 * 8 * H * hd + 2 * 2 * keys * KV * hd + 4 * pages + 3 * 4 * 8
     bms, by = bound_ms(nbytes, 4 * H * keys * hd + div_ops(plan, 8 * H * hd))
     kd, vd = gather_pages(pk, bt), gather_pages(pv, bt)
     kp = torch.arange(kd.shape[1], device=dev)
@@ -1041,15 +1097,16 @@ def layout_rows(torch, dev, plan):
                                                                      **kw), iters=3),
         "bound_ms": bms, "bound_by": by, "library_ms": cuda_time_ms(lib)}
 
-    N, P = 4, 64
-    q, k, v, seg_q, seg, segs = packed_inputs(torch, dev, N, P, 9)
+    N, P, lens = pack
+    q, k, v, seg_q, seg, segs = packed_inputs(torch, dev, lens, P, 9, left=False)
     kw = dict(seg_q=seg_q, seg_kv=seg)
     call = lambda: posit_flash_attention(POSIT16, q, k, v, True, seg_len=P, **kw)
     dev_ms, src = device_kernel_ms(torch, call, ["flash_kernel"])
     pairs = sum(n * (n + 1) // 2 for _, n in segs)        # block-diagonal causal pairs
-    S = N * P
-    nbytes = 2 * 4 * S * H * hd + 2 * 2 * S * KV * hd + 2 * 4 * S
-    bms, by = bound_ms(nbytes, 4 * H * pairs * hd + div_ops(plan, S * H * hd))
+    S, real = N * P, sum(lens)
+    # q and K/V of the real rows read, every output row written, both id rows
+    nbytes = 4 * (real + S) * H * hd + 2 * 2 * real * KV * hd + 2 * 4 * S
+    bms, by = bound_ms(nbytes, 4 * H * pairs * hd + div_ops(plan, real * H * hd))
     ids = torch.arange(S, device=dev)
     mask = ((seg[0][None, :] == seg_q[0][:, None]) & (ids[None, :] <= ids[:, None]))
     mask = mask | (seg_q[0] < 0)[:, None]   # SDPA's fully masked rows are NaN: let pads attend
@@ -1057,7 +1114,7 @@ def layout_rows(torch, dev, plan):
     lib = lambda: Fn.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask[None, None],
                                                   enable_gqa=True)
     rows["K5 packed prefill"] = {
-        "shape": [1, S, S, H, KV, hd], "ms": dev_ms, "ms_from": src,
+        "shape": [1, S, S, H, KV, hd], "lens": lens, "ms": dev_ms, "ms_from": src,
         "call_ms": cuda_time_ms(call),
         "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(POSIT16, q, k, v, True,
                                                                      **kw), iters=3),
@@ -1254,15 +1311,15 @@ def main() -> int:
     div_err = timed("K1+K2", phase_rowwise, torch, dev)
     flash_err = timed("K3", phase_flash, torch, dev)
     paged_err = timed("K4", phase_paged_kernel, torch, dev)
-    packed_err = timed("K5", phase_packed_kernel, torch, dev)
+    packed_err, packs_held = timed("K5", phase_packed_kernel, torch, dev)
     timed("model", phase_model_small, torch, dev)
     train_err = timed("K6-K8", phase_flash_train, torch, dev)
     timed("train", phase_train_small, torch, dev)
     cfg, params = timed("main", full_model, torch, dev)
     path = timed("main", phase_main, torch, dev, cfg, params)
-    paged = timed("paged", phase_paged, torch, dev, cfg, params)
+    paged = timed("paged", phase_paged, torch, dev, cfg, params, packs_held)
     train = timed("training", phase_train_main, torch, dev)
-    rows = timed("timing", phase_timing, torch, dev)
+    rows = timed("timing", phase_timing, torch, dev, paged["pack"])
     timed("timing", decode_breakdown, torch, dev, cfg, params)
     timed("timing", decode_breakdown, torch, dev, cfg, params, paged=True)
     print("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())

@@ -63,6 +63,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <type_traits>
 
 #include "posit_srt.cuh"
 
@@ -330,59 +331,48 @@ int dispatch(int n, int radix, int red, int otf, int scaled, int nonrest, int it
 
 }  // namespace
 
-// q: (B, Sq, H, hd) f32; k, v: (B, Sk, KVH, hd) bf16; out: (B, Sq, H, hd)
-// f32; m_out / l_out: (B*H, Sq) f32, or both null (K3: no residuals);
-// kv_start / kv_len / q_pos: (B,) int32; all contiguous on the device.
+// One launch of the flash forward; layout 0 (dense: K3, or K6 with m_out /
+// l_out), 1 (paged: K4) or 2 (packed: K5).
+// q: (B, Sq, H, hd) f32; out: (B, Sq, H, hd) f32; m_out / l_out: (B*H, Sq)
+// f32, or both null (no residuals; null for K4 and K5); kv_start / kv_len /
+// q_pos: (B,) int32; all contiguous on the device.
+//   * dense and packed: k, v (B, Sk, KVH, hd) bf16;
+//   * paged: k, v are block pools (NB, bs, KVH, hd) bf16 and block_tables
+//     (B, max_blocks) int32 maps logical row r of sequence b to pool row
+//     (block_tables[b, r / bs], r % bs); Sk is ignored, the virtual kv length
+//     is max_blocks * bs;
+//   * packed: seg_q (B, Sq) and seg_kv (B, Sk) int32 segment ids (query pads
+//     -2, key pads -1) and bq query rows per block, chosen by the caller so
+//     that no block straddles two segments; each segment's first key takes
+//     the place of kv_start.  Dense and paged ignore bq (one-row blocks for
+//     decode, Sq == 1, else kBQMax).
 // Returns 0, a cudaError_t, -1 when no compiled posit16 plan matches, -2 for
-// a head_dim above kHdMax or a bad head split.
-extern "C" int posit_flash_attn_fwd(int n, int radix, int red, int otf, int scaled, int nonrest,
-                                    int it, int shift, int gbits, const float* q,
-                                    const void* k, const void* v, float* out, float* m_out,
-                                    float* l_out, const int* kv_start, const int* kv_len,
-                                    const int* q_pos,
-                                    int B, int Sq, int Sk, int H, int KVH, int hd, float scale,
-                                    int causal, int window, int q_offset, float eps,
-                                    void* stream) {
-  const KvIndex ix{nullptr, 0, 0, 0, nullptr, nullptr};
-  return dispatch<kDense>(n, radix, red, otf, scaled, nonrest, it, shift, gbits, q, k, v, out,
-                          m_out, l_out, kv_start, kv_len, q_pos, B, Sq, Sk, H, KVH, hd, scale,
-                          causal, window, q_offset, eps, Sq == 1 ? 1 : kBQMax, ix, stream);
-}
-
-// K4: k, v are block pools (NB, bs, KVH, hd) bf16 and block_tables (B,
-// max_blocks) int32 maps logical row r of sequence b to pool row
-// (block_tables[b, r / bs], r % bs); the virtual kv length is max_blocks * bs.
-// Everything else as posit_flash_attn_fwd (no residuals).
-extern "C" int posit_flash_attn_paged(int n, int radix, int red, int otf, int scaled,
-                                      int nonrest, int it, int shift, int gbits, const float* q,
-                                      const void* k, const void* v, const int* block_tables,
-                                      float* out, const int* kv_start, const int* kv_len,
-                                      const int* q_pos, int B, int Sq, int NB, int bs,
-                                      int max_blocks, int H, int KVH, int hd, float scale,
-                                      int causal, int window, int q_offset, float eps,
-                                      void* stream) {
-  if (NB <= 0 || bs <= 0 || max_blocks <= 0) return -2;
-  const KvIndex ix{block_tables, max_blocks, bs, NB, nullptr, nullptr};
-  return dispatch<kPaged>(n, radix, red, otf, scaled, nonrest, it, shift, gbits, q, k, v, out,
-                          nullptr, nullptr, kv_start, kv_len, q_pos, B, Sq, max_blocks * bs, H,
-                          KVH, hd, scale, causal, window, q_offset, eps,
-                          Sq == 1 ? 1 : kBQMax, ix, stream);
-}
-
-// K5: seg_q (B, Sq) and seg_kv (B, Sk) int32 segment ids (query pads -2, key
-// pads -1); bq query rows per block, chosen by the caller so that no block
-// straddles two segments.  Everything else as posit_flash_attn_fwd (no
-// residuals; kv_start is replaced by each segment's first key).
-extern "C" int posit_flash_attn_packed(int n, int radix, int red, int otf, int scaled,
-                                       int nonrest, int it, int shift, int gbits,
-                                       const float* q, const void* k, const void* v,
-                                       const int* seg_q, const int* seg_kv, float* out,
-                                       const int* kv_start, const int* kv_len,
-                                       const int* q_pos, int B, int Sq, int Sk, int H, int KVH,
-                                       int hd, float scale, int causal, int window,
-                                       int q_offset, float eps, int bq, void* stream) {
-  const KvIndex ix{nullptr, 0, 0, 0, seg_q, seg_kv};
-  return dispatch<kPacked>(n, radix, red, otf, scaled, nonrest, it, shift, gbits, q, k, v, out,
-                           nullptr, nullptr, kv_start, kv_len, q_pos, B, Sq, Sk, H, KVH, hd,
-                           scale, causal, window, q_offset, eps, bq, ix, stream);
+// a head_dim above kHdMax, a bad head split or a bad layout.
+extern "C" int posit_flash_attn(int n, int radix, int red, int otf, int scaled, int nonrest,
+                                int it, int shift, int gbits, int layout, const float* q,
+                                const void* k, const void* v, float* out, float* m_out,
+                                float* l_out, const int* kv_start, const int* kv_len,
+                                const int* q_pos, const int* block_tables, const int* seg_q,
+                                const int* seg_kv, int B, int Sq, int Sk, int H, int KVH,
+                                int hd, int NB, int bs, int max_blocks, float scale,
+                                int causal, int window, int q_offset, float eps, int bq,
+                                void* stream) {
+  const KvIndex ix{block_tables, max_blocks, bs, NB, seg_q, seg_kv};
+  if (layout == kPaged) {
+    if (NB <= 0 || bs <= 0 || max_blocks <= 0) return -2;
+    Sk = max_blocks * bs;
+  }
+  if (layout != kPacked) bq = Sq == 1 ? 1 : kBQMax;
+  auto run = [&](auto tag) {
+    return dispatch<decltype(tag)::value>(n, radix, red, otf, scaled, nonrest, it, shift,
+                                          gbits, q, k, v, out, m_out, l_out, kv_start, kv_len,
+                                          q_pos, B, Sq, Sk, H, KVH, hd, scale, causal, window,
+                                          q_offset, eps, bq, ix, stream);
+  };
+  switch (layout) {
+    case kDense: return run(std::integral_constant<int, kDense>{});
+    case kPaged: return run(std::integral_constant<int, kPaged>{});
+    case kPacked: return run(std::integral_constant<int, kPacked>{});
+    default: return -2;
+  }
 }

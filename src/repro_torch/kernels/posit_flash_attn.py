@@ -249,8 +249,6 @@ def posit_flash_attention_plain(fmt: PositFormat, q, k, v, causal: bool = True,
     return o.transpose(1, 2).contiguous()
 
 
-
-
 def posit_flash_attention_fwd_plain(fmt: PositFormat, q, k, v, causal: bool = True,
                                     window: int = 0, q_offset: int = 0,
                                     scale: float = 0.0,
@@ -269,12 +267,15 @@ def posit_flash_attention_fwd_plain(fmt: PositFormat, q, k, v, causal: bool = Tr
 # ------------------------------------------------------------------ K3 / K6
 
 
+_DENSE, _PAGED, _PACKED = 0, 1, 2   # csrc/posit_flash_attn.cu Layout
+
+
 @functools.lru_cache(maxsize=None)
 def _flash_fn():
-    fn = _build.load("posit_flash_attn").posit_flash_attn_fwd
-    fn.argtypes = (PLAN_ARGTYPES + [ctypes.c_void_p] * 9
-                   + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn = _build.load("posit_flash_attn").posit_flash_attn
+    fn.argtypes = (PLAN_ARGTYPES + [ctypes.c_int] + [ctypes.c_void_p] * 12
+                   + [ctypes.c_int] * 9 + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -295,17 +296,32 @@ def _check_kernel_inputs(plan, q, k, v, hd: int) -> None:
             "(ROADMAP.md)")
 
 
-def _launch_forward(fmt: PositFormat, plan, q, k, v, causal, window, q_offset, scale,
-                    kv_start, kv_len, q_pos, residuals: bool):
-    """One launch of ``csrc/posit_flash_attn.cu``: ``out``, plus ``(m, l)``
-    as (B*H, Sq) when ``residuals`` (K6), else None for both (K3)."""
-    B, Sq, H, hd, Sk, KV = _check_shapes(q, k, v)
+def _launch(fmt: PositFormat, plan, q, k, v, causal, window, q_offset, scale, kv_start,
+            kv_len, q_pos, residuals: bool = False, block_tables=None, seg_q=None,
+            seg_kv=None, bq: int = 0):
+    """One launch of ``csrc/posit_flash_attn.cu``: ``(out, m, l)``, with
+    ``m``, ``l`` (B*H, Sq) when ``residuals`` (K6), else None.  The kv side
+    is dense (K3, K6), a block pool read through ``block_tables`` (K4) or a
+    packed sequence with segment ids ``seg_q``/``seg_kv`` and ``bq`` query
+    rows per block (K5)."""
+    B, Sq, H, hd = q.shape
     _check_kernel_inputs(plan, q, k, v, hd)
     if scale <= 0.0:
         scale = 1.0 / math.sqrt(hd)
     dev = q.device
     qf = q.to(torch.float32).contiguous()
     kc, vc = k.contiguous(), v.contiguous()
+    ids = lambda t: t.to(device=dev, dtype=torch.int32).contiguous()
+    layout, bt, sq, skv, NB, bs, mb = _DENSE, None, None, None, 0, 0, 0
+    if block_tables is not None:
+        layout, bt = _PAGED, ids(block_tables)
+        NB, bs, KV = k.shape[:3]
+        mb = bt.shape[1]
+        Sk = mb * bs
+    else:
+        Sk, KV = k.shape[1:3]
+        if seg_q is not None:
+            layout, sq, skv = _PACKED, ids(seg_q), ids(seg_kv)
     ks = _per_seq(kv_start, B, 0, dev)
     kl = _per_seq(kv_len, B, Sk, dev)
     qp = _per_seq(q_pos, B, 0, dev)
@@ -314,72 +330,16 @@ def _launch_forward(fmt: PositFormat, plan, q, k, v, causal, window, q_offset, s
     if residuals:
         m = torch.empty((B * H, Sq), dtype=torch.float32, device=dev)
         l = torch.empty((B * H, Sq), dtype=torch.float32, device=dev)
+    ptrs = (qf, kc, vc, out, m, l, ks, kl, qp, bt, sq, skv)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _flash_fn()(*plan_args(plan), qf.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                         out.data_ptr(), m.data_ptr() if residuals else None,
-                         l.data_ptr() if residuals else None, ks.data_ptr(),
-                         kl.data_ptr(), qp.data_ptr(), B, Sq, Sk, H, KV, hd,
-                         float(scale), int(bool(causal)), int(window), int(q_offset),
-                         minpos_eps(fmt), stream)
+        rc = _flash_fn()(*plan_args(plan), layout,
+                         *(None if t is None else t.data_ptr() for t in ptrs),
+                         B, Sq, Sk, H, KV, hd, NB, bs, mb, float(scale), int(bool(causal)),
+                         int(window), int(q_offset), minpos_eps(fmt), int(bq), stream)
     if rc != 0:
-        raise RuntimeError(f"posit_flash_attn_fwd launch failed ({rc})")
+        raise RuntimeError(f"posit_flash_attn launch failed ({rc})")
     return out, m, l
-
-
-@functools.lru_cache(maxsize=None)
-def _layout_fns():
-    """The C entry points of K4 (paged) and K5 (packed)."""
-    lib = _build.load("posit_flash_attn")
-    paged, packed = lib.posit_flash_attn_paged, lib.posit_flash_attn_packed
-    paged.argtypes = (PLAN_ARGTYPES + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                      + [ctypes.c_float] + [ctypes.c_int] * 3
-                      + [ctypes.c_float, ctypes.c_void_p])
-    packed.argtypes = (PLAN_ARGTYPES + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] + [ctypes.c_int] * 3
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    paged.restype = packed.restype = ctypes.c_int
-    return paged, packed
-
-
-def _launch_layout(fmt: PositFormat, plan, q, k, v, causal, window, q_offset, scale,
-                   kv_start, kv_len, q_pos, block_tables=None, seg_q=None, seg_kv=None,
-                   bq: int = 0):
-    """One launch of K4 (``block_tables``) or K5 (``seg_q``/``seg_kv``, ``bq``
-    query rows per block): float32 (B, Sq, H, hd)."""
-    B, Sq, H, hd = q.shape
-    _check_kernel_inputs(plan, q, k, v, hd)
-    if scale <= 0.0:
-        scale = 1.0 / math.sqrt(hd)
-    dev = q.device
-    qf = q.to(torch.float32).contiguous()
-    kc, vc = k.contiguous(), v.contiguous()
-    paged_fn, packed_fn = _layout_fns()
-    out = torch.empty((B, Sq, H, hd), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    tail = (float(scale), int(bool(causal)), int(window), int(q_offset), minpos_eps(fmt))
-    if block_tables is not None:
-        NB, bs, KV, _ = k.shape
-        bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
-        Sk = bt.shape[1] * bs
-        ptrs = (qf, kc, vc, bt, out, _per_seq(kv_start, B, 0, dev),
-                _per_seq(kv_len, B, Sk, dev), _per_seq(q_pos, B, 0, dev))
-        with torch.cuda.device(dev):
-            rc = paged_fn(*plan_args(plan), *(t.data_ptr() for t in ptrs), B, Sq, NB, bs,
-                          bt.shape[1], H, KV, hd, *tail, stream)
-    else:
-        _, Sk, KV, _ = k.shape
-        sq = seg_q.to(device=dev, dtype=torch.int32).contiguous()
-        skv = seg_kv.to(device=dev, dtype=torch.int32).contiguous()
-        ptrs = (qf, kc, vc, sq, skv, out, _per_seq(None, B, 0, dev),
-                _per_seq(kv_len, B, Sk, dev), _per_seq(q_pos, B, 0, dev))
-        with torch.cuda.device(dev):
-            rc = packed_fn(*plan_args(plan), *(t.data_ptr() for t in ptrs), B, Sq, Sk, H, KV,
-                           hd, *tail, int(bq), stream)
-    if rc != 0:
-        raise RuntimeError(f"posit_flash_attn_{'paged' if block_tables is not None else 'packed'}"
-                           f" launch failed ({rc})")
-    return out
 
 
 def posit_flash_attention(fmt: PositFormat, q, k, v, causal: bool = True,
@@ -424,19 +384,15 @@ def posit_flash_attention(fmt: PositFormat, q, k, v, causal: bool = True,
                                            q_offset, scale, variant,
                                            kv_start, kv_len, q_pos,
                                            block_tables, seg_q, seg_kv)
+    out, _, _ = _launch(fmt, plan, q, k, v, causal, window, q_offset, scale, kv_start,
+                        kv_len, q_pos, block_tables=block_tables, seg_q=seg_q,
+                        seg_kv=seg_kv, bq=bq)
     if block_tables is not None:
-        out = _launch_layout(fmt, plan, q, k, v, causal, window, q_offset, scale, kv_start,
-                             kv_len, q_pos, block_tables=block_tables)
         posit_flash_attention.paged_launches += 1
-        return out
-    if bq:
-        out = _launch_layout(fmt, plan, q, k, v, causal, window, q_offset, scale, None,
-                             kv_len, q_pos, seg_q=seg_q, seg_kv=seg_kv, bq=bq)
+    elif bq:
         posit_flash_attention.packed_launches += 1
-        return out
-    out, _, _ = _launch_forward(fmt, plan, q, k, v, causal, window, q_offset, scale,
-                                kv_start, kv_len, q_pos, residuals=False)
-    posit_flash_attention.launches += 1
+    else:
+        posit_flash_attention.launches += 1
     return out
 
 
@@ -462,8 +418,8 @@ def posit_flash_attention_fwd(fmt: PositFormat, q, k, v, causal: bool = True,
     if q.device.type == "cpu":
         return posit_flash_attention_fwd_plain(fmt, q, k, v, causal, window, q_offset,
                                                scale, variant)
-    out, m, l = _launch_forward(fmt, plan, q, k, v, causal, window, q_offset, scale,
-                                None, None, None, residuals=True)
+    out, m, l = _launch(fmt, plan, q, k, v, causal, window, q_offset, scale, None, None,
+                        None, residuals=True)
     posit_flash_attention_fwd.launches += 1
     return out, m, l
 

@@ -202,43 +202,57 @@ def test_paged_kernel_is_dense_kernel_on_gathered_cache(dev, variant):
     assert (o[3] == 0).all()
 
 
-def _packed_case(dev, N, P, H=15, KV=5, hd=64, seed=6):
-    """A left-padded pack of N segments of width P: segment 0 a dummy,
-    segment 2 sharing segment 1's first half."""
+def _packed_case(dev, N, P, left=True, H=15, KV=5, hd=64, seed=6):
+    """A pack of N segments of width P, left-padded (the dense layout) or
+    right-padded (the paged layout): segment 0 a dummy when N > 2, the next
+    two of one length, the second repeating the first one's first half."""
     g = torch.Generator().manual_seed(seed)
     S = N * P
     q = torch.randn(1, S, H, hd, generator=g)
     k = torch.randn(1, S, KV, hd, generator=g).to(torch.bfloat16)
     v = torch.randn(1, S, KV, hd, generator=g).to(torch.bfloat16)
-    half = P // 2
-    for t in (q, k, v):
-        t[:, 2 * P:2 * P + half] = t[:, P:P + half]
-    lens = [0] + [P - (3 * i) % P for i in range(1, N)]
-    lens[2] = lens[1]
+    d = int(N > 2)
+    lens = [0] * d + [P - (3 * i) % P for i in range(1, N + 1 - d)]
+    lens[d + 1] = lens[d]
     seg = torch.full((1, S), -1, dtype=torch.int32)
-    for i, n in enumerate(lens):
-        if n:
-            seg[0, (i + 1) * P - n:(i + 1) * P] = i
+    offs = [i * P + (P - n if left else 0) for i, n in enumerate(lens)]
+    for off, n, i in zip(offs, lens, range(N)):
+        seg[0, off:off + n] = i
+    half = lens[d] // 2
+    for t in (q, k, v):
+        t[:, offs[d + 1]:offs[d + 1] + half] = t[:, offs[d]:offs[d] + half]
     seg_q = torch.where(seg < 0, torch.full_like(seg, -2), seg)
-    return [t.to(dev) for t in (q, k, v, seg_q, seg)] + [lens]
+    return [t.to(dev) for t in (q, k, v, seg_q, seg)] + [lens, offs]
 
 
-@pytest.mark.parametrize("N,P", [(4, 64), (8, 8)])
-def test_packed_kernel_segments_are_solo_kernel(dev, N, P):
+# the first two as the dense layout packs them; the rest as the paged
+# serving path packs them (right-padded, from 128 keys up several kv tiles
+# per segment)
+@pytest.mark.parametrize("N,P,left", [
+    pytest.param(4, 64, True, id="4-64"), pytest.param(8, 8, True, id="8-8"),
+    pytest.param(4, 128, True, id="4-128"), pytest.param(4, 128, False, id="4-128-right"),
+    pytest.param(2, 256, False, id="2-256-right"), pytest.param(4, 256, True, id="4-256"),
+    pytest.param(4, 256, False, id="4-256-right"),
+    pytest.param(8, 16, False, id="8-16-right")])
+def test_packed_kernel_segments_are_solo_kernel(dev, N, P, left):
     """K5: each segment's rows are the bits of a solo K3 prefill of it, the
-    dummy segment's rows 0, all within FLASH_TOL of the twin."""
-    q, k, v, seg_q, seg, lens = _packed_case(dev, N, P)
+    dummy segment's and the pads' rows 0, all within FLASH_TOL of the twin."""
+    q, k, v, seg_q, seg, lens, offs = _packed_case(dev, N, P, left)
     kw = dict(seg_q=seg_q, seg_kv=seg, seg_len=P)
     o = posit_flash_attention(POSIT16, q, k, v, True, **kw)
     p = posit_flash_attention_plain(POSIT16, q, k, v, True, seg_q=seg_q, seg_kv=seg)
     assert (o - p).abs().max() <= FLASH_TOL
-    assert (o[:, :P] == 0).all()
-    for i, n in enumerate(lens[1:], 1):
-        sl = slice(i * P, (i + 1) * P)
-        solo = posit_flash_attention(POSIT16, q[:, sl], k[:, sl], v[:, sl], True,
-                                     kv_start=torch.tensor([P - n], dtype=torch.int32,
-                                                           device=dev))
-        assert torch.equal(o[:, sl].view(torch.int32), solo.view(torch.int32))
+    assert (o[0][seg_q[0] < 0] == 0).all()
+    for i, (off, n) in enumerate(zip(offs, lens)):
+        if not n:
+            continue
+        # solo: the left-padded bucket from its first key (a dense admission),
+        # or the unpadded prompt (a paged admission)
+        w = slice(i * P, (i + 1) * P) if left else slice(off, off + n)
+        start = torch.tensor([P - n if left else 0], dtype=torch.int32, device=dev)
+        solo = posit_flash_attention(POSIT16, q[:, w], k[:, w], v[:, w], True, kv_start=start)
+        rows = slice(P - n, P) if left else slice(0, n)
+        assert torch.equal(o[:, off:off + n].view(torch.int32), solo[:, rows].view(torch.int32))
 
 
 def test_layout_counters_are_apart(dev):
@@ -246,7 +260,7 @@ def test_layout_counters_are_apart(dev):
     before = (F.posit_flash_attention.launches, F.posit_flash_attention.paged_launches,
               F.posit_flash_attention.packed_launches)
     posit_flash_attention(POSIT16, q, pk, pv, True, block_tables=bt)
-    qq, k, v, seg_q, seg, _ = _packed_case(dev, 4, 8)
+    qq, k, v, seg_q, seg, _, _ = _packed_case(dev, 4, 8)
     posit_flash_attention(POSIT16, qq, k, v, True, seg_q=seg_q, seg_kv=seg, seg_len=8)
     posit_flash_attention_plain(POSIT16, q, pk, pv, True, block_tables=bt)
     after = (F.posit_flash_attention.launches, F.posit_flash_attention.paged_launches,
