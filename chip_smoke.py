@@ -8,13 +8,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 1. setup    — the card's name and power limit, the kernels' parallel build.
 2. K1 + K2  — the rowwise fused posit divide against its plain twin,
               bit-exact: the RMSNorm rows of decode (8x960), prefill
-              (256x960) and training (2048x960), posit16 srt_r4_cs_of_fr
+              (256x960) and training (2048x960), OLMoE's RMSNorm (8x2048,
+              1x2048) and router-norm rows (8x8, 1x8 over their
+              fixed-order sum), posit16 srt_r4_cs_of_fr
               on 2^20 random pairs plus the special values, posit8
               exhaustive, every one-word (format, variant) sampled.
 3. K3       — flash attention against its plain twin at the main path's
-              shapes (decode B=8, Sk=512; prefill P=128) and for every
-              posit16 plan it is built for: max|diff| within FLASH_TOL,
-              fully masked rows exactly 0.
+              shapes (decode B=8, Sk=512; prefill P=128; OLMoE's decode at
+              head_dim 128, 16/16 heads) and for every posit16 plan it is
+              built for: max|diff| within FLASH_TOL, fully masked rows
+              exactly 0.
    K4       — paged decode attention (B=8, max_seq 512 in pages of 16,
               a shuffled table with shared pages and a parked all-zero
               row, kv_start 0 and above 0; every posit16 plan at B=4): the
@@ -25,9 +28,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               dummies first) and on five left-padded packs, with a shared
               prefix: every segment the same bits as a solo K3 prefill of
               it, within FLASH_TOL of its twin.
-   model    — the smoke config on the card (kernels) against the same
-              weights on the CPU (plain twins, which the CPU tests hold
-              against the reference): logits within LOGIT_ULPS bf16 ulps.
+   K9       — the fused posit softmax against its twin at the router's
+              shapes (8 x 64, 1 x 64), 4096 x 64 and 37 x 1000 (every
+              posit16 plan there), with -1e30, equal-value and NaN rows:
+              bit-identical (the one-lane left-to-right row sum is the
+              twin's order), the NaN row alone NaN.
+   model    — the smoke configs (SmolLM and OLMoE) on the card (kernels)
+              against the same weights on the CPU (plain twins, which the
+              CPU tests hold against the reference): logits within
+              LOGIT_ULPS bf16 ulps.
    K6-K8    — the training forward (K6) and the recompute backward (K7 dq,
               K8 dk/dv) against their twins at the training path's shapes
               (B=8, S=256, 15/5 heads, hd 64) for the default plan and at
@@ -58,11 +67,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               0): finite losses, the last below the first, and per step K6
               2L (forward and recompute), K7 L, K8 L and K2 4L+1 launches.
               One more step is profiled: device busy and idle share.
+   moe      — (after the SmolLM state is released) OLMoE-1B-7B at full
+              width and depth (random weights from a seed) served with
+              batch-axis packed admission (8 slots, max_seq 512): 16 greedy
+              requests, prompts of 16-120 tokens, 16 new tokens each.  Per
+              forward step (each scan step of a prefill, each decode step)
+              L K9, L K3 and 3L+1 K2 launches; requests 0 and 7 the same
+              tokens alone on a solo-admission engine (else the script
+              names the bf16 product that lost a row's bits and fails).
 5. timing   — each kernel, its plain twin and a library yardstick at the
               main paths' shapes (the kernel's device time from
               torch.profiler; per-call times from CUDA events), and one
-              full-width decode step, dense and paged, broken down by
-              kernel class.  A
+              full-width decode step, SmolLM dense and paged and OLMoE
+              dense, broken down by kernel class.  A
               profiler session that shows none of the kernels it traced is
               taken again, twice at most; where none shows them, the device
               time is the CUDA events' and the busy share "not measured".
@@ -84,6 +101,7 @@ change, change, parent) in one call, after any edit to
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import math
 import os
@@ -111,6 +129,7 @@ BWD_TOL = 5e-3
 # reference (bf16 products and posit16 roundings fall at other places)
 LOSS_RTOL = 1e-3
 GRAD_REL_L2 = 2e-2
+MOE_HEADS = (16, 16, 128)   # OLMoE-1B-7B: heads, kv heads, head_dim
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 # 32-bit integer operations of the posit datapath per element (a static
@@ -186,6 +205,7 @@ def max_abs_err(k, p) -> float:
 
 def phase_rowwise(torch, dev):
     from repro_torch.core.posit import POSIT8, POSIT16, posit_to_float
+    from repro_torch.core.quire import fixed_order_rowsum
     from repro_torch.kernels import ops
     from repro_torch.kernels.posit_div import one_word_pairs
 
@@ -209,10 +229,15 @@ def phase_rowwise(torch, dev):
         check(diff == 0, f"K2 {fmt}/{variant}: {diff} elements differ from the twin")
 
     # the main paths' shapes: a decode step's, a prefill's and a training
-    # step's (8 x 256 tokens) RMSNorm rows
-    for R in (8, 256, 2048):
-        compare(POSIT16, "srt_r4_cs_of_fr", torch.randn(R, 960, generator=g),
+    # step's (8 x 256 tokens) RMSNorm rows; OLMoE's RMSNorm rows (d_model
+    # 2048) at 8 slots and one, and its router norm (the top-8 gates over
+    # their fixed-order sum) at 8 slots and one
+    for R, C in ((8, 960), (256, 960), (2048, 960), (8, 2048), (1, 2048)):
+        compare(POSIT16, "srt_r4_cs_of_fr", torch.randn(R, C, generator=g),
                 torch.rand(R, 1, generator=g) + 0.01)
+    for R in (8, 1):
+        gates = torch.rand(R, 8, generator=g) * 0.1
+        compare(POSIT16, "srt_r4_cs_of_fr", gates, fixed_order_rowsum(gates))
     # posit16 default variant: 2^20 random pairs + the special values
     a = wide(1024, 1024)
     b = wide(1024, 1)
@@ -232,7 +257,8 @@ def phase_rowwise(torch, dev):
         b[:len(specials), 0] = specials
         compare(fmt, variant, a, b)
         n_pairs += 1
-    print(f"K2: bit-exact to its twin (posit16 2^20 pairs, posit8 exhaustive, "
+    print(f"K2: bit-exact to its twin (RMSNorm rows of 960 and 2048, router-norm "
+          f"rows of 8, posit16 2^20 pairs, posit8 exhaustive, "
           f"{n_pairs} one-word plans sampled), max|diff| {worst[0]}")
     return worst[0]
 
@@ -285,9 +311,19 @@ def phase_flash(torch, dev):
     q, k, v = flash_inputs(torch, dev, 1, 128, 128, 15, 5, 64, 2)
     o = compare("prefill", q, k, v, kv_start=torch.tensor([40], dtype=torch.int32, device=dev))
     check(bool((o[0, :40] == 0).all()), "K3 prefill: fully masked rows are not 0")
+    # OLMoE's decode: head_dim 128 (the kernel's largest), MHA 16/16 heads,
+    # 8 slots with left-pad starts (every plan at 4 slots)
+    q, k, v = flash_inputs(torch, dev, 8, 1, 512, *MOE_HEADS, 3)
+    o = compare("decode hd128", q, k, v, **kw)
+    check(bool((o[7] == 0).all()), "K3 decode hd128: fully masked row is not 0")
+    kw4 = {n: t[:4] for n, t in kw.items()}
+    for variant in KERNEL_VARIANTS:
+        if variant != "srt_r4_cs_of_fr":
+            compare(f"decode hd128 {variant}", q[:4], k[:4], v[:4], variant, **kw4)
     print(f"K3: within {FLASH_TOL} of its twin for {len(KERNEL_VARIANTS)} posit16 plans: "
           f"decode max|diff|={worst['decode']:.3g}, prefill max|diff|="
-          f"{worst['prefill']:.3g}, all plans {max(worst.values()):.3g}")
+          f"{worst['prefill']:.3g}, decode at hd 128 and 16/16 heads max|diff|="
+          f"{worst['decode hd128']:.3g}, all plans {max(worst.values()):.3g}")
     return max(worst.values())
 
 
@@ -441,14 +477,65 @@ def phase_packed_kernel(torch, dev):
     return worst, {(N, P) for N, P, _ in held}
 
 
-def phase_model_small(torch, dev):
-    """The smoke model on the card against the same weights on the CPU."""
+# K9 at the router's shapes (a decode step's or scan step's 8 rows, one
+# row) and wider: 4096 rows, and a ragged 37 x 1000
+SOFTMAX_SHAPES = ((8, 64), (1, 64), (4096, 64), (37, 1000))
+
+
+def softmax_inputs(torch, dev, R, C, seed):
+    """Router-like logits; from three rows up, row 0 holds -1e30 entries
+    (the xla decode mask's value), row 1 equal values, row 2 a NaN."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(R, C, generator=g) * 2
+    if R >= 3:
+        x[0, ::3] = -1e30
+        x[1] = 0.75
+        x[2, 5] = math.nan
+    return x.to(dev)
+
+
+def phase_softmax(torch, dev):
+    """K9 against its twin at SOFTMAX_SHAPES (every posit16 plan on the
+    ragged shape): bit-identical, since both call CUDA's expf and sum each
+    row left to right (a shuffle or tree sum would move s by an f32 ulp and
+    show here); a NaN row reaches no other row."""
+    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posit_div import KERNEL_VARIANTS
+
+    rows, elements = 0, 0
+    cases = [(R, C, "srt_r4_cs_of_fr") for R, C in SOFTMAX_SHAPES]
+    cases += [(37, 1000, v) for v in KERNEL_VARIANTS if v != "srt_r4_cs_of_fr"]
+    for R, C, variant in cases:
+        name = f"K9 ({R}, {C}) {variant}"
+        x = softmax_inputs(torch, dev, R, C, R + C)
+        o = ops.posit_softmax_fused(POSIT16, x, variant)
+        p = ops.posit_softmax_plain(POSIT16, x, variant)
+        torch.cuda.synchronize()
+        diff = int((bits(o) != bits(p)).sum())
+        check(diff == 0, f"{name}: {diff} elements differ from the twin "
+                         f"(max|diff| {max_abs_err(o, p)})")
+        nan_rows = torch.isnan(o).any(-1)
+        check(bool((nan_rows == (torch.arange(R, device=dev) == 2)).all()) if R >= 3
+              else not bool(nan_rows.any()), f"{name}: NaN rows {nan_rows.nonzero()}")
+        if R >= 3:
+            check(bool((o[1] == o[1, 0]).all()), f"{name}: a row of equal values differs")
+        rows, elements = rows + R, elements + R * C
+    print(f"K9: bit-identical to its twin at {', '.join(map(str, SOFTMAX_SHAPES))} "
+          f"({len(KERNEL_VARIANTS)} posit16 plans on (37, 1000)), with -1e30, equal-value and "
+          f"NaN rows: {rows} rows, {elements} elements; the NaN row reaches no other")
+    return 0.0
+
+
+def phase_model_small(torch, dev, arch="smollm_360m"):
+    """The smoke model on the card against the same weights on the CPU
+    (the moe family's prefill is its scan of decode steps)."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
-    cfg = get_config("smollm_360m", smoke=True, fused=True)
+    cfg = get_config(arch, smoke=True, fused=True)
     cpu = T.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
     gpu = {k: (v.to(dev) if torch.is_tensor(v) else
                [{n: w.to(dev) for n, w in lay.items()} for lay in v])
@@ -475,7 +562,7 @@ def phase_model_small(torch, dev):
         check(bool(torch.isfinite(g).all()) and err <= bound,
               f"smoke model: card vs CPU logits differ by {err} > {bound}")
         worst = max(worst, err / bound)
-    print(f"model: smoke config on the card within {worst:.2f} of the "
+    print(f"model: {arch} smoke config on the card within {worst:.2f} of the "
           f"{LOGIT_ULPS}-ulp bound of the CPU path (prefill + 3 decode steps)")
 
 
@@ -915,6 +1002,136 @@ def phase_train_main(torch, dev):
             "step_s": secs, "peak_bytes": peak, "busy_ms": busy, "traced_ms": traced}
 
 
+MOE_REQUESTS = 16
+MOE_NEW = 16
+
+
+def moe_model(torch, dev):
+    """OLMoE-1B-7B at full width and depth, random bf16 weights from seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("olmoe_1b_7b", fused=True)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in [params["tok"], params["head"]]
+            + [w for lay in params["layers"] for w in lay.values()])
+    print(f"moe: OLMoE-1B-7B ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.n_experts} experts "
+          f"top-{cfg.experts_per_token}, d_ff {cfg.d_ff}, vocab {cfg.vocab}): {n / 1e9:.3f} B "
+          f"random parameters in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return cfg, params
+
+
+def moe_mix(cfg):
+    """The MoE serving mix: MOE_REQUESTS greedy requests, prompts of 16-120
+    tokens, MOE_NEW new tokens each (numpy seed 0)."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 121, MOE_REQUESTS)
+    return [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), max_new=MOE_NEW)
+            for n in lens]
+
+
+def phase_moe(torch, dev, cfg, params):
+    """Full-width OLMoE-1B-7B served from dense slots with batch-axis packed
+    admission: every router through K9, launch counts exact, requests 0 and
+    7 the same tokens alone on a solo-admission engine."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posit_flash_attn import posit_flash_attention
+    from repro_torch.serve import FinishReason, Request, ServeConfig, ServeEngine
+
+    reqs = moe_mix(cfg)
+    lens = np.array([len(r.tokens) for r in reqs])
+    eng = ServeEngine(cfg, params, ServeConfig.from_model(cfg, packed_prefill=True), device=dev)
+    eng.serve([Request(reqs[0].tokens[:8], max_new=2)])   # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (ops.posit_softmax_fused, posit_flash_attention, ops.posit_div_fused_rowwise)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    outs = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k9, k3, k2 = (c.launches for c in counters)
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.last_serve_stats
+    L = cfg.n_layers
+    # one forward per scan step (one prompt position of every row of a
+    # prefill) and per decode step; each computes its logits
+    forwards = st["prefill_forwards"] + st["decode_steps"]
+    for name, got, per in (("K9", k9, L), ("K3", k3, L), ("K2", k2, 3 * L + 1)):
+        check(got == per * forwards, f"moe: {name} launched {got} times, {forwards} forward "
+                                     f"steps imply {per * forwards}")
+    check(st["faults"] == 0 and st["shed"] == 0 and st["packed_packs"] > 0,
+          f"moe: faults, sheds or no pack: {st}")
+    for r in eng.last_results:
+        check(r.finish is FinishReason.MAX_NEW and len(r.tokens) == MOE_NEW,
+              f"moe: request {r.rid} finished {r.finish} with {len(r.tokens)} tokens")
+        check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()),
+              f"moe: request {r.rid}: token out of the vocabulary")
+    n_tok = sum(len(o) for o in outs)
+    print(f"moe: served {len(reqs)} requests (prompts {lens.min()}-{lens.max()} tokens, "
+          f"{MOE_NEW} new each) on {eng.sc.max_batch} slots, batch-axis packed admission: "
+          f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.2f} tokens/s; {forwards} forward "
+          f"steps ({st['prefill_forwards']} scan steps in {st['packed_packs']} packs of "
+          f"{st['packed_segments']} requests with {st['packed_dummies']} dummy rows and "
+          f"{st['admissions'] - st['packed_segments']} solo admissions, "
+          f"{st['decode_steps']} decode steps); launches K9 {k9}, K3 {k3}, K2 {k2} (L, L, "
+          f"3L+1 a forward step); peak device memory {peak / 2**30:.2f} GiB")
+    solo = ServeEngine(cfg, params, ServeConfig.from_model(cfg), device=dev)
+    for i in (0, 7):
+        alone = solo.serve([reqs[i]])[0]
+        if not np.array_equal(alone, outs[i]):
+            moe_difference(torch, dev, cfg, params)
+            fail(f"moe: request {i} alone gave {alone.tolist()}, packed {outs[i].tolist()}")
+    print("moe: requests 0 and 7 alone on a solo-admission engine: the same tokens as packed")
+    return {"K9": k9, "K3": k3, "rowwise": k2, "tokens_per_s": n_tok / wall,
+            "forwards": forwards, "peak_bytes": peak}
+
+
+def moe_difference(torch, dev, cfg, params):
+    """Which of layer 0's bf16 products gives a row other bits at another
+    batch: a pack's scan steps run them at M = N rows, a solo admission at
+    M = 1, a decode step at M = 8."""
+    from repro_torch.models import layers as Lyr
+
+    p = params["layers"][0]
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x = Lyr.rmsnorm(params["tok"][torch.randint(0, cfg.vocab, (8, 1), generator=g).to(dev)],
+                    p["ln1"], cfg)
+    E, F = cfg.n_experts, cfg.d_ff
+    prods = {name: (lambda a, n=name: torch.matmul(a, p[n])) for name in
+             ("wq", "wk", "wv", "router")}
+    prods["head"] = lambda a: torch.matmul(a, params["head"])
+    for name in ("w1", "w3"):
+        prods[name] = (lambda a, n=name: torch.einsum(
+            "becd,edf->becf", a[:, None].expand(-1, E, -1, -1), p[n]))
+    h = torch.randn(8, 1, F, generator=g).to(dev, torch.bfloat16)
+    lost = []
+    for name, f in prods.items():
+        one = f(x[:1])
+        for M in (2, 4, 8):
+            if not torch.equal(f(x[:M])[:1], one):
+                lost.append(f"{name} (M=1 vs {M})")
+                break
+    w2 = lambda a: torch.einsum("becf,efd->becd", a[:, None].expand(-1, E, -1, -1), p["w2"])
+    for M in (2, 4, 8):
+        if not torch.equal(w2(h[:M])[:1], w2(h[:1])):
+            lost.append(f"w2 (M=1 vs {M})")
+            break
+    print(f"moe: products whose row 0 loses its bits when more rows ride along: "
+          f"{', '.join(lost) if lost else 'none'}")
+
+
 # --------------------------------------------------------------- phase 5
 
 
@@ -981,15 +1198,9 @@ def device_kernel_ms(torch, fn, names, iters=20):
 
 
 def phase_timing(torch, dev, pack):
-    import torch.nn.functional as Fn
-
     from repro_torch.core.posit import POSIT16
     from repro_torch.kernels import ops
     from repro_torch.kernels.posit_div import one_word_plan
-    from repro_torch.kernels.posit_flash_attn import (
-        posit_flash_attention,
-        posit_flash_attention_plain,
-    )
 
     plan = one_word_plan(POSIT16, "srt_r4_cs_of_fr")
     g = torch.Generator(device="cpu").manual_seed(5)
@@ -1010,51 +1221,95 @@ def phase_timing(torch, dev, pack):
     rows["K2 decode"] = rowwise_row(8, 960)
     rows["K2 prefill"] = rowwise_row(256, 960)
     rows["K1"] = rowwise_row(1024, 1024)
-
-    def flash_row(B, Sq, Sk, pos, start):
-        H, KV, hd = 15, 5, 64
-        q, k, v = flash_inputs(torch, dev, B, Sq, Sk, H, KV, hd, 7)
-        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
-        start_t = torch.tensor(start, dtype=torch.int32, device=dev)
-        if Sq == 1:
-            kw = dict(kv_start=start_t, kv_len=pos_t + 1, q_pos=pos_t)
-            keys = sum(p + 1 - s for p, s in zip(pos, start))  # attended (row, key) pairs
-            real = sum(p >= s for p, s in zip(pos, start))      # rows that attend a key
-            qp = pos_t[:, None]
-        else:
-            kw = dict(kv_start=start_t)
-            keys = sum(max(0, i + 1 - s) for i in range(Sq) for s in start)
-            real = sum(max(0, Sq - s) for s in start)
-            qp = torch.arange(Sq, device=dev)[None, :].expand(B, Sq)
-        call = lambda: posit_flash_attention(POSIT16, q, k, v, True, **kw)
-        dev_ms, src = device_kernel_ms(torch, call, ["flash_kernel"])
-        # q of the real rows read, every output row written, the keys read
-        nbytes = 4 * (real + B * Sq) * H * hd + 2 * 2 * sum(
-            min(Sk, p + 1) - s if Sq == 1 else Sk - s for p, s in zip(pos, start)) * KV * hd
-        ops_ = 4 * H * keys * hd + div_ops(plan, real * H * hd)
-        bms, by = bound_ms(nbytes, ops_)
-        # library yardstick: one SDPA call with the same masks, f32 inputs
-        kp = torch.arange(Sk, device=dev)
-        mask = (kp[None, None, :] <= qp[:, :, None]) & (kp[None, None, :] >= start_t[:, None, None])
-        qs, ks, vs = (t.float().transpose(1, 2).contiguous() for t in (q, k, v))
-        lib = lambda: Fn.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask[:, None],
-                                                       enable_gqa=True)
-        return {"shape": [B, Sq, Sk, H, KV, hd], "ms": dev_ms, "ms_from": src,
-                "call_ms": cuda_time_ms(call),
-                "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(
-                    POSIT16, q, k, v, True, **kw), iters=3),
-                "bound_ms": bms, "bound_by": by, "library_ms": cuda_time_ms(lib)}
-
-    rows["K3 decode"] = flash_row(8, 1, 512, [47, 63, 92, 120, 151, 178, 199, 231],
+    rows["K3 decode"] = flash_row(torch, dev, plan, 8, 1, 512, DECODE_POS,
                                   [0, 0, 5, 3, 9, 0, 14, 31])
-    rows["K3 prefill"] = flash_row(1, 256, 256, [0], [56])
+    rows["K3 prefill"] = flash_row(torch, dev, plan, 1, 256, 256, [0], [56])
     rows.update(layout_rows(torch, dev, plan, pack))
     rows.update(training_rows(torch, dev, plan))
+    print_rows(rows)
+    return rows
+
+
+DECODE_POS = [47, 63, 92, 120, 151, 178, 199, 231]   # the timed decode slots' positions
+
+
+def print_rows(rows):
     for name, r in rows.items():
         lens = f" segments {r['lens']}" if "lens" in r else ""
         print(f"timing {name} {r['shape']}{lens}: device {r['ms']} ms ({r['ms_from']}), per call "
               f"{r['call_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library {r['library_ms']}")
+
+
+def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64)):
+    """K3's timing row: decode (Sq == 1, one query at ``pos``) or a causal
+    prefill, keys from ``start``, SDPA on the same masks as the yardstick."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels.posit_flash_attn import (
+        posit_flash_attention,
+        posit_flash_attention_plain,
+    )
+
+    H, KV, hd = heads
+    q, k, v = flash_inputs(torch, dev, B, Sq, Sk, H, KV, hd, 7)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    start_t = torch.tensor(start, dtype=torch.int32, device=dev)
+    if Sq == 1:
+        kw = dict(kv_start=start_t, kv_len=pos_t + 1, q_pos=pos_t)
+        keys = sum(p + 1 - s for p, s in zip(pos, start))  # attended (row, key) pairs
+        real = sum(p >= s for p, s in zip(pos, start))      # rows that attend a key
+        qp = pos_t[:, None]
+    else:
+        kw = dict(kv_start=start_t)
+        keys = sum(max(0, i + 1 - s) for i in range(Sq) for s in start)
+        real = sum(max(0, Sq - s) for s in start)
+        qp = torch.arange(Sq, device=dev)[None, :].expand(B, Sq)
+    call = lambda: posit_flash_attention(POSIT16, q, k, v, True, **kw)
+    dev_ms, src = device_kernel_ms(torch, call, ["flash_kernel"])
+    # q of the real rows read, every output row written, the keys read
+    nbytes = 4 * (real + B * Sq) * H * hd + 2 * 2 * sum(
+        min(Sk, p + 1) - s if Sq == 1 else Sk - s for p, s in zip(pos, start)) * KV * hd
+    ops_ = 4 * H * keys * hd + div_ops(plan, real * H * hd)
+    bms, by = bound_ms(nbytes, ops_)
+    # library yardstick: one SDPA call with the same masks, f32 inputs
+    kp = torch.arange(Sk, device=dev)
+    mask = (kp[None, None, :] <= qp[:, :, None]) & (kp[None, None, :] >= start_t[:, None, None])
+    qs, ks, vs = (t.float().transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = lambda: Fn.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask[:, None],
+                                                   enable_gqa=True)
+    return {"shape": [B, Sq, Sk, H, KV, hd], "ms": dev_ms, "ms_from": src,
+            "call_ms": cuda_time_ms(call),
+            "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(
+                POSIT16, q, k, v, True, **kw), iters=3),
+            "bound_ms": bms, "bound_by": by, "library_ms": cuda_time_ms(lib)}
+
+
+def moe_rows(torch, dev):
+    """K9 at the router's shape (8 rows of 64 experts) and at 4096 rows,
+    with torch.softmax as the yardstick; K3 at OLMoE's decode shape."""
+    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posit_div import one_word_plan
+
+    plan = one_word_plan(POSIT16, "srt_r4_cs_of_fr")
+    rows = {}
+    for name, (R, C) in (("K9 router", (8, 64)), ("K9 4096 rows", (4096, 64))):
+        x = (torch.randn(R, C, generator=torch.Generator().manual_seed(17)) * 2).to(dev)
+        call = lambda: ops.posit_softmax_fused(POSIT16, x)
+        dev_ms, src = device_kernel_ms(torch, call, ["softmax_kernel"])
+        # each element read and written once (f32), one division each
+        bms, by = bound_ms(8 * R * C, div_ops(plan, R * C))
+        rows[name] = {"shape": [R, C], "ms": dev_ms, "ms_from": src,
+                      "call_ms": cuda_time_ms(call),
+                      "plain_ms": cuda_time_ms(lambda: ops.posit_softmax_plain(POSIT16, x),
+                                               iters=5),
+                      "bound_ms": bms, "bound_by": by,
+                      "library_ms": cuda_time_ms(lambda: torch.softmax(x, dim=-1))}
+    rows["K3 decode hd128"] = flash_row(torch, dev, plan, 8, 1, 512, DECODE_POS,
+                                        [0, 0, 5, 3, 9, 0, 14, 31], MOE_HEADS)
+    print_rows(rows)
     return rows
 
 
@@ -1178,7 +1433,8 @@ def training_rows(torch, dev, plan):
 def decode_breakdown(torch, dev, cfg, params, paged: bool = False):
     """Profile decode steps of the full model at 8 slots (dense slots, or a
     paged pool in pages of 16 on identity tables): device time by kernel
-    class, wall time, and the device's idle share."""
+    class, wall time, and the device's idle share.  A moe model's steps
+    read every expert (the dispatch buffer is dense over the experts)."""
     import numpy as np
 
     from repro_torch.models import transformer as T
@@ -1190,7 +1446,7 @@ def decode_breakdown(torch, dev, cfg, params, paged: bool = False):
         bt = torch.arange(1, 8 * mb + 1, dtype=torch.int32, device=dev).reshape(8, mb)
     else:
         cache = T.init_cache(cfg, 8, 512, device=dev)
-    pos = torch.tensor([47, 63, 92, 120, 151, 178, 199, 231], dtype=torch.int32, device=dev)
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
     start = torch.zeros(8, dtype=torch.int32, device=dev)
     tok = torch.from_numpy(np.arange(8, dtype=np.int64)[:, None] + 100).to(dev)
     step = lambda: T.decode_step(params, cfg, cache, tok, pos, start, bt, with_health=True)
@@ -1210,9 +1466,11 @@ def decode_breakdown(torch, dev, cfg, params, paged: bool = False):
                 step()
 
         times, wall = profiled(torch, steps, ["flash_kernel", "rowwise_kernel"])
-    by = by_class({k: t / n for k, t in times.items()},
-                  (("K2 rowwise", "rowwise_kernel"),
-                   (("K4 flash, paged" if paged else "K3 flash"), "flash_kernel")))
+    classes = (("K2 rowwise", "rowwise_kernel"),
+               (("K4 flash, paged" if paged else "K3 flash"), "flash_kernel"))
+    if cfg.family == "moe":
+        classes += (("K9 softmax", "softmax_kernel"),)
+    by = by_class({k: t / n for k, t in times.items()}, classes)
     busy = sum(by.values()) if times else None
     # every decode step reads all layer weights and the head once
     weight_bytes = sum(w.numel() * w.element_size() for lay in params["layers"]
@@ -1223,10 +1481,10 @@ def decode_breakdown(torch, dev, cfg, params, paged: bool = False):
     else:
         device = "device busy %.3f ms, idle share %.3f; %s" % (
             busy, 1 - busy / wall_plain, ", ".join(f"{k} {v:.3f} ms" for k, v in by.items()))
-    print("decode step (8 slots, full width, %s): wall %.3f ms (%.3f ms traced), %s; "
+    print("decode step (%s, 8 slots, full width, %s): wall %.3f ms (%.3f ms traced), %s; "
           "weights read %.1f MB, bound %.4f ms" % (
-              "paged" if paged else "dense", wall_plain, wall / n, device, weight_bytes / 1e6,
-              weight_bytes / HBM_BYTES_PER_S * 1e3))
+              cfg.name, "paged" if paged else "dense", wall_plain, wall / n, device,
+              weight_bytes / 1e6, weight_bytes / HBM_BYTES_PER_S * 1e3))
     return {"wall_ms": wall_plain, "busy_ms": busy, **by}
 
 
@@ -1312,7 +1570,9 @@ def main() -> int:
     flash_err = timed("K3", phase_flash, torch, dev)
     paged_err = timed("K4", phase_paged_kernel, torch, dev)
     packed_err, packs_held = timed("K5", phase_packed_kernel, torch, dev)
+    softmax_err = timed("K9", phase_softmax, torch, dev)
     timed("model", phase_model_small, torch, dev)
+    timed("model", phase_model_small, torch, dev, "olmoe_1b_7b")
     train_err = timed("K6-K8", phase_flash_train, torch, dev)
     timed("train", phase_train_small, torch, dev)
     cfg, params = timed("main", full_model, torch, dev)
@@ -1322,6 +1582,14 @@ def main() -> int:
     rows = timed("timing", phase_timing, torch, dev, paged["pack"])
     timed("timing", decode_breakdown, torch, dev, cfg, params)
     timed("timing", decode_breakdown, torch, dev, cfg, params, paged=True)
+    # the SmolLM state goes before OLMoE's 13.8 GB of weights come in
+    del cfg, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg, mparams = timed("moe", moe_model, torch, dev)
+    moe = timed("moe", phase_moe, torch, dev, mcfg, mparams)
+    timed("timing", decode_breakdown, torch, dev, mcfg, mparams)
+    rows.update(timed("timing", moe_rows, torch, dev))
     print("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
           + f"; total {time.perf_counter() - T_START:.1f} s")
 
@@ -1334,17 +1602,18 @@ def main() -> int:
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
-        entry("K1 posit SRT datapath (inlined in K2-K8)",
+        entry("K1 posit SRT datapath (inlined in K2-K9)",
               csrc + "posit_srt.cuh", "src/repro/kernels/posit_div.py:433",
               path["rowwise"] + path["flash"] + paged["rowwise"] + paged["K3"] + paged["K4"]
-              + paged["K5"] + train["rowwise"] + train["K6"] + train["K7"] + train["K8"],
-              div_err, rows["K1"]),
+              + paged["K5"] + train["rowwise"] + train["K6"] + train["K7"] + train["K8"]
+              + moe["rowwise"] + moe["K3"] + moe["K9"], div_err, rows["K1"]),
         entry("K2 rowwise fused posit divide", csrc + "posit_fused_div.cu",
               "src/repro/kernels/posit_fused_div.py:149",
-              path["rowwise"] + paged["rowwise"] + train["rowwise"], div_err, rows["K2 decode"]),
+              path["rowwise"] + paged["rowwise"] + train["rowwise"] + moe["rowwise"], div_err,
+              rows["K2 decode"]),
         entry("K3 posit flash attention, dense", csrc + "posit_flash_attn.cu",
-              "src/repro/kernels/posit_flash_attn.py:330", path["flash"] + paged["K3"],
-              flash_err, rows["K3 decode"]),
+              "src/repro/kernels/posit_flash_attn.py:330", path["flash"] + paged["K3"]
+              + moe["K3"], flash_err, rows["K3 decode"]),
         entry("K4 posit flash attention, paged decode", csrc + "posit_flash_attn.cu",
               "src/repro/kernels/posit_flash_attn.py:330", paged["K4"], paged_err,
               rows["K4 decode"]),
@@ -1360,6 +1629,9 @@ def main() -> int:
         entry("K8 posit flash attention backward, dk and dv", csrc + "posit_flash_bwd.cu",
               "src/repro/kernels/posit_flash_attn.py:626", train["K8"], train_err["K8"],
               rows["K8"]),
+        entry("K9 fused posit softmax (MoE router)", csrc + "posit_softmax.cu",
+              "src/repro/kernels/posit_fused_div.py:210", moe["K9"], softmax_err,
+              rows["K9 router"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,8 +2,8 @@
 
 from importlib import import_module
 
-ARCH_IDS = ("smollm_360m",)
-ALIASES = {"smollm-360m": "smollm_360m"}
+ARCH_IDS = ("smollm_360m", "olmoe_1b_7b")
+ALIASES = {"smollm-360m": "smollm_360m", "olmoe-1b-7b": "olmoe_1b_7b"}
 
 
 def get_config(name: str, smoke: bool = False, fused: bool = True,

@@ -1,13 +1,21 @@
-"""The rowwise fused posit divide (K2) and its dispatch rule.
+"""The rowwise fused posit divide (K2), the fused posit softmax (K9) and
+the rowwise dispatch rule.
 
-Port of the rowwise entry of the reference package's ``kernels/ops.py``:
-``a[..., C] / b[..., 1]`` where ``b`` broadcasts into ``a`` with a size-1
-(or absent) last axis — the RMSNorm reciprocal and every per-row
-normalizer.  The divisor stays an O(rows) column end to end.
+Port of the rowwise and softmax entries of the reference package's
+``kernels/ops.py``:
 
-For a CUDA tensor :func:`posit_div_fused_rowwise` launches the hand-written
-kernel ``csrc/posit_fused_div.cu`` (or raises); for a CPU tensor it runs the
-plain twin :func:`posit_div_rowwise_plain`, which is bit-identical.
+* ``a[..., C] / b[..., 1]`` where ``b`` broadcasts into ``a`` with a size-1
+  (or absent) last axis — the RMSNorm reciprocal and every per-row
+  normalizer.  The divisor stays an O(rows) column end to end.
+* the softmax over the last axis with a posit-divided normalizer: row max,
+  ``exp``, fixed-order row sum and the SRT divide in one launch — the MoE
+  router's probabilities.
+
+For a CUDA tensor :func:`posit_div_fused_rowwise` and
+:func:`posit_softmax_fused` launch the hand-written kernels
+``csrc/posit_fused_div.cu`` and ``csrc/posit_softmax.cu`` (or raise); for a
+CPU tensor they run the plain twins :func:`posit_div_rowwise_plain` and
+:func:`posit_softmax_plain`.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.posit import PositFormat
+from repro_torch.core.quire import fixed_order_rowsum
 from . import _build
 from .posit_div import (
     DEFAULT_KERNEL_VARIANT,
@@ -134,3 +143,72 @@ def posit_div_fused_rowwise(fmt: PositFormat, a, b,
 
 
 posit_div_fused_rowwise.launches = 0
+
+
+# --------------------------------------------------------------------- K9
+
+
+def posit_softmax_plain(fmt: PositFormat, x, variant: str = DEFAULT_DIV_VARIANT):
+    """The plain PyTorch twin of K9 (any device): float32 out.
+
+    ``m = max(x)`` over the row (NaN if any entry is), ``e = exp(x - m)``,
+    ``s`` the fixed-order row sum of ``e``, then ``e / s`` through the SRT
+    datapath twin, as the reference's ``_softmax_kernel``."""
+    one_word_plan(fmt, variant)
+    shape = tuple(x.shape)
+    x2 = x.to(torch.float32).reshape(-1, shape[-1])
+    e = torch.exp(x2 - torch.amax(x2, dim=-1, keepdim=True))
+    return divide_floats_block(fmt, e, fixed_order_rowsum(e), variant).reshape(shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _softmax_fn():
+    lib = _build.load("posit_softmax")
+    fn = lib.posit_softmax
+    fn.argtypes = PLAN_ARGTYPES + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.posit_softmax_max_cols.restype = ctypes.c_int
+    return fn, lib.posit_softmax_max_cols()
+
+
+def _launch_softmax(plan: DatapathPlan, x2: torch.Tensor):
+    R, C = x2.shape
+    if plan.n != 16:
+        raise NotImplementedError(f"the softmax kernel is built for posit16 plans only, "
+                                  f"not posit{plan.n} (ROADMAP.md)")
+    fn, max_cols = _softmax_fn()
+    if C > max_cols or R * C >= 2 ** 31:
+        raise ValueError(f"softmax kernel takes rows of at most {max_cols} columns and "
+                         f"R*C < 2^31; got ({R}, {C})")
+    out = torch.empty_like(x2)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    with torch.cuda.device(x2.device):
+        rc = fn(*plan_args(plan), x2.data_ptr(), out.data_ptr(), R, C, stream)
+    if rc != 0:
+        raise RuntimeError(f"posit_softmax launch failed ({rc})")
+    return out
+
+
+def posit_softmax_fused(fmt: PositFormat, x, variant: str = DEFAULT_DIV_VARIANT):
+    """Posit softmax over the last axis of ``x``, float32 out.
+
+    CUDA tensors launch the hand-written kernel (counted in
+    ``posit_softmax_fused.launches``; posit16 plans only); CPU tensors run
+    the plain twin.  Bit-identical to the reference's
+    ``ops.posit_softmax_fused`` wherever the two ``exp`` give the same bits.
+    """
+    plan = one_word_plan(fmt, variant)
+    if x.ndim == 0:
+        raise ValueError("softmax needs at least one axis")
+    if x.device.type == "cuda":
+        shape = tuple(x.shape)
+        out = _launch_softmax(plan, x.to(torch.float32).reshape(-1, shape[-1]).contiguous())
+        posit_softmax_fused.launches += 1
+        return out.reshape(shape)
+    if x.device.type == "cpu":
+        return posit_softmax_plain(fmt, x, variant)
+    raise ValueError(f"no posit softmax for device {x.device}")
+
+
+posit_softmax_fused.launches = 0

@@ -1,13 +1,14 @@
-"""Model configuration: the dense-family fields the serving and training
-paths read.
+"""Model configuration: the dense- and moe-family fields the serving and
+training paths read.
 
 Port of the reference package's ``models/config.py``, cut to what the
-dense fused-posit paths read: attention always runs on the posit flash
-kernel (the reference's ``attn_backend="fused"``) and the divisions on the
-fused SRT kernels, and its backward is always the recompute flash backward
-(the reference's ``attn_bwd="fused"``).  Other families (moe, ssm, hybrid,
-encdec, vlm), tensor parallelism and ``remat="dots"`` come with later
-slices (``ROADMAP.md``).
+fused-posit paths read: attention always runs on the posit flash kernel
+(the reference's ``attn_backend="fused"``) and the divisions on the fused
+SRT kernels, and its backward is always the recompute flash backward (the
+reference's ``attn_bwd="fused"``).  The moe family serves (dense KV slots);
+its training and paged serving, the other families (ssm, hybrid, encdec,
+vlm), tensor parallelism and ``remat="dots"`` come with later slices
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,9 @@ from typing import Optional
 from repro_torch.numerics.formats import NumericsConfig
 
 
+FAMILIES = ("dense", "moe")
+
+
 def _pad_to(v: int, m: int) -> int:
     return -(-v // m) * m
 
@@ -25,7 +29,7 @@ def _pad_to(v: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                 # only "dense" is ported
+    family: str                 # "dense" | "moe"
     n_layers: int
     d_model: int
     n_heads: int
@@ -34,6 +38,10 @@ class ModelConfig:
     vocab: int
 
     head_dim: Optional[int] = None
+    # --- MoE ---
+    n_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
     rope_theta: float = 500000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -47,6 +55,12 @@ class ModelConfig:
         if self.head_dim is None and self.n_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         self.numerics.validate()
+        if self.family not in FAMILIES:
+            raise NotImplementedError(f"family {self.family!r} is not ported; have "
+                                      f"{FAMILIES} (ROADMAP.md)")
+        if self.family == "moe" and not 0 < self.experts_per_token <= self.n_experts:
+            raise ValueError(f"moe needs 0 < experts_per_token <= n_experts; got "
+                             f"{self.experts_per_token} of {self.n_experts}")
         if self.remat == "dots":
             raise NotImplementedError("remat='dots' is not ported (ROADMAP.md)")
         if self.remat not in ("full", "none"):

@@ -1,7 +1,8 @@
-"""Dense layers of the serving and training paths: RMSNorm, RoPE, GQA
-attention, MLP.
+"""Layers of the serving and training paths: RMSNorm, RoPE, GQA attention,
+MLP, and the MoE block of the moe family (serving).
 
-Port of the dense pieces of the reference package's ``models/layers.py``.
+Port of the dense and MoE pieces of the reference package's
+``models/layers.py``.
 Compute dtype is bf16 (``COMPUTE_DTYPE``); the projections, the MLP and the
 logits are plain bf16 ``torch.matmul`` products, as the reference leaves
 its einsums to XLA.  Every weight is cast to the activations' dtype at its
@@ -11,8 +12,10 @@ cuBLAS reduces the bf16 products in f32: the entry points turn its
 reduced-precision bf16 reductions off when they resolve a CUDA device
 (``transformer.resolve_device``).
 
-The divisions (RMSNorm's ``x / rms`` and attention's ``o / l``) run on the
-posit SRT kernels, and attention on the posit flash kernels: K3 when serving
+The divisions (RMSNorm's ``x / rms``, attention's ``o / l``, the MoE
+router's softmax and its top-k renormalization) run on the posit SRT
+kernels (K2, and K9 for the router softmax), and attention on the posit
+flash kernels: K3 when serving
 from a dense cache (and for a prefix-sharing suffix prefill), K4 when
 decoding from a paged block pool, K5 for a packed multi-prompt prefill, and
 through :func:`posit_flash_attention_ste` (K6 forward, K7/K8 backward) in
@@ -27,6 +30,8 @@ step).
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as Fn
 
@@ -34,7 +39,11 @@ from repro_torch.kernels.posit_flash_attn import (
     posit_flash_attention,
     posit_flash_attention_ste,
 )
-from repro_torch.numerics.posit_ops import posit_rmsnorm_div
+from repro_torch.numerics.posit_ops import (
+    posit_rmsnorm_div,
+    posit_router_norm,
+    posit_softmax,
+)
 from .config import ModelConfig
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -198,6 +207,72 @@ def mlp_block(p, x):
     h = torch.matmul(x, p["w1"].to(dt))
     g = torch.matmul(x, p["w3"].to(dt))
     return torch.matmul(Fn.silu(h) * g, p["w2"].to(dt))
+
+
+def _softmax(x, cfg: ModelConfig, axis: int = -1):
+    return posit_softmax(x, cfg.numerics, axis=axis)
+
+
+def top_k(x, k: int):
+    """``(values, indices)`` of the ``k`` largest entries along the last axis,
+    with ``jax.lax.top_k``'s tie rule: among equal values the lower index
+    comes first (``torch.topk`` does not promise an order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def router_gates(logits, cfg: ModelConfig):
+    """``(gate, eid)`` of f32 router logits (..., E): the posit softmax (K9),
+    top-k with lax's tie rule, the posit router norm (K2)."""
+    gate, eid = top_k(_softmax(logits, cfg), cfg.experts_per_token)
+    return posit_router_norm(gate, cfg.numerics), eid
+
+
+def moe_route(p, x, cfg: ModelConfig):
+    """The router of :func:`moe_block`: ``(gate, eid, keep, dest, C)``.
+
+    Router logits in the activations' dtype cast to f32, then
+    :func:`router_gates`.  Capacity ``C = ceil(S * k / E *
+    capacity_factor)`` per batch row; each (token, choice) ranks within its
+    expert in token-major order, is kept when its rank is below ``C`` and
+    goes to row ``eid * C + rank`` of the dispatch buffer, a dropped one to
+    the sink row ``E * C``."""
+    B, S, _ = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    C = max(int(math.ceil(S * k / E * cfg.capacity_factor)), 1)
+    logits = torch.matmul(x, p["router"].to(x.dtype)).to(torch.float32)
+    gate, eid = router_gates(logits, cfg)                       # (B, S, k)
+    onehot = Fn.one_hot(eid, E)                                 # (B, S, k, E)
+    flat = onehot.reshape(B, S * k, E)
+    rank = ((torch.cumsum(flat, dim=1) - flat).reshape(B, S, k, E) * onehot).sum(-1)
+    keep = rank < C
+    dest = torch.where(keep, eid * C + rank, E * C)
+    return gate, eid, keep, dest, C
+
+
+def moe_block(p, x, cfg: ModelConfig):
+    """Top-k MoE with capacity-bounded dispatch per batch row, as the
+    reference's ``moe_block``: tokens go to a (B, E * C + 1, D) buffer (a
+    kept row receives exactly one token, so a plain indexed write is exact;
+    the sink row is discarded), the experts run as three batched bf16
+    products over (E, B * C) rows, and each token gathers its k outputs back,
+    weighted by its gate, in a bf16 sum over k."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    dt = x.dtype
+    gate, _, keep, dest, C = moe_route(p, x, cfg)
+    bidx = torch.arange(B, device=x.device)[:, None]
+    dflat = dest.reshape(B, S * k)
+    buf = torch.zeros((B, E * C + 1, D), dtype=dt, device=x.device)
+    buf[bidx, dflat] = x[:, :, None, :].expand(B, S, k, D).reshape(B, S * k, D)
+    xe = buf[:, :E * C].reshape(B, E, C, D)
+    h = torch.einsum("becd,edf->becf", xe, p["w1"].to(dt))
+    g = torch.einsum("becd,edf->becf", xe, p["w3"].to(dt))
+    ye = torch.einsum("becf,efd->becd", Fn.silu(h) * g, p["w2"].to(dt))
+    yflat = torch.cat([ye.reshape(B, E * C, D), torch.zeros((B, 1, D), dtype=dt,
+                                                              device=x.device)], dim=1)
+    ytok = yflat[bidx, dflat].reshape(B, S, k, D)
+    return (ytok * gate[..., None].to(dt) * keep[..., None]).sum(2)
 
 
 def embed(tok, tokens):

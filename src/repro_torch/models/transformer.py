@@ -1,7 +1,11 @@
-"""Dense decoder LM: parameters, training loss, KV cache, prefill, decode.
+"""Decoder LMs, dense and MoE: parameters, training loss, KV cache,
+prefill, decode.
 
-Port of the dense-family entry points of the reference package's
-``models/transformer.py``:
+Port of the dense- and moe-family entry points of the reference package's
+``models/transformer.py``.  The dense family serves (dense slots or a paged
+pool, solo or packed prefill) and trains; the moe family serves from dense
+slots (training, the paged cache and ``prefill_packed`` raise; the moe
+family packs on the batch axis instead):
 
   init_params(cfg, generator, device, dtype)  -> params (random, from a seed)
   params_from_numpy(tree, cfg, device, dtype) -> params from the reference's
@@ -12,11 +16,13 @@ Port of the dense-family entry points of the reference package's
   init_paged_cache(cfg, num_blocks, block_size, device)
                                            -> {"k", "v"}: (L, NB, bs, KV, hd)
   prefill(params, cfg, tokens, cache, start, t0) -> (logits, cache)
+      (moe: one decode_step per prompt position, the reference's scan)
   prefill_packed(params, cfg, tokens, cache, positions, seg_ids, last_idx,
                  seg_len)                  -> ((N, 1, V) logits, cache)
   decode_step(params, cfg, cache, token, pos, start, block_tables,
               with_health)
   write_cache_slot(cfg, cache, mini, slot) -> cache
+  write_cache_slots(cfg, cache, mini, slots) -> cache
   write_cache_slot_segments(cfg, cache, mini, slots, seg_len)
   write_cache_blocks(cfg, cache, mini, block_ids, first_block)
   mini_cache_with_prefix(cfg, cache, block_ids, rows)
@@ -27,7 +33,9 @@ Port of the dense-family entry points of the reference package's
 Parameters are a dict: ``tok`` (padded_vocab, D), ``head`` (D,
 padded_vocab), ``ln_f`` (D,) f32, and ``layers``, a list of per-layer dicts
 of matrices (``wq`` (D, H*hd), ``wk``/``wv`` (D, KV*hd), ``wo`` (H*hd, D),
-``w1``/``w3`` (D, d_ff), ``w2`` (d_ff, D)) and f32 ``ln1``/``ln2``.  The
+``w1``/``w3`` (D, d_ff), ``w2`` (d_ff, D)) and f32 ``ln1``/``ln2``; a moe
+layer holds ``router`` (D, E), ``w1``/``w3`` (E, D, d_ff) and ``w2`` (E,
+d_ff, D) in place of the MLP's matrices.  The
 matrices are bf16 for serving (the default ``dtype``) and f32 masters for
 training; layers cast them to the compute dtype at use.  The cache is
 updated in place and also returned.
@@ -72,9 +80,10 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _require_dense(cfg: ModelConfig) -> None:
+def _require(cfg: ModelConfig, what: str) -> None:
+    """Raise for an entry point ported for the dense family only."""
     if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported "
+        raise NotImplementedError(f"{what} is not ported for family {cfg.family!r} "
                                   "(ROADMAP.md)")
 
 
@@ -82,22 +91,29 @@ def _tensor(w, device, dtype):
     return torch.from_numpy(np.array(w)).to(device=device, dtype=dtype)
 
 
-def _layer_from(ln1, ln2, wq, wk, wv, wo, w1, w3, w2, device, dtype):
-    mat = lambda w: _tensor(w, device, dtype)
-    f32 = lambda w: _tensor(w, device, torch.float32)
-    D = wq.shape[0]
-    return {"ln1": f32(ln1), "ln2": f32(ln2),
-            "wq": mat(wq.reshape(D, -1)), "wk": mat(wk.reshape(D, -1)),
-            "wv": mat(wv.reshape(D, -1)), "wo": mat(wo.reshape(-1, D)),
-            "w1": mat(w1), "w3": mat(w3), "w2": mat(w2)}
+def _layer_from(blk, i: int, device, dtype):
+    """Layer ``i`` of the reference's stacked ``blocks`` pytree."""
+    mat = lambda w: _tensor(w[i], device, dtype)
+    f32 = lambda w: _tensor(w[i], device, torch.float32)
+    attn = blk["attn"]
+    D = attn["wq"].shape[1]
+    ffn = blk["moe"] if "moe" in blk else blk["mlp"]
+    lay = {"ln1": f32(blk["ln1"]), "ln2": f32(blk["ln2"]),
+           "wq": mat(attn["wq"]).reshape(D, -1), "wk": mat(attn["wk"]).reshape(D, -1),
+           "wv": mat(attn["wv"]).reshape(D, -1), "wo": mat(attn["wo"]).reshape(-1, D)}
+    lay.update({name: mat(w) for name, w in ffn.items()})
+    return lay
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda", dtype=L.COMPUTE_DTYPE) -> Params:
     """Random parameters with the reference's init scales, drawn from
     ``generator`` (on its own device) and stored on ``device``: matrices
-    in ``dtype`` (bf16 to serve, f32 to train), norms in f32."""
-    _require_dense(cfg)
+    in ``dtype`` (bf16 to serve, f32 to train), norms in f32.
+
+    The reference's rule ``1/sqrt(shape[0])`` holds for every matrix but the
+    embedding, ``wo`` and the router, so the expert weights (E, ., .) are
+    drawn at ``1/sqrt(E)``, as the reference's ``init_moe`` draws them."""
     device = resolve_device(device)
     D, H, KV, hd, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     gdev = generator.device
@@ -108,15 +124,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     mat = lambda w: w.to(device=device, dtype=dtype)
     zeros = lambda: torch.zeros(D, dtype=torch.float32, device=device)
+    E = cfg.n_experts
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
+        lay = {
             "ln1": zeros(), "ln2": zeros(),
             "wq": mat(rnd((D, H * hd))), "wk": mat(rnd((D, KV * hd))),
             "wv": mat(rnd((D, KV * hd))),
             "wo": mat(rnd((H * hd, D), scale=1.0 / math.sqrt(H * hd))),
-            "w1": mat(rnd((D, F))), "w3": mat(rnd((D, F))), "w2": mat(rnd((F, D))),
-        })
+        }
+        if cfg.family == "moe":
+            lay.update(router=mat(rnd((D, E), scale=0.02)), w1=mat(rnd((E, D, F))),
+                       w3=mat(rnd((E, D, F))), w2=mat(rnd((E, F, D))))
+        else:
+            lay.update(w1=mat(rnd((D, F))), w3=mat(rnd((D, F))), w2=mat(rnd((F, D))))
+        layers.append(lay)
     return {"tok": mat(rnd((cfg.padded_vocab, D), scale=0.02)),
             "head": mat(rnd((D, cfg.padded_vocab))),
             "ln_f": zeros(), "layers": layers}
@@ -127,15 +149,8 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
     """Port's parameters from the reference's ``T.init_params`` pytree, given
     as numpy arrays (``jax.tree.map(np.asarray, params)``); matrices in
     ``dtype``."""
-    _require_dense(cfg)
     device = resolve_device(device)
-    blk = tree["blocks"]
-    layers = [_layer_from(blk["ln1"][i], blk["ln2"][i],
-                          blk["attn"]["wq"][i], blk["attn"]["wk"][i],
-                          blk["attn"]["wv"][i], blk["attn"]["wo"][i],
-                          blk["mlp"]["w1"][i], blk["mlp"]["w3"][i],
-                          blk["mlp"]["w2"][i], device, dtype)
-              for i in range(cfg.n_layers)]
+    layers = [_layer_from(tree["blocks"], i, device, dtype) for i in range(cfg.n_layers)]
     emb = tree["embed"]
     return {"tok": _tensor(emb["tok"], device, dtype),
             "head": _tensor(emb["head"], device, dtype),
@@ -157,7 +172,7 @@ def forward(params: Params, cfg: ModelConfig, batch):
     after the forward and recomputed in the backward, the reference's
     ``jax.checkpoint`` per block.
     """
-    _require_dense(cfg)
+    _require(cfg, "training (forward)")
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = L.embed(params["tok"], tokens)
@@ -196,7 +211,6 @@ def train_loss(params: Params, cfg: ModelConfig, batch):
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cuda",
                dtype=torch.bfloat16):
     """Decode cache of ``batch`` persistent slots of ``seq_len`` rows."""
-    _require_dense(cfg)
     device = resolve_device(device)
     shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -207,7 +221,7 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device=
                      dtype=torch.bfloat16):
     """Paged decode cache: per layer one block pool of ``num_blocks`` pages
     of ``block_size`` rows shared by every slot, stacked over layers."""
-    _require_dense(cfg)
+    _require(cfg, "the paged cache")
     device = resolve_device(device)
     shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -268,6 +282,18 @@ def mini_cache_with_prefix(cfg: ModelConfig, cache, block_ids, rows: int):
     return out
 
 
+def write_cache_slots(cfg: ModelConfig, cache, mini, slots):
+    """Copy batch row ``i`` of an N-row ``mini`` cache (L, N, S, KV, hd) into
+    slot ``slots[i]`` (the moe family's batch-axis packed admission; rows
+    span the whole slot, so nothing of a previous occupant survives).
+    Writes go in pack order, so a later row wins a shared slot (the engine
+    points dummy rows at a real row's slot, first)."""
+    for i, slot in enumerate(slots):
+        for name in ("k", "v"):
+            cache[name][:, slot] = mini[name][:, i]
+    return cache
+
+
 def scatter_dense_to_pool(cfg: ModelConfig, cache, dense, block_tables):
     """Lay a dense (L, B, S, KV, hd) cache out blockwise into the pools
     through ``block_tables`` (B, S // block_size): static-batch paged decode
@@ -314,7 +340,14 @@ def prefill(params: Params, cfg: ModelConfig, tokens, cache, start=None, t0: int
     shared prefix whose K/V already fill cache rows ``[0, t0)``
     (:func:`mini_cache_with_prefix`); the suffix's logits are those of the
     full prefill.  Returns ``(logits at the last position, cache)``.
+
+    The moe family runs one :func:`decode_step` per position instead, as the
+    reference scans: its expert capacity ``ceil(S * k / E * cf)`` depends on
+    the number of tokens a forward sees, so one token per forward keeps a
+    prompt's routing the same alone, batched or left-padded.
     """
+    if cfg.family != "dense":
+        return _prefill_scan(params, cfg, tokens, cache, start, t0)
     B, S = tokens.shape
     positions = torch.arange(t0, S, dtype=torch.int32, device=tokens.device).expand(B, S - t0)
     if start is not None:
@@ -330,6 +363,20 @@ def prefill(params: Params, cfg: ModelConfig, tokens, cache, start=None, t0: int
     return L.logits(params["head"], x), cache
 
 
+def _prefill_scan(params: Params, cfg: ModelConfig, tokens, cache, start, t0: int):
+    """Prefill as ``S - t0`` decode steps, one position each (all rows at
+    position ``i``, pads masked by ``start``); the last step's logits."""
+    B, S = tokens.shape
+    if S <= t0:
+        raise ValueError(f"nothing to prefill: t0={t0} >= {S} tokens")
+    pos = torch.arange(t0, S, dtype=torch.int32, device=tokens.device)
+    pos = pos[:, None].expand(S - t0, B).contiguous()
+    lg = None
+    for i in range(t0, S):
+        lg, cache = decode_step(params, cfg, cache, tokens[:, i:i + 1], pos[i - t0], start)
+    return lg, cache
+
+
 def prefill_packed(params: Params, cfg: ModelConfig, tokens, cache, positions, seg_ids,
                    last_idx, seg_len: int):
     """Packed admission prefill: N prompts concatenated into one (1, N *
@@ -342,6 +389,7 @@ def prefill_packed(params: Params, cfg: ModelConfig, tokens, cache, positions, s
     batch=1 ``cache`` (L, 1, N * seg_len, KV, hd), are those of a solo
     prefill of width ``seg_len``.  ``last_idx`` (N,) names each segment's
     last real position; returns ``((N, 1, V) logits, cache)``."""
+    _require(cfg, "prefill_packed (the moe family packs on the batch axis)")
     seg_q = torch.where(seg_ids < 0, torch.full_like(seg_ids, -2), seg_ids)
     x = L.embed(params["tok"], tokens)
     for i, p in enumerate(params["layers"]):
@@ -367,6 +415,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token, pos,
     Returns ``(logits, cache)``, plus the (B,) :func:`logits_health` probe
     when ``with_health``.
     """
+    if block_tables is not None:
+        _require(cfg, "paged decode")
     x = L.embed(params["tok"], token)
     for i, p in enumerate(params["layers"]):
         a = L.rmsnorm(x, p["ln1"], cfg)
@@ -377,7 +427,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token, pos,
                                          pos, cfg, start)
         x = x + o
         a = L.rmsnorm(x, p["ln2"], cfg)
-        x = x + L.mlp_block(p, a)
+        x = x + (L.moe_block(p, a, cfg) if cfg.family == "moe" else L.mlp_block(p, a))
     x = L.rmsnorm(x, params["ln_f"], cfg)
     lg = L.logits(params["head"], x)
     if with_health:

@@ -1,19 +1,26 @@
 """Model ops whose divisions run through the digit-recurrence divider.
 
 Port of the reference package's ``numerics/posit_ops.py`` for the rowwise
-division: values are quantized to the configured posit format, divided with
-the configured Table IV variant and dequantized, in one launch of the
-rowwise kernel (K2).  Gradients flow straight through the quantization (the
-posit division is a fake-quant of the true one), as the reference's
+division and the softmax: values are quantized to the configured posit
+format, divided with the configured Table IV variant and dequantized, in one
+launch of the rowwise kernel (K2) or of the fused softmax kernel (K9).
+Gradients of the division flow straight through the quantization (the posit
+division is a fake-quant of the true one), as the reference's
 ``_posit_div_rowwise_ste`` custom_vjp: ``ga = g / b`` and ``gb = sum(-g *
-out / b)`` over the row, in plain torch.
+out / b)`` over the row, in plain torch.  The softmax serves only (its
+straight-through backward comes with MoE training, ``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ops import posit_div_fused_rowwise, rowwise_applicable
+from repro_torch.core.quire import fixed_order_rowsum
+from repro_torch.kernels.ops import (
+    posit_div_fused_rowwise,
+    posit_softmax_fused,
+    rowwise_applicable,
+)
 from .formats import NumericsConfig
 
 
@@ -54,3 +61,25 @@ def posit_rmsnorm_div(x, rms, cfg: NumericsConfig):
     """``x / rms`` via the posit divider (rms broadcast along the last axis):
     the per-row rms is quantized/decoded once per row."""
     return posit_div_values(x, rms, cfg)
+
+
+def posit_softmax(x, cfg: NumericsConfig, axis: int = -1):
+    """Numerically stable softmax along ``axis`` with a posit-divided
+    normalizer: one launch of K9 (row max, exp, fixed-order row sum and the
+    SRT divide), float32 out.  No gradient: ``x`` must not require one."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError("the posit softmax has no backward yet: its "
+                                  "straight-through gradient comes with MoE training "
+                                  "(ROADMAP.md)")
+    ax = axis % x.ndim
+    if ax != x.ndim - 1:
+        out = posit_softmax_fused(cfg.div_fmt, torch.movedim(x, ax, -1), cfg.div_algo)
+        return torch.movedim(out, -1, ax)
+    return posit_softmax_fused(cfg.div_fmt, x, cfg.div_algo)
+
+
+def posit_router_norm(weights, cfg: NumericsConfig, axis: int = -1):
+    """Normalize MoE router weights to sum to 1 with posit division: the
+    fixed-order row sum (batch-composition invariant, as the softmax's) is
+    the divisor of a rowwise posit division (K2)."""
+    return posit_div_values(weights, fixed_order_rowsum(weights, axis=axis), cfg)

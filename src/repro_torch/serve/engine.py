@@ -55,9 +55,15 @@ generator of their own (seeded from ``ServeConfig.seed`` and the request's
 key id), once per token, so their stream does not depend on the slot, the
 pack or the step.
 
+The moe family serves from dense slots only (``kv_layout="paged"``
+raises).  Its prefill is the reference's scan: one decode step per prompt
+position, so that expert capacity stays per token.  Its packs lie on the
+batch axis: N left-padded rows of one width prefilled together (the dummy
+rows, all-zero prompts at start 0, first), each row copied into its slot.
+
 Not ported yet (``ROADMAP.md``): streaming (``submit``/``serve_stream``),
-deadlines, backpressure, snapshot/restore, ``warmup``, the batch-axis packs
-of the scanned families, the quantized KV cache, tensor-parallel meshes.
+deadlines, backpressure, snapshot/restore, ``warmup``, the paged layout of
+the moe family, the quantized KV cache, tensor-parallel meshes.
 ``FinishReason`` carries EOS, MAX_NEW, SHED, FAULT.
 """
 
@@ -388,9 +394,10 @@ class _ServeState:
 
 
 class ServeEngine:
-    """Greedy / temperature serving of a dense model on ``device``, over
-    dense slots or a paged block pool (``ServeConfig.kv_layout``), with
-    solo or packed admission (``ServeConfig.packed_prefill``)."""
+    """Greedy / temperature serving of a dense or moe model on ``device``,
+    over dense slots or (dense family) a paged block pool
+    (``ServeConfig.kv_layout``), with solo or packed admission
+    (``ServeConfig.packed_prefill``)."""
 
     def __init__(self, cfg: ModelConfig, params, sc: Optional[ServeConfig] = None,
                  device="cuda"):
@@ -404,6 +411,9 @@ class ServeEngine:
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got {sc.kv_layout!r}")
         self._paged = sc.kv_layout == "paged"
         self._packed = bool(sc.packed_prefill)
+        if self._paged and cfg.family != "dense":
+            raise NotImplementedError(f"kv_layout='paged' is not ported for family "
+                                      f"{cfg.family!r} (ROADMAP.md); use 'dense'")
         if self._paged:
             bs = sc.block_size
             if bs < 8 or bs > 128 or bs & (bs - 1):
@@ -629,6 +639,12 @@ class ServeEngine:
             return np.ones(lg.shape[0], bool)
         return T.logits_health(self.cfg, lg).cpu().numpy()
 
+    def _prefill_forwards(self, width: int) -> int:
+        """Forward passes of one prefill of prompts ``width`` positions wide:
+        one for the dense family, one per position for the moe family's
+        scan."""
+        return 1 if self.cfg.family == "dense" else width
+
     def _fault(self, st: _ServeState, rid: int) -> None:
         st.stats["faults"] += 1
         st.finish(rid, np.zeros(0, np.int32), FinishReason.FAULT,
@@ -646,6 +662,7 @@ class ServeEngine:
         lg, st.mini = T.prefill(self.params, self.cfg, torch.as_tensor(toks, device=dev),
                                 st.mini, torch.tensor([s0], dtype=torch.int32, device=dev))
         st.stats["admissions"] += 1
+        st.stats["prefill_forwards"] += self._prefill_forwards(P)
         if not self._healthy(lg)[0]:
             self._fault(st, rid)
             return
@@ -723,6 +740,7 @@ class ServeEngine:
         lg, mini = T.prefill(self.params, self.cfg, toks, mini,
                              torch.zeros(1, dtype=torch.int32, device=dev), t0)
         st.stats["admissions"] += 1
+        st.stats["prefill_forwards"] += 1
         if not self._healthy(lg)[0]:
             self._drop_blocks(st, owned, gathered[:s_blk])
             self._fault(st, rid)
@@ -780,8 +798,11 @@ class ServeEngine:
             slots = [int(s) for s in free[si:si + len(rids)]]
             if self._paged:
                 done = self._admit_packed_paged(st, slots, rids, P)
-            else:
+            elif self.cfg.family == "dense":
                 self._admit_packed_dense(st, slots, rids, P)
+                done = rids
+            else:
+                self._admit_packed_batch(st, slots, rids, P)
                 done = rids
             admitted.update(done)
             si += len(done)
@@ -828,9 +849,40 @@ class ServeEngine:
         # a faulted segment's rows land in a slot that stays free; the next
         # admission there overwrites them all
         T.write_cache_slot_segments(self.cfg, st.cache, mini, slot_of, P)
+        self._finish_pack(st, slots, rids, nd, lg, 1)
+
+    def _admit_packed_batch(self, st: _ServeState, slots: List[int], rids: List[int],
+                            P: int) -> None:
+        """Batch-axis packed admission (the moe family, dense layout): the
+        N left-padded prompts as the N rows of one (N, P) prefill (N a power
+        of two; the dummy rows, all-zero prompts at start 0, come first and
+        write the first real slot, which its real row then overwrites), each
+        row copied into its slot.  Rows are independent, so each row's bits
+        are its solo admission's."""
+        dev = self.device
+        N = _pow2_ceil(len(rids))
+        nd = N - len(rids)
+        toks = np.zeros((N, P), np.int32)
+        starts = np.zeros(N, np.int32)
+        slot_of = [slots[0]] * nd + list(slots)
+        for j, rid in enumerate(rids):
+            tk = st.reqs[rid].tokens
+            toks[nd + j, P - len(tk):] = tk
+            starts[nd + j] = P - len(tk)
+        mini = T.init_cache(self.cfg, N, self.sc.max_seq, device=dev)
+        lg, mini = T.prefill(self.params, self.cfg, torch.as_tensor(toks, device=dev), mini,
+                             torch.as_tensor(starts, device=dev))
+        T.write_cache_slots(self.cfg, st.cache, mini, slot_of)
+        self._finish_pack(st, slots, rids, nd, lg, self._prefill_forwards(P))
+
+    def _finish_pack(self, st: _ServeState, slots: List[int], rids: List[int], nd: int,
+                     lg, forwards: int) -> None:
+        """Dense-layout pack tail: per-row health probe, one sample for the
+        pack, each healthy request armed in its slot."""
         healthy = self._healthy(lg)
         toks_s = self._sample_pack(st, rids, nd, lg)
         self._count_pack(st, len(rids), nd)
+        st.stats["prefill_forwards"] += forwards
         for j, rid in enumerate(rids):
             st.stats["admissions"] += 1
             if not healthy[nd + j]:
@@ -866,6 +918,7 @@ class ServeEngine:
             segs[0, i * W:i * W + len(tk)] = i
             last[i] = i * W + len(tk) - 1
         lg, mini = self._prefill_pack(toks, segs, pos, last, W)
+        st.stats["prefill_forwards"] += 1
         healthy = self._healthy(lg)
         bids = np.zeros((N, W // bs), np.int32)          # 0: the sink
         for j, (rid, gathered, owned, t0, total) in enumerate(maps):
@@ -963,9 +1016,10 @@ class ServeEngine:
 
     def _finalize_stats(self, st: _ServeState) -> None:
         sc = self.sc
-        stats = {k: st.stats[k] for k in ("admissions", "decode_steps", "active_slot_steps",
-                                          "faults", "shed", "packed_packs",
-                                          "packed_segments", "packed_dummies")}
+        stats = {k: st.stats[k] for k in ("admissions", "prefill_forwards", "decode_steps",
+                                          "active_slot_steps", "faults", "shed",
+                                          "packed_packs", "packed_segments",
+                                          "packed_dummies")}
         stats.update(slot_steps=stats["decode_steps"] * sc.max_batch,
                      kv_layout=sc.kv_layout, packed_prefill=self._packed)
         if self._paged:

@@ -58,6 +58,27 @@ def test_rowwise_kernel_bit_exact(dev, fmt, variant):
     assert torch.equal(k.view(torch.int32), p.view(torch.int32))
 
 
+@pytest.mark.parametrize("R,C", [(8, 2048), (1, 2048)])
+def test_rowwise_kernel_olmoe_rmsnorm_rows(dev, R, C):
+    g = torch.Generator().manual_seed(R)
+    a, b = torch.randn(R, C, generator=g), torch.rand(R, 1, generator=g) + 0.01
+    a, b = a.to(dev), b.to(dev)
+    k = ops.posit_div_fused_rowwise(POSIT16, a, b)
+    p = ops.posit_div_rowwise_plain(POSIT16, a, b)
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
+@pytest.mark.parametrize("R", [8, 1])
+def test_rowwise_kernel_router_norm_rows(dev, R):
+    """The router norm's K2 call: top-8 gates over their fixed-order sum."""
+    from repro_torch.core.quire import fixed_order_rowsum
+
+    gates = (torch.rand(R, 8, generator=torch.Generator().manual_seed(R)) * 0.1).to(dev)
+    k = ops.posit_div_fused_rowwise(POSIT16, gates, fixed_order_rowsum(gates))
+    p = ops.posit_div_rowwise_plain(POSIT16, gates, fixed_order_rowsum(gates))
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
 def test_rowwise_kernel_posit8_exhaustive(dev):
     vals = torch.cat([posit_to_float(POSIT8, torch.arange(256)), SPECIALS]).to(dev)
     a, b = vals[None, :].expand(len(vals), -1).contiguous(), vals[:, None].contiguous()
@@ -266,3 +287,65 @@ def test_layout_counters_are_apart(dev):
     after = (F.posit_flash_attention.launches, F.posit_flash_attention.paged_launches,
              F.posit_flash_attention.packed_launches)
     assert [a - b for a, b in zip(after, before)] == [0, 1, 1]
+
+
+def _softmax_case(R, C, seed=0):
+    """Logits with, from three rows up, -1e30 entries (row 0), equal values
+    (row 1) and a NaN (row 2)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(R, C, generator=g) * 2
+    if R >= 3:
+        x[0, ::3] = -1e30
+        x[1] = 0.75
+        x[2, 5] = math.nan
+    return x
+
+
+@pytest.mark.parametrize("R,C", [(8, 64), (1, 64), (4096, 64), (37, 1000)])
+def test_softmax_kernel_matches_twin(dev, R, C):
+    """K9 at the router's shapes and wider: the twin's bits (both call CUDA's
+    expf and sum each row left to right), the NaN row kept to itself, a row
+    of equal values uniform."""
+    x = _softmax_case(R, C).to(dev)
+    o = ops.posit_softmax_fused(POSIT16, x)
+    p = ops.posit_softmax_plain(POSIT16, x)
+    assert torch.equal(o.view(torch.int32), p.view(torch.int32))
+    nan_rows = torch.isnan(o).any(-1).cpu()
+    assert nan_rows.tolist() == [i == 2 for i in range(R)]
+    if R >= 3:
+        assert (o[1] == o[1, 0]).all()
+        assert (o[0, ::3] == 0).all()
+
+
+@pytest.mark.parametrize("variant", KERNEL_VARIANTS)
+def test_softmax_kernel_every_plan(dev, variant):
+    x = _softmax_case(37, 200, 1).to(dev)
+    o = ops.posit_softmax_fused(POSIT16, x, variant)
+    p = ops.posit_softmax_plain(POSIT16, x, variant)
+    assert torch.equal(o.view(torch.int32), p.view(torch.int32))
+
+
+def test_softmax_kernel_refuses_and_counts(dev):
+    x = torch.randn(4, 64, device=dev)
+    with pytest.raises(NotImplementedError, match="posit16"):
+        ops.posit_softmax_fused(POSIT8, x)
+    before = ops.posit_softmax_fused.launches
+    ops.posit_softmax_plain(POSIT16, x)
+    ops.posit_softmax_fused(POSIT16, x)
+    assert ops.posit_softmax_fused.launches == before + 1
+
+
+def test_flash_kernel_decode_hd128_mha(dev):
+    """OLMoE's decode: head_dim 128, 16/16 heads, 8 slots with left pads
+    (slot 7's only key lies before its start: fully masked)."""
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn(8, 1, 16, 128, generator=g).to(dev)
+    k = torch.randn(8, 512, 16, 128, generator=g).to(torch.bfloat16).to(dev)
+    v = torch.randn(8, 512, 16, 128, generator=g).to(torch.bfloat16).to(dev)
+    pos = torch.tensor([511, 0, 17, 130, 255, 64, 300, 12], dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 0, 5, 100, 250, 64, 0, 13], dtype=torch.int32, device=dev)
+    kw = dict(kv_start=start, kv_len=pos + 1, q_pos=pos)
+    o = posit_flash_attention(POSIT16, q, k, v, True, **kw)
+    p = posit_flash_attention_plain(POSIT16, q, k, v, True, **kw)
+    assert (o - p).abs().max() <= FLASH_TOL
+    assert (o[7] == 0).all()

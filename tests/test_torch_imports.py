@@ -41,7 +41,8 @@ def test_port_has_every_slice_module():
                 "models/layers.py", "models/transformer.py", "configs/smollm_360m.py",
                 "serve/engine.py", "kernels/csrc/posit_flash_bwd.cu", "optim/tree.py",
                 "optim/adamw.py", "optim/schedule.py", "data/pipeline.py",
-                "train/trainer.py", "train/checkpoint.py", "launch/train.py"):
+                "train/trainer.py", "train/checkpoint.py", "launch/train.py",
+                "core/quire.py", "kernels/csrc/posit_softmax.cu", "configs/olmoe_1b_7b.py"):
         assert (pkg / rel).is_file(), rel
 
 
