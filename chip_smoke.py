@@ -33,6 +33,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               posit16 plan there), with -1e30, equal-value and NaN rows:
               bit-identical (the one-lane left-to-right row sum is the
               twin's order), the NaN row alone NaN.
+   K11      — the pattern divide: posit8 every pair (9 variants) the
+              twin's and the pure-Python goldens' bits; posit10 Table III
+              for every variant and its 2^20-pair space the same under all 9;
+              the whole posit16 pair space (2^32 pairs, chunks of 2^28 made
+              on the card) the same under all 9 (a difference prints the
+              first pairs with the goldens' answers); 2^20 random posit16
+              and posit32 pairs the twin's bits for every plan, posit32's
+              zero, NaR, +-minpos, +-maxpos among them, the goldens' on 4096.
+   K12      — the casts: every posit8/16 pattern and 2^20 posit32 ones
+              dequantized, 2^26 random f32 bit patterns and the specials
+              (+-0, inf, NaN, every subnormal class, +-2^e and neighbours)
+              quantized, the twin's bits; quantize o dequantize the
+              identity on every posit8/16 pattern; the posit-KV path's
+              rounding of every bf16 bit pattern (as f32) the twin's bits.
+   K10      — the elementwise fused divide bit-identical to K12 -> K11 ->
+              K12 and to its twin for every one-word (format, variant), on
+              the reference benchmark's 64 x 1024 uniform(0.1, 10) and 2^20
+              random f32 pairs with the specials; 1 launch against 4.
    model    — the smoke configs (SmolLM and OLMoE) on the card (kernels)
               against the same weights on the CPU (plain twins, which the
               CPU tests hold against the reference): logits within
@@ -62,6 +80,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               requests (where they differ: the first such token,
               the logits gap in bf16 ulps, whether the attention kernel and
               the products keep their bits across the two layouts' shapes).
+   posit-KV — the same model and weights with kv_cache_format="posit16":
+              the main mix from dense slots, the paged mix from the paged
+              pool (pages of 16, packed); then "posit8" from dense slots.
+              Every K/V row is rounded through K12: per forward step 2L
+              quantize and 2L dequantize launches on top of the unchanged
+              K2-K5 counts; every rounding, in every layer of every
+              prefill, packed prefill and decode step, the bits of K12's
+              plain twin on the same rows; logits finite (the engine's
+              health probe faults none); paged = dense tokens with no
+              prefix hit; requests 0 and 7 solo = batched; every cached row
+              a fixed point of K12's rounding and of the twin's; posit8
+              moves some entries.  Printed: the share of entries each
+              format moved, the requests whose tokens differ from the bf16
+              cache's.
    training — SmolLM-360M at full width trained by ``Trainer`` for 4 steps
               (global batch 8 x 256, lr 1e-3, warmup 1, remat "full", seed
               0): finite losses, the last below the first, and per step K6
@@ -77,9 +109,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               names the bf16 product that lost a row's bits and fails).
 5. timing   — each kernel, its plain twin and a library yardstick at the
               main paths' shapes (the kernel's device time from
-              torch.profiler; per-call times from CUDA events), and one
-              full-width decode step, SmolLM dense and paged and OLMoE
-              dense, broken down by kernel class.  A
+              torch.profiler, as the yardstick's for K9; per-call times from
+              CUDA events; K10-K12 also at a 2^28 chunk), and one
+              full-width decode step, SmolLM dense (bf16 and posit16 KV
+              cache) and paged and OLMoE dense, broken down by kernel class.  A
               profiler session that shows none of the kernels it traced is
               taken again, twice at most; where none shows them, the device
               time is the CUDA events' and the busy share "not measured".
@@ -89,18 +122,20 @@ power-limit line, and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository's ``src/`` beside it, it exits
 non-zero and prints no result.
 
-    python3 chip_smoke.py --time-k3 [--src DIR]
+    python3 chip_smoke.py --time-kernels [--src DIR]
 
-only builds K3 from the package under ``DIR`` (default: this checkout's
-``src``) and prints its device times at the timing phase's decode and
-prefill rows: run it on a parent checkout and on this one in turns (parent,
-change, change, parent) in one call, after any edit to
-``posit_flash_attn.cu``.
+only builds the package under ``DIR`` (default: this checkout's ``src``),
+one source at a time, and prints each source's build seconds and ptxas
+report and the device times of K2, K3, K6-K8 and K9 (kernels a parent
+checkout of the port has too): run it on a parent checkout and on this one in
+turns (parent, change, change, parent) in one call, after any edit to a
+kernel source or to ``posit_srt.cuh``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import json
 import math
@@ -527,6 +562,226 @@ def phase_softmax(torch, dev):
     return 0.0
 
 
+# The division API (the quickstart's surfaces): K11 on patterns, K12's
+# casts, K10 against the chained K12 -> K11 -> K12.  The paper's Table III
+# worked examples, Posit10: dividend, divisor, quotient.
+TABLE3 = ((0b0011010111, 0b0001001100, 0b0110011111),
+          (0b0011010111, 0b0000100110, 0b0111010000))
+PAIRS16 = 1 << 32           # the posit16 pair space
+CHUNK = 1 << 28             # pairs per launch of the posit16 pair-space sweep
+RANDOM_PAIRS = 1 << 20
+CAST_SAMPLES = 1 << 26      # random f32 bit patterns quantized per format
+DEFAULT_VARIANT = "srt_r4_cs_of_fr"
+
+
+def golden_div(pairs, n: int):
+    from repro_torch.core import goldens
+
+    return [goldens.div(a, b, n) for a, b in pairs]
+
+
+def disagreement(torch, what, px, pd, want, got, n):
+    """Fail with the first pairs where ``got`` leaves ``want``, and the
+    goldens' answers there."""
+    bad = (got != want).nonzero()[:6, 0].cpu()
+    rows = [(int(px[i]) & 0xFFFFFFFF, int(pd[i]) & 0xFFFFFFFF, int(want[i]), int(got[i]))
+            for i in bad]
+    gold = golden_div([(a, b) for a, b, _, _ in rows], n)
+    fail(f"{what}: {int((got != want).sum())} pairs differ; first (x, d, want, got, "
+         f"golden): " + ", ".join(f"({a:#x}, {b:#x}, {w:#x}, {g:#x}, {o:#x})"
+                                  for (a, b, w, g), o in zip(rows, gold)))
+
+
+def phase_pattern_div(torch, dev):
+    """K11 on posit bit patterns: posit8 every pair and posit10 every pair
+    for the nine variants, the posit16 pair space whole (2^32 pairs, every
+    variant against the default's bits), posit32 sampled; against the twin
+    and the pure-Python goldens."""
+    from repro_torch.core.posit import PositFormat
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posit_div import KERNEL_VARIANTS, one_word_pairs
+
+    ops.posit_div.launches = 0
+    g = torch.Generator(device=dev).manual_seed(13)
+    others = [v for v in KERNEL_VARIANTS if v != DEFAULT_VARIANT]
+    # posit8: every pair, every variant, the twin's and the goldens' bits
+    P8 = PositFormat(8)
+    i = torch.arange(1 << 16, device=dev)
+    px, pd = i >> 8, i & 255
+    gold8 = torch.tensor(golden_div(zip(px.tolist(), pd.tolist()), 8), device=dev)
+    for v in KERNEL_VARIANTS:
+        k = ops.posit_div(P8, px, pd, v)
+        if not torch.equal(k, gold8):
+            disagreement(torch, f"K11 posit8/{v} against the goldens", px, pd, gold8, k, 8)
+        check(torch.equal(k, ops.posit_div_plain(P8, px, pd, v)),
+              f"K11 posit8/{v}: differs from its twin")
+    # posit10: Table III for every variant; the 2^20-pair space mutually
+    # identical across variants and the twin's
+    P10 = PositFormat(10)
+    t3x = torch.tensor([x for x, _, _ in TABLE3], device=dev)
+    t3d = torch.tensor([d for _, d, _ in TABLE3], device=dev)
+    i = torch.arange(1 << 20, device=dev)
+    px, pd = i >> 10, i & 1023
+    ref = ops.posit_div(P10, px, pd)
+    check(torch.equal(ref, ops.posit_div_plain(P10, px, pd)), "K11 posit10: differs from its twin")
+    for v in KERNEL_VARIANTS:
+        got = ops.posit_div(P10, t3x, t3d, v).tolist()
+        check(got == [q for _, _, q in TABLE3],
+              f"K11 posit10/{v}: Table III gives {[bin(q) for q in got]}")
+        k = ops.posit_div(P10, px, pd, v)
+        if not torch.equal(k, ref):
+            disagreement(torch, f"K11 posit10/{v} against {DEFAULT_VARIANT}", px, pd, ref, k, 10)
+    # posit16: the whole pair space, generated on the card a chunk at a time
+    P16 = PositFormat(16)
+    t0 = time.perf_counter()
+    for c in range(PAIRS16 // CHUNK):
+        idx = torch.arange(c * CHUNK, (c + 1) * CHUNK, device=dev)
+        px, pd = (idx >> 16).to(torch.int32), (idx & 0xFFFF).to(torch.int32)
+        del idx
+        ref = ops.posit_div(P16, px, pd, DEFAULT_VARIANT)
+        for v in others:
+            k = ops.posit_div(P16, px, pd, v)
+            if not torch.equal(k, ref):
+                disagreement(torch, f"K11 posit16/{v} against {DEFAULT_VARIANT}", px, pd, ref,
+                             k, 16)
+            del k
+        del ref, px, pd
+    torch.cuda.synchronize()
+    sweep = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    # posit16 / posit32: random pairs against the twin; posit32's extremes
+    # against each other and the goldens
+    n_sampled = 0
+    for n in (16, 32):
+        fmt = PositFormat(n)
+        px, pd = (torch.randint(0, 1 << n, (RANDOM_PAIRS,), device=dev, generator=g)
+                  for _ in range(2))
+        if n == 32:
+            ext = torch.tensor([0, 1 << 31, 1, 0xFFFFFFFF, 0x7FFFFFFF, 0x80000001], device=dev)
+            px[:36], pd[:36] = ext.repeat(6), ext.repeat_interleave(6)
+            gold32 = torch.tensor(golden_div(zip(px[:4096].tolist(), pd[:4096].tolist()), 32),
+                                  device=dev)
+        for f, v, _ in one_word_pairs((fmt,)):
+            k = ops.posit_div(fmt, px, pd, v)
+            twin = ops.posit_div_plain(fmt, px, pd, v)
+            if not torch.equal(k, twin):
+                disagreement(torch, f"K11 {fmt}/{v} against its twin", px, pd, twin, k, n)
+            if n == 32 and not torch.equal(k[:4096], gold32):
+                disagreement(torch, f"K11 posit32/{v} against the goldens", px, pd, gold32,
+                             k[:4096], 32)
+            n_sampled += 1
+    launches = ops.posit_div.launches
+    check(launches > 0, "K11: no launch")
+    print(f"K11: bit-identical to its twin and the goldens on every posit8 pair (9 variants); "
+          f"Table III right for every variant; the posit10 pair space (2^20) and the whole "
+          f"posit16 pair space ({PAIRS16} pairs, {PAIRS16 // CHUNK} chunks of {CHUNK}, {sweep:.1f} s) "
+          f"the same bits under all 9 variants; {n_sampled} posit16/32 plans the twin's bits on "
+          f"2^20 random pairs (posit32 with zero, NaR, +-minpos, +-maxpos, and the goldens' "
+          f"on 4096); {launches} launches")
+    return {"launches": launches, "sweep_s": sweep}
+
+
+def f32_specials(torch):
+    """+-0, +-inf, NaNs, every f32 subnormal class (each leading-bit
+    position, with its neighbours), +-2^e with both neighbours for every
+    exponent, as f32 bit patterns."""
+    sub = ([1 << k for k in range(23)] + [(1 << k) | 1 for k in range(1, 23)]
+           + [(1 << (k + 1)) - 1 for k in range(23)])
+    pow2 = [e << 23 for e in range(1, 255)]
+    u = [0, 0x7F800000, 0x7FC00000, 0x7F800001, 0x7FFFFFFF] + sub + pow2 + \
+        [p - 1 for p in pow2] + [p + 1 for p in pow2]
+    u = torch.tensor(u + [x | (1 << 31) for x in u], dtype=torch.int64)
+    return u.to(torch.int32).view(torch.float32)
+
+
+def phase_casts(torch, dev):
+    """K12: dequantize every posit8/16 pattern and 2^20 posit32 patterns,
+    quantize 2^26 random f32 bit patterns and the specials: the twin's bits;
+    quantize o dequantize the identity on every posit8/16 pattern; the
+    rounding the posit-KV path makes (``posit_round_value``) on every bf16
+    bit pattern widened to f32: the twin's bits."""
+    from repro_torch.core.posit import PositFormat
+    from repro_torch.kernels import ops
+
+    ops.posit_quantize.launches = ops.posit_dequantize.launches = 0
+    g = torch.Generator(device=dev).manual_seed(17)
+    specials = f32_specials(torch).to(dev)
+    bf16 = (torch.arange(1 << 16, dtype=torch.int32, device=dev) << 16).view(torch.float32)
+    err = 0.0
+    for n in (8, 16, 32):
+        fmt = PositFormat(n)
+        p = (torch.arange(1 << n, device=dev) if n < 32 else
+             torch.randint(0, 1 << 32, (RANDOM_PAIRS,), device=dev, generator=g))
+        d = ops.posit_dequantize(fmt, p)
+        check(torch.equal(bits(d), bits(ops.posit_dequantize_plain(fmt, p))),
+              f"K12 dequantize {fmt}: differs from its twin")
+        if n < 32:
+            check(torch.equal(ops.posit_quantize(fmt, d), p),
+                  f"K12 {fmt}: quantize o dequantize is not the identity")
+        x = torch.randint(-2 ** 31, 2 ** 31, (CAST_SAMPLES,), device=dev, generator=g)
+        x = torch.cat([specials, x.to(torch.int32).view(torch.float32)])
+        q = ops.posit_quantize(fmt, x)
+        check(torch.equal(q, ops.posit_quantize_plain(fmt, x)),
+              f"K12 quantize {fmt}: differs from its twin")
+        del x, q
+        r = ops.posit_round_value(fmt, bf16)
+        twin = ops.posit_dequantize_plain(fmt, ops.posit_quantize_plain(fmt, bf16))
+        err = max(err, max_abs_err(r, twin), max_abs_err(d, ops.posit_dequantize_plain(fmt, p)))
+        check(torch.equal(bits(r), bits(twin)),
+              f"K12 {fmt}: rounding bf16 patterns differs from its twin in "
+              f"{int((bits(r) != bits(twin)).sum())} of {bf16.numel()}")
+    torch.cuda.empty_cache()
+    launches = (ops.posit_quantize.launches, ops.posit_dequantize.launches)
+    print(f"K12: the twin's bits dequantizing every posit8/16 pattern and 2^20 posit32 ones, "
+          f"quantizing {CAST_SAMPLES} random f32 bit patterns and {specials.numel()} specials (+-0, inf, "
+          f"NaN, every subnormal class, +-2^e and neighbours) for posit8/16/32, and rounding "
+          f"every bf16 bit pattern (quantize then dequantize, as the posit-KV path does); "
+          f"quantize o dequantize the identity on every posit8/16 pattern; launches {launches}")
+    return err
+
+
+def phase_fused_chained(torch, dev):
+    """K10 against K12 -> K11 -> K12 (and its twin) for every one-word
+    (format, variant): the reference benchmark's 64 x 1024 uniform(0.1, 10)
+    operands and 2^20 random f32 pairs with the specials.  One launch
+    against four per division."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posit_div import one_word_pairs
+
+    rng = np.random.default_rng(0)          # benchmarks/bench_tables.py's operands
+    a = torch.from_numpy(rng.uniform(0.1, 10, (64, 1024)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.uniform(0.1, 10, (64, 1024)).astype(np.float32)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(19)
+    specials = f32_specials(torch).to(dev)
+    ra, rb = (torch.randint(-2 ** 31, 2 ** 31, (RANDOM_PAIRS,), device=dev, generator=g)
+              .to(torch.int32).view(torch.float32) for _ in range(2))
+    ra[:len(specials)], rb[:len(specials)] = specials, specials.flip(0)
+    counters = (ops.posit_div_fused, ops.posit_quantize, ops.posit_div, ops.posit_dequantize)
+    for c in counters:
+        c.launches = 0
+    divisions = 0
+    for fmt, v, _ in one_word_pairs():
+        for x, y in ((a, b), (ra, rb)):
+            k = ops.posit_div_fused(fmt, x, y, v)
+            chained = ops.posit_dequantize(fmt, ops.posit_div(
+                fmt, ops.posit_quantize(fmt, x), ops.posit_quantize(fmt, y), v))
+            check(torch.equal(bits(k), bits(chained)),
+                  f"K10 {fmt}/{v} {tuple(x.shape)}: differs from the chain in "
+                  f"{int((bits(k) != bits(chained)).sum())} elements")
+            check(torch.equal(bits(k), bits(ops.posit_div_fused_plain(fmt, x, y, v))),
+                  f"K10 {fmt}/{v} {tuple(x.shape)}: differs from its twin")
+            divisions += 1
+    k10, q, k11, dq = (c.launches for c in counters)
+    check(k10 == divisions and (q, k11, dq) == (2 * divisions, divisions, divisions),
+          f"K10: launches fused {k10}, chained {q} + {k11} + {dq} for {divisions} divisions")
+    print(f"K10: bit-identical to K12 -> K11 -> K12 and to its twin for every one-word "
+          f"(format, variant) on 64 x 1024 uniform(0.1, 10) and 2^20 random f32 pairs with "
+          f"the specials; launches 1 against 4 a division ({k10} against {q + k11 + dq})")
+    return {"K10": k10, "K11": k11, "K12q": q, "K12dq": dq}
+
+
 def phase_model_small(torch, dev, arch="smollm_360m"):
     """The smoke model on the card against the same weights on the CPU
     (the moe family's prefill is its scan of decode steps)."""
@@ -765,7 +1020,7 @@ def phase_main(torch, dev, cfg, params):
               f"request {i}: solo tokens differ from the batched run")
     print("main: requests 0 and 7 bit-identical solo and batched")
     return {"rowwise": k2, "flash": k3, "tokens_per_s": n_tok / wall,
-            "forwards": forwards}
+            "forwards": forwards, "outs": outs}
 
 
 PREFIX_LEN = 128            # the shared system prompt of the paged phase
@@ -936,6 +1191,213 @@ def paged_difference(torch, dev, cfg, params, reqs, ref, outs, differ):
           f"{float(top2[0] - top2[1]):.4g}); "
           f"attention kernel at the two layouts bit-identical: {attn_equal}; layer-0 q/k "
           f"products bit-identical: {products_equal}")
+
+
+def served_with_cache(eng, reqs):
+    """Serve ``reqs`` and return (outputs, the engine's KV cache as it was
+    at the end of the run)."""
+    caches = []
+    finalize = eng._finalize_stats
+
+    def grab(st):
+        caches.append(st.cache)
+        finalize(st)
+
+    eng._finalize_stats = grab
+    try:
+        outs = eng.serve(reqs)
+    finally:
+        eng._finalize_stats = finalize
+    return outs, caches[0]
+
+
+@contextlib.contextmanager
+def kv_checked(torch, dev, fmt):
+    """Put a stand-in for ``layers._kv_round`` in place that holds every
+    K/V rounding the serving path makes (K12 on the card) against K12's
+    plain twin on the same rows, and yields its tally, kept on the card:
+    the calls, the entries that differ from the twin's and the largest such
+    difference, the entries the rounding moved and the entries it saw.  The
+    twin is plain PyTorch: it launches no K12."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as Lyr
+
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    tally = {"calls": 0, "differ": zero.clone(), "moved": zero.clone(), "seen": 0,
+             "err": torch.zeros((), device=dev)}
+    kv_round = Lyr._kv_round
+
+    def checked(k, v, cfg):
+        rk, rv = kv_round(k, v, cfg)
+        for x, r in ((k, rk), (v, rv)):
+            twin = ops.posit_dequantize_plain(
+                fmt, ops.posit_quantize_plain(fmt, x.to(torch.float32))).to(x.dtype)
+            got, want = r.to(torch.float32), twin.to(torch.float32)
+            differ = bits(got) != bits(want)
+            gap = torch.nan_to_num((got - want).abs(), nan=math.inf)
+            tally["differ"] += differ.sum()
+            tally["err"] = torch.maximum(tally["err"], torch.where(differ, gap, 0.0).max())
+            tally["moved"] += (bits(got) != bits(x.to(torch.float32))).sum()
+            tally["seen"] += x.numel()
+        tally["calls"] += 1
+        return rk, rv
+
+    Lyr._kv_round = checked
+    try:
+        yield tally
+    finally:
+        Lyr._kv_round = kv_round
+
+
+def kv_verdict(name, tally, calls):
+    """Fail unless the stand-in saw ``calls`` roundings (one per layer of
+    every forward step) and K12 gave the twin's bits in each; the moved
+    share and the largest difference from the twin."""
+    check(tally["calls"] == calls, f"{name}: {tally['calls']} K/V roundings held against "
+                                   f"K12's twin, {calls} expected (one per layer and step)")
+    differ = int(tally["differ"])
+    check(differ == 0, f"{name}: K12's rounding of {differ} K/V entries differs from its "
+                       f"twin's (max|diff| {float(tally['err'])})")
+    return int(tally["moved"]) / max(tally["seen"], 1), float(tally["err"])
+
+
+def phase_posit_kv(torch, dev, cfg, params, packs_held, main_outs):
+    """Full-width SmolLM-360M served from a posit KV cache (every K/V row
+    rounded through K12 before it is cached or attended): posit16 from
+    dense slots (the main mix) and from the paged pool with packed prefill
+    (the paged mix), posit8 from dense slots.  Per forward step 2L K12
+    quantize and 2L dequantize launches over the unchanged K2-K5 counts;
+    every rounding of every layer and step (prefill, packed prefill,
+    decode) the bits of K12's plain twin on the same rows; finite logits
+    (the engine's health probe on, no fault); paged = dense tokens, no
+    prefix hit; two requests solo = batched; every cache row a fixed point
+    of K12's rounding and of the twin's; posit8 moves entries."""
+    import numpy as np
+
+    from repro_torch.core.posit import PositFormat
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posit_flash_attn import posit_flash_attention as F
+    from repro_torch.numerics.quant import posit_round_value
+    from repro_torch.serve import FinishReason, ServeConfig, ServeEngine
+
+    L = cfg.n_layers
+    counters = (ops.posit_quantize, ops.posit_dequantize, ops.posit_div_fused_rowwise)
+    out = {"K12q": 0, "K12dq": 0, "err": 0.0}
+
+    def run(name, eng, reqs, fmt):
+        check(eng.sc.health_checks, f"{name}: the engine's logits health probe is off")
+        for c in counters:
+            c.launches = 0
+        F.launches = F.paged_launches = F.packed_launches = 0
+        with kv_checked(torch, dev, fmt) as tally:
+            t0 = time.perf_counter()
+            outs, cache = served_with_cache(eng, reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        q, dq, k2 = (c.launches for c in counters)
+        st = eng.last_serve_stats
+        solo = st["admissions"] - st["packed_segments"]
+        forwards = st["decode_steps"] + st["packed_packs"] + solo
+        for kname, got, want in (("K12 quantize", q, 2 * L * forwards),
+                                 ("K12 dequantize", dq, 2 * L * forwards),
+                                 ("K2", k2, (2 * L + 1) * forwards),
+                                 ("K3", F.launches, L * (solo if eng._paged else forwards)),
+                                 ("K4", F.paged_launches,
+                                  L * st["decode_steps"] if eng._paged else 0),
+                                 ("K5", F.packed_launches, L * st["packed_packs"])):
+            check(got == want, f"{name}: {kname} launched {got} times, {forwards} forward "
+                               f"steps imply {want}")
+        moved, err = kv_verdict(name, tally, L * forwards)
+        out["err"] = max(out["err"], err)
+        check(st["faults"] == 0 and st["shed"] == 0,
+              f"{name}: faults (non-finite logits) or sheds: {st}")
+        for r in eng.last_results:
+            check(r.finish is FinishReason.MAX_NEW and len(r.tokens) == 32,
+                  f"{name}: request {r.rid} finished {r.finish} with {len(r.tokens)} tokens")
+            check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()),
+                  f"{name}: request {r.rid}: token out of the vocabulary")
+        out["K12q"] += q
+        out["K12dq"] += dq
+        n_tok = sum(len(o) for o in outs)
+        return outs, cache, st, forwards, n_tok / wall, (q, dq), moved
+
+    def fixed_point(name, fmt, cache):
+        for part in ("k", "v"):
+            rows = cache[part].float()
+            again = posit_round_value(fmt, rows)
+            check(torch.equal(bits(again), bits(rows)),
+                  f"{name}: {int((bits(again) != bits(rows)).sum())} cached {part} entries "
+                  "are not fixed points of K12's rounding")
+            twin = ops.posit_dequantize_plain(fmt, ops.posit_quantize_plain(fmt, rows))
+            check(torch.equal(bits(twin), bits(rows)),
+                  f"{name}: {int((bits(twin) != bits(rows)).sum())} cached {part} entries "
+                  "are not fixed points of the twin's rounding")
+            del rows, again, twin
+
+    mix, pmix = request_mix(cfg), paged_mix(cfg)
+    lines = []
+    dense = {}
+    for fmt_name in ("posit16", "posit8"):
+        pcfg = cfg.with_numerics(kv_cache_format=fmt_name)
+        fmt = PositFormat(int(fmt_name[5:]))
+        eng = ServeEngine(pcfg, params, device=dev)
+        outs, cache, st, fw, tps, k12, moved = run(f"posit-KV {fmt_name} dense", eng, mix, fmt)
+        fixed_point(f"posit-KV {fmt_name} dense", fmt, cache)
+        del cache
+        dense[fmt_name] = outs
+        differ = sum(not np.array_equal(a, b) for a, b in zip(outs, main_outs))
+        if fmt_name == "posit8":
+            check(moved > 0, "posit-KV posit8 dense: the rounding moved no K/V entry")
+        for i in (0, 7):
+            with kv_checked(torch, dev, fmt) as tally:
+                alone = eng.serve([mix[i]])[0]
+            st1 = eng.last_serve_stats
+            kv_verdict(f"posit-KV {fmt_name} request {i} solo", tally,
+                       L * (st1["decode_steps"] + st1["admissions"]))
+            check(np.array_equal(alone, outs[i]),
+                  f"posit-KV {fmt_name}: request {i} solo differs from batched")
+        lines.append(f"{fmt_name} dense: {tps:.1f} tokens/s (checked), {fw} forward steps, "
+                     f"launches K12 {k12[0]} + {k12[1]} (2L + 2L a step); {differ} of "
+                     f"{len(mix)} requests' tokens differ from the bf16 cache's; the "
+                     f"rounding moved {moved:.4f} of the K/V entries")
+    # posit16 from the paged pool, packed: the dense run's tokens, no sharing
+    pcfg = cfg.with_numerics(kv_cache_format="posit16")
+    sc = ServeConfig.from_model(pcfg, kv_layout="paged", block_size=PAGED_BLOCK,
+                                packed_prefill=True)
+    eng = ServeEngine(pcfg, params, sc, device=dev)
+    packs = []
+    prefill_pack = eng._prefill_pack
+
+    def recorded(toks, segs, pos, last, W):
+        packs.append((len(last), W))
+        return prefill_pack(toks, segs, pos, last, W)
+
+    eng._prefill_pack = recorded
+    pouts, _, st, fw, tps, k12, _ = run("posit-KV posit16 paged", eng, pmix, PositFormat(16))
+    check(st["packed_packs"] > 0, "posit-KV paged: no packed prefill ran")
+    check(st["prefix_hit_rate"] == 0 and st["prefix_lookups"] == 0 and st["shared_blocks"] == 0,
+          f"posit-KV paged: prefix sharing under kv_cache_format: {st}")
+    check(set(packs) <= packs_held, f"posit-KV paged: packs {set(packs)} not all among those "
+                                    "the K5 phase held")
+    # paged_mix interleaves: chat request i at 3i, then the main mix's 2i, 2i + 1
+    chat_pos = list(range(0, len(pmix), 3))
+    main_pos = [i for i in range(len(pmix)) if i % 3]
+    chat_dense = ServeEngine(pcfg, params, device=dev).serve([pmix[i] for i in chat_pos])
+    want = dict(zip(main_pos, dense["posit16"]))
+    want.update(zip(chat_pos, chat_dense))
+    differ = [i for i in range(len(pmix)) if not np.array_equal(pouts[i], want[i])]
+    check(not differ, f"posit-KV paged: requests {differ} differ from the dense posit16 run")
+    lines.append(f"posit16 paged (pages of {PAGED_BLOCK}, packed): {len(pmix)} requests, "
+                 f"{tps:.1f} tokens/s (checked), {fw} forward steps ({st['packed_packs']} packs of "
+                 f"{st['packed_segments']}), launches K12 {k12[0]} + {k12[1]}, prefix hit "
+                 f"rate {st['prefix_hit_rate']}, tokens the dense posit16 run's "
+                 f"({len(main_pos)} of the main mix, {len(chat_pos)} chat)")
+    print("posit-KV (tokens/s with every rounding checked: not a throughput): "
+          + "; ".join(lines) + "; every K/V rounding of every layer and step "
+          "(prefill, packed prefill, decode) the bits of K12's twin on the same rows "
+          f"(max|diff| {out['err']}), logits finite, every cached row a fixed point of K12's "
+          "rounding and the twin's, requests 0 and 7 solo = batched")
+    return out
 
 
 def phase_train_main(torch, dev):
@@ -1139,10 +1601,11 @@ PROFILE_TRIES = 3
 MATMUL_NAMES = ("gemm", "gemv", "cutlass", "nvjet", "xmma", "sm90")
 
 
-def profiled(torch, fn, want):
+def profiled(torch, fn, want, counts=None):
     """Run ``fn()`` under torch.profiler; return ``({kernel: device ms}, wall
-    ms)`` over the CUDA kernels the trace shows.  A trace that shows none of
-    the kernels named in ``want`` is taken again, up to PROFILE_TRIES times:
+    ms)`` over the CUDA kernels the trace shows (and fill ``counts`` with
+    the launches it recorded of each).  A trace that shows none of the
+    kernels named in ``want`` is taken again, up to PROFILE_TRIES times:
     on the card a session has come back without the device records of
     kernels that did run.  The dict is empty when every try came back so."""
     from torch.profiler import ProfilerActivity, profile
@@ -1155,10 +1618,14 @@ def profiled(torch, fn, want):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         times, events = {}, 0
+        if counts is not None:
+            counts.clear()
         for e in prof.key_averages():
             events += 1
             if str(getattr(e, "device_type", "")).endswith("CUDA") and e.self_device_time_total:
                 times[e.key] = times.get(e.key, 0.0) + e.self_device_time_total / 1e3
+                if counts is not None:
+                    counts[e.key] = counts.get(e.key, 0) + e.count
         if any(w in k for k in times for w in want):
             return times, wall
         print(f"profiler: try {attempt + 1} of {PROFILE_TRIES} showed no {want} among "
@@ -1180,9 +1647,11 @@ def by_class(times, classes):
 
 
 def device_kernel_ms(torch, fn, names, iters=20):
-    """Device time per call of the CUDA kernels whose name holds one of
-    ``names``, and where it comes from: torch.profiler, or, where no trace
-    shows them, CUDA events around the calls (launch gaps included)."""
+    """Device time per launch of the CUDA kernel whose name holds one of
+    ``names`` (each call launches one), and where it comes from:
+    torch.profiler, the mean over the launches the trace recorded (one
+    trace has kept only part of them), or, where no trace shows them, CUDA
+    events around the calls (launch gaps included)."""
     for _ in range(3):
         fn()
 
@@ -1190,10 +1659,13 @@ def device_kernel_ms(torch, fn, names, iters=20):
         for _ in range(iters):
             fn()
 
-    times, _ = profiled(torch, calls, names)
-    total = sum(t for k, t in times.items() if any(n in k for n in names))
+    counts = {}
+    times, _ = profiled(torch, calls, names, counts)
+    keys = [k for k in times if any(n in k for n in names)]
+    total, seen = sum(times[k] for k in keys), sum(counts[k] for k in keys)
     if total > 0:
-        return total / iters, "torch.profiler"
+        return total / seen, ("torch.profiler" if seen == iters else
+                              f"torch.profiler, {seen} of {iters} launches traced")
     return cuda_time_ms(fn, iters), "CUDA events"
 
 
@@ -1236,9 +1708,14 @@ DECODE_POS = [47, 63, 92, 120, 151, 178, 199, 231]   # the timed decode slots' p
 def print_rows(rows):
     for name, r in rows.items():
         lens = f" segments {r['lens']}" if "lens" in r else ""
+        rate = f", {r['per_s']:.4g} elements/s" if "per_s" in r else ""
+        plain = "not measured" if r["plain_ms"] is None else f"{r['plain_ms']:.4f} ms"
+        lib = r["library_ms"]
+        if "library_from" in r:
+            lib = f"{lib} ms ({r['library_from']})"
         print(f"timing {name} {r['shape']}{lens}: device {r['ms']} ms ({r['ms_from']}), per call "
-              f"{r['call_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), library {r['library_ms']}")
+              f"{r['call_ms']:.4f} ms{rate}, plain {plain}, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), library {lib}")
 
 
 def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64)):
@@ -1301,14 +1778,67 @@ def moe_rows(torch, dev):
         dev_ms, src = device_kernel_ms(torch, call, ["softmax_kernel"])
         # each element read and written once (f32), one division each
         bms, by = bound_ms(8 * R * C, div_ops(plan, R * C))
+        # the yardstick's device time as K9's, from the profiler
+        lib_ms, lib_src = device_kernel_ms(torch, lambda: torch.softmax(x, dim=-1), ["oftmax"])
         rows[name] = {"shape": [R, C], "ms": dev_ms, "ms_from": src,
                       "call_ms": cuda_time_ms(call),
                       "plain_ms": cuda_time_ms(lambda: ops.posit_softmax_plain(POSIT16, x),
                                                iters=5),
-                      "bound_ms": bms, "bound_by": by,
-                      "library_ms": cuda_time_ms(lambda: torch.softmax(x, dim=-1))}
+                      "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                      "library_from": lib_src}
     rows["K3 decode hd128"] = flash_row(torch, dev, plan, 8, 1, 512, DECODE_POS,
                                         [0, 0, 5, 3, 9, 0, 14, 31], MOE_HEADS)
+    print_rows(rows)
+    return rows
+
+
+# Integer operations of a cast per element, counted from posit_srt.cuh
+# (each guarded shift as a compare, a shift and a select): float_to_posit is
+# float_decompose (22), the field split (6) and encode (~100); posit_to_float
+# is decode (~30) and ldexp_f32 with the sign and special selects (~20).
+QUANTIZE_OPS = 130
+DEQUANTIZE_OPS = 50
+
+
+def division_rows(torch, dev):
+    """K10, K11 and K12 (quantize, dequantize), posit16, default plan, at
+    the reference benchmark's 64 x 1024 and at one 2^28 chunk of the pair
+    sweep: device time (torch.profiler), per-call time (CUDA events), the
+    bound, the elements a second, and the twin's time at 64 x 1024.  K11 and
+    the dequantize take int32 words, as the sweep gives them."""
+    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posit_div import one_word_plan
+
+    plan = one_word_plan(POSIT16, DEFAULT_VARIANT)
+    g = torch.Generator(device=dev).manual_seed(23)
+    rows = {}
+    for size, label in ((64 * 1024, "64x1024"), (CHUNK, "2^28")):
+        a, b = (torch.rand(size, device=dev, generator=g) * 9.9 + 0.1 for _ in range(2))
+        wa, wb = (ops.posit_quantize(POSIT16, t).to(torch.int32) for t in (a, b))
+        cases = {
+            "K10": (lambda: ops.posit_div_fused(POSIT16, a, b), ["elementwise_kernel"],
+                    12, div_ops(plan, size), lambda: ops.posit_div_fused_plain(POSIT16, a, b)),
+            "K11": (lambda: ops.posit_div(POSIT16, wa, wb), ["div_kernel"], 12,
+                    div_ops(plan, size), lambda: ops.posit_div_plain(POSIT16, wa, wb)),
+            "K12 quantize": (lambda: ops.posit_quantize(POSIT16, a), ["::quantize_kernel"], 8,
+                             QUANTIZE_OPS * size, lambda: ops.posit_quantize_plain(POSIT16, a)),
+            "K12 dequantize": (lambda: ops.posit_dequantize(POSIT16, wa), ["dequantize_kernel"],
+                               8, DEQUANTIZE_OPS * size,
+                               lambda: ops.posit_dequantize_plain(POSIT16, wa)),
+        }
+        iters = 20 if size < CHUNK else 3
+        for name, (call, names, per_elem, ops_, plain) in cases.items():
+            dev_ms, src = device_kernel_ms(torch, call, names, iters=iters)
+            bms, by = bound_ms(per_elem * size, ops_)
+            rows[f"{name} {label}"] = {
+                "shape": [size], "ms": dev_ms, "ms_from": src,
+                "call_ms": cuda_time_ms(call, iters=iters),
+                "plain_ms": cuda_time_ms(plain, iters=5) if size < CHUNK else None,
+                "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "per_s": size / (dev_ms * 1e-3)}
+        del a, b, wa, wb
+        torch.cuda.empty_cache()
     print_rows(rows)
     return rows
 
@@ -1470,6 +2000,8 @@ def decode_breakdown(torch, dev, cfg, params, paged: bool = False):
                (("K4 flash, paged" if paged else "K3 flash"), "flash_kernel"))
     if cfg.family == "moe":
         classes += (("K9 softmax", "softmax_kernel"),)
+    if cfg.numerics.kv_cache_format:
+        classes += (("K12 casts", "quantize_kernel"),)   # both directions
     by = by_class({k: t / n for k, t in times.items()}, classes)
     busy = sum(by.values()) if times else None
     # every decode step reads all layer weights and the head once
@@ -1481,45 +2013,77 @@ def decode_breakdown(torch, dev, cfg, params, paged: bool = False):
     else:
         device = "device busy %.3f ms, idle share %.3f; %s" % (
             busy, 1 - busy / wall_plain, ", ".join(f"{k} {v:.3f} ms" for k, v in by.items()))
-    print("decode step (%s, 8 slots, full width, %s): wall %.3f ms (%.3f ms traced), %s; "
+    kv = cfg.numerics.kv_cache_format
+    print("decode step (%s, 8 slots, full width, %s%s): wall %.3f ms (%.3f ms traced), %s; "
           "weights read %.1f MB, bound %.4f ms" % (
-              cfg.name, "paged" if paged else "dense", wall_plain, wall / n, device,
+              cfg.name, "paged" if paged else "dense", f", {kv} KV cache" if kv else "",
+              wall_plain, wall / n, device,
               weight_bytes / 1e6, weight_bytes / HBM_BYTES_PER_S * 1e3))
     return {"wall_ms": wall_plain, "busy_ms": busy, **by}
 
 
-def time_k3(torch, dev, src: str, repeats: int = 3) -> None:
-    """K3's device time per launch at the timing phase's decode and prefill
-    rows, from the package under ``src``: run it from a parent checkout's
-    ``src`` and from this one, in turns, on one card, for an A/B after an
-    edit to ``posit_flash_attn.cu``."""
+def time_kernels(torch, dev, src: str, repeats: int = 3) -> None:
+    """An A/B of the kernels both packages have, from the package under
+    ``src``: each source's build seconds (one ``nvcc`` at a time), its
+    ptxas report, and the device time per launch of K3 (the timing phase's
+    decode and prefill rows), K2 (1024 x 1024), K6-K8 (the training rows)
+    and K9 (4096 x 64).  Run it from a parent checkout's ``src`` and from
+    this one, in turns, on one card, after an edit to a kernel source or
+    to the shared ``posit_srt.cuh``."""
     from repro_torch.core.posit import POSIT16
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.posit_flash_attn import posit_flash_attention
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import posit_flash_attn as F
 
-    secs = _build.build(["posit_flash_attn"])
+    out = {"src": src, "build_s": {}, "ptxas": {}}
+    for n in _build.SOURCES:
+        t0 = time.perf_counter()
+        built = _build.build([n])[n]
+        out["build_s"][n] = round(time.perf_counter() - t0, 2) if built else 0.0
+        log = _build.ptxas_log(n)
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        out["ptxas"][n] = {"kernels": len(regs), "max_registers": max(regs, default=0),
+                           "spill_store_bytes": sum(int(m) for m in re.findall(
+                               r"(\d+) bytes spill stores", log))}
+    plan = F.one_word_plan(POSIT16, "srt_r4_cs_of_fr")
     H, KV, hd = 15, 5, 64
     q, k, v = flash_inputs(torch, dev, 8, 1, 512, H, KV, hd, 7)
-    pos = torch.tensor([47, 63, 92, 120, 151, 178, 199, 231], dtype=torch.int32, device=dev)
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
     start = torch.tensor([0, 0, 5, 3, 9, 0, 14, 31], dtype=torch.int32, device=dev)
-    decode = lambda: posit_flash_attention(POSIT16, q, k, v, True, kv_start=start,
-                                           kv_len=pos + 1, q_pos=pos)
     qp, kp, vp = flash_inputs(torch, dev, 1, 256, 256, H, KV, hd, 7)
     s56 = torch.tensor([56], dtype=torch.int32, device=dev)
-    prefill = lambda: posit_flash_attention(POSIT16, qp, kp, vp, True, kv_start=s56)
-    out = {"src": src, "build_s": secs["posit_flash_attn"], "decode_ms": [],
-           "prefill_ms": [], "from": []}
+    tq, tk, tv, co = training_inputs(torch, dev, 8, 256, 9)
+    o, m, l = F.posit_flash_attention_fwd(POSIT16, tq, tk, tv, True)
+    args = backward_args(F, co, o, m, l, tq, tk, tv)
+    a = torch.randn(1024, 1024, device=dev)
+    b = torch.rand(1024, 1, device=dev) + 0.5
+    x = torch.randn(4096, 64, device=dev) * 2
+    calls = {
+        "K3 decode": (lambda: F.posit_flash_attention(POSIT16, q, k, v, True, kv_start=start,
+                                                      kv_len=pos + 1, q_pos=pos),
+                      ["flash_kernel"]),
+        "K3 prefill": (lambda: F.posit_flash_attention(POSIT16, qp, kp, vp, True,
+                                                       kv_start=s56), ["flash_kernel"]),
+        "K2 1024x1024": (lambda: ops.posit_div_fused_rowwise(POSIT16, a, b),
+                         ["rowwise_kernel"]),
+        "K6": (lambda: F.posit_flash_attention_fwd(POSIT16, tq, tk, tv, True),
+               ["flash_kernel"]),
+        "K7": (lambda: F.flash_backward_dq(POSIT16, plan, *args), ["flash_bwd_dq_kernel"]),
+        "K8": (lambda: F.flash_backward_dkv(POSIT16, plan, *args), ["flash_bwd_dkv_kernel"]),
+        "K9 4096x64": (lambda: ops.posit_softmax_fused(POSIT16, x), ["softmax_kernel"]),
+    }
+    out["ms"] = {name: [] for name in calls}
+    out["from"] = []
     for _ in range(repeats):
-        for name, fn in (("decode_ms", decode), ("prefill_ms", prefill)):
-            ms, how = device_kernel_ms(torch, fn, ["flash_kernel"])
-            out[name].append(ms)
+        for name, (fn, names) in calls.items():
+            ms, how = device_kernel_ms(torch, fn, names)
+            out["ms"][name].append(ms)
             out["from"].append(how)
-    print(json.dumps({"k3_timing": out}))
+    print(json.dumps({"kernel_timing": out}))
 
 
 def main() -> int:
     src = SRC
-    k3_only = "--time-k3" in sys.argv[1:]
+    ab_only = "--time-kernels" in sys.argv[1:]
     if "--src" in sys.argv[1:]:
         src = os.path.abspath(sys.argv[sys.argv.index("--src") + 1])
     if not os.path.isdir(os.path.join(src, "repro_torch")):
@@ -1529,10 +2093,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     sys.path.insert(0, src)
-    if k3_only:
+    if ab_only:
         from repro_torch.models.transformer import resolve_device
 
-        time_k3(torch, resolve_device("cuda:0"), src)
+        time_kernels(torch, resolve_device("cuda:0"), src)
         print(gpu_line())
         return 0
     from repro_torch.kernels import _build
@@ -1571,6 +2135,9 @@ def main() -> int:
     paged_err = timed("K4", phase_paged_kernel, torch, dev)
     packed_err, packs_held = timed("K5", phase_packed_kernel, torch, dev)
     softmax_err = timed("K9", phase_softmax, torch, dev)
+    k11 = timed("K11", phase_pattern_div, torch, dev)
+    cast_err = timed("K12", phase_casts, torch, dev)
+    fused = timed("K10", phase_fused_chained, torch, dev)
     timed("model", phase_model_small, torch, dev)
     timed("model", phase_model_small, torch, dev, "olmoe_1b_7b")
     train_err = timed("K6-K8", phase_flash_train, torch, dev)
@@ -1578,10 +2145,14 @@ def main() -> int:
     cfg, params = timed("main", full_model, torch, dev)
     path = timed("main", phase_main, torch, dev, cfg, params)
     paged = timed("paged", phase_paged, torch, dev, cfg, params, packs_held)
+    kv = timed("posit-KV", phase_posit_kv, torch, dev, cfg, params, packs_held, path["outs"])
     train = timed("training", phase_train_main, torch, dev)
     rows = timed("timing", phase_timing, torch, dev, paged["pack"])
+    rows.update(timed("timing", division_rows, torch, dev))
     timed("timing", decode_breakdown, torch, dev, cfg, params)
     timed("timing", decode_breakdown, torch, dev, cfg, params, paged=True)
+    timed("timing", decode_breakdown, torch, dev, cfg.with_numerics(kv_cache_format="posit16"),
+          params)
     # the SmolLM state goes before OLMoE's 13.8 GB of weights come in
     del cfg, params
     gc.collect()
@@ -1602,11 +2173,12 @@ def main() -> int:
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
-        entry("K1 posit SRT datapath (inlined in K2-K9)",
+        entry("K1 posit SRT datapath (inlined in K2-K11)",
               csrc + "posit_srt.cuh", "src/repro/kernels/posit_div.py:433",
               path["rowwise"] + path["flash"] + paged["rowwise"] + paged["K3"] + paged["K4"]
               + paged["K5"] + train["rowwise"] + train["K6"] + train["K7"] + train["K8"]
-              + moe["rowwise"] + moe["K3"] + moe["K9"], div_err, rows["K1"]),
+              + moe["rowwise"] + moe["K3"] + moe["K9"] + fused["K10"] + k11["launches"]
+              + fused["K11"], div_err, rows["K1"]),
         entry("K2 rowwise fused posit divide", csrc + "posit_fused_div.cu",
               "src/repro/kernels/posit_fused_div.py:149",
               path["rowwise"] + paged["rowwise"] + train["rowwise"] + moe["rowwise"], div_err,
@@ -1632,6 +2204,18 @@ def main() -> int:
         entry("K9 fused posit softmax (MoE router)", csrc + "posit_softmax.cu",
               "src/repro/kernels/posit_fused_div.py:210", moe["K9"], softmax_err,
               rows["K9 router"]),
+        entry("K10 elementwise fused posit divide", csrc + "posit_fused_div.cu",
+              "src/repro/kernels/posit_fused_div.py:103", fused["K10"], 0.0,
+              rows["K10 64x1024"]),
+        entry("K11 posit divide on bit patterns", csrc + "posit_div.cu",
+              "src/repro/kernels/posit_div.py:652", k11["launches"] + fused["K11"], 0.0,
+              rows["K11 64x1024"]),
+        entry("K12 f32 -> posit quantize", csrc + "posit_cast.cu",
+              "src/repro/kernels/posit_cast.py:43", kv["K12q"], max(cast_err, kv["err"]),
+              rows["K12 quantize 64x1024"]),
+        entry("K12 posit -> f32 dequantize", csrc + "posit_cast.cu",
+              "src/repro/kernels/posit_cast.py:65", kv["K12dq"], max(cast_err, kv["err"]),
+              rows["K12 dequantize 64x1024"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

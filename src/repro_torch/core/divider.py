@@ -1,14 +1,17 @@
 """Table IV divider micro-architectures (the rows the kernels are planned from).
 
 A copy of ``DividerConfig`` / ``VARIANTS`` from the reference package's
-``core/divider.py``.  The BitVec emulation divider that file also holds is
-not ported: the port's golden is the reference itself, held against in the
-tests.
+``core/divider.py`` (with the Eq 30-31 iteration count the cost model
+reads).  The BitVec emulation divider that file also holds is not ported:
+the port's goldens are the reference itself, held against in the tests,
+and ``core/goldens.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from .posit import PositFormat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,8 +27,26 @@ class DividerConfig:
     nonrestoring: bool = False  # Algorithm 1 (digit set {-1, 1})
 
     @property
+    def rho_is_one(self) -> bool:
+        # radix-2 digit sets used here have rho = 1; radix-4 a=2 -> rho = 2/3.
+        return self.radix == 2
+
+    @property
+    def p_shift(self) -> int:
+        """Initialization shift (Section III-C): w(0) = x / p."""
+        return 1 if self.rho_is_one else 2
+
+    @property
     def log2r(self) -> int:
         return 1 if self.radix == 2 else 2
+
+    def h(self, fmt: PositFormat) -> int:
+        """Quotient bits required (Eq 30): n - 1 - floor(rho)."""
+        return fmt.n - 1 - (1 if self.rho_is_one else 0)
+
+    def iterations(self, fmt: PositFormat) -> int:
+        """Eq 31."""
+        return -(-self.h(fmt) // self.log2r)
 
 
 VARIANTS = {

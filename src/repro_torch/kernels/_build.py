@@ -27,7 +27,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("posit_fused_div", "posit_flash_attn", "posit_flash_bwd", "posit_softmax")
+SOURCES = ("posit_fused_div", "posit_flash_attn", "posit_flash_bwd", "posit_softmax",
+           "posit_div", "posit_cast")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

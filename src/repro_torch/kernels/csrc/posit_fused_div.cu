@@ -1,4 +1,5 @@
-// K2: row-broadcast fused posit division, out[r, c] = a[r, c] / b[r].
+// K2: row-broadcast fused posit division, out[r, c] = a[r, c] / b[r], and
+// K10: elementwise fused posit division, out[i] = a[i] / b[i].
 //
 // Replaces posit_fused_div_rowwise_pallas (src/repro/kernels/posit_fused_div.py
 // :127, pallas_call :149), reached through ops.posit_div_fused_rowwise
@@ -15,6 +16,14 @@
 // posit16 radix-4, encode) per element, against 8 bytes of traffic per
 // element; at the main path's shapes (R = batch x seq rows of 960) the
 // launch is tiny and its time is set by latency, not by bytes.
+//
+// K10 replaces posit_fused_div_pallas (src/repro/kernels/posit_fused_div.py
+// :86, pallas_call :103), reached through ops.posit_div_fused
+// (src/repro/kernels/ops.py:172): one thread per element of the flattened
+// operands, each preparing its own divisor (nothing is shared, so no
+// shared memory and no barrier); the ragged end is masked (the reference
+// pads the divisor with 1.0).  12 bytes of traffic against a whole
+// division per element: bound by the integer operations at any size.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,6 +48,17 @@ __global__ void __launch_bounds__(kCols* kRows)
   out[i] = posit::divide_float<P>(a[i], prep[threadIdx.y]);
 }
 
+constexpr int kThreads = 256;
+
+template <class P>
+__global__ void __launch_bounds__(kThreads)
+    elementwise_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                       float* __restrict__ out, long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  out[i] = posit::divide_float<P>(a[i], posit::prep_divisor<P>(b[i]));
+}
+
 }  // namespace
 
 // Returns 0, a cudaError_t from the launch, or -1 when no compiled plan
@@ -55,6 +75,24 @@ extern "C" int posit_fused_div_rowwise(int n, int radix, int red, int otf, int s
                                        [&](auto plan) {
                                          using P = decltype(plan);
                                          rowwise_kernel<P><<<grid, block, 0, s>>>(a, b, out, R, C);
+                                       });
+  if (!ok) return -1;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10: a, b, out hold n f32 each, contiguous on the device.  Returns as
+// posit_fused_div_rowwise.
+extern "C" int posit_fused_div(int n_, int radix, int red, int otf, int scaled, int nonrest,
+                               int it, int shift, int gbits, const float* a, const float* b,
+                               float* out, long long n, void* stream) {
+  const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool ok = posit::dispatch_plan(n_, radix, red, otf, scaled, nonrest, it, shift, gbits,
+                                       [&](auto plan) {
+                                         using P = decltype(plan);
+                                         if (n > 0)
+                                           elementwise_kernel<P><<<grid, kThreads, 0, s>>>(
+                                               a, b, out, n);
                                        });
   if (!ok) return -1;
   return static_cast<int>(cudaGetLastError());

@@ -3,14 +3,16 @@
 // Replaces the reference's datapath body in src/repro/kernels/posit_div.py
 // (_divide_fields :433, _divide_block :549, divide_floats_block :609), which
 // every Pallas kernel composes.  Here it is a set of __host__ __device__
-// functions on 32-bit registers that K2 (posit_fused_div.cu) and K3
-// (posit_flash_attn.cu) inline; the same header compiles as host C++ so the
-// arithmetic can be checked without a card.
+// functions on 32-bit registers that every kernel under csrc/ inlines (K2,
+// K10: posit_fused_div.cu; K3-K8: posit_flash_attn.cu, posit_flash_bwd.cu;
+// K9: posit_softmax.cu; K11: posit_div.cu; K12's casts: posit_cast.cu); the
+// same header compiles as host C++ so the arithmetic can be checked without
+// a card.
 //
 // Scope: every ONE-WORD plan (W = 1; posit8/16 x all nine Table IV rows,
-// posit32 x the eight unscaled rows).  The plan's static fields are template
-// parameters (Plan<...>), so each row compiles to straight-line register
-// code with its loop trip count known.
+// posit32 x the eight unscaled rows; posit10's nine rows for K11 alone).
+// The plan's static fields are template parameters (Plan<...>), so each row
+// compiles to straight-line register code with its loop trip count known.
 //
 // Bit-exactness rules kept from the reference:
 //   * logical shifts on uint32_t, arithmetic ones on int32_t; every variable
@@ -294,7 +296,8 @@ PHD int select_digit(uint32_t rws, uint32_t rwc, int didx) {
   return est >= m2 ? 2 : est >= m1 ? 1 : est >= m0 ? 0 : est >= mm1 ? -1 : -2;
 }
 
-// Divisor-side work, done once per row by the rowwise kernels.
+// Divisor-side work, done once per row by the rowwise kernels (once per
+// element by the elementwise ones).
 struct Divisor {
   uint32_t d_al, nd_al, d2, nd2;
   int didx;
@@ -302,10 +305,12 @@ struct Divisor {
   bool sign, zero, nar;
 };
 
+// The divisor from its posit pattern (K11); the float entry points quantize
+// first.
 template <class P>
-PHD Divisor prep_divisor(float b) {
+PHD Divisor prep_divisor_bits(uint32_t pd) {
   Divisor d;
-  const Fields dd = decode<P::n>(float_to_posit<P::n>(b));
+  const Fields dd = decode<P::n>(pd);
   if constexpr (P::frac >= 4) d.didx = static_cast<int>((dd.sig >> (P::frac - 4)) & 7u);
   else d.didx = static_cast<int>((dd.sig << (4 - P::frac)) & 7u);
   uint32_t d_al = dd.sig << P::shift;
@@ -319,6 +324,11 @@ PHD Divisor prep_divisor(float b) {
   d.zero = dd.zero;
   d.nar = dd.nar;
   return d;
+}
+
+template <class P>
+PHD Divisor prep_divisor(float b) {
+  return prep_divisor_bits<P>(float_to_posit<P::n>(b));
 }
 
 template <class P>
@@ -420,22 +430,30 @@ PHD QuotientFields divide_fields(uint32_t xsig, const Divisor& d) {
   return q;
 }
 
-// posit_div.py divide_floats_block for one element against a prepared
-// per-row divisor: quantize -> SRT divide -> encode -> dequantize.
+// posit_div.py _divide_block for one element: the quotient's pattern from
+// the dividend's pattern and a prepared divisor.
 template <class P>
-PHD float divide_float(float a, const Divisor& d) {
-  const Fields dx = decode<P::n>(float_to_posit<P::n>(a));
+PHD uint32_t divide_bits(uint32_t px, const Divisor& d) {
+  const Fields dx = decode<P::n>(px);
   const QuotientFields q = divide_fields<P>(dx.sig, d);
   const bool out_nar = dx.nar || d.nar || d.zero;
   const bool out_zero = dx.zero && !out_nar;
-  const uint32_t p = encode<P::n>(dx.sign != d.sign, dx.scale - d.scale + q.t_adj, q.frac,
-                                  q.round_bit, q.sticky, out_zero, out_nar);
-  return posit_to_float<P::n>(p);
+  return encode<P::n>(dx.sign != d.sign, dx.scale - d.scale + q.t_adj, q.frac, q.round_bit,
+                      q.sticky, out_zero, out_nar);
+}
+
+// posit_div.py divide_floats_block for one element against a prepared
+// divisor: quantize -> SRT divide -> encode -> dequantize.
+template <class P>
+PHD float divide_float(float a, const Divisor& d) {
+  return posit_to_float<P::n>(divide_bits<P>(float_to_posit<P::n>(a), d));
 }
 
 // Calls f(P{}) with the Plan type matching the runtime plan fields; false
-// when the table in posit_plans.inc has no such row.
-template <class Fn>
+// when the table in posit_plans.inc has no such row.  kPosit10 adds the
+// posit10 rows of posit10_plans.inc, which only K11 (posit_div.cu) builds:
+// the other kernels keep their instantiations.
+template <bool kPosit10 = false, class Fn>
 bool dispatch_plan(int n, int radix, int red, int otf, int scaled, int nonrest, int it,
                    int shift, int gbits, Fn&& f) {
 #define POSIT_PLAN(N_, R_, RED_, OTF_, SC_, NR_, IT_, SH_, G_)                          \
@@ -445,6 +463,9 @@ bool dispatch_plan(int n, int radix, int red, int otf, int scaled, int nonrest, 
     return true;                                                                        \
   }
 #include "posit_plans.inc"
+  if constexpr (kPosit10) {
+#include "posit10_plans.inc"
+  }
 #undef POSIT_PLAN
   return false;
 }

@@ -1,9 +1,14 @@
-"""The rowwise fused posit divide (K2), the fused posit softmax (K9) and
-the rowwise dispatch rule.
+"""The division API and the rowwise dispatch rule: the elementwise fused
+posit divide (K10), the pattern divide (K11), the f32 <-> posit casts
+(K12), the rowwise fused divide (K2) and the fused posit softmax (K9).
 
-Port of the rowwise and softmax entries of the reference package's
-``kernels/ops.py``:
+Port of the reference package's ``kernels/ops.py``:
 
+* ``posit_div`` — division on posit bit patterns (n <= 32), any shape;
+* ``posit_div_fused`` — quantize, SRT divide, dequantize on same-shape
+  float operands in one launch, bit-identical to the chained
+  ``posit_quantize -> posit_div -> posit_dequantize``;
+* ``posit_quantize`` / ``posit_dequantize`` — the storage casts;
 * ``a[..., C] / b[..., 1]`` where ``b`` broadcasts into ``a`` with a size-1
   (or absent) last axis — the RMSNorm reciprocal and every per-row
   normalizer.  The divisor stays an O(rows) column end to end.
@@ -11,11 +16,16 @@ Port of the rowwise and softmax entries of the reference package's
   ``exp``, fixed-order row sum and the SRT divide in one launch — the MoE
   router's probabilities.
 
-For a CUDA tensor :func:`posit_div_fused_rowwise` and
-:func:`posit_softmax_fused` launch the hand-written kernels
-``csrc/posit_fused_div.cu`` and ``csrc/posit_softmax.cu`` (or raise); for a
-CPU tensor they run the plain twins :func:`posit_div_rowwise_plain` and
-:func:`posit_softmax_plain`.
+For a CUDA tensor each entry point launches its hand-written kernel
+(``csrc/posit_fused_div.cu``, ``posit_div.cu``, ``posit_cast.cu``,
+``posit_softmax.cu``) and counts the launch in its ``launches`` attribute,
+or raises where no kernel is compiled for the plan or format: it never runs
+the twin instead.  For a CPU tensor it runs the plain twin
+(``*_plain``).  Patterns are int64 lanes holding the unsigned 32-bit value
+(``core/posit.py``); ``posit_div`` and ``posit_dequantize`` also take
+int32 words or packed uint8/uint16 patterns.  The reference's ``block``
+and ``interpret`` arguments and its padding have no counterpart: the
+kernels mask their ragged end, and any shape, zero-size included, is taken.
 """
 
 from __future__ import annotations
@@ -29,14 +39,20 @@ import torch
 from repro_torch.core.posit import PositFormat
 from repro_torch.core.quire import fixed_order_rowsum
 from . import _build
+from . import posit_cast as _cast
 from .posit_div import (
     DEFAULT_KERNEL_VARIANT,
+    KERNEL_VARIANTS,
     DatapathPlan,
+    _divide_block,
     divide_floats_block,
+    kernel_datapath_plan,
+    kernel_plan_error,
     one_word_plan,
 )
 
 DEFAULT_DIV_VARIANT = DEFAULT_KERNEL_VARIANT
+FUSED_DIV_VARIANTS = KERNEL_VARIANTS
 _ROWS_PER_BLOCK = 4          # csrc/posit_fused_div.cu kRows
 _MAX_GRID_Y = 65535
 
@@ -49,6 +65,188 @@ def plan_args(plan: DatapathPlan):
 
 
 PLAN_ARGTYPES = [ctypes.c_int] * 9
+
+
+def fused_variant_supported(fmt: PositFormat, variant: str) -> bool:
+    """Does (fmt, variant) have a datapath the port runs (a one-word plan)?
+
+    The reference answers for its two-word plans too (posit32
+    ``srt_r4_scaled``, posit64); the port's datapath is one-word until
+    those are ported (``ROADMAP.md``)."""
+    if kernel_plan_error(fmt, variant) is not None:
+        return False
+    return kernel_datapath_plan(fmt, variant).words == 1
+
+
+def _pair(a, b, what: str, dtype):
+    """``a`` and ``b`` (moved to ``a``'s device) of one shape, as ``dtype``."""
+    b = torch.as_tensor(b, device=a.device)
+    if tuple(a.shape) != tuple(b.shape):
+        raise ValueError(f"{what} takes operands of one shape; got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} (numerics.posit_div_values broadcasts)")
+    return a.to(dtype), b.to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _flat_fn(lib: str, sym: str):
+    fn = getattr(_build.load(lib), sym)
+    fn.argtypes = PLAN_ARGTYPES + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_flat(fn, what: str, fmt: PositFormat, variant: str, a, b, out):
+    """One launch of an elementwise kernel over contiguous ``a``, ``b``.
+
+    The plans the kernel is built for are its source's ``dispatch_plan``
+    alone: for any other the launch returns -1 and this raises (it never
+    falls back to the twin)."""
+    plan = one_word_plan(fmt, variant)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        rc = fn(*plan_args(plan), a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
+                stream)
+    if rc == -1:
+        raise NotImplementedError(f"{what}: no kernel is built for {fmt} {variant}; the twin "
+                                  "runs on CPU tensors only")
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+    return out
+
+
+def _unsupported_device(what: str, t):
+    return ValueError(f"no {what} for device {t.device}")
+
+
+# ------------------------------------------------------------- K11: patterns
+
+
+def _pattern_plan(fmt: PositFormat, variant: str) -> DatapathPlan:
+    if fmt.n > 32:
+        raise ValueError(
+            f"posit_div takes uint32 bit patterns, which cannot hold {fmt}; "
+            "wide formats divide through the float-level fused entry points "
+            "(posit_div_fused / posit_div_fused_rowwise / posit_softmax_fused)")
+    return one_word_plan(fmt, variant)
+
+
+def posit_div_plain(fmt: PositFormat, px, pd, variant: str = DEFAULT_DIV_VARIANT):
+    """The plain PyTorch twin of K11 (any device): int64 lanes out."""
+    _pattern_plan(fmt, variant)
+    px, pd = _pair(px, pd, "posit_div", torch.int64)
+    return _divide_block(fmt, px, pd, variant)
+
+
+def posit_div(fmt: PositFormat, px, pd, variant: str = DEFAULT_DIV_VARIANT):
+    """Elementwise posit division on bit patterns (n <= 32, any shape).
+
+    CUDA tensors launch K11 (counted in ``posit_div.launches``); CPU tensors
+    run the plain twin.  Bit-identical to the reference's ``ops.posit_div``.
+    """
+    _pattern_plan(fmt, variant)
+    if px.device.type == "cuda":
+        wx, wd = (_cast.to_words(t) for t in _pair(px, pd, "posit_div", px.dtype))
+        out = _launch_flat(_flat_fn("posit_div", "posit_div"), "posit_div", fmt, variant, wx,
+                           wd, torch.empty_like(wx))
+        posit_div.launches += 1
+        return _cast.from_words(out)
+    if px.device.type == "cpu":
+        return posit_div_plain(fmt, px, pd, variant)
+    raise _unsupported_device("posit divide", px)
+
+
+posit_div.launches = 0
+
+
+# ------------------------------------------------------------ K10: elementwise
+
+
+def posit_div_fused_plain(fmt: PositFormat, a, b, variant: str = DEFAULT_DIV_VARIANT):
+    """The plain PyTorch twin of K10 (any device): float32 out."""
+    one_word_plan(fmt, variant)
+    a, b = _pair(a, b, "posit_div_fused", torch.float32)
+    return divide_floats_block(fmt, a, b, variant)
+
+
+def posit_div_fused(fmt: PositFormat, a, b, variant: str = DEFAULT_DIV_VARIANT):
+    """Fused quantize -> divide -> dequantize on same-shape operands:
+    float32 out, one launch.
+
+    CUDA tensors launch K10 (counted in ``posit_div_fused.launches``); CPU
+    tensors run the plain twin.  Bit-identical to the reference's
+    ``ops.posit_div_fused`` and to the chained
+    ``posit_dequantize(posit_div(posit_quantize(a), posit_quantize(b)))``.
+    """
+    one_word_plan(fmt, variant)
+    if a.device.type == "cuda":
+        a32, b32 = (t.contiguous() for t in _pair(a, b, "posit_div_fused", torch.float32))
+        out = _launch_flat(_flat_fn("posit_fused_div", "posit_fused_div"), "posit_div_fused",
+                           fmt, variant, a32, b32, torch.empty_like(a32))
+        posit_div_fused.launches += 1
+        return out
+    if a.device.type == "cpu":
+        return posit_div_fused_plain(fmt, a, b, variant)
+    raise _unsupported_device("posit divide", a)
+
+
+posit_div_fused.launches = 0
+
+
+# ------------------------------------------------------------------ K12: casts
+
+posit_quantize_plain = _cast.quantize_plain
+posit_dequantize_plain = _cast.dequantize_plain
+
+
+def _quantize_words(fmt: PositFormat, x):
+    """One counted launch of K12's quantize kernel: int32 words out."""
+    out = _cast.launch_quantize(fmt, x)
+    posit_quantize.launches += 1
+    return out
+
+
+def posit_quantize(fmt: PositFormat, x):
+    """float32 -> posit patterns (int64 lanes; RNE, saturating), any shape.
+
+    CUDA tensors launch K12's quantize kernel (posit8/16/32, counted in
+    ``posit_quantize.launches``); CPU tensors run the plain twin."""
+    _cast.check_format(fmt)
+    if x.device.type == "cuda":
+        return _cast.from_words(_quantize_words(fmt, x))
+    if x.device.type == "cpu":
+        return _cast.quantize_plain(fmt, x)
+    raise _unsupported_device("posit cast", x)
+
+
+def posit_dequantize(fmt: PositFormat, p):
+    """posit patterns (int64 lanes, int32 words or packed) -> float32, any
+    shape.  CUDA tensors launch K12's dequantize kernel (posit8/16/32,
+    counted in ``posit_dequantize.launches``); CPU tensors run the twin."""
+    _cast.check_format(fmt)
+    if p.device.type == "cuda":
+        out = _cast.launch_dequantize(fmt, p)
+        posit_dequantize.launches += 1
+        return out
+    if p.device.type == "cpu":
+        return _cast.dequantize_plain(fmt, p)
+    raise _unsupported_device("posit cast", p)
+
+
+posit_quantize.launches = 0
+posit_dequantize.launches = 0
+
+
+def posit_round_value(fmt: PositFormat, x):
+    """``x`` rounded to the nearest posit value, float32 out.
+
+    CUDA tensors launch K12's quantize then its dequantize kernel (each
+    counted as above) on one int32 word buffer; CPU tensors run the twins."""
+    _cast.check_format(fmt)
+    if x.device.type == "cuda":
+        return posit_dequantize(fmt, _quantize_words(fmt, x))
+    if x.device.type == "cpu":
+        return _cast.dequantize_plain(fmt, _cast.quantize_plain(fmt, x))
+    raise _unsupported_device("posit cast", x)
 
 
 def rowwise_applicable(a_shape, b_shape) -> bool:

@@ -71,5 +71,10 @@ class ModelConfig:
         """Vocab padded to a multiple of 256 (as the reference pads it)."""
         return _pad_to(self.vocab, 256)
 
+    def with_numerics(self, **kw) -> "ModelConfig":
+        """Merge ``kw`` into the existing numerics (e.g. only
+        ``kv_cache_format`` overridden)."""
+        return dataclasses.replace(self, numerics=dataclasses.replace(self.numerics, **kw))
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

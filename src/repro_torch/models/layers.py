@@ -14,7 +14,9 @@ reduced-precision bf16 reductions off when they resolve a CUDA device
 
 The divisions (RMSNorm's ``x / rms``, attention's ``o / l``, the MoE
 router's softmax and its top-k renormalization) run on the posit SRT
-kernels (K2, and K9 for the router softmax), and attention on the posit
+kernels (K2, and K9 for the router softmax); under
+``numerics.kv_cache_format`` the serving paths round every K/V row to the
+posit grid through K12 before caching it; attention runs on the posit
 flash kernels: K3 when serving
 from a dense cache (and for a prefix-sharing suffix prefill), K4 when
 decoding from a paged block pool, K5 for a packed multi-prompt prefill, and
@@ -39,11 +41,13 @@ from repro_torch.kernels.posit_flash_attn import (
     posit_flash_attention,
     posit_flash_attention_ste,
 )
+from repro_torch.numerics.formats import resolve_format
 from repro_torch.numerics.posit_ops import (
     posit_rmsnorm_div,
     posit_router_norm,
     posit_softmax,
 )
+from repro_torch.numerics.quant import posit_round_value
 from .config import ModelConfig
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -84,6 +88,20 @@ def _qkv(p, x, cfg: ModelConfig, positions):
     return q, k, v
 
 
+def _kv_round(k, v, cfg: ModelConfig):
+    """Under ``numerics.kv_cache_format``, K/V rounded to that posit grid
+    before they are cached or attended (f32, then back to their dtype), as
+    the reference rounds at insertion; the cache keeps the compute dtype
+    and holds posit-grid values.  On a CUDA tensor each rounding is one
+    quantize and one dequantize launch of K12."""
+    name = cfg.numerics.kv_cache_format
+    if not name:
+        return k, v
+    pf = resolve_format(name)
+    return (posit_round_value(pf, k.to(torch.float32)).to(k.dtype),
+            posit_round_value(pf, v.to(torch.float32)).to(v.dtype))
+
+
 def wo_project(o, wo):
     """Attention output projection ``einsum("bshk,hkd->bsd", o, wo)``."""
     B, S = o.shape[:2]
@@ -113,6 +131,7 @@ def prefill_attention(p, x, cache_k, cache_v, cfg: ModelConfig, positions,
     rows the bits of its solo prefill."""
     dt = x.dtype
     q, k, v = _qkv(p, x, cfg, positions)
+    k, v = _kv_round(k, v, cfg)
     S = x.shape[1]
     cache_k[:, :S] = k.to(cache_k.dtype)
     cache_v[:, :S] = v.to(cache_v.dtype)
@@ -137,6 +156,7 @@ def prefill_suffix_attention(p, x, cache_k, cache_v, cfg: ModelConfig, positions
         return prefill_attention(p, x, cache_k, cache_v, cfg, positions, start)
     dt = x.dtype
     q, k, v = _qkv(p, x, cfg, positions)
+    k, v = _kv_round(k, v, cfg)
     end = t0 + x.shape[1]
     cache_k[:, t0:end] = k.to(cache_k.dtype)
     cache_v[:, t0:end] = v.to(cache_v.dtype)
@@ -149,7 +169,8 @@ def prefill_suffix_attention(p, x, cache_k, cache_v, cfg: ModelConfig, positions
 
 def _decode_qkv(p, x, pos, start, cfg: ModelConfig):
     positions = pos[:, None] if start is None else (pos - start)[:, None]
-    return _qkv(p, x, cfg, positions)
+    q, k, v = _qkv(p, x, cfg, positions)
+    return (q,) + _kv_round(k, v, cfg)
 
 
 def decode_attention(p, x, cache_k, cache_v, pos, cfg: ModelConfig, start=None):

@@ -10,6 +10,7 @@ its BitVec ``emulate`` backend come back with the slices that port them
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from repro_torch.core.posit import POSIT8, POSIT16, POSIT32, POSIT64, PositFormat
 
@@ -33,10 +34,13 @@ class NumericsConfig:
     run through the digit-recurrence divider on the fused kernels.
 
     div_format / div_algo: which posit format + Table IV variant to use.
+    kv_cache_format: posit format the KV cache's rows are rounded to at
+        insertion (None = the compute dtype's values, unrounded).
     """
 
     div_format: str = "posit16"
     div_algo: str = "srt_r4_cs_of_fr"
+    kv_cache_format: Optional[str] = None
 
     @property
     def div_fmt(self) -> PositFormat:
@@ -53,4 +57,9 @@ class NumericsConfig:
         # raises KeyError on an unknown format name, NotImplementedError on a
         # two-word plan
         one_word_plan(self.div_fmt, self.div_algo)
+        name = self.kv_cache_format
+        if name and resolve_format(name).n > 32:
+            raise ValueError(
+                f"kv_cache_format={name!r} is a storage/wire format and must fit "
+                "a uint32 word (n <= 32); posit64 is division-only")
         return self

@@ -1,14 +1,15 @@
 """Model ops whose divisions run through the digit-recurrence divider.
 
-Port of the reference package's ``numerics/posit_ops.py`` for the rowwise
-division and the softmax: values are quantized to the configured posit
-format, divided with the configured Table IV variant and dequantized, in one
-launch of the rowwise kernel (K2) or of the fused softmax kernel (K9).
-Gradients of the division flow straight through the quantization (the posit
-division is a fake-quant of the true one), as the reference's
-``_posit_div_rowwise_ste`` custom_vjp: ``ga = g / b`` and ``gb = sum(-g *
-out / b)`` over the row, in plain torch.  The softmax serves only (its
-straight-through backward comes with MoE training, ``ROADMAP.md``).
+Port of the reference package's ``numerics/posit_ops.py`` (its ``fused``
+backend): values are quantized to the configured posit format, divided
+with the configured Table IV variant and dequantized, in one launch of the
+rowwise kernel (K2) for a per-row divisor, of the elementwise kernel (K10)
+for any other broadcast, or of the fused softmax kernel (K9).  Gradients of
+the division flow straight through the quantization (the posit division is
+a fake-quant of the true one), as the reference's custom_vjps: ``ga = g /
+b`` and ``gb = -g * out / b`` (summed over the row for the rowwise one),
+in plain torch.  The softmax serves only (its straight-through backward
+comes with MoE training, ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.core.quire import fixed_order_rowsum
 from repro_torch.kernels.ops import (
+    posit_div_fused,
     posit_div_fused_rowwise,
     posit_softmax_fused,
     rowwise_applicable,
@@ -41,20 +43,36 @@ class _RowwiseSTE(torch.autograd.Function):
         return ga, gb, None, None
 
 
+class _ElementwiseSTE(torch.autograd.Function):
+    """Same-shape ``a / b`` on K10, straight-through gradients (reference
+    ``_div_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, a, b, fmt, variant):
+        out = posit_div_fused(fmt, a, b, variant)
+        ctx.save_for_backward(b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        b, out = ctx.saved_tensors
+        return g / b, -g * out / b, None, None
+
+
 def posit_div_values(a, b, cfg: NumericsConfig):
     """``a / b`` in posit arithmetic (float in, float32 out, STE grads).
 
     A row-broadcast divisor (size-1 or absent last axis) runs on the rowwise
-    kernel with no materialized broadcast.  Same-shape division needs the
-    elementwise kernel, which is not ported yet (ROADMAP.md).
+    kernel with no materialized broadcast; any other pair is broadcast and
+    divided elementwise.  The broadcast is an autograd op, so a broadcast
+    operand's gradient is summed back to its own shape.
     """
     b = torch.as_tensor(b, device=a.device)
-    if not rowwise_applicable(a.shape, b.shape):
-        raise NotImplementedError(
-            f"elementwise posit division ({tuple(a.shape)} / {tuple(b.shape)}) "
-            "needs the elementwise fused kernel, not ported yet (ROADMAP.md)")
-    bcol = b.broadcast_to(tuple(a.shape[:-1]) + (1,))
-    return _RowwiseSTE.apply(a, bcol, cfg.div_fmt, cfg.div_algo)
+    if rowwise_applicable(a.shape, b.shape):
+        bcol = b.broadcast_to(tuple(a.shape[:-1]) + (1,))
+        return _RowwiseSTE.apply(a, bcol, cfg.div_fmt, cfg.div_algo)
+    a, b = torch.broadcast_tensors(a, b)
+    return _ElementwiseSTE.apply(a, b, cfg.div_fmt, cfg.div_algo)
 
 
 def posit_rmsnorm_div(x, rms, cfg: NumericsConfig):

@@ -28,7 +28,9 @@ written to fresh pages (a partly shared last block is copied, never
 written in place).  A slot's table grows a block at a time as it decodes,
 so the pool holds the tokens written, not ``max_seq`` per slot; eviction
 drops the slot's references (registered prefix blocks park in an LRU list,
-still matchable).  Decode reads the pages in place through K4.
+still matchable).  Decode reads the pages in place through K4.  Under
+``numerics.kv_cache_format`` (rows rounded to a posit grid through K12)
+no prefix is registered or matched: the pool pages without sharing.
 
 Packed prefill (``packed_prefill=True``): each admission sweep groups the
 queue head (one request per free slot) by bucket width and prefills each
@@ -411,6 +413,10 @@ class ServeEngine:
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got {sc.kv_layout!r}")
         self._paged = sc.kv_layout == "paged"
         self._packed = bool(sc.packed_prefill)
+        # prefix sharing needs a prefix's pages to be a pure function of its
+        # tokens; under kv_cache_format the cache holds rounded rows, so the
+        # pool pages without sharing, as the reference's engine does
+        self._share = not cfg.numerics.kv_cache_format
         if self._paged and cfg.family != "dense":
             raise NotImplementedError(f"kv_layout='paged' is not ported for family "
                                       f"{cfg.family!r} (ROADMAP.md); use 'dense'")
@@ -679,7 +685,8 @@ class ServeEngine:
         last block is recomputed into an owned page (copy-on-write)."""
         alloc, bs = st.alloc, self.sc.block_size
         plen = st.plans[rid][0]
-        shared = alloc.match_prefix(tuple(int(t) for t in st.reqs[rid].tokens))
+        toks = tuple(int(t) for t in st.reqs[rid].tokens)
+        shared = alloc.match_prefix(toks) if self._share else []
         t0 = min(len(shared) * bs, plen - 1)
         s_blk = t0 // bs
         total = -(-plen // bs)
@@ -699,7 +706,8 @@ class ServeEngine:
                   n_owned: int, t0: int) -> None:
         """Register a healthy paged admission's chain and map it to ``slot``."""
         plen = st.plans[rid][0]
-        st.alloc.register_prefix(tuple(int(t) for t in st.reqs[rid].tokens), chain)
+        if self._share:
+            st.alloc.register_prefix(tuple(int(t) for t in st.reqs[rid].tokens), chain)
         st.bt_host[slot, :] = 0
         st.bt_host[slot, :len(chain)] = chain
         st.slot_blocks[slot] = list(chain)

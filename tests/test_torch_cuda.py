@@ -40,6 +40,10 @@ def dev():
     return torch.device("cuda")
 
 
+def bits(t):
+    return t.contiguous().view(torch.int32)
+
+
 def _wide(g, *shape):
     return torch.randn(*shape, generator=g) * torch.exp(
         torch.empty(*shape).uniform_(-30, 30, generator=g))
@@ -349,3 +353,151 @@ def test_flash_kernel_decode_hd128_mha(dev):
     p = posit_flash_attention_plain(POSIT16, q, k, v, True, **kw)
     assert (o - p).abs().max() <= FLASH_TOL
     assert (o[7] == 0).all()
+
+
+# ------------------------------------------------- the division API: K10-K12
+
+
+def _k11_pairs():
+    from repro_torch.core.posit import PositFormat
+
+    return [(f, v) for f, v, _ in one_word_pairs()] + [
+        (f, v) for f, v, _ in one_word_pairs((PositFormat(10),))]
+
+
+@pytest.mark.parametrize("fmt,variant", _k11_pairs(), ids=lambda x: str(x))
+def test_pattern_kernel_matches_twin(dev, fmt, variant):
+    """K11 on random patterns (posit8/10 exhaustive) with the edges."""
+    n = fmt.n
+    if n <= 10:
+        px, pd = (m.reshape(-1) for m in torch.meshgrid(torch.arange(1 << n),
+                                                        torch.arange(1 << n), indexing="ij"))
+    else:
+        g = torch.Generator().manual_seed(n)
+        px, pd = (torch.randint(0, 1 << n, (70000,), generator=g, dtype=torch.int64)
+                  for _ in range(2))
+        edges = torch.tensor([0, 1 << (n - 1), 1, (1 << n) - 1, (1 << (n - 1)) - 1,
+                              (1 << (n - 1)) + 1, 1 << (n - 2)])
+        px[:49], pd[:49] = edges.repeat(7), edges.repeat_interleave(7)
+    k = ops.posit_div(fmt, px.to(dev), pd.to(dev), variant)
+    p = ops.posit_div_plain(fmt, px, pd, variant)
+    assert k.dtype == torch.int64 and int(k.min()) >= 0
+    assert torch.equal(k.cpu(), p)
+
+
+@pytest.mark.parametrize("fmt,variant", [(f, v) for f, v, _ in one_word_pairs()],
+                         ids=lambda x: str(x))
+def test_elementwise_kernel_matches_twin_and_chain(dev, fmt, variant):
+    g = torch.Generator().manual_seed(fmt.n + 1)
+    a, b = _wide(g, 37, 129), _wide(g, 37, 129)
+    a[0, :len(SPECIALS)] = SPECIALS
+    b[1, :len(SPECIALS)] = SPECIALS
+    a, b = a.to(dev), b.to(dev)
+    k = ops.posit_div_fused(fmt, a, b, variant)
+    assert torch.equal(bits(k), bits(ops.posit_div_fused_plain(fmt, a, b, variant)))
+    chained = ops.posit_dequantize(fmt, ops.posit_div(fmt, ops.posit_quantize(fmt, a),
+                                                      ops.posit_quantize(fmt, b), variant))
+    assert torch.equal(bits(k), bits(chained))
+
+
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_cast_kernels_match_twin(dev, n):
+    from repro_torch.core.posit import PositFormat
+
+    fmt = PositFormat(n)
+    g = torch.Generator().manual_seed(n)
+    x = torch.randint(-2 ** 31, 2 ** 31, (1 << 18,), generator=g, dtype=torch.int64)
+    x = torch.cat([x.to(torch.int32).view(torch.float32), SPECIALS])
+    p = (torch.arange(1 << n) if n < 32 else
+         torch.randint(0, 1 << 32, (1 << 18,), generator=g, dtype=torch.int64))
+    q = ops.posit_quantize(fmt, x.to(dev))
+    assert torch.equal(q.cpu(), ops.posit_quantize_plain(fmt, x))
+    d = ops.posit_dequantize(fmt, p.to(dev))
+    assert torch.equal(bits(d.cpu()), bits(ops.posit_dequantize_plain(fmt, p)))
+    # int32 words (a posit32 negative's top bit set) give the same values
+    w = ops.posit_dequantize(fmt, p.to(torch.int32).to(dev))
+    assert torch.equal(bits(w), bits(d))
+    if n < 32:   # every pattern is its own image under quantize o dequantize
+        assert torch.equal(ops.posit_quantize(fmt, d), p.to(dev))
+
+
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_round_value_bf16_patterns_match_twin(dev, n):
+    """posit_round_value, as the posit-KV path calls it, on every bf16 bit
+    pattern widened to f32: one quantize and one dequantize launch, the
+    twin's bits."""
+    from repro_torch.core.posit import PositFormat
+
+    fmt = PositFormat(n)
+    x = (torch.arange(1 << 16, dtype=torch.int32) << 16).view(torch.float32)
+    ops.posit_quantize.launches = ops.posit_dequantize.launches = 0
+    r = ops.posit_round_value(fmt, x.to(dev))
+    assert (ops.posit_quantize.launches, ops.posit_dequantize.launches) == (1, 1)
+    twin = ops.posit_dequantize_plain(fmt, ops.posit_quantize_plain(fmt, x))
+    assert torch.equal(bits(r.cpu()), bits(twin))
+
+
+def test_division_api_counts_and_refuses(dev):
+    """One launch each; the chain four against the fused one; plans and
+    formats no kernel is built for raise on a CUDA tensor (no twin)."""
+    from repro_torch.core.posit import POSIT32, PositFormat
+
+    a = torch.rand(64, 1024, device=dev) + 0.1
+    b = torch.rand(64, 1024, device=dev) + 0.1
+    counters = (ops.posit_div_fused, ops.posit_div, ops.posit_quantize, ops.posit_dequantize)
+    for c in counters:
+        c.launches = 0
+    ops.posit_div_fused(POSIT16, a, b)
+    ops.posit_dequantize(POSIT16, ops.posit_div(POSIT16, ops.posit_quantize(POSIT16, a),
+                                                ops.posit_quantize(POSIT16, b)))
+    assert [c.launches for c in counters] == [1, 1, 2, 1]
+    ops.posit_div_fused_plain(POSIT16, a, b)
+    ops.posit_quantize_plain(POSIT16, a)
+    assert [c.launches for c in counters] == [1, 1, 2, 1]
+    with pytest.raises(NotImplementedError, match="two-word"):
+        ops.posit_div_fused(POSIT32, a, b, "srt_r4_scaled")
+    with pytest.raises(NotImplementedError, match="no kernel is built"):
+        ops.posit_div_fused(PositFormat(10), a, b)
+    with pytest.raises(NotImplementedError, match="no kernel is built"):
+        ops.posit_div(PositFormat(12), a.long(), b.long())
+    with pytest.raises(NotImplementedError, match="no kernel is built"):
+        ops.posit_quantize(PositFormat(10), a)
+    with pytest.raises(ValueError, match="uint32 bit patterns"):
+        ops.posit_div(PositFormat(64), a.long(), b.long())
+    # the kernels' own plan tables refuse, zero-size operands too
+    e = a[:0]
+    with pytest.raises(NotImplementedError, match="no kernel is built"):
+        ops.posit_div_fused(PositFormat(10), e, e)
+    with pytest.raises(NotImplementedError, match="no kernel is built"):
+        ops.posit_div(PositFormat(12), e.long(), e.long())
+    with pytest.raises(NotImplementedError, match="no kernel is built"):
+        ops.posit_dequantize(PositFormat(10), e.long())
+    with pytest.raises(NotImplementedError, match="no kernel is built"):
+        ops.posit_round_value(PositFormat(10), a)
+    assert [c.launches for c in counters] == [1, 1, 2, 1]
+
+
+def test_kv_rounding_launches_k12(dev):
+    """A posit-KV decode step rounds K and V in every layer: 2L quantize and
+    2L dequantize launches, the cache holding posit-grid values."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.numerics.quant import posit_round_value
+
+    cfg = get_config("smollm_360m", smoke=True).with_numerics(kv_cache_format="posit8")
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    cache = T.init_cache(cfg, 2, 32, device=dev)
+    toks = torch.from_numpy(np.arange(20, dtype=np.int64).reshape(2, 10) + 3).to(dev)
+    T.prefill(params, cfg, toks, cache)
+    ops.posit_quantize.launches = ops.posit_dequantize.launches = 0
+    pos = torch.full((2,), 10, dtype=torch.int32, device=dev)
+    lg, cache = T.decode_step(params, cfg, cache, toks[:, :1], pos)
+    L = cfg.n_layers
+    assert (ops.posit_quantize.launches, ops.posit_dequantize.launches) == (2 * L, 2 * L)
+    rows = cache["k"][:, :, :11].float()
+    assert torch.equal(bits(posit_round_value(POSIT8, rows)), bits(rows))
+    twin = ops.posit_dequantize_plain(POSIT8, ops.posit_quantize_plain(POSIT8, rows.cpu()))
+    assert torch.equal(bits(twin), bits(rows.cpu()))
+    assert bool(torch.isfinite(lg).all())

@@ -42,7 +42,10 @@ def test_port_has_every_slice_module():
                 "serve/engine.py", "kernels/csrc/posit_flash_bwd.cu", "optim/tree.py",
                 "optim/adamw.py", "optim/schedule.py", "data/pipeline.py",
                 "train/trainer.py", "train/checkpoint.py", "launch/train.py",
-                "core/quire.py", "kernels/csrc/posit_softmax.cu", "configs/olmoe_1b_7b.py"):
+                "core/quire.py", "kernels/csrc/posit_softmax.cu", "configs/olmoe_1b_7b.py",
+                "kernels/posit_cast.py", "kernels/csrc/posit_div.cu",
+                "kernels/csrc/posit_cast.cu", "kernels/csrc/posit10_plans.inc",
+                "numerics/quant.py", "core/goldens.py", "core/costmodel.py"):
         assert (pkg / rel).is_file(), rel
 
 

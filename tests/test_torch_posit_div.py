@@ -7,7 +7,8 @@
   with the NaR/zero/minpos/maxpos edges) and ``divide_floats_block``
   (a (rows, 1) divisor, the special float values);
 * the CUDA datapath header (K1), compiled as host C++, is bit-exact against
-  the twin.
+  the twin: as K2 (a per-row divisor), K10 (a divisor per element), K11 (on
+  patterns, posit10's rows included) and K12 (the casts) use it.
 """
 
 import ctypes
@@ -33,6 +34,7 @@ RNG = np.random.default_rng(7)
 VARIANTS = TD.KERNEL_VARIANTS
 ONE_WORD = [(f.n, v) for f, v, _ in TD.one_word_pairs()]
 INC = TD.__file__.replace("posit_div.py", "csrc/posit_plans.inc")
+INC10 = INC.replace("posit_plans.inc", "posit10_plans.inc")
 SPECIALS = np.array([1.5, -2.25, 0.0, -0.0, np.inf, -np.inf, np.nan, 1e30,
                      -1e-30, 3.0, 1e-45, -3e-39], np.float32)
 
@@ -69,6 +71,14 @@ def test_cuda_plan_table_matches_plan():
     table = [tuple(int(x) for x in r.split(",")) for r in rows]
     assert table == [plan_args(p) for _, _, p in TD.one_word_pairs()]
     assert len(table) == 26
+
+
+def test_cuda_posit10_plan_table_matches_plan():
+    """K11's extra rows: the nine posit10 plans, in Table IV order."""
+    rows = re.findall(r"^POSIT_PLAN\(([^)]*)\)", open(INC10).read(), re.M)
+    table = [tuple(int(x) for x in r.split(",")) for r in rows]
+    assert table == [plan_args(p) for _, _, p in TD.one_word_pairs((PositFormat(10),))]
+    assert len(table) == 9
 
 
 @pytest.mark.parametrize("fmt", [PositFormat(64), PositFormat(32)])
@@ -142,6 +152,44 @@ extern "C" int host_rowwise(int n, int radix, int red, int otf, int scaled, int 
     });
   return ok ? 0 : -1;
 }
+extern "C" int host_elementwise(int n, int radix, int red, int otf, int scaled, int nonrest,
+                                int it, int shift, int gbits, const float* a, const float* b,
+                                float* out, int count) {
+  bool ok = posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits,
+    [&](auto plan) {
+      using P = decltype(plan);
+      for (int i = 0; i < count; ++i)
+        out[i] = posit::divide_float<P>(a[i], posit::prep_divisor<P>(b[i]));
+    });
+  return ok ? 0 : -1;
+}
+extern "C" int host_div_bits(int n, int radix, int red, int otf, int scaled, int nonrest,
+                             int it, int shift, int gbits, const uint32_t* px,
+                             const uint32_t* pd, uint32_t* out, int count) {
+  bool ok = posit::dispatch_plan<true>(n, radix, red, otf, scaled, nonrest, it, shift, gbits,
+    [&](auto plan) {
+      using P = decltype(plan);
+      for (int i = 0; i < count; ++i)
+        out[i] = posit::divide_bits<P>(px[i], posit::prep_divisor_bits<P>(pd[i]));
+    });
+  return ok ? 0 : -1;
+}
+template <int N>
+void cast(const float* x, uint32_t* p, const uint32_t* q, float* y, int count) {
+  for (int i = 0; i < count; ++i) {
+    p[i] = posit::float_to_posit<N>(x[i]);
+    y[i] = posit::posit_to_float<N>(q[i]);
+  }
+}
+extern "C" int host_cast(int n, const float* x, uint32_t* p, const uint32_t* q, float* y,
+                         int count) {
+  switch (n) {
+    case 8: cast<8>(x, p, q, y, count); return 0;
+    case 16: cast<16>(x, p, q, y, count); return 0;
+    case 32: cast<32>(x, p, q, y, count); return 0;
+    default: return -1;
+  }
+}
 """
 
 
@@ -158,9 +206,10 @@ def host_k1(tmp_path_factory):
     subprocess.run([cxx, "-std=c++17", "-O2", "-shared", "-fPIC",
                     "-I", str(INC.rsplit("/", 1)[0]), str(d / "k1.cpp"), "-o", str(lib)],
                    check=True, capture_output=True, timeout=300)
-    fn = ctypes.CDLL(str(lib)).host_rowwise
-    fn.restype = ctypes.c_int
-    return fn
+    lib = ctypes.CDLL(str(lib))
+    for name in ("host_rowwise", "host_elementwise", "host_div_bits", "host_cast"):
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
 
 
 @pytest.mark.parametrize("n", [8, 16, 32])
@@ -181,9 +230,73 @@ def test_cuda_datapath_header_matches_twin(host_k1, n):
     ptr = ctypes.POINTER(ctypes.c_float)
     for _, variant, plan in TD.one_word_pairs((fmt,)):
         out = np.zeros_like(a)
-        rc = host_k1(*plan_args(plan), a.ctypes.data_as(ptr), b.ctypes.data_as(ptr),
-                     out.ctypes.data_as(ptr), a.shape[0], a.shape[1])
+        rc = host_k1.host_rowwise(*plan_args(plan), a.ctypes.data_as(ptr),
+                                  b.ctypes.data_as(ptr), out.ctypes.data_as(ptr), a.shape[0],
+                                  a.shape[1])
         assert rc == 0, variant
         want = TD.divide_floats_block(fmt, torch.from_numpy(a), torch.from_numpy(b)[:, None],
                                       variant)
         np.testing.assert_array_equal(bits(out), bits(want), err_msg=variant)
+
+
+def _ptr(a):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_cuda_elementwise_divide_matches_twin(host_k1, n):
+    """K10's body: each element prepares its own divisor."""
+    fmt = PositFormat(n)
+    a = (RNG.standard_normal(6000) * np.exp(RNG.uniform(-30, 30, 6000))).astype(np.float32)
+    b = (RNG.standard_normal(6000) * np.exp(RNG.uniform(-30, 30, 6000))).astype(np.float32)
+    a[:len(SPECIALS)], b[:len(SPECIALS)] = SPECIALS, SPECIALS[::-1]
+    for _, variant, plan in TD.one_word_pairs((fmt,)):
+        out = np.zeros_like(a)
+        assert host_k1.host_elementwise(*plan_args(plan), _ptr(a), _ptr(b), _ptr(out),
+                                        len(a)) == 0
+        want = TD.divide_floats_block(fmt, torch.from_numpy(a), torch.from_numpy(b), variant)
+        np.testing.assert_array_equal(bits(out), bits(want), err_msg=variant)
+
+
+@pytest.mark.parametrize("n", [8, 10, 16, 32])
+def test_cuda_pattern_divide_matches_twin(host_k1, n):
+    """K11's body on patterns: posit8 exhaustive, posit10/16/32 sampled with
+    the edges, every variant the pattern kernel is built for."""
+    fmt = PositFormat(n)
+    if n == 8:
+        px, pd = (m.ravel() for m in np.meshgrid(np.arange(256), np.arange(256)))
+        px, pd = px.astype(np.uint32), pd.astype(np.uint32)
+    else:
+        e = _edges(n)
+        ea, eb = (m.ravel() for m in np.meshgrid(e, e))
+        r = RNG.integers(0, 1 << n, (2, 8000), dtype=np.uint64).astype(np.uint32)
+        px, pd = np.concatenate([r[0], ea]), np.concatenate([r[1], eb])
+    for _, variant, plan in TD.one_word_pairs((fmt,)):
+        out = np.zeros_like(px)
+        assert host_k1.host_div_bits(*plan_args(plan), _ptr(px), _ptr(pd), _ptr(out),
+                                     len(px)) == 0
+        want = TD._divide_block(fmt, _t(px), _t(pd), variant).numpy()
+        np.testing.assert_array_equal(out.astype(np.int64), want, err_msg=variant)
+    if n == 10:   # no other kernel's table has the posit10 rows
+        plan = TD.kernel_datapath_plan(fmt, "srt_r4_cs_of_fr")
+        out = np.zeros(2, np.float32)
+        assert host_k1.host_elementwise(*plan_args(plan), _ptr(out), _ptr(out), _ptr(out),
+                                        2) == -1
+
+
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_cuda_casts_match_twin(host_k1, n):
+    """K12's bodies: every posit8/16 pattern (sampled posit32) dequantized,
+    random f32 bit patterns and the specials quantized."""
+    from repro_torch.core.posit import float_to_posit, posit_to_float
+
+    fmt = PositFormat(n)
+    x = RNG.integers(0, 1 << 32, 1 << 16, dtype=np.uint64).astype(np.uint32).view(np.float32)
+    x = np.concatenate([x, SPECIALS])
+    q = (np.arange(1 << n, dtype=np.uint32) if n < 32 else
+         RNG.integers(0, 1 << 32, 1 << 16, dtype=np.uint64).astype(np.uint32))
+    q, x = q[:min(len(q), len(x))], x[:min(len(q), len(x))]
+    p, y = np.zeros(len(x), np.uint32), np.zeros(len(x), np.float32)
+    assert host_k1.host_cast(n, _ptr(x), _ptr(p), _ptr(q), _ptr(y), len(x)) == 0
+    np.testing.assert_array_equal(p.astype(np.int64), float_to_posit(fmt, torch.from_numpy(x)))
+    np.testing.assert_array_equal(bits(y), bits(posit_to_float(fmt, _t(q))))

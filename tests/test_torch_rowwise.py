@@ -76,13 +76,17 @@ def test_rowwise_rejects_bad_shapes_and_devices():
 
 
 def test_div_values_routes_rowwise_and_refuses_elementwise():
+    """A per-row divisor takes the rowwise route (K2's twin), same-shape
+    operands the elementwise one (K10's twin)."""
     cfg = NumericsConfig()
     a, b = torch.from_numpy(_wide((3, 16))), torch.from_numpy(_wide((3, 1)))
     np.testing.assert_array_equal(
         bits(posit_div_values(a, b, cfg)),
         bits(TO.posit_div_rowwise_plain(PositFormat(16), a, b)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        posit_div_values(a, torch.ones(3, 16), cfg)
+    c = torch.from_numpy(_wide((3, 16)))
+    np.testing.assert_array_equal(
+        bits(posit_div_values(a, c, cfg)),
+        bits(TO.posit_div_fused_plain(PositFormat(16), a, c)))
 
 
 def test_numerics_config_port_rules():
