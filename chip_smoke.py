@@ -12,12 +12,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               1x2048) and router-norm rows (8x8, 1x8 over their
               fixed-order sum), posit16 srt_r4_cs_of_fr
               on 2^20 random pairs plus the special values, posit8
-              exhaustive, every one-word (format, variant) sampled.
+              exhaustive, every (format, variant) sampled, the two-word
+              plans (posit32 srt_r4_scaled, posit64) at 8 x 960 and
+              256 x 960.
 3. K3       — flash attention against its plain twin at the main path's
               shapes (decode B=8, Sk=512; prefill P=128; OLMoE's decode at
               head_dim 128, 16/16 heads) and for every posit16 plan it is
-              built for: max|diff| within FLASH_TOL, fully masked rows
-              exactly 0.
+              built for, and posit64 srt_r4_cs_of_fr (its o / l on the
+              two-word frame) at decode and prefill: max|diff| within
+              FLASH_TOL, fully masked rows exactly 0.
    K4       — paged decode attention (B=8, max_seq 512 in pages of 16,
               a shuffled table with shared pages and a parked all-zero
               row, kv_start 0 and above 0; every posit16 plan at B=4): the
@@ -51,10 +54,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               K12 and to its twin for every one-word (format, variant), on
               the reference benchmark's 64 x 1024 uniform(0.1, 10) and 2^20
               random f32 pairs with the specials; 1 launch against 4.
+   two-word — K11 at posit32 srt_r4_scaled on 2^24 random pattern pairs
+              and every pair of the special patterns: the twin's bits, the
+              goldens' on 10^4 of them, srt_r4_cs_of_fr's on all; K10 at
+              the eight posit64 variants on 2^20 random f32 pairs and every
+              pair of the edge operands: the twin's bits and one answer,
+              the goldens' on 2^11 (normal range), no normal-range
+              quotient more than 1 f32 ulp from IEEE a / b.
+   grid     — K2 at 262144 rows of 960 (the twin's bits), K3 at B*H = 65536
+              and K7/K8 at B*KV = 65536 (within their bounds), past the
+              65535 that gridDim.y took.
    model    — the smoke configs (SmolLM and OLMoE) on the card (kernels)
               against the same weights on the CPU (plain twins, which the
               CPU tests hold against the reference): logits within
-              LOGIT_ULPS bf16 ulps.
+              LOGIT_ULPS bf16 ulps; SmolLM at posit64 too.
    K6-K8    — the training forward (K6) and the recompute backward (K7 dq,
               K8 dk/dv) against their twins at the training path's shapes
               (B=8, S=256, 15/5 heads, hd 64) for the default plan and at
@@ -70,6 +83,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               Launch counters are zeroed before and read after: K2 must run
               2L+1 times and K3 L times per forward.  Two requests must be
               bit-identical solo and batched.
+   posit64  — the same model, weights and mix with div_format="posit64"
+              (every RMSNorm divide on K2 and every o / l on K3 at the
+              two-word frame): the same launch counts, solo = batched,
+              every request its 32 tokens (the engine's health probe
+              faults a non-finite logit); printed: the requests whose
+              tokens differ from the posit16 run's.
    paged    — the same model and weights served with kv_layout="paged"
               (pages of 16) and packed_prefill=True: the 16 requests plus 8
               that share one 128-token prefix and add 16-64 tokens.  Per
@@ -112,7 +131,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               torch.profiler, as the yardstick's for K9; per-call times from
               CUDA events; K10-K12 also at a 2^28 chunk), and one
               full-width decode step, SmolLM dense (bf16 and posit16 KV
-              cache) and paged and OLMoE dense, broken down by kernel class.  A
+              cache, posit64 division) and paged and OLMoE dense, broken
+              down by kernel class; K2, K3 and K10 at posit64 and K11 at
+              posit32 srt_r4_scaled beside their posit16 rows.  A
               profiler session that shows none of the kernels it traced is
               taken again, twice at most; where none shows them, the device
               time is the CUDA events' and the busy share "not measured".
@@ -169,7 +190,11 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 # 32-bit integer operations of the posit datapath per element (a static
 # model of posit_srt.cuh: quantize, decode, the recurrence, encode,
-# dequantize), bounded at the f32 CUDA-core rate.
+# dequantize), bounded at the f32 CUDA-core rate.  On the two-word frame
+# every residual and quotient operation runs on two 32-bit halves (a 64-bit
+# shift as three), so an iteration counts DIV_OPS_PER_ITERATION per word,
+# and posit64's casts, decode and encode run on two-word patterns,
+# DIV_OPS_FIXED per pattern word.
 DIV_OPS_FIXED = 160
 DIV_OPS_PER_ITERATION = 30
 
@@ -208,7 +233,9 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def div_ops(plan, elements: int) -> int:
-    return elements * (DIV_OPS_FIXED + DIV_OPS_PER_ITERATION * plan.iterations)
+    pattern_words = 2 if plan.n > 32 else 1
+    return elements * (DIV_OPS_FIXED * pattern_words
+                       + DIV_OPS_PER_ITERATION * plan.words * plan.iterations)
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -242,7 +269,7 @@ def phase_rowwise(torch, dev):
     from repro_torch.core.posit import POSIT8, POSIT16, posit_to_float
     from repro_torch.core.quire import fixed_order_rowsum
     from repro_torch.kernels import ops
-    from repro_torch.kernels.posit_div import one_word_pairs
+    from repro_torch.kernels.posit_div import one_word_pairs, planned_pairs, two_word_pairs
 
     g = torch.Generator(device="cpu").manual_seed(11)
     specials = torch.tensor([1.5, -2.25, 0.0, -0.0, math.inf, -math.inf, math.nan,
@@ -284,17 +311,24 @@ def phase_rowwise(torch, dev):
     for _, variant, _ in one_word_pairs((POSIT8,)):
         compare(POSIT8, variant, vals[None, :].expand(len(vals), -1).contiguous(),
                 vals[:, None].contiguous())
-    # every one-word (format, variant), sampled
+    # every (format, variant), one- and two-word, sampled
     n_pairs = 0
-    for fmt, variant, _ in one_word_pairs():
+    for fmt, variant, _ in planned_pairs():
         a, b = wide(256, 512), wide(256, 1)
         a[0, :len(specials)] = specials
         b[:len(specials), 0] = specials
         compare(fmt, variant, a, b)
         n_pairs += 1
+    # the two-word plans (posit32 srt_r4_scaled, posit64) at the model's
+    # RMSNorm rows: a decode step's and a prefill's
+    for fmt, variant, _ in two_word_pairs():
+        for R in (8, 256):
+            compare(fmt, variant, torch.randn(R, 960, generator=g),
+                    torch.rand(R, 1, generator=g) + 0.01)
     print(f"K2: bit-exact to its twin (RMSNorm rows of 960 and 2048, router-norm "
-          f"rows of 8, posit16 2^20 pairs, posit8 exhaustive, "
-          f"{n_pairs} one-word plans sampled), max|diff| {worst[0]}")
+          f"rows of 8, posit16 2^20 pairs, posit8 exhaustive, {n_pairs} plans sampled, "
+          f"the {len(two_word_pairs())} two-word plans at 8 x 960 and 256 x 960), "
+          f"max|diff| {worst[0]}")
     return worst[0]
 
 
@@ -311,7 +345,7 @@ def flash_inputs(torch, dev, B, Sq, Sk, H, KV, hd, seed):
 
 
 def phase_flash(torch, dev):
-    from repro_torch.core.posit import POSIT16
+    from repro_torch.core.posit import POSIT16, POSIT64
     from repro_torch.kernels.posit_div import KERNEL_VARIANTS
     from repro_torch.kernels.posit_flash_attn import (
         posit_flash_attention,
@@ -320,9 +354,9 @@ def phase_flash(torch, dev):
 
     worst = {}
 
-    def compare(name, q, k, v, variant="srt_r4_cs_of_fr", **kw):
-        o = posit_flash_attention(POSIT16, q, k, v, True, variant=variant, **kw)
-        p = posit_flash_attention_plain(POSIT16, q, k, v, True, variant=variant, **kw)
+    def compare(name, q, k, v, variant="srt_r4_cs_of_fr", fmt=POSIT16, **kw):
+        o = posit_flash_attention(fmt, q, k, v, True, variant=variant, **kw)
+        p = posit_flash_attention_plain(fmt, q, k, v, True, variant=variant, **kw)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(o).all()), f"K3 {name}: non-finite output")
         worst[name] = max_abs_err(o, p)
@@ -346,6 +380,12 @@ def phase_flash(torch, dev):
     q, k, v = flash_inputs(torch, dev, 1, 128, 128, 15, 5, 64, 2)
     o = compare("prefill", q, k, v, kv_start=torch.tensor([40], dtype=torch.int32, device=dev))
     check(bool((o[0, :40] == 0).all()), "K3 prefill: fully masked rows are not 0")
+    o = compare("prefill posit64", q, k, v, fmt=POSIT64,
+                kv_start=torch.tensor([40], dtype=torch.int32, device=dev))
+    check(bool((o[0, :40] == 0).all()), "K3 prefill posit64: fully masked rows are not 0")
+    q, k, v = flash_inputs(torch, dev, 8, 1, 512, 15, 5, 64, 1)
+    o = compare("decode posit64", q, k, v, fmt=POSIT64, **kw)
+    check(bool((o[7] == 0).all()), "K3 decode posit64: fully masked row is not 0")
     # OLMoE's decode: head_dim 128 (the kernel's largest), MHA 16/16 heads,
     # 8 slots with left-pad starts (every plan at 4 slots)
     q, k, v = flash_inputs(torch, dev, 8, 1, 512, *MOE_HEADS, 3)
@@ -358,7 +398,9 @@ def phase_flash(torch, dev):
     print(f"K3: within {FLASH_TOL} of its twin for {len(KERNEL_VARIANTS)} posit16 plans: "
           f"decode max|diff|={worst['decode']:.3g}, prefill max|diff|="
           f"{worst['prefill']:.3g}, decode at hd 128 and 16/16 heads max|diff|="
-          f"{worst['decode hd128']:.3g}, all plans {max(worst.values()):.3g}")
+          f"{worst['decode hd128']:.3g}, all plans {max(worst.values()):.3g}; posit64 "
+          f"{DEFAULT_VARIANT} (two-word o / l) decode max|diff|="
+          f"{worst['decode posit64']:.3g}, prefill {worst['prefill posit64']:.3g}")
     return max(worst.values())
 
 
@@ -782,7 +824,175 @@ def phase_fused_chained(torch, dev):
     return {"K10": k10, "K11": k11, "K12q": q, "K12dq": dq}
 
 
-def phase_model_small(torch, dev, arch="smollm_360m"):
+TWO_WORD_PAIRS = 1 << 24       # random posit32 srt_r4_scaled pattern pairs for K11
+WIDE_RANDOM_PAIRS = 1 << 20  # random f32 pairs per posit64 variant for K10
+GOLDEN_SAMPLE32 = 10000
+GOLDEN_SAMPLE64 = 2048
+# tests/test_multiword_div.py's edge operands
+WIDE_EDGES = [0.0, -0.0, math.inf, -math.inf, math.nan, 3.4028235e38, -3.4028235e38,
+              1.1754944e-38, 1e-45, -1e-44, 1e30, -1e-30, 1.0, 2.0]
+
+
+def special_patterns(n: int):
+    """0, NaR, +-minpos, +-maxpos, +-1 and the patterns next to each."""
+    mask = (1 << n) - 1
+    base = [0, 1 << (n - 1), 1, mask, (1 << (n - 1)) - 1, (1 << (n - 1)) + 1, 1 << (n - 2),
+            (mask + 1 - (1 << (n - 2))) & mask]
+    return sorted({(x + d) & mask for x in base for d in (-1, 0, 1)})
+
+
+def golden_float_div64(a: float, b: float):
+    """The goldens' posit64 quotient of two f32 values, RNE to 24 bits as
+    posit_wide_to_float does, or None outside the f32 normal range (the
+    kernels flush those to signed zeros, as the reference's backends do)."""
+    import numpy as np
+
+    from repro_torch.core import goldens
+
+    d = goldens.decode(goldens.div(goldens.from_float(a, 64), goldens.from_float(b, 64), 64), 64)
+    if d[0] != "num":
+        return d[0]
+    _, sgn, T, sig = d
+    m24 = sig >> 36
+    m24 += ((sig >> 35) & 1) & (int((sig & ((1 << 35) - 1)) != 0) | (m24 & 1))
+    with np.errstate(over="ignore"):
+        want = np.float32((-1.0 if sgn else 1.0) * float(m24) * 2.0 ** (T - 23))
+    return float(want) if np.isfinite(want) and abs(want) >= 1.1754944e-38 else None
+
+
+def phase_two_word(torch, dev):
+    """K11 at posit32 srt_r4_scaled and K10 at the eight posit64 variants:
+    the two-word datapath against its twin, the goldens and the other
+    variants (the reference asserts every Table IV row gives one quotient)."""
+    import numpy as np
+
+    from repro_torch.core.posit import POSIT32, POSIT64
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posit_div import two_word_pairs
+
+    ops.posit_div.launches = ops.posit_div_fused.launches = 0
+    g = torch.Generator(device=dev).manual_seed(29)
+    # K11, posit32 srt_r4_scaled: 2^24 random pairs and every special pair
+    sp = torch.tensor(special_patterns(32), device=dev)
+    px, pd = (torch.randint(0, 1 << 32, (TWO_WORD_PAIRS,), device=dev, generator=g)
+              for _ in range(2))
+    px = torch.cat([sp.repeat(len(sp)), px])
+    pd = torch.cat([sp.repeat_interleave(len(sp)), pd])
+    k = ops.posit_div(POSIT32, px, pd, "srt_r4_scaled")
+    twin = torch.cat([ops.posit_div_plain(POSIT32, px[i:i + (1 << 22)], pd[i:i + (1 << 22)],
+                                          "srt_r4_scaled")
+                      for i in range(0, len(px), 1 << 22)])
+    if not torch.equal(k, twin):
+        disagreement(torch, "K11 posit32/srt_r4_scaled against its twin", px, pd, twin, k, 32)
+    sample = torch.cat([torch.arange(len(sp) ** 2, device=dev),
+                        torch.randint(len(sp) ** 2, len(px), (GOLDEN_SAMPLE32,), device=dev,
+                                      generator=g)])
+    gold = torch.tensor(golden_div(zip(px[sample].tolist(), pd[sample].tolist()), 32),
+                        device=dev)
+    if not torch.equal(k[sample], gold):
+        disagreement(torch, "K11 posit32/srt_r4_scaled against the goldens", px[sample],
+                     pd[sample], gold, k[sample], 32)
+    other = ops.posit_div(POSIT32, px, pd, DEFAULT_VARIANT)
+    if not torch.equal(k, other):
+        disagreement(torch, f"K11 posit32/srt_r4_scaled against {DEFAULT_VARIANT}", px, pd,
+                     other, k, 32)
+    n11 = len(px)
+    del px, pd, k, twin, other
+    # K10, posit64: 2^20 random f32 pairs and every pair of the edge operands
+    edges = torch.tensor(WIDE_EDGES, device=dev)
+    a, b = (torch.randint(-2 ** 31, 2 ** 31, (WIDE_RANDOM_PAIRS,), device=dev, generator=g)
+            .to(torch.int32).view(torch.float32) for _ in range(2))
+    a = torch.cat([edges.repeat(len(edges)), a])
+    b = torch.cat([edges.repeat_interleave(len(edges)), b])
+    first = None
+    plans = [(f, v) for f, v, _ in two_word_pairs() if f.n == 64]
+    for fmt, v in plans:
+        k = ops.posit_div_fused(fmt, a, b, v)
+        twin = ops.posit_div_fused_plain(fmt, a, b, v)
+        check(torch.equal(bits(k), bits(twin)),
+              f"K10 posit64/{v}: differs from its twin in "
+              f"{int((bits(k) != bits(twin)).sum())} elements")
+        if first is None:
+            first = k
+        check(torch.equal(bits(k), bits(first)),
+              f"K10 posit64/{v}: differs from posit64/{plans[0][1]} in "
+              f"{int((bits(k) != bits(first)).sum())} elements")
+    idx = torch.cat([torch.arange(len(edges) ** 2, device=dev),
+                     torch.randint(len(edges) ** 2, len(a), (GOLDEN_SAMPLE64,), device=dev,
+                                   generator=g)]).tolist()
+    ah, bh, kh = a.cpu().tolist(), b.cpu().tolist(), first.cpu().tolist()
+    checked = 0
+    for i in idx:
+        want = golden_float_div64(ah[i], bh[i])
+        if want == "nar":
+            check(math.isnan(kh[i]), f"K10 posit64: {ah[i]} / {bh[i]} gives {kh[i]}, not NaN")
+        elif want == "zero":
+            check(kh[i] == 0.0, f"K10 posit64: {ah[i]} / {bh[i]} gives {kh[i]}, not 0")
+        elif want is not None:
+            check(kh[i] == want, f"K10 posit64: {ah[i]} / {bh[i]} gives {kh[i]}, the "
+                  f"goldens {want}")
+        checked += 1
+    # sanity: quotients in the f32 normal range more than 1 ulp from IEEE a / b
+    with torch.no_grad():
+        ieee = a / b
+        normal = torch.isfinite(ieee) & (ieee.abs() >= 1.1754944e-38) & torch.isfinite(a) &             torch.isfinite(b)
+        ulp = torch.maximum(
+            torch.abs(torch.nextafter(ieee, torch.full_like(ieee, math.inf)) - ieee),
+            torch.abs(torch.nextafter(ieee, torch.full_like(ieee, -math.inf)) - ieee))
+        far = int(((first - ieee).abs() > ulp)[normal].sum())
+    check(far == 0, f"K10 posit64: {far} normal-range quotients more than 1 ulp from a / b")
+    launches = (ops.posit_div.launches, ops.posit_div_fused.launches)
+    print(f"two-word: K11 posit32/srt_r4_scaled the twin's bits on {n11} pattern pairs "
+          f"(2^24 random and every pair of {len(sp)} specials: 0, NaR, +-minpos, +-maxpos, "
+          f"+-1 and neighbours), the goldens' on {len(sample)}, and {DEFAULT_VARIANT}'s on "
+          f"all; K10 posit64 for {len(plans)} variants the twin's bits and one answer on "
+          f"{len(a)} f32 pairs (2^20 random, every pair of {len(edges)} edges), the goldens' "
+          f"on {checked}; {far} of {int(normal.sum())} normal-range quotients more than 1 f32 "
+          f"ulp from IEEE a / b; launches K11 {launches[0]}, K10 {launches[1]}")
+    return {"K11": launches[0], "K10": launches[1]}
+
+
+def phase_grid(torch, dev):
+    """The grids past gridDim.y's 65535: K2 at 262144 rows of 960 (the
+    training RMSNorm rows of a 1024 x 256 batch) bit-identical to its twin;
+    K3 at B*H = 65536 and K7/K8 at B*H = B*KV = 65536 within their bounds."""
+    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import posit_flash_attn as F
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    R, C = 262144, 960
+    a = torch.randn(R, C, device=dev, generator=g)
+    b = torch.rand(R, 1, device=dev, generator=g) + 0.01
+    k = ops.posit_div_fused_rowwise(POSIT16, a, b)
+    for r in range(0, R, 32768):
+        p = ops.posit_div_rowwise_plain(POSIT16, a[r:r + 32768], b[r:r + 32768])
+        check(torch.equal(bits(k[r:r + 32768]), bits(p)),
+              f"K2 at {R} x {C}: rows {r}-{r + 32767} differ from the twin")
+    del a, b, k, p
+    B, H, hd = 4096, 16, 64
+    q, kk, vv = flash_inputs(torch, dev, B, 1, 64, H, H, hd, 33)
+    pos = torch.full((B,), 63, dtype=torch.int32, device=dev)
+    o = F.posit_flash_attention(POSIT16, q, kk, vv, True, kv_len=pos + 1, q_pos=pos)
+    p = F.posit_flash_attention_plain(POSIT16, q, kk, vv, True, kv_len=pos + 1, q_pos=pos)
+    e3 = max_abs_err(o, p)
+    check(e3 <= FLASH_TOL, f"K3 at B*H = {B * H}: max|diff| {e3} > {FLASH_TOL}")
+    q, kk, vv, co = training_inputs(torch, dev, B, 16, 35, H=H, KV=H, hd=hd)
+    o, m, l = F.posit_flash_attention_fwd(POSIT16, q, kk, vv, True)
+    plan = F.datapath_plan(POSIT16, DEFAULT_VARIANT)
+    args = backward_args(F, co, o, m, l, q, kk, vv)
+    got = (F.flash_backward_dq(POSIT16, plan, *args), *F.flash_backward_dkv(POSIT16, plan,
+                                                                            *args))
+    twin = F.flash_backward_plain(POSIT16, q, kk.float(), vv.float(), o, co, m, l, True)
+    e8 = max(max_abs_err(x, w) for x, w in zip(got, twin))
+    check(e8 <= BWD_TOL, f"K7/K8 at B*KV = {B * H}: max|diff| {e8} > {BWD_TOL}")
+    torch.cuda.empty_cache()
+    print(f"grid: K2 at {R} x {C} bit-identical to its twin; K3 at B*H = {B * H} within "
+          f"{e3:.3g} of its twin; K7/K8 at B*H = B*KV = {B * H} within {e8:.3g}")
+    return {"K3": e3, "K8": e8}
+
+
+def phase_model_small(torch, dev, arch="smollm_360m", div_format="posit16"):
     """The smoke model on the card against the same weights on the CPU
     (the moe family's prefill is its scan of decode steps)."""
     import numpy as np
@@ -790,7 +1000,7 @@ def phase_model_small(torch, dev, arch="smollm_360m"):
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
-    cfg = get_config(arch, smoke=True, fused=True)
+    cfg = get_config(arch, smoke=True, fused=True).with_numerics(div_format=div_format)
     cpu = T.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
     gpu = {k: (v.to(dev) if torch.is_tensor(v) else
                [{n: w.to(dev) for n, w in lay.items()} for lay in v])
@@ -817,7 +1027,7 @@ def phase_model_small(torch, dev, arch="smollm_360m"):
         check(bool(torch.isfinite(g).all()) and err <= bound,
               f"smoke model: card vs CPU logits differ by {err} > {bound}")
         worst = max(worst, err / bound)
-    print(f"model: {arch} smoke config on the card within {worst:.2f} of the "
+    print(f"model: {arch} smoke config ({div_format}) on the card within {worst:.2f} of the "
           f"{LOGIT_ULPS}-ulp bound of the CPU path (prefill + 3 decode steps)")
 
 
@@ -858,7 +1068,7 @@ def phase_flash_train(torch, dev):
         worst["lse"] = max(worst["lse"], lse_err)
         check(err <= FLASH_TOL, f"K6 {where}: max|o diff| {err} > {FLASH_TOL}")
         check(lse_err <= LSE_TOL, f"K6 {where}: max|lse diff| {lse_err} > {LSE_TOL}")
-        plan = F.one_word_plan(POSIT16, variant)
+        plan = F.datapath_plan(POSIT16, variant)
         args = backward_args(F, co, o, m, l, q, k, v)
         runs = [(F.flash_backward_dq(POSIT16, plan, *args),
                  *F.flash_backward_dkv(POSIT16, plan, *args)) for _ in range(2)]
@@ -975,7 +1185,7 @@ def request_mix(cfg):
             for n in lens]
 
 
-def phase_main(torch, dev, cfg, params):
+def phase_main(torch, dev, cfg, params, label="main"):
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -1009,7 +1219,8 @@ def phase_main(torch, dev, cfg, params):
         check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()),
               f"request {r.rid}: token out of the vocabulary")
     n_tok = sum(len(o) for o in outs)
-    print(f"main: served {len(reqs)} requests (prompts {lens.min()}-{lens.max()} "
+    print(f"{label}: served {len(reqs)} requests ({cfg.numerics.div_format} "
+          f"{cfg.numerics.div_algo}; prompts {lens.min()}-{lens.max()} "
           f"tokens, 32 new each) on {eng.sc.max_batch} slots: {n_tok} tokens in "
           f"{wall:.2f} s = {n_tok / wall:.1f} tokens/s; {stats['admissions']} "
           f"prefills + {stats['decode_steps']} decode steps; K2 {k2} launches, "
@@ -1018,7 +1229,7 @@ def phase_main(torch, dev, cfg, params):
         solo = eng.serve([reqs[i]])[0]
         check(np.array_equal(solo, outs[i]),
               f"request {i}: solo tokens differ from the batched run")
-    print("main: requests 0 and 7 bit-identical solo and batched")
+    print(f"{label}: requests 0 and 7 bit-identical solo and batched")
     return {"rowwise": k2, "flash": k3, "tokens_per_s": n_tok / wall,
             "forwards": forwards, "outs": outs}
 
@@ -1670,23 +1881,24 @@ def device_kernel_ms(torch, fn, names, iters=20):
 
 
 def phase_timing(torch, dev, pack):
-    from repro_torch.core.posit import POSIT16
+    from repro_torch.core.posit import POSIT16, POSIT64
     from repro_torch.kernels import ops
-    from repro_torch.kernels.posit_div import one_word_plan
+    from repro_torch.kernels.posit_div import datapath_plan
 
-    plan = one_word_plan(POSIT16, "srt_r4_cs_of_fr")
+    plan = datapath_plan(POSIT16, "srt_r4_cs_of_fr")
     g = torch.Generator(device="cpu").manual_seed(5)
     rows = {}
 
-    def rowwise_row(R, C):
+    def rowwise_row(R, C, fmt=POSIT16):
         a = torch.randn(R, C, generator=g).to(dev)
         b = (torch.rand(R, 1, generator=g) + 0.5).to(dev)
-        call = lambda: ops.posit_div_fused_rowwise(POSIT16, a, b)
+        call = lambda: ops.posit_div_fused_rowwise(fmt, a, b)
         dev_ms, src = device_kernel_ms(torch, call, ["rowwise_kernel"])
-        bms, by = bound_ms(8 * R * C + 4 * R, div_ops(plan, R * C))
+        bms, by = bound_ms(8 * R * C + 4 * R, div_ops(datapath_plan(fmt, DEFAULT_VARIANT),
+                                                      R * C))
         return {"shape": [R, C], "ms": dev_ms, "ms_from": src,
                 "call_ms": cuda_time_ms(call),
-                "plain_ms": cuda_time_ms(lambda: ops.posit_div_rowwise_plain(POSIT16, a, b),
+                "plain_ms": cuda_time_ms(lambda: ops.posit_div_rowwise_plain(fmt, a, b),
                                          iters=5),
                 "bound_ms": bms, "bound_by": by, "library_ms": None}
 
@@ -1696,6 +1908,15 @@ def phase_timing(torch, dev, pack):
     rows["K3 decode"] = flash_row(torch, dev, plan, 8, 1, 512, DECODE_POS,
                                   [0, 0, 5, 3, 9, 0, 14, 31])
     rows["K3 prefill"] = flash_row(torch, dev, plan, 1, 256, 256, [0], [56])
+    # the two-word frame on the model path: posit64 at the same shapes
+    plan64 = datapath_plan(POSIT64, DEFAULT_VARIANT)
+    rows["K2 posit64 decode"] = rowwise_row(8, 960, POSIT64)
+    rows["K2 posit64 prefill"] = rowwise_row(256, 960, POSIT64)
+    rows["K1 posit64"] = rowwise_row(1024, 1024, POSIT64)
+    rows["K3 posit64 decode"] = flash_row(torch, dev, plan64, 8, 1, 512, DECODE_POS,
+                                          [0, 0, 5, 3, 9, 0, 14, 31], fmt=POSIT64)
+    rows["K3 posit64 prefill"] = flash_row(torch, dev, plan64, 1, 256, 256, [0], [56],
+                                           fmt=POSIT64)
     rows.update(layout_rows(torch, dev, plan, pack))
     rows.update(training_rows(torch, dev, plan))
     print_rows(rows)
@@ -1718,7 +1939,7 @@ def print_rows(rows):
               f"({r['bound_by']}), library {lib}")
 
 
-def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64)):
+def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64), fmt=None):
     """K3's timing row: decode (Sq == 1, one query at ``pos``) or a causal
     prefill, keys from ``start``, SDPA on the same masks as the yardstick."""
     import torch.nn.functional as Fn
@@ -1743,7 +1964,8 @@ def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64)):
         keys = sum(max(0, i + 1 - s) for i in range(Sq) for s in start)
         real = sum(max(0, Sq - s) for s in start)
         qp = torch.arange(Sq, device=dev)[None, :].expand(B, Sq)
-    call = lambda: posit_flash_attention(POSIT16, q, k, v, True, **kw)
+    fmt = fmt or POSIT16
+    call = lambda: posit_flash_attention(fmt, q, k, v, True, **kw)
     dev_ms, src = device_kernel_ms(torch, call, ["flash_kernel"])
     # q of the real rows read, every output row written, the keys read
     nbytes = 4 * (real + B * Sq) * H * hd + 2 * 2 * sum(
@@ -1759,7 +1981,7 @@ def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64)):
     return {"shape": [B, Sq, Sk, H, KV, hd], "ms": dev_ms, "ms_from": src,
             "call_ms": cuda_time_ms(call),
             "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(
-                POSIT16, q, k, v, True, **kw), iters=3),
+                fmt, q, k, v, True, **kw), iters=3),
             "bound_ms": bms, "bound_by": by, "library_ms": cuda_time_ms(lib)}
 
 
@@ -1768,9 +1990,9 @@ def moe_rows(torch, dev):
     with torch.softmax as the yardstick; K3 at OLMoE's decode shape."""
     from repro_torch.core.posit import POSIT16
     from repro_torch.kernels import ops
-    from repro_torch.kernels.posit_div import one_word_plan
+    from repro_torch.kernels.posit_div import datapath_plan
 
-    plan = one_word_plan(POSIT16, "srt_r4_cs_of_fr")
+    plan = datapath_plan(POSIT16, "srt_r4_cs_of_fr")
     rows = {}
     for name, (R, C) in (("K9 router", (8, 64)), ("K9 4096 rows", (4096, 64))):
         x = (torch.randn(R, C, generator=torch.Generator().manual_seed(17)) * 2).to(dev)
@@ -1801,22 +2023,34 @@ DEQUANTIZE_OPS = 50
 
 
 def division_rows(torch, dev):
-    """K10, K11 and K12 (quantize, dequantize), posit16, default plan, at
-    the reference benchmark's 64 x 1024 and at one 2^28 chunk of the pair
-    sweep: device time (torch.profiler), per-call time (CUDA events), the
-    bound, the elements a second, and the twin's time at 64 x 1024.  K11 and
-    the dequantize take int32 words, as the sweep gives them."""
-    from repro_torch.core.posit import POSIT16
+    """K10, K11 and K12 (quantize, dequantize), posit16, default plan, and
+    the two-word frame (K10 posit64 default plan, K11 posit32
+    srt_r4_scaled), at the reference benchmark's 64 x 1024 and at one 2^28
+    chunk of the pair sweep: device time (torch.profiler), per-call time
+    (CUDA events), the bound, the elements a second, and the twin's time at
+    64 x 1024.  K11 and the dequantize take int32 words, as the sweep gives
+    them."""
+    from repro_torch.core.posit import POSIT16, POSIT32, POSIT64
     from repro_torch.kernels import ops
-    from repro_torch.kernels.posit_div import one_word_plan
+    from repro_torch.kernels.posit_div import datapath_plan
 
-    plan = one_word_plan(POSIT16, DEFAULT_VARIANT)
+    plan = datapath_plan(POSIT16, DEFAULT_VARIANT)
+    plan64 = datapath_plan(POSIT64, DEFAULT_VARIANT)
+    scaled32 = datapath_plan(POSIT32, "srt_r4_scaled")
     g = torch.Generator(device=dev).manual_seed(23)
     rows = {}
     for size, label in ((64 * 1024, "64x1024"), (CHUNK, "2^28")):
         a, b = (torch.rand(size, device=dev, generator=g) * 9.9 + 0.1 for _ in range(2))
         wa, wb = (ops.posit_quantize(POSIT16, t).to(torch.int32) for t in (a, b))
+        sa, sb = (ops.posit_quantize(POSIT32, t).to(torch.int32) for t in (a, b))
         cases = {
+            "K10 posit64": (lambda: ops.posit_div_fused(POSIT64, a, b), ["elementwise_kernel"],
+                            12, div_ops(plan64, size),
+                            lambda: ops.posit_div_fused_plain(POSIT64, a, b)),
+            "K11 posit32 srt_r4_scaled": (
+                lambda: ops.posit_div(POSIT32, sa, sb, "srt_r4_scaled"), ["div_kernel"], 12,
+                div_ops(scaled32, size),
+                lambda: ops.posit_div_plain(POSIT32, sa, sb, "srt_r4_scaled")),
             "K10": (lambda: ops.posit_div_fused(POSIT16, a, b), ["elementwise_kernel"],
                     12, div_ops(plan, size), lambda: ops.posit_div_fused_plain(POSIT16, a, b)),
             "K11": (lambda: ops.posit_div(POSIT16, wa, wb), ["div_kernel"], 12,
@@ -1837,7 +2071,7 @@ def division_rows(torch, dev):
                 "plain_ms": cuda_time_ms(plain, iters=5) if size < CHUNK else None,
                 "bound_ms": bms, "bound_by": by, "library_ms": None,
                 "per_s": size / (dev_ms * 1e-3)}
-        del a, b, wa, wb
+        del a, b, wa, wb, sa, sb
         torch.cuda.empty_cache()
     print_rows(rows)
     return rows
@@ -2044,7 +2278,7 @@ def time_kernels(torch, dev, src: str, repeats: int = 3) -> None:
         out["ptxas"][n] = {"kernels": len(regs), "max_registers": max(regs, default=0),
                            "spill_store_bytes": sum(int(m) for m in re.findall(
                                r"(\d+) bytes spill stores", log))}
-    plan = F.one_word_plan(POSIT16, "srt_r4_cs_of_fr")
+    plan = F.datapath_plan(POSIT16, "srt_r4_cs_of_fr")
     H, KV, hd = 15, 5, 64
     q, k, v = flash_inputs(torch, dev, 8, 1, 512, H, KV, hd, 7)
     pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
@@ -2138,12 +2372,22 @@ def main() -> int:
     k11 = timed("K11", phase_pattern_div, torch, dev)
     cast_err = timed("K12", phase_casts, torch, dev)
     fused = timed("K10", phase_fused_chained, torch, dev)
+    two = timed("two-word", phase_two_word, torch, dev)
+    grid = timed("grid", phase_grid, torch, dev)
     timed("model", phase_model_small, torch, dev)
+    timed("model", phase_model_small, torch, dev, "smollm_360m", "posit64")
     timed("model", phase_model_small, torch, dev, "olmoe_1b_7b")
     train_err = timed("K6-K8", phase_flash_train, torch, dev)
     timed("train", phase_train_small, torch, dev)
     cfg, params = timed("main", full_model, torch, dev)
     path = timed("main", phase_main, torch, dev, cfg, params)
+    cfg64 = cfg.with_numerics(div_format="posit64")
+    path64 = timed("posit64", phase_main, torch, dev, cfg64, params, "posit64")
+    differ = sum(not (a.shape == b.shape and bool((a == b).all()))
+                 for a, b in zip(path["outs"], path64["outs"]))
+    print(f"posit64: {differ} of {len(path['outs'])} requests' tokens differ from the "
+          f"posit16 run's; {path64['tokens_per_s']:.1f} tokens/s against "
+          f"{path['tokens_per_s']:.1f}")
     paged = timed("paged", phase_paged, torch, dev, cfg, params, packs_held)
     kv = timed("posit-KV", phase_posit_kv, torch, dev, cfg, params, packs_held, path["outs"])
     train = timed("training", phase_train_main, torch, dev)
@@ -2153,8 +2397,9 @@ def main() -> int:
     timed("timing", decode_breakdown, torch, dev, cfg, params, paged=True)
     timed("timing", decode_breakdown, torch, dev, cfg.with_numerics(kv_cache_format="posit16"),
           params)
+    timed("timing", decode_breakdown, torch, dev, cfg64, params)
     # the SmolLM state goes before OLMoE's 13.8 GB of weights come in
-    del cfg, params
+    del cfg, cfg64, params
     gc.collect()
     torch.cuda.empty_cache()
     mcfg, mparams = timed("moe", moe_model, torch, dev)
@@ -2173,19 +2418,20 @@ def main() -> int:
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
-        entry("K1 posit SRT datapath (inlined in K2-K11)",
+        entry("K1 posit SRT datapath, one-word and two-word frames (inlined in K2-K11)",
               csrc + "posit_srt.cuh", "src/repro/kernels/posit_div.py:433",
-              path["rowwise"] + path["flash"] + paged["rowwise"] + paged["K3"] + paged["K4"]
+              path["rowwise"] + path["flash"] + path64["rowwise"] + path64["flash"]
+              + paged["rowwise"] + paged["K3"] + paged["K4"]
               + paged["K5"] + train["rowwise"] + train["K6"] + train["K7"] + train["K8"]
               + moe["rowwise"] + moe["K3"] + moe["K9"] + fused["K10"] + k11["launches"]
-              + fused["K11"], div_err, rows["K1"]),
+              + fused["K11"] + two["K10"] + two["K11"], div_err, rows["K1"]),
         entry("K2 rowwise fused posit divide", csrc + "posit_fused_div.cu",
               "src/repro/kernels/posit_fused_div.py:149",
-              path["rowwise"] + paged["rowwise"] + train["rowwise"] + moe["rowwise"], div_err,
-              rows["K2 decode"]),
+              path["rowwise"] + path64["rowwise"] + paged["rowwise"] + train["rowwise"]
+              + moe["rowwise"], div_err, rows["K2 decode"]),
         entry("K3 posit flash attention, dense", csrc + "posit_flash_attn.cu",
-              "src/repro/kernels/posit_flash_attn.py:330", path["flash"] + paged["K3"]
-              + moe["K3"], flash_err, rows["K3 decode"]),
+              "src/repro/kernels/posit_flash_attn.py:330", path["flash"] + path64["flash"]
+              + paged["K3"] + moe["K3"], max(flash_err, grid["K3"]), rows["K3 decode"]),
         entry("K4 posit flash attention, paged decode", csrc + "posit_flash_attn.cu",
               "src/repro/kernels/posit_flash_attn.py:330", paged["K4"], paged_err,
               rows["K4 decode"]),
@@ -2199,16 +2445,18 @@ def main() -> int:
               "src/repro/kernels/posit_flash_attn.py:601", train["K7"], train_err["K7"],
               rows["K7"]),
         entry("K8 posit flash attention backward, dk and dv", csrc + "posit_flash_bwd.cu",
-              "src/repro/kernels/posit_flash_attn.py:626", train["K8"], train_err["K8"],
+              "src/repro/kernels/posit_flash_attn.py:626", train["K8"],
+              max(train_err["K8"], grid["K8"]),
               rows["K8"]),
         entry("K9 fused posit softmax (MoE router)", csrc + "posit_softmax.cu",
               "src/repro/kernels/posit_fused_div.py:210", moe["K9"], softmax_err,
               rows["K9 router"]),
         entry("K10 elementwise fused posit divide", csrc + "posit_fused_div.cu",
-              "src/repro/kernels/posit_fused_div.py:103", fused["K10"], 0.0,
+              "src/repro/kernels/posit_fused_div.py:103", fused["K10"] + two["K10"], 0.0,
               rows["K10 64x1024"]),
         entry("K11 posit divide on bit patterns", csrc + "posit_div.cu",
-              "src/repro/kernels/posit_div.py:652", k11["launches"] + fused["K11"], 0.0,
+              "src/repro/kernels/posit_div.py:652", k11["launches"] + fused["K11"] + two["K11"],
+              0.0,
               rows["K11 64x1024"]),
         entry("K12 f32 -> posit quantize", csrc + "posit_cast.cu",
               "src/repro/kernels/posit_cast.py:43", kv["K12q"], max(cast_err, kv["err"]),

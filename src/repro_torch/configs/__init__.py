@@ -10,9 +10,11 @@ def get_config(name: str, smoke: bool = False, fused: bool = True,
                max_batch: int = None, max_seq: int = None):
     """Resolve an arch config, as the reference's ``get_config`` does.
 
-    The port runs only the reference's ``fused=True`` numerics: posit16
-    division through the SRT kernels and attention through the posit flash
-    kernel, so ``fused`` defaults to True and False raises.
+    The port runs only the reference's ``fused=True`` numerics: posit
+    division (posit16 by default; ``cfg.with_numerics(div_format=...)`` takes
+    any planned format, posit64 included) through the SRT kernels and
+    attention through the posit flash kernel, so ``fused`` defaults to True
+    and False raises.
     ``max_batch``/``max_seq`` override the serving defaults.
     """
     if not fused:

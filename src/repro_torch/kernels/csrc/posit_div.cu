@@ -7,9 +7,11 @@
 // operands, each preparing its own divisor.  The ragged end is masked,
 // never read (the reference pads the divisor with the +1 pattern).
 //
-// Plans: the 26 one-word rows of posit_plans.inc plus the nine posit10 rows
-// of posit10_plans.inc (the paper's Table III examples), which no other
-// kernel builds.
+// Plans: the 26 one-word rows of posit_plans.inc and its posit32
+// srt_r4_scaled row (a two-word residual on one-word patterns), plus the
+// nine posit10 rows of posit10_plans.inc (the paper's Table III examples),
+// which no other kernel builds.  The posit64 rows are not built: their
+// patterns do not fit a uint32 word (the reference's K11 refuses n > 32).
 //
 // Bound: 12 bytes of traffic against a whole division per element (about
 // 400 integer operations for posit16 radix 4): the integer operations
@@ -41,11 +43,15 @@ extern "C" int posit_div(int n_, int radix, int red, int otf, int scaled, int no
                          uint32_t* out, long long n, void* stream) {
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool ok = posit::dispatch_plan<true>(
-      n_, radix, red, otf, scaled, nonrest, it, shift, gbits, [&](auto plan) {
-        using P = decltype(plan);
-        if (n > 0) div_kernel<P><<<grid, kThreads, 0, s>>>(px, pd, out, n);
-      });
+  bool ok = false;
+  posit::dispatch_plan<true>(n_, radix, red, otf, scaled, nonrest, it, shift, gbits,
+                             [&](auto plan) {
+                               using P = decltype(plan);
+                               if constexpr (P::n <= 32) {
+                                 if (n > 0) div_kernel<P><<<grid, kThreads, 0, s>>>(px, pd, out, n);
+                                 ok = true;
+                               }
+                             });
   if (!ok) return -1;
   return static_cast<int>(cudaGetLastError());
 }

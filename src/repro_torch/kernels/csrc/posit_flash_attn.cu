@@ -17,7 +17,10 @@
 // through K1 as a rowwise posit divide, minpos for fully masked rows.
 //
 // Design (simple and correct first):
-//   * one block per (q tile of bq rows, b*H + h), bq = 16 (1 for decode);
+//   * one block per (b*H + h, q tile of bq rows), bq = 16 (1 for decode):
+//     b*H + h on gridDim.x (up to 2^31 - 1; gridDim.y stopped it at
+//     65535), the q tile on gridDim.y (up to 65535 tiles), offsets in 64
+//     bits;
 //     the KV head is h / G, so K/V are read in place, never repeated;
 //   * a loop over kv tiles of kBK keys staged in shared memory as f32 (the
 //     bf16 K/V are upcast in registers, exactly), QK^T and PV as f32 FMA;
@@ -52,9 +55,11 @@
 // The layout is a template flag, so K3/K6's instantiation holds none of the
 // paged or packed code (its schedule is ptxas-sensitive, PERF.md section 6).
 //
-// Instantiated for the posit16 plans only, with bf16 K/V (what the serving
-// path runs: posit16 numerics over the bf16 cache); other formats and f32
-// K/V return -1.
+// Instantiated, with bf16 K/V, for the posit16 plans in every layout (what
+// the serving paths run: posit16 numerics over the bf16 cache) and for
+// posit64 srt_r4_cs_of_fr (and srt_r4_cs_of, the same datapath) in the
+// dense layout alone, its o / l on K1's two-word frame; every other
+// (format, plan, layout) and f32 K/V return -1.
 //
 // Bound: decode reads the bf16 KV cache (or the pages each sequence
 // attends) once and is memory-bound; prefill does 4*B*H*Sq*Sk*hd f32 FMA
@@ -77,8 +82,15 @@ constexpr float kNegInf = -1e30f;
 
 enum Layout { kDense = 0, kPaged = 1, kPacked = 2 };
 
-inline size_t smem_bytes(int bq, int hd, int layout) {
-  const size_t bytes = sizeof(posit::Divisor) * bq          // per-row divisor
+// The (plan, layout) pairs this source instantiates.
+template <class P, int kLayout>
+constexpr bool kBuilt =
+    P::n == 16 || (P::n == 64 && kLayout == kDense && P::radix == 4 && P::redundant &&
+                   P::otf && !P::scaled);
+
+template <class P>
+size_t smem_bytes(int bq, int hd, int layout) {
+  const size_t bytes = sizeof(posit::DivisorOf<P>) * bq    // per-row divisor
                        + sizeof(float) * (bq * hd + kBK * (hd + 1) + kBK * hd + bq * kBK + 3 * bq)
                        + bq * kBK;                          // mask bytes
   if (layout == kDense) return bytes;
@@ -109,7 +121,7 @@ __global__ void __launch_bounds__(kThreads)
                  int hd, float scale, int causal, int window, int q_offset, float eps,
                  KvIndex ix) {
   extern __shared__ __align__(16) unsigned char smem[];
-  posit::Divisor* sDiv = reinterpret_cast<posit::Divisor*>(smem);
+  posit::DivisorOf<P>* sDiv = reinterpret_cast<posit::DivisorOf<P>*>(smem);
   float* sQ = reinterpret_cast<float*>(sDiv + bq);
   float* sK = sQ + bq * hd;
   float* sV = sK + kBK * (hd + 1);  // K rows padded: no bank conflicts in QK^T
@@ -126,10 +138,10 @@ __global__ void __launch_bounds__(kThreads)
 
   constexpr int kAcc = (kBQMax * kHdMax + kThreads - 1) / kThreads;
   const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KVH);
-  const int q0 = blockIdx.x * bq;
+  const int q0 = blockIdx.y * bq;
   const int rows = min(bq, Sq - q0);
   int ks = kv_start[b];
   const int kl = min(kv_len[b], Sk);
@@ -295,11 +307,14 @@ int launch(const float* q, const __nv_bfloat16* k, const __nv_bfloat16* v, float
            int causal, int window, int q_offset, float eps, int bq, const KvIndex& ix,
            cudaStream_t s) {
   auto kern = flash_kernel<P, kLayout>;
-  const size_t bytes = smem_bytes(bq, hd, kLayout);
+  const size_t bytes = smem_bytes<P>(bq, hd, kLayout);
+  const long long heads = static_cast<long long>(B) * H;
+  const int q_tiles = (Sq + bq - 1) / bq;
+  if (heads > 0x7FFFFFFFLL || q_tiles > 65535) return -2;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + bq - 1) / bq, B * H);
+  const dim3 grid(static_cast<unsigned>(heads), q_tiles);
   kern<<<grid, kThreads, bytes, s>>>(q, k, v, out, m_out, l_out, kv_start, kv_len, q_pos, bq,
                                      Sq, Sk, H, KVH, hd, scale, causal, window, q_offset,
                                      eps, ix);
@@ -319,7 +334,7 @@ int dispatch(int n, int radix, int red, int otf, int scaled, int nonrest, int it
   int rc = -1;
   posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits, [&](auto plan) {
     using P = decltype(plan);
-    if constexpr (P::n == 16) {
+    if constexpr (kBuilt<P, kLayout>) {
       rc = launch<P, kLayout>(q, static_cast<const __nv_bfloat16*>(k),
                               static_cast<const __nv_bfloat16*>(v), out, m_out, l_out,
                               kv_start, kv_len, q_pos, B, Sq, Sk, H, KVH, hd, scale, causal,
@@ -346,8 +361,9 @@ int dispatch(int n, int radix, int red, int otf, int scaled, int nonrest, int it
 //     that no block straddles two segments; each segment's first key takes
 //     the place of kv_start.  Dense and paged ignore bq (one-row blocks for
 //     decode, Sq == 1, else kBQMax).
-// Returns 0, a cudaError_t, -1 when no compiled posit16 plan matches, -2 for
-// a head_dim above kHdMax, a bad head split or a bad layout.
+// Returns 0, a cudaError_t, -1 when no instantiation matches the plan and
+// layout, -2 for a head_dim above kHdMax, a bad head split, a bad layout,
+// B*H past 2^31 - 1 or more than 65535 q tiles.
 extern "C" int posit_flash_attn(int n, int radix, int red, int otf, int scaled, int nonrest,
                                 int it, int shift, int gbits, int layout, const float* q,
                                 const void* k, const void* v, float* out, float* m_out,

@@ -15,6 +15,9 @@
 // K8: one block per (key tile of kBKk keys, b*KVH + kv head); a loop over the
 //     G grouped query heads and their q tiles accumulates dv += p^T dO and
 //     dk += ds^T q, dk scaled by `scale` at the end.
+// Both grids put b*H + h (K8: b*KVH + kv head) on gridDim.x (up to
+// 2^31 - 1; gridDim.y stopped them at 65535) and the tile on gridDim.y (up
+// to 65535 tiles), offsets in 64 bits.
 //
 // Design (simple and correct first):
 //   * each row's divisor is quantized and decoded once per q tile into shared
@@ -141,10 +144,10 @@ __global__ void __launch_bounds__(kThreads)
 
   constexpr int kAcc = kBQ * kHdMax / kThreads;
   const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KVH);
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.y * kBQ;
   const int rows = min(kBQ, Sq - q0);
   const int qp0 = q_offset + q0;
 
@@ -206,9 +209,9 @@ __global__ void __launch_bounds__(kThreads)
 
   constexpr int kAcc = kBKk * kHdMax / kThreads;
   const int tid = threadIdx.x;
-  const int b = blockIdx.y / KVH, kvh = blockIdx.y % KVH;
+  const int b = blockIdx.x / KVH, kvh = blockIdx.x % KVH;
   const int G = H / KVH;
-  const int k0 = blockIdx.x * kBKk;
+  const int k0 = blockIdx.y * kBKk;
   const int nkeys = min(kBKk, Sk - k0);
   const int nq = (Sq + kBQ - 1) / kBQ;
   // first q tile holding a row at or past key k0 (the earlier ones are fully
@@ -271,7 +274,8 @@ int prepare(Kern kern, size_t bytes) {
 // Shapes (all contiguous on the device): q, g (dO), dq: (B, Sq, H, hd) f32;
 // k, v: (B, Sk, KVH, hd) bf16; dk, dv: (B, Sk, KVH, hd) f32; m, l, D:
 // (B*H, Sq) f32.  Each returns 0, a cudaError_t, -1 when no compiled posit16
-// plan matches, -2 for a head_dim above kHdMax or a bad head split.
+// plan matches, -2 for a head_dim above kHdMax, a bad head split, B*H past
+// 2^31 - 1 or more than 65535 tiles.
 extern "C" int posit_flash_bwd_dq(int n, int radix, int red, int otf, int scaled, int nonrest,
                                   int it, int shift, int gbits, const float* q, const void* k,
                                   const void* v, const float* g, const float* m, const float* l,
@@ -289,7 +293,13 @@ extern "C" int posit_flash_bwd_dq(int n, int radix, int red, int otf, int scaled
       const size_t bytes = smem_bytes(kBKq, hd);
       rc = prepare(kern, bytes);
       if (rc != 0) return;
-      const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
+      const long long heads = static_cast<long long>(B) * H;
+      const int tiles = (Sq + kBQ - 1) / kBQ;
+      if (heads > 0x7FFFFFFFLL || tiles > 65535) {
+        rc = -2;
+        return;
+      }
+      const dim3 grid(static_cast<unsigned>(heads), tiles);
       kern<<<grid, kThreads, bytes, s>>>(q, static_cast<const __nv_bfloat16*>(k),
                                          static_cast<const __nv_bfloat16*>(v), g, m, l, D, dq,
                                          Sq, Sk, H, KVH, hd, scale, causal, window, q_offset,
@@ -317,7 +327,13 @@ extern "C" int posit_flash_bwd_dkv(int n, int radix, int red, int otf, int scale
       const size_t bytes = smem_bytes(kBKk, hd);
       rc = prepare(kern, bytes);
       if (rc != 0) return;
-      const dim3 grid((Sk + kBKk - 1) / kBKk, B * KVH);
+      const long long heads = static_cast<long long>(B) * KVH;
+      const int tiles = (Sk + kBKk - 1) / kBKk;
+      if (heads > 0x7FFFFFFFLL || tiles > 65535) {
+        rc = -2;
+        return;
+      }
+      const dim3 grid(static_cast<unsigned>(heads), tiles);
       kern<<<grid, kThreads, bytes, s>>>(q, static_cast<const __nv_bfloat16*>(k),
                                          static_cast<const __nv_bfloat16*>(v), g, m, l, D, dk,
                                          dv, Sq, Sk, H, KVH, hd, scale, causal, window, q_offset,

@@ -10,12 +10,19 @@
 // kCols columns.  The divisor's quantize/decode/didx/scaling is done once
 // per row of the block by the row's first thread and shared through shared
 // memory, so no broadcast denominator is ever formed.  Edges are masked,
-// not padded (the reference pads the divisor with 1.0).
+// not padded (the reference pads the divisor with 1.0).  Row tiles lie on
+// gridDim.x (up to 2^31 - 1 of them, where gridDim.y stopped at 65535) and
+// column tiles on gridDim.y (up to 65535 x 128 columns), with 64-bit
+// offsets, so any row count the card holds is taken.
 //
 // Bound: the work is integer ALU (decode, ~8 recurrence iterations for
-// posit16 radix-4, encode) per element, against 8 bytes of traffic per
-// element; at the main path's shapes (R = batch x seq rows of 960) the
-// launch is tiny and its time is set by latency, not by bytes.
+// posit16 radix-4 on 32-bit words, 32 on 64-bit words for posit64, encode)
+// per element, against 8 bytes of traffic per element; at the main path's
+// shapes (R = batch x seq rows of 960) the launch is tiny and its time is
+// set by latency, not by bytes.
+//
+// Both kernels are built for every row of posit_plans.inc, the two-word
+// plans (posit32 srt_r4_scaled, posit64) included.
 //
 // K10 replaces posit_fused_div_pallas (src/repro/kernels/posit_fused_div.py
 // :86, pallas_call :103), reached through ops.posit_div_fused
@@ -37,10 +44,10 @@ constexpr int kRows = 4;
 template <class P>
 __global__ void __launch_bounds__(kCols* kRows)
     rowwise_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                   float* __restrict__ out, int R, int C) {
-  __shared__ posit::Divisor prep[kRows];
-  const int row = blockIdx.y * kRows + threadIdx.y;
-  const int col = blockIdx.x * kCols + threadIdx.x;
+                   float* __restrict__ out, long long R, int C) {
+  __shared__ posit::DivisorOf<P> prep[kRows];
+  const long long row = static_cast<long long>(blockIdx.x) * kRows + threadIdx.y;
+  const int col = blockIdx.y * kCols + threadIdx.x;
   if (threadIdx.x == 0 && row < R) prep[threadIdx.y] = posit::prep_divisor<P>(b[row]);
   __syncthreads();
   if (row >= R || col >= C) return;
@@ -61,15 +68,19 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// Returns 0, a cudaError_t from the launch, or -1 when no compiled plan
-// matches the plan fields.
+// a: (R, C) f32, b: (R,) f32, out: (R, C) f32, contiguous on the device.
+// Returns 0, a cudaError_t from the launch, -1 when no compiled plan matches
+// the plan fields, or -2 past 2^31 - 1 row tiles or 65535 column tiles.
 extern "C" int posit_fused_div_rowwise(int n, int radix, int red, int otf, int scaled,
                                        int nonrest, int it, int shift, int gbits,
-                                       const float* a, const float* b, float* out, int R,
+                                       const float* a, const float* b, float* out, long long R,
                                        int C, void* stream) {
   if (R <= 0 || C <= 0) return 0;
+  const long long row_tiles = (R + kRows - 1) / kRows;
+  const int col_tiles = (C + kCols - 1) / kCols;
+  if (row_tiles > 0x7FFFFFFFLL || col_tiles > 65535) return -2;
   const dim3 block(kCols, kRows);
-  const dim3 grid((C + kCols - 1) / kCols, (R + kRows - 1) / kRows);
+  const dim3 grid(static_cast<unsigned>(row_tiles), col_tiles);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool ok = posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits,
                                        [&](auto plan) {

@@ -1,29 +1,45 @@
 // K1: the posit SRT digit-recurrence datapath as device functions.
 //
 // Replaces the reference's datapath body in src/repro/kernels/posit_div.py
-// (_divide_fields :433, _divide_block :549, divide_floats_block :609), which
-// every Pallas kernel composes.  Here it is a set of __host__ __device__
-// functions on 32-bit registers that every kernel under csrc/ inlines (K2,
-// K10: posit_fused_div.cu; K3-K8: posit_flash_attn.cu, posit_flash_bwd.cu;
-// K9: posit_softmax.cu; K11: posit_div.cu; K12's casts: posit_cast.cu); the
-// same header compiles as host C++ so the arithmetic can be checked without
-// a card.
+// (_divide_fields :433, _divide_block :549, _divide_floats_wide :574,
+// divide_floats_block :609), which every Pallas kernel composes, and the
+// wide casts of src/repro/core/wide.py (decode_wide :65, encode_wide :98,
+// float_to_posit_wide :176, posit_wide_to_float :197).  Here it is a set of
+// __host__ __device__ functions on registers that every kernel under csrc/
+// inlines (K2, K10: posit_fused_div.cu; K3-K8: posit_flash_attn.cu,
+// posit_flash_bwd.cu; K9: posit_softmax.cu; K11: posit_div.cu; K12's casts:
+// posit_cast.cu); the same header compiles as host C++ so the arithmetic
+// can be checked without a card.
 //
-// Scope: every ONE-WORD plan (W = 1; posit8/16 x all nine Table IV rows,
-// posit32 x the eight unscaled rows; posit10's nine rows for K11 alone).
+// Scope: every planned (format, variant) of posit_plans.inc, in two frames:
+//   * W = 1: the residual is one 32-bit word (3 integer bits, 29 fraction
+//     bits): posit8/16 x all nine Table IV rows, posit32 x the eight
+//     unscaled rows (posit10's nine rows for K11 alone);
+//   * W = 2: the residual is 3 integer bits and 61 fraction bits, exactly
+//     one 64-bit register, so each carry-save word is a uint64_t: the CSA's
+//     << 1 needs no cross-word OR, and selection reads the register's top
+//     bits (the reference's top word): posit32 srt_r4_scaled (one-word
+//     patterns and quotient) and posit64 x the eight unscaled rows (64-bit
+//     patterns, significands and quotient registers).
 // The plan's static fields are template parameters (Plan<...>), so each row
-// compiles to straight-line register code with its loop trip count known.
+// compiles to straight-line register code with its loop trip count known;
+// W is derived from them (3 + FRAC + shift = 32 W), never guessed.
 //
 // Bit-exactness rules kept from the reference:
-//   * logical shifts on uint32_t, arithmetic ones on int32_t; every variable
-//     shift is guarded (a shift by >= 32 gives 0, as in posit.py:102-115);
+//   * logical shifts on unsigned types, arithmetic ones on signed types;
+//     every variable shift is guarded (a shift by >= the word's width gives
+//     0, as in posit.py:102-115), never C++ undefined behaviour;
 //   * f32 inputs are classified by their bit fields, never by float compares;
 //   * 2^e is built from two normal factors (ldexp_f32), never one exp2f;
-//   * nothing here may be built with --use_fast_math or -ftz=true.
+//   * a posit64 quotient below the f32 normal range comes out as a signed
+//     zero (the reference's backends flush ldexp_f32's subnormal results),
+//     by an explicit compare: nothing here may be built with
+//     --use_fast_math or -ftz=true.
 //
-// Cost: the recurrence is integer ALU work, ~10-20 ops per iteration and
-// 8 iterations for posit16 radix-4; the kernels that use it are bound by
-// these integer operations, not by memory (see PERF.md).
+// Cost: the recurrence is integer ALU work, ~10-20 ops per iteration on
+// 32-bit words (8 iterations for posit16 radix-4), about twice that on
+// 64-bit ones (32 iterations for posit64 radix-4); the kernels that use it
+// are bound by these integer operations, not by memory (see PERF.md).
 #pragma once
 
 #include <stdint.h>
@@ -57,7 +73,7 @@ PHD float u2f(uint32_t u) {
 #endif
 }
 
-PHD int clz32(uint32_t x) {
+PHD int clz(uint32_t x) {
 #ifdef __CUDA_ARCH__
   return __clz(static_cast<int>(x));  // 32 for x == 0
 #else
@@ -65,9 +81,21 @@ PHD int clz32(uint32_t x) {
 #endif
 }
 
-// Guarded variable shifts: any amount outside [0, 32) gives 0.
+PHD int clz(uint64_t x) {
+#ifdef __CUDA_ARCH__
+  return __clzll(static_cast<long long>(x));  // 64 for x == 0
+#else
+  return x ? __builtin_clzll(x) : 64;
+#endif
+}
+
+PHD int clz32(uint32_t x) { return clz(x); }
+
+// Guarded variable shifts: any amount outside [0, width) gives 0.
 PHD uint32_t shl(uint32_t x, int s) { return (s < 0 || s >= 32) ? 0u : (x << s); }
 PHD uint32_t shr(uint32_t x, int s) { return (s < 0 || s >= 32) ? 0u : (x >> s); }
+PHD uint64_t shl(uint64_t x, int s) { return (s < 0 || s >= 64) ? 0ull : (x << s); }
+PHD uint64_t shr(uint64_t x, int s) { return (s < 0 || s >= 64) ? 0ull : (x >> s); }
 
 // floor(e / 2) without relying on the shift of a negative int.
 PHD int floor_half(int e) { return e >= 0 ? e / 2 : -((1 - e) / 2); }
@@ -75,97 +103,117 @@ PHD int floor_half(int e) { return e >= 0 ? e / 2 : -((1 - e) / 2); }
 PHD int imax(int a, int b) { return a > b ? a : b; }
 PHD int imin(int a, int b) { return a < b ? a : b; }
 
+// An unsigned register of the given width in bits (32 or 64).
+template <int Bits>
+struct UInt {
+  using type = uint32_t;
+};
+template <>
+struct UInt<64> {
+  using type = uint64_t;
+};
+
 // ---------------------------------------------------------------- format
 
+// Patterns of n <= 32 live in a uint32_t, posit64's in a uint64_t (B bits).
 template <int N>
 struct Fmt {
   static constexpr int n = N;
   static constexpr int es = 2;
   static constexpr int F = N - 3 - es;
-  static constexpr uint32_t mask = N == 32 ? 0xFFFFFFFFu : ((1u << N) - 1u);
-  static constexpr uint32_t nar = 1u << (N - 1);
-  static constexpr uint32_t maxpos_body = (1u << (N - 1)) - 1u;
+  static constexpr int B = N > 32 ? 64 : 32;
+  using U = typename UInt<B>::type;
+  static constexpr U one = 1;
+  static constexpr U mask = N == B ? ~U(0) : ((one << N) - one);
+  static constexpr U nar = one << (N - 1);
+  static constexpr U maxpos_body = (one << (N - 1)) - one;
 };
 
-struct Fields {
+template <class U>
+struct FieldsT {
   bool sign;
   int scale;
-  uint32_t sig;
+  U sig;
   bool zero;
   bool nar;
 };
+using Fields = FieldsT<uint32_t>;
 
-// posit.py posit_decode
+// posit.py posit_decode (wide.py decode_wide for n > 32)
 template <int N>
-PHD Fields decode(uint32_t p) {
+PHD FieldsT<typename Fmt<N>::U> decode(typename Fmt<N>::U p) {
   using Fm = Fmt<N>;
-  Fields d;
+  using U = typename Fm::U;
+  constexpr int B = Fm::B;
+  FieldsT<U> d;
   p &= Fm::mask;
-  d.zero = p == 0u;
+  d.zero = p == U(0);
   d.nar = p == Fm::nar;
-  d.sign = ((p >> (N - 1)) & 1u) != 0u;
-  const uint32_t mag = d.sign ? ((~p + 1u) & Fm::mask) : p;
-  const uint32_t body = mag << (32 - (N - 1));
-  const bool r0 = (body >> 31) != 0u;
-  const uint32_t inv = r0 ? ~body : body;
-  const int run = imin(clz32(inv), N - 1);
+  d.sign = ((p >> (N - 1)) & U(1)) != U(0);
+  const U mag = d.sign ? ((~p + U(1)) & Fm::mask) : p;
+  const U body = mag << (B - (N - 1));
+  const bool r0 = (body >> (B - 1)) != U(0);
+  const U inv = r0 ? ~body : body;
+  const int run = imin(clz(inv), N - 1);
   const int k = r0 ? run - 1 : -run;
-  const uint32_t tail = shl(body, run + 1);
-  const int e = static_cast<int>(tail >> (32 - Fm::es));
-  const uint32_t frac_tail = tail << Fm::es;
-  const uint32_t frac = Fm::F > 0 ? (frac_tail >> (32 - Fm::F)) : 0u;
+  const U tail = shl(body, run + 1);
+  const int e = static_cast<int>(tail >> (B - Fm::es));
+  const U frac_tail = tail << Fm::es;
+  const U frac = Fm::F > 0 ? (frac_tail >> (B - Fm::F)) : U(0);
   d.scale = k * (1 << Fm::es) + e;
-  d.sig = (1u << Fm::F) | frac;
+  d.sig = (U(1) << Fm::F) | frac;
   return d;
 }
 
-// posit.py posit_encode (RNE with the deep-regime rule, saturating)
+// posit.py posit_encode / wide.py encode_wide (RNE with the deep-regime
+// rule, saturating)
 template <int N>
-PHD uint32_t encode(bool sign, int scale, uint32_t frac, uint32_t round_bit,
-                    bool sticky, bool is_zero, bool is_nar) {
+PHD typename Fmt<N>::U encode(bool sign, int scale, typename Fmt<N>::U frac, uint32_t round_bit,
+                              bool sticky, bool is_zero, bool is_nar) {
   using Fm = Fmt<N>;
+  using U = typename Fm::U;
   constexpr int n = N, es = Fm::es, F = Fm::F;
   round_bit &= 1u;
   const int k = floor_half(floor_half(scale));  // scale >> 2 (es == 2)
-  const uint32_t e = static_cast<uint32_t>(scale) & ((1u << es) - 1u);
+  const U e = static_cast<U>(static_cast<uint32_t>(scale) & ((1u << es) - 1u));
   const bool over = k > n - 2;
   const bool under = k < -(n - 2);
   const int kc = imax(-(n - 2), imin(k, n - 2));
   const bool pos = kc >= 0;
   const int l = pos ? kc + 1 : -kc;
   const int rlen = l + 1;
-  const uint32_t rpat = pos ? (shl(1u, l + 1) - 2u) : 1u;
-  const uint32_t eg = (e << F) | frac;
+  const U rpat = pos ? (shl(U(1), l + 1) - U(2)) : U(1);
+  const U eg = (e << F) | frac;
   constexpr int egw = F + es;
   const int m = (n - 1) - rlen;
   const int m_pos = imax(m, 0);
   const int discard = egw - m_pos;
-  const uint32_t kept = shr(eg, discard);
-  const uint32_t g_from_eg = shr(eg, imax(discard - 1, 0)) & 1u;
+  const U kept = shr(eg, discard);
+  const uint32_t g_from_eg = static_cast<uint32_t>(shr(eg, imax(discard - 1, 0)) & U(1));
   const uint32_t guard = discard > 0 ? g_from_eg : round_bit;
-  const uint32_t below_mask = shl(1u, imax(discard - 1, 0)) - 1u;
-  const bool st_eg = (eg & below_mask) != 0u;
+  const U below_mask = shl(U(1), imax(discard - 1, 0)) - U(1);
+  const bool st_eg = (eg & below_mask) != U(0);
   const bool sticky_full = discard > 0 ? (st_eg || round_bit != 0u || sticky) : sticky;
   const bool trunc_regime = m < 0;
-  const uint32_t body_base = trunc_regime ? (rpat >> 1) : (shl(rpat, m_pos) | kept);
-  const uint32_t lsb = body_base & 1u;
+  const U body_base = trunc_regime ? (rpat >> 1) : (shl(rpat, m_pos) | kept);
+  const uint32_t lsb = static_cast<uint32_t>(body_base & U(1));
   uint32_t inc = guard & ((sticky_full ? 1u : 0u) | lsb);
   if constexpr (es == 2 && F >= 2) {
     const int c = discard - F;
-    const uint32_t f_ext = (frac << 2) | (round_bit << 1) | (sticky ? 1u : 0u);
-    const uint32_t thr = c == 1 ? (1u << F) : (1u << (F - 2));
-    const bool e_cond = c == 1 ? ((e & 1u) == 1u) : ((e & 3u) == 3u);
+    const U f_ext = (frac << 2) | (U(round_bit) << 1) | U(sticky ? 1u : 0u);
+    const U thr = c == 1 ? (U(1) << F) : (U(1) << (F - 2));
+    const bool e_cond = c == 1 ? ((e & U(1)) == U(1)) : ((e & U(3)) == U(3));
     const bool deep_up = e_cond && (f_ext > thr || (f_ext == thr && lsb == 1u));
     if (c >= 1 && m >= 0) inc = deep_up ? 1u : 0u;
   }
   if (trunc_regime) inc = 0u;
-  uint32_t body = body_base + inc;
+  U body = body_base + U(inc);
   if (over) body = Fm::maxpos_body;
-  if (under) body = 1u;
-  if (body < 1u) body = 1u;
+  if (under) body = U(1);
+  if (body < U(1)) body = U(1);
   if (body > Fm::maxpos_body) body = Fm::maxpos_body;
-  uint32_t p = sign ? ((~body + 1u) & Fm::mask) : body;
-  if (is_zero) p = 0u;
+  U p = sign ? ((~body + U(1)) & Fm::mask) : body;
+  if (is_zero) p = U(0);
   if (is_nar) p = Fm::nar;
   return p;
 }
@@ -188,27 +236,30 @@ PHD FloatFields float_decompose(float x) {
   f.zero = is_sub && mant == 0u;
   f.nar = exp_f == 255;
   f.sign = (bits >> 31) == 1u && !f.zero;
-  const int blen = 32 - clz32(mant);
+  const int blen = 32 - clz(mant);
   f.scale = is_sub ? blen - 150 : exp_f - 127;
   f.ti = is_sub ? shl(mant, 25 - blen) : (((1u << 23) | mant) << 1);
   return f;
 }
 
-// posit.py float_to_posit
+// posit.py float_to_posit / wide.py float_to_posit_wide (posit64 holds
+// every f32 significand: only deep regime tails round)
 template <int N>
-PHD uint32_t float_to_posit(float x) {
+PHD typename Fmt<N>::U float_to_posit(float x) {
+  using U = typename Fmt<N>::U;
   constexpr int F = Fmt<N>::F;
   constexpr int keep = F + 1;
   constexpr int drop = 25 - keep;
   const FloatFields f = float_decompose(x);
-  uint32_t frac, round_bit;
+  U frac;
+  uint32_t round_bit;
   bool sticky;
   if constexpr (drop >= 1) {
     frac = (f.ti >> drop) & ((1u << F) - 1u);
     round_bit = (f.ti >> (drop - 1)) & 1u;
     sticky = (f.ti & ((1u << (drop - 1)) - 1u)) != 0u;
-  } else {  // F >= 24 (posit32 from f32): nothing is cut
-    frac = (f.ti << (keep - 25)) & ((1u << F) - 1u);
+  } else {  // F >= 24 (posit32, posit64 from f32): nothing is cut
+    frac = (U(f.ti) << (keep - 25)) & ((U(1) << F) - U(1));
     round_bit = 0u;
     sticky = false;
   }
@@ -224,12 +275,27 @@ PHD float ldexp_f32(float m, int e) {
   return (m * pow2_f32(e1)) * pow2_f32(e - e1);
 }
 
-// posit.py posit_to_float
+// posit.py posit_to_float / wide.py posit_wide_to_float (the significand
+// rounded to 24 bits by its G/R/S bits; below the f32 normal range a signed
+// zero, as the reference's backends flush)
 template <int N>
-PHD float posit_to_float(uint32_t p) {
-  const Fields d = decode<N>(p);
-  const float sigf = ldexp_f32(static_cast<float>(d.sig), d.scale - Fmt<N>::F);
-  float val = d.sign ? -sigf : sigf;
+PHD float posit_to_float(typename Fmt<N>::U p) {
+  using U = typename Fmt<N>::U;
+  constexpr int F = Fmt<N>::F;
+  const auto d = decode<N>(p);
+  float mag;
+  if constexpr (N > 32) {
+    constexpr int sh = F + 1 - 24;
+    uint32_t m24 = static_cast<uint32_t>(d.sig >> sh);
+    const uint32_t guard = static_cast<uint32_t>((d.sig >> (sh - 1)) & U(1));
+    const uint32_t sticky = (d.sig & ((U(1) << (sh - 1)) - U(1))) != U(0) ? 1u : 0u;
+    m24 += guard & (sticky | (m24 & 1u));
+    mag = ldexp_f32(static_cast<float>(m24), d.scale - 23);
+    if (mag < 1.17549435e-38f) mag = 0.0f;  // 2^-126
+  } else {
+    mag = ldexp_f32(static_cast<float>(d.sig), d.scale - F);
+  }
+  float val = d.sign ? -mag : mag;
   if (d.zero) val = 0.0f;
   if (d.nar) val = u2f(0x7FC00000u);  // the canonical quiet NaN
   return val;
@@ -237,7 +303,9 @@ PHD float posit_to_float(uint32_t p) {
 
 // ---------------------------------------------------------------- plan
 
-// One row of kernel_datapath_plan with W = 1 (kernels/posit_div.py).
+// One row of kernel_datapath_plan (kernels/posit_div.py).  The frame holds
+// 3 integer bits, the operand's FRAC bits and the left-align shift: its
+// width 3 + FRAC + SHIFT is 32 W.
 template <int N, int RADIX, bool RED, bool OTF, bool SCALED, bool NONREST, int IT,
           int SHIFT, int GBITS>
 struct Plan {
@@ -254,8 +322,14 @@ struct Plan {
   static constexpr int lr = RADIX == 2 ? 1 : 2;
   static constexpr int fp = IT * lr - lr;
   static constexpr int F = frac - 1;
-  static_assert(SHIFT >= 1 && SHIFT < 32, "one-word plan");
-  static_assert(fp + 2 <= 32, "one-word quotient register");
+  static constexpr int words = (3 + frac + SHIFT) / 32;
+  static constexpr int qwords = (fp + 2 + 31) / 32;
+  static_assert((3 + frac + SHIFT) % 32 == 0 && (words == 1 || words == 2),
+                "the residual frame is one or two words");
+  static_assert(qwords <= words, "the quotient register fits the frame's width");
+  using Word = typename UInt<32 * words>::type;   // one carry-save residual word
+  using QWord = typename UInt<32 * qwords>::type;  // one quotient register
+  using Pat = typename Fmt<N>::U;                  // a pattern / significand
 };
 
 // 8-entry lookup as a compare ladder (no memory).
@@ -264,23 +338,28 @@ PHD int lut8(int i, int t0, int t1, int t2, int t3, int t4, int t5, int t6, int 
        : i == 4 ? t4 : i == 5 ? t5 : i == 6 ? t6 : t7;
 }
 
-// seltables.py SCALING_SHIFTS: M*v = v + (v >> s1) + (v >> s2)
-PHD uint32_t scale_operand(uint32_t v, int didx) {
-  const uint32_t c1 = v >> 1, c2 = v >> 2, c3 = v >> 3;
+// seltables.py SCALING_SHIFTS: M*v = v + (v >> s1) + (v >> s2), on a
+// residual word of either width
+template <class W>
+PHD W scale_operand(W v, int didx) {
+  const W c1 = v >> 1, c2 = v >> 2, c3 = v >> 3;
   const int s1 = lut8(didx, 1, 2, 1, 1, 2, 2, 3, 3);
   const int s2 = lut8(didx, 1, 1, 3, 0, 3, 0, 0, 0);
-  const uint32_t t1 = s1 == 1 ? c1 : (s1 == 2 ? c2 : c3);
-  const uint32_t t2 = s2 == 1 ? c1 : (s2 == 3 ? c3 : 0u);
+  const W t1 = s1 == 1 ? c1 : (s1 == 2 ? c2 : c3);
+  const W t2 = s2 == 1 ? c1 : (s2 == 3 ? c3 : W(0));
   return v + t1 + t2;
 }
 
-// Quotient-digit selection (Section III-D) on the truncated estimate.
+// Quotient-digit selection (Section III-D) on the truncated estimate, read
+// from the top bits of the residual register (the reference's top word).
 template <class P>
-PHD int select_digit(uint32_t rws, uint32_t rwc, int didx) {
-  if (P::nonrestoring) return static_cast<int32_t>(rws) < 0 ? -1 : 1;
+PHD int select_digit(typename P::Word rws, typename P::Word rwc, int didx) {
+  using W = typename P::Word;
+  constexpr int top = 32 * P::words - 1;
+  if (P::nonrestoring) return ((rws >> top) & W(1)) != W(0) ? -1 : 1;
   constexpr int tb = 3 + P::gbits;
-  constexpr int sh = 29 - P::gbits;
-  const uint32_t t = ((rws >> sh) + (rwc >> sh)) & ((1u << tb) - 1u);
+  constexpr int sh = 32 * P::words - 3 - P::gbits;
+  const uint32_t t = static_cast<uint32_t>((rws >> sh) + (rwc >> sh)) & ((1u << tb) - 1u);
   const int est = static_cast<int>(t) - (((t >> (tb - 1)) & 1u) ? (1 << tb) : 0);
   if (!P::redundant) return est >= 1 ? 1 : (est >= -1 ? 0 : -1);   // Eq 26
   if (P::radix == 2) return est >= 0 ? 1 : (est == -1 ? 0 : -1);   // Eq 27
@@ -297,23 +376,29 @@ PHD int select_digit(uint32_t rws, uint32_t rwc, int didx) {
 }
 
 // Divisor-side work, done once per row by the rowwise kernels (once per
-// element by the elementwise ones).
-struct Divisor {
-  uint32_t d_al, nd_al, d2, nd2;
+// element by the elementwise ones).  W is the plan's residual word: a
+// two-word plan's divisor takes 48 bytes where a one-word one takes 32.
+template <class W>
+struct DivisorT {
+  W d_al, nd_al, d2, nd2;
   int didx;
   int scale;
   bool sign, zero, nar;
 };
+using Divisor = DivisorT<uint32_t>;
+template <class P>
+using DivisorOf = DivisorT<typename P::Word>;
 
 // The divisor from its posit pattern (K11); the float entry points quantize
 // first.
 template <class P>
-PHD Divisor prep_divisor_bits(uint32_t pd) {
-  Divisor d;
-  const Fields dd = decode<P::n>(pd);
+PHD DivisorOf<P> prep_divisor_bits(typename P::Pat pd) {
+  using W = typename P::Word;
+  DivisorOf<P> d;
+  const auto dd = decode<P::n>(pd);
   if constexpr (P::frac >= 4) d.didx = static_cast<int>((dd.sig >> (P::frac - 4)) & 7u);
   else d.didx = static_cast<int>((dd.sig << (4 - P::frac)) & 7u);
-  uint32_t d_al = dd.sig << P::shift;
+  W d_al = static_cast<W>(dd.sig) << P::shift;
   if (P::scaled) d_al = scale_operand(d_al, d.didx);
   d.d_al = d_al;
   d.nd_al = ~d_al;
@@ -327,115 +412,123 @@ PHD Divisor prep_divisor_bits(uint32_t pd) {
 }
 
 template <class P>
-PHD Divisor prep_divisor(float b) {
+PHD DivisorOf<P> prep_divisor(float b) {
   return prep_divisor_bits<P>(float_to_posit<P::n>(b));
 }
 
 template <class P>
-PHD uint32_t addend(int digit, const Divisor& d) {
-  uint32_t a = digit == 1 ? d.nd_al : (digit == -1 ? d.d_al : 0u);
+PHD typename P::Word addend(int digit, const DivisorOf<P>& d) {
+  using W = typename P::Word;
+  W a = digit == 1 ? d.nd_al : (digit == -1 ? d.d_al : W(0));
   if (P::radix == 4) a = digit == 2 ? d.nd2 : (digit == -2 ? d.d2 : a);
   return a;
 }
 
 // On-the-fly conversion step (Eqs 18-19).
-template <int R>
-PHD void otf_step(uint32_t& Q, uint32_t& QD, int digit) {
+template <int R, class Q>
+PHD void otf_step(Q& Qr, Q& QD, int digit) {
   constexpr int lr = R == 2 ? 1 : 2;
   const bool neg = digit < 0, pos = digit > 0;
   const int mag = digit < 0 ? -digit : digit;
-  const uint32_t Qs = Q << lr, QDs = QD << lr;
-  const uint32_t q_app = static_cast<uint32_t>(neg ? R - mag : mag);
-  const uint32_t qd_app = static_cast<uint32_t>(pos ? mag - 1 : (R - 1) - mag);
-  Q = (neg ? QDs : Qs) | q_app;
+  const Q Qs = Qr << lr, QDs = QD << lr;
+  const Q q_app = static_cast<Q>(neg ? R - mag : mag);
+  const Q qd_app = static_cast<Q>(pos ? mag - 1 : (R - 1) - mag);
+  Qr = (neg ? QDs : Qs) | q_app;
   QD = (pos ? Qs : QDs) | qd_app;
 }
 
 // Non-OTF accumulation q <- r*q + digit.
-template <int R>
-PHD uint32_t plain_q(uint32_t Q, int digit) {
+template <int R, class Q>
+PHD Q plain_q(Q Qr, int digit) {
   constexpr int lr = R == 2 ? 1 : 2;
-  const uint32_t mag = static_cast<uint32_t>(digit < 0 ? -digit : digit);
+  const Q mag = static_cast<Q>(digit < 0 ? -digit : digit);
   const bool neg = digit < 0;
-  return (Q << lr) + (neg ? ~mag : mag) + (neg ? 1u : 0u);
+  return (Qr << lr) + (neg ? ~mag : mag) + (neg ? Q(1) : Q(0));
 }
 
+template <class U>
 struct QuotientFields {
-  uint32_t frac;
+  U frac;
   int t_adj;
   uint32_t round_bit;
   bool sticky;
 };
 
-// posit_div.py _divide_fields, W = 1: the recurrence on significands.
+// posit_div.py _divide_fields: the recurrence on significands, on one
+// residual register per carry-save word (uint32_t at W = 1, uint64_t at
+// W = 2) and a quotient register pair of the plan's width.
 template <class P>
-PHD QuotientFields divide_fields(uint32_t xsig, const Divisor& d) {
+PHD QuotientFields<typename P::Pat> divide_fields(typename P::Pat xsig, const DivisorOf<P>& d) {
+  using W = typename P::Word;
+  using Q = typename P::QWord;
+  using U = typename P::Pat;
   constexpr int R = P::radix, LR = P::lr, FP = P::fp, F = P::F;
-  uint32_t x_al = xsig << P::shift;
+  constexpr int top = 32 * P::words - 1;
+  W x_al = static_cast<W>(xsig) << P::shift;
   if (P::scaled) x_al = scale_operand(x_al, d.didx);
 
   // Iteration 1 folded: y_1 = r*w(0) = x exactly.
-  int digit = select_digit<P>(x_al, 0u, d.didx);
-  uint32_t a = addend<P>(digit, d);
-  uint32_t cin = digit > 0 ? 1u : 0u;
-  uint32_t ws, wc;
+  int digit = select_digit<P>(x_al, W(0), d.didx);
+  W a = addend<P>(digit, d);
+  W cin = digit > 0 ? W(1) : W(0);
+  W ws, wc;
   if (P::redundant) {
     wc = ((x_al & a) << 1) | cin;
     ws = x_al ^ a;
   } else {
     ws = x_al + a + cin;
-    wc = 0u;
+    wc = W(0);
   }
-  uint32_t Q = 0u, QD = 0u;
-  if (P::otf) otf_step<R>(Q, QD, digit);
-  else Q = plain_q<R>(0u, digit);
+  Q Qr = 0, QD = 0;
+  if (P::otf) otf_step<R>(Qr, QD, digit);
+  else Qr = plain_q<R>(Q(0), digit);
 
 #pragma unroll
   for (int i = 0; i < P::iterations - 1; ++i) {
-    const uint32_t rws = ws << LR;
+    const W rws = ws << LR;
     if (P::redundant) {
-      const uint32_t rwc = wc << LR;
+      const W rwc = wc << LR;
       digit = select_digit<P>(rws, rwc, d.didx);
       a = addend<P>(digit, d);
-      cin = digit > 0 ? 1u : 0u;
+      cin = digit > 0 ? W(1) : W(0);
       ws = rws ^ rwc ^ a;
       wc = (((rws & rwc) | (rws & a) | (rwc & a)) << 1) | cin;
     } else {
-      digit = select_digit<P>(rws, 0u, d.didx);
+      digit = select_digit<P>(rws, W(0), d.didx);
       a = addend<P>(digit, d);
-      cin = digit > 0 ? 1u : 0u;
+      cin = digit > 0 ? W(1) : W(0);
       ws = rws + a + cin;
     }
-    if (P::otf) otf_step<R>(Q, QD, digit);
-    else Q = plain_q<R>(Q, digit);
+    if (P::otf) otf_step<R>(Qr, QD, digit);
+    else Qr = plain_q<R>(Qr, digit);
   }
 
   // Termination: sign/zero of the final residual.
-  const uint32_t wfull = P::redundant ? ws + wc : ws;
-  const bool neg = static_cast<int32_t>(wfull) < 0;
-  if (!P::otf) QD = Q - 1u;
-  const uint32_t qf = neg ? QD : Q;
-  const uint32_t rem = neg ? wfull + d.d_al : wfull;
+  const W wfull = P::redundant ? ws + wc : ws;
+  const bool neg = ((wfull >> top) & W(1)) != W(0);
+  if (!P::otf) QD = Qr - Q(1);
+  const Q qf = neg ? QD : Qr;
+  const W rem = neg ? wfull + d.d_al : wfull;
 
-  QuotientFields q;
-  const bool intbit = ((qf >> FP) & 1u) != 0u;
-  const uint32_t qn = intbit ? qf : (qf << 1);
+  QuotientFields<U> q;
+  const bool intbit = ((qf >> FP) & Q(1)) != Q(0);
+  const Q qn = intbit ? qf : (qf << 1);
   q.t_adj = intbit ? 0 : -1;
-  q.frac = (qn >> (FP - F)) & ((1u << F) - 1u);
-  q.round_bit = (qn >> (FP - F - 1)) & 1u;
+  q.frac = static_cast<U>((qn >> (FP - F)) & ((Q(1) << F) - Q(1)));
+  q.round_bit = static_cast<uint32_t>((qn >> (FP - F - 1)) & Q(1));
   constexpr int low = FP - F - 1;
   bool low_nz = false;
-  if constexpr (low > 0) low_nz = (qn & ((1u << low) - 1u)) != 0u;
-  q.sticky = low_nz || rem != 0u;
+  if constexpr (low > 0) low_nz = (qn & ((Q(1) << low) - Q(1))) != Q(0);
+  q.sticky = low_nz || rem != W(0);
   return q;
 }
 
 // posit_div.py _divide_block for one element: the quotient's pattern from
 // the dividend's pattern and a prepared divisor.
 template <class P>
-PHD uint32_t divide_bits(uint32_t px, const Divisor& d) {
-  const Fields dx = decode<P::n>(px);
-  const QuotientFields q = divide_fields<P>(dx.sig, d);
+PHD typename P::Pat divide_bits(typename P::Pat px, const DivisorOf<P>& d) {
+  const auto dx = decode<P::n>(px);
+  const auto q = divide_fields<P>(dx.sig, d);
   const bool out_nar = dx.nar || d.nar || d.zero;
   const bool out_zero = dx.zero && !out_nar;
   return encode<P::n>(dx.sign != d.sign, dx.scale - d.scale + q.t_adj, q.frac, q.round_bit,
@@ -445,7 +538,7 @@ PHD uint32_t divide_bits(uint32_t px, const Divisor& d) {
 // posit_div.py divide_floats_block for one element against a prepared
 // divisor: quantize -> SRT divide -> encode -> dequantize.
 template <class P>
-PHD float divide_float(float a, const Divisor& d) {
+PHD float divide_float(float a, const DivisorOf<P>& d) {
   return posit_to_float<P::n>(divide_bits<P>(float_to_posit<P::n>(a), d));
 }
 

@@ -45,16 +45,13 @@ from .posit_div import (
     KERNEL_VARIANTS,
     DatapathPlan,
     _divide_block,
+    datapath_plan,
     divide_floats_block,
-    kernel_datapath_plan,
     kernel_plan_error,
-    one_word_plan,
 )
 
 DEFAULT_DIV_VARIANT = DEFAULT_KERNEL_VARIANT
 FUSED_DIV_VARIANTS = KERNEL_VARIANTS
-_ROWS_PER_BLOCK = 4          # csrc/posit_fused_div.cu kRows
-_MAX_GRID_Y = 65535
 
 
 def plan_args(plan: DatapathPlan):
@@ -68,14 +65,8 @@ PLAN_ARGTYPES = [ctypes.c_int] * 9
 
 
 def fused_variant_supported(fmt: PositFormat, variant: str) -> bool:
-    """Does (fmt, variant) have a datapath the port runs (a one-word plan)?
-
-    The reference answers for its two-word plans too (posit32
-    ``srt_r4_scaled``, posit64); the port's datapath is one-word until
-    those are ported (``ROADMAP.md``)."""
-    if kernel_plan_error(fmt, variant) is not None:
-        return False
-    return kernel_datapath_plan(fmt, variant).words == 1
+    """Does (fmt, variant) have a single-kernel fused datapath plan?"""
+    return kernel_plan_error(fmt, variant) is None
 
 
 def _pair(a, b, what: str, dtype):
@@ -101,7 +92,7 @@ def _launch_flat(fn, what: str, fmt: PositFormat, variant: str, a, b, out):
     The plans the kernel is built for are its source's ``dispatch_plan``
     alone: for any other the launch returns -1 and this raises (it never
     falls back to the twin)."""
-    plan = one_word_plan(fmt, variant)
+    plan = datapath_plan(fmt, variant)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
         rc = fn(*plan_args(plan), a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
@@ -127,7 +118,7 @@ def _pattern_plan(fmt: PositFormat, variant: str) -> DatapathPlan:
             f"posit_div takes uint32 bit patterns, which cannot hold {fmt}; "
             "wide formats divide through the float-level fused entry points "
             "(posit_div_fused / posit_div_fused_rowwise / posit_softmax_fused)")
-    return one_word_plan(fmt, variant)
+    return datapath_plan(fmt, variant)
 
 
 def posit_div_plain(fmt: PositFormat, px, pd, variant: str = DEFAULT_DIV_VARIANT):
@@ -163,7 +154,7 @@ posit_div.launches = 0
 
 def posit_div_fused_plain(fmt: PositFormat, a, b, variant: str = DEFAULT_DIV_VARIANT):
     """The plain PyTorch twin of K10 (any device): float32 out."""
-    one_word_plan(fmt, variant)
+    datapath_plan(fmt, variant)
     a, b = _pair(a, b, "posit_div_fused", torch.float32)
     return divide_floats_block(fmt, a, b, variant)
 
@@ -175,9 +166,10 @@ def posit_div_fused(fmt: PositFormat, a, b, variant: str = DEFAULT_DIV_VARIANT):
     CUDA tensors launch K10 (counted in ``posit_div_fused.launches``); CPU
     tensors run the plain twin.  Bit-identical to the reference's
     ``ops.posit_div_fused`` and to the chained
-    ``posit_dequantize(posit_div(posit_quantize(a), posit_quantize(b)))``.
+    ``posit_dequantize(posit_div(posit_quantize(a), posit_quantize(b)))``
+    (n <= 32; posit64 divides on its wide casts inside the same launch).
     """
-    one_word_plan(fmt, variant)
+    datapath_plan(fmt, variant)
     if a.device.type == "cuda":
         a32, b32 = (t.contiguous() for t in _pair(a, b, "posit_div_fused", torch.float32))
         out = _launch_flat(_flat_fn("posit_fused_div", "posit_fused_div"), "posit_div_fused",
@@ -272,25 +264,26 @@ def rowwise_applicable(a_shape, b_shape) -> bool:
 @functools.lru_cache(maxsize=None)
 def _rowwise_fn():
     fn = _build.load("posit_fused_div").posit_fused_div_rowwise
-    fn.argtypes = PLAN_ARGTYPES + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
-        + [ctypes.c_void_p]
+    fn.argtypes = PLAN_ARGTYPES + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch_rowwise(plan: DatapathPlan, a2: torch.Tensor, bcol: torch.Tensor):
     R, C = a2.shape
-    if R * C >= 2 ** 31 or -(-R // _ROWS_PER_BLOCK) > _MAX_GRID_Y:
-        raise ValueError(f"rowwise kernel takes R*C < 2^31 and R <= "
-                         f"{_ROWS_PER_BLOCK * _MAX_GRID_Y} rows; got ({R}, {C})")
     out = torch.empty_like(a2)
     stream = torch.cuda.current_stream(a2.device).cuda_stream
     with torch.cuda.device(a2.device):
         rc = _rowwise_fn()(*plan_args(plan), a2.data_ptr(), bcol.data_ptr(),
                            out.data_ptr(), R, C, stream)
+    if rc == -1:
+        raise NotImplementedError(f"posit_fused_div_rowwise: no kernel is built for "
+                                  f"posit{plan.n} {plan.variant}")
     if rc != 0:
         raise RuntimeError(f"posit_fused_div_rowwise launch failed ({rc}): "
-                           + ("no compiled plan" if rc < 0 else
+                           + ("more than 2^31 - 1 row tiles of 4 or 65535 column tiles of 128"
+                              if rc == -2 else
                               f"cudaError {rc}"))
     return out
 
@@ -305,7 +298,7 @@ def _as_rows(a, b):
 
 
 def _check(fmt: PositFormat, a, b, variant: str) -> DatapathPlan:
-    plan = one_word_plan(fmt, variant)
+    plan = datapath_plan(fmt, variant)
     if not rowwise_applicable(a.shape, tuple(getattr(b, "shape", ()))):
         raise ValueError(
             f"rowwise division needs a per-row divisor; got a.shape="
@@ -352,7 +345,7 @@ def posit_softmax_plain(fmt: PositFormat, x, variant: str = DEFAULT_DIV_VARIANT)
     ``m = max(x)`` over the row (NaN if any entry is), ``e = exp(x - m)``,
     ``s`` the fixed-order row sum of ``e``, then ``e / s`` through the SRT
     datapath twin, as the reference's ``_softmax_kernel``."""
-    one_word_plan(fmt, variant)
+    datapath_plan(fmt, variant)
     shape = tuple(x.shape)
     x2 = x.to(torch.float32).reshape(-1, shape[-1])
     e = torch.exp(x2 - torch.amax(x2, dim=-1, keepdim=True))
@@ -396,7 +389,7 @@ def posit_softmax_fused(fmt: PositFormat, x, variant: str = DEFAULT_DIV_VARIANT)
     the plain twin.  Bit-identical to the reference's
     ``ops.posit_softmax_fused`` wherever the two ``exp`` give the same bits.
     """
-    plan = one_word_plan(fmt, variant)
+    plan = datapath_plan(fmt, variant)
     if x.ndim == 0:
         raise ValueError("softmax needs at least one axis")
     if x.device.type == "cuda":

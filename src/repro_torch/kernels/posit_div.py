@@ -3,15 +3,13 @@
 Port of the reference package's ``kernels/posit_div.py`` plan
 (``DatapathPlan``, ``kernel_datapath_plan``, ``kernel_plan_error``,
 ``planned_pairs``) and of its datapath body (``_divide_fields``,
-``_divide_block``, ``divide_floats_block``) for every **one-word** plan:
-all nine Table IV rows on posit8/16 and the eight unscaled rows on posit32.
-The same arithmetic runs on the card as ``csrc/posit_srt.cuh`` (K1); this
-twin runs on any device, on int64 lanes holding unsigned 32-bit words (see
-:mod:`repro_torch.core.posit`), and gives the reference's bits.
-
-Two-word plans (posit32 with ``srt_r4_scaled``, posit64) keep their plan
-here but their datapath is not ported yet: :func:`divide_floats_block`
-raises ``NotImplementedError`` for them (``ROADMAP.md`` lists the work).
+``_divide_block``, ``_divide_floats_wide``, ``divide_floats_block``) for
+every planned (format, variant): the one-word plans (all nine Table IV rows
+on posit8/16, the eight unscaled ones on posit32) and the two-word ones
+(posit32 ``srt_r4_scaled``, the eight unscaled posit64 rows).  The same
+arithmetic runs on the card as ``csrc/posit_srt.cuh`` (K1); this twin runs
+on any device, its W-word registers tuples of unsigned 32-bit words in
+int64 lanes (:mod:`repro_torch.core.wide`), and gives the reference's bits.
 """
 
 from __future__ import annotations
@@ -35,6 +33,21 @@ from repro_torch.core.posit import (
     posit_decode,
     posit_encode,
     posit_to_float,
+)
+from repro_torch.core.wide import (
+    decode_wide,
+    encode_wide,
+    float_to_posit_wide,
+    posit_wide_to_float,
+    w_add,
+    w_bit,
+    w_low_nonzero,
+    w_mask,
+    w_nonzero,
+    w_not,
+    w_sel,
+    w_shl,
+    w_shr,
 )
 
 _IB = 3         # residual integer bits (incl. sign) at the top of the frame
@@ -115,8 +128,14 @@ def planned_pairs(formats=FORMATS):
 
 
 def one_word_pairs(formats=FORMATS):
-    """The ``(fmt, variant, plan)`` triples this port's datapath runs."""
+    """The ``(fmt, variant, plan)`` triples with a one-word plan (W = 1)."""
     return [t for t in planned_pairs(formats) if t[2].words == 1]
+
+
+def two_word_pairs(formats=FORMATS):
+    """The ``(fmt, variant, plan)`` triples with a two-word plan (W = 2):
+    posit32 ``srt_r4_scaled`` and the eight unscaled posit64 rows."""
+    return [t for t in planned_pairs(formats) if t[2].words == 2]
 
 
 def kernel_plan_error(fmt: PositFormat, variant: str) -> Optional[str]:
@@ -136,46 +155,27 @@ def kernel_plan_error(fmt: PositFormat, variant: str) -> Optional[str]:
                if cfg.scaling else ""))
 
 
-def one_word_plan(fmt: PositFormat, variant: str) -> DatapathPlan:
-    """The plan for (fmt, variant), raising unless the port runs it."""
+def datapath_plan(fmt: PositFormat, variant: str) -> DatapathPlan:
+    """The plan for (fmt, variant), raising where the reference's
+    ``kernel_plan_error`` names no datapath."""
     err = kernel_plan_error(fmt, variant)
     if err is not None:
         raise ValueError(f"no fused datapath: {err}")
-    plan = kernel_datapath_plan(fmt, variant)
-    if plan.words != 1:
-        raise NotImplementedError(
-            f"{fmt} / {variant!r} needs the {plan.words}-word datapath, which "
-            "the port does not have yet (ROADMAP.md: two-word / posit64)")
-    return plan
+    return kernel_datapath_plan(fmt, variant)
 
 
 # =====================================================================
-# one-word helpers (int64 lanes holding unsigned 32-bit words)
+# quotient-digit selection (Section III-D): top residual word only
 # =====================================================================
 
 
-def _shl(x, k: int):
-    return (x << k) & M32 if k < 32 else torch.zeros_like(x)
-
-
-def _lsr(x, k: int):
-    return x >> k if k < 32 else torch.zeros_like(x)
+def _lut8(table, idx):
+    return torch.tensor(table, dtype=torch.int64, device=idx.device)[idx]
 
 
 def _signed(x):
     """The int32 value of a 32-bit word."""
     return x - ((x >> 31) << 32)
-
-
-def _add(a, b, cin=None):
-    s = a + b
-    if cin is not None:
-        s = s + cin
-    return s & M32
-
-
-def _lut8(table, idx):
-    return torch.tensor(table, dtype=torch.int64, device=idx.device)[idx]
 
 
 def _cs_est(rws, rwc, gbits: int):
@@ -219,32 +219,39 @@ _SCALE_S2 = tuple(0 if s[1] is None else s[1] for s in seltables.SCALING_SHIFTS)
 
 
 def _scale_operand(v, didx):
-    """Exact M*v (Table I): v + (v >> s1) + (v >> s2)."""
-    c1, c2, c3 = v >> 1, v >> 2, v >> 3
+    """Exact W-word M*v (Table I): v + (v >> s1) + (v >> s2)."""
+    c1, c2, c3 = w_shr(v, 1), w_shr(v, 2), w_shr(v, 3)
     s1 = _lut8(_SCALE_S1, didx)
     s2 = _lut8(_SCALE_S2, didx)
-    t1 = torch.where(s1 == 1, c1, torch.where(s1 == 2, c2, c3))
-    t2 = torch.where(s2 == 1, c1, torch.where(s2 == 3, c3, torch.zeros_like(c3)))
-    return _add(_add(v, t1), t2)
+    zero = tuple(torch.zeros_like(x) for x in c3)
+    t1 = w_sel(s1 == 1, c1, w_sel(s1 == 2, c2, c3))
+    t2 = w_sel(s2 == 1, c1, w_sel(s2 == 3, c3, zero))
+    return w_add(w_add(v, t1), t2)
+
+
+# =====================================================================
+# quotient registers (on-the-fly conversion or plain accumulation)
+# =====================================================================
 
 
 def _otf(Q, QD, digit, r: int):
     """On-the-fly conversion step (Eqs 18-19), radix r in {2, 4}."""
     lr = 1 if r == 2 else 2
     neg, pos, mag = digit < 0, digit > 0, digit.abs()
-    Qs, QDs = _shl(Q, lr), _shl(QD, lr)
+    Qs, QDs = w_shl(Q, lr), w_shl(QD, lr)
     q_app = torch.where(neg, r - mag, mag)
     qd_app = torch.where(pos, mag - 1, (r - 1) - mag)
-    return (torch.where(neg, QDs, Qs) | q_app,
-            torch.where(pos, Qs, QDs) | qd_app)
+    Qn, QDn = w_sel(neg, QDs, Qs), w_sel(pos, Qs, QDs)
+    return (Qn[0] | q_app,) + Qn[1:], (QDn[0] | qd_app,) + QDn[1:]
 
 
 def _plain_q(Q, digit, r: int):
     """Non-OTF accumulation q <- r*q + digit (digit may be negative)."""
     lr = 1 if r == 2 else 2
     mag = digit.abs()
+    magw = (mag,) + tuple(torch.zeros_like(mag) for _ in Q[1:])
     neg = digit < 0
-    return _add(_shl(Q, lr), torch.where(neg, mag ^ M32, mag), neg.long())
+    return w_add(w_shl(Q, lr), w_sel(neg, w_not(magw), magw), neg.long())
 
 
 # =====================================================================
@@ -253,89 +260,101 @@ def _plain_q(Q, digit, r: int):
 
 
 def _divide_fields(plan: DatapathPlan, xsig, dsig):
-    """One-word digit recurrence on FRAC-bit significands.
+    """The W-word digit recurrence on FRAC-bit significand word tuples.
 
-    ``dsig`` may broadcast against ``xsig`` (a per-row divisor); every
-    divisor-side quantity is then computed once per row.  Returns
-    ``(frac, t_adj, round_bit, sticky)`` as the reference does.
+    ``xsig``/``dsig`` are little-endian tuples of 32-bit words (int64
+    lanes) holding significands in [2^(FRAC-1), 2^FRAC); ``dsig`` may
+    broadcast against ``xsig`` (a per-row divisor), and every divisor-side
+    quantity is then computed once per row.  Carries cross words only in
+    the shifts and the full adds; selection reads the top word.  Returns
+    ``(frac_words, t_adj, round_bit, sticky)`` as the reference does.
     """
-    if plan.words != 1:
-        raise NotImplementedError("two-word datapath (ROADMAP.md)")
-    r = plan.radix
+    W, r = plan.words, plan.radix
     lr = 1 if r == 2 else 2
     FRAC, It, FP = plan.frac, plan.iterations, plan.fp
     F = FRAC - 1
 
-    x_al = _shl(xsig, plan.shift)
-    d_al = _shl(dsig, plan.shift)
+    def extend(sig):
+        return tuple(sig) + tuple(torch.zeros_like(sig[0]) for _ in range(W - len(sig)))
+
+    x_al = w_shl(extend(xsig), plan.shift)
+    d_al = w_shl(extend(dsig), plan.shift)
     if FRAC >= 4:
-        didx = _lsr(dsig, FRAC - 4) & 7
+        didx = w_shr(tuple(dsig), FRAC - 4)[0] & 7
     else:
-        didx = (dsig << (4 - FRAC)) & 7
+        didx = (dsig[0] << (4 - FRAC)) & 7
     if plan.scaled:
+        # Both operands times the same M (Table I): the quotient is
+        # unchanged and selection becomes divisor-independent; exact, as
+        # the shift leaves >= 3 zero bits at the bottom.
         x_al = _scale_operand(x_al, didx)
         d_al = _scale_operand(d_al, didx)
-    nd_al = d_al ^ M32
-    d2 = _shl(d_al, 1) if r == 4 else None
-    nd2 = d2 ^ M32 if r == 4 else None
+    nd_al = w_not(d_al)
+    d2 = w_shl(d_al, 1) if r == 4 else None
+    nd2 = w_not(d2) if r == 4 else None
 
     def addend_for(digit):
         zero = torch.zeros_like(digit)
-        a = torch.where(digit == 1, nd_al, torch.where(digit == -1, d_al, zero))
-        if r == 4:
-            a = torch.where(digit == 2, nd2, torch.where(digit == -2, d2, a))
-        return a, (digit > 0).long()
+        add = []
+        for i in range(W):
+            a = torch.where(digit == 1, nd_al[i], torch.where(digit == -1, d_al[i], zero))
+            if r == 4:
+                a = torch.where(digit == 2, nd2[i], torch.where(digit == -2, d2[i], a))
+            add.append(a)
+        return tuple(add), (digit > 0).long()
 
     # Iteration 1 folded: y_1 = r*w(0) = x exactly (w(0) = x/r).
-    ztop = torch.zeros_like(x_al)
-    digit = _select(plan, x_al, ztop, didx)
+    ztop = torch.zeros_like(x_al[-1])
+    digit = _select(plan, x_al[-1], ztop, didx)
     add, cin = addend_for(digit)
     if plan.redundant:
-        wc = _shl(x_al & add, 1) | cin
-        ws = x_al ^ add
+        wc = w_shl(tuple(x & a for x, a in zip(x_al, add)), 1)
+        wc = (wc[0] | cin,) + wc[1:]
+        ws = tuple(x ^ a for x, a in zip(x_al, add))
     else:
-        ws = _add(x_al, add, cin)
-        wc = torch.zeros_like(ws)
-    qz = torch.zeros_like(digit)
+        ws = w_add(x_al, add, cin)
+        wc = None
+    qz = tuple(torch.zeros_like(digit) for _ in range(plan.qwords))
     if plan.otf:
         Q, QD = _otf(qz, qz, digit, r)
     else:
         Q, QD = _plain_q(qz, digit, r), qz
 
     for _ in range(It - 1):
-        rws = _shl(ws, lr)
+        rws = w_shl(ws, lr)
         if plan.redundant:
-            rwc = _shl(wc, lr)
-            digit = _select(plan, rws, rwc, didx)
+            rwc = w_shl(wc, lr)
+            digit = _select(plan, rws[-1], rwc[-1], didx)
             add, cin = addend_for(digit)
-            ws = rws ^ rwc ^ add
-            wc = _shl((rws & rwc) | (rws & add) | (rwc & add), 1) | cin
+            ws = tuple(x ^ y ^ z for x, y, z in zip(rws, rwc, add))
+            maj = tuple((x & y) | (x & z) | (y & z) for x, y, z in zip(rws, rwc, add))
+            wc = w_shl(maj, 1)
+            wc = (wc[0] | cin,) + wc[1:]
         else:
-            digit = _select(plan, rws, ztop, didx)
+            digit = _select(plan, rws[-1], ztop, didx)
             add, cin = addend_for(digit)
-            ws = _add(rws, add, cin)
+            ws = w_add(rws, add, cin)
         if plan.otf:
             Q, QD = _otf(Q, QD, digit, r)
         else:
             Q = _plain_q(Q, digit, r)
 
     # Termination: sign/zero of the final residual.
-    wfull = _add(ws, wc) if plan.redundant else ws
-    neg = _signed(wfull) < 0
+    wfull = w_add(ws, wc) if plan.redundant else ws
+    neg = (wfull[-1] >> 31) == 1
     if not plan.otf:
-        QD = _add(Q, torch.full_like(Q, M32))
-    qf = torch.where(neg, QD, Q)
-    rem = torch.where(neg, _add(wfull, d_al), wfull)
-    rem_nz = rem != 0
+        QD = w_add(Q, tuple(torch.full_like(x, M32) for x in Q))
+    qf = w_sel(neg, QD, Q)
+    rem_nz = w_nonzero(w_sel(neg, w_add(wfull, d_al), wfull))
 
-    intbit = (_lsr(qf, FP) & 1).bool()
-    qn = torch.where(intbit, qf, _shl(qf, 1))
+    # q = qf * 2^-FP in (1/2, 2); normalize and extract F + G/R/S bits.
+    intbit = w_bit(qf, FP).bool()
+    qn = w_sel(intbit, qf, w_shl(qf, 1))
     t_adj = torch.where(intbit, 0, -1)
-    frac = _lsr(qn, FP - F) & ((1 << F) - 1)
-    round_bit = _lsr(qn, FP - F - 1) & 1
-    low = FP - F - 1
-    low_nz = ((qn & ((1 << low) - 1)) != 0) if low > 0 else torch.zeros_like(rem_nz)
-    return frac, t_adj, round_bit, low_nz | rem_nz
+    frac = w_mask(w_shr(qn, FP - F), F)
+    round_bit = w_bit(qn, FP - F - 1)
+    sticky = w_low_nonzero(qn, FP - F - 1) | rem_nz
+    return frac, t_adj, round_bit, sticky
 
 
 # =====================================================================
@@ -344,20 +363,37 @@ def _divide_fields(plan: DatapathPlan, xsig, dsig):
 
 
 def _divide_block(fmt: PositFormat, px, pd, variant: str = DEFAULT_KERNEL_VARIANT):
-    """The datapath on posit bit patterns (int64 lanes, n <= 32).
-
-    ``pd`` may broadcast against ``px`` (a ``(rows, 1)`` divisor column).
+    """The datapath on posit bit patterns (int64 lanes, n <= 32), for every
+    planned variant: one-word, and posit31/32 ``srt_r4_scaled``'s two-word
+    residual.  ``pd`` may broadcast against ``px`` (a ``(rows, 1)`` column).
     """
-    plan = one_word_plan(fmt, variant)
+    plan = datapath_plan(fmt, variant)
+    if fmt.n > 32:
+        raise ValueError(f"{fmt} patterns do not fit one word; divide_floats_block "
+                         "takes the wide formats")
     dx = posit_decode(fmt, px)
     dd = posit_decode(fmt, pd)
-    frac, t_adj, round_bit, sticky = _divide_fields(plan, dx.sig, dd.sig)
+    frac, t_adj, round_bit, sticky = _divide_fields(plan, (dx.sig,), (dd.sig,))
     sign = dx.sign ^ dd.sign
     scale = dx.scale - dd.scale + t_adj
     out_nar = dx.is_nar | dd.is_nar | dd.is_zero
     out_zero = dx.is_zero & ~out_nar
-    return posit_encode(fmt, sign, scale, frac, round_bit, sticky, out_zero,
+    return posit_encode(fmt, sign, scale, frac[0], round_bit, sticky, out_zero,
                         out_nar)
+
+
+def _divide_floats_wide(fmt: PositFormat, a, b, variant: str):
+    """Fused float32 division for posit64: quantize to word pairs, the
+    two-word recurrence, posit64 rounding, float32 dequantize."""
+    plan = datapath_plan(fmt, variant)
+    sx, Tx, sigx, zx, nx = decode_wide(fmt, float_to_posit_wide(fmt, a))
+    sd, Td, sigd, zd, nd = decode_wide(fmt, float_to_posit_wide(fmt, b))
+    frac, t_adj, round_bit, sticky = _divide_fields(plan, sigx, sigd)
+    out_nar = nx | nd | zd
+    out_zero = zx & ~out_nar
+    q = encode_wide(fmt, sx ^ sd, Tx - Td + t_adj, w_mask(frac, fmt.F), round_bit,
+                    sticky, out_zero, out_nar)
+    return posit_wide_to_float(fmt, q)
 
 
 def divide_floats_block(fmt: PositFormat, a, b,
@@ -365,9 +401,12 @@ def divide_floats_block(fmt: PositFormat, a, b,
     """Quantize -> SRT divide -> dequantize on float32 tensors (any device).
 
     ``b`` may broadcast against ``a``.  Bit-identical to the reference's
-    ``divide_floats_block`` for every one-word plan.
+    ``divide_floats_block`` for every planned (format, variant): the
+    one-word pattern path for n <= 32, the word-pair path for posit64.
     """
-    one_word_plan(fmt, variant)
+    datapath_plan(fmt, variant)
+    if fmt.n > 32:
+        return _divide_floats_wide(fmt, a, b, variant)
     pa = float_to_posit(fmt, a)
     pb = float_to_posit(fmt, b)
     return posit_to_float(fmt, _divide_block(fmt, pa, pb, variant))

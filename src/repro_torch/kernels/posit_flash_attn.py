@@ -52,10 +52,9 @@ import torch
 from repro_torch.core.posit import PositFormat
 from . import _build
 from .ops import PLAN_ARGTYPES, plan_args
-from .posit_div import DEFAULT_KERNEL_VARIANT, divide_floats_block, one_word_plan
+from .posit_div import DEFAULT_KERNEL_VARIANT, datapath_plan, divide_floats_block
 
 BLOCK_K = 64        # keys per kv tile (csrc/posit_flash_attn.cu kBK)
-KERNEL_FORMAT_N = 16  # the kernel is built for the posit16 plans only
 HEAD_DIM_MAX = 128  # csrc/posit_flash_attn.cu kHdMax
 _NEG_INF = -1e30    # the reference's mask fill
 
@@ -280,16 +279,28 @@ def _flash_fn():
     return fn
 
 
-def _check_kernel_inputs(plan, q, k, v, hd: int) -> None:
+def kernel_built(plan, layout: str) -> bool:
+    """Is a flash kernel instantiated for ``plan`` in ``layout`` ("dense",
+    "paged", "packed" or "backward")?  Every posit16 plan is, in every
+    layout; posit64 ``srt_r4_cs_of_fr`` (and ``srt_r4_cs_of``, the same
+    datapath) in the dense forward alone (``csrc/posit_flash_attn.cu``
+    ``kBuilt``)."""
+    if plan.n == 16:
+        return True
+    return (plan.n == 64 and layout == "dense" and plan.radix == 4 and plan.redundant
+            and plan.otf and not plan.scaled)
+
+
+def _check_kernel_inputs(plan, q, k, v, hd: int, layout: str) -> None:
     """What the hand-written kernels take; raises for anything else."""
+    if not kernel_built(plan, layout):
+        raise NotImplementedError(
+            f"no flash kernel is built for posit{plan.n} {plan.variant} in the {layout} "
+            "layout; the twin runs on CPU tensors only (ROADMAP.md)")
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for device {q.device}")
     if hd > HEAD_DIM_MAX:
         raise ValueError(f"head_dim {hd} > {HEAD_DIM_MAX}")
-    if plan.n != KERNEL_FORMAT_N:
-        raise NotImplementedError(
-            f"the flash kernels are built for posit16 plans only, not posit{plan.n} "
-            "(ROADMAP.md)")
     if k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"the flash kernels read bfloat16 k/v only, not {k.dtype}/{v.dtype} "
@@ -305,7 +316,8 @@ def _launch(fmt: PositFormat, plan, q, k, v, causal, window, q_offset, scale, kv
     packed sequence with segment ids ``seg_q``/``seg_kv`` and ``bq`` query
     rows per block (K5)."""
     B, Sq, H, hd = q.shape
-    _check_kernel_inputs(plan, q, k, v, hd)
+    _check_kernel_inputs(plan, q, k, v, hd, "paged" if block_tables is not None else
+                         "packed" if seg_q is not None else "dense")
     if scale <= 0.0:
         scale = 1.0 / math.sqrt(hd)
     dev = q.device
@@ -337,6 +349,9 @@ def _launch(fmt: PositFormat, plan, q, k, v, causal, window, q_offset, scale, kv
                          *(None if t is None else t.data_ptr() for t in ptrs),
                          B, Sq, Sk, H, KV, hd, NB, bs, mb, float(scale), int(bool(causal)),
                          int(window), int(q_offset), minpos_eps(fmt), int(bq), stream)
+    if rc == -1:
+        raise NotImplementedError(f"posit_flash_attn: no kernel is built for posit{plan.n} "
+                                  f"{plan.variant} in layout {layout} (ROADMAP.md)")
     if rc != 0:
         raise RuntimeError(f"posit_flash_attn launch failed ({rc})")
     return out, m, l
@@ -365,11 +380,13 @@ def posit_flash_attention(fmt: PositFormat, q, k, v, causal: bool = True,
 
     CUDA tensors launch the hand-written kernel, counted per layout in
     ``posit_flash_attention.launches`` (K3), ``.paged_launches`` (K4) and
-    ``.packed_launches`` (K5); it takes posit16 plans and bf16 k/v (upcast
-    in registers, exactly), and raises for anything else.  CPU tensors run
-    the plain twin, for every one-word plan and k/v dtype.
+    ``.packed_launches`` (K5); it takes bf16 k/v (upcast in registers,
+    exactly) and the plans :func:`kernel_built` names (every posit16 plan;
+    posit64 ``srt_r4_cs_of_fr`` dense), and raises for anything else.  CPU
+    tensors run the plain twin, for every planned (format, variant) and k/v
+    dtype.
     """
-    plan = one_word_plan(fmt, variant)
+    plan = datapath_plan(fmt, variant)
     if block_tables is not None and seg_q is not None:
         raise NotImplementedError("paged and packed attention in one call")
     bq = 0
@@ -413,7 +430,7 @@ def posit_flash_attention_fwd(fmt: PositFormat, q, k, v, causal: bool = True,
     CUDA tensors launch the K3 kernel with its residual outputs (counted in
     ``posit_flash_attention_fwd.launches``), CPU tensors run the plain twin.
     """
-    plan = one_word_plan(fmt, variant)
+    plan = datapath_plan(fmt, variant)
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return posit_flash_attention_fwd_plain(fmt, q, k, v, causal, window, q_offset,
@@ -561,7 +578,7 @@ def flash_backward(fmt: PositFormat, q, k, v, o, g, m, l, causal: bool = True,
     CUDA tensors launch K7 (dq) and K8 (dk, dv); CPU tensors run the plain
     twin :func:`flash_backward_plain`.
     """
-    plan = one_word_plan(fmt, variant)
+    plan = datapath_plan(fmt, variant)
     B, Sq, H, hd, Sk, KV = _check_shapes(q, k, v)
     if m.shape != (B * H, Sq) or l.shape != (B * H, Sq):
         raise ValueError(f"m and l must be ({B * H}, {Sq}); got {tuple(m.shape)} "
@@ -569,7 +586,7 @@ def flash_backward(fmt: PositFormat, q, k, v, o, g, m, l, causal: bool = True,
     if q.device.type == "cpu":
         return flash_backward_plain(fmt, q, k, v, o, g, m, l, causal, window, q_offset,
                                     scale, variant)
-    _check_kernel_inputs(plan, q, k, v, hd)
+    _check_kernel_inputs(plan, q, k, v, hd, "backward")
     if scale <= 0.0:
         scale = 1.0 / math.sqrt(hd)
     f32 = torch.float32

@@ -49,14 +49,15 @@ class NumericsConfig:
     def validate(self) -> "NumericsConfig":
         """Fail fast on inconsistent switches (called at model build)."""
         from repro_torch.core.divider import VARIANTS
-        from repro_torch.kernels.posit_div import one_word_plan
+        from repro_torch.kernels.posit_div import datapath_plan
 
         if self.div_algo not in VARIANTS:
             raise ValueError(f"unknown div_algo {self.div_algo!r}; "
                              f"have {list(VARIANTS)}")
-        # raises KeyError on an unknown format name, NotImplementedError on a
-        # two-word plan
-        one_word_plan(self.div_fmt, self.div_algo)
+        # raises KeyError on an unknown format name, ValueError where the
+        # reference's kernel_plan_error names no datapath (posit64
+        # srt_r4_scaled); every planned pair, two-word ones included, passes
+        datapath_plan(self.div_fmt, self.div_algo)
         name = self.kv_cache_format
         if name and resolve_format(name).n > 32:
             raise ValueError(

@@ -9,7 +9,10 @@ the division flow straight through the quantization (the posit division is
 a fake-quant of the true one), as the reference's custom_vjps: ``ga = g /
 b`` and ``gb = -g * out / b`` (summed over the row for the rowwise one),
 in plain torch.  The softmax serves only (its straight-through backward
-comes with MoE training, ``ROADMAP.md``).
+comes with MoE training, ``ROADMAP.md``).  Every planned (format, variant)
+runs, posit64 and posit32 ``srt_r4_scaled`` on the two-word datapath,
+except the softmax on CUDA tensors, where K9 is built for posit16 alone
+(it raises ``NotImplementedError`` for any other format).
 """
 
 from __future__ import annotations

@@ -58,7 +58,8 @@ key id), once per token, so their stream does not depend on the slot, the
 pack or the step.
 
 The moe family serves from dense slots only (``kv_layout="paged"``
-raises).  Its prefill is the reference's scan: one decode step per prompt
+raises), and so does a numerics whose plan K4 / K5 are not built for
+(posit64: paged or packed raises, on any device).  Its prefill is the reference's scan: one decode step per prompt
 position, so that expert capacity stays per token.  Its packs lie on the
 batch axis: N left-padded rows of one width prefilled together (the dummy
 rows, all-zero prompts at start 0, first), each row copied into its slot.
@@ -79,6 +80,8 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.kernels.posit_div import datapath_plan
+from repro_torch.kernels.posit_flash_attn import kernel_built
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
@@ -420,6 +423,13 @@ class ServeEngine:
         if self._paged and cfg.family != "dense":
             raise NotImplementedError(f"kv_layout='paged' is not ported for family "
                                       f"{cfg.family!r} (ROADMAP.md); use 'dense'")
+        plan = datapath_plan(cfg.numerics.div_fmt, cfg.numerics.div_algo)
+        for on, layout in ((self._paged, "paged"), (self._packed, "packed")):
+            if on and not kernel_built(plan, layout):
+                raise NotImplementedError(
+                    f"{cfg.numerics.div_format} {cfg.numerics.div_algo} serves from dense "
+                    f"slots with solo admission only: no {layout} attention kernel (K4, K5) "
+                    "is built for it (ROADMAP.md)")
         if self._paged:
             bs = sc.block_size
             if bs < 8 or bs > 128 or bs & (bs - 1):

@@ -9,9 +9,9 @@ import math
 import pytest
 import torch
 
-from repro_torch.core.posit import POSIT8, POSIT16, posit_to_float
+from repro_torch.core.posit import POSIT8, POSIT16, POSIT32, POSIT64, posit_to_float
 from repro_torch.kernels import ops
-from repro_torch.kernels.posit_div import KERNEL_VARIANTS, one_word_pairs
+from repro_torch.kernels.posit_div import KERNEL_VARIANTS, one_word_pairs, planned_pairs
 from repro_torch.kernels import posit_flash_attn as F
 from repro_torch.kernels.posit_flash_attn import (
     posit_flash_attention,
@@ -49,7 +49,7 @@ def _wide(g, *shape):
         torch.empty(*shape).uniform_(-30, 30, generator=g))
 
 
-@pytest.mark.parametrize("fmt,variant", [(f, v) for f, v, _ in one_word_pairs()],
+@pytest.mark.parametrize("fmt,variant", [(f, v) for f, v, _ in planned_pairs()],
                          ids=lambda x: str(x))
 def test_rowwise_kernel_bit_exact(dev, fmt, variant):
     g = torch.Generator().manual_seed(fmt.n)
@@ -120,8 +120,15 @@ def test_flash_kernel_refuses_what_it_is_not_built_for(dev):
     k = torch.randn(1, 8, 1, 32, device=dev, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         posit_flash_attention(POSIT16, q, k.float(), k.float(), True)
-    with pytest.raises(NotImplementedError, match="posit16"):
+    with pytest.raises(NotImplementedError, match="posit8"):
         posit_flash_attention(POSIT8, q, k, k, True)
+    with pytest.raises(NotImplementedError, match="posit64 srt_r2"):
+        posit_flash_attention(POSIT64, q, k, k, True, variant="srt_r2")
+    with pytest.raises(NotImplementedError, match="paged"):
+        posit_flash_attention(POSIT64, q, k, k, True,
+                              block_tables=torch.zeros(1, 1, dtype=torch.int32, device=dev))
+    with pytest.raises(NotImplementedError, match="posit16"):
+        ops.posit_softmax_fused(POSIT64, q[0, 0])
 
 
 def test_launch_counters_count_kernel_launches_only(dev):
@@ -159,7 +166,7 @@ def test_backward_kernels_match_twin(dev, variant):
     bits on a second run."""
     q, k, v, co = _train_inputs(dev)
     o, m, l = F.posit_flash_attention_fwd(POSIT16, q, k, v, True, variant=variant)
-    plan = F.one_word_plan(POSIT16, variant)
+    plan = F.datapath_plan(POSIT16, variant)
     args = (q, k, v, co, m, l, F._row_sums(co, o), True, 0, 0, 1 / 8)
     runs = [(F.flash_backward_dq(POSIT16, plan, *args),
              *F.flash_backward_dkv(POSIT16, plan, *args)) for _ in range(2)]
@@ -361,7 +368,7 @@ def test_flash_kernel_decode_hd128_mha(dev):
 def _k11_pairs():
     from repro_torch.core.posit import PositFormat
 
-    return [(f, v) for f, v, _ in one_word_pairs()] + [
+    return [(f, v) for f, v, _ in planned_pairs() if f.n <= 32] + [
         (f, v) for f, v, _ in one_word_pairs((PositFormat(10),))]
 
 
@@ -385,7 +392,7 @@ def test_pattern_kernel_matches_twin(dev, fmt, variant):
     assert torch.equal(k.cpu(), p)
 
 
-@pytest.mark.parametrize("fmt,variant", [(f, v) for f, v, _ in one_word_pairs()],
+@pytest.mark.parametrize("fmt,variant", [(f, v) for f, v, _ in planned_pairs()],
                          ids=lambda x: str(x))
 def test_elementwise_kernel_matches_twin_and_chain(dev, fmt, variant):
     g = torch.Generator().manual_seed(fmt.n + 1)
@@ -395,6 +402,8 @@ def test_elementwise_kernel_matches_twin_and_chain(dev, fmt, variant):
     a, b = a.to(dev), b.to(dev)
     k = ops.posit_div_fused(fmt, a, b, variant)
     assert torch.equal(bits(k), bits(ops.posit_div_fused_plain(fmt, a, b, variant)))
+    if fmt.n > 32:   # no posit64 patterns in a word: no chain
+        return
     chained = ops.posit_dequantize(fmt, ops.posit_div(fmt, ops.posit_quantize(fmt, a),
                                                       ops.posit_quantize(fmt, b), variant))
     assert torch.equal(bits(k), bits(chained))
@@ -454,8 +463,8 @@ def test_division_api_counts_and_refuses(dev):
     ops.posit_div_fused_plain(POSIT16, a, b)
     ops.posit_quantize_plain(POSIT16, a)
     assert [c.launches for c in counters] == [1, 1, 2, 1]
-    with pytest.raises(NotImplementedError, match="two-word"):
-        ops.posit_div_fused(POSIT32, a, b, "srt_r4_scaled")
+    ops.posit_div_fused(POSIT32, a, b, "srt_r4_scaled")      # a two-word plan launches
+    assert ops.posit_div_fused.launches == 2
     with pytest.raises(NotImplementedError, match="no kernel is built"):
         ops.posit_div_fused(PositFormat(10), a, b)
     with pytest.raises(NotImplementedError, match="no kernel is built"):
@@ -474,7 +483,7 @@ def test_division_api_counts_and_refuses(dev):
         ops.posit_dequantize(PositFormat(10), e.long())
     with pytest.raises(NotImplementedError, match="no kernel is built"):
         ops.posit_round_value(PositFormat(10), a)
-    assert [c.launches for c in counters] == [1, 1, 2, 1]
+    assert [c.launches for c in counters] == [2, 1, 2, 1]
 
 
 def test_kv_rounding_launches_k12(dev):
@@ -501,3 +510,76 @@ def test_kv_rounding_launches_k12(dev):
     twin = ops.posit_dequantize_plain(POSIT8, ops.posit_quantize_plain(POSIT8, rows.cpu()))
     assert torch.equal(bits(twin), bits(rows.cpu()))
     assert bool(torch.isfinite(lg).all())
+
+
+# ------------------------------ the two-word datapath's model kernels, grids
+
+
+@pytest.mark.parametrize("shape", ["decode", "prefill"])
+def test_flash_kernel_posit64(dev, shape):
+    """K3's posit64 srt_r4_cs_of_fr instantiation (o / l on the two-word
+    frame) within FLASH_TOL of its twin; fully masked rows 0."""
+    g = torch.Generator().manual_seed(64)
+    if shape == "decode":
+        q = torch.randn(8, 1, 15, 64, generator=g).to(dev)
+        k = torch.randn(8, 512, 5, 64, generator=g).to(torch.bfloat16).to(dev)
+        v = torch.randn(8, 512, 5, 64, generator=g).to(torch.bfloat16).to(dev)
+        pos = torch.tensor([47, 63, 92, 120, 151, 178, 199, 231], dtype=torch.int32,
+                           device=dev)
+        kw = dict(kv_start=torch.tensor([0, 0, 5, 3, 9, 0, 14, 232], dtype=torch.int32,
+                                        device=dev), kv_len=pos + 1, q_pos=pos)
+    else:
+        q = torch.randn(1, 128, 15, 64, generator=g).to(dev)
+        k = torch.randn(1, 128, 5, 64, generator=g).to(torch.bfloat16).to(dev)
+        v = torch.randn(1, 128, 5, 64, generator=g).to(torch.bfloat16).to(dev)
+        kw = dict(kv_start=torch.tensor([28], dtype=torch.int32, device=dev))
+    o = posit_flash_attention(POSIT64, q, k, v, True, **kw)
+    p = posit_flash_attention_plain(POSIT64, q, k, v, True, **kw)
+    assert (o - p).abs().max() <= FLASH_TOL
+    assert ((o[7] if shape == "decode" else o[0, :28]) == 0).all()
+
+
+def test_rowwise_kernel_past_the_old_grid(dev):
+    """K2 at 262144 rows of 960 (the training RMSNorm rows of a 1024 x 256
+    batch): more than the 4 x 65535 rows gridDim.y took, bit-identical to its
+    twin (run on the card, in row chunks)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn(262144, 960, generator=g, device=dev)
+    b = torch.rand(262144, 1, generator=g, device=dev) + 0.01
+    k = ops.posit_div_fused_rowwise(POSIT16, a, b)
+    for r in range(0, 262144, 32768):
+        p = ops.posit_div_rowwise_plain(POSIT16, a[r:r + 32768], b[r:r + 32768])
+        assert torch.equal(bits(k[r:r + 32768]), bits(p)), r
+
+
+def test_flash_kernels_past_the_old_grid(dev):
+    """K3 at B*H = 65536 and K7/K8 at B*KV = 65536 (gridDim.y took 65535),
+    within their bounds of the twins."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, H, hd = 4096, 16, 64
+    q = torch.randn(B, 1, H, hd, generator=g, device=dev)
+    k = torch.randn(B, 64, H, hd, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, 64, H, hd, generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.full((B,), 63, dtype=torch.int32, device=dev)
+    o = posit_flash_attention(POSIT16, q, k, v, True, kv_len=pos + 1, q_pos=pos)
+    p = posit_flash_attention_plain(POSIT16, q, k, v, True, kv_len=pos + 1, q_pos=pos)
+    assert (o - p).abs().max() <= FLASH_TOL
+    q, k, v, co = _train_inputs(dev, B=B, S=16, H=H, KV=H, hd=hd)
+    o, m, l = F.posit_flash_attention_fwd(POSIT16, q, k, v, True)
+    plan = F.datapath_plan(POSIT16, "srt_r4_cs_of_fr")
+    args = (q, k, v, co, m, l, F._row_sums(co, o), True, 0, 0, 1 / 8)
+    got = (F.flash_backward_dq(POSIT16, plan, *args), *F.flash_backward_dkv(POSIT16, plan, *args))
+    twin = F.flash_backward_plain(POSIT16, q, k.float(), v.float(), o, co, m, l, True)
+    for x, want in zip(got, twin):
+        assert (x - want).abs().max() <= BWD_TOL
+
+
+def test_scaled_two_word_pattern_kernel_edges(dev):
+    """K11 at posit32 srt_r4_scaled: every pair of the special patterns
+    (0, NaR, +-minpos, +-maxpos, +-1 and their neighbours)."""
+    base = [0, 1 << 31, 1, (1 << 32) - 1, (1 << 31) - 1, (1 << 31) + 1, 1 << 30,
+            (1 << 32) - (1 << 30)]
+    sp = torch.tensor(sorted({(x + d) % (1 << 32) for x in base for d in (-1, 0, 1)}))
+    px, pd = (t.reshape(-1) for t in torch.meshgrid(sp, sp, indexing="ij"))
+    k = ops.posit_div(POSIT32, px.to(dev), pd.to(dev), "srt_r4_scaled")
+    assert torch.equal(k.cpu(), ops.posit_div_plain(POSIT32, px, pd, "srt_r4_scaled"))

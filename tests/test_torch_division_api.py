@@ -15,11 +15,13 @@ from _torch_port import bits, ref_kernels  # noqa: F401
 from repro.core.posit import PositFormat as JFmt
 from repro_torch.core.posit import POSIT8, POSIT16, POSIT32, POSIT64, PositFormat
 from repro_torch.kernels import ops
-from repro_torch.kernels.posit_div import KERNEL_VARIANTS, one_word_pairs
+from repro_torch.kernels.posit_div import KERNEL_VARIANTS, planned_pairs
 
 JO = importlib.import_module("repro.kernels.ops")
 RNG = np.random.default_rng(15)
-ONE_WORD = [(f.n, v) for f, v, _ in one_word_pairs()]
+# every plan on patterns that fit a word: the one-word plans and posit32
+# srt_r4_scaled (two-word residual)
+WORD_PATTERNS = [(f.n, v) for f, v, _ in planned_pairs() if f.n <= 32]
 SPECIALS = np.array([1.5, -2.25, 0.0, -0.0, np.inf, -np.inf, np.nan, 1e30, -1e-30, 3.0,
                      1e-45, -3e-39, 1e-38, 2.0 ** -126, -(2.0 ** 127)], np.float32)
 
@@ -65,7 +67,7 @@ def test_posit_div_posit8_exhaustive(ref_kernels):
     np.testing.assert_array_equal(_u32(ops.posit_div(POSIT8, _t(a), _t(b))), ref)
 
 
-@pytest.mark.parametrize("n,variant", ONE_WORD)
+@pytest.mark.parametrize("n,variant", WORD_PATTERNS)
 def test_posit_div_and_fused_match_reference(ref_kernels, n, variant):
     """posit_div on random patterns and every edge pair; posit_div_fused on
     floats over the whole f32 range with the special values."""
@@ -78,6 +80,23 @@ def test_posit_div_and_fused_match_reference(ref_kernels, n, variant):
     ref = JO.posit_div_fused(JFmt(n), jnp.asarray(x), jnp.asarray(y), variant=variant)
     got = ops.posit_div_fused(PositFormat(n), torch.from_numpy(x), torch.from_numpy(y),
                               variant)
+    np.testing.assert_array_equal(bits(got), bits(ref))
+
+
+@pytest.mark.parametrize("variant", ["srt_r2", "srt_r4_cs_of_fr"])
+def test_posit64_fused_matches_reference(ref_kernels, variant):
+    """posit_div_fused and posit_div_fused_rowwise at posit64 (the two-word
+    datapath on the wide casts) against the reference's kernels, bit for
+    bit, over the whole f32 range with the special values."""
+    x, y = _floats(1500), _floats(1500)
+    y[:len(SPECIALS)] = SPECIALS[::-1]
+    ref = JO.posit_div_fused(JFmt(64), jnp.asarray(x), jnp.asarray(y), variant=variant)
+    got = ops.posit_div_fused(POSIT64, torch.from_numpy(x), torch.from_numpy(y), variant)
+    np.testing.assert_array_equal(bits(got), bits(ref))
+    a, b = _floats((24, 61)), _floats((24, 1))
+    ref = JO.posit_div_fused_rowwise(JFmt(64), jnp.asarray(a), jnp.asarray(b), variant=variant)
+    got = ops.posit_div_fused_rowwise(POSIT64, torch.from_numpy(a), torch.from_numpy(b),
+                                      variant)
     np.testing.assert_array_equal(bits(got), bits(ref))
 
 
@@ -144,7 +163,7 @@ def test_zero_size(shape):
     assert ops.posit_div_fused(POSIT16, a, a).shape == shape
 
 
-@pytest.mark.parametrize("n,variant", ONE_WORD)
+@pytest.mark.parametrize("n,variant", WORD_PATTERNS)
 def test_fused_equals_chained(n, variant):
     """K10's twin against K12 -> K11 -> K12's twins: the same bits."""
     fmt = PositFormat(n)
@@ -203,8 +222,6 @@ def test_error_messages_match_reference():
 
 def test_unported_and_misused_inputs_raise():
     x = torch.ones(4)
-    with pytest.raises(NotImplementedError, match="two-word"):
-        ops.posit_div_fused(POSIT32, x, x, "srt_r4_scaled")
     with pytest.raises(ValueError, match="n <= 32"):
         ops.posit_quantize(POSIT64, x)
     with pytest.raises(ValueError, match="one shape"):
@@ -221,8 +238,7 @@ def test_unported_and_misused_inputs_raise():
 def test_fused_variant_supported():
     for n in (8, 16, 32, 64):
         for v in KERNEL_VARIANTS:
-            want = JO.fused_variant_supported(JFmt(n), v) and not (
-                n == 64 or (n == 32 and v == "srt_r4_scaled"))   # two-word plans
+            want = JO.fused_variant_supported(JFmt(n), v)   # two-word plans too
             assert ops.fused_variant_supported(PositFormat(n), v) == want, (n, v)
     assert not ops.fused_variant_supported(POSIT16, "bogus")
     assert ops.FUSED_DIV_VARIANTS == tuple(JO.FUSED_DIV_VARIANTS)

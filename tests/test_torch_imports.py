@@ -45,7 +45,8 @@ def test_port_has_every_slice_module():
                 "core/quire.py", "kernels/csrc/posit_softmax.cu", "configs/olmoe_1b_7b.py",
                 "kernels/posit_cast.py", "kernels/csrc/posit_div.cu",
                 "kernels/csrc/posit_cast.cu", "kernels/csrc/posit10_plans.inc",
-                "numerics/quant.py", "core/goldens.py", "core/costmodel.py"):
+                "numerics/quant.py", "core/goldens.py", "core/costmodel.py",
+                "core/wide.py"):
         assert (pkg / rel).is_file(), rel
 
 

@@ -4,11 +4,14 @@
   32/64, and the CUDA plan table (csrc/posit_plans.inc) equal to the plan;
 * the twin is bit-exact against the reference's ``_divide_block`` (posit8
   exhaustive for all 9 variants, posit16/32 sampled for every one-word plan
-  with the NaR/zero/minpos/maxpos edges) and ``divide_floats_block``
-  (a (rows, 1) divisor, the special float values);
+  with the NaR/zero/minpos/maxpos edges, posit32 ``srt_r4_scaled``'s
+  two-word residual against ``_divide_block`` and ``core.divider``) and
+  ``divide_floats_block`` (a (rows, 1) divisor, the special float values;
+  every two-word plan, posit64's eight included);
 * the CUDA datapath header (K1), compiled as host C++, is bit-exact against
   the twin: as K2 (a per-row divisor), K10 (a divisor per element), K11 (on
-  patterns, posit10's rows included) and K12 (the casts) use it.
+  patterns, posit10's rows included) and K12 (the casts, posit64's too) use
+  it, at W = 1 and W = 2.
 """
 
 import ctypes
@@ -63,14 +66,14 @@ def test_unknown_variant_error_matches_reference():
     assert JD.kernel_plan_error(JFmt(16), "bogus") == TD.kernel_plan_error(
         PositFormat(16), "bogus")
     with pytest.raises(ValueError, match="unknown divider variant"):
-        TD.one_word_plan(PositFormat(16), "bogus")
+        TD.datapath_plan(PositFormat(16), "bogus")
 
 
 def test_cuda_plan_table_matches_plan():
     rows = re.findall(r"^POSIT_PLAN\(([^)]*)\)", open(INC).read(), re.M)
     table = [tuple(int(x) for x in r.split(",")) for r in rows]
-    assert table == [plan_args(p) for _, _, p in TD.one_word_pairs()]
-    assert len(table) == 26
+    assert table == [plan_args(p) for _, _, p in TD.planned_pairs()]
+    assert len(table) == 35
 
 
 def test_cuda_posit10_plan_table_matches_plan():
@@ -83,10 +86,21 @@ def test_cuda_posit10_plan_table_matches_plan():
 
 @pytest.mark.parametrize("fmt", [PositFormat(64), PositFormat(32)])
 def test_two_word_plans_raise_not_implemented(fmt):
+    """The two-word plans run on the twin; a flash layout with no kernel
+    built for them raises, naming ROADMAP.md."""
+    from repro_torch.kernels import posit_flash_attn as F
+
     variant = "srt_r4_cs_of_fr" if fmt.n == 64 else "srt_r4_scaled"
-    assert TD.kernel_datapath_plan(fmt, variant).words == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.divide_floats_block(fmt, torch.ones(2), torch.ones(2), variant)
+    plan = TD.kernel_datapath_plan(fmt, variant)
+    assert plan.words == 2
+    q = torch.ones(1, 1, 1, 4)
+    for layout in ("paged", "packed", "backward"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            F._check_kernel_inputs(plan, q, q, q, 4, layout)
+    assert F.kernel_built(plan, "dense") == (fmt.n == 64)
+    out = TD.divide_floats_block(fmt, torch.tensor([3.0, 1.0]), torch.tensor([2.0, 0.0]),
+                                 variant)
+    assert out[0] == 1.5 and torch.isnan(out[1])
 
 
 def _ref_block(n, variant, px, pd):
@@ -137,6 +151,49 @@ def test_float_block_with_row_divisor(n, variant):
     np.testing.assert_array_equal(bits(ref), bits(got))
 
 
+TWO_WORD = [(f.n, v) for f, v, _ in TD.two_word_pairs()]
+WIDE_EDGES = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 3.4028235e38, -3.4028235e38,
+                       1.1754944e-38, 1e-45, -1e-44, 1e30, -1e-30, 1.0, 2.0], np.float32)
+
+
+def _wide_floats(shape):
+    """Mixed magnitudes over the whole f32 range, the edge operands first
+    (tests/test_multiword_div.py's)."""
+    a = (RNG.normal(0, 1, shape) * 10.0 ** RNG.uniform(-40, 38, shape)).astype(np.float32)
+    flat = a.reshape(-1)
+    flat[:len(WIDE_EDGES)] = WIDE_EDGES
+    return a
+
+
+@pytest.mark.parametrize("n,variant", TWO_WORD)
+def test_two_word_float_block_matches_reference(n, variant):
+    """The W = 2 twin against the reference's divide_floats_block (plain
+    jnp, no Pallas), bit for bit: a (rows, 1) divisor and an elementwise one,
+    every edge operand against every other."""
+    a, b = _wide_floats((40, 61)), _wide_floats((40, 1))
+    e = np.tile(WIDE_EDGES, (len(WIDE_EDGES), 1))
+    ref_fn = jax.jit(lambda x, d: JD.divide_floats_block(JFmt(n), x, d, variant))
+    for x, d in ((a, b), (e, e.T.copy())):
+        got = TD.divide_floats_block(PositFormat(n), torch.from_numpy(x), torch.from_numpy(d),
+                                     variant)
+        np.testing.assert_array_equal(bits(got), bits(ref_fn(jnp.asarray(x), jnp.asarray(d))))
+
+
+def test_scaled_two_word_patterns_match_reference():
+    """posit32 srt_r4_scaled (two-word residual, one-word patterns): the
+    twin's _divide_block against the reference's and core.divider's."""
+    from repro.core import divider
+
+    e = _edges(32)
+    ea, eb = np.meshgrid(e, e)
+    r = RNG.integers(0, 1 << 32, (2, 4096), dtype=np.uint64).astype(np.uint32)
+    px, pd = np.concatenate([r[0], ea.ravel()]), np.concatenate([r[1], eb.ravel()])
+    got = TD._divide_block(PositFormat(32), _t(px), _t(pd), "srt_r4_scaled").numpy()
+    np.testing.assert_array_equal(got, _ref_block(32, "srt_r4_scaled", px, pd))
+    golden = divider.posit_divide(JFmt(32), jnp.asarray(px), jnp.asarray(pd), "srt_r4_scaled")
+    np.testing.assert_array_equal(got, np.asarray(golden).astype(np.int64))
+
+
 _HOST_HARNESS = r"""
 #include "posit_srt.cuh"
 extern "C" int host_rowwise(int n, int radix, int red, int otf, int scaled, int nonrest,
@@ -146,7 +203,7 @@ extern "C" int host_rowwise(int n, int radix, int red, int otf, int scaled, int 
     [&](auto plan) {
       using P = decltype(plan);
       for (int r = 0; r < R; ++r) {
-        const posit::Divisor d = posit::prep_divisor<P>(b[r]);
+        const auto d = posit::prep_divisor<P>(b[r]);
         for (int c = 0; c < C; ++c) out[r * C + c] = posit::divide_float<P>(a[r * C + c], d);
       }
     });
@@ -166,11 +223,15 @@ extern "C" int host_elementwise(int n, int radix, int red, int otf, int scaled, 
 extern "C" int host_div_bits(int n, int radix, int red, int otf, int scaled, int nonrest,
                              int it, int shift, int gbits, const uint32_t* px,
                              const uint32_t* pd, uint32_t* out, int count) {
-  bool ok = posit::dispatch_plan<true>(n, radix, red, otf, scaled, nonrest, it, shift, gbits,
+  bool ok = false;
+  posit::dispatch_plan<true>(n, radix, red, otf, scaled, nonrest, it, shift, gbits,
     [&](auto plan) {
       using P = decltype(plan);
-      for (int i = 0; i < count; ++i)
-        out[i] = posit::divide_bits<P>(px[i], posit::prep_divisor_bits<P>(pd[i]));
+      if constexpr (P::n <= 32) {
+        for (int i = 0; i < count; ++i)
+          out[i] = posit::divide_bits<P>(px[i], posit::prep_divisor_bits<P>(pd[i]));
+        ok = true;
+      }
     });
   return ok ? 0 : -1;
 }
@@ -188,6 +249,13 @@ extern "C" int host_cast(int n, const float* x, uint32_t* p, const uint32_t* q, 
     case 16: cast<16>(x, p, q, y, count); return 0;
     case 32: cast<32>(x, p, q, y, count); return 0;
     default: return -1;
+  }
+}
+extern "C" void host_cast64(const float* x, uint64_t* p, const uint64_t* q, float* y,
+                            int count) {
+  for (int i = 0; i < count; ++i) {
+    p[i] = posit::float_to_posit<64>(x[i]);
+    y[i] = posit::posit_to_float<64>(q[i]);
   }
 }
 """
@@ -209,10 +277,11 @@ def host_k1(tmp_path_factory):
     lib = ctypes.CDLL(str(lib))
     for name in ("host_rowwise", "host_elementwise", "host_div_bits", "host_cast"):
         getattr(lib, name).restype = ctypes.c_int
+    lib.host_cast64.restype = None
     return lib
 
 
-@pytest.mark.parametrize("n", [8, 16, 32])
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
 def test_cuda_datapath_header_matches_twin(host_k1, n):
     fmt = PositFormat(n)
     if n == 8:   # every posit8 value against every other
@@ -228,7 +297,7 @@ def test_cuda_datapath_header_matches_twin(host_k1, n):
         a[0, :len(SPECIALS)] = SPECIALS
         b[:len(SPECIALS)] = SPECIALS
     ptr = ctypes.POINTER(ctypes.c_float)
-    for _, variant, plan in TD.one_word_pairs((fmt,)):
+    for _, variant, plan in TD.planned_pairs((fmt,)):
         out = np.zeros_like(a)
         rc = host_k1.host_rowwise(*plan_args(plan), a.ctypes.data_as(ptr),
                                   b.ctypes.data_as(ptr), out.ctypes.data_as(ptr), a.shape[0],
@@ -243,14 +312,14 @@ def _ptr(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-@pytest.mark.parametrize("n", [8, 16, 32])
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
 def test_cuda_elementwise_divide_matches_twin(host_k1, n):
     """K10's body: each element prepares its own divisor."""
     fmt = PositFormat(n)
     a = (RNG.standard_normal(6000) * np.exp(RNG.uniform(-30, 30, 6000))).astype(np.float32)
     b = (RNG.standard_normal(6000) * np.exp(RNG.uniform(-30, 30, 6000))).astype(np.float32)
     a[:len(SPECIALS)], b[:len(SPECIALS)] = SPECIALS, SPECIALS[::-1]
-    for _, variant, plan in TD.one_word_pairs((fmt,)):
+    for _, variant, plan in TD.planned_pairs((fmt,)):
         out = np.zeros_like(a)
         assert host_k1.host_elementwise(*plan_args(plan), _ptr(a), _ptr(b), _ptr(out),
                                         len(a)) == 0
@@ -271,7 +340,7 @@ def test_cuda_pattern_divide_matches_twin(host_k1, n):
         ea, eb = (m.ravel() for m in np.meshgrid(e, e))
         r = RNG.integers(0, 1 << n, (2, 8000), dtype=np.uint64).astype(np.uint32)
         px, pd = np.concatenate([r[0], ea]), np.concatenate([r[1], eb])
-    for _, variant, plan in TD.one_word_pairs((fmt,)):
+    for _, variant, plan in TD.planned_pairs((fmt,)):
         out = np.zeros_like(px)
         assert host_k1.host_div_bits(*plan_args(plan), _ptr(px), _ptr(pd), _ptr(out),
                                      len(px)) == 0
@@ -300,3 +369,27 @@ def test_cuda_casts_match_twin(host_k1, n):
     assert host_k1.host_cast(n, _ptr(x), _ptr(p), _ptr(q), _ptr(y), len(x)) == 0
     np.testing.assert_array_equal(p.astype(np.int64), float_to_posit(fmt, torch.from_numpy(x)))
     np.testing.assert_array_equal(bits(y), bits(posit_to_float(fmt, _t(q))))
+
+
+def test_cuda_pattern_kernel_refuses_posit64(host_k1):
+    """K11's table holds no posit64 row: its patterns do not fit a word."""
+    plan = TD.kernel_datapath_plan(PositFormat(64), "srt_r4_cs_of_fr")
+    out = np.zeros(2, np.uint32)
+    assert host_k1.host_div_bits(*plan_args(plan), _ptr(out), _ptr(out), _ptr(out), 2) == -1
+
+
+def test_cuda_wide_casts_match_twin(host_k1):
+    """The posit64 casts K10, K2 and K3 run: random f32 bit patterns and the
+    edges quantized, random posit64 patterns (all regimes) dequantized."""
+    from repro_torch.core import wide
+
+    fmt = PositFormat(64)
+    x = RNG.integers(0, 1 << 32, 1 << 14, dtype=np.uint64).astype(np.uint32).view(np.float32)
+    x = np.concatenate([x, SPECIALS, WIDE_EDGES])
+    q = RNG.integers(0, 1 << 64, len(x), dtype=np.uint64)
+    q[:8] = [0, 1 << 63, 1, (1 << 63) - 1, (1 << 64) - 1, 1 << 62, (1 << 63) + 1, 2]
+    p, y = np.zeros(len(x), np.uint64), np.zeros(len(x), np.float32)
+    host_k1.host_cast64(_ptr(x), _ptr(p), _ptr(q), _ptr(y), len(x))
+    np.testing.assert_array_equal(p, wide.from_words(wide.float_to_posit_wide(
+        fmt, torch.from_numpy(x))))
+    np.testing.assert_array_equal(bits(y), bits(wide.posit_wide_to_float(fmt, wide.to_words(q))))

@@ -94,8 +94,10 @@ def test_numerics_config_port_rules():
         "posit16", "srt_r4_cs_of_fr")
     NumericsConfig(div_algo="nrd").validate()
     NumericsConfig(div_format="posit32", div_algo="srt_r2").validate()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NumericsConfig(div_format="posit64").validate()
+    NumericsConfig(div_format="posit64").validate()                # two-word plans
+    NumericsConfig(div_format="posit32", div_algo="srt_r4_scaled").validate()
+    with pytest.raises(ValueError, match="no fused datapath"):
+        NumericsConfig(div_format="posit64", div_algo="srt_r4_scaled").validate()
     with pytest.raises(ValueError, match="div_algo"):
         NumericsConfig(div_algo="bogus").validate()
     with pytest.raises(KeyError, match="posit12"):

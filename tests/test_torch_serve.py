@@ -3,7 +3,11 @@
 Greedy tokens are the same bits solo, in a static batch (generate) and
 admitted mid-flight, and match the reference engine's, a difference being
 allowed only where the reference's top-2 margin is within the model test's
-logit bound.
+logit bound.  At ``div_format="posit64"`` (every RMSNorm and attention
+divide on the two-word datapath) the prefill and decode logits are within
+that bound of the reference's fused forward and the greedy tokens are the
+reference engine's (by the same rule); the paged and packed paths refuse
+posit64.
 """
 
 import jax
@@ -55,20 +59,26 @@ def test_solo_static_and_midflight_bit_identical(setup):
     np.testing.assert_array_equal(static[1], mid[2][:4])
 
 
-def test_matches_reference_engine(setup):
-    jcfg, jp, _, ref, mid = setup
-    for (p, _), r, g in zip(STREAM, ref, mid):
+def _assert_tokens_match(jcfg, jp, stream, ref, got, max_seq):
+    """Each request's tokens are the reference engine's, or first differ
+    where the reference's top-2 margin is within the logit bound."""
+    for (p, _), r, g in zip(stream, ref, got):
         if np.array_equal(r, g):
             continue
         j = int(np.flatnonzero(r != g)[0])      # first differing token
         with reference_kernels():
             seq = jnp.asarray(np.concatenate([p, r[:j]])[None])
             lg, _ = JT.prefill(jp, jcfg, {"tokens": seq},
-                               JT.init_cache(jcfg, 1, 64))
+                               JT.init_cache(jcfg, 1, max_seq))
         row = np.asarray(lg[0, -1, :jcfg.vocab].astype(jnp.float32))
         top2 = np.sort(row)[-2:]
         print(f"token {j} differs; reference top-2 margin {top2[1] - top2[0]:.4g}")
         assert top2[1] - top2[0] <= LOGIT_ULPS * bf16_ulp(np.abs(row).max())
+
+
+def test_matches_reference_engine(setup):
+    jcfg, jp, _, ref, mid = setup
+    _assert_tokens_match(jcfg, jp, STREAM, ref, mid, 64)
 
 
 def test_sampled_requests_reproduce(setup):
@@ -116,3 +126,55 @@ def test_non_finite_logits_are_quarantined(setup):
     assert [o.size for o in outs] == [0, 0]
     assert all(r.finish is FinishReason.FAULT for r in bad.last_results)
     assert bad.last_serve_stats["faults"] == 2
+
+
+P64_STREAM = [(RNG.integers(0, 512, n).astype(np.int32), m) for n, m in [(3, 4), (7, 3), (5, 4)]]
+
+
+@pytest.fixture(scope="module")
+def posit64():
+    """The smoke config at posit64: the reference engine's tokens and its
+    prefill / decode logits, the port's on the same weights."""
+    jcfg = jget("smollm_360m", smoke=True, fused=True).with_numerics(div_format="posit64")
+    tcfg = tget("smollm_360m", smoke=True, fused=True).with_numerics(div_format="posit64")
+    toks = RNG.integers(0, tcfg.vocab, (2, 9)).astype(np.int32)
+    nxt = RNG.integers(0, tcfg.vocab, (2, 1)).astype(np.int32)
+    start = np.array([0, 3], np.int32)
+    with reference_kernels():
+        jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
+        ref = JServeEngine(jcfg, jp, JServeConfig(max_batch=2, max_seq=32)).serve(
+            [JRequest(p, max_new=m) for p, m in P64_STREAM])
+        ref = [np.asarray(r) for r in ref]
+        lg, c = JT.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)},
+                           JT.init_cache(jcfg, 2, 32), jnp.asarray(start))
+        jl = [np.asarray(lg.astype(jnp.float32))]
+        lg, _ = JT.decode_step(jp, jcfg, c, jnp.asarray(nxt), jnp.full((2,), 9, jnp.int32),
+                               jnp.asarray(start))
+        jl.append(np.asarray(lg.astype(jnp.float32)))
+    tp = TT.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    st = torch.from_numpy(start)
+    lg, c = TT.prefill(tp, tcfg, torch.from_numpy(toks),
+                       TT.init_cache(tcfg, 2, 32, device="cpu"), st)
+    tl = [lg.float().numpy()]
+    lg, _ = TT.decode_step(tp, tcfg, c, torch.from_numpy(nxt),
+                           torch.full((2,), 9, dtype=torch.int32), st)
+    tl.append(lg.float().numpy())
+    eng = ServeEngine(tcfg, tp, ServeConfig(max_batch=2, max_seq=32), device="cpu")
+    got = eng.serve([Request(p, max_new=m) for p, m in P64_STREAM])
+    return jcfg, jp, tcfg, tp, ref, got, jl, tl
+
+
+@pytest.mark.parametrize("check", ["logits", "tokens"])
+def test_posit64_matches_reference(posit64, check):
+    jcfg, jp, cfg, tp, ref, got, jl, tl = posit64
+    if check == "logits":
+        for r, g in zip(jl, tl):
+            r, g = r[..., :cfg.vocab], g[..., :cfg.vocab]
+            assert np.isfinite(g).all()
+            assert float(np.abs(r - g).max()) <= LOGIT_ULPS * bf16_ulp(np.abs(r).max())
+        return
+    _assert_tokens_match(jcfg, jp, P64_STREAM, ref, got, 32)
+    for paged, packed in (("paged", False), ("dense", True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ServeEngine(cfg, tp, ServeConfig(max_batch=2, max_seq=32, kv_layout=paged,
+                                             packed_prefill=packed), device="cpu")
