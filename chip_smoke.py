@@ -23,19 +23,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               FLASH_TOL, fully masked rows exactly 0.
    K4       — paged decode attention (B=8, max_seq 512 in pages of 16,
               a shuffled table with shared pages and a parked all-zero
-              row, kv_start 0 and above 0; every posit16 plan at B=4): the
-              same bits as K3 on the gathered dense cache, within FLASH_TOL
-              of its twin, fully masked rows exactly 0.
+              row, kv_start 0 and above 0, posit16 and posit64
+              srt_r4_cs_of_fr; every posit16 plan at B=4): the same bits as
+              K3 on the gathered dense cache, within FLASH_TOL of its twin,
+              fully masked rows exactly 0.
    K5       — packed prefill attention on every pack the paged phase can
               form (1, 2, 4 or 8 segments of width 16-256, right-padded,
               dummies first) and on five left-padded packs, with a shared
-              prefix: every segment the same bits as a solo K3 prefill of
-              it, within FLASH_TOL of its twin.
+              prefix, posit16 and posit64: every segment the same bits as a
+              solo K3 prefill of it, within FLASH_TOL of its twin.
    K9       — the fused posit softmax against its twin at the router's
-              shapes (8 x 64, 1 x 64), 4096 x 64 and 37 x 1000 (every
-              posit16 plan there), with -1e30, equal-value and NaN rows:
-              bit-identical (the one-lane left-to-right row sum is the
-              twin's order), the NaN row alone NaN.
+              shapes (8 x 64, 1 x 64), 4096 x 64 and 37 x 1000, posit16
+              and posit64 (every posit16 plan on the last), with -1e30,
+              equal-value and NaN rows: bit-identical (the one-lane
+              left-to-right row sum is the twin's order), the NaN row
+              alone NaN.
    K11      — the pattern divide: posit8 every pair (9 variants) the
               twin's and the pure-Python goldens' bits; posit10 Table III
               for every variant and its 2^20-pair space the same under all 9;
@@ -70,13 +72,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               LOGIT_ULPS bf16 ulps; SmolLM at posit64 too.
    K6-K8    — the training forward (K6) and the recompute backward (K7 dq,
               K8 dk/dv) against their twins at the training path's shapes
-              (B=8, S=256, 15/5 heads, hd 64) for the default plan and at
-              B=2 for every posit16 plan: o within FLASH_TOL, lse within
-              LSE_TOL, gradients within BWD_TOL and the same bits on a
-              second run; fully masked rows give zero gradients.
+              (B=8, S=256, 15/5 heads, hd 64) for the default plan, posit16
+              and posit64 (p = e / l on the two-word frame), at B=2 for
+              every posit16 plan and, posit64, at B*KV = 65536: o within
+              FLASH_TOL, lse within LSE_TOL, gradients within BWD_TOL and
+              the same bits on a second run; fully masked rows give zero
+              gradients.
    train    — one train step of the smoke config on the card against the
-              same f32 weights and batch on the CPU: loss within LOSS_RTOL,
-              every gradient leaf within GRAD_REL_L2 relative L2.
+              same f32 weights and batch on the CPU, posit16 and posit64:
+              loss within LOSS_RTOL, every gradient leaf within GRAD_REL_L2
+              relative L2.
 4. main     — SmolLM-360M at full width (all 32 layers, random weights from
               a seed) served by ``ServeEngine`` (8 slots, max_seq 512): 16
               greedy requests, prompts of 16-200 tokens, 32 new tokens each.
@@ -99,6 +104,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               requests (where they differ: the first such token,
               the logits gap in bf16 ulps, whether the attention kernel and
               the products keep their bits across the two layouts' shapes).
+   paged posit64 — the same with div_format="posit64" (K4, K5, K3 and K2
+              on the two-word frame): the same launch counts, every pack a
+              shape the K5 phase held at posit64, tokens bit-identical to
+              the dense run of the same requests and to the posit64 phase's
+              run of the main mix.
    posit-KV — the same model and weights with kv_cache_format="posit16":
               the main mix from dense slots, the paged mix from the paged
               pool (pages of 16, packed); then "posit8" from dense slots.
@@ -117,7 +127,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               (global batch 8 x 256, lr 1e-3, warmup 1, remat "full", seed
               0): finite losses, the last below the first, and per step K6
               2L (forward and recompute), K7 L, K8 L and K2 4L+1 launches.
-              One more step is profiled: device busy and idle share.
+              One more step is profiled: device busy and idle share.  Then
+              the same at div_format="posit64" (K2, K6-K8 at W = 2).
    moe      — (after the SmolLM state is released) OLMoE-1B-7B at full
               width and depth (random weights from a seed) served with
               batch-axis packed admission (8 slots, max_seq 512): 16 greedy
@@ -126,14 +137,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               L K9, L K3 and 3L+1 K2 launches; requests 0 and 7 the same
               tokens alone on a solo-admission engine (else the script
               names the bf16 product that lost a row's bits and fails).
+              Then the mix's first 8 requests at div_format="posit64" (K9,
+              K2 and K3 at hd 128 on the two-word frame): the same checks;
+              printed: the requests whose tokens leave posit16's.
 5. timing   — each kernel, its plain twin and a library yardstick at the
               main paths' shapes (the kernel's device time from
               torch.profiler, as the yardstick's for K9; per-call times from
               CUDA events; K10-K12 also at a 2^28 chunk), and one
               full-width decode step, SmolLM dense (bf16 and posit16 KV
-              cache, posit64 division) and paged and OLMoE dense, broken
-              down by kernel class; K2, K3 and K10 at posit64 and K11 at
-              posit32 srt_r4_scaled beside their posit16 rows.  A
+              cache, posit64 division) and paged (posit16, posit64) and
+              OLMoE dense (posit16, posit64), broken down by kernel class;
+              K2-K9 (K4 decode, K5 on the paged phase's most frequent pack,
+              K6-K8 at the training shape, K9 at 8 x 64 and 4096 x 64) and
+              K10 at posit64 and K11 at posit32 srt_r4_scaled beside their
+              posit16 rows.  A
               profiler session that shows none of the kernels it traced is
               taken again, twice at most; where none shows them, the device
               time is the CUDA events' and the busy share "not measured".
@@ -185,6 +202,7 @@ BWD_TOL = 5e-3
 # reference (bf16 products and posit16 roundings fall at other places)
 LOSS_RTOL = 1e-3
 GRAD_REL_L2 = 2e-2
+DEFAULT_VARIANT = "srt_r4_cs_of_fr"   # NumericsConfig's default plan
 MOE_HEADS = (16, 16, 128)   # OLMoE-1B-7B: heads, kv heads, head_dim
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
@@ -421,9 +439,10 @@ def paged_inputs(torch, dev, B, max_blocks, bs, H, KV, hd, seed):
 
 def phase_paged_kernel(torch, dev):
     """K4 against K3 on the gathered dense cache (the same bits) and against
-    its twin (within FLASH_TOL): decode shapes, kv_start 0 and above 0, and
+    its twin (within FLASH_TOL): decode shapes, kv_start 0 and above 0, at
+    posit16 and posit64 srt_r4_cs_of_fr (o / l on the two-word frame), and
     every posit16 plan at a small size."""
-    from repro_torch.core.posit import POSIT16
+    from repro_torch.core.posit import POSIT16, POSIT64
     from repro_torch.kernels.posit_div import KERNEL_VARIANTS
     from repro_torch.kernels.posit_flash_attn import (
         gather_pages,
@@ -431,39 +450,43 @@ def phase_paged_kernel(torch, dev):
         posit_flash_attention_plain,
     )
 
-    worst = [0.0]
+    worst = {16: 0.0, 64: 0.0}
 
-    def compare(name, q, pk, pv, bt, pos, start, variant="srt_r4_cs_of_fr"):
+    def compare(name, q, pk, pv, bt, pos, start, variant="srt_r4_cs_of_fr", fmt=POSIT16):
+        name = f"posit{fmt.n} {name}"
         kw = dict(kv_start=torch.tensor(start, dtype=torch.int32, device=dev),
                   kv_len=pos + 1, q_pos=pos, variant=variant)
-        o = posit_flash_attention(POSIT16, q, pk, pv, True, block_tables=bt, **kw)
-        d = posit_flash_attention(POSIT16, q, gather_pages(pk, bt), gather_pages(pv, bt),
+        o = posit_flash_attention(fmt, q, pk, pv, True, block_tables=bt, **kw)
+        d = posit_flash_attention(fmt, q, gather_pages(pk, bt), gather_pages(pv, bt),
                                   True, **kw)
-        p = posit_flash_attention_plain(POSIT16, q, pk, pv, True, block_tables=bt, **kw)
+        p = posit_flash_attention_plain(fmt, q, pk, pv, True, block_tables=bt, **kw)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(o).all()), f"K4 {name}: non-finite output")
         diff = int((bits(o) != bits(d)).sum())
         check(diff == 0, f"K4 {name}: {diff} elements differ from K3 on the gathered cache")
         err = max_abs_err(o, p)
-        worst[0] = max(worst[0], err)
+        worst[fmt.n] = max(worst[fmt.n], err)
         check(err <= FLASH_TOL, f"K4 {name}: max|diff| {err} from its twin > {FLASH_TOL}")
         return o
 
     # decode: 8 slots, max_seq 512 in pages of 16, 15/5 heads, hd 64
     q, pk, pv, bt = paged_inputs(torch, dev, 8, 32, 16, 15, 5, 64, 31)
     pos = torch.tensor([511, 0, 17, 130, 255, 64, 300, 40], dtype=torch.int32, device=dev)
-    compare("decode start 0", q, pk, pv, bt, pos, [0] * 8)
-    o = compare("decode left pads", q, pk, pv, bt, pos, [0, 0, 5, 100, 250, 64, 0, 41])
-    check(bool((o[7] == 0).all()), "K4 decode: fully masked row is not 0")
+    for fmt in (POSIT16, POSIT64):
+        compare("decode start 0", q, pk, pv, bt, pos, [0] * 8, fmt=fmt)
+        o = compare("decode left pads", q, pk, pv, bt, pos, [0, 0, 5, 100, 250, 64, 0, 41],
+                    fmt=fmt)
+        check(bool((o[7] == 0).all()), f"K4 posit{fmt.n} decode: fully masked row is not 0")
     q, pk, pv, bt = paged_inputs(torch, dev, 4, 8, 16, 15, 5, 64, 32)
     pos = torch.tensor([127, 40, 77, 60], dtype=torch.int32, device=dev)
     for variant in KERNEL_VARIANTS:
         compare(f"{variant}", q, pk, pv, bt, pos, [5, 0, 70, 0], variant)
     print(f"K4: the same bits as K3 on the gathered cache and within {FLASH_TOL} of its "
-          f"twin (max|diff| {worst[0]:.3g}): decode B=8 x 512 in pages of 16, shuffled "
-          f"shared pages and a parked row, kv_start 0 and above, {len(KERNEL_VARIANTS)} "
-          "posit16 plans")
-    return worst[0]
+          f"twin (max|diff| posit16 {worst[16]:.3g}, posit64 {worst[64]:.3g}): decode B=8 x "
+          "512 in pages of 16, shuffled shared pages and a parked row, kv_start 0 and "
+          f"above, posit16 and posit64 {DEFAULT_VARIANT}; {len(KERNEL_VARIANTS)} posit16 "
+          "plans at B=4")
+    return max(worst.values())
 
 
 # K5 is held against its twin and solo K3 at every pack the paged phase can
@@ -516,42 +539,45 @@ def packed_inputs(torch, dev, lens, P, seed, H=15, KV=5, hd=64, left=True):
 def phase_packed_kernel(torch, dev):
     """K5 against its twin (within FLASH_TOL), and each segment's rows against
     a solo K3 prefill of that prompt (the same bits), at every (N, P) in
-    PACK_DUMMIES x PACK_WIDTHS right-padded and PACKS_LEFT left-padded.
-    Returns the worst error and the right-padded shapes held."""
-    from repro_torch.core.posit import POSIT16
+    PACK_DUMMIES x PACK_WIDTHS right-padded and PACKS_LEFT left-padded, at
+    posit16 and at posit64 srt_r4_cs_of_fr.  Returns the worst error and
+    the right-padded shapes held (in both formats)."""
+    from repro_torch.core.posit import POSIT16, POSIT64
     from repro_torch.kernels.posit_flash_attn import (
         posit_flash_attention,
         posit_flash_attention_plain,
     )
 
-    worst = 0.0
+    worst = {16: 0.0, 64: 0.0}
     held = [(N, P, False) for N in PACK_DUMMIES for P in PACK_WIDTHS]
-    for N, P, left in held + [(N, P, True) for N, P in PACKS_LEFT]:
-        name = f"N={N} P={P} {'left' if left else 'right'}-padded"
+    cases = held + [(N, P, True) for N, P in PACKS_LEFT]
+    for fmt, (N, P, left) in [(f, c) for f in (POSIT16, POSIT64) for c in cases]:
+        name = f"posit{fmt.n} N={N} P={P} {'left' if left else 'right'}-padded"
         lens = pack_lens(N, P)
         q, k, v, seg_q, seg, segs = packed_inputs(torch, dev, lens, P, 40 + N + P, left=left)
-        o = posit_flash_attention(POSIT16, q, k, v, True, seg_q=seg_q, seg_kv=seg, seg_len=P)
-        p = posit_flash_attention_plain(POSIT16, q, k, v, True, seg_q=seg_q, seg_kv=seg)
+        o = posit_flash_attention(fmt, q, k, v, True, seg_q=seg_q, seg_kv=seg, seg_len=P)
+        p = posit_flash_attention_plain(fmt, q, k, v, True, seg_q=seg_q, seg_kv=seg)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(o).all()), f"K5 {name}: non-finite output")
         err = max_abs_err(o, p)
-        worst = max(worst, err)
+        worst[fmt.n] = max(worst[fmt.n], err)
         check(err <= FLASH_TOL, f"K5 {name}: max|diff| {err} from its twin > {FLASH_TOL}")
         check(bool((o[0][seg_q[0] < 0] == 0).all()),
               f"K5 {name}: the dummy segments' and the pads' rows are not 0")
         for off, n in segs:
-            solo = posit_flash_attention(POSIT16, q[:, off:off + n], k[:, off:off + n],
+            solo = posit_flash_attention(fmt, q[:, off:off + n], k[:, off:off + n],
                                          v[:, off:off + n], True)
             torch.cuda.synchronize()
             diff = int((bits(o[:, off:off + n]) != bits(solo)).sum())
             check(diff == 0, f"K5 {name}: segment at {off} differs from solo K3 in {diff} "
                              "elements")
     print(f"K5: every segment the same bits as a solo K3 prefill and within {FLASH_TOL} of "
-          f"its twin (max|diff| {worst:.3g}): right-padded packs of "
+          f"its twin (max|diff| posit16 {worst[16]:.3g}, posit64 {DEFAULT_VARIANT} "
+          f"{worst[64]:.3g}): right-padded packs of "
           f"{'/'.join(map(str, PACK_DUMMIES))} segments x widths "
           f"{'/'.join(map(str, PACK_WIDTHS))}, left-padded "
           f"{', '.join(f'{N} x {P}' for N, P in PACKS_LEFT)}, with dummies and a shared prefix")
-    return worst, {(N, P) for N, P, _ in held}
+    return max(worst.values()), {(N, P) for N, P, _ in held}
 
 
 # K9 at the router's shapes (a decode step's or scan step's 8 rows, one
@@ -572,22 +598,24 @@ def softmax_inputs(torch, dev, R, C, seed):
 
 
 def phase_softmax(torch, dev):
-    """K9 against its twin at SOFTMAX_SHAPES (every posit16 plan on the
-    ragged shape): bit-identical, since both call CUDA's expf and sum each
-    row left to right (a shuffle or tree sum would move s by an f32 ulp and
-    show here); a NaN row reaches no other row."""
-    from repro_torch.core.posit import POSIT16
+    """K9 against its twin at SOFTMAX_SHAPES, posit16 and posit64
+    srt_r4_cs_of_fr (every posit16 plan on the ragged shape): bit-identical,
+    since both call CUDA's expf and sum each row left to right (a shuffle or
+    tree sum would move s by an f32 ulp and show here); a NaN row reaches
+    no other row."""
+    from repro_torch.core.posit import POSIT16, POSIT64
     from repro_torch.kernels import ops
     from repro_torch.kernels.posit_div import KERNEL_VARIANTS
 
     rows, elements = 0, 0
-    cases = [(R, C, "srt_r4_cs_of_fr") for R, C in SOFTMAX_SHAPES]
-    cases += [(37, 1000, v) for v in KERNEL_VARIANTS if v != "srt_r4_cs_of_fr"]
-    for R, C, variant in cases:
-        name = f"K9 ({R}, {C}) {variant}"
+    cases = [(fmt, R, C, DEFAULT_VARIANT) for fmt in (POSIT16, POSIT64)
+             for R, C in SOFTMAX_SHAPES]
+    cases += [(POSIT16, 37, 1000, v) for v in KERNEL_VARIANTS if v != DEFAULT_VARIANT]
+    for fmt, R, C, variant in cases:
+        name = f"K9 ({R}, {C}) posit{fmt.n} {variant}"
         x = softmax_inputs(torch, dev, R, C, R + C)
-        o = ops.posit_softmax_fused(POSIT16, x, variant)
-        p = ops.posit_softmax_plain(POSIT16, x, variant)
+        o = ops.posit_softmax_fused(fmt, x, variant)
+        p = ops.posit_softmax_plain(fmt, x, variant)
         torch.cuda.synchronize()
         diff = int((bits(o) != bits(p)).sum())
         check(diff == 0, f"{name}: {diff} elements differ from the twin "
@@ -598,9 +626,10 @@ def phase_softmax(torch, dev):
         if R >= 3:
             check(bool((o[1] == o[1, 0]).all()), f"{name}: a row of equal values differs")
         rows, elements = rows + R, elements + R * C
-    print(f"K9: bit-identical to its twin at {', '.join(map(str, SOFTMAX_SHAPES))} "
-          f"({len(KERNEL_VARIANTS)} posit16 plans on (37, 1000)), with -1e30, equal-value and "
-          f"NaN rows: {rows} rows, {elements} elements; the NaN row reaches no other")
+    print(f"K9: bit-identical to its twin at {', '.join(map(str, SOFTMAX_SHAPES))}, posit16 "
+          f"and posit64 {DEFAULT_VARIANT} ({len(KERNEL_VARIANTS)} posit16 plans on (37, "
+          f"1000)), with -1e30, equal-value and NaN rows: {rows} rows, {elements} elements; "
+          "the NaN row reaches no other")
     return 0.0
 
 
@@ -613,7 +642,6 @@ PAIRS16 = 1 << 32           # the posit16 pair space
 CHUNK = 1 << 28             # pairs per launch of the posit16 pair-space sweep
 RANDOM_PAIRS = 1 << 20
 CAST_SAMPLES = 1 << 26      # random f32 bit patterns quantized per format
-DEFAULT_VARIANT = "srt_r4_cs_of_fr"
 
 
 def golden_div(pairs, n: int):
@@ -1048,31 +1076,33 @@ def backward_args(F, co, o, m, l, q, k, v):
 
 def phase_flash_train(torch, dev):
     """K6, K7 and K8 against their twins: the default plan at the training
-    path's shapes (B=8, S=256), every posit16 plan at B=2, S=256."""
-    from repro_torch.core.posit import POSIT16
+    path's shapes (B=8, S=256), every posit16 plan at B=2, S=256, and
+    posit64 srt_r4_cs_of_fr (p = e / l on the two-word frame) at the
+    training shapes and at B*KV = 65536 (the grid past gridDim.y's 65535)."""
+    from repro_torch.core.posit import POSIT16, POSIT64
     from repro_torch.kernels import posit_flash_attn as F
     from repro_torch.kernels.posit_div import KERNEL_VARIANTS
 
-    worst = {"K6": 0.0, "lse": 0.0, "K7": 0.0, "K8": 0.0}
+    worst = collections.defaultdict(float)
 
-    def compare(variant, q, k, v, co):
-        where = f"{variant} B={q.shape[0]}"
-        o, m, l = F.posit_flash_attention_fwd(POSIT16, q, k, v, True, variant=variant)
-        po, pm, pl = F.posit_flash_attention_fwd_plain(POSIT16, q, k, v, True,
-                                                       variant=variant)
+    def compare(variant, q, k, v, co, fmt=POSIT16):
+        where = f"posit{fmt.n} {variant} B={q.shape[0]}"
+        tag = "" if fmt is POSIT16 else " posit64"
+        o, m, l = F.posit_flash_attention_fwd(fmt, q, k, v, True, variant=variant)
+        po, pm, pl = F.posit_flash_attention_fwd_plain(fmt, q, k, v, True, variant=variant)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(o).all()), f"K6 {where}: non-finite output")
         err = max_abs_err(o, po)
-        worst["K6"] = max(worst["K6"], err)
+        worst["K6" + tag] = max(worst["K6" + tag], err)
         lse_err = float((m + torch.log(l) - pm - torch.log(pl)).abs().max())
         worst["lse"] = max(worst["lse"], lse_err)
         check(err <= FLASH_TOL, f"K6 {where}: max|o diff| {err} > {FLASH_TOL}")
         check(lse_err <= LSE_TOL, f"K6 {where}: max|lse diff| {lse_err} > {LSE_TOL}")
-        plan = F.datapath_plan(POSIT16, variant)
+        plan = F.datapath_plan(fmt, variant)
         args = backward_args(F, co, o, m, l, q, k, v)
-        runs = [(F.flash_backward_dq(POSIT16, plan, *args),
-                 *F.flash_backward_dkv(POSIT16, plan, *args)) for _ in range(2)]
-        twin = F.flash_backward_plain(POSIT16, q, k.float(), v.float(), o, co, m, l, True,
+        runs = [(F.flash_backward_dq(fmt, plan, *args),
+                 *F.flash_backward_dkv(fmt, plan, *args)) for _ in range(2)]
+        twin = F.flash_backward_plain(fmt, q, k.float(), v.float(), o, co, m, l, True,
                                       variant=variant)
         torch.cuda.synchronize()
         for name, got, again, want in zip(("dq", "dk", "dv"), runs[0], runs[1], twin):
@@ -1080,33 +1110,45 @@ def phase_flash_train(torch, dev):
             check(bool(torch.isfinite(got).all()), f"{kern} {where}: non-finite {name}")
             check(torch.equal(got, again), f"{kern} {where}: {name} differs run to run")
             err = max_abs_err(got, want)
-            worst[kern] = max(worst[kern], err)
+            worst[kern + tag] = max(worst[kern + tag], err)
             check(err <= BWD_TOL, f"{kern} {where}: max|{name} diff| {err} > {BWD_TOL}")
 
     # the training path's shapes and plan: B=8 sequences of 256, 15/5 heads
-    compare("srt_r4_cs_of_fr", *training_inputs(torch, dev, 8, 256, 22))
+    inputs = training_inputs(torch, dev, 8, 256, 22)
+    compare(DEFAULT_VARIANT, *inputs)
+    compare(DEFAULT_VARIANT, *inputs, fmt=POSIT64)
     q, k, v, co = training_inputs(torch, dev, 2, 256, 21)
     for variant in KERNEL_VARIANTS:
         compare(variant, q, k, v, co)
+    # posit64 at B*H = B*KV = 65536 (4096 sequences of 16, 16/16 heads)
+    compare(DEFAULT_VARIANT, *training_inputs(torch, dev, 4096, 16, 35, H=16, KV=16, hd=64),
+            fmt=POSIT64)
+    torch.cuda.empty_cache()
     # every row fully masked (q_offset = -S puts each query before every key)
     S = q.shape[1]
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    out = F.posit_flash_attention_ste(16, "srt_r4_cs_of_fr", True, 0, -S, 0.0, *leaves)
-    grads = torch.autograd.grad((out * co).sum(), leaves)
-    torch.cuda.synchronize()
-    check(bool((out == 0).all()), "K6: fully masked rows are not 0")
-    for name, gr in zip(("dq", "dk", "dv"), grads):
-        check(bool(torch.isfinite(gr).all()) and bool((gr == 0).all()),
-              f"fully masked rows: {name} is not finite zeros")
+    for fmt in (POSIT16, POSIT64):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = F.posit_flash_attention_ste(fmt.n, DEFAULT_VARIANT, True, 0, -S, 0.0, *leaves)
+        grads = torch.autograd.grad((out * co).sum(), leaves)
+        torch.cuda.synchronize()
+        check(bool((out == 0).all()), f"K6 posit{fmt.n}: fully masked rows are not 0")
+        for name, gr in zip(("dq", "dk", "dv"), grads):
+            check(bool(torch.isfinite(gr).all()) and bool((gr == 0).all()),
+                  f"posit{fmt.n} fully masked rows: {name} is not finite zeros")
     print(f"K6: within {FLASH_TOL} (o, max|diff| {worst['K6']:.3g}) and {LSE_TOL} (lse, "
           f"{worst['lse']:.3g}) of its twin; K7 max|dq diff| {worst['K7']:.3g}, K8 "
           f"max|dk, dv diff| {worst['K8']:.3g} (within {BWD_TOL}), bit-identical run to "
           f"run, at B=8 x 256 (default plan) and B=2 x 256 ({len(KERNEL_VARIANTS)} "
           "posit16 plans); fully masked rows give zero gradients")
+    print(f"K6-K8 posit64 {DEFAULT_VARIANT} (p = e / l on the two-word frame), at B=8 x 256 "
+          f"and at B*KV = 65536 (4096 x 16, 16/16 heads): K6 max|o diff| "
+          f"{worst['K6 posit64']:.3g}, K7 max|dq diff| {worst['K7 posit64']:.3g}, K8 max|dk, "
+          f"dv diff| {worst['K8 posit64']:.3g} (gate {BWD_TOL}), bit-identical run to run; "
+          "fully masked rows give zero gradients")
     return worst
 
 
-def phase_train_small(torch, dev):
+def phase_train_small(torch, dev, div_format="posit16"):
     """One train step of the smoke config on the card against the CPU path."""
     import numpy as np
 
@@ -1120,7 +1162,7 @@ def phase_train_small(torch, dev):
         make_train_step,
     )
 
-    cfg = get_config("smollm_360m", smoke=True)
+    cfg = get_config("smollm_360m", smoke=True).with_numerics(div_format=div_format)
     tc = TrainConfig(steps=4, lr=1e-3, warmup=1)
     cpu = init_train_state(cfg, tc, device="cpu")
     gpu = tree_map(lambda t: t.to(dev), cpu)
@@ -1149,7 +1191,8 @@ def phase_train_small(torch, dev):
     rest = max(v for k, v in errs.items() if k != "tok")
     check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(g_state)),
           "smoke train: non-finite state after the step")
-    print(f"train: smoke step on the card: loss {g_loss:.6f} vs CPU {c_loss:.6f} (rel "
+    print(f"train: smoke step on the card ({div_format}): loss {g_loss:.6f} vs CPU "
+          f"{c_loss:.6f} (rel "
           f"{rel:.3g}, bound {LOSS_RTOL}); worst gradient leaf {worst_key} rel L2 "
           f"{worst:.3g} (bound {GRAD_REL_L2}); worst leaf other than tok {rest:.3g}")
 
@@ -1230,7 +1273,7 @@ def phase_main(torch, dev, cfg, params, label="main"):
         check(np.array_equal(solo, outs[i]),
               f"request {i}: solo tokens differ from the batched run")
     print(f"{label}: requests 0 and 7 bit-identical solo and batched")
-    return {"rowwise": k2, "flash": k3, "tokens_per_s": n_tok / wall,
+    return {"rowwise": k2, "K3": k3, "tokens_per_s": n_tok / wall,
             "forwards": forwards, "outs": outs}
 
 
@@ -1257,12 +1300,14 @@ def paged_mix(cfg):
     return out
 
 
-def phase_paged(torch, dev, cfg, params, packs_held):
+def phase_paged(torch, dev, cfg, params, packs_held, label="paged", dense_outs=None):
     """Full-width serving from the paged, prefix-shared pool with packed
     prefill (K4 decode, K5 packed admissions, K3 suffix prefills), counted
     and compared with a dense solo-admission run of the same requests.
     Every pack it forms must have a shape in ``packs_held`` (those the K5
-    phase checked)."""
+    phase checked).  With ``dense_outs`` (the main phase's dense run of
+    ``request_mix`` in this numerics) the tokens must be those of both
+    dense runs, bit for bit; without, a difference is diagnosed."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -1296,30 +1341,31 @@ def phase_paged(torch, dev, cfg, params, packs_held):
     L = cfg.n_layers
     solo = st["admissions"] - st["packed_segments"]
     check(k4 == L * st["decode_steps"],
-          f"paged: K4 launched {k4} times, {st['decode_steps']} decode steps imply "
+          f"{label}: K4 launched {k4} times, {st['decode_steps']} decode steps imply "
           f"{L * st['decode_steps']}")
     check(k5 == L * st["packed_packs"],
-          f"paged: K5 launched {k5} times, {st['packed_packs']} packs imply "
+          f"{label}: K5 launched {k5} times, {st['packed_packs']} packs imply "
           f"{L * st['packed_packs']}")
-    check(k3 == L * solo, f"paged: K3 launched {k3} times, {solo} solo (prefix-shared) "
+    check(k3 == L * solo, f"{label}: K3 launched {k3} times, {solo} solo (prefix-shared) "
                           f"admissions imply {L * solo} (none in decode)")
     forwards = st["decode_steps"] + st["packed_packs"] + solo
     check(k2 == (2 * L + 1) * forwards,
-          f"paged: K2 launched {k2} times, the path implies {(2 * L + 1) * forwards}")
+          f"{label}: K2 launched {k2} times, the path implies {(2 * L + 1) * forwards}")
     check(solo > 0 and st["prefix_hit_rate"] > 0,
-          f"paged: {solo} prefix-shared solo admissions, hit rate {st['prefix_hit_rate']}")
-    check(st["faults"] == 0 and st["shed"] == 0, f"paged: faults or sheds: {st}")
+          f"{label}: {solo} prefix-shared solo admissions, hit rate {st['prefix_hit_rate']}")
+    check(st["faults"] == 0 and st["shed"] == 0, f"{label}: faults or sheds: {st}")
     shapes = collections.Counter((N, W) for N, W, _ in packs)
     check(len(packs) == st["packed_packs"] and set(shapes) <= packs_held,
-          f"paged: packs {dict(shapes)} not all among those the K5 phase held")
+          f"{label}: packs {dict(shapes)} not all among those the K5 phase held")
     for r in eng.last_results:
         check(r.finish is FinishReason.MAX_NEW and len(r.tokens) == 32,
-              f"paged: request {r.rid} finished {r.finish} with {len(r.tokens)} tokens")
+              f"{label}: request {r.rid} finished {r.finish} with {len(r.tokens)} tokens")
         check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()),
-              f"paged: request {r.rid}: token out of the vocabulary")
+              f"{label}: request {r.rid}: token out of the vocabulary")
     n_tok = sum(len(o) for o in outs)
     peak_rows = st["peak_blocks_in_use"] * PAGED_BLOCK
-    print(f"paged: served {len(reqs)} requests (16 of the main mix, 8 sharing a "
+    print(f"{label}: served {len(reqs)} requests ({cfg.numerics.div_format} "
+          f"{cfg.numerics.div_algo}; 16 of the main mix, 8 sharing a "
           f"{PREFIX_LEN}-token prefix) on {sc.max_batch} slots, pages of {PAGED_BLOCK}: "
           f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s, "
           f"{wall / st['decode_steps'] * 1e3:.2f} ms a decode step (wall over steps, "
@@ -1337,10 +1383,19 @@ def phase_paged(torch, dev, cfg, params, packs_held):
     ref = dense.serve(reqs)
     differ = [i for i, (a, b) in enumerate(zip(ref, outs)) if not np.array_equal(a, b)]
     if not differ:
-        print(f"paged: tokens bit-identical to a dense solo-admission run of the same "
+        print(f"{label}: tokens bit-identical to a dense solo-admission run of the same "
               f"{len(reqs)} requests")
     else:
         paged_difference(torch, dev, cfg, params, reqs, ref, outs, differ)
+    if dense_outs is not None:
+        check(not differ, f"{label}: {len(differ)} requests' tokens differ from the dense run")
+        # the main mix's requests sit at 3i + 1 and 3i + 2 of the paged mix
+        main = [outs[3 * (j // 2) + 1 + j % 2] for j in range(len(dense_outs))]
+        off = [j for j, (a, b) in enumerate(zip(main, dense_outs)) if not np.array_equal(a, b)]
+        check(not off, f"{label}: main-mix requests {off} differ from the main phase's dense "
+                       "run")
+        print(f"{label}: the main mix's {len(dense_outs)} requests bit-identical to the "
+              "main phase's dense run too")
     # the timing phase times K5 on the path's most frequent pack shape
     N, W = max(shapes, key=lambda nw: (shapes[nw], nw[0] * nw[1]))
     pack = next(p for p in packs if p[:2] == (N, W))
@@ -1611,15 +1666,16 @@ def phase_posit_kv(torch, dev, cfg, params, packs_held, main_outs):
     return out
 
 
-def phase_train_main(torch, dev):
-    """SmolLM-360M at full width trained for 4 steps through K2, K6, K7, K8."""
+def phase_train_main(torch, dev, div_format="posit16"):
+    """SmolLM-360M at full width trained for 4 steps through K2, K6, K7, K8
+    (at posit64 srt_r4_cs_of_fr: every divide on the two-word frame)."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMDataset
     from repro_torch.kernels import ops
     from repro_torch.kernels import posit_flash_attn as F
     from repro_torch.train import TrainConfig, Trainer
 
-    cfg = get_config("smollm_360m")
+    cfg = get_config("smollm_360m").with_numerics(div_format=div_format)
     B, S, steps = 8, 256, 4
     tc = TrainConfig(steps=steps, lr=1e-3, warmup=1, log_every=1, seed=0)
     ds = SyntheticLMDataset(DataConfig(B, S, seed=0), cfg)
@@ -1646,7 +1702,8 @@ def phase_train_main(torch, dev):
         check(got == per_step * steps,
               f"training: {name} launched {got} times, the path implies {per_step * steps}")
     secs = [h["sec"] for h in res["history"]]
-    print(f"training: SmolLM-360M ({L} layers, f32 masters, remat full), {steps} steps "
+    print(f"training: SmolLM-360M ({L} layers, {div_format}, f32 masters, remat full), "
+          f"{steps} steps "
           f"of {B}x{S} tokens in {wall:.2f} s; losses {[round(x, 4) for x in losses]}; "
           f"step wall times {[round(x, 3) for x in secs]} s; {B * S / min(secs):.1f} "
           f"tokens/s at the fastest step; launches K2 {k2} (4L+1 per step), K6 {k6} (2L), "
@@ -1668,15 +1725,16 @@ def phase_train_main(torch, dev):
         print(f"training step (traced): wall {traced:.1f} ms; torch.profiler showed no "
               f"device records in {PROFILE_TRIES} tries: busy and idle share not measured")
     else:
-        print("training step (traced): wall %.1f ms, device busy %.1f ms, idle share %.3f; "
-              "%s" % (traced, busy, 1 - busy / traced,
-                      ", ".join(f"{k} {v:.2f} ms" for k, v in by.items())))
+        print("training step (%s, traced): wall %.1f ms, device busy %.1f ms, idle share "
+              "%.3f; %s" % (div_format, traced, busy, 1 - busy / traced,
+                            ", ".join(f"{k} {v:.2f} ms" for k, v in by.items())))
     return {"rowwise": k2, "K6": k6, "K7": k7, "K8": k8, "losses": losses,
             "step_s": secs, "peak_bytes": peak, "busy_ms": busy, "traced_ms": traced}
 
 
 MOE_REQUESTS = 16
 MOE_NEW = 16
+MOE64_REQUESTS = 8          # the posit64 OLMoE run serves the mix's first 8
 
 
 def moe_model(torch, dev):
@@ -1711,17 +1769,18 @@ def moe_mix(cfg):
             for n in lens]
 
 
-def phase_moe(torch, dev, cfg, params):
+def phase_moe(torch, dev, cfg, params, n_requests=MOE_REQUESTS, label="moe"):
     """Full-width OLMoE-1B-7B served from dense slots with batch-axis packed
-    admission: every router through K9, launch counts exact, requests 0 and
-    7 the same tokens alone on a solo-admission engine."""
+    admission (the first ``n_requests`` of the mix): every router through
+    K9, launch counts exact, requests 0 and 7 the same tokens alone on a
+    solo-admission engine."""
     import numpy as np
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.posit_flash_attn import posit_flash_attention
     from repro_torch.serve import FinishReason, Request, ServeConfig, ServeEngine
 
-    reqs = moe_mix(cfg)
+    reqs = moe_mix(cfg)[:n_requests]
     lens = np.array([len(r.tokens) for r in reqs])
     eng = ServeEngine(cfg, params, ServeConfig.from_model(cfg, packed_prefill=True), device=dev)
     eng.serve([Request(reqs[0].tokens[:8], max_new=2)])   # warm-up, not counted
@@ -1742,17 +1801,18 @@ def phase_moe(torch, dev, cfg, params):
     # prefill) and per decode step; each computes its logits
     forwards = st["prefill_forwards"] + st["decode_steps"]
     for name, got, per in (("K9", k9, L), ("K3", k3, L), ("K2", k2, 3 * L + 1)):
-        check(got == per * forwards, f"moe: {name} launched {got} times, {forwards} forward "
+        check(got == per * forwards, f"{label}: {name} launched {got} times, {forwards} forward "
                                      f"steps imply {per * forwards}")
     check(st["faults"] == 0 and st["shed"] == 0 and st["packed_packs"] > 0,
-          f"moe: faults, sheds or no pack: {st}")
+          f"{label}: faults, sheds or no pack: {st}")
     for r in eng.last_results:
         check(r.finish is FinishReason.MAX_NEW and len(r.tokens) == MOE_NEW,
-              f"moe: request {r.rid} finished {r.finish} with {len(r.tokens)} tokens")
+              f"{label}: request {r.rid} finished {r.finish} with {len(r.tokens)} tokens")
         check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()),
-              f"moe: request {r.rid}: token out of the vocabulary")
+              f"{label}: request {r.rid}: token out of the vocabulary")
     n_tok = sum(len(o) for o in outs)
-    print(f"moe: served {len(reqs)} requests (prompts {lens.min()}-{lens.max()} tokens, "
+    print(f"{label}: served {len(reqs)} requests ({cfg.numerics.div_format} "
+          f"{cfg.numerics.div_algo}; prompts {lens.min()}-{lens.max()} tokens, "
           f"{MOE_NEW} new each) on {eng.sc.max_batch} slots, batch-axis packed admission: "
           f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.2f} tokens/s; {forwards} forward "
           f"steps ({st['prefill_forwards']} scan steps in {st['packed_packs']} packs of "
@@ -1765,10 +1825,11 @@ def phase_moe(torch, dev, cfg, params):
         alone = solo.serve([reqs[i]])[0]
         if not np.array_equal(alone, outs[i]):
             moe_difference(torch, dev, cfg, params)
-            fail(f"moe: request {i} alone gave {alone.tolist()}, packed {outs[i].tolist()}")
-    print("moe: requests 0 and 7 alone on a solo-admission engine: the same tokens as packed")
+            fail(f"{label}: request {i} alone gave {alone.tolist()}, packed {outs[i].tolist()}")
+    print(f"{label}: requests 0 and 7 alone on a solo-admission engine: the same tokens as "
+          "packed")
     return {"K9": k9, "K3": k3, "rowwise": k2, "tokens_per_s": n_tok / wall,
-            "forwards": forwards, "peak_bytes": peak}
+            "forwards": forwards, "peak_bytes": peak, "outs": outs}
 
 
 def moe_difference(torch, dev, cfg, params):
@@ -1880,7 +1941,7 @@ def device_kernel_ms(torch, fn, names, iters=20):
     return cuda_time_ms(fn, iters), "CUDA events"
 
 
-def phase_timing(torch, dev, pack):
+def phase_timing(torch, dev):
     from repro_torch.core.posit import POSIT16, POSIT64
     from repro_torch.kernels import ops
     from repro_torch.kernels.posit_div import datapath_plan
@@ -1917,8 +1978,6 @@ def phase_timing(torch, dev, pack):
                                           [0, 0, 5, 3, 9, 0, 14, 31], fmt=POSIT64)
     rows["K3 posit64 prefill"] = flash_row(torch, dev, plan64, 1, 256, 256, [0], [56],
                                            fmt=POSIT64)
-    rows.update(layout_rows(torch, dev, plan, pack))
-    rows.update(training_rows(torch, dev, plan))
     print_rows(rows)
     return rows
 
@@ -1987,24 +2046,28 @@ def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64), fmt=No
 
 def moe_rows(torch, dev):
     """K9 at the router's shape (8 rows of 64 experts) and at 4096 rows,
-    with torch.softmax as the yardstick; K3 at OLMoE's decode shape."""
-    from repro_torch.core.posit import POSIT16
+    posit16 and posit64, with torch.softmax as the yardstick; K3 at OLMoE's
+    decode shape."""
+    from repro_torch.core.posit import POSIT16, POSIT64
     from repro_torch.kernels import ops
     from repro_torch.kernels.posit_div import datapath_plan
 
     plan = datapath_plan(POSIT16, "srt_r4_cs_of_fr")
     rows = {}
-    for name, (R, C) in (("K9 router", (8, 64)), ("K9 4096 rows", (4096, 64))):
+    for fmt, name, (R, C) in [(f, n + ("" if f is POSIT16 else " posit64"), shape)
+                              for f in (POSIT16, POSIT64)
+                              for n, shape in (("K9 router", (8, 64)),
+                                               ("K9 4096 rows", (4096, 64)))]:
         x = (torch.randn(R, C, generator=torch.Generator().manual_seed(17)) * 2).to(dev)
-        call = lambda: ops.posit_softmax_fused(POSIT16, x)
+        call = lambda: ops.posit_softmax_fused(fmt, x)
         dev_ms, src = device_kernel_ms(torch, call, ["softmax_kernel"])
         # each element read and written once (f32), one division each
-        bms, by = bound_ms(8 * R * C, div_ops(plan, R * C))
+        bms, by = bound_ms(8 * R * C, div_ops(datapath_plan(fmt, DEFAULT_VARIANT), R * C))
         # the yardstick's device time as K9's, from the profiler
         lib_ms, lib_src = device_kernel_ms(torch, lambda: torch.softmax(x, dim=-1), ["oftmax"])
         rows[name] = {"shape": [R, C], "ms": dev_ms, "ms_from": src,
                       "call_ms": cuda_time_ms(call),
-                      "plain_ms": cuda_time_ms(lambda: ops.posit_softmax_plain(POSIT16, x),
+                      "plain_ms": cuda_time_ms(lambda: ops.posit_softmax_plain(fmt, x),
                                                iters=5),
                       "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
                       "library_from": lib_src}
@@ -2077,13 +2140,14 @@ def division_rows(torch, dev):
     return rows
 
 
-def layout_rows(torch, dev, plan, pack):
+def layout_rows(torch, dev, fmt, pack):
     """K4 at the paged decode's shapes (8 slots, max_seq 512 in pages of 16,
     paged admissions at start 0) and K5 on a pack of the paged phase's most
-    frequent shape, ``pack`` = (N, width, segment lengths), right-padded."""
+    frequent shape, ``pack`` = (N, width, segment lengths), right-padded, at
+    ``fmt`` with the default plan."""
     import torch.nn.functional as Fn
 
-    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels.posit_div import datapath_plan
     from repro_torch.kernels.posit_flash_attn import (
         gather_pages,
         posit_flash_attention,
@@ -2091,13 +2155,15 @@ def layout_rows(torch, dev, plan, pack):
     )
 
     H, KV, hd, bs = 15, 5, 64, PAGED_BLOCK
+    plan = datapath_plan(fmt, DEFAULT_VARIANT)
+    tag = "" if fmt.n == 16 else f" posit{fmt.n}"
     rows = {}
     q, pk, pv, bt = paged_inputs(torch, dev, 8, 512 // bs, bs, H, KV, hd, 8)
     pos_l, start_l = [47, 63, 92, 120, 151, 178, 199, 231], [0] * 8
     pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
     kw = dict(kv_start=torch.tensor(start_l, dtype=torch.int32, device=dev),
               kv_len=pos + 1, q_pos=pos, block_tables=bt)
-    call = lambda: posit_flash_attention(POSIT16, q, pk, pv, True, **kw)
+    call = lambda: posit_flash_attention(fmt, q, pk, pv, True, **kw)
     dev_ms, src = device_kernel_ms(torch, call, ["flash_kernel"])
     # the keys each slot attends, and one table entry per page they touch
     keys = sum(p + 1 - s for p, s in zip(pos_l, start_l))
@@ -2109,17 +2175,17 @@ def layout_rows(torch, dev, plan, pack):
     mask = (kp[None, :] <= pos[:, None])[:, None, None, :]
     qs, ks, vs = (t.float().transpose(1, 2).contiguous() for t in (q, kd, vd))
     lib = lambda: Fn.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
-    rows["K4 decode"] = {
+    rows[f"K4{tag} decode"] = {
         "shape": [8, 1, 512, H, KV, hd], "ms": dev_ms, "ms_from": src,
         "call_ms": cuda_time_ms(call),
-        "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(POSIT16, q, pk, pv, True,
+        "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(fmt, q, pk, pv, True,
                                                                      **kw), iters=3),
         "bound_ms": bms, "bound_by": by, "library_ms": cuda_time_ms(lib)}
 
     N, P, lens = pack
     q, k, v, seg_q, seg, segs = packed_inputs(torch, dev, lens, P, 9, left=False)
     kw = dict(seg_q=seg_q, seg_kv=seg)
-    call = lambda: posit_flash_attention(POSIT16, q, k, v, True, seg_len=P, **kw)
+    call = lambda: posit_flash_attention(fmt, q, k, v, True, seg_len=P, **kw)
     dev_ms, src = device_kernel_ms(torch, call, ["flash_kernel"])
     pairs = sum(n * (n + 1) // 2 for _, n in segs)        # block-diagonal causal pairs
     S, real = N * P, sum(lens)
@@ -2132,25 +2198,27 @@ def layout_rows(torch, dev, plan, pack):
     qs, ks, vs = (t.float().transpose(1, 2).contiguous() for t in (q, k, v))
     lib = lambda: Fn.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask[None, None],
                                                   enable_gqa=True)
-    rows["K5 packed prefill"] = {
+    rows[f"K5{tag} packed prefill"] = {
         "shape": [1, S, S, H, KV, hd], "lens": lens, "ms": dev_ms, "ms_from": src,
         "call_ms": cuda_time_ms(call),
-        "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(POSIT16, q, k, v, True,
+        "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(fmt, q, k, v, True,
                                                                      **kw), iters=3),
         "bound_ms": bms, "bound_by": by, "library_ms": cuda_time_ms(lib)}
     return rows
 
 
-def training_rows(torch, dev, plan):
-    """K6, K7 and K8 at the training path's shapes (B=8, S=256, causal)."""
+def training_rows(torch, dev, fmt):
+    """K6, K7 and K8 at the training path's shapes (B=8, S=256, causal), at
+    ``fmt`` with the default plan."""
     import torch.nn.functional as Fn
 
-    from repro_torch.core.posit import POSIT16
     from repro_torch.kernels import posit_flash_attn as F
 
     B, S, H, KV, hd = 8, 256, 15, 5, 64
+    plan = F.datapath_plan(fmt, DEFAULT_VARIANT)
+    tag = "" if fmt.n == 16 else f" posit{fmt.n}"
     q, k, v, co = training_inputs(torch, dev, B, S, 9)
-    o, m, l = F.posit_flash_attention_fwd(POSIT16, q, k, v, True)
+    o, m, l = F.posit_flash_attention_fwd(fmt, q, k, v, True)
     args = backward_args(F, co, o, m, l, q, k, v)
     pairs = B * H * S * (S + 1) // 2            # attended (row, key) pairs
     qo = B * S * H * hd * 4                     # one f32 (B, S, H, hd) tensor
@@ -2167,7 +2235,7 @@ def training_rows(torch, dev, plan):
     gs = co.transpose(1, 2).contiguous()
     lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), gs,
                                                        retain_graph=True))
-    plain_bwd = cuda_time_ms(lambda: F.flash_backward_plain(POSIT16, q, k, v, o, co, m, l,
+    plain_bwd = cuda_time_ms(lambda: F.flash_backward_plain(fmt, q, k, v, o, co, m, l,
                                                             True), iters=3)
 
     def row(call, names, nbytes, ops_, plain_ms, library_ms):
@@ -2179,15 +2247,15 @@ def training_rows(torch, dev, plan):
                 "library_ms": library_ms}
 
     rows = {
-        "K6": row(lambda: F.posit_flash_attention_fwd(POSIT16, q, k, v, True),
+        "K6" + tag: row(lambda: F.posit_flash_attention_fwd(fmt, q, k, v, True),
                   ["flash_kernel"], 2 * qo + 2 * kv + 2 * rowv,
                   pairs * 4 * hd + div_ops(plan, B * S * H * hd),
                   cuda_time_ms(lambda: F.posit_flash_attention_fwd_plain(
-                      POSIT16, q, k, v, True), iters=3), lib_fwd),
-        "K7": row(lambda: F.flash_backward_dq(POSIT16, plan, *args),
+                      fmt, q, k, v, True), iters=3), lib_fwd),
+        "K7" + tag: row(lambda: F.flash_backward_dq(fmt, plan, *args),
                   ["flash_bwd_dq_kernel"], 3 * qo + 2 * kv + 3 * rowv,
                   pairs * 6 * hd + div_ops(plan, pairs), plain_bwd, lib_bwd),
-        "K8": row(lambda: F.flash_backward_dkv(POSIT16, plan, *args),
+        "K8" + tag: row(lambda: F.flash_backward_dkv(fmt, plan, *args),
                   ["flash_bwd_dkv_kernel"], 2 * qo + 2 * kv + 3 * rowv + 2 * 2 * kv,
                   pairs * 8 * hd + div_ops(plan, pairs), plain_bwd, lib_bwd),
     }
@@ -2248,12 +2316,36 @@ def decode_breakdown(torch, dev, cfg, params, paged: bool = False):
         device = "device busy %.3f ms, idle share %.3f; %s" % (
             busy, 1 - busy / wall_plain, ", ".join(f"{k} {v:.3f} ms" for k, v in by.items()))
     kv = cfg.numerics.kv_cache_format
-    print("decode step (%s, 8 slots, full width, %s%s): wall %.3f ms (%.3f ms traced), %s; "
-          "weights read %.1f MB, bound %.4f ms" % (
-              cfg.name, "paged" if paged else "dense", f", {kv} KV cache" if kv else "",
+    print("decode step (%s, %s, 8 slots, full width, %s%s): wall %.3f ms (%.3f ms traced), "
+          "%s; weights read %.1f MB, bound %.4f ms" % (
+              cfg.name, cfg.numerics.div_format, "paged" if paged else "dense",
+              f", {kv} KV cache" if kv else "",
               wall_plain, wall / n, device,
               weight_bytes / 1e6, weight_bytes / HBM_BYTES_PER_S * 1e3))
     return {"wall_ms": wall_plain, "busy_ms": busy, **by}
+
+
+LAYOUT_NAMES = ("dense", "paged", "packed")   # csrc/posit_flash_attn.cu Layout
+
+
+def ptxas_kernels(log: str):
+    """``(kernel, registers, spill store bytes)`` for each kernel that
+    ``-Xptxas -v`` reported, the kernel named by its function, format and
+    (for the flash forward) layout, as "flash_kernel posit64 paged"."""
+    out = []
+    for block in log.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        fn = re.search(r"\d([a-z][a-z_]*_kernel)I", mangled)
+        n = re.search(r"PlanILi(\d+)E", mangled)
+        layout = re.search(r"EELi(\d)EEEv", mangled)
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        name = f"{fn.group(1) if fn else mangled} posit{n.group(1) if n else '?'}"
+        if layout:
+            name += f" {LAYOUT_NAMES[int(layout.group(1))]}"
+        out.append((name, int(regs.group(1)) if regs else 0,
+                    int(spill.group(1)) if spill else 0))
+    return out
 
 
 def time_kernels(torch, dev, src: str, repeats: int = 3) -> None:
@@ -2322,6 +2414,7 @@ def main() -> int:
         src = os.path.abspath(sys.argv[sys.argv.index("--src") + 1])
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail(f"{src}/repro_torch not found: run from a checkout of the repository")
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -2333,6 +2426,7 @@ def main() -> int:
         time_kernels(torch, resolve_device("cuda:0"), src)
         print(gpu_line())
         return 0
+    from repro_torch.core.posit import POSIT16, POSIT64
     from repro_torch.kernels import _build
     from repro_torch.models.transformer import resolve_device
 
@@ -2355,6 +2449,10 @@ def main() -> int:
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", log))
         print(f"setup: ptxas {n}: {len(regs)} kernels, at most {max(regs, default=0)} "
               f"registers, {spills} bytes of spill stores")
+        wide = [f"{k} {r} registers, {sp} bytes spilled" for k, r, sp in ptxas_kernels(log)
+                if "posit64" in k]
+        if wide:
+            print(f"setup: ptxas {n}, posit64 kernels: " + "; ".join(wide))
 
     took = {"setup": time.perf_counter() - T_START}
 
@@ -2379,6 +2477,7 @@ def main() -> int:
     timed("model", phase_model_small, torch, dev, "olmoe_1b_7b")
     train_err = timed("K6-K8", phase_flash_train, torch, dev)
     timed("train", phase_train_small, torch, dev)
+    timed("train", phase_train_small, torch, dev, "posit64")
     cfg, params = timed("main", full_model, torch, dev)
     path = timed("main", phase_main, torch, dev, cfg, params)
     cfg64 = cfg.with_numerics(div_format="posit64")
@@ -2389,12 +2488,20 @@ def main() -> int:
           f"posit16 run's; {path64['tokens_per_s']:.1f} tokens/s against "
           f"{path['tokens_per_s']:.1f}")
     paged = timed("paged", phase_paged, torch, dev, cfg, params, packs_held)
+    paged64 = timed("paged posit64", phase_paged, torch, dev, cfg64, params, packs_held,
+                    "paged posit64", path64["outs"])
     kv = timed("posit-KV", phase_posit_kv, torch, dev, cfg, params, packs_held, path["outs"])
     train = timed("training", phase_train_main, torch, dev)
-    rows = timed("timing", phase_timing, torch, dev, paged["pack"])
+    train64 = timed("training posit64", phase_train_main, torch, dev, "posit64")
+    rows = timed("timing", phase_timing, torch, dev)
+    for fmt, pg in ((POSIT16, paged), (POSIT64, paged64)):
+        rows.update(timed("timing", layout_rows, torch, dev, fmt, pg["pack"]))
+        rows.update(timed("timing", training_rows, torch, dev, fmt))
+    print_rows({k: v for k, v in rows.items() if k[:2] in ("K4", "K5", "K6", "K7", "K8")})
     rows.update(timed("timing", division_rows, torch, dev))
     timed("timing", decode_breakdown, torch, dev, cfg, params)
     timed("timing", decode_breakdown, torch, dev, cfg, params, paged=True)
+    timed("timing", decode_breakdown, torch, dev, cfg64, params, paged=True)
     timed("timing", decode_breakdown, torch, dev, cfg.with_numerics(kv_cache_format="posit16"),
           params)
     timed("timing", decode_breakdown, torch, dev, cfg64, params)
@@ -2405,6 +2512,16 @@ def main() -> int:
     mcfg, mparams = timed("moe", moe_model, torch, dev)
     moe = timed("moe", phase_moe, torch, dev, mcfg, mparams)
     timed("timing", decode_breakdown, torch, dev, mcfg, mparams)
+    # posit64 division through the router (K9, K2) and attention (K3 at hd
+    # 128): the mix's first MOE64_REQUESTS requests, for the script's time
+    mcfg64 = mcfg.with_numerics(div_format="posit64")
+    moe64 = timed("moe posit64", phase_moe, torch, dev, mcfg64, mparams, MOE64_REQUESTS,
+                  "moe posit64")
+    differ = sum(not np.array_equal(a, b) for a, b in zip(moe["outs"], moe64["outs"]))
+    print(f"moe posit64: {differ} of {MOE64_REQUESTS} requests' tokens differ from the "
+          f"posit16 run's; {moe64['tokens_per_s']:.2f} tokens/s against "
+          f"{moe['tokens_per_s']:.2f}")
+    timed("timing", decode_breakdown, torch, dev, mcfg64, mparams)
     rows.update(timed("timing", moe_rows, torch, dev))
     print("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
           + f"; total {time.perf_counter() - T_START:.1f} s")
@@ -2417,47 +2534,48 @@ def main() -> int:
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
     csrc = "src/repro_torch/kernels/csrc/"
+    runs = (path, path64, paged, paged64, train, train64, moe, moe64)
+
+    def launches(name):
+        """``name``'s launches over every main path's run."""
+        return sum(r.get(name, 0) for r in runs)
+
     kernels = [
         entry("K1 posit SRT datapath, one-word and two-word frames (inlined in K2-K11)",
               csrc + "posit_srt.cuh", "src/repro/kernels/posit_div.py:433",
-              path["rowwise"] + path["flash"] + path64["rowwise"] + path64["flash"]
-              + paged["rowwise"] + paged["K3"] + paged["K4"]
-              + paged["K5"] + train["rowwise"] + train["K6"] + train["K7"] + train["K8"]
-              + moe["rowwise"] + moe["K3"] + moe["K9"] + fused["K10"] + k11["launches"]
-              + fused["K11"] + two["K10"] + two["K11"], div_err, rows["K1"]),
+              sum(launches(n) for n in ("rowwise", "K3", "K4", "K5", "K6", "K7", "K8", "K9"))
+              + fused["K10"] + k11["launches"] + fused["K11"] + two["K10"] + two["K11"],
+              div_err, rows["K1"]),
         entry("K2 rowwise fused posit divide", csrc + "posit_fused_div.cu",
-              "src/repro/kernels/posit_fused_div.py:149",
-              path["rowwise"] + path64["rowwise"] + paged["rowwise"] + train["rowwise"]
-              + moe["rowwise"], div_err, rows["K2 decode"]),
+              "src/repro/kernels/posit_fused_div.py:149", launches("rowwise"), div_err,
+              rows["K2 decode"]),
         entry("K3 posit flash attention, dense", csrc + "posit_flash_attn.cu",
-              "src/repro/kernels/posit_flash_attn.py:330", path["flash"] + path64["flash"]
-              + paged["K3"] + moe["K3"], max(flash_err, grid["K3"]), rows["K3 decode"]),
+              "src/repro/kernels/posit_flash_attn.py:330", launches("K3"),
+              max(flash_err, grid["K3"]), rows["K3 decode"]),
         entry("K4 posit flash attention, paged decode", csrc + "posit_flash_attn.cu",
-              "src/repro/kernels/posit_flash_attn.py:330", paged["K4"], paged_err,
+              "src/repro/kernels/posit_flash_attn.py:330", launches("K4"), paged_err,
               rows["K4 decode"]),
         entry("K5 posit flash attention, packed prefill", csrc + "posit_flash_attn.cu",
-              "src/repro/kernels/posit_flash_attn.py:330", paged["K5"], packed_err,
+              "src/repro/kernels/posit_flash_attn.py:330", launches("K5"), packed_err,
               rows["K5 packed prefill"]),
         entry("K6 posit flash attention forward saving (m, l)", csrc + "posit_flash_attn.cu",
-              "src/repro/kernels/posit_flash_attn.py:330", train["K6"], train_err["K6"],
-              rows["K6"]),
+              "src/repro/kernels/posit_flash_attn.py:330", launches("K6"),
+              max(train_err["K6"], train_err["K6 posit64"]), rows["K6"]),
         entry("K7 posit flash attention backward, dq", csrc + "posit_flash_bwd.cu",
-              "src/repro/kernels/posit_flash_attn.py:601", train["K7"], train_err["K7"],
-              rows["K7"]),
+              "src/repro/kernels/posit_flash_attn.py:601", launches("K7"),
+              max(train_err["K7"], train_err["K7 posit64"]), rows["K7"]),
         entry("K8 posit flash attention backward, dk and dv", csrc + "posit_flash_bwd.cu",
-              "src/repro/kernels/posit_flash_attn.py:626", train["K8"],
-              max(train_err["K8"], grid["K8"]),
-              rows["K8"]),
+              "src/repro/kernels/posit_flash_attn.py:626", launches("K8"),
+              max(train_err["K8"], train_err["K8 posit64"], grid["K8"]), rows["K8"]),
         entry("K9 fused posit softmax (MoE router)", csrc + "posit_softmax.cu",
-              "src/repro/kernels/posit_fused_div.py:210", moe["K9"], softmax_err,
+              "src/repro/kernels/posit_fused_div.py:210", launches("K9"), softmax_err,
               rows["K9 router"]),
         entry("K10 elementwise fused posit divide", csrc + "posit_fused_div.cu",
               "src/repro/kernels/posit_fused_div.py:103", fused["K10"] + two["K10"], 0.0,
               rows["K10 64x1024"]),
         entry("K11 posit divide on bit patterns", csrc + "posit_div.cu",
               "src/repro/kernels/posit_div.py:652", k11["launches"] + fused["K11"] + two["K11"],
-              0.0,
-              rows["K11 64x1024"]),
+              0.0, rows["K11 64x1024"]),
         entry("K12 f32 -> posit quantize", csrc + "posit_cast.cu",
               "src/repro/kernels/posit_cast.py:43", kv["K12q"], max(cast_err, kv["err"]),
               rows["K12 quantize 64x1024"]),

@@ -55,11 +55,11 @@
 // The layout is a template flag, so K3/K6's instantiation holds none of the
 // paged or packed code (its schedule is ptxas-sensitive, PERF.md section 6).
 //
-// Instantiated, with bf16 K/V, for the posit16 plans in every layout (what
-// the serving paths run: posit16 numerics over the bf16 cache) and for
-// posit64 srt_r4_cs_of_fr (and srt_r4_cs_of, the same datapath) in the
-// dense layout alone, its o / l on K1's two-word frame; every other
-// (format, plan, layout) and f32 K/V return -1.
+// Instantiated, with bf16 K/V and in every layout, for the plans
+// posit::kModelPlan names: the posit16 plans and posit64 srt_r4_cs_of_fr
+// (and srt_r4_cs_of, the same datapath), its o / l on K1's two-word frame
+// with a 48-byte divisor per row; every other (format, plan) and f32 K/V
+// return -1.
 //
 // Bound: decode reads the bf16 KV cache (or the pages each sequence
 // attends) once and is memory-bound; prefill does 4*B*H*Sq*Sk*hd f32 FMA
@@ -82,14 +82,11 @@ constexpr float kNegInf = -1e30f;
 
 enum Layout { kDense = 0, kPaged = 1, kPacked = 2 };
 
-// The (plan, layout) pairs this source instantiates.
-template <class P, int kLayout>
-constexpr bool kBuilt =
-    P::n == 16 || (P::n == 64 && kLayout == kDense && P::radix == 4 && P::redundant &&
-                   P::otf && !P::scaled);
-
 template <class P>
 size_t smem_bytes(int bq, int hd, int layout) {
+  // the divisors first (28 bytes each, 48 on the two-word frame: a multiple
+  // of their 4- or 8-byte alignment, so the floats after them stay aligned
+  // at any bq); the pointers in flash_kernel follow this order exactly
   const size_t bytes = sizeof(posit::DivisorOf<P>) * bq    // per-row divisor
                        + sizeof(float) * (bq * hd + kBK * (hd + 1) + kBK * hd + bq * kBK + 3 * bq)
                        + bq * kBK;                          // mask bytes
@@ -334,7 +331,7 @@ int dispatch(int n, int radix, int red, int otf, int scaled, int nonrest, int it
   int rc = -1;
   posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits, [&](auto plan) {
     using P = decltype(plan);
-    if constexpr (kBuilt<P, kLayout>) {
+    if constexpr (posit::kModelPlan<P>) {
       rc = launch<P, kLayout>(q, static_cast<const __nv_bfloat16*>(k),
                               static_cast<const __nv_bfloat16*>(v), out, m_out, l_out,
                               kv_start, kv_len, q_pos, B, Sq, Sk, H, KVH, hd, scale, causal,

@@ -33,13 +33,16 @@
 //     head_dim, then a separately rounded multiply by scale), so a recomputed
 //     e is the forward's e.
 //
-// Instantiated for the posit16 plans only, with bf16 K/V (what the training
-// path runs), as K3/K6 are; other formats return -1.
+// Instantiated, with bf16 K/V, for the plans posit::kModelPlan names, as
+// K3/K6 are: the posit16 plans and posit64 srt_r4_cs_of_fr (srt_r4_cs_of,
+// the same datapath), whose p = e / l runs on K1's two-word frame with a
+// 48-byte divisor per row; other (format, plan) pairs return -1.
 //
 // Bound: per attended (row, key) pair K7 does 6*hd f32 flops and K8 8*hd,
-// and each does one posit division (about 160 + 30 x iterations 32-bit
-// operations, 400 for posit16 radix-4): both are bounded by operations, not
-// bytes (they read q, dO, k, v and the row vectors once per tile).  The
+// and each does one posit division (about 160 per pattern word + 30 per
+// residual word and iteration: 400 32-bit operations for posit16 radix-4,
+// 2240 for posit64 radix-4 on two words): both are bounded by operations,
+// not bytes (they read q, dO, k, v and the row vectors once per tile).  The
 // products run on CUDA cores in f32; tensor cores are left for a later
 // version.
 #include <cuda_bf16.h>
@@ -61,7 +64,7 @@ constexpr int kBKk = 32;     // keys per block of K8
 // sK/sV rows have stride hd + 1; sP may be null (K7 needs ds only).
 template <class P>
 __device__ void tile_p_ds(const float* sQ, const float* sG, const float* sK, const float* sV,
-                          const posit::Divisor* sDiv, const float* sM, const float* sD,
+                          const posit::DivisorOf<P>* sDiv, const float* sM, const float* sD,
                           float* sP, float* sDS, int rows, int bk, int hd, int qp0, int k0,
                           int Sk, float scale, int causal, int window) {
 #pragma unroll 1
@@ -88,8 +91,8 @@ __device__ void tile_p_ds(const float* sQ, const float* sG, const float* sK, con
 template <class P>
 __device__ void load_q_tile(const float* q, const float* g, const float* m, const float* l,
                             const float* D, float* sQ, float* sG, float* sM, float* sD,
-                            posit::Divisor* sDiv, int b, int h, int bh, int q0, int rows, int Sq,
-                            int H, int hd, float eps) {
+                            posit::DivisorOf<P>* sDiv, int b, int h, int bh, int q0, int rows,
+                            int Sq, int H, int hd, float eps) {
   for (int i = threadIdx.x; i < kBQ * hd; i += kThreads) {
     const int r = i / hd, d = i % hd;
     const size_t off = ((static_cast<size_t>(b) * Sq + q0 + r) * H + h) * hd + d;
@@ -119,8 +122,11 @@ __device__ void load_kv_tile(const __nv_bfloat16* k, const __nv_bfloat16* v, flo
   }
 }
 
-inline size_t smem_bytes(int bk, int hd) {
-  return sizeof(posit::Divisor) * kBQ +
+// The per-row divisors first (28 bytes each, 48 on the two-word frame: the
+// floats after them stay aligned), then the float tiles.
+template <class P>
+size_t smem_bytes(int bk, int hd) {
+  return sizeof(posit::DivisorOf<P>) * kBQ +
          sizeof(float) * (2 * kBQ * hd + 2 * bk * (hd + 1) + 2 * kBQ * bk + 2 * kBQ);
 }
 
@@ -133,7 +139,7 @@ __global__ void __launch_bounds__(kThreads)
                         int H, int KVH, int hd, float scale, int causal, int window,
                         int q_offset, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
-  posit::Divisor* sDiv = reinterpret_cast<posit::Divisor*>(smem);
+  posit::DivisorOf<P>* sDiv = reinterpret_cast<posit::DivisorOf<P>*>(smem);
   float* sQ = reinterpret_cast<float*>(sDiv + kBQ);
   float* sG = sQ + kBQ * hd;
   float* sK = sG + kBQ * hd;
@@ -197,7 +203,7 @@ __global__ void __launch_bounds__(kThreads)
                          float* __restrict__ dv, int Sq, int Sk, int H, int KVH, int hd,
                          float scale, int causal, int window, int q_offset, float eps) {
   extern __shared__ __align__(16) unsigned char smem[];
-  posit::Divisor* sDiv = reinterpret_cast<posit::Divisor*>(smem);
+  posit::DivisorOf<P>* sDiv = reinterpret_cast<posit::DivisorOf<P>*>(smem);
   float* sQ = reinterpret_cast<float*>(sDiv + kBQ);
   float* sG = sQ + kBQ * hd;
   float* sK = sG + kBQ * hd;
@@ -273,9 +279,9 @@ int prepare(Kern kern, size_t bytes) {
 
 // Shapes (all contiguous on the device): q, g (dO), dq: (B, Sq, H, hd) f32;
 // k, v: (B, Sk, KVH, hd) bf16; dk, dv: (B, Sk, KVH, hd) f32; m, l, D:
-// (B*H, Sq) f32.  Each returns 0, a cudaError_t, -1 when no compiled posit16
-// plan matches, -2 for a head_dim above kHdMax, a bad head split, B*H past
-// 2^31 - 1 or more than 65535 tiles.
+// (B*H, Sq) f32.  Each returns 0, a cudaError_t, -1 when no compiled plan
+// (posit::kModelPlan) matches, -2 for a head_dim above kHdMax, a bad head
+// split, B*H past 2^31 - 1 or more than 65535 tiles.
 extern "C" int posit_flash_bwd_dq(int n, int radix, int red, int otf, int scaled, int nonrest,
                                   int it, int shift, int gbits, const float* q, const void* k,
                                   const void* v, const float* g, const float* m, const float* l,
@@ -288,9 +294,9 @@ extern "C" int posit_flash_bwd_dq(int n, int radix, int red, int otf, int scaled
   int rc = -1;
   posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits, [&](auto plan) {
     using P = decltype(plan);
-    if constexpr (P::n == 16) {
+    if constexpr (posit::kModelPlan<P>) {
       auto kern = flash_bwd_dq_kernel<P>;
-      const size_t bytes = smem_bytes(kBKq, hd);
+      const size_t bytes = smem_bytes<P>(kBKq, hd);
       rc = prepare(kern, bytes);
       if (rc != 0) return;
       const long long heads = static_cast<long long>(B) * H;
@@ -322,9 +328,9 @@ extern "C" int posit_flash_bwd_dkv(int n, int radix, int red, int otf, int scale
   int rc = -1;
   posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits, [&](auto plan) {
     using P = decltype(plan);
-    if constexpr (P::n == 16) {
+    if constexpr (posit::kModelPlan<P>) {
       auto kern = flash_bwd_dkv_kernel<P>;
-      const size_t bytes = smem_bytes(kBKk, hd);
+      const size_t bytes = smem_bytes<P>(kBKk, hd);
       rc = prepare(kern, bytes);
       if (rc != 0) return;
       const long long heads = static_cast<long long>(B) * KVH;

@@ -16,11 +16,14 @@
 // reference pads columns to 128 and masks them; appended zeros are exact
 // identities of the fixed-order sum, so here columns are taken as they come.
 // Rows are independent, so a NaN row reaches no other row.  expf, never
-// __expf, and no --use_fast_math: subnormal e must be kept.
+// __expf, and no --use_fast_math: subnormal e must be kept.  Instantiated
+// for the plans posit::kModelPlan names (posit16, and posit64
+// srt_r4_cs_of_fr with its 48-byte two-word divisor held per lane).
 //
 // Bound: per element 8 bytes of traffic against a whole posit division
-// (~400 integer operations for posit16 radix 4), so by operations at any
-// shape; on the router's (batch, 64) rows the launch is set by latency.
+// (~400 integer operations for posit16 radix 4, ~2240 for posit64), so by
+// operations at any shape; on the router's (batch, 64) rows the launch is
+// set by latency.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -60,7 +63,7 @@ __global__ void __launch_bounds__(32 * kRows)
   }
   s = __shfl_sync(kFull, s, 0);
 
-  const posit::Divisor d = posit::prep_divisor<P>(s);
+  const posit::DivisorOf<P> d = posit::prep_divisor<P>(s);
   float* orow = out + static_cast<size_t>(row) * C;
   for (int c = lane; c < C; c += 32) orow[c] = posit::divide_float<P>(er[c], d);
 }
@@ -68,8 +71,8 @@ __global__ void __launch_bounds__(32 * kRows)
 }  // namespace
 
 // x, out: (R, C) f32, contiguous on the device.  Returns 0, a cudaError_t,
-// -1 when no compiled posit16 plan matches the plan fields, -2 when a row is
-// too wide for shared memory (C > posit_softmax_max_cols()).
+// -1 when no compiled plan (posit::kModelPlan) matches the plan fields, -2
+// when a row is too wide for shared memory (C > posit_softmax_max_cols()).
 extern "C" int posit_softmax_max_cols() { return kMaxSmem / (kRows * 4); }
 
 extern "C" int posit_softmax(int n, int radix, int red, int otf, int scaled, int nonrest,
@@ -83,7 +86,7 @@ extern "C" int posit_softmax(int n, int radix, int red, int otf, int scaled, int
   int rc = -1;
   posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits, [&](auto plan) {
     using P = decltype(plan);
-    if constexpr (P::n == 16) {
+    if constexpr (posit::kModelPlan<P>) {
       auto kern = softmax_kernel<P>;
       if (bytes > 48 * 1024) {
         const cudaError_t err =

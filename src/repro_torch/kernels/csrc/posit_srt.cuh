@@ -377,7 +377,7 @@ PHD int select_digit(typename P::Word rws, typename P::Word rwc, int didx) {
 
 // Divisor-side work, done once per row by the rowwise kernels (once per
 // element by the elementwise ones).  W is the plan's residual word: a
-// two-word plan's divisor takes 48 bytes where a one-word one takes 32.
+// two-word plan's divisor takes 48 bytes where a one-word one takes 28.
 template <class W>
 struct DivisorT {
   W d_al, nd_al, d2, nd2;
@@ -388,6 +388,15 @@ struct DivisorT {
 using Divisor = DivisorT<uint32_t>;
 template <class P>
 using DivisorOf = DivisorT<typename P::Word>;
+
+// The plans the model-path kernels instantiate (flash attention K3-K8 in
+// every layout, softmax K9): the nine posit16 rows, and posit64
+// srt_r4_cs_of_fr (the NumericsConfig default; srt_r4_cs_of is the same
+// row) on the two-word frame.  Mirrored by kernels/posit_flash_attn.py
+// kernel_built.
+template <class P>
+constexpr bool kModelPlan =
+    P::n == 16 || (P::n == 64 && P::radix == 4 && P::redundant && P::otf && !P::scaled);
 
 // The divisor from its posit pattern (K11); the float entry points quantize
 // first.

@@ -365,9 +365,6 @@ def _softmax_fn():
 
 def _launch_softmax(plan: DatapathPlan, x2: torch.Tensor):
     R, C = x2.shape
-    if plan.n != 16:
-        raise NotImplementedError(f"the softmax kernel is built for posit16 plans only, "
-                                  f"not posit{plan.n} (ROADMAP.md)")
     fn, max_cols = _softmax_fn()
     if C > max_cols or R * C >= 2 ** 31:
         raise ValueError(f"softmax kernel takes rows of at most {max_cols} columns and "
@@ -376,6 +373,9 @@ def _launch_softmax(plan: DatapathPlan, x2: torch.Tensor):
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
         rc = fn(*plan_args(plan), x2.data_ptr(), out.data_ptr(), R, C, stream)
+    if rc == -1:
+        raise NotImplementedError(f"posit_softmax: no kernel is built for posit{plan.n} "
+                                  f"{plan.variant} (ROADMAP.md)")
     if rc != 0:
         raise RuntimeError(f"posit_softmax launch failed ({rc})")
     return out
@@ -385,8 +385,9 @@ def posit_softmax_fused(fmt: PositFormat, x, variant: str = DEFAULT_DIV_VARIANT)
     """Posit softmax over the last axis of ``x``, float32 out.
 
     CUDA tensors launch the hand-written kernel (counted in
-    ``posit_softmax_fused.launches``; posit16 plans only); CPU tensors run
-    the plain twin.  Bit-identical to the reference's
+    ``posit_softmax_fused.launches``; the posit16 plans and posit64
+    ``srt_r4_cs_of_fr``, else ``NotImplementedError``); CPU tensors run the
+    plain twin.  Bit-identical to the reference's
     ``ops.posit_softmax_fused`` wherever the two ``exp`` give the same bits.
     """
     plan = datapath_plan(fmt, variant)

@@ -279,21 +279,18 @@ def _flash_fn():
     return fn
 
 
-def kernel_built(plan, layout: str) -> bool:
-    """Is a flash kernel instantiated for ``plan`` in ``layout`` ("dense",
-    "paged", "packed" or "backward")?  Every posit16 plan is, in every
-    layout; posit64 ``srt_r4_cs_of_fr`` (and ``srt_r4_cs_of``, the same
-    datapath) in the dense forward alone (``csrc/posit_flash_attn.cu``
-    ``kBuilt``)."""
-    if plan.n == 16:
-        return True
-    return (plan.n == 64 and layout == "dense" and plan.radix == 4 and plan.redundant
-            and plan.otf and not plan.scaled)
+def kernel_built(plan) -> bool:
+    """Are the flash kernels (K3-K8, every layout) instantiated for
+    ``plan``?  Every posit16 plan is, and posit64 ``srt_r4_cs_of_fr`` (and
+    ``srt_r4_cs_of``, the same datapath) on K1's two-word frame: the mirror
+    of ``posit::kModelPlan`` (``csrc/posit_srt.cuh``), which K9 shares."""
+    return plan.n == 16 or (plan.n == 64 and plan.radix == 4 and plan.redundant
+                            and plan.otf and not plan.scaled)
 
 
 def _check_kernel_inputs(plan, q, k, v, hd: int, layout: str) -> None:
     """What the hand-written kernels take; raises for anything else."""
-    if not kernel_built(plan, layout):
+    if not kernel_built(plan):
         raise NotImplementedError(
             f"no flash kernel is built for posit{plan.n} {plan.variant} in the {layout} "
             "layout; the twin runs on CPU tensors only (ROADMAP.md)")
@@ -382,7 +379,7 @@ def posit_flash_attention(fmt: PositFormat, q, k, v, causal: bool = True,
     ``posit_flash_attention.launches`` (K3), ``.paged_launches`` (K4) and
     ``.packed_launches`` (K5); it takes bf16 k/v (upcast in registers,
     exactly) and the plans :func:`kernel_built` names (every posit16 plan;
-    posit64 ``srt_r4_cs_of_fr`` dense), and raises for anything else.  CPU
+    posit64 ``srt_r4_cs_of_fr``), and raises for anything else.  CPU
     tensors run the plain twin, for every planned (format, variant) and k/v
     dtype.
     """
@@ -534,6 +531,9 @@ def _launch_backward(which: int, fmt, plan, q, k, v, g, m, l, D, outs, causal, w
                 m.data_ptr(), l.data_ptr(), D.data_ptr(), *(t.data_ptr() for t in outs),
                 B, Sq, Sk, H, KV, hd, float(scale), int(bool(causal)), int(window),
                 int(q_offset), minpos_eps(fmt), stream)
+    if rc == -1:
+        raise NotImplementedError(f"{fn.__name__}: no kernel is built for posit{plan.n} "
+                                  f"{plan.variant} (ROADMAP.md)")
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed ({rc})")
 

@@ -59,14 +59,16 @@ pack or the step.
 
 The moe family serves from dense slots only (``kv_layout="paged"``
 raises), and so does a numerics whose plan K4 / K5 are not built for
-(posit64: paged or packed raises, on any device).  Its prefill is the reference's scan: one decode step per prompt
-position, so that expert capacity stays per token.  Its packs lie on the
+(posit8, posit32 and the posit64 plans other than ``srt_r4_cs_of(_fr)``:
+paged or packed raises, on any device).  The moe family's prefill is the
+reference's scan: one decode step per prompt position, so that expert
+capacity stays per token.  Its packs lie on the
 batch axis: N left-padded rows of one width prefilled together (the dummy
 rows, all-zero prompts at start 0, first), each row copied into its slot.
 
 Not ported yet (``ROADMAP.md``): streaming (``submit``/``serve_stream``),
 deadlines, backpressure, snapshot/restore, ``warmup``, the paged layout of
-the moe family, the quantized KV cache, tensor-parallel meshes.
+the moe family, tensor-parallel meshes.
 ``FinishReason`` carries EOS, MAX_NEW, SHED, FAULT.
 """
 
@@ -424,12 +426,11 @@ class ServeEngine:
             raise NotImplementedError(f"kv_layout='paged' is not ported for family "
                                       f"{cfg.family!r} (ROADMAP.md); use 'dense'")
         plan = datapath_plan(cfg.numerics.div_fmt, cfg.numerics.div_algo)
-        for on, layout in ((self._paged, "paged"), (self._packed, "packed")):
-            if on and not kernel_built(plan, layout):
-                raise NotImplementedError(
-                    f"{cfg.numerics.div_format} {cfg.numerics.div_algo} serves from dense "
-                    f"slots with solo admission only: no {layout} attention kernel (K4, K5) "
-                    "is built for it (ROADMAP.md)")
+        if (self._paged or self._packed) and not kernel_built(plan):
+            raise NotImplementedError(
+                f"{cfg.numerics.div_format} {cfg.numerics.div_algo} serves from dense "
+                "slots with solo admission only: no paged or packed attention kernel "
+                "(K4, K5) is built for it (ROADMAP.md)")
         if self._paged:
             bs = sc.block_size
             if bs < 8 or bs > 128 or bs & (bs - 1):

@@ -125,10 +125,10 @@ def test_flash_kernel_refuses_what_it_is_not_built_for(dev):
     with pytest.raises(NotImplementedError, match="posit64 srt_r2"):
         posit_flash_attention(POSIT64, q, k, k, True, variant="srt_r2")
     with pytest.raises(NotImplementedError, match="paged"):
-        posit_flash_attention(POSIT64, q, k, k, True,
+        posit_flash_attention(POSIT64, q, k, k, True, variant="srt_r2",
                               block_tables=torch.zeros(1, 1, dtype=torch.int32, device=dev))
-    with pytest.raises(NotImplementedError, match="posit16"):
-        ops.posit_softmax_fused(POSIT64, q[0, 0])
+    with pytest.raises(NotImplementedError, match="posit32"):
+        ops.posit_softmax_fused(POSIT32, q[0, 0])
 
 
 def test_launch_counters_count_kernel_launches_only(dev):
@@ -178,6 +178,56 @@ def test_backward_kernels_match_twin(dev, variant):
         assert torch.equal(got, again)
 
 
+def test_training_kernels_posit64_match_twin(dev):
+    """K6, K7 and K8 at posit64 srt_r4_cs_of_fr (p = e / l on the two-word
+    frame): o within FLASH_TOL, lse within LSE_TOL, dq / dk / dv within
+    BWD_TOL of their twin (a posit64 p moves by f32 steps, not posit16
+    ones), the same bits on a second run."""
+    q, k, v, co = _train_inputs(dev)
+    o, m, l = F.posit_flash_attention_fwd(POSIT64, q, k, v, True)
+    po, pm, pl = F.posit_flash_attention_fwd_plain(POSIT64, q, k, v, True)
+    assert (o - po).abs().max() <= FLASH_TOL
+    assert (m + torch.log(l) - pm - torch.log(pl)).abs().max() <= LSE_TOL
+    plan = F.datapath_plan(POSIT64, "srt_r4_cs_of_fr")
+    args = (q, k, v, co, m, l, F._row_sums(co, o), True, 0, 0, 1 / 8)
+    runs = [(F.flash_backward_dq(POSIT64, plan, *args),
+             *F.flash_backward_dkv(POSIT64, plan, *args)) for _ in range(2)]
+    twin = F.flash_backward_plain(POSIT64, q, k.float(), v.float(), o, co, m, l, True)
+    for got, again, want in zip(runs[0], runs[1], twin):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= BWD_TOL
+        assert torch.equal(got, again)
+
+
+def test_train_step_posit64_matches_cpu(dev):
+    """One train step of the smoke config at posit64 on the card (K2, K6-K8
+    at W = 2) against the same f32 weights and batch on the CPU (the twins):
+    loss within 1e-3 relative, every gradient leaf within 2e-2 relative L2
+    (bf16 products round in other orders; the CPU tests' bounds)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.optim.tree import tree_leaves, tree_map
+    from repro_torch.train.trainer import TrainConfig, init_train_state, loss_and_grads
+
+    cfg = get_config("smollm_360m", smoke=True).with_numerics(div_format="posit64")
+    cpu = init_train_state(cfg, TrainConfig(steps=1), device="cpu")
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    batch = SyntheticLMDataset(DataConfig(2, 64), cfg).batch_at(0)
+    out = []
+    for state, d in ((cpu, "cpu"), (gpu, dev)):
+        b = {n: torch.from_numpy(np.asarray(x)).to(d) for n, x in batch.items()}
+        (loss, _), grads = loss_and_grads(state["params"], cfg, b)
+        out.append((float(loss), tree_leaves(grads)))
+    (c_loss, c_grads), (g_loss, g_grads) = out
+    assert abs(g_loss - c_loss) <= 1e-3 * abs(c_loss)
+    for g, c in zip(g_grads, c_grads):
+        g = g.cpu()
+        assert torch.isfinite(g).all()
+        assert torch.linalg.vector_norm(g - c) <= 2e-2 * torch.linalg.vector_norm(c)
+
+
 def test_backward_fully_masked_rows_are_zero(dev):
     q, k, v, co = _train_inputs(dev, S=40)
     grads = [t.requires_grad_() for t in (q, k, v)]
@@ -220,15 +270,25 @@ def _paged_case(dev, B=4, bs=16, max_blocks=8, H=15, KV=5, hd=64, seed=5):
 def test_paged_kernel_is_dense_kernel_on_gathered_cache(dev, variant):
     """K4 gives K3's bits on the gathered dense cache, within FLASH_TOL of
     its twin, for kv_start 0 (paged admission) and above (left pads)."""
+    _check_paged(dev, POSIT16, variant)
+
+
+def test_paged_kernel_posit64_is_dense_kernel_on_gathered_cache(dev):
+    """K4 at posit64 srt_r4_cs_of_fr (o / l on the two-word frame): K3's
+    posit64 bits on the gathered cache, within FLASH_TOL of its twin."""
+    _check_paged(dev, POSIT64, "srt_r4_cs_of_fr")
+
+
+def _check_paged(dev, fmt, variant):
     q, pk, pv, bt = _paged_case(dev)
     pos = torch.tensor([127, 40, 77, 60], dtype=torch.int32, device=dev)
     k, v = F.gather_pages(pk, bt), F.gather_pages(pv, bt)
     for start in ([0, 0, 0, 0], [5, 0, 70, 61]):
         kw = dict(kv_start=torch.tensor(start, dtype=torch.int32, device=dev),
                   kv_len=pos + 1, q_pos=pos, variant=variant)
-        o = posit_flash_attention(POSIT16, q, pk, pv, True, block_tables=bt, **kw)
-        d = posit_flash_attention(POSIT16, q, k, v, True, **kw)
-        p = posit_flash_attention_plain(POSIT16, q, pk, pv, True, block_tables=bt, **kw)
+        o = posit_flash_attention(fmt, q, pk, pv, True, block_tables=bt, **kw)
+        d = posit_flash_attention(fmt, q, k, v, True, **kw)
+        p = posit_flash_attention_plain(fmt, q, pk, pv, True, block_tables=bt, **kw)
         assert torch.equal(o.view(torch.int32), d.view(torch.int32))
         assert (o - p).abs().max() <= FLASH_TOL
     assert (o[3] == 0).all()
@@ -269,10 +329,23 @@ def _packed_case(dev, N, P, left=True, H=15, KV=5, hd=64, seed=6):
 def test_packed_kernel_segments_are_solo_kernel(dev, N, P, left):
     """K5: each segment's rows are the bits of a solo K3 prefill of it, the
     dummy segment's and the pads' rows 0, all within FLASH_TOL of the twin."""
+    _check_packed(dev, POSIT16, N, P, left)
+
+
+@pytest.mark.parametrize("N,P,left", [
+    pytest.param(4, 64, True, id="4-64"), pytest.param(4, 128, False, id="4-128-right"),
+    pytest.param(8, 16, False, id="8-16-right"), pytest.param(2, 256, False, id="2-256-right")])
+def test_packed_kernel_posit64_segments_are_solo_kernel(dev, N, P, left):
+    """K5 at posit64 srt_r4_cs_of_fr: each segment the bits of a solo posit64
+    K3 prefill, within FLASH_TOL of the twin."""
+    _check_packed(dev, POSIT64, N, P, left)
+
+
+def _check_packed(dev, fmt, N, P, left):
     q, k, v, seg_q, seg, lens, offs = _packed_case(dev, N, P, left)
     kw = dict(seg_q=seg_q, seg_kv=seg, seg_len=P)
-    o = posit_flash_attention(POSIT16, q, k, v, True, **kw)
-    p = posit_flash_attention_plain(POSIT16, q, k, v, True, seg_q=seg_q, seg_kv=seg)
+    o = posit_flash_attention(fmt, q, k, v, True, **kw)
+    p = posit_flash_attention_plain(fmt, q, k, v, True, seg_q=seg_q, seg_kv=seg)
     assert (o - p).abs().max() <= FLASH_TOL
     assert (o[0][seg_q[0] < 0] == 0).all()
     for i, (off, n) in enumerate(zip(offs, lens)):
@@ -282,7 +355,7 @@ def test_packed_kernel_segments_are_solo_kernel(dev, N, P, left):
         # or the unpadded prompt (a paged admission)
         w = slice(i * P, (i + 1) * P) if left else slice(off, off + n)
         start = torch.tensor([P - n if left else 0], dtype=torch.int32, device=dev)
-        solo = posit_flash_attention(POSIT16, q[:, w], k[:, w], v[:, w], True, kv_start=start)
+        solo = posit_flash_attention(fmt, q[:, w], k[:, w], v[:, w], True, kv_start=start)
         rows = slice(P - n, P) if left else slice(0, n)
         assert torch.equal(o[:, off:off + n].view(torch.int32), solo[:, rows].view(torch.int32))
 
@@ -328,6 +401,17 @@ def test_softmax_kernel_matches_twin(dev, R, C):
         assert (o[0, ::3] == 0).all()
 
 
+@pytest.mark.parametrize("R,C", [(8, 64), (1, 64), (4096, 64), (37, 1000)])
+def test_softmax_kernel_posit64_matches_twin(dev, R, C):
+    """K9 at posit64 srt_r4_cs_of_fr (the two-word divisor per lane): the
+    twin's bits, the NaN row kept to itself."""
+    x = _softmax_case(R, C, 64).to(dev)
+    o = ops.posit_softmax_fused(POSIT64, x)
+    p = ops.posit_softmax_plain(POSIT64, x)
+    assert torch.equal(o.view(torch.int32), p.view(torch.int32))
+    assert torch.isnan(o).any(-1).cpu().tolist() == [i == 2 for i in range(R)]
+
+
 @pytest.mark.parametrize("variant", KERNEL_VARIANTS)
 def test_softmax_kernel_every_plan(dev, variant):
     x = _softmax_case(37, 200, 1).to(dev)
@@ -338,7 +422,7 @@ def test_softmax_kernel_every_plan(dev, variant):
 
 def test_softmax_kernel_refuses_and_counts(dev):
     x = torch.randn(4, 64, device=dev)
-    with pytest.raises(NotImplementedError, match="posit16"):
+    with pytest.raises(NotImplementedError, match="posit8"):
         ops.posit_softmax_fused(POSIT8, x)
     before = ops.posit_softmax_fused.launches
     ops.posit_softmax_plain(POSIT16, x)

@@ -9,10 +9,10 @@ Bounds:
     tiles rescale at other points and sum in another order;
   * ``lse = m + log l`` within LSE_TOL (1e-5), the reference's own bound for
     its residuals (tests/test_flash_attn_kernel.py);
-  * gradients within _BWD_TOL (5e-3 posit16, 1e-5 posit32), the reference's
-    own bound between its two backends: ``p`` is a posit quantization, so a
-    one-ulp change in ``e`` can move it one posit16 step (about 2^-10
-    relative);
+  * gradients within _BWD_TOL (5e-3 posit16, 1e-5 posit32 and posit64), the
+    reference's own bound between its two backends: ``p`` is a posit
+    quantization, so a one-ulp change in ``e`` can move it one posit16 step
+    (about 2^-10 relative), a posit32 or posit64 step far less;
   * rowwise straight-through gradients within 1e-6 relative (the same f32
     formula on the same division output).
 """
@@ -41,7 +41,7 @@ from repro_torch.numerics import NumericsConfig, posit_div_values
 
 FLASH_TOL = 2e-3
 LSE_TOL = 1e-5
-_BWD_TOL = {16: 5e-3, 32: 1e-5}
+_BWD_TOL = {16: 5e-3, 32: 1e-5, 64: 1e-5}
 B, H, KV, HD = 2, 4, 2, 16
 
 
@@ -84,8 +84,9 @@ def test_fwd_twin_matches_reference(ref_kernels, causal, window, seq):
     assert torch.equal(o, o3)
 
 
-# the reference's sweep (tests/test_flash_attn_kernel.py) without the two-word
-# plans (posit64, posit32 srt_r4_scaled), which the port does not have yet
+# the reference's sweep (tests/test_flash_attn_kernel.py) without posit32
+# srt_r4_scaled, for which no flash kernel is built yet; posit64 runs K1's
+# two-word frame
 BWD_CASES = [  # (fmt_n, variant, causal, window, q_offset)
     (16, "srt_r4_cs_of_fr", True, 0, 0),
     (16, "srt_r4_cs_of_fr", False, 0, 0),
@@ -93,8 +94,10 @@ BWD_CASES = [  # (fmt_n, variant, causal, window, q_offset)
     (16, "srt_r4_cs_of_fr", True, 0, 16),
     (16, "srt_r2_cs_of_fr", True, 0, 0),
     (32, "srt_r4_cs_of_fr", True, 0, 0),
+    (64, "srt_r4_cs_of_fr", True, 0, 0),
 ]
-BWD_IDS = ["causal", "bidirectional", "windowed", "suffix_block", "radix2", "posit32"]
+BWD_IDS = ["causal", "bidirectional", "windowed", "suffix_block", "radix2", "posit32",
+           "posit64"]
 
 
 def _ste_grads(fmt_n, variant, causal, window, q_offset, seed, bwd_impl="fused"):

@@ -109,6 +109,40 @@ def test_softmax_twin_matches_reference_kernel(ref_kernels, shape, variant):
     assert (got[1].numpy() == got[1, 0].item()).all()
 
 
+def _exp_agreeing_rows(shape):
+    """Logits whose ``exp(x - max)`` has the same bits in XLA and torch: each
+    row's max is 0 (so ``x - max`` is ``x``, exactly) and every other entry
+    comes from values whose exp the two libraries round alike; row 0 holds
+    -1e30 entries, row 1 equal values, row 2 a NaN.  At posit64 the quotient
+    keeps a one-ulp difference of ``e`` that a posit16 rounding mostly
+    absorbs, so the twin's bits are held on these rows."""
+    pool = -np.abs(RNG.standard_normal(4096) * 4).astype(np.float32)
+    same = bits(jnp.exp(jnp.asarray(pool))) == bits(torch.exp(torch.from_numpy(pool)))
+    x = RNG.choice(pool[same], shape).astype(np.float32)
+    x[:, 0] = 0.0
+    x[0, 1::3] = -1e30
+    x[1] = 0.75
+    x[2, 5] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("shape", [(8, 64), (12, 300)])
+def test_softmax_posit64_twin_matches_reference_kernel(ref_kernels, shape):
+    """K9's twin at posit64 srt_r4_cs_of_fr (the two-word frame) against the
+    reference's kernel, at the router's width and at a row wider than the
+    reference's 128-column tile: the same bits in every row but the NaN
+    one, which is NaN alone."""
+    x = _exp_agreeing_rows(shape)
+    ref = np.asarray(JO.posit_softmax_fused(JFmt(64), jnp.asarray(x)))
+    got = TO.posit_softmax_fused(PositFormat(64), torch.from_numpy(x)).numpy()
+    nan_rows = np.isnan(ref).any(-1)
+    assert nan_rows.tolist() == np.isnan(got).any(-1).tolist() == [i == 2 for i in
+                                                                     range(shape[0])]
+    assert np.isnan(got[2]).all()
+    np.testing.assert_array_equal(bits(ref[~nan_rows]), bits(got[~nan_rows]))
+    assert (got[1] == got[1, 0]).all()
+
+
 def test_softmax_moves_other_axes():
     _, tcfg = _cfgs()
     x = torch.from_numpy(RNG.standard_normal((4, 6, 5)).astype(np.float32))
@@ -161,6 +195,25 @@ def test_router_gates_bit_identical_ties_included(ref_kernels):
     assert et[16].tolist() == list(range(8))
 
 
+def test_router_gates_posit64_bit_identical(ref_kernels):
+    """The router at posit64 (K9's softmax and K2's renormalization on the
+    two-word frame), OLMoE's width: random rows, rows drawn from four values
+    (exact ties) and a row of one value, on logits whose exp the two
+    libraries round alike."""
+    jcfg, tcfg = _cfgs(n_experts=64, experts_per_token=8)
+    jcfg = jcfg.with_numerics(div_format="posit64")
+    tcfg = tcfg.with_numerics(div_format="posit64")
+    logits = _exp_agreeing_rows((24, 64))
+    logits[2, 5] = logits[2, 6]              # no NaN row here
+    logits[8:16, 1:] = RNG.choice(logits[3, 1:5], (8, 63))
+    logits[16] = 0.3
+    gj, ej = jax.jit(lambda x: _jgates(x, jcfg))(jnp.asarray(logits))
+    gt, et = TL.router_gates(torch.from_numpy(logits), tcfg)
+    np.testing.assert_array_equal(np.asarray(ej), et.numpy())
+    np.testing.assert_array_equal(bits(gj), bits(gt))
+    assert et[16].tolist() == list(range(8))
+
+
 def _moe_case(S_, cf):
     jcfg, tcfg = _cfgs(capacity_factor=cf)
     jp = JL.init_moe(jax.random.PRNGKey(5), jcfg)
@@ -189,6 +242,37 @@ def test_moe_block_matches_reference(ref_kernels, S_, cf):
     got = TL.moe_block(tp, xt, tcfg).float().numpy()
     err = float(np.abs(ref - got).max())
     print(f"S={S_}: max|port - reference| = {err:.4g}")
+    assert err <= LOGIT_ULPS * bf16_ulp(np.abs(ref).max())
+
+
+# posit64 gates against the reference's: the libraries' exp differ by one f32
+# ulp in about 9% of elements, which a posit64 quotient keeps (posit16's
+# rounding absorbs it), so the gates differ by a few f32 ulps
+GATE64_RTOL = 2.0 ** -20
+
+
+def test_moe_block_posit64_matches_reference(ref_kernels):
+    """``moe_block`` at S = 1 with posit64 division (the router's K9 and K2
+    on the two-word frame): the reference's experts, kept tokens and
+    destinations, gates within GATE64_RTOL, output within LOGIT_ULPS bf16
+    ulps."""
+    jcfg, tcfg, jp, tp, x = _moe_case(1, 1.25)
+    jcfg = jcfg.with_numerics(div_format="posit64")
+    tcfg = tcfg.with_numerics(div_format="posit64")
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    (gj, ej, kj, dj), ref = jax.jit(lambda p, x: (_jroute(p, x, jcfg),
+                                                  JL.moe_block(p, x, jcfg)))(jp, xj)
+    gt, et, kt, dt, _ = TL.moe_route(tp, xt, tcfg)
+    np.testing.assert_array_equal(np.asarray(ej), et.numpy())
+    np.testing.assert_array_equal(np.asarray(kj), kt.numpy())
+    np.testing.assert_array_equal(np.asarray(dj), dt.numpy())
+    gerr = float(np.abs(np.asarray(gj) - gt.numpy()).max() / np.abs(np.asarray(gj)).max())
+    ref = np.asarray(ref.astype(jnp.float32))
+    got = TL.moe_block(tp, xt, tcfg).float().numpy()
+    err = float(np.abs(ref - got).max())
+    print(f"posit64: gates max rel diff {gerr:.3g}; max|port - reference| = {err:.4g}")
+    assert gerr <= GATE64_RTOL
     assert err <= LOGIT_ULPS * bf16_ulp(np.abs(ref).max())
 
 

@@ -160,6 +160,24 @@ def test_packed_matches_solo(model, layout):
     assert st["packed_packs"] < len(reqs) and st["packed_dummies"] > 0
 
 
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_packed_posit64_matches_solo(model, layout):
+    """At posit64 srt_r4_cs_of_fr (every o / l and RMSNorm divide on K1's
+    two-word frame; K4 / K5 are built for it): packed admission, from dense
+    slots and from the paged pool, gives every request the tokens of a
+    posit64 solo engine on dense slots."""
+    _, _, tcfg, tp, _, reqs, _ = model
+    cfg = tcfg.with_numerics(div_format="posit64")
+    reqs = reqs[:8]
+    solo = ServeEngine(cfg, tp, ServeConfig(**SC), device="cpu").serve(reqs)
+    eng = ServeEngine(cfg, tp, ServeConfig(packed_prefill=True, kv_layout=layout,
+                                           block_size=8, **SC), device="cpu")
+    for i, (a, b) in enumerate(zip(solo, eng.serve(reqs))):
+        np.testing.assert_array_equal(a, b, err_msg=f"request {i}")
+    st = eng.last_serve_stats
+    assert st["packed_packs"] < len(reqs) and st["packed_segments"] == len(reqs)
+
+
 def test_packed_shared_prefix_within_and_across_packs(model):
     """Two prompts sharing a block-aligned prefix pack together (both
     recomputed whole); a later repeat finds the prefix registered by the

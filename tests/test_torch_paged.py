@@ -189,6 +189,23 @@ def test_serve_prefix_shared_matches_solo(engines):
     assert st["owned_blocks"] > 0 and st["prefix_matches"] >= 2
 
 
+def test_serve_prefix_shared_posit64_matches_dense(engines):
+    """At posit64 srt_r4_cs_of_fr (K4 / K5 built for it), the paged pool with
+    prefix sharing and packed prefill gives every request the tokens of a
+    posit64 dense solo-admission engine."""
+    _, _, dense, _, _ = engines
+    cfg = dense.cfg.with_numerics(div_format="posit64")
+    reqs = [Request(p, max_new=m) for p, m in STREAM]
+    douts = ServeEngine(cfg, dense.params, ServeConfig(**SC), device="cpu").serve(reqs)
+    paged = ServeEngine(cfg, dense.params, ServeConfig(kv_layout="paged", block_size=8,
+                                                       packed_prefill=True, **SC),
+                        device="cpu")
+    for a, b in zip(douts, paged.serve(reqs)):
+        np.testing.assert_array_equal(a, b)
+    st = paged.last_serve_stats
+    assert st["prefix_hit_tokens"] > 0 and st["packed_packs"] >= 1
+
+
 def test_reserved_blocks_scale_with_tokens(engines):
     _, _, _, paged, _ = engines
     paged.serve([Request(_PS, max_new=2)])

@@ -86,18 +86,28 @@ def test_cuda_posit10_plan_table_matches_plan():
 
 @pytest.mark.parametrize("fmt", [PositFormat(64), PositFormat(32)])
 def test_two_word_plans_raise_not_implemented(fmt):
-    """The two-word plans run on the twin; a flash layout with no kernel
-    built for them raises, naming ROADMAP.md."""
+    """The two-word plans run on the twin.  The flash kernels are built for
+    posit64 srt_r4_cs_of_fr (and srt_r4_cs_of) in every layout, the other
+    posit64 plans and posit32 srt_r4_scaled in none: those raise, naming
+    ROADMAP.md, before any device is looked at."""
     from repro_torch.kernels import posit_flash_attn as F
 
     variant = "srt_r4_cs_of_fr" if fmt.n == 64 else "srt_r4_scaled"
     plan = TD.kernel_datapath_plan(fmt, variant)
     assert plan.words == 2
     q = torch.ones(1, 1, 1, 4)
-    for layout in ("paged", "packed", "backward"):
+    layouts = ("dense", "paged", "packed", "backward")
+    if fmt.n == 64:
+        assert F.kernel_built(plan)
+        assert F.kernel_built(TD.kernel_datapath_plan(fmt, "srt_r4_cs_of"))
+        for layout in layouts:     # past the plan check, on to the device check
+            with pytest.raises(ValueError, match="device"):
+                F._check_kernel_inputs(plan, q, q, q, 4, layout)
+        plan = TD.kernel_datapath_plan(fmt, "srt_r2_cs_of_fr")
+    assert not F.kernel_built(plan)
+    for layout in layouts:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             F._check_kernel_inputs(plan, q, q, q, 4, layout)
-    assert F.kernel_built(plan, "dense") == (fmt.n == 64)
     out = TD.divide_floats_block(fmt, torch.tensor([3.0, 1.0]), torch.tensor([2.0, 0.0]),
                                  variant)
     assert out[0] == 1.5 and torch.isnan(out[1])

@@ -14,6 +14,12 @@ Bounds:
     posit16 step): only posit16 quantization flips are left.  Observed
     worst leaves 2.8e-5-1.9e-4 and loss errors below 2.5e-6 over seeds
     0-2, so the bf16 gap is bf16 rounding, not the kernels;
+  * posit64 division (K1's two-word frame): the same bounds, on the smoke
+    config cut to one layer.  The bf16 gap grows with depth: at two layers
+    its worst leaf is 1.64-2.11e-2 over seeds 0-2 and the masked case
+    (posit16: 1.76-1.81e-2), at one layer 0.85-0.96e-2 (posit16 too); with
+    f32 compute at two layers the posit64 loss is exact and the worst leaf
+    1.5e-6, under the F32 bounds;
   * AdamW and the schedules within 1e-6 relative (the same f32 formulas);
   * synthetic batches bit-equal (the same numpy code).
 """
@@ -68,13 +74,16 @@ def _batch(cfg, masked: bool, seed: int = 0):
     return batch
 
 
-def _vs_reference(remat, masked, seed=0):
+def _vs_reference(remat, masked, seed=0, div_format="posit16", **cut):
     """The port's ``train_loss`` and gradients against the reference's on
-    the reference's weights (``PRNGKey(seed)``) and one batch: returns
+    the reference's weights (``PRNGKey(seed)``) and one batch, with the
+    smoke config at ``div_format`` (``cut`` replaces config fields): returns
     ``(rel, errs, metrics, grads)``, with the loss's relative error and each
     gradient leaf's relative L2 error by key."""
-    jcfg = jget("smollm_360m", smoke=True, fused=True).replace(remat=remat)
-    cfg = get_config("smollm_360m", smoke=True).replace(remat=remat)
+    jcfg = jget("smollm_360m", smoke=True, fused=True).replace(remat=remat, **cut)
+    cfg = get_config("smollm_360m", smoke=True).replace(remat=remat, **cut)
+    jcfg = jcfg.with_numerics(div_format=div_format)
+    cfg = cfg.with_numerics(div_format=div_format)
     batch = _batch(cfg, masked, seed)
     with reference_kernels():
         jp = JT.init_params(jcfg, jax.random.PRNGKey(seed))
@@ -91,15 +100,20 @@ def _vs_reference(remat, masked, seed=0):
     for (key, g), r in zip(tree_items(grads), tree_leaves(ref_grads)):
         errs[key] = float(torch.linalg.vector_norm(g - r) / torch.linalg.vector_norm(r))
     worst = max(errs, key=errs.get)
-    print(f"remat={remat} seed={seed}: loss rel error {rel:.3g}; worst gradient leaf "
-          f"{worst} rel L2 {errs[worst]:.3g}")
+    print(f"{div_format} remat={remat} seed={seed}: loss rel error {rel:.3g}; worst "
+          f"gradient leaf {worst} rel L2 {errs[worst]:.3g}")
     return rel, errs, metrics, grads
 
 
-@pytest.mark.parametrize("remat,masked", [("full", False), ("none", True)],
-                         ids=["remat_full", "remat_none_loss_mask"])
-def test_train_loss_and_grads_match_reference(remat, masked):
-    rel, errs, metrics, grads = _vs_reference(remat, masked)
+@pytest.mark.parametrize("remat,masked,div_format,cut",
+                         [("full", False, "posit16", {}), ("none", True, "posit16", {}),
+                          ("full", False, "posit64", {"n_layers": 1})],
+                         ids=["remat_full", "remat_none_loss_mask", "remat_full_posit64"])
+def test_train_loss_and_grads_match_reference(remat, masked, div_format, cut):
+    """The smoke config (2 layers, d_model 96, 3/1 heads of 32, d_ff 192,
+    vocab 512, batch 2 x 16); the posit64 case at one layer (about 40 s on
+    one worker, the reference's two-word kernels in interpret mode)."""
+    rel, errs, metrics, grads = _vs_reference(remat, masked, div_format=div_format, **cut)
     assert rel <= LOSS_RTOL
     assert all(torch.isfinite(g).all() for g in tree_leaves(grads))
     assert max(errs.values()) <= GRAD_REL_L2, errs
@@ -119,6 +133,18 @@ def test_f32_compute_grads_match_reference(monkeypatch, remat, masked, seed):
     monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
     rel, errs, _, grads = _vs_reference(remat, masked, seed)
     assert grads["layers"][0]["wq"].dtype == torch.float32
+    assert rel <= F32_LOSS_RTOL
+    assert max(errs.values()) <= F32_GRAD_REL_L2, errs
+
+
+def test_posit64_f32_compute_grads_match_reference(monkeypatch):
+    """Posit64 on the two-layer smoke config with both packages' compute
+    dtype f32: the posit64 training path (the K6 + K7/K8 twins' two-word
+    p = e / l, K2's at W = 2) leaves only f32 rounding, so the bf16 test's
+    gap at posit64 is bf16 rounding, not the two-word datapath."""
+    monkeypatch.setattr(JL, "COMPUTE_DTYPE", jnp.float32)
+    monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
+    rel, errs, _, _ = _vs_reference("full", False, div_format="posit64")
     assert rel <= F32_LOSS_RTOL
     assert max(errs.values()) <= F32_GRAD_REL_L2, errs
 
