@@ -1,10 +1,14 @@
 """Build the CUDA sources in ``csrc/`` with ``nvcc`` at first use.
 
-Each ``csrc/<name>.cu`` becomes one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), loaded with
-``ctypes``.  Libraries land in ``kernels/_build/`` (listed in
-``.gitignore``) under a name that carries a hash of the sources, so an
-edited source rebuilds and a stale library is never loaded.
+Each ``csrc/<name>.cu`` becomes a shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds), loaded with ``ctypes``.
+The flash sources (K3-K8) become one library per posit format,
+``<name>_p<n>``, built with ``-DPOSIT_MODEL_N=<n>``: each instantiates only
+that format's plans (``posit::kLibraryPlan``) behind the same C entry
+points, so the formats build side by side instead of one after another.
+Libraries land in ``kernels/_build/`` (listed in ``.gitignore``) under a
+name that carries a hash of the sources and of the flags, so an edited
+source rebuilds and a stale library is never loaded.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3``, and explicitly
 ``-ftz=false -prec-div=true -prec-sqrt=true``: the posit datapath needs
@@ -22,16 +26,41 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("posit_fused_div", "posit_flash_attn", "posit_flash_bwd", "posit_softmax",
            "posit_div", "posit_cast")
+PER_FORMAT = ("posit_flash_attn", "posit_flash_bwd")   # built once per format
+MODEL_FORMATS = (8, 16, 32, 64)                          # posit::kModelPlan's formats
+
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def library(source: str, n: int) -> str:
+    """The name of ``source``'s library for posit format ``n``."""
+    return f"{source}_p{n}"
+
+
+def _libraries() -> Dict[str, Tuple[str, Tuple[str, ...]]]:
+    """Library name -> (source, the nvcc flags it adds)."""
+    libs = {}
+    for src in SOURCES:
+        if src in PER_FORMAT:
+            for n in MODEL_FORMATS:
+                libs[library(src, n)] = (src, (f"-DPOSIT_MODEL_N={n}",))
+        else:
+            libs[src] = (src, ())
+    return libs
+
+
+LIBRARIES = _libraries()
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -45,25 +74,27 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    src, defines = LIBRARIES[name]
     h = hashlib.sha256()
-    for src in sorted(CSRC.iterdir()):
-        if src.suffix in (".cu", ".cuh", ".inc"):
-            h.update(src.name.encode())
-            h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh", ".inc"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + defines).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
-    """Start ``nvcc`` for one source; returns (proc, tmp, lib, t0) or None
+    """Start ``nvcc`` for one library; returns (proc, tmp, lib, t0) or None
     when the library is already built."""
     lib = _lib_path(name)
     if lib.exists():
         return None
+    src, defines = LIBRARIES[name]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=lib.stem, suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", tmp, str(CSRC / f"{src}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, lib, time.perf_counter()
@@ -76,20 +107,23 @@ def _finish(name: str, job) -> float:
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed for {name} ({LIBRARIES[name][0]}.cu):\n{log}")
     lib.with_suffix(".log").write_text(log)
     os.replace(tmp, lib)
     return seconds
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
-    """Build the named sources, one ``nvcc`` each, all started together.
-    Returns the seconds each build took (0 for one already built)."""
+def build(names: Iterable[str] = tuple(LIBRARIES)) -> Dict[str, float]:
+    """Build the named libraries, one ``nvcc`` each, all started together.
+    Returns the seconds each build took (0 for one already built), each
+    waited for on a thread of its own so that its time is its own."""
     jobs = {n: _start(n) for n in names}
+    with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
+        waits = {n: pool.submit(_finish, n, job) for n, job in jobs.items() if job is not None}
     seconds, errors = {}, []
-    for n, job in jobs.items():
+    for n in jobs:
         try:
-            seconds[n] = 0.0 if job is None else _finish(n, job)
+            seconds[n] = waits[n].result() if n in waits else 0.0
         except RuntimeError as e:
             errors.append(str(e))
     if errors:
@@ -98,7 +132,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library ``name`` (a key of :data:`LIBRARIES`), building it
+    if needed."""
     lib = _LIBS.get(name)
     if lib is None:
         build([name])

@@ -56,10 +56,12 @@
 // paged or packed code (its schedule is ptxas-sensitive, PERF.md section 6).
 //
 // Instantiated, with bf16 K/V and in every layout, for the plans
-// posit::kModelPlan names: the posit16 plans and posit64 srt_r4_cs_of_fr
-// (and srt_r4_cs_of, the same datapath), its o / l on K1's two-word frame
-// with a 48-byte divisor per row; every other (format, plan) and f32 K/V
-// return -1.
+// posit::kModelPlan names: every posit8, posit16 and posit32 plan and
+// posit64 srt_r4_cs_of_fr (and srt_r4_cs_of, the same datapath); posit32
+// srt_r4_scaled and posit64 run o / l on K1's two-word frame with a 48-byte
+// divisor per row.  The source is built once per format (-DPOSIT_MODEL_N,
+// posit::kLibraryPlan): a library returns -1 for another format's plan, as
+// every library does for the other posit64 plans and f32 K/V.
 //
 // Bound: decode reads the bf16 KV cache (or the pages each sequence
 // attends) once and is memory-bound; prefill does 4*B*H*Sq*Sk*hd f32 FMA
@@ -331,7 +333,7 @@ int dispatch(int n, int radix, int red, int otf, int scaled, int nonrest, int it
   int rc = -1;
   posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits, [&](auto plan) {
     using P = decltype(plan);
-    if constexpr (posit::kModelPlan<P>) {
+    if constexpr (posit::kLibraryPlan<P>) {
       rc = launch<P, kLayout>(q, static_cast<const __nv_bfloat16*>(k),
                               static_cast<const __nv_bfloat16*>(v), out, m_out, l_out,
                               kv_start, kv_len, q_pos, B, Sq, Sk, H, KVH, hd, scale, causal,

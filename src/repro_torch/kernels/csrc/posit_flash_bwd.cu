@@ -34,13 +34,16 @@
 //     e is the forward's e.
 //
 // Instantiated, with bf16 K/V, for the plans posit::kModelPlan names, as
-// K3/K6 are: the posit16 plans and posit64 srt_r4_cs_of_fr (srt_r4_cs_of,
-// the same datapath), whose p = e / l runs on K1's two-word frame with a
-// 48-byte divisor per row; other (format, plan) pairs return -1.
+// K3/K6 are: every posit8, posit16 and posit32 plan and posit64
+// srt_r4_cs_of_fr (srt_r4_cs_of, the same datapath); posit32 srt_r4_scaled
+// and posit64 run p = e / l on K1's two-word frame with a 48-byte divisor
+// per row.  Built once per format, as posit_flash_attn.cu is
+// (posit::kLibraryPlan): other (format, plan) pairs return -1.
 //
 // Bound: per attended (row, key) pair K7 does 6*hd f32 flops and K8 8*hd,
 // and each does one posit division (about 160 per pattern word + 30 per
-// residual word and iteration: 400 32-bit operations for posit16 radix-4,
+// residual word and iteration: 280 32-bit operations for posit8 radix-4,
+// 400 for posit16, 640 for posit32, 1120 for posit32 srt_r4_scaled and
 // 2240 for posit64 radix-4 on two words): both are bounded by operations,
 // not bytes (they read q, dO, k, v and the row vectors once per tile).  The
 // products run on CUDA cores in f32; tensor cores are left for a later
@@ -279,9 +282,9 @@ int prepare(Kern kern, size_t bytes) {
 
 // Shapes (all contiguous on the device): q, g (dO), dq: (B, Sq, H, hd) f32;
 // k, v: (B, Sk, KVH, hd) bf16; dk, dv: (B, Sk, KVH, hd) f32; m, l, D:
-// (B*H, Sq) f32.  Each returns 0, a cudaError_t, -1 when no compiled plan
-// (posit::kModelPlan) matches, -2 for a head_dim above kHdMax, a bad head
-// split, B*H past 2^31 - 1 or more than 65535 tiles.
+// (B*H, Sq) f32.  Each returns 0, a cudaError_t, -1 when no plan compiled
+// into this library (posit::kLibraryPlan) matches, -2 for a head_dim above
+// kHdMax, a bad head split, B*H past 2^31 - 1 or more than 65535 tiles.
 extern "C" int posit_flash_bwd_dq(int n, int radix, int red, int otf, int scaled, int nonrest,
                                   int it, int shift, int gbits, const float* q, const void* k,
                                   const void* v, const float* g, const float* m, const float* l,
@@ -294,7 +297,7 @@ extern "C" int posit_flash_bwd_dq(int n, int radix, int red, int otf, int scaled
   int rc = -1;
   posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits, [&](auto plan) {
     using P = decltype(plan);
-    if constexpr (posit::kModelPlan<P>) {
+    if constexpr (posit::kLibraryPlan<P>) {
       auto kern = flash_bwd_dq_kernel<P>;
       const size_t bytes = smem_bytes<P>(kBKq, hd);
       rc = prepare(kern, bytes);
@@ -328,7 +331,7 @@ extern "C" int posit_flash_bwd_dkv(int n, int radix, int red, int otf, int scale
   int rc = -1;
   posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits, [&](auto plan) {
     using P = decltype(plan);
-    if constexpr (posit::kModelPlan<P>) {
+    if constexpr (posit::kLibraryPlan<P>) {
       auto kern = flash_bwd_dkv_kernel<P>;
       const size_t bytes = smem_bytes<P>(kBKk, hd);
       rc = prepare(kern, bytes);

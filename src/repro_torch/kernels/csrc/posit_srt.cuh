@@ -390,13 +390,27 @@ template <class P>
 using DivisorOf = DivisorT<typename P::Word>;
 
 // The plans the model-path kernels instantiate (flash attention K3-K8 in
-// every layout, softmax K9): the nine posit16 rows, and posit64
+// every layout, softmax K9): the nine rows of posit8, posit16 and posit32
+// (posit32 srt_r4_scaled on the two-word frame), and posit64
 // srt_r4_cs_of_fr (the NumericsConfig default; srt_r4_cs_of is the same
 // row) on the two-word frame.  Mirrored by kernels/posit_flash_attn.py
 // kernel_built.
 template <class P>
 constexpr bool kModelPlan =
-    P::n == 16 || (P::n == 64 && P::radix == 4 && P::redundant && P::otf && !P::scaled);
+    P::n == 8 || P::n == 16 || P::n == 32 ||
+    (P::n == 64 && P::radix == 4 && P::redundant && P::otf && !P::scaled);
+
+// The model plans one library instantiates.  kernels/_build.py builds the
+// flash sources once per format, all at once, with -DPOSIT_MODEL_N=<n>: such
+// a library holds format n's plans only (one translation unit with every
+// format's would build for over a minute on one core).  Without the macro
+// (K9), every model plan.
+template <class P>
+constexpr bool kLibraryPlan = kModelPlan<P>
+#ifdef POSIT_MODEL_N
+                              && P::n == POSIT_MODEL_N
+#endif
+    ;
 
 // The divisor from its posit pattern (K11); the float entry points quantize
 // first.

@@ -270,8 +270,9 @@ _DENSE, _PAGED, _PACKED = 0, 1, 2   # csrc/posit_flash_attn.cu Layout
 
 
 @functools.lru_cache(maxsize=None)
-def _flash_fn():
-    fn = _build.load("posit_flash_attn").posit_flash_attn
+def _flash_fn(n: int):
+    """``posit_flash_attn`` of format ``n``'s library (one per format)."""
+    fn = _build.load(_build.library("posit_flash_attn", n)).posit_flash_attn
     fn.argtypes = (PLAN_ARGTYPES + [ctypes.c_int] + [ctypes.c_void_p] * 12
                    + [ctypes.c_int] * 9 + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -281,11 +282,13 @@ def _flash_fn():
 
 def kernel_built(plan) -> bool:
     """Are the flash kernels (K3-K8, every layout) instantiated for
-    ``plan``?  Every posit16 plan is, and posit64 ``srt_r4_cs_of_fr`` (and
-    ``srt_r4_cs_of``, the same datapath) on K1's two-word frame: the mirror
-    of ``posit::kModelPlan`` (``csrc/posit_srt.cuh``), which K9 shares."""
-    return plan.n == 16 or (plan.n == 64 and plan.radix == 4 and plan.redundant
-                            and plan.otf and not plan.scaled)
+    ``plan``?  Every posit8, posit16 and posit32 plan is (posit32
+    ``srt_r4_scaled`` on K1's two-word frame), and posit64
+    ``srt_r4_cs_of_fr`` (and ``srt_r4_cs_of``, the same datapath): the
+    mirror of ``posit::kModelPlan`` (``csrc/posit_srt.cuh``), which K9
+    shares.  Each format's plans live in a library of their own."""
+    return plan.n in (8, 16, 32) or (plan.n == 64 and plan.radix == 4 and plan.redundant
+                                     and plan.otf and not plan.scaled)
 
 
 def _check_kernel_inputs(plan, q, k, v, hd: int, layout: str) -> None:
@@ -342,10 +345,11 @@ def _launch(fmt: PositFormat, plan, q, k, v, causal, window, q_offset, scale, kv
     ptrs = (qf, kc, vc, out, m, l, ks, kl, qp, bt, sq, skv)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _flash_fn()(*plan_args(plan), layout,
-                         *(None if t is None else t.data_ptr() for t in ptrs),
-                         B, Sq, Sk, H, KV, hd, NB, bs, mb, float(scale), int(bool(causal)),
-                         int(window), int(q_offset), minpos_eps(fmt), int(bq), stream)
+        rc = _flash_fn(plan.n)(*plan_args(plan), layout,
+                               *(None if t is None else t.data_ptr() for t in ptrs),
+                               B, Sq, Sk, H, KV, hd, NB, bs, mb, float(scale),
+                               int(bool(causal)), int(window), int(q_offset),
+                               minpos_eps(fmt), int(bq), stream)
     if rc == -1:
         raise NotImplementedError(f"posit_flash_attn: no kernel is built for posit{plan.n} "
                                   f"{plan.variant} in layout {layout} (ROADMAP.md)")
@@ -378,10 +382,10 @@ def posit_flash_attention(fmt: PositFormat, q, k, v, causal: bool = True,
     CUDA tensors launch the hand-written kernel, counted per layout in
     ``posit_flash_attention.launches`` (K3), ``.paged_launches`` (K4) and
     ``.packed_launches`` (K5); it takes bf16 k/v (upcast in registers,
-    exactly) and the plans :func:`kernel_built` names (every posit16 plan;
-    posit64 ``srt_r4_cs_of_fr``), and raises for anything else.  CPU
-    tensors run the plain twin, for every planned (format, variant) and k/v
-    dtype.
+    exactly) and the plans :func:`kernel_built` names (every posit8, posit16
+    and posit32 plan; posit64 ``srt_r4_cs_of_fr``), and raises for anything
+    else.  CPU tensors run the plain twin, for every planned (format,
+    variant) and k/v dtype.
     """
     plan = datapath_plan(fmt, variant)
     if block_tables is not None and seg_q is not None:
@@ -508,8 +512,9 @@ def flash_backward_plain(fmt: PositFormat, q, k, v, o, g, m, l, causal: bool = T
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_fns():
-    lib = _build.load("posit_flash_bwd")
+def _bwd_fns(n: int):
+    """K7's and K8's C entries in format ``n``'s library."""
+    lib = _build.load(_build.library("posit_flash_bwd", n))
     fns = []
     for name, n_out in (("posit_flash_bwd_dq", 1), ("posit_flash_bwd_dkv", 2)):
         fn = getattr(lib, name)
@@ -524,7 +529,7 @@ def _bwd_fns():
 def _launch_backward(which: int, fmt, plan, q, k, v, g, m, l, D, outs, causal, window,
                      q_offset, scale):
     B, Sq, H, hd, Sk, KV = _check_shapes(q, k, v)
-    fn = _bwd_fns()[which]
+    fn = _bwd_fns(plan.n)[which]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = fn(*plan_args(plan), q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),

@@ -59,8 +59,8 @@ pack or the step.
 
 The moe family serves from dense slots only (``kv_layout="paged"``
 raises), and so does a numerics whose plan K4 / K5 are not built for
-(posit8, posit32 and the posit64 plans other than ``srt_r4_cs_of(_fr)``:
-paged or packed raises, on any device).  The moe family's prefill is the
+(the posit64 plans other than ``srt_r4_cs_of(_fr)``: paged or packed
+raises, on any device).  The moe family's prefill is the
 reference's scan: one decode step per prompt position, so that expert
 capacity stays per token.  Its packs lie on the
 batch axis: N left-padded rows of one width prefilled together (the dummy

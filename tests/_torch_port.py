@@ -51,3 +51,19 @@ def bits(x) -> np.ndarray:
 def bf16_ulp(x: float) -> float:
     """The spacing of bf16 values at magnitude ``x`` (8 significand bits)."""
     return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
+
+
+def posit_steps(n: int, a, b) -> np.ndarray:
+    """Posit<n> steps between two float32 arrays of posit<n> values (n <=
+    32): the distance of their patterns in two's-complement order, the
+    order of the values."""
+    import torch
+
+    from repro_torch.core.posit import PositFormat, float_to_posit
+
+    fmt = PositFormat(n)
+    pa, pb = (float_to_posit(fmt, torch.from_numpy(np.array(x, np.float32)))
+              for x in (a, b))
+    sa = torch.where(pa >= 2 ** (n - 1), pa - 2 ** n, pa)
+    sb = torch.where(pb >= 2 ** (n - 1), pb - 2 ** n, pb)
+    return (sa - sb).abs().numpy()

@@ -12,7 +12,11 @@ Bounds:
   * gradients within _BWD_TOL (5e-3 posit16, 1e-5 posit32 and posit64), the
     reference's own bound between its two backends: ``p`` is a posit
     quantization, so a one-ulp change in ``e`` can move it one posit16 step
-    (about 2^-10 relative), a posit32 or posit64 step far less;
+    (about 2^-10 relative), a posit32 or posit64 step far less; posit8 is
+    held to 1e-5 against the reference's fused backward (its rounding
+    boundaries are 2^8 times sparser than posit16's, so an f32 ulp of ``e``
+    moves no ``p`` here) and to _POSIT8_FLOAT_BWD_TOL against its float
+    backward (posit8's own rounding of ``p``);
   * rowwise straight-through gradients within 1e-6 relative (the same f32
     formula on the same division output).
 """
@@ -41,7 +45,13 @@ from repro_torch.numerics import NumericsConfig, posit_div_values
 
 FLASH_TOL = 2e-3
 LSE_TOL = 1e-5
-_BWD_TOL = {16: 5e-3, 32: 1e-5, 64: 1e-5}
+_BWD_TOL = {8: 1e-5, 16: 5e-3, 32: 1e-5, 64: 1e-5}
+# posit8 against the reference's float-softmax backward: p rounded to at
+# most 3 fraction bits is up to 2^-4 from the float p, so the gradients sit
+# that far from a float attention's (measured 0.23 on these inputs); the
+# reference holds no posit8 case, and its posit16 bound scaled by the ratio
+# of the two formats' steps (2^8) would be 1.28
+_POSIT8_FLOAT_BWD_TOL = 0.5
 B, H, KV, HD = 2, 4, 2, 16
 
 
@@ -84,9 +94,8 @@ def test_fwd_twin_matches_reference(ref_kernels, causal, window, seq):
     assert torch.equal(o, o3)
 
 
-# the reference's sweep (tests/test_flash_attn_kernel.py) without posit32
-# srt_r4_scaled, for which no flash kernel is built yet; posit64 runs K1's
-# two-word frame
+# the reference's sweep (tests/test_flash_attn_kernel.py), plus posit8;
+# posit32 srt_r4_scaled and posit64 run K1's two-word frame
 BWD_CASES = [  # (fmt_n, variant, causal, window, q_offset)
     (16, "srt_r4_cs_of_fr", True, 0, 0),
     (16, "srt_r4_cs_of_fr", False, 0, 0),
@@ -95,9 +104,11 @@ BWD_CASES = [  # (fmt_n, variant, causal, window, q_offset)
     (16, "srt_r2_cs_of_fr", True, 0, 0),
     (32, "srt_r4_cs_of_fr", True, 0, 0),
     (64, "srt_r4_cs_of_fr", True, 0, 0),
+    (32, "srt_r4_scaled", True, 0, 0),
+    (8, "srt_r4_cs_of_fr", True, 0, 0),
 ]
 BWD_IDS = ["causal", "bidirectional", "windowed", "suffix_block", "radix2", "posit32",
-           "posit64"]
+           "posit64", "posit32_scaled", "posit8"]
 
 
 def _ste_grads(fmt_n, variant, causal, window, q_offset, seed, bwd_impl="fused"):
@@ -130,15 +141,17 @@ def test_backward_matches_float_reference(ref_kernels, fmt_n, variant, causal, w
     (``bwd_impl="reference"``: the gradient of a plain float attention), at
     the bound the reference holds its own two backends to."""
     _check_grads(fmt_n, *_ste_grads(fmt_n, variant, causal, window, q_offset, seed=5,
-                                    bwd_impl="reference"))
+                                    bwd_impl="reference"),
+                 tol=_POSIT8_FLOAT_BWD_TOL if fmt_n == 8 else None)
 
 
-def _check_grads(fmt_n, ref, got):
+def _check_grads(fmt_n, ref, got, tol=None):
+    tol = _BWD_TOL[fmt_n] if tol is None else tol
     for name, r, g in zip(("dq", "dk", "dv"), ref, got):
         err = float(np.abs(r - g).max())
         print(f"posit{fmt_n} {name}: max|port - reference| {err:.3g}")
         assert np.isfinite(g).all(), name
-        assert err <= _BWD_TOL[fmt_n], f"posit{fmt_n} {name}: {err}"
+        assert err <= tol, f"posit{fmt_n} {name}: {err}"
 
 
 def test_fully_masked_rows_give_zero_gradients():

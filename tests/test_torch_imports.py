@@ -78,3 +78,39 @@ def test_kernel_build_needs_nvcc(monkeypatch):
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.nvcc_path()
+
+
+def test_flash_sources_build_once_per_format(monkeypatch, tmp_path):
+    """The flash sources become one library per posit format, each built
+    with its own -DPOSIT_MODEL_N and named by it, all nvcc runs started
+    together; the other sources one library each.  A stand-in for nvcc
+    records its arguments and writes the library."""
+    import sys
+
+    from repro_torch.kernels import _build
+
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"#!{sys.executable}\n"
+                    "import sys\n"
+                    "out = sys.argv[sys.argv.index('-o') + 1]\n"
+                    "open(out, 'w').write(' '.join(sys.argv[1:]))\n"
+                    "print('ptxas info    : Used 1 registers')\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    seconds = _build.build()
+    assert set(seconds) == set(_build.LIBRARIES) and all(s > 0 for s in seconds.values())
+    for src in _build.SOURCES:
+        formats = _build.MODEL_FORMATS if src in _build.PER_FORMAT else [None]
+        for n in formats:
+            name = src if n is None else _build.library(src, n)
+            lib = _build._lib_path(name)
+            assert lib.name.startswith(f"lib{name}-")
+            cmd = lib.read_text().split()
+            assert cmd[-1].endswith(f"csrc/{src}.cu")
+            assert [a for a in cmd if a.startswith("-DPOSIT_MODEL_N")] == (
+                [] if n is None else [f"-DPOSIT_MODEL_N={n}"])
+            assert "registers" in _build.ptxas_log(name)
+    names = {_build._lib_path(n).name for n in _build.LIBRARIES}
+    assert len(names) == len(_build.LIBRARIES)
+    assert _build.build() == dict.fromkeys(_build.LIBRARIES, 0.0)   # already built

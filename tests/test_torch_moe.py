@@ -143,6 +143,25 @@ def test_softmax_posit64_twin_matches_reference_kernel(ref_kernels, shape):
     assert (got[1] == got[1, 0]).all()
 
 
+@pytest.mark.parametrize("n,variant,shape", [(8, "srt_r4_cs_of_fr", (8, 64)),
+                                             (8, "srt_r4_cs_of_fr", (12, 300)),
+                                             (32, "srt_r4_cs_of_fr", (8, 64)),
+                                             (32, "srt_r4_cs_of_fr", (12, 300)),
+                                             (32, "srt_r4_scaled", (8, 64))])
+def test_softmax_posit8_posit32_twin_matches_reference_kernel(ref_kernels, n, variant, shape):
+    """K9's twin at posit8 and posit32 (srt_r4_scaled on the two-word frame)
+    against the reference's kernel, on rows whose ``exp`` the two libraries
+    round alike: the same bits in every row but the NaN one."""
+    x = _exp_agreeing_rows(shape)
+    ref = np.asarray(JO.posit_softmax_fused(JFmt(n), jnp.asarray(x), variant=variant))
+    got = TO.posit_softmax_fused(PositFormat(n), torch.from_numpy(x), variant).numpy()
+    nan_rows = np.isnan(ref).any(-1)
+    assert nan_rows.tolist() == np.isnan(got).any(-1).tolist() == [i == 2 for i in
+                                                                     range(shape[0])]
+    np.testing.assert_array_equal(bits(ref[~nan_rows]), bits(got[~nan_rows]))
+    assert (got[1] == got[1, 0]).all()
+
+
 def test_softmax_moves_other_axes():
     _, tcfg = _cfgs()
     x = torch.from_numpy(RNG.standard_normal((4, 6, 5)).astype(np.float32))

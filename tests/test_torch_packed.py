@@ -166,8 +166,20 @@ def test_packed_posit64_matches_solo(model, layout):
     two-word frame; K4 / K5 are built for it): packed admission, from dense
     slots and from the paged pool, gives every request the tokens of a
     posit64 solo engine on dense slots."""
+    _check_packed_format(model, layout, "posit64")
+
+
+@pytest.mark.parametrize("div_format", ["posit8", "posit32"])
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_packed_posit8_posit32_matches_solo(model, layout, div_format):
+    """The same at posit8 and posit32 (K4 / K5 built for every plan of
+    both)."""
+    _check_packed_format(model, layout, div_format)
+
+
+def _check_packed_format(model, layout, div_format):
     _, _, tcfg, tp, _, reqs, _ = model
-    cfg = tcfg.with_numerics(div_format="posit64")
+    cfg = tcfg.with_numerics(div_format=div_format)
     reqs = reqs[:8]
     solo = ServeEngine(cfg, tp, ServeConfig(**SC), device="cpu").serve(reqs)
     eng = ServeEngine(cfg, tp, ServeConfig(packed_prefill=True, kv_layout=layout,

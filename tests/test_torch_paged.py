@@ -193,8 +193,19 @@ def test_serve_prefix_shared_posit64_matches_dense(engines):
     """At posit64 srt_r4_cs_of_fr (K4 / K5 built for it), the paged pool with
     prefix sharing and packed prefill gives every request the tokens of a
     posit64 dense solo-admission engine."""
+    _check_paged_format(engines, "posit64")
+
+
+@pytest.mark.parametrize("div_format", ["posit8", "posit32"])
+def test_serve_prefix_shared_posit8_posit32_matches_dense(engines, div_format):
+    """The same at posit8 and posit32 (K4 / K5 built for every plan of
+    both)."""
+    _check_paged_format(engines, div_format)
+
+
+def _check_paged_format(engines, div_format):
     _, _, dense, _, _ = engines
-    cfg = dense.cfg.with_numerics(div_format="posit64")
+    cfg = dense.cfg.with_numerics(div_format=div_format)
     reqs = [Request(p, max_new=m) for p, m in STREAM]
     douts = ServeEngine(cfg, dense.params, ServeConfig(**SC), device="cpu").serve(reqs)
     paged = ServeEngine(cfg, dense.params, ServeConfig(kv_layout="paged", block_size=8,

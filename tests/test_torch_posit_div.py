@@ -87,8 +87,8 @@ def test_cuda_posit10_plan_table_matches_plan():
 @pytest.mark.parametrize("fmt", [PositFormat(64), PositFormat(32)])
 def test_two_word_plans_raise_not_implemented(fmt):
     """The two-word plans run on the twin.  The flash kernels are built for
-    posit64 srt_r4_cs_of_fr (and srt_r4_cs_of) in every layout, the other
-    posit64 plans and posit32 srt_r4_scaled in none: those raise, naming
+    posit32 srt_r4_scaled and posit64 srt_r4_cs_of_fr (and srt_r4_cs_of) in
+    every layout, the other posit64 plans in none: those raise, naming
     ROADMAP.md, before any device is looked at."""
     from repro_torch.kernels import posit_flash_attn as F
 
@@ -97,13 +97,13 @@ def test_two_word_plans_raise_not_implemented(fmt):
     assert plan.words == 2
     q = torch.ones(1, 1, 1, 4)
     layouts = ("dense", "paged", "packed", "backward")
+    assert F.kernel_built(plan)
     if fmt.n == 64:
-        assert F.kernel_built(plan)
         assert F.kernel_built(TD.kernel_datapath_plan(fmt, "srt_r4_cs_of"))
-        for layout in layouts:     # past the plan check, on to the device check
-            with pytest.raises(ValueError, match="device"):
-                F._check_kernel_inputs(plan, q, q, q, 4, layout)
-        plan = TD.kernel_datapath_plan(fmt, "srt_r2_cs_of_fr")
+    for layout in layouts:     # past the plan check, on to the device check
+        with pytest.raises(ValueError, match="device"):
+            F._check_kernel_inputs(plan, q, q, q, 4, layout)
+    plan = TD.kernel_datapath_plan(PositFormat(64), "srt_r2_cs_of_fr")
     assert not F.kernel_built(plan)
     for layout in layouts:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -206,6 +206,15 @@ def test_scaled_two_word_patterns_match_reference():
 
 _HOST_HARNESS = r"""
 #include "posit_srt.cuh"
+extern "C" int host_model_plan(int n, int radix, int red, int otf, int scaled, int nonrest,
+                               int it, int shift, int gbits) {
+  int built = -1;
+  posit::dispatch_plan<true>(n, radix, red, otf, scaled, nonrest, it, shift, gbits,
+                             [&](auto plan) {
+    built = posit::kModelPlan<decltype(plan)> ? 1 : 0;
+  });
+  return built;
+}
 extern "C" int host_rowwise(int n, int radix, int red, int otf, int scaled, int nonrest,
                             int it, int shift, int gbits, const float* a, const float* b,
                             float* out, int R, int C) {
@@ -285,10 +294,26 @@ def host_k1(tmp_path_factory):
                     "-I", str(INC.rsplit("/", 1)[0]), str(d / "k1.cpp"), "-o", str(lib)],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(lib))
-    for name in ("host_rowwise", "host_elementwise", "host_div_bits", "host_cast"):
+    for name in ("host_rowwise", "host_elementwise", "host_div_bits", "host_cast",
+                 "host_model_plan"):
         getattr(lib, name).restype = ctypes.c_int
     lib.host_cast64.restype = None
     return lib
+
+
+def test_cuda_model_plans_mirrored_by_kernel_built(host_k1):
+    """``posit::kModelPlan`` (the plans K3-K9 are instantiated for) names
+    what ``kernel_built`` names, row by row of both plan tables: every
+    posit8, posit16 and posit32 plan, posit64 srt_r4_cs_of(_fr), no posit10
+    plan."""
+    from repro_torch.kernels.posit_flash_attn import kernel_built
+
+    pairs = list(TD.planned_pairs()) + TD.one_word_pairs((PositFormat(10),))
+    for fmt, variant, plan in pairs:
+        want = kernel_built(plan)
+        assert host_k1.host_model_plan(*plan_args(plan)) == int(want), (fmt.n, variant)
+        assert want == (fmt.n in (8, 16, 32) or (
+            fmt.n == 64 and variant in ("srt_r4_cs_of", "srt_r4_cs_of_fr")))
 
 
 @pytest.mark.parametrize("n", [8, 16, 32, 64])

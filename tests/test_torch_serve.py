@@ -4,10 +4,10 @@ Greedy tokens are the same bits solo, in a static batch (generate) and
 admitted mid-flight, and match the reference engine's, a difference being
 allowed only where the reference's top-2 margin is within the model test's
 logit bound.  At ``div_format="posit64"`` (every RMSNorm and attention
-divide on the two-word datapath) the prefill and decode logits are within
-that bound of the reference's fused forward and the greedy tokens are the
-reference engine's (by the same rule); the paged and packed paths refuse
-posit64.
+divide on the two-word datapath) and at ``"posit32"`` the prefill and
+decode logits are within that bound of the reference's fused forward and
+the greedy tokens are the reference engine's (by the same rule); the paged
+and packed paths refuse the posit64 plans no K4 / K5 is built for.
 """
 
 import jax
@@ -135,10 +135,20 @@ P64_STREAM = [(RNG.integers(0, 512, n).astype(np.int32), m) for n, m in [(3, 4),
 def posit64():
     """The smoke config at posit64: the reference engine's tokens and its
     prefill / decode logits, the port's on the same weights."""
-    jcfg = jget("smollm_360m", smoke=True, fused=True).with_numerics(div_format="posit64")
-    tcfg = tget("smollm_360m", smoke=True, fused=True).with_numerics(div_format="posit64")
-    toks = RNG.integers(0, tcfg.vocab, (2, 9)).astype(np.int32)
-    nxt = RNG.integers(0, tcfg.vocab, (2, 1)).astype(np.int32)
+    return _format_run("posit64", RNG)
+
+
+@pytest.fixture(scope="module")
+def posit32():
+    """The same at posit32 srt_r4_cs_of_fr (one-word residual)."""
+    return _format_run("posit32", np.random.default_rng(32))
+
+
+def _format_run(div_format, rng):
+    jcfg = jget("smollm_360m", smoke=True, fused=True).with_numerics(div_format=div_format)
+    tcfg = tget("smollm_360m", smoke=True, fused=True).with_numerics(div_format=div_format)
+    toks = rng.integers(0, tcfg.vocab, (2, 9)).astype(np.int32)
+    nxt = rng.integers(0, tcfg.vocab, (2, 1)).astype(np.int32)
     start = np.array([0, 3], np.int32)
     with reference_kernels():
         jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
@@ -168,17 +178,35 @@ def posit64():
 def test_posit64_matches_reference(posit64, check):
     jcfg, jp, cfg, tp, ref, got, jl, tl = posit64
     if check == "logits":
-        for r, g in zip(jl, tl):
-            r, g = r[..., :cfg.vocab], g[..., :cfg.vocab]
-            assert np.isfinite(g).all()
-            assert float(np.abs(r - g).max()) <= LOGIT_ULPS * bf16_ulp(np.abs(r).max())
+        _assert_logits_match(cfg, jl, tl)
         return
     _assert_tokens_match(jcfg, jp, P64_STREAM, ref, got, 32)
-    # K4 / K5 are built for posit64 srt_r4_cs_of_fr, not for posit32: its
-    # paged and packed engines are refused on any device
-    cfg32 = cfg.with_numerics(div_format="posit32")
+    # K4 / K5 are built for posit64 srt_r4_cs_of_fr, not for posit64
+    # srt_r2_cs_of_fr: its paged and packed engines are refused on any device
+    cfg_r2 = cfg.with_numerics(div_algo="srt_r2_cs_of_fr")
     for paged, packed in (("paged", False), ("dense", True)):
         sc = ServeConfig(max_batch=2, max_seq=32, kv_layout=paged, packed_prefill=packed)
         ServeEngine(cfg, tp, sc, device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServeEngine(cfg32, tp, sc, device="cpu")
+            ServeEngine(cfg_r2, tp, sc, device="cpu")
+
+
+@pytest.mark.parametrize("check", ["logits", "tokens"])
+def test_posit32_matches_reference(posit32, check):
+    """Posit32 (K3 and K2 on the one-word residual): logits and the
+    reference engine's tokens; its paged and packed engines are accepted."""
+    jcfg, jp, cfg, tp, ref, got, jl, tl = posit32
+    if check == "logits":
+        _assert_logits_match(cfg, jl, tl)
+        return
+    _assert_tokens_match(jcfg, jp, P64_STREAM, ref, got, 32)
+    for paged, packed in (("paged", False), ("dense", True)):
+        sc = ServeConfig(max_batch=2, max_seq=32, kv_layout=paged, packed_prefill=packed)
+        ServeEngine(cfg, tp, sc, device="cpu")
+
+
+def _assert_logits_match(cfg, jl, tl):
+    for r, g in zip(jl, tl):
+        r, g = r[..., :cfg.vocab], g[..., :cfg.vocab]
+        assert np.isfinite(g).all()
+        assert float(np.abs(r - g).max()) <= LOGIT_ULPS * bf16_ulp(np.abs(r).max())
