@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. setup    — the card's name and power limit, the kernels' parallel build
-              (12 libraries: the flash sources once per posit format),
-              each library's seconds and its ptxas registers and spills
-              per format, each posit8 / posit32 flash and softmax kernel's.
+              (16 libraries: the flash sources once per posit format,
+              posit64's in three parts), each library's seconds and its
+              ptxas registers and spills per format, each posit64 flash
+              and softmax kernel's.
 2. K1 + K2  — the rowwise fused posit divide against its plain twin,
               bit-exact: the RMSNorm rows of decode (8x960), prefill
               (256x960) and training (2048x960), OLMoE's RMSNorm (8x2048,
@@ -21,30 +22,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    The flash and softmax phases hold posit16, posit32 and posit64 within
    their bounds and posit8 by its patterns (``gate``: at most one posit8
    step from the twin, in at most POSIT8_FLIP_SHARE of the outputs), and
-   the nine plans of each format to one answer, bit for bit.
+   the plans of each format (nine; posit64 eight) to one answer, bit for
+   bit.
 3. K3       — flash attention against its plain twin: every posit16,
-              posit8 and posit32 plan and posit64 srt_r4_cs_of_fr at
-              decode (B=8, Sk=512, kv_start 0 and above 0) and prefill
-              (P=128, kv_start 40); MODEL_PLANS (srt_r4_cs_of_fr in every
-              format, posit32 srt_r4_scaled) at prefill P=256 and OLMoE's
+              posit8, posit32 and posit64 plan at decode (B=8, Sk=512,
+              kv_start 0 and above 0) and prefill (P=128, kv_start 40);
+              MODEL_PLANS (srt_r4_cs_of_fr in every format, posit32
+              srt_r4_scaled, posit64 nrd) at prefill P=256 and OLMoE's
               decode at head_dim 128, 16/16 heads; fully masked rows
               exactly 0.
    K4       — paged decode attention (B=8, max_seq 512 in pages of 16,
               a shuffled table with shared pages and a parked all-zero
               row, kv_start 0 and above 0, MODEL_PLANS; every posit16,
-              posit8 and posit32 plan at B=4): the same bits as K3 on the
-              gathered dense cache, the twin's gate, fully masked rows
-              exactly 0.
+              posit8, posit32 and posit64 plan at B=4): the same bits as
+              K3 on the gathered dense cache, the twin's gate, fully
+              masked rows exactly 0.
    K5       — packed prefill attention on every pack the paged phase can
               form (1, 2, 4 or 8 segments of width 16-256, right-padded,
               dummies first) and on five left-padded packs, with a shared
-              prefix, MODEL_PLANS (every posit8 and posit32 plan on two
-              packs): every segment the same bits as a solo K3 prefill of
-              it, the twin's gate.
+              prefix, MODEL_PLANS (every posit8, posit32 and posit64 plan
+              on two packs): every segment the same bits as a solo K3
+              prefill of it, the twin's gate.
    K9       — the fused posit softmax against its twin at the router's
               shapes (8 x 64, 1 x 64), 4096 x 64 and 37 x 1000,
-              MODEL_PLANS (every posit16, posit8 and posit32 plan on the
-              last), with -1e30, equal-value and NaN rows: bit-identical
+              MODEL_PLANS (every posit16, posit8, posit32 and posit64 plan
+              on the last), with -1e30, equal-value and NaN rows: bit-identical
               (the one-lane left-to-right row sum is the twin's order),
               the NaN row alone NaN.
    K11      — the pattern divide: posit8 every pair (9 variants) the
@@ -83,10 +85,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    K6-K8    — the training forward (K6) and the recompute backward (K7 dq,
               K8 dk/dv) against their twins at the training path's shapes
               (B=8, S=256, 15/5 heads, hd 64) for MODEL_PLANS, at B=2 for
-              every posit16, posit8 and posit32 plan and, posit64, at B*KV
-              = 65536: o the twin's gate, lse within LSE_TOL, gradients
-              within BWD_TOL (posit8: ``gate_grad``) and the same bits on
-              a second run; fully masked rows give zero gradients.
+              every posit16, posit8, posit32 and posit64 plan and, posit64,
+              at B*KV = 65536: o the twin's gate, lse within LSE_TOL,
+              gradients within BWD_TOL (posit8: ``gate_grad``) and the same
+              bits on a second run; fully masked rows give zero gradients.
+   f32 K/V  — K3 (decode, prefill), K4, K5 and K6-K8 on f32 K/V at posit16
+              and posit64 nrd: on f32 values bf16 holds, the bf16 call's
+              bits; on values it cannot hold, the twins' bounds.
    train    — one train step of the smoke config on the card against the
               same f32 weights and batch on the CPU, posit16, posit64,
               posit32 and posit8: loss within LOSS_RTOL, every gradient
@@ -120,7 +125,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               on the two-word frame): the same launch counts, every pack a
               shape the K5 phase held at posit64, tokens bit-identical to
               the dense run of the same requests and to the posit64 phase's
-              run of the main mix.  Then the same at posit8 and posit32,
+              run of the main mix.  Then posit64 nrd (the paper's NRD
+              baseline, 63 non-restoring iterations): the posit16 paged
+              run's launch counts and the posit64 default plan's paged
+              tokens, bit for bit.  Then the same at posit8 and posit32,
               whose launch counts must also equal the posit16 paged run's.
    posit-KV — the same model and weights with kv_cache_format="posit16":
               the main mix from dense slots, the paged mix from the paged
@@ -141,7 +149,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               0): finite losses, the last below the first, and per step K6
               2L (forward and recompute), K7 L, K8 L and K2 4L+1 launches.
               One more step is profiled: device busy and idle share.  Then
-              the same at div_format="posit64" (K2, K6-K8 at W = 2) and at
+              the same at div_format="posit64" (K2, K6-K8 at W = 2), then
+              posit64 srt_r2_cs (4 steps, not profiled: every step's loss
+              and every parameter after it the default plan's bits, else
+              the first step and tensor that differ are named), and at
               "posit32".
    moe      — (after the SmolLM state is released) OLMoE-1B-7B at full
               width and depth (random weights from a seed) served with
@@ -152,9 +163,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               tokens alone on a solo-admission engine (else the script
               names the bf16 product that lost a row's bits and fails).
               Then the mix's first 8 requests at div_format="posit64" (K9,
-              K2 and K3 at hd 128 on the two-word frame) and at "posit32":
-              the same checks; printed: the requests whose tokens leave
-              posit16's.
+              K2 and K3 at hd 128 on the two-word frame), its first 2 at
+              posit64 srt_r4_cs (the default plan's tokens, bit for bit)
+              and the first 8 at "posit32": the same checks; printed: the
+              requests whose tokens leave posit16's.
 5. timing   — each kernel, its plain twin and a library yardstick at the
               main paths' shapes (the kernel's device time from
               torch.profiler, as the yardstick's for K9; per-call times from
@@ -167,7 +179,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               at 8 x 64 and 4096 x 64) at posit64 and K3-K9 at posit32 (K3
               at posit8 too), K10 at posit64 and K11 at posit32
               srt_r4_scaled beside their posit16 rows; the posit8 flips'
-              share against the twins.  A
+              share against the twins; the plan table: K2, K3 prefill, K5,
+              K6-K8 and K9 at every plan of posit16, posit32 and posit64
+              (CUDA events) beside each plan's operation bound and the
+              paper's hardware model of its divider.  A
               profiler session that shows none of the kernels it traced is
               taken again, twice at most; where none shows them, the device
               time is the CUDA events' and the busy share "not measured".
@@ -180,9 +195,9 @@ non-zero and prints no result.
     python3 chip_smoke.py --time-kernels [--src DIR]
 
 only builds the package under ``DIR`` (default: this checkout's ``src``),
-one source at a time, and prints each source's build seconds and ptxas
-report and the device times of K2, K3, K6-K8 and K9 (kernels a parent
-checkout of the port has too): run it on a parent checkout and on this one in
+every library at once, and prints each library's build seconds and ptxas
+report and the device times of K2-K9 (kernels a parent checkout of the
+port has too): run it on a parent checkout and on this one in
 turns (parent, change, change, parent) in one call, after any edit to a
 kernel source or to ``posit_srt.cuh``.
 """
@@ -224,14 +239,24 @@ MOE_HEADS = (16, 16, 128)   # OLMoE-1B-7B: heads, kv heads, head_dim
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 # 32-bit integer operations of the posit datapath per element (a static
-# model of posit_srt.cuh: quantize, decode, the recurrence, encode,
-# dequantize), bounded at the f32 CUDA-core rate.  On the two-word frame
-# every residual and quotient operation runs on two 32-bit halves (a 64-bit
-# shift as three), so an iteration counts DIV_OPS_PER_ITERATION per word,
-# and posit64's casts, decode and encode run on two-word patterns,
-# DIV_OPS_FIXED per pattern word.
+# model of posit_srt.cuh), bounded at the f32 CUDA-core rate: DIV_OPS_FIXED
+# per pattern word for quantize, decode, encode and dequantize (posit64's
+# patterns are two words), and per iteration of divide_fields' recurrence
+# (div_iteration_ops) a count taken from its code, W the residual's words
+# (a shift, add, select or logic op costs one instruction per word; a
+# three-input logic op is one LOP3 per word) and Q the quotient's:
+#   non-redundant (nrd, srt_r2): the shift W, the sign test (nrd 2) or the
+#     estimate and its compares (7), the addend select 2W and carry-in 1,
+#     the two adds 2W;
+#   carry-save (_cs): both shifts 2W, the estimate (an add of the two top
+#     words) and its compares (radix 2 9, radix 4 14), the addend select
+#     (radix 2 2W, radix 4 4W) and carry-in 1, XOR3 W, the majority W, its
+#     shift W and the carry-in OR 1;
+#   the quotient: plain accumulation 4Q, on-the-fly conversion (_of) 10Q.
+# So at W = Q = 1 a carry-save radix-2 step costs 17 + quotient where a
+# non-redundant one costs 12: on a CUDA core the redundant residual costs
+# more per iteration, where in hardware it is what makes an iteration short.
 DIV_OPS_FIXED = 160
-DIV_OPS_PER_ITERATION = 30
 
 
 def fail(msg: str) -> None:
@@ -267,10 +292,22 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def div_iteration_ops(plan) -> int:
+    """32-bit operations of one iteration of ``plan``'s recurrence (the
+    model above)."""
+    W, Q = plan.words, plan.qwords
+    if plan.redundant:
+        step = 2 * W + (9 if plan.radix == 2 else 14) + (2 if plan.radix == 2 else 4) * W \
+            + 1 + 3 * W + 1
+    else:
+        step = W + (2 if plan.nonrestoring else 7) + 2 * W + 1 + 2 * W
+    return step + (10 if plan.otf else 4) * Q
+
+
 def div_ops(plan, elements: int) -> int:
     pattern_words = 2 if plan.n > 32 else 1
     return elements * (DIV_OPS_FIXED * pattern_words
-                       + DIV_OPS_PER_ITERATION * plan.words * plan.iterations)
+                       + div_iteration_ops(plan) * plan.iterations)
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -308,10 +345,20 @@ def max_abs_err(k, p) -> float:
 # posit32 and posit64 bounds stay as they are.
 POSIT8_FLIP_SHARE = 0.01
 POSIT8_BWD_TOL = 0.5
-NEW_FORMATS = (8, 32)       # held at all nine plans beside posit16
+NEW_FORMATS = (8, 32)       # served and trained at full width beside posit16 and posit64
+# the formats the kernel phases hold at every plan (posit64: its eight)
+PLAN_FORMATS = (16, 8, 32, 64)
 # the (format, plan) pairs the kernel phases hold at the main paths' shapes
 MODEL_PLANS = ((16, DEFAULT_VARIANT), (64, DEFAULT_VARIANT), (8, DEFAULT_VARIANT),
-               (32, DEFAULT_VARIANT), (32, "srt_r4_scaled"))
+               (32, DEFAULT_VARIANT), (32, "srt_r4_scaled"), (64, "nrd"))
+
+
+def plan_variants(n: int):
+    """The Table IV variants planned for posit``n`` (nine; posit64 eight)."""
+    from repro_torch.core.posit import PositFormat
+    from repro_torch.kernels.posit_div import planned_pairs
+
+    return [v for _, v, _ in planned_pairs((PositFormat(n),))]
 FLIPS8 = collections.defaultdict(lambda: [0, 0])   # kernel -> [flips, elements]
 
 
@@ -466,12 +513,12 @@ def flash_inputs(torch, dev, B, Sq, Sk, H, KV, hd, seed):
 
 
 def phase_flash(torch, dev):
-    """K3 against its twin (``gate``): every posit16, posit8 and posit32 plan
-    at decode (B=8, Sk=512, 15/5 heads, kv_start 0 and above 0, one fully
-    masked slot) and at a causal prefill P=128 left-padded by 40 (each
-    format's nine plans one answer), posit64 there too; at the model
-    shapes (prefill P=256, OLMoE's decode at 16/16 heads of 128) every plan
-    of MODEL_PLANS, and all posit16 plans at OLMoE's decode on 4 slots."""
+    """K3 against its twin (``gate``): every posit16, posit8, posit32 and
+    posit64 plan at decode (B=8, Sk=512, 15/5 heads, kv_start 0 and above
+    0, one fully masked slot) and at a causal prefill P=128 left-padded by
+    40 (each format's plans one answer); at the model shapes (prefill
+    P=256, OLMoE's decode at 16/16 heads of 128) every plan of MODEL_PLANS,
+    and all posit16 plans at OLMoE's decode on 4 slots."""
     from repro_torch.core.posit import PositFormat
     from repro_torch.kernels.posit_div import KERNEL_VARIANTS
     from repro_torch.kernels.posit_flash_attn import (
@@ -498,8 +545,8 @@ def phase_flash(torch, dev):
     # are fully masked)
     pq, pk, pv = flash_inputs(torch, dev, 1, 128, 128, 15, 5, 64, 2)
     s40 = torch.tensor([40], dtype=torch.int32, device=dev)
-    for n in (16, *NEW_FORMATS, 64):
-        variants = [DEFAULT_VARIANT] if n == 64 else KERNEL_VARIANTS
+    for n in PLAN_FORMATS:
+        variants = plan_variants(n)
         for sname, kw in decode.items():
             outs = {v: compare(f"decode {sname}", dq, dk, dv, v, n, **kw) for v in variants}
             one_answer("K3", f"posit{n} decode {sname}", outs)
@@ -525,9 +572,9 @@ def phase_flash(torch, dev):
     print(f"K3: within {FLASH_TOL} of its twin (max|diff| posit16 {worst[16]:.3g}, posit64 "
           f"{worst[64]:.3g}, posit32 {worst[32]:.3g}; posit8 {flips} of {elems} outputs one "
           f"posit8 step off, gate one step in at most {POSIT8_FLIP_SHARE}): all "
-          f"{len(KERNEL_VARIANTS)} plans of posit16, posit8 and posit32 (one answer per "
-          f"format) and posit64 {DEFAULT_VARIANT} at decode B=8 x 512 (kv_start 0 and above "
-          "0) and prefill P=128 (kv_start 40); "
+          f"{len(KERNEL_VARIANTS)} plans of posit16, posit8 and posit32 and the "
+          f"{len(plan_variants(64))} of posit64 (one answer per format) at decode B=8 x 512 "
+          "(kv_start 0 and above 0) and prefill P=128 (kv_start 40); "
           f"{', '.join(f'posit{n} {v}' for n, v in MODEL_PLANS)} at prefill P=256 and "
           "OLMoE's decode (16/16 heads of 128), every posit16 plan there at 4 slots")
     return max(worst.values())
@@ -551,10 +598,9 @@ def paged_inputs(torch, dev, B, max_blocks, bs, H, KV, hd, seed):
 def phase_paged_kernel(torch, dev):
     """K4 against K3 on the gathered dense cache (the same bits) and against
     its twin (``gate``): decode shapes, kv_start 0 and above 0, at every
-    plan of MODEL_PLANS, and all nine posit16, posit32 and posit8 plans at
-    a small size (each format's nine plans one answer)."""
+    plan of MODEL_PLANS, and every posit16, posit32, posit8 and posit64
+    plan at a small size (each format's plans one answer)."""
     from repro_torch.core.posit import PositFormat
-    from repro_torch.kernels.posit_div import KERNEL_VARIANTS
     from repro_torch.kernels.posit_flash_attn import (
         gather_pages,
         posit_flash_attention,
@@ -587,17 +633,16 @@ def phase_paged_kernel(torch, dev):
         check(bool((o[7] == 0).all()), f"K4 posit{n} decode: fully masked row is not 0")
     small = paged_inputs(torch, dev, 4, 8, 16, 15, 5, 64, 32)
     pos = torch.tensor([127, 40, 77, 60], dtype=torch.int32, device=dev)
-    for n in (16, *NEW_FORMATS):
+    for n in PLAN_FORMATS:
         one_answer("K4", f"posit{n} B=4", {
-            v: compare("B=4", *small, pos, [5, 0, 70, 0], v, n) for v in KERNEL_VARIANTS})
+            v: compare("B=4", *small, pos, [5, 0, 70, 0], v, n) for v in plan_variants(n)})
     flips, elems = FLIPS8["K4"]
     print(f"K4: the same bits as K3 on the gathered cache and within {FLASH_TOL} of its "
           f"twin (max|diff| posit16 {worst[16]:.3g}, posit64 {worst[64]:.3g}, posit32 "
           f"{worst[32]:.3g}; posit8 {flips} of {elems} outputs one step off): decode B=8 x "
           "512 in pages of 16, shuffled shared pages and a parked row, kv_start 0 and "
-          f"above, {', '.join(f'posit{n} {v}' for n, v in MODEL_PLANS)}; all "
-          f"{len(KERNEL_VARIANTS)} plans of posit16, posit32 and posit8 at B=4, one answer "
-          "per format")
+          f"above, {', '.join(f'posit{n} {v}' for n, v in MODEL_PLANS)}; every plan of "
+          "posit16, posit32, posit8 and posit64 at B=4, one answer per format")
     return max(worst.values())
 
 
@@ -610,7 +655,7 @@ def phase_paged_kernel(torch, dev):
 PACK_WIDTHS = (16, 32, 64, 128, 256)
 PACK_DUMMIES = {1: 0, 2: 0, 4: 1, 8: 3}
 PACKS_LEFT = ((4, 64), (8, 8), (4, 128), (4, 256), (2, 256))
-PACKS_EVERY_PLAN = ((4, 128), (8, 256))   # right-padded packs held at all nine plans
+PACKS_EVERY_PLAN = ((4, 128), (8, 256))   # right-padded packs held at every plan
 
 
 def pack_lens(N, P):
@@ -653,11 +698,10 @@ def phase_packed_kernel(torch, dev):
     """K5 against its twin (``gate``), and each segment's rows against a
     solo K3 prefill of that prompt (the same bits), at every (N, P) in
     PACK_DUMMIES x PACK_WIDTHS right-padded and PACKS_LEFT left-padded, at
-    every plan of MODEL_PLANS, and at PACKS_EVERY_PLAN for all nine posit8
-    and posit32 plans (one answer).  Returns the worst error of the
+    every plan of MODEL_PLANS, and at PACKS_EVERY_PLAN for every posit8,
+    posit32 and posit64 plan (one answer).  Returns the worst error of the
     formats other than posit8 and the right-padded shapes held."""
     from repro_torch.core.posit import PositFormat
-    from repro_torch.kernels.posit_div import KERNEL_VARIANTS
     from repro_torch.kernels.posit_flash_attn import (
         posit_flash_attention,
         posit_flash_attention_plain,
@@ -692,10 +736,10 @@ def phase_packed_kernel(torch, dev):
     for n, variant in MODEL_PLANS:
         for N, P, left in shapes:
             compare(n, variant, N, P, left)
-    for n in NEW_FORMATS:
+    for n in (*NEW_FORMATS, 64):
         for N, P in PACKS_EVERY_PLAN:
             one_answer("K5", f"posit{n} N={N} P={P}",
-                       {v: compare(n, v, N, P, False) for v in KERNEL_VARIANTS})
+                       {v: compare(n, v, N, P, False) for v in plan_variants(n)})
     flips, elems = FLIPS8["K5"]
     print(f"K5: every segment the same bits as a solo K3 prefill and within {FLASH_TOL} of "
           f"its twin (max|diff| posit16 {worst[16]:.3g}, posit64 {worst[64]:.3g}, posit32 "
@@ -703,9 +747,9 @@ def phase_packed_kernel(torch, dev):
           f"packs of {'/'.join(map(str, PACK_DUMMIES))} segments x widths "
           f"{'/'.join(map(str, PACK_WIDTHS))}, left-padded "
           f"{', '.join(f'{N} x {P}' for N, P in PACKS_LEFT)}, with dummies and a shared "
-          f"prefix, at {', '.join(f'posit{n} {v}' for n, v in MODEL_PLANS)}; all "
-          f"{len(KERNEL_VARIANTS)} posit8 and posit32 plans at "
-          f"{', '.join(f'{N} x {P}' for N, P in PACKS_EVERY_PLAN)}, one answer per format")
+          f"prefix, at {', '.join(f'posit{n} {v}' for n, v in MODEL_PLANS)}; every posit8, "
+          f"posit32 and posit64 plan at {', '.join(f'{N} x {P}' for N, P in PACKS_EVERY_PLAN)}"
+          ", one answer per format")
     return max(worst.values()), {(N, P) for N, P, _ in held}
 
 
@@ -727,19 +771,17 @@ def softmax_inputs(torch, dev, R, C, seed):
 
 
 def phase_softmax(torch, dev):
-    """K9 against its twin at SOFTMAX_SHAPES, posit16, posit64, posit32 and
-    posit8 srt_r4_cs_of_fr and posit32 srt_r4_scaled (every posit16, posit8
-    and posit32 plan on the ragged shape, each format's nine plans one
-    answer there): bit-identical, since both call CUDA's expf and sum each
+    """K9 against its twin at SOFTMAX_SHAPES, MODEL_PLANS (every posit16,
+    posit8, posit32 and posit64 plan on the ragged shape, each format's
+    plans one answer there): bit-identical, since both call CUDA's expf and sum each
     row left to right (a shuffle or tree sum would move s by an f32 ulp and
     show here); a NaN row reaches no other row."""
     from repro_torch.core.posit import PositFormat
     from repro_torch.kernels import ops
-    from repro_torch.kernels.posit_div import KERNEL_VARIANTS
 
     rows, elements = 0, 0
     cases = [(n, R, C, v) for n, v in MODEL_PLANS for R, C in SOFTMAX_SHAPES]
-    cases += [(n, 37, 1000, v) for n in (16, *NEW_FORMATS) for v in KERNEL_VARIANTS
+    cases += [(n, 37, 1000, v) for n in PLAN_FORMATS for v in plan_variants(n)
               if (n, v) not in MODEL_PLANS]
     ragged = collections.defaultdict(dict)     # format -> variant -> (37, 1000) output
     for n, R, C, variant in cases:
@@ -761,12 +803,12 @@ def phase_softmax(torch, dev):
             ragged[n][variant] = o
         rows, elements = rows + R, elements + R * C
     for n, outs in ragged.items():
-        if len(outs) == len(KERNEL_VARIANTS):
-            one_answer("K9", f"posit{n} (37, 1000)", outs)
-    print(f"K9: bit-identical to its twin at {', '.join(map(str, SOFTMAX_SHAPES))}, posit16, "
-          f"posit64, posit32 and posit8 {DEFAULT_VARIANT} and posit32 srt_r4_scaled (all "
-          f"{len(KERNEL_VARIANTS)} plans of posit16, posit32 and posit8 on (37, 1000), one "
-          f"answer per format), with -1e30, equal-value and NaN rows: {rows} rows, "
+        check(len(outs) == len(plan_variants(n)), f"K9 posit{n}: not every plan held")
+        one_answer("K9", f"posit{n} (37, 1000)", outs)
+    print(f"K9: bit-identical to its twin at {', '.join(map(str, SOFTMAX_SHAPES))}, "
+          f"{', '.join(f'posit{n} {v}' for n, v in MODEL_PLANS)} (every plan of posit16, "
+          "posit32, posit8 and posit64 on (37, 1000), one answer per format), with -1e30, "
+          f"equal-value and NaN rows: {rows} rows, "
           f"{elements} elements; the NaN row reaches no other")
     return 0.0
 
@@ -1215,13 +1257,12 @@ def backward_args(F, co, o, m, l, q, k, v):
 def phase_flash_train(torch, dev):
     """K6, K7 and K8 against their twins (``gate``, ``gate_grad``): every
     plan of MODEL_PLANS at the training path's shapes (B=8, S=256, 15/5
-    heads), all nine posit16, posit8 and posit32 plans at B=2, S=256 (one
-    answer per format: o, m, l, dq, dk, dv), and posit64 srt_r4_cs_of_fr
-    at B*KV = 65536 (the grid past gridDim.y's 65535); the same bits on a
+    heads), every posit16, posit8, posit32 and posit64 plan at B=2, S=256
+    (one answer per format: o, m, l, dq, dk, dv), and posit64
+    srt_r4_cs_of_fr at B*KV = 65536 (the grid past gridDim.y's 65535); the same bits on a
     second run; zero gradients for fully masked rows."""
     from repro_torch.core.posit import PositFormat
     from repro_torch.kernels import posit_flash_attn as F
-    from repro_torch.kernels.posit_div import KERNEL_VARIANTS
 
     worst = collections.defaultdict(float)   # "K6 posit16", ...
 
@@ -1254,9 +1295,9 @@ def phase_flash_train(torch, dev):
     for n, variant in MODEL_PLANS:
         compare(variant, n, *inputs)
     small = training_inputs(torch, dev, 2, 256, 21)
-    for n in (16, *NEW_FORMATS):
+    for n in PLAN_FORMATS:
         one_answer("K6-K8", f"posit{n} B=2", {v: compare(v, n, *small)
-                                             for v in KERNEL_VARIANTS})
+                                             for v in plan_variants(n)})
     # posit64 at B*H = B*KV = 65536 (4096 sequences of 16, 16/16 heads)
     compare(DEFAULT_VARIANT, 64, *training_inputs(torch, dev, 4096, 16, 35, H=16, KV=16,
                                                   hd=64))
@@ -1276,8 +1317,8 @@ def phase_flash_train(torch, dev):
     flips = {k: FLIPS8[k] for k in ("K6", "K7", "K8")}
     print(f"K6-K8: K6 within {FLASH_TOL} (o) and {LSE_TOL} (lse, max|diff| "
           f"{worst['lse']:.3g}) of its twin, K7/K8 within {BWD_TOL}, bit-identical run to "
-          f"run, at {', '.join(f'posit{n} {v}' for n, v in MODEL_PLANS)} (B=8 x 256), all "
-          f"{len(KERNEL_VARIANTS)} plans of posit16, posit8 and posit32 at B=2 x 256 (one "
+          f"run, at {', '.join(f'posit{n} {v}' for n, v in MODEL_PLANS)} (B=8 x 256), every "
+          "plan of posit16, posit8, posit32 and posit64 at B=2 x 256 (one "
           "answer per format), posit64 at B*KV = 65536 (4096 x 16, 16/16 heads); fully "
           "masked rows give zero gradients. max|diff| " + "; ".join(
               f"{kern} posit{n} {worst[f'{kern} posit{n}']:.3g}" for n in (16, 32, 64)
@@ -1287,6 +1328,102 @@ def phase_flash_train(torch, dev):
           f"gradients beyond {BWD_TOL}")
     return {kern: max(worst[f"{kern} posit{n}"] for n in (16, 32, 64))
             for kern in ("K6", "K7", "K8")}
+
+
+# f32 K/V: posit16's default plan and posit64 nrd (the longest datapath)
+F32_KV_PLANS = ((16, DEFAULT_VARIANT), (64, "nrd"))
+
+
+def f32_values(torch, t, seed):
+    """``t`` in f32 plus a perturbation below bf16's step: values bf16
+    cannot hold."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    noise = torch.randn(tuple(t.shape), generator=g) * 2.0 ** -12
+    return (t.float() + noise.to(t.device)).contiguous()
+
+
+def phase_f32_kv(torch, dev):
+    """K3 (decode B=8 x 512, prefill P=256), K4 (the paged decode), K5 (a
+    right-padded 4 x 128 pack) and K6-K8 (B=8 x 256) on f32 K/V, at
+    F32_KV_PLANS: on f32 values that bf16 holds, each call gives the bits of
+    the same call on bf16 K/V (both upcast exactly into the same f32
+    tiles); on values bf16 cannot hold, each is within its bound of its
+    twin (``gate``, ``gate_grad``, LSE_TOL) and K7/K8 give the same bits on
+    a second run."""
+    from repro_torch.core.posit import PositFormat
+    from repro_torch.kernels import posit_flash_attn as F
+
+    worst = collections.defaultdict(float)
+    exact = [0]
+
+    def same(kern, where, got, want):
+        diff = int((bits(got) != bits(want)).sum())
+        check(diff == 0, f"{kern} {where}: f32 K/V holding bf16 values differs from the bf16 "
+                         f"call in {diff} elements")
+        exact[0] += 1
+
+    i32 = lambda xs: torch.tensor(xs, dtype=torch.int32, device=dev)
+    pos = i32([511, 0, 17, 130, 255, 64, 300, 12])
+    ppos = i32([511, 0, 17, 130, 255, 64, 300, 40])
+    lens = pack_lens(4, 128)
+    sq, sk, sv, seg_q, seg, _ = packed_inputs(torch, dev, lens, 128, 54, left=False)
+    gq, gk, gv, bt = paged_inputs(torch, dev, 8, 32, 16, 15, 5, 64, 53)
+    calls = {   # name: (kernel, q, k, v, keyword arguments)
+        "decode": ("K3", *flash_inputs(torch, dev, 8, 1, 512, 15, 5, 64, 51),
+                   dict(kv_start=i32([0, 0, 5, 100, 250, 64, 0, 13]), kv_len=pos + 1,
+                        q_pos=pos)),
+        "prefill P=256": ("K3", *flash_inputs(torch, dev, 1, 256, 256, 15, 5, 64, 52),
+                          dict(kv_start=i32([56]))),
+        "paged decode": ("K4", gq, gk, gv, dict(kv_len=ppos + 1, q_pos=ppos, block_tables=bt)),
+        "packed 4 x 128": ("K5", sq, sk, sv, dict(seg_q=seg_q, seg_kv=seg, seg_len=128)),
+    }
+    tq, tk, tv, co = training_inputs(torch, dev, 8, 256, 55)
+    for n, variant in F32_KV_PLANS:
+        fmt = PositFormat(n)
+        for name, (kern, q, k, v, kw) in calls.items():
+            where = f"posit{n} {variant} {name}"
+            kw = dict(kw, variant=variant)
+            ref = F.posit_flash_attention(fmt, q, k, v, True, **kw)
+            same(kern, where, F.posit_flash_attention(fmt, q, k.float(), v.float(), True, **kw),
+                 ref)
+            kf, vf = f32_values(torch, k, 60), f32_values(torch, v, 61)
+            got = F.posit_flash_attention(fmt, q, kf, vf, True, **kw)
+            plain = F.posit_flash_attention_plain(
+                fmt, q, kf, vf, True, **{a: t for a, t in kw.items() if a != "seg_len"})
+            torch.cuda.synchronize()
+            worst[kern] = max(worst[kern], gate(kern, f"{where} f32 K/V", fmt, got, plain))
+        plan = F.datapath_plan(fmt, variant)
+
+        def run(k_, v_):
+            o, m, l = F.posit_flash_attention_fwd(fmt, tq, k_, v_, True, variant=variant)
+            args = backward_args(F, co, o, m, l, tq, k_, v_)
+            return (o, m, l, F.flash_backward_dq(fmt, plan, *args),
+                    *F.flash_backward_dkv(fmt, plan, *args))
+
+        where = f"posit{n} {variant} B=8 x 256"
+        for name, got, want in zip(("o", "m", "l", "dq", "dk", "dv"), run(tk.float(), tv.float()),
+                                   run(tk, tv)):
+            same("K6" if name in "oml" else "K7" if name == "dq" else "K8", f"{where} {name}",
+                 got, want)
+        kf, vf = f32_values(torch, tk, 62), f32_values(torch, tv, 63)
+        o, m, l, *grads = run(kf, vf)
+        again = run(kf, vf)[3:]
+        po, pm, pl = F.posit_flash_attention_fwd_plain(fmt, tq, kf, vf, True, variant=variant)
+        twin = F.flash_backward_plain(fmt, tq, kf, vf, o, co, m, l, True, variant=variant)
+        torch.cuda.synchronize()
+        worst["K6"] = max(worst["K6"], gate("K6", f"{where} f32 K/V", fmt, o, po))
+        lse_err = float((m + torch.log(l) - pm - torch.log(pl)).abs().max())
+        check(lse_err <= LSE_TOL, f"K6 {where} f32 K/V: max|lse diff| {lse_err} > {LSE_TOL}")
+        for name, got, sec, want in zip(("dq", "dk", "dv"), grads, again, twin):
+            kern = "K7" if name == "dq" else "K8"
+            check(torch.equal(got, sec), f"{kern} {where} f32 K/V: {name} differs run to run")
+            worst[kern] = max(worst[kern], gate_grad(kern, f"{where} f32 K/V {name}", fmt, got,
+                                                     want))
+    print(f"f32 K/V: {exact[0]} calls on f32 values that bf16 holds the bf16 calls' bits (K3 "
+          "decode and prefill, K4, K5, K6-K8), and on values bf16 cannot hold within their "
+          f"twins' bounds (max|diff| {', '.join(f'{k} {v:.3g}' for k, v in sorted(worst.items()))}"
+          f"), at {', '.join(f'posit{n} {v}' for n, v in F32_KV_PLANS)}")
+    return worst
 
 
 def phase_train_small(torch, dev, div_format="posit16"):
@@ -1441,14 +1578,18 @@ def paged_mix(cfg):
     return out
 
 
-def phase_paged(torch, dev, cfg, params, packs_held, label="paged", dense_outs=None):
+def phase_paged(torch, dev, cfg, params, packs_held, label="paged", dense_outs=None,
+                same_as=None):
     """Full-width serving from the paged, prefix-shared pool with packed
     prefill (K4 decode, K5 packed admissions, K3 suffix prefills), counted
     and compared with a dense solo-admission run of the same requests.
     Every pack it forms must have a shape in ``packs_held`` (those the K5
     phase checked).  With ``dense_outs`` (the main phase's dense run of
     ``request_mix`` in this numerics) the tokens must be those of both
-    dense runs, bit for bit; without, a difference is diagnosed."""
+    dense runs, bit for bit; without, a difference is diagnosed.  With
+    ``same_as`` (another plan's paged run of this format, which held those
+    gates) the tokens must be that run's, bit for bit, and no dense run is
+    made: the plans divide exactly."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -1520,14 +1661,21 @@ def phase_paged(torch, dev, cfg, params, packs_held, label="paged", dense_outs=N
           f"= {peak_rows} rows against the dense layout's {sc.max_batch} x {sc.max_seq} = "
           f"{sc.max_batch * sc.max_seq}; launches K2 {k2}, K3 {k3}, K4 {k4}, K5 {k5}")
 
-    dense = ServeEngine(cfg, params, device=dev)
-    ref = dense.serve(reqs)
-    differ = [i for i, (a, b) in enumerate(zip(ref, outs)) if not np.array_equal(a, b)]
-    if not differ:
-        print(f"{label}: tokens bit-identical to a dense solo-admission run of the same "
+    if same_as is not None:
+        off = [i for i, (a, b) in enumerate(zip(same_as, outs)) if not np.array_equal(a, b)]
+        check(not off, f"{label}: requests {off} differ from the other plan's paged run")
+        print(f"{label}: tokens bit-identical to the other plan's paged run of the same "
               f"{len(reqs)} requests")
+        differ = []
     else:
-        paged_difference(torch, dev, cfg, params, reqs, ref, outs, differ)
+        dense = ServeEngine(cfg, params, device=dev)
+        ref = dense.serve(reqs)
+        differ = [i for i, (a, b) in enumerate(zip(ref, outs)) if not np.array_equal(a, b)]
+        if not differ:
+            print(f"{label}: tokens bit-identical to a dense solo-admission run of the same "
+                  f"{len(reqs)} requests")
+        else:
+            paged_difference(torch, dev, cfg, params, reqs, ref, outs, differ)
     if dense_outs is not None:
         check(not differ, f"{label}: {len(differ)} requests' tokens differ from the dense run")
         # the main mix's requests sit at 3i + 1 and 3i + 2 of the paged mix
@@ -1807,22 +1955,39 @@ def phase_posit_kv(torch, dev, cfg, params, packs_held, main_outs):
     return out
 
 
-def phase_train_main(torch, dev, div_format="posit16"):
+def phase_train_main(torch, dev, div_format="posit16", div_algo=DEFAULT_VARIANT,
+                     record=False, profile=True):
     """SmolLM-360M at full width trained for 4 steps through K2, K6, K7, K8
-    (at posit64 srt_r4_cs_of_fr: every divide on the two-word frame)."""
+    (at posit64: every divide on the two-word frame).  With ``record``, each
+    step's loss and a bit-level fingerprint of every parameter after it are
+    kept (``same_training`` compares two runs); with ``profile`` one more
+    step is traced."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMDataset
     from repro_torch.kernels import ops
     from repro_torch.kernels import posit_flash_attn as F
+    from repro_torch.optim.tree import tree_items
     from repro_torch.train import TrainConfig, Trainer
 
-    cfg = get_config("smollm_360m").with_numerics(div_format=div_format)
+    cfg = get_config("smollm_360m").with_numerics(div_format=div_format, div_algo=div_algo)
     B, S, steps = 8, 256, 4
     tc = TrainConfig(steps=steps, lr=1e-3, warmup=1, log_every=1, seed=0)
     ds = SyntheticLMDataset(DataConfig(B, S, seed=0), cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(cfg, tc, ds, device=dev)
+    prints = []      # per step: (loss, {parameter: fingerprint})
+    if record:
+        step_fn = trainer.step_fn
+
+        def recorded(state, batch):
+            state, metrics = step_fn(state, batch)
+            prints.append((float(metrics["loss"]), {
+                key: int(bits(t).to(torch.int64).sum())
+                for key, t in tree_items(state["params"])}))
+            return state, metrics
+
+        trainer.step_fn = recorded
     counters = (ops.posit_div_fused_rowwise, F.posit_flash_attention,
                 F.posit_flash_attention_fwd, F.flash_backward_dq, F.flash_backward_dkv)
     for c in counters:
@@ -1831,6 +1996,8 @@ def phase_train_main(torch, dev, div_format="posit16"):
     res = trainer.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if record:
+        trainer.step_fn = step_fn
     k2, k3, k6, k7, k8 = (c.launches for c in counters)
     peak = torch.cuda.max_memory_allocated()
     L = cfg.n_layers
@@ -1843,12 +2010,17 @@ def phase_train_main(torch, dev, div_format="posit16"):
         check(got == per_step * steps,
               f"training: {name} launched {got} times, the path implies {per_step * steps}")
     secs = [h["sec"] for h in res["history"]]
-    print(f"training: SmolLM-360M ({L} layers, {div_format}, f32 masters, remat full), "
-          f"{steps} steps "
+    print(f"training: SmolLM-360M ({L} layers, {div_format} {div_algo}, f32 masters, remat "
+          f"full), {steps} steps "
           f"of {B}x{S} tokens in {wall:.2f} s; losses {[round(x, 4) for x in losses]}; "
           f"step wall times {[round(x, 3) for x in secs]} s; {B * S / min(secs):.1f} "
           f"tokens/s at the fastest step; launches K2 {k2} (4L+1 per step), K6 {k6} (2L), "
-          f"K7 {k7} (L), K8 {k8} (L); peak device memory {peak / 2**30:.2f} GiB")
+          f"K7 {k7} (L), K8 {k8} (L); peak device memory {peak / 2**30:.2f} GiB"
+          + ("; each step's parameters fingerprinted (inside the step times)" if record else ""))
+    out = {"rowwise": k2, "K6": k6, "K7": k7, "K8": k8, "losses": losses, "prints": prints,
+           "step_s": secs, "peak_bytes": peak, "busy_ms": None, "traced_ms": None}
+    if not profile:
+        return out
 
     # one more step under the profiler (not counted above)
     batch = {n: torch.from_numpy(x).to(dev) for n, x in ds.batch_at(steps).items()}
@@ -1869,8 +2041,23 @@ def phase_train_main(torch, dev, div_format="posit16"):
         print("training step (%s, traced): wall %.1f ms, device busy %.1f ms, idle share "
               "%.3f; %s" % (div_format, traced, busy, 1 - busy / traced,
                             ", ".join(f"{k} {v:.2f} ms" for k, v in by.items())))
-    return {"rowwise": k2, "K6": k6, "K7": k7, "K8": k8, "losses": losses,
-            "step_s": secs, "peak_bytes": peak, "busy_ms": busy, "traced_ms": traced}
+    return dict(out, busy_ms=busy, traced_ms=traced)
+
+
+def same_training(label, got, want):
+    """Two recorded training runs of one format at two plans: the divides
+    are exact, so every step's loss and every parameter after it must be
+    the same bits.  Names the first step and the first tensor that differ."""
+    for step, ((loss, params), (loss0, params0)) in enumerate(zip(got["prints"],
+                                                                  want["prints"])):
+        check(loss == loss0, f"{label}: step {step} loss {loss!r} against {loss0!r}")
+        off = [key for key in params0 if params[key] != params0[key]]
+        if off:
+            fail(f"{label}: step {step}: parameter {off[0]} differs first ({len(off)} of "
+                 f"{len(params0)} differ)")
+    check(len(got["prints"]) == len(want["prints"]) > 0, f"{label}: steps not recorded")
+    print(f"{label}: every step's loss and all {len(want['prints'][0][1])} parameters after "
+          f"it bit-identical to the default plan's run ({len(want['prints'])} steps)")
 
 
 MOE_REQUESTS = 16
@@ -1913,8 +2100,8 @@ def moe_mix(cfg):
 def phase_moe(torch, dev, cfg, params, n_requests=MOE_REQUESTS, label="moe"):
     """Full-width OLMoE-1B-7B served from dense slots with batch-axis packed
     admission (the first ``n_requests`` of the mix): every router through
-    K9, launch counts exact, requests 0 and 7 the same tokens alone on a
-    solo-admission engine."""
+    K9, launch counts exact, requests 0 and 7 (or the last) the same tokens
+    alone on a solo-admission engine."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -1962,13 +2149,14 @@ def phase_moe(torch, dev, cfg, params, n_requests=MOE_REQUESTS, label="moe"):
           f"{st['decode_steps']} decode steps); launches K9 {k9}, K3 {k3}, K2 {k2} (L, L, "
           f"3L+1 a forward step); peak device memory {peak / 2**30:.2f} GiB")
     solo = ServeEngine(cfg, params, ServeConfig.from_model(cfg), device=dev)
-    for i in (0, 7):
+    probes = (0, min(7, len(reqs) - 1))
+    for i in probes:
         alone = solo.serve([reqs[i]])[0]
         if not np.array_equal(alone, outs[i]):
             moe_difference(torch, dev, cfg, params)
             fail(f"{label}: request {i} alone gave {alone.tolist()}, packed {outs[i].tolist()}")
-    print(f"{label}: requests 0 and 7 alone on a solo-admission engine: the same tokens as "
-          "packed")
+    print(f"{label}: requests {probes[0]} and {probes[1]} alone on a solo-admission engine: "
+          "the same tokens as packed")
     return {"K9": k9, "K3": k3, "rowwise": k2, "tokens_per_s": n_tok / wall,
             "forwards": forwards, "peak_bytes": peak, "outs": outs}
 
@@ -2110,6 +2298,10 @@ def phase_timing(torch, dev):
     rows["K3 decode"] = flash_row(torch, dev, plan, 8, 1, 512, DECODE_POS,
                                   [0, 0, 5, 3, 9, 0, 14, 31])
     rows["K3 prefill"] = flash_row(torch, dev, plan, 1, 256, 256, [0], [56])
+    rows["K3 f32 K/V decode"] = flash_row(torch, dev, plan, 8, 1, 512, DECODE_POS,
+                                          [0, 0, 5, 3, 9, 0, 14, 31], kv_f32=True)
+    rows["K3 f32 K/V prefill"] = flash_row(torch, dev, plan, 1, 256, 256, [0], [56],
+                                           kv_f32=True)
     # the two-word frame on the model path: posit64 at the same shapes
     plan64 = datapath_plan(POSIT64, DEFAULT_VARIANT)
     rows["K2 posit64 decode"] = rowwise_row(8, 960, POSIT64)
@@ -2146,9 +2338,11 @@ def print_rows(rows):
               f"({r['bound_by']}), library {lib}")
 
 
-def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64), fmt=None):
+def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64), fmt=None,
+              kv_f32=False):
     """K3's timing row: decode (Sq == 1, one query at ``pos``) or a causal
-    prefill, keys from ``start``, SDPA on the same masks as the yardstick."""
+    prefill, keys from ``start``, SDPA on the same masks as the yardstick;
+    ``kv_f32``: K/V in f32 (bf16 values upcast)."""
     import torch.nn.functional as Fn
 
     from repro_torch.core.posit import POSIT16
@@ -2159,6 +2353,8 @@ def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64), fmt=No
 
     H, KV, hd = heads
     q, k, v = flash_inputs(torch, dev, B, Sq, Sk, H, KV, hd, 7)
+    if kv_f32:
+        k, v = k.float(), v.float()
     pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
     start_t = torch.tensor(start, dtype=torch.int32, device=dev)
     if Sq == 1:
@@ -2175,7 +2371,7 @@ def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64), fmt=No
     call = lambda: posit_flash_attention(fmt, q, k, v, True, **kw)
     dev_ms, src = device_kernel_ms(torch, call, ["flash_kernel"])
     # q of the real rows read, every output row written, the keys read
-    nbytes = 4 * (real + B * Sq) * H * hd + 2 * 2 * sum(
+    nbytes = 4 * (real + B * Sq) * H * hd + 2 * k.element_size() * sum(
         min(Sk, p + 1) - s if Sq == 1 else Sk - s for p, s in zip(pos, start)) * KV * hd
     ops_ = 4 * H * keys * hd + div_ops(plan, real * H * hd)
     bms, by = bound_ms(nbytes, ops_)
@@ -2355,22 +2551,24 @@ def layout_rows(torch, dev, fmt, pack):
     return rows
 
 
-def training_rows(torch, dev, fmt):
+def training_rows(torch, dev, fmt, kv_f32=False):
     """K6, K7 and K8 at the training path's shapes (B=8, S=256, causal), at
-    ``fmt`` with the default plan."""
+    ``fmt`` with the default plan; ``kv_f32``: K/V in f32."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels import posit_flash_attn as F
 
     B, S, H, KV, hd = 8, 256, 15, 5, 64
     plan = F.datapath_plan(fmt, DEFAULT_VARIANT)
-    tag = "" if fmt.n == 16 else f" posit{fmt.n}"
+    tag = ("" if fmt.n == 16 else f" posit{fmt.n}") + (" f32 K/V" if kv_f32 else "")
     q, k, v, co = training_inputs(torch, dev, B, S, 9)
+    if kv_f32:
+        k, v = k.float(), v.float()
     o, m, l = F.posit_flash_attention_fwd(fmt, q, k, v, True)
     args = backward_args(F, co, o, m, l, q, k, v)
     pairs = B * H * S * (S + 1) // 2            # attended (row, key) pairs
     qo = B * S * H * hd * 4                     # one f32 (B, S, H, hd) tensor
-    kv = B * S * KV * hd * 2                    # one bf16 (B, S, KV, hd) tensor
+    kv = B * S * KV * hd * k.element_size()     # one (B, S, KV, hd) K/V tensor
     rowv = B * H * S * 4                        # one f32 (B*H, S) row vector
     # library yardsticks: SDPA forward, and SDPA backward for K7 and K8
     # together, on the same causal mask with f32 inputs
@@ -2408,6 +2606,76 @@ def training_rows(torch, dev, fmt):
                   pairs * 8 * hd + div_ops(plan, pairs), plain_bwd, lib_bwd),
     }
     return rows
+
+
+PLAN_TABLE_FORMATS = (16, 32, 64)   # the paper's formats, every plan of each
+
+
+def plan_table(torch, dev, pack):
+    """Each kernel's time at every plan of posit16, posit32 and posit64 from
+    CUDA events (per call, launch gaps included): K2 at 256 x 960, K3
+    prefill at P=256, K5 on ``pack`` (the paged phase's most frequent
+    shape), K6, K7 and K8 at B=8 x 256 and K9 at 4096 x 64, each beside its
+    operation bound at that plan (div_ops: the datapath's iterations at its
+    own cost) and the paper's hardware model of the divider
+    (``core/costmodel.estimate(fmt, variant, pipelined=False)``)."""
+    from repro_torch.core import costmodel
+    from repro_torch.core.posit import PositFormat
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import posit_flash_attn as F
+
+    H, KV, hd = 15, 5, 64
+    g = torch.Generator(device="cpu").manual_seed(71)
+    a = torch.randn(256, 960, generator=g).to(dev)
+    b = (torch.rand(256, 1, generator=g) + 0.5).to(dev)
+    pq, pk, pv = flash_inputs(torch, dev, 1, 256, 256, H, KV, hd, 72)
+    s56 = torch.tensor([56], dtype=torch.int32, device=dev)
+    N, P, lens = pack
+    sq, sk, sv, seg_q, seg, segs = packed_inputs(torch, dev, lens, P, 73, left=False)
+    tq, tk, tv, co = training_inputs(torch, dev, 8, 256, 74)
+    x = (torch.randn(4096, 64, generator=g) * 2).to(dev)
+    pairs = 8 * H * 256 * 257 // 2                     # causal (row, key) pairs of K6-K8
+    pack_pairs = sum(n * (n + 1) // 2 for _, n in segs)
+    table = []
+    for n in PLAN_TABLE_FORMATS:
+        fmt = PositFormat(n)
+        for variant in plan_variants(n):
+            plan = F.datapath_plan(fmt, variant)
+            o, m, l = F.posit_flash_attention_fwd(fmt, tq, tk, tv, True, variant=variant)
+            args = backward_args(F, co, o, m, l, tq, tk, tv)
+            calls = {   # name: (call, elements divided, other operations)
+                "K2": (lambda: ops.posit_div_fused_rowwise(fmt, a, b, variant), 256 * 960, 0),
+                "K3": (lambda: F.posit_flash_attention(fmt, pq, pk, pv, True, kv_start=s56,
+                                                       variant=variant),
+                       200 * H * hd, 4 * H * hd * 200 * 201 // 2),
+                "K5": (lambda: F.posit_flash_attention(fmt, sq, sk, sv, True, variant=variant,
+                                                       seg_q=seg_q, seg_kv=seg, seg_len=P),
+                       sum(lens) * H * hd, 4 * H * hd * pack_pairs),
+                "K6": (lambda: F.posit_flash_attention_fwd(fmt, tq, tk, tv, True,
+                                                           variant=variant),
+                       8 * 256 * H * hd, 4 * hd * pairs),
+                "K7": (lambda: F.flash_backward_dq(fmt, plan, *args), pairs, 6 * hd * pairs),
+                "K8": (lambda: F.flash_backward_dkv(fmt, plan, *args), pairs, 8 * hd * pairs),
+                "K9": (lambda: ops.posit_softmax_fused(fmt, x, variant), 4096 * 64, 0),
+            }
+            cost = costmodel.estimate(fmt, variant, pipelined=False)
+            row = {"format": f"posit{n}", "variant": variant, "iterations": plan.iterations,
+                   "ops_per_iteration": div_iteration_ops(plan),
+                   "div_ops": div_ops(plan, 1), "hw_delay_fo4": cost.delay_fo4,
+                   "hw_area_ge": cost.area_ge, "hw_energy_au": cost.energy_au}
+            for name, (call, divides, other) in calls.items():
+                row[f"{name}_ms"] = cuda_time_ms(call, iters=10, warmup=2)
+                row[f"{name}_bound_ms"] = (other + div_ops(plan, divides)) / F32_OPS_PER_S * 1e3
+            table.append(row)
+    names = ("K2", "K3", "K5", "K6", "K7", "K8", "K9")
+    print("plan table (CUDA events, ms per call; bound = operations / 67 TFLOP/s; hardware "
+          "model: delay FO4, area GE): " + "; ".join(
+              f"{r['format']} {r['variant']} it {r['iterations']} x {r['ops_per_iteration']} "
+              f"ops, hw {r['hw_delay_fo4']:.1f} FO4 {r['hw_area_ge']:.0f} GE: " + ", ".join(
+                  f"{k} {r[k + '_ms']:.4f} (bound {r[k + '_bound_ms']:.4f})" for k in names)
+              for r in table))
+    print(json.dumps({"plan_table": table}))
+    return table
 
 
 def decode_breakdown(torch, dev, cfg, params, paged: bool = False):
@@ -2515,28 +2783,31 @@ def ptxas_kernels(log: str):
 
 def time_kernels(torch, dev, src: str, repeats: int = 3) -> None:
     """An A/B of the kernels both packages have, from the package under
-    ``src``: each library's build seconds (one ``nvcc`` at a time), its
-    ptxas report, and the device time per launch of K3 (the timing phase's
-    decode and prefill rows), K2 (1024 x 1024), K6-K8 (the training rows)
-    and K9 (4096 x 64).  Run it from a parent checkout's ``src`` and from
+    ``src``: each library's build seconds (all built in parallel, as the
+    main run builds them), its ptxas report (each posit16 kernel's
+    registers and spill stores), and the device time per launch of K3 (the
+    timing phase's decode and prefill rows), K4 (the paged decode), K5 (an
+    8 x 256 pack), K2 (1024 x 1024), K6-K8 (the training rows) and K9
+    (4096 x 64).  Run it from a parent checkout's ``src`` and from
     this one, in turns, on one card, after an edit to a kernel source or
     to the shared ``posit_srt.cuh``."""
     from repro_torch.core.posit import POSIT16
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import posit_flash_attn as F
 
-    out = {"src": src, "build_s": {}, "ptxas": {}}
-    # one library per source, or per (flash source, format) where the
-    # package has LIBRARIES
-    for n in list(getattr(_build, "LIBRARIES", _build.SOURCES)):
-        t0 = time.perf_counter()
-        built = _build.build([n])[n]
-        out["build_s"][n] = round(time.perf_counter() - t0, 2) if built else 0.0
-        log = _build.ptxas_log(n)
-        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
-        out["ptxas"][n] = {"kernels": len(regs), "max_registers": max(regs, default=0),
-                           "spill_store_bytes": sum(int(m) for m in re.findall(
-                               r"(\d+) bytes spill stores", log))}
+    out = {"src": src, "build_s": {}, "ptxas": {}, "ptxas_posit16": {}}
+    # every library at once, one nvcc each, as the main run builds them
+    names = list(getattr(_build, "LIBRARIES", _build.SOURCES))
+    t0 = time.perf_counter()
+    out["build_s"] = {n: round(t, 2) for n, t in _build.build(names).items()}
+    out["build_wall_s"] = round(time.perf_counter() - t0, 2)
+    for n in names:
+        kernels = ptxas_kernels(_build.ptxas_log(n))
+        out["ptxas"][n] = {"kernels": len(kernels),
+                           "max_registers": max((r for _, r, _ in kernels), default=0),
+                           "spill_store_bytes": sum(sp for _, _, sp in kernels)}
+        out["ptxas_posit16"].update({k: [r, sp] for k, r, sp in kernels
+                                     if k.split()[1] == "posit16"})
     plan = F.datapath_plan(POSIT16, "srt_r4_cs_of_fr")
     H, KV, hd = 15, 5, 64
     q, k, v = flash_inputs(torch, dev, 8, 1, 512, H, KV, hd, 7)
@@ -2550,10 +2821,18 @@ def time_kernels(torch, dev, src: str, repeats: int = 3) -> None:
     a = torch.randn(1024, 1024, device=dev)
     b = torch.rand(1024, 1, device=dev) + 0.5
     x = torch.randn(4096, 64, device=dev) * 2
+    gq, gk, gv, bt = paged_inputs(torch, dev, 8, 32, 16, H, KV, hd, 8)
+    sq, sk, sv, seg_q, seg, _ = packed_inputs(torch, dev, pack_lens(8, 256), 256, 9,
+                                              left=False)
     calls = {
         "K3 decode": (lambda: F.posit_flash_attention(POSIT16, q, k, v, True, kv_start=start,
                                                       kv_len=pos + 1, q_pos=pos),
                       ["flash_kernel"]),
+        "K4 decode": (lambda: F.posit_flash_attention(POSIT16, gq, gk, gv, True, kv_len=pos + 1,
+                                                      q_pos=pos, block_tables=bt),
+                      ["flash_kernel"]),
+        "K5 8x256": (lambda: F.posit_flash_attention(POSIT16, sq, sk, sv, True, seg_q=seg_q,
+                                                     seg_kv=seg, seg_len=256), ["flash_kernel"]),
         "K3 prefill": (lambda: F.posit_flash_attention(POSIT16, qp, kp, vp, True,
                                                        kv_start=s56), ["flash_kernel"]),
         "K2 1024x1024": (lambda: ops.posit_div_fused_rowwise(POSIT16, a, b),
@@ -2618,10 +2897,10 @@ def main() -> int:
               "; ".join(f"{f} {len(v)} kernels, at most {max(r for r, _ in v)} registers, "
                         f"{sum(sp for _, sp in v)} bytes of spill stores"
                         for f, v in sorted(by_fmt.items(), key=lambda fv: (len(fv[0]), fv[0]))))
-        new = [f"{k} {r}/{sp}" for k, r, sp in kernels if k.split()[1] in ("posit8", "posit32")]
+        new = [f"{k} {r}/{sp}" for k, r, sp in kernels if k.split()[1] == "posit64"]
         if new and _build.LIBRARIES[n][0] in _build.PER_FORMAT + ("posit_softmax",):
-            print(f"setup: ptxas {n}, posit8 and posit32 kernels (registers/spill store "
-                  "bytes): " + "; ".join(new))
+            print(f"setup: ptxas {n}, posit64 kernels (registers/spill store bytes): "
+                  + "; ".join(new))
 
     took = {"setup": time.perf_counter() - T_START}
 
@@ -2646,6 +2925,7 @@ def main() -> int:
         timed("model", phase_model_small, torch, dev, "smollm_360m", div_format)
     timed("model", phase_model_small, torch, dev, "olmoe_1b_7b")
     train_err = timed("K6-K8", phase_flash_train, torch, dev)
+    f32_err = timed("f32 K/V", phase_f32_kv, torch, dev)
     for div_format in ("posit16", "posit64", "posit32", "posit8"):
         timed("train", phase_train_small, torch, dev, div_format)
     cfg, params = timed("main", full_model, torch, dev)
@@ -2670,6 +2950,15 @@ def main() -> int:
     paged = timed("paged", phase_paged, torch, dev, cfg, params, packs_held)
     paged64 = timed("paged posit64", phase_paged, torch, dev, cfg64, params, packs_held,
                     "paged posit64", path64["outs"])
+    # the paper's NRD baseline, posit64's longest datapath (63 non-restoring
+    # iterations): the same requests, counts and tokens as the default plan's
+    label = "paged posit64 nrd"
+    paged64nrd = timed(label, phase_paged, torch, dev, cfg64.with_numerics(div_algo="nrd"),
+                       params, packs_held, label, same_as=paged64["outs"])
+    counts = {k: paged64nrd[k] for k in ("rowwise", "K3", "K4", "K5")}
+    check(counts == {k: paged[k] for k in counts},
+          f"{label}: launches {counts}, the posit16 paged run's {({k: paged[k] for k in counts})}")
+    print(f"{label}: the posit16 paged run's launch counts ({counts})")
     pageds = {}
     for n in NEW_FORMATS:
         label = f"paged posit{n}"
@@ -2684,13 +2973,19 @@ def main() -> int:
               f"{len(paged['outs'])} requests' tokens differ from the posit16 paged run's")
     kv = timed("posit-KV", phase_posit_kv, torch, dev, cfg, params, packs_held, path["outs"])
     train = timed("training", phase_train_main, torch, dev)
-    train64 = timed("training posit64", phase_train_main, torch, dev, "posit64")
+    train64 = timed("training posit64", phase_train_main, torch, dev, "posit64", record=True)
+    label = "training posit64 srt_r2_cs"
+    train64r2 = timed(label, phase_train_main, torch, dev, "posit64", "srt_r2_cs", record=True,
+                      profile=False)
+    same_training(label, train64r2, train64)
     train32 = timed("training posit32", phase_train_main, torch, dev, "posit32")
     rows = timed("timing", phase_timing, torch, dev)
     for fmt, pg in ((POSIT16, paged), (POSIT64, paged64), (POSIT32, pageds[32])):
         rows.update(timed("timing", layout_rows, torch, dev, fmt, pg["pack"]))
         rows.update(timed("timing", training_rows, torch, dev, fmt))
+    rows.update(timed("timing", training_rows, torch, dev, POSIT16, kv_f32=True))
     print_rows({k: v for k, v in rows.items() if k[:2] in ("K4", "K5", "K6", "K7", "K8")})
+    timed("plan table", plan_table, torch, dev, paged["pack"])
     rows.update(timed("timing", division_rows, torch, dev))
     timed("timing", decode_breakdown, torch, dev, cfg, params)
     timed("timing", decode_breakdown, torch, dev, cfg, params, paged=True)
@@ -2717,6 +3012,15 @@ def main() -> int:
           f"posit16 run's; {moe64['tokens_per_s']:.2f} tokens/s against "
           f"{moe['tokens_per_s']:.2f}")
     timed("timing", decode_breakdown, torch, dev, mcfg64, mparams)
+    # posit64 srt_r4_cs (radix 4 without on-the-fly conversion): the mix's
+    # first 2 requests, the default plan's tokens
+    label = "moe posit64 srt_r4_cs"
+    moe64r4 = timed(label, phase_moe, torch, dev, mcfg64.with_numerics(div_algo="srt_r4_cs"),
+                    mparams, 2, label)
+    off = [i for i, (a, b) in enumerate(zip(moe64r4["outs"], moe64["outs"]))
+           if not np.array_equal(a, b)]
+    check(not off, f"{label}: requests {off} differ from the default plan's posit64 run")
+    print(f"{label}: requests 0 and 1 the default plan's posit64 tokens, bit for bit")
     # posit32 (K9, K2, K3 on the one-word residual), the same 8 requests
     mcfg32 = mcfg.with_numerics(div_format="posit32")
     moe32 = timed("moe posit32", phase_moe, torch, dev, mcfg32, mparams, MOE64_REQUESTS,
@@ -2742,7 +3046,7 @@ def main() -> int:
 
     csrc = "src/repro_torch/kernels/csrc/"
     runs = (path, path64, paged, paged64, train, train64, moe, moe64, train32, moe32,
-            *paths.values(), *pageds.values())
+            *paths.values(), *pageds.values(), paged64nrd, train64r2, moe64r4)
 
     def launches(name):
         """``name``'s launches over every main path's run."""
@@ -2759,22 +3063,22 @@ def main() -> int:
               rows["K2 decode"]),
         entry("K3 posit flash attention, dense", csrc + "posit_flash_attn.cu",
               "src/repro/kernels/posit_flash_attn.py:330", launches("K3"),
-              max(flash_err, grid["K3"]), rows["K3 decode"]),
+              max(flash_err, grid["K3"], f32_err["K3"]), rows["K3 decode"]),
         entry("K4 posit flash attention, paged decode", csrc + "posit_flash_attn.cu",
-              "src/repro/kernels/posit_flash_attn.py:330", launches("K4"), paged_err,
-              rows["K4 decode"]),
+              "src/repro/kernels/posit_flash_attn.py:330", launches("K4"),
+              max(paged_err, f32_err["K4"]), rows["K4 decode"]),
         entry("K5 posit flash attention, packed prefill", csrc + "posit_flash_attn.cu",
-              "src/repro/kernels/posit_flash_attn.py:330", launches("K5"), packed_err,
-              rows["K5 packed prefill"]),
+              "src/repro/kernels/posit_flash_attn.py:330", launches("K5"),
+              max(packed_err, f32_err["K5"]), rows["K5 packed prefill"]),
         entry("K6 posit flash attention forward saving (m, l)", csrc + "posit_flash_attn.cu",
               "src/repro/kernels/posit_flash_attn.py:330", launches("K6"),
-              train_err["K6"], rows["K6"]),
+              max(train_err["K6"], f32_err["K6"]), rows["K6"]),
         entry("K7 posit flash attention backward, dq", csrc + "posit_flash_bwd.cu",
               "src/repro/kernels/posit_flash_attn.py:601", launches("K7"),
-              train_err["K7"], rows["K7"]),
+              max(train_err["K7"], f32_err["K7"]), rows["K7"]),
         entry("K8 posit flash attention backward, dk and dv", csrc + "posit_flash_bwd.cu",
               "src/repro/kernels/posit_flash_attn.py:626", launches("K8"),
-              max(train_err["K8"], grid["K8"]), rows["K8"]),
+              max(train_err["K8"], grid["K8"], f32_err["K8"]), rows["K8"]),
         entry("K9 fused posit softmax (MoE router)", csrc + "posit_softmax.cu",
               "src/repro/kernels/posit_fused_div.py:210", launches("K9"), softmax_err,
               rows["K9 router"]),

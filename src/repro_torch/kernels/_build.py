@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` becomes a shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds), loaded with ``ctypes``.
 The flash sources (K3-K8) become one library per posit format,
-``<name>_p<n>``, built with ``-DPOSIT_MODEL_N=<n>``: each instantiates only
-that format's plans (``posit::kLibraryPlan``) behind the same C entry
-points, so the formats build side by side instead of one after another.
+``<name>_p<n>``, built with ``-DPOSIT_MODEL_N=<n>``, and posit64's in three
+parts, ``<name>_p64_<part>`` (``-DPOSIT_MODEL_PART``: radix 4, radix 2
+non-redundant, radix 2 carry-save): each instantiates only those plans
+(``posit::kLibraryPlan``) behind the same C entry points, so they build
+side by side instead of one after another.
 Libraries land in ``kernels/_build/`` (listed in ``.gitignore``) under a
 name that carries a hash of the sources and of the flags, so an edited
 source rebuilds and a stale library is never loaded.
@@ -34,8 +36,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("posit_fused_div", "posit_flash_attn", "posit_flash_bwd", "posit_softmax",
            "posit_div", "posit_cast")
-PER_FORMAT = ("posit_flash_attn", "posit_flash_bwd")   # built once per format
+PER_FORMAT = ("posit_flash_attn", "posit_flash_bwd")   # built once per format (and part)
 MODEL_FORMATS = (8, 16, 32, 64)                          # posit::kModelPlan's formats
+# the libraries of a format, by part (posit::kLibraryPart): posit64's radix-2
+# rows unroll 62 two-word iterations, so its six datapaths build in three
+# libraries; every other format is one
+FORMAT_PARTS = {64: ("r4", "r2", "r2cs")}
 
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,20 +49,40 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def library(source: str, n: int) -> str:
-    """The name of ``source``'s library for posit format ``n``."""
-    return f"{source}_p{n}"
+def part_of(plan) -> str:
+    """The part of its format's libraries that holds ``plan``'s kernels (''
+    for a format built as one library): the mirror of
+    ``posit::kLibraryPart``."""
+    if plan.n not in FORMAT_PARTS:
+        return ""
+    return "r4" if plan.radix == 4 else "r2cs" if plan.redundant else "r2"
+
+
+def library(source: str, n: int, part: str = "") -> str:
+    """The name of ``source``'s library for posit format ``n`` (and
+    ``part``, for a format built in parts)."""
+    return f"{source}_p{n}" + (f"_{part}" if part else "")
+
+
+def library_of(source: str, plan) -> str:
+    """The library of ``source`` that holds ``plan``'s kernels."""
+    return library(source, plan.n, part_of(plan))
 
 
 def _libraries() -> Dict[str, Tuple[str, Tuple[str, ...]]]:
     """Library name -> (source, the nvcc flags it adds)."""
     libs = {}
     for src in SOURCES:
-        if src in PER_FORMAT:
-            for n in MODEL_FORMATS:
-                libs[library(src, n)] = (src, (f"-DPOSIT_MODEL_N={n}",))
-        else:
+        if src not in PER_FORMAT:
             libs[src] = (src, ())
+            continue
+        for n in MODEL_FORMATS:
+            parts = FORMAT_PARTS.get(n)
+            if parts is None:
+                libs[library(src, n)] = (src, (f"-DPOSIT_MODEL_N={n}",))
+            for i, part in enumerate(parts or ()):
+                libs[library(src, n, part)] = (src, (f"-DPOSIT_MODEL_N={n}",
+                                                     f"-DPOSIT_MODEL_PART={i}"))
     return libs
 
 

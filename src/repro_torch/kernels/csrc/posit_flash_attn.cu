@@ -55,18 +55,21 @@
 // The layout is a template flag, so K3/K6's instantiation holds none of the
 // paged or packed code (its schedule is ptxas-sensitive, PERF.md section 6).
 //
-// Instantiated, with bf16 K/V and in every layout, for the plans
-// posit::kModelPlan names: every posit8, posit16 and posit32 plan and
-// posit64 srt_r4_cs_of_fr (and srt_r4_cs_of, the same datapath); posit32
-// srt_r4_scaled and posit64 run o / l on K1's two-word frame with a 48-byte
-// divisor per row.  The source is built once per format (-DPOSIT_MODEL_N,
-// posit::kLibraryPlan): a library returns -1 for another format's plan, as
-// every library does for the other posit64 plans and f32 K/V.
+// Instantiated in every layout for the plans posit::kModelPlan names: every
+// posit8, posit16, posit32 and posit64 plan; posit32 srt_r4_scaled and
+// posit64 run o / l on K1's two-word frame with a 48-byte divisor per row.
+// K/V may be bf16 or f32 (the reference upcasts K/V to f32 before its
+// kernel): the tiles are f32 in shared memory either way, so the element
+// type is a flag of the call, not of the instantiation: each tile load
+// branches on it (load_kv), the same way in every block.  The source is
+// built once per format (posit64: per part, -DPOSIT_MODEL_N,
+// -DPOSIT_MODEL_PART, posit::kLibraryPlan): a library returns -1 for
+// another library's plan.
 //
-// Bound: decode reads the bf16 KV cache (or the pages each sequence
-// attends) once and is memory-bound; prefill does 4*B*H*Sq*Sk*hd f32 FMA
-// flops (K5: over the block-diagonal causal pairs).  Tensor cores are left
-// for a later version.
+// Bound: decode reads the KV cache (or the pages each sequence attends)
+// once and is memory-bound; prefill does 4*B*H*Sq*Sk*hd f32 FMA flops (K5:
+// over the block-diagonal causal pairs).  Tensor cores are left for a
+// later version.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -107,13 +110,48 @@ struct KvIndex {
   const int* seg_kv;
 };
 
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+// One kv tile of kBK keys from base into sK (rows padded to hd + 1) and sV,
+// as f32 (bf16 upcast exactly); keys outside the sequence, the page table's
+// masked rows (sKey -1) and, packed, other segments' keys load as 0.  The
+// kernel calls it for one element type or the other, by a branch that
+// every block takes the same way: the bf16 loop is the one the kernel had
+// before f32 K/V, so K3 decode kept its time on an H100, where one select
+// per element cost it 2% (PERF.md section 6).
+template <int kLayout, class T>
+__device__ __forceinline__ void load_kv(const T* __restrict__ k, const T* __restrict__ v,
+                                        float* sK, float* sV, const int* sKey, int base,
+                                        int seg, int b, int Sk, int KVH, int kvh, int hd) {
+  for (int i = threadIdx.x; i < kBK * hd; i += kThreads) {
+    const int j = i / hd, d = i % hd;
+    const int kp = base + j;
+    bool in;
+    size_t off;
+    if constexpr (kLayout == kPaged) {
+      const int row = sKey[j];
+      in = row >= 0;
+      off = ((static_cast<size_t>(in ? row : 0)) * KVH + kvh) * hd + d;
+    } else {
+      in = kp >= 0 && kp < Sk;
+      if constexpr (kLayout == kPacked) in = in && sKey[j] == seg;
+      off = ((static_cast<size_t>(b) * Sk + (in ? kp : 0)) * KVH + kvh) * hd + d;
+    }
+    sK[j * (hd + 1) + d] = in ? to_f32(k[off]) : 0.f;
+    sV[i] = in ? to_f32(v[off]) : 0.f;
+  }
+}
+
 // bq (1, kBQMax, or for K5 a divisor of the segment width) is the number of
 // query rows of a block's tile; a row's result does not depend on it, so
-// decode (Sq == 1) takes one-row tiles.
+// decode (Sq == 1) takes one-row tiles.  K/V come as bf16 (k, v) or, where
+// kf is not null, as f32 (kf, vf).
 template <class P, int kLayout>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, float* __restrict__ out,
+                 const __nv_bfloat16* __restrict__ v, const float* __restrict__ kf,
+                 const float* __restrict__ vf, float* __restrict__ out,
                  float* __restrict__ m_out, float* __restrict__ l_out,
                  const int* __restrict__ kv_start, const int* __restrict__ kv_len,
                  const int* __restrict__ q_pos, int bq, int Sq, int Sk, int H, int KVH,
@@ -209,23 +247,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    for (int i = tid; i < kBK * hd; i += kThreads) {
-      const int j = i / hd, d = i % hd;
-      const int kp = base + j;
-      bool in;
-      size_t off;
-      if constexpr (kLayout == kPaged) {
-        const int row = sKey[j];
-        in = row >= 0;
-        off = ((static_cast<size_t>(in ? row : 0)) * KVH + kvh) * hd + d;
-      } else {
-        in = kp >= 0 && kp < Sk;
-        if constexpr (kLayout == kPacked) in = in && sKey[j] == seg;
-        off = ((static_cast<size_t>(b) * Sk + (in ? kp : 0)) * KVH + kvh) * hd + d;
-      }
-      sK[j * (hd + 1) + d] = in ? __bfloat162float(k[off]) : 0.f;
-      sV[i] = in ? __bfloat162float(v[off]) : 0.f;
-    }
+    if (kf != nullptr) load_kv<kLayout>(kf, vf, sK, sV, sKey, base, seg, b, Sk, KVH, kvh, hd);
+    else load_kv<kLayout>(k, v, sK, sV, sKey, base, seg, b, Sk, KVH, kvh, hd);
     __syncthreads();
     // scores s = (q . k) * scale, masked as the reference does
     for (int i = tid; i < bq * kBK; i += kThreads) {
@@ -300,7 +323,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <class P, int kLayout>
-int launch(const float* q, const __nv_bfloat16* k, const __nv_bfloat16* v, float* out,
+int launch(const float* q, const void* k, const void* v, int kv_f32, float* out,
            float* m_out, float* l_out, const int* kv_start, const int* kv_len,
            const int* q_pos, int B, int Sq, int Sk, int H, int KVH, int hd, float scale,
            int causal, int window, int q_offset, float eps, int bq, const KvIndex& ix,
@@ -314,15 +337,19 @@ int launch(const float* q, const __nv_bfloat16* k, const __nv_bfloat16* v, float
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(heads), q_tiles);
-  kern<<<grid, kThreads, bytes, s>>>(q, k, v, out, m_out, l_out, kv_start, kv_len, q_pos, bq,
-                                     Sq, Sk, H, KVH, hd, scale, causal, window, q_offset,
-                                     eps, ix);
+  const auto* kb = static_cast<const __nv_bfloat16*>(kv_f32 ? nullptr : k);
+  const auto* vb = static_cast<const __nv_bfloat16*>(kv_f32 ? nullptr : v);
+  const auto* kf = static_cast<const float*>(kv_f32 ? k : nullptr);
+  const auto* vf = static_cast<const float*>(kv_f32 ? v : nullptr);
+  kern<<<grid, kThreads, bytes, s>>>(q, kb, vb, kf, vf, out, m_out, l_out, kv_start, kv_len,
+                                     q_pos, bq, Sq, Sk, H, KVH, hd, scale, causal, window,
+                                     q_offset, eps, ix);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kLayout>
 int dispatch(int n, int radix, int red, int otf, int scaled, int nonrest, int it, int shift,
-             int gbits, const float* q, const void* k, const void* v, float* out,
+             int gbits, const float* q, const void* k, const void* v, int kv_f32, float* out,
              float* m_out, float* l_out, const int* kv_start, const int* kv_len,
              const int* q_pos, int B, int Sq, int Sk, int H, int KVH, int hd, float scale,
              int causal, int window, int q_offset, float eps, int bq, const KvIndex& ix,
@@ -334,10 +361,9 @@ int dispatch(int n, int radix, int red, int otf, int scaled, int nonrest, int it
   posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits, [&](auto plan) {
     using P = decltype(plan);
     if constexpr (posit::kLibraryPlan<P>) {
-      rc = launch<P, kLayout>(q, static_cast<const __nv_bfloat16*>(k),
-                              static_cast<const __nv_bfloat16*>(v), out, m_out, l_out,
-                              kv_start, kv_len, q_pos, B, Sq, Sk, H, KVH, hd, scale, causal,
-                              window, q_offset, eps, bq, ix, s);
+      rc = launch<P, kLayout>(q, k, v, kv_f32, out, m_out, l_out, kv_start, kv_len, q_pos, B,
+                              Sq, Sk, H, KVH, hd, scale, causal, window, q_offset, eps, bq, ix,
+                              s);
     }
   });
   return rc;
@@ -349,9 +375,10 @@ int dispatch(int n, int radix, int red, int otf, int scaled, int nonrest, int it
 // l_out), 1 (paged: K4) or 2 (packed: K5).
 // q: (B, Sq, H, hd) f32; out: (B, Sq, H, hd) f32; m_out / l_out: (B*H, Sq)
 // f32, or both null (no residuals; null for K4 and K5); kv_start / kv_len /
-// q_pos: (B,) int32; all contiguous on the device.
-//   * dense and packed: k, v (B, Sk, KVH, hd) bf16;
-//   * paged: k, v are block pools (NB, bs, KVH, hd) bf16 and block_tables
+// q_pos: (B,) int32; all contiguous on the device.  k and v are bf16, or f32
+// where kv_f32 is not 0:
+//   * dense and packed: k, v (B, Sk, KVH, hd);
+//   * paged: k, v are block pools (NB, bs, KVH, hd) and block_tables
 //     (B, max_blocks) int32 maps logical row r of sequence b to pool row
 //     (block_tables[b, r / bs], r % bs); Sk is ignored, the virtual kv length
 //     is max_blocks * bs;
@@ -364,8 +391,9 @@ int dispatch(int n, int radix, int red, int otf, int scaled, int nonrest, int it
 // layout, -2 for a head_dim above kHdMax, a bad head split, a bad layout,
 // B*H past 2^31 - 1 or more than 65535 q tiles.
 extern "C" int posit_flash_attn(int n, int radix, int red, int otf, int scaled, int nonrest,
-                                int it, int shift, int gbits, int layout, const float* q,
-                                const void* k, const void* v, float* out, float* m_out,
+                                int it, int shift, int gbits, int layout, int kv_f32,
+                                const float* q, const void* k, const void* v, float* out,
+                                float* m_out,
                                 float* l_out, const int* kv_start, const int* kv_len,
                                 const int* q_pos, const int* block_tables, const int* seg_q,
                                 const int* seg_kv, int B, int Sq, int Sk, int H, int KVH,
@@ -380,9 +408,9 @@ extern "C" int posit_flash_attn(int n, int radix, int red, int otf, int scaled, 
   if (layout != kPacked) bq = Sq == 1 ? 1 : kBQMax;
   auto run = [&](auto tag) {
     return dispatch<decltype(tag)::value>(n, radix, red, otf, scaled, nonrest, it, shift,
-                                          gbits, q, k, v, out, m_out, l_out, kv_start, kv_len,
-                                          q_pos, B, Sq, Sk, H, KVH, hd, scale, causal, window,
-                                          q_offset, eps, bq, ix, stream);
+                                          gbits, q, k, v, kv_f32, out, m_out, l_out, kv_start,
+                                          kv_len, q_pos, B, Sq, Sk, H, KVH, hd, scale, causal,
+                                          window, q_offset, eps, bq, ix, stream);
   };
   switch (layout) {
     case kDense: return run(std::integral_constant<int, kDense>{});

@@ -33,21 +33,20 @@
 //     head_dim, then a separately rounded multiply by scale), so a recomputed
 //     e is the forward's e.
 //
-// Instantiated, with bf16 K/V, for the plans posit::kModelPlan names, as
-// K3/K6 are: every posit8, posit16 and posit32 plan and posit64
-// srt_r4_cs_of_fr (srt_r4_cs_of, the same datapath); posit32 srt_r4_scaled
-// and posit64 run p = e / l on K1's two-word frame with a 48-byte divisor
-// per row.  Built once per format, as posit_flash_attn.cu is
+// Instantiated for the plans posit::kModelPlan names, as K3/K6 are: every
+// posit8, posit16, posit32 and posit64 plan; posit32 srt_r4_scaled and
+// posit64 run p = e / l on K1's two-word frame with a 48-byte divisor per
+// row.  K/V are bf16 or f32, a flag of the call (the tiles are f32 in
+// shared memory either way); dk / dv are f32 and the caller casts them to
+// K/V's dtype.  Built once per format and part, as posit_flash_attn.cu is
 // (posit::kLibraryPlan): other (format, plan) pairs return -1.
 //
 // Bound: per attended (row, key) pair K7 does 6*hd f32 flops and K8 8*hd,
-// and each does one posit division (about 160 per pattern word + 30 per
-// residual word and iteration: 280 32-bit operations for posit8 radix-4,
-// 400 for posit16, 640 for posit32, 1120 for posit32 srt_r4_scaled and
-// 2240 for posit64 radix-4 on two words): both are bounded by operations,
-// not bytes (they read q, dO, k, v and the row vectors once per tile).  The
-// products run on CUDA cores in f32; tensor cores are left for a later
-// version.
+// and each does one posit division (a few hundred 32-bit operations at
+// posit16, a few thousand at posit64; chip_smoke.py div_ops counts them per
+// plan): both are bounded by operations, not bytes (they read q, dO, k, v
+// and the row vectors once per tile).  The products run on CUDA cores in
+// f32; tensor cores are left for a later version.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,16 +111,26 @@ __device__ void load_q_tile(const float* q, const float* g, const float* m, cons
   }
 }
 
-// Keys [k0, k0 + bk) of kv head kvh into sK / sV (stride hd + 1), upcast.
-__device__ void load_kv_tile(const __nv_bfloat16* k, const __nv_bfloat16* v, float* sK,
-                             float* sV, int b, int kvh, int k0, int bk, int Sk, int KVH, int hd) {
+// One K/V element as f32: from the f32 tensor where the call gave f32 K/V
+// (f not null, the same in every block), else from the bf16 one, upcast
+// exactly.  One select per element: on an H100 a branch per tile between
+// two copies of the loop (posit_flash_attn.cu's form) cost K7 2-3%, this
+// form left it 5% faster (PERF.md section 6).
+__device__ __forceinline__ float kv_at(const __nv_bfloat16* b, const float* f, size_t off) {
+  return f != nullptr ? f[off] : __bfloat162float(b[off]);
+}
+
+// Keys [k0, k0 + bk) of kv head kvh into sK / sV (stride hd + 1), as f32.
+__device__ void load_kv_tile(const __nv_bfloat16* k, const __nv_bfloat16* v, const float* kf,
+                             const float* vf, float* sK, float* sV, int b, int kvh, int k0,
+                             int bk, int Sk, int KVH, int hd) {
   for (int i = threadIdx.x; i < bk * hd; i += kThreads) {
     const int j = i / hd, d = i % hd;
     const int kp = k0 + j;
     const bool in = kp < Sk;
     const size_t off = ((static_cast<size_t>(b) * Sk + (in ? kp : 0)) * KVH + kvh) * hd + d;
-    sK[j * (hd + 1) + d] = in ? __bfloat162float(k[off]) : 0.f;
-    sV[j * (hd + 1) + d] = in ? __bfloat162float(v[off]) : 0.f;
+    sK[j * (hd + 1) + d] = in ? kv_at(k, kf, off) : 0.f;
+    sV[j * (hd + 1) + d] = in ? kv_at(v, vf, off) : 0.f;
   }
 }
 
@@ -136,7 +145,8 @@ size_t smem_bytes(int bk, int hd) {
 template <class P>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ g,
+                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ kf,
+                        const float* __restrict__ vf, const float* __restrict__ g,
                         const float* __restrict__ m, const float* __restrict__ l,
                         const float* __restrict__ D, float* __restrict__ dq, int Sq, int Sk,
                         int H, int KVH, int hd, float scale, int causal, int window,
@@ -171,7 +181,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * kBKq;
     __syncthreads();
-    load_kv_tile(k, v, sK, sV, b, kvh, k0, kBKq, Sk, KVH, hd);
+    load_kv_tile(k, v, kf, vf, sK, sV, b, kvh, k0, kBKq, Sk, KVH, hd);
     __syncthreads();
     tile_p_ds<P>(sQ, sG, sK, sV, sDiv, sM, sD, nullptr, sDS, rows, kBKq, hd, qp0, k0, Sk, scale,
                  causal, window);
@@ -200,7 +210,8 @@ __global__ void __launch_bounds__(kThreads)
 template <class P>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const float* __restrict__ g,
+                         const __nv_bfloat16* __restrict__ v, const float* __restrict__ kf,
+                         const float* __restrict__ vf, const float* __restrict__ g,
                          const float* __restrict__ m, const float* __restrict__ l,
                          const float* __restrict__ D, float* __restrict__ dk,
                          float* __restrict__ dv, int Sq, int Sk, int H, int KVH, int hd,
@@ -227,7 +238,7 @@ __global__ void __launch_bounds__(kThreads)
   // masked under the causal mask)
   const int i0 = causal && k0 > q_offset ? (k0 - q_offset) / kBQ : 0;
 
-  load_kv_tile(k, v, sK, sV, b, kvh, k0, kBKk, Sk, KVH, hd);
+  load_kv_tile(k, v, kf, vf, sK, sV, b, kvh, k0, kBKk, Sk, KVH, hd);
   float acc_k[kAcc], acc_v[kAcc];
 #pragma unroll
   for (int a = 0; a < kAcc; ++a) acc_k[a] = acc_v[a] = 0.f;
@@ -278,15 +289,30 @@ int prepare(Kern kern, size_t bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
+// k / v as the kernels take them: the bf16 pair, or the f32 pair.
+struct KV {
+  const __nv_bfloat16 *k, *v;
+  const float *kf, *vf;
+};
+
+KV kv_of(const void* k, const void* v, int kv_f32) {
+  if (kv_f32) return {nullptr, nullptr, static_cast<const float*>(k),
+                      static_cast<const float*>(v)};
+  return {static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), nullptr,
+          nullptr};
+}
+
 }  // namespace
 
 // Shapes (all contiguous on the device): q, g (dO), dq: (B, Sq, H, hd) f32;
-// k, v: (B, Sk, KVH, hd) bf16; dk, dv: (B, Sk, KVH, hd) f32; m, l, D:
+// k, v: (B, Sk, KVH, hd) bf16, or f32 where kv_f32 is not 0; dk, dv:
+// (B, Sk, KVH, hd) f32; m, l, D:
 // (B*H, Sq) f32.  Each returns 0, a cudaError_t, -1 when no plan compiled
 // into this library (posit::kLibraryPlan) matches, -2 for a head_dim above
 // kHdMax, a bad head split, B*H past 2^31 - 1 or more than 65535 tiles.
 extern "C" int posit_flash_bwd_dq(int n, int radix, int red, int otf, int scaled, int nonrest,
-                                  int it, int shift, int gbits, const float* q, const void* k,
+                                  int it, int shift, int gbits, int kv_f32, const float* q,
+                                  const void* k,
                                   const void* v, const float* g, const float* m, const float* l,
                                   const float* D, float* dq, int B, int Sq, int Sk, int H,
                                   int KVH, int hd, float scale, int causal, int window,
@@ -309,10 +335,9 @@ extern "C" int posit_flash_bwd_dq(int n, int radix, int red, int otf, int scaled
         return;
       }
       const dim3 grid(static_cast<unsigned>(heads), tiles);
-      kern<<<grid, kThreads, bytes, s>>>(q, static_cast<const __nv_bfloat16*>(k),
-                                         static_cast<const __nv_bfloat16*>(v), g, m, l, D, dq,
-                                         Sq, Sk, H, KVH, hd, scale, causal, window, q_offset,
-                                         eps);
+      const KV kv = kv_of(k, v, kv_f32);
+      kern<<<grid, kThreads, bytes, s>>>(q, kv.k, kv.v, kv.kf, kv.vf, g, m, l, D, dq, Sq, Sk,
+                                         H, KVH, hd, scale, causal, window, q_offset, eps);
       rc = static_cast<int>(cudaGetLastError());
     }
   });
@@ -320,7 +345,8 @@ extern "C" int posit_flash_bwd_dq(int n, int radix, int red, int otf, int scaled
 }
 
 extern "C" int posit_flash_bwd_dkv(int n, int radix, int red, int otf, int scaled, int nonrest,
-                                   int it, int shift, int gbits, const float* q, const void* k,
+                                   int it, int shift, int gbits, int kv_f32, const float* q,
+                                   const void* k,
                                    const void* v, const float* g, const float* m, const float* l,
                                    const float* D, float* dk, float* dv, int B, int Sq, int Sk,
                                    int H, int KVH, int hd, float scale, int causal, int window,
@@ -343,10 +369,9 @@ extern "C" int posit_flash_bwd_dkv(int n, int radix, int red, int otf, int scale
         return;
       }
       const dim3 grid(static_cast<unsigned>(heads), tiles);
-      kern<<<grid, kThreads, bytes, s>>>(q, static_cast<const __nv_bfloat16*>(k),
-                                         static_cast<const __nv_bfloat16*>(v), g, m, l, D, dk,
-                                         dv, Sq, Sk, H, KVH, hd, scale, causal, window, q_offset,
-                                         eps);
+      const KV kv = kv_of(k, v, kv_f32);
+      kern<<<grid, kThreads, bytes, s>>>(q, kv.k, kv.v, kv.kf, kv.vf, g, m, l, D, dk, dv, Sq,
+                                         Sk, H, KVH, hd, scale, causal, window, q_offset, eps);
       rc = static_cast<int>(cudaGetLastError());
     }
   });

@@ -17,15 +17,14 @@
 // identities of the fixed-order sum, so here columns are taken as they come.
 // Rows are independent, so a NaN row reaches no other row.  expf, never
 // __expf, and no --use_fast_math: subnormal e must be kept.  Instantiated
-// for the plans posit::kModelPlan names (every posit8, posit16 and posit32
-// plan, and posit64 srt_r4_cs_of_fr; the two-word ones, posit32
-// srt_r4_scaled and posit64, hold a 48-byte divisor per lane), all in one
-// library: the kernel is small.
+// for the plans posit::kModelPlan names (every posit8, posit16, posit32 and
+// posit64 plan; the two-word ones, posit32 srt_r4_scaled and posit64, hold a
+// 48-byte divisor per lane), all in one library: the kernel is small.
 //
 // Bound: per element 8 bytes of traffic against a whole posit division
-// (~280 integer operations for posit8 radix 4, ~400 for posit16, ~640 for
-// posit32, ~2240 for posit64), so by operations at any shape; on the
-// router's (batch, 64) rows the launch is set by latency.
+// (a few hundred integer operations at radix 4, twice the iterations at
+// radix 2; chip_smoke.py div_ops counts them per plan), so by operations at
+// any shape; on the router's (batch, 64) rows the launch is set by latency.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>

@@ -390,25 +390,35 @@ template <class P>
 using DivisorOf = DivisorT<typename P::Word>;
 
 // The plans the model-path kernels instantiate (flash attention K3-K8 in
-// every layout, softmax K9): the nine rows of posit8, posit16 and posit32
-// (posit32 srt_r4_scaled on the two-word frame), and posit64
-// srt_r4_cs_of_fr (the NumericsConfig default; srt_r4_cs_of is the same
-// row) on the two-word frame.  Mirrored by kernels/posit_flash_attn.py
+// every layout, softmax K9): every planned row of posit8, posit16, posit32
+// and posit64 (posit32 srt_r4_scaled and posit64 on the two-word frame).
+// posit10's rows are K11's alone.  Mirrored by kernels/posit_flash_attn.py
 // kernel_built.
 template <class P>
-constexpr bool kModelPlan =
-    P::n == 8 || P::n == 16 || P::n == 32 ||
-    (P::n == 64 && P::radix == 4 && P::redundant && P::otf && !P::scaled);
+constexpr bool kModelPlan = P::n == 8 || P::n == 16 || P::n == 32 || P::n == 64;
+
+// The library of its format a model plan is built into: posit64's six
+// datapaths are cut three ways, 0 radix 4 (srt_r4_cs, srt_r4_cs_of), 1 radix
+// 2 non-redundant (nrd, srt_r2), 2 radix 2 carry-save (srt_r2_cs,
+// srt_r2_cs_of): a radix-2 row unrolls 62 two-word iterations, so one
+// translation unit of all six would set the whole build's length.  Every
+// other format is one library (part 0).  Mirrored by kernels/_build.py
+// part_of.
+template <class P>
+constexpr int kLibraryPart = P::n != 64 || P::radix == 4 ? 0 : P::redundant ? 2 : 1;
 
 // The model plans one library instantiates.  kernels/_build.py builds the
-// flash sources once per format, all at once, with -DPOSIT_MODEL_N=<n>: such
-// a library holds format n's plans only (one translation unit with every
-// format's would build for over a minute on one core).  Without the macro
-// (K9), every model plan.
+// flash sources once per format and part, all at once, with
+// -DPOSIT_MODEL_N=<n> -DPOSIT_MODEL_PART=<part>: such a library holds those
+// plans only (one translation unit with every format's would build for
+// minutes on one core).  Without the macros (K9), every model plan.
 template <class P>
 constexpr bool kLibraryPlan = kModelPlan<P>
 #ifdef POSIT_MODEL_N
                               && P::n == POSIT_MODEL_N
+#endif
+#ifdef POSIT_MODEL_PART
+                              && kLibraryPart<P> == POSIT_MODEL_PART
 #endif
     ;
 

@@ -385,8 +385,8 @@ def posit_softmax_fused(fmt: PositFormat, x, variant: str = DEFAULT_DIV_VARIANT)
     """Posit softmax over the last axis of ``x``, float32 out.
 
     CUDA tensors launch the hand-written kernel (counted in
-    ``posit_softmax_fused.launches``; every posit8, posit16 and posit32
-    plan and posit64 ``srt_r4_cs_of_fr``, else ``NotImplementedError``);
+    ``posit_softmax_fused.launches``; every posit8, posit16, posit32 and
+    posit64 plan, else ``NotImplementedError``);
     CPU tensors run the plain twin.  Bit-identical to the reference's
     ``ops.posit_softmax_fused`` wherever the two ``exp`` give the same bits.
     """

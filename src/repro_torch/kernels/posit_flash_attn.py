@@ -270,10 +270,11 @@ _DENSE, _PAGED, _PACKED = 0, 1, 2   # csrc/posit_flash_attn.cu Layout
 
 
 @functools.lru_cache(maxsize=None)
-def _flash_fn(n: int):
-    """``posit_flash_attn`` of format ``n``'s library (one per format)."""
-    fn = _build.load(_build.library("posit_flash_attn", n)).posit_flash_attn
-    fn.argtypes = (PLAN_ARGTYPES + [ctypes.c_int] + [ctypes.c_void_p] * 12
+def _flash_fn(name: str):
+    """``posit_flash_attn`` of the library ``name`` (one per format, posit64
+    in parts: ``_build.library_of``)."""
+    fn = _build.load(name).posit_flash_attn
+    fn.argtypes = (PLAN_ARGTYPES + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
                    + [ctypes.c_int] * 9 + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -282,13 +283,17 @@ def _flash_fn(n: int):
 
 def kernel_built(plan) -> bool:
     """Are the flash kernels (K3-K8, every layout) instantiated for
-    ``plan``?  Every posit8, posit16 and posit32 plan is (posit32
-    ``srt_r4_scaled`` on K1's two-word frame), and posit64
-    ``srt_r4_cs_of_fr`` (and ``srt_r4_cs_of``, the same datapath): the
-    mirror of ``posit::kModelPlan`` (``csrc/posit_srt.cuh``), which K9
-    shares.  Each format's plans live in a library of their own."""
-    return plan.n in (8, 16, 32) or (plan.n == 64 and plan.radix == 4 and plan.redundant
-                                     and plan.otf and not plan.scaled)
+    ``plan``?  Every posit8, posit16, posit32 and posit64 plan is (posit32
+    ``srt_r4_scaled`` and posit64 on K1's two-word frame); posit10's, which
+    only K11 divides, are not: the mirror of ``posit::kModelPlan``
+    (``csrc/posit_srt.cuh``), which K9 shares.  Each format's plans live in
+    a library of their own (posit64's in three: ``_build.part_of``)."""
+    return plan.n in (8, 16, 32, 64)
+
+
+# K/V element types the kernels read as they are (bf16 upcast in registers,
+# exactly); f16 is upcast to f32 first, also exactly
+_KV_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _check_kernel_inputs(plan, q, k, v, hd: int, layout: str) -> None:
@@ -301,10 +306,21 @@ def _check_kernel_inputs(plan, q, k, v, hd: int, layout: str) -> None:
         raise ValueError(f"no flash attention for device {q.device}")
     if hd > HEAD_DIM_MAX:
         raise ValueError(f"head_dim {hd} > {HEAD_DIM_MAX}")
-    if k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
+    if k.dtype != v.dtype or k.dtype not in _KV_DTYPES + (torch.float16,):
         raise NotImplementedError(
-            f"the flash kernels read bfloat16 k/v only, not {k.dtype}/{v.dtype} "
-            "(ROADMAP.md)")
+            f"the flash kernels read bfloat16, float16 or float32 k/v of one dtype, not "
+            f"{k.dtype}/{v.dtype} (a float64 k/v would have to be rounded)")
+
+
+def _kv_operands(k, v):
+    """``(k, v, kv_f32)`` as the kernels read them: contiguous bf16, or f32
+    (f16 upcast, exactly); never narrowed."""
+    if k.dtype == torch.float16:
+        k, v = k.float(), v.float()
+    if k.dtype not in _KV_DTYPES or v.dtype != k.dtype:
+        raise NotImplementedError(f"the flash kernels read bfloat16 or float32 k/v, not "
+                                  f"{k.dtype}/{v.dtype}")
+    return k.contiguous(), v.contiguous(), int(k.dtype == torch.float32)
 
 
 def _launch(fmt: PositFormat, plan, q, k, v, causal, window, q_offset, scale, kv_start,
@@ -322,7 +338,7 @@ def _launch(fmt: PositFormat, plan, q, k, v, causal, window, q_offset, scale, kv
         scale = 1.0 / math.sqrt(hd)
     dev = q.device
     qf = q.to(torch.float32).contiguous()
-    kc, vc = k.contiguous(), v.contiguous()
+    kc, vc, kv_f32 = _kv_operands(k, v)
     ids = lambda t: t.to(device=dev, dtype=torch.int32).contiguous()
     layout, bt, sq, skv, NB, bs, mb = _DENSE, None, None, None, 0, 0, 0
     if block_tables is not None:
@@ -345,11 +361,11 @@ def _launch(fmt: PositFormat, plan, q, k, v, causal, window, q_offset, scale, kv
     ptrs = (qf, kc, vc, out, m, l, ks, kl, qp, bt, sq, skv)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = _flash_fn(plan.n)(*plan_args(plan), layout,
-                               *(None if t is None else t.data_ptr() for t in ptrs),
-                               B, Sq, Sk, H, KV, hd, NB, bs, mb, float(scale),
-                               int(bool(causal)), int(window), int(q_offset),
-                               minpos_eps(fmt), int(bq), stream)
+        rc = _flash_fn(_build.library_of("posit_flash_attn", plan))(
+            *plan_args(plan), layout, kv_f32,
+            *(None if t is None else t.data_ptr() for t in ptrs),
+            B, Sq, Sk, H, KV, hd, NB, bs, mb, float(scale), int(bool(causal)), int(window),
+            int(q_offset), minpos_eps(fmt), int(bq), stream)
     if rc == -1:
         raise NotImplementedError(f"posit_flash_attn: no kernel is built for posit{plan.n} "
                                   f"{plan.variant} in layout {layout} (ROADMAP.md)")
@@ -381,11 +397,11 @@ def posit_flash_attention(fmt: PositFormat, q, k, v, causal: bool = True,
 
     CUDA tensors launch the hand-written kernel, counted per layout in
     ``posit_flash_attention.launches`` (K3), ``.paged_launches`` (K4) and
-    ``.packed_launches`` (K5); it takes bf16 k/v (upcast in registers,
-    exactly) and the plans :func:`kernel_built` names (every posit8, posit16
-    and posit32 plan; posit64 ``srt_r4_cs_of_fr``), and raises for anything
-    else.  CPU tensors run the plain twin, for every planned (format,
-    variant) and k/v dtype.
+    ``.packed_launches`` (K5); it takes bf16 or f32 k/v (f16 upcast to f32;
+    all exact) and the plans :func:`kernel_built` names (every posit8,
+    posit16, posit32 and posit64 plan), and raises for anything else.  CPU
+    tensors run the plain twin, for every planned (format, variant) and k/v
+    dtype.
     """
     plan = datapath_plan(fmt, variant)
     if block_tables is not None and seg_q is not None:
@@ -512,13 +528,13 @@ def flash_backward_plain(fmt: PositFormat, q, k, v, o, g, m, l, causal: bool = T
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_fns(n: int):
-    """K7's and K8's C entries in format ``n``'s library."""
-    lib = _build.load(_build.library("posit_flash_bwd", n))
+def _bwd_fns(lib_name: str):
+    """K7's and K8's C entries in the library ``lib_name``."""
+    lib = _build.load(lib_name)
     fns = []
     for name, n_out in (("posit_flash_bwd_dq", 1), ("posit_flash_bwd_dkv", 2)):
         fn = getattr(lib, name)
-        fn.argtypes = (PLAN_ARGTYPES + [ctypes.c_void_p] * (7 + n_out)
+        fn.argtypes = (PLAN_ARGTYPES + [ctypes.c_int] + [ctypes.c_void_p] * (7 + n_out)
                        + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -529,10 +545,14 @@ def _bwd_fns(n: int):
 def _launch_backward(which: int, fmt, plan, q, k, v, g, m, l, D, outs, causal, window,
                      q_offset, scale):
     B, Sq, H, hd, Sk, KV = _check_shapes(q, k, v)
-    fn = _bwd_fns(plan.n)[which]
+    if k.dtype not in _KV_DTYPES or v.dtype != k.dtype:
+        raise NotImplementedError(f"the backward kernels read bfloat16 or float32 k/v, not "
+                                  f"{k.dtype}/{v.dtype}")
+    fn = _bwd_fns(_build.library_of("posit_flash_bwd", plan))[which]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = fn(*plan_args(plan), q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        rc = fn(*plan_args(plan), int(k.dtype == torch.float32), q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), g.data_ptr(),
                 m.data_ptr(), l.data_ptr(), D.data_ptr(), *(t.data_ptr() for t in outs),
                 B, Sq, Sk, H, KV, hd, float(scale), int(bool(causal)), int(window),
                 int(q_offset), minpos_eps(fmt), stream)
@@ -547,7 +567,8 @@ def flash_backward_dq(fmt: PositFormat, plan, q, k, v, g, m, l, D, causal, windo
                       q_offset, scale):
     """One launch of K7: float32 dq (B, Sq, H, hd), counted in
     ``flash_backward_dq.launches``.  Inputs as :func:`flash_backward`
-    prepares them (contiguous, q and g float32, k and v bfloat16)."""
+    prepares them (contiguous, q and g float32, k and v bfloat16 or
+    float32)."""
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     _launch_backward(0, fmt, plan, q, k, v, g, m, l, D, (dq,), causal, window, q_offset,
                      scale)
@@ -580,8 +601,9 @@ def flash_backward(fmt: PositFormat, q, k, v, o, g, m, l, causal: bool = True,
     ``(dq, dk, dv)`` in the dtypes of q, k and v, from the forward's output
     ``o``, its cotangent ``g`` and the row residuals ``m``, ``l`` (B*H, Sq).
 
-    CUDA tensors launch K7 (dq) and K8 (dk, dv); CPU tensors run the plain
-    twin :func:`flash_backward_plain`.
+    CUDA tensors launch K7 (dq) and K8 (dk, dv), on bf16 or f32 k/v (f16
+    upcast to f32), dk and dv cast to k/v's dtype as the reference returns
+    them; CPU tensors run the plain twin :func:`flash_backward_plain`.
     """
     plan = datapath_plan(fmt, variant)
     B, Sq, H, hd, Sk, KV = _check_shapes(q, k, v)
@@ -596,7 +618,7 @@ def flash_backward(fmt: PositFormat, q, k, v, o, g, m, l, causal: bool = True,
         scale = 1.0 / math.sqrt(hd)
     f32 = torch.float32
     qf, gf = q.to(f32).contiguous(), g.to(f32).contiguous()
-    kc, vc = k.contiguous(), v.contiguous()
+    kc, vc, _ = _kv_operands(k, v)
     mc, lc = m.to(f32).contiguous(), l.to(f32).contiguous()
     D = _row_sums(g, o)
     args = (qf, kc, vc, gf, mc, lc, D, causal, window, q_offset, scale)

@@ -10,10 +10,9 @@ a fake-quant of the true one), as the reference's custom_vjps: ``ga = g /
 b`` and ``gb = -g * out / b`` (summed over the row for the rowwise one),
 in plain torch.  The softmax serves only (its straight-through backward
 comes with MoE training, ``ROADMAP.md``).  Every planned (format, variant)
-runs, posit64 and posit32 ``srt_r4_scaled`` on the two-word datapath,
-except the softmax on CUDA tensors, where K9 is built for every posit8,
-posit16 and posit32 plan and posit64 ``srt_r4_cs_of_fr`` (it raises
-``NotImplementedError`` for the other posit64 plans).
+runs, posit64 and posit32 ``srt_r4_scaled`` on the two-word datapath (on
+CUDA tensors the softmax's K9 is built for every posit8, posit16, posit32
+and posit64 plan).
 """
 
 from __future__ import annotations

@@ -58,13 +58,12 @@ key id), once per token, so their stream does not depend on the slot, the
 pack or the step.
 
 The moe family serves from dense slots only (``kv_layout="paged"``
-raises), and so does a numerics whose plan K4 / K5 are not built for
-(the posit64 plans other than ``srt_r4_cs_of(_fr)``: paged or packed
-raises, on any device).  The moe family's prefill is the
-reference's scan: one decode step per prompt position, so that expert
-capacity stays per token.  Its packs lie on the
-batch axis: N left-padded rows of one width prefilled together (the dummy
-rows, all-zero prompts at start 0, first), each row copied into its slot.
+raises); every planned numerics serves from either layout, with solo or
+packed admission.  The moe family's prefill is the reference's scan: one
+decode step per prompt position, so that expert capacity stays per token.
+Its packs lie on the batch axis: N left-padded rows of one width
+prefilled together (the dummy rows, all-zero prompts at start 0, first),
+each row copied into its slot.
 
 Not ported yet (``ROADMAP.md``): streaming (``submit``/``serve_stream``),
 deadlines, backpressure, snapshot/restore, ``warmup``, the paged layout of
@@ -82,8 +81,6 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.kernels.posit_div import datapath_plan
-from repro_torch.kernels.posit_flash_attn import kernel_built
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
@@ -425,12 +422,6 @@ class ServeEngine:
         if self._paged and cfg.family != "dense":
             raise NotImplementedError(f"kv_layout='paged' is not ported for family "
                                       f"{cfg.family!r} (ROADMAP.md); use 'dense'")
-        plan = datapath_plan(cfg.numerics.div_fmt, cfg.numerics.div_algo)
-        if (self._paged or self._packed) and not kernel_built(plan):
-            raise NotImplementedError(
-                f"{cfg.numerics.div_format} {cfg.numerics.div_algo} serves from dense "
-                "slots with solo admission only: no paged or packed attention kernel "
-                "(K4, K5) is built for it (ROADMAP.md)")
         if self._paged:
             bs = sc.block_size
             if bs < 8 or bs > 128 or bs & (bs - 1):

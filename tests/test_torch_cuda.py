@@ -9,7 +9,14 @@ import math
 import pytest
 import torch
 
-from repro_torch.core.posit import POSIT8, POSIT16, POSIT32, POSIT64, posit_to_float
+from repro_torch.core.posit import (
+    POSIT8,
+    POSIT16,
+    POSIT32,
+    POSIT64,
+    PositFormat,
+    posit_to_float,
+)
 from repro_torch.kernels import ops
 from repro_torch.kernels.posit_div import KERNEL_VARIANTS, one_word_pairs, planned_pairs
 from repro_torch.kernels import posit_flash_attn as F
@@ -41,6 +48,8 @@ POSIT8_FLIP_SHARE = 0.01
 POSIT8_BWD_TOL = 0.5
 # every posit8 and posit32 (format, variant): K3-K9 are built for each
 NEW_PLANS = [(f, v) for f in (POSIT8, POSIT32) for v in KERNEL_VARIANTS]
+# posit64's eight (its six datapaths): K3-K9 are built for each
+POSIT64_PLANS = [(f, v) for f, v, _ in planned_pairs((POSIT64,))]
 SPECIALS = torch.tensor([1.5, -2.25, 0.0, -0.0, math.inf, -math.inf, math.nan, 1e30,
                          -1e-30, 3.0, 1e-45, -3e-39])
 
@@ -163,19 +172,23 @@ def _check_decode_and_prefill(dev, fmt, variant):
 
 
 def test_flash_kernel_refuses_what_it_is_not_built_for(dev):
+    """What stays refused: head_dim past 128, posit10 (only K11 divides
+    it) and a float64 k/v (it would have to be rounded)."""
     q = torch.randn(1, 1, 3, 32, device=dev)
     k = torch.randn(1, 8, 1, 32, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        posit_flash_attention(POSIT16, q, k.float(), k.float(), True)
-    with pytest.raises(NotImplementedError, match="posit64 nrd"):
-        posit_flash_attention(POSIT64, q, k, k, True, variant="nrd")
-    with pytest.raises(NotImplementedError, match="posit64 srt_r2"):
-        posit_flash_attention(POSIT64, q, k, k, True, variant="srt_r2")
+    with pytest.raises(NotImplementedError, match="float64"):
+        posit_flash_attention(POSIT16, q, k.double(), k.double(), True)
+    with pytest.raises(NotImplementedError, match="posit10"):
+        posit_flash_attention(PositFormat(10), q, k, k, True)
     with pytest.raises(NotImplementedError, match="paged"):
-        posit_flash_attention(POSIT64, q, k, k, True, variant="srt_r2",
+        posit_flash_attention(PositFormat(10), q, k, k, True,
                               block_tables=torch.zeros(1, 1, dtype=torch.int32, device=dev))
-    with pytest.raises(NotImplementedError, match="posit64 srt_r2"):
-        ops.posit_softmax_fused(POSIT64, q[0, 0], "srt_r2")
+    wide = torch.randn(1, 1, 1, 256, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        posit_flash_attention(POSIT64, wide, wide.bfloat16(), wide.bfloat16(), True,
+                              variant="nrd")
+    with pytest.raises(NotImplementedError, match="posit10"):
+        ops.posit_softmax_fused(PositFormat(10), q[0, 0])
 
 
 def test_launch_counters_count_kernel_launches_only(dev):
@@ -433,6 +446,10 @@ def test_packed_kernel_posit8_posit32_segments_are_solo_kernel(dev, fmt, variant
 def test_training_kernels_posit8_posit32_match_twin(dev, fmt, variant):
     """K6, K7 and K8 at every posit8 and posit32 plan against their twins,
     the same bits on a second run."""
+    _check_training(dev, fmt, variant)
+
+
+def _check_training(dev, fmt, variant):
     q, k, v, co = _train_inputs(dev)
     o, m, l = F.posit_flash_attention_fwd(fmt, q, k, v, True, variant=variant)
     po, pm, pl = F.posit_flash_attention_fwd_plain(fmt, q, k, v, True, variant=variant)
@@ -460,18 +477,132 @@ def test_softmax_kernel_posit8_posit32(dev, fmt, variant):
     assert torch.isnan(o).any(-1).cpu().tolist() == [i == 2 for i in range(37)]
 
 
-@pytest.mark.parametrize("fmt", [POSIT8, POSIT32], ids=lambda f: f"posit{f.n}")
+@pytest.mark.parametrize("fmt,variant", POSIT64_PLANS, ids=lambda x: str(x))
+def test_flash_kernel_posit64_every_plan(dev, fmt, variant):
+    """K3 at each posit64 plan (its six datapaths on K1's two-word frame),
+    decode and prefill, against its twin."""
+    _check_decode_and_prefill(dev, fmt, variant)
+
+
+@pytest.mark.parametrize("fmt,variant", POSIT64_PLANS, ids=lambda x: str(x))
+def test_paged_kernel_posit64_every_plan_is_dense_kernel(dev, fmt, variant):
+    """K4 at each posit64 plan: K3's bits on the gathered cache."""
+    _check_paged(dev, fmt, variant)
+
+
+@pytest.mark.parametrize("fmt,variant", POSIT64_PLANS, ids=lambda x: str(x))
+def test_packed_kernel_posit64_every_plan_segments_are_solo_kernel(dev, fmt, variant):
+    """K5 at each posit64 plan: each segment the bits of a solo K3 prefill."""
+    _check_packed(dev, fmt, 4, 128, False, variant)
+
+
+@pytest.mark.parametrize("fmt,variant", POSIT64_PLANS, ids=lambda x: str(x))
+def test_training_kernels_posit64_every_plan_match_twin(dev, fmt, variant):
+    """K6, K7 and K8 at each posit64 plan against their twins, the same
+    bits on a second run."""
+    _check_training(dev, fmt, variant)
+
+
+@pytest.mark.parametrize("fmt,variant", POSIT64_PLANS, ids=lambda x: str(x))
+def test_softmax_kernel_posit64_every_plan(dev, fmt, variant):
+    """K9 at each posit64 plan: the twin's bits, the NaN row kept to
+    itself."""
+    x = _softmax_case(37, 200, fmt.n).to(dev)
+    o = ops.posit_softmax_fused(fmt, x, variant)
+    p = ops.posit_softmax_plain(fmt, x, variant)
+    assert torch.equal(o.view(torch.int32), p.view(torch.int32))
+    assert torch.isnan(o).any(-1).cpu().tolist() == [i == 2 for i in range(37)]
+
+
+# f32 K/V: posit16's default plan and posit64 nrd (the longest datapath)
+F32_KV_PLANS = [(POSIT16, "srt_r4_cs_of_fr"), (POSIT64, "nrd")]
+
+
+def _f32_twin(t, g):
+    """An f32 tensor of ``t``'s shape whose values bf16 cannot hold: ``t``
+    plus a perturbation below bf16's step."""
+    return (t.float() + torch.randn(t.shape, generator=g).to(t.device) * 2 ** -12).contiguous()
+
+
+@pytest.mark.parametrize("fmt,variant", F32_KV_PLANS, ids=lambda x: str(x))
+def test_flash_kernels_f32_kv(dev, fmt, variant):
+    """K3 (decode, prefill), K4 and K5 read f32 K/V: on bf16-representable
+    f32 values the bits of the bf16 call (the upcast is exact), f16 the
+    bits of its f32 upcast, and on values bf16 cannot hold within FLASH_TOL
+    of the twin."""
+    g = torch.Generator().manual_seed(9)
+    q = torch.randn(4, 1, 15, 64, generator=g).to(dev)
+    k = torch.randn(4, 300, 5, 64, generator=g).to(torch.bfloat16).to(dev)
+    v = torch.randn(4, 300, 5, 64, generator=g).to(torch.bfloat16).to(dev)
+    pos = torch.tensor([299, 5, 100, 40], dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 2, 64, 41], dtype=torch.int32, device=dev)
+    qp, pk, pv, bt = _paged_case(dev)
+    ppos = torch.tensor([127, 40, 77, 60], dtype=torch.int32, device=dev)
+    pq, sk, sv, seg_q, seg, _, _ = _packed_case(dev, 4, 128, False)
+    calls = [  # (q, k, v, kwargs)
+        (q, k, v, dict(kv_start=start, kv_len=pos + 1, q_pos=pos)),
+        (torch.randn(2, 77, 15, 64, generator=g).to(dev), k[:2, :77].contiguous(),
+         v[:2, :77].contiguous(), dict(kv_start=start[:2])),
+        (qp, pk, pv, dict(kv_len=ppos + 1, q_pos=ppos, block_tables=bt)),
+        (pq, sk, sv, dict(seg_q=seg_q, seg_kv=seg, seg_len=128)),
+    ]
+    for q_, k_, v_, kw in calls:
+        kw = dict(kw, variant=variant)
+        ref = posit_flash_attention(fmt, q_, k_, v_, True, **kw)
+        got = posit_flash_attention(fmt, q_, k_.float(), v_.float(), True, **kw)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        kf, vf = _f32_twin(k_, g), _f32_twin(v_, g)
+        got = posit_flash_attention(fmt, q_, kf, vf, True, **kw)
+        plain_kw = {a: t for a, t in kw.items() if a != "seg_len"}
+        _close(fmt, got, posit_flash_attention_plain(fmt, q_, kf, vf, True, **plain_kw))
+        half = posit_flash_attention(fmt, q_, k_.half(), v_.half(), True, **kw)
+        up = posit_flash_attention(fmt, q_, k_.half().float(), v_.half().float(), True, **kw)
+        assert torch.equal(half.view(torch.int32), up.view(torch.int32))
+
+
+@pytest.mark.parametrize("fmt,variant", F32_KV_PLANS, ids=lambda x: str(x))
+def test_training_kernels_f32_kv(dev, fmt, variant):
+    """K6, K7 and K8 on f32 K/V: the bf16 call's bits on bf16-representable
+    values; within their bounds of the twin on values bf16 cannot hold,
+    the same bits on a second run; dk / dv come back in K/V's dtype."""
+    q, k, v, co = _train_inputs(dev)
+    plan = F.datapath_plan(fmt, variant)
+
+    def run(k_, v_):
+        o, m, l = F.posit_flash_attention_fwd(fmt, q, k_, v_, True, variant=variant)
+        args = (q, k_, v_, co, m, l, F._row_sums(co, o), True, 0, 0, 1 / 8)
+        return (o, m, l, F.flash_backward_dq(fmt, plan, *args),
+                *F.flash_backward_dkv(fmt, plan, *args))
+
+    for a, b in zip(run(k, v), run(k.float(), v.float())):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    g = torch.Generator().manual_seed(10)
+    kf, vf = _f32_twin(k, g), _f32_twin(v, g)
+    got, again = run(kf, vf), run(kf, vf)
+    po, pm, pl = F.posit_flash_attention_fwd_plain(fmt, q, kf, vf, True, variant=variant)
+    _close(fmt, got[0], po)
+    assert (got[1] + torch.log(got[2]) - pm - torch.log(pl)).abs().max() <= LSE_TOL
+    twin = F.flash_backward_plain(fmt, q, kf, vf, got[0], co, got[1], got[2], True,
+                                  variant=variant)
+    for a, b, want in zip(got[3:], again[3:], twin):
+        _close_grad(fmt, a, want)
+        assert torch.equal(a, b)
+    grads = F.flash_backward(fmt, q, kf, vf, got[0], co, got[1], got[2], True,
+                             variant=variant)
+    assert [t.dtype for t in grads] == [torch.float32] * 3
+
+
+@pytest.mark.parametrize("fmt", [POSIT8, POSIT32, POSIT64], ids=lambda f: f"posit{f.n}")
 def test_model_kernels_one_answer_per_format(dev, fmt):
     """The Table IV variants divide exactly, so within a format K3 (dense,
-    paged), K6, K7, K8 and K9 give one answer for all nine plans, bit for
-    bit."""
+    paged), K6, K7, K8 and K9 give one answer for all its plans (nine;
+    posit64 eight), bit for bit."""
     q, k, v, co = _train_inputs(dev, S=96)
     qp, pk, pv, bt = _paged_case(dev)
     pos = torch.tensor([127, 40, 77, 60], dtype=torch.int32, device=dev)
     x = _softmax_case(37, 200, fmt.n).to(dev)
     outs = {}
-    for variant in KERNEL_VARIANTS:
-        plan = F.datapath_plan(fmt, variant)
+    for _, variant, plan in planned_pairs((fmt,)):
         o, m, l = F.posit_flash_attention_fwd(fmt, q, k, v, True, variant=variant)
         args = (q, k, v, co, m, l, F._row_sums(co, o), True, 0, 0, 1 / 8)
         outs[variant] = [
@@ -480,7 +611,7 @@ def test_model_kernels_one_answer_per_format(dev, fmt):
             posit_flash_attention(fmt, qp, pk, pv, True, block_tables=bt, kv_len=pos + 1,
                                   q_pos=pos, variant=variant),
             ops.posit_softmax_fused(fmt, x, variant)]
-    first = outs[KERNEL_VARIANTS[0]]
+    first = next(iter(outs.values()))
     for variant, got in outs.items():
         for a, b in zip(got, first):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32)), variant
@@ -548,8 +679,8 @@ def test_softmax_kernel_every_plan(dev, variant):
 
 def test_softmax_kernel_refuses_and_counts(dev):
     x = torch.randn(4, 64, device=dev)
-    with pytest.raises(NotImplementedError, match="posit64 srt_r4_cs"):
-        ops.posit_softmax_fused(POSIT64, x, "srt_r4_cs")
+    with pytest.raises(NotImplementedError, match="posit10 srt_r4_cs"):
+        ops.posit_softmax_fused(PositFormat(10), x, "srt_r4_cs")
     before = ops.posit_softmax_fused.launches
     ops.posit_softmax_plain(POSIT16, x)
     ops.posit_softmax_fused(POSIT16, x)

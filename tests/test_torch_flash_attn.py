@@ -109,6 +109,41 @@ def test_twin_matches_reference_kernel_posit8_posit32(ref_kernels, n, variant, c
     assert err <= FLASH_TOL
 
 
+# posit64's other datapaths: the NRD baseline (63 non-restoring iterations
+# on the two-word frame), radix-2 and radix-4 carry-save, on the decode case
+POSIT64_PLANS = ["nrd", "srt_r2_cs", "srt_r4_cs"]
+
+
+@pytest.mark.parametrize("variant", POSIT64_PLANS)
+def test_twin_matches_reference_kernel_posit64_plans(ref_kernels, variant):
+    """Posit64 at three more plans within FLASH_TOL of the reference's
+    kernel, fully masked rows 0 in both."""
+    name, Sq, Sk, kw = CASES[2]
+    ref, got = _both(*_inputs(3, Sq, Sk), kw, variant, 64)
+    err = float(np.abs(ref - got).max())
+    print(f"posit64 {variant} {name}: max|port - reference| = {err:.3g}")
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got == 0, ref == 0)
+    assert err <= FLASH_TOL
+
+
+@pytest.mark.parametrize("n,variant", [(16, "srt_r4_cs_of_fr"), (64, "nrd")])
+def test_twin_f32_kv_matches_reference_kernel(ref_kernels, n, variant):
+    """K/V in f32, as the reference's kernel takes them (it upcasts any K/V
+    to f32): values bf16 cannot hold within FLASH_TOL of the reference's;
+    on bf16 K/V the twin gives the bits of the same call on their exact f32
+    upcast."""
+    name, Sq, Sk, kw = CASES[0]
+    q, k, v = _inputs(2, Sq, Sk)
+    ref, got = _both(q, k, v, kw, variant, n)
+    assert float(np.abs(ref - got).max()) <= FLASH_TOL
+    tkw = {a: torch.tensor(x, dtype=torch.int32) for a, x in kw.items()}
+    kb, vb = (torch.from_numpy(x).to(torch.bfloat16) for x in (k, v))
+    call = lambda kk, vv: posit_flash_attention(PositFormat(n), torch.from_numpy(q), kk, vv,
+                                                True, variant=variant, **tkw)
+    np.testing.assert_array_equal(bits(call(kb, vb)), bits(call(kb.float(), vb.float())))
+
+
 def test_window_mask(ref_kernels):
     q, k, v = _inputs(2, 40, 40)
     ref = jflash(JFmt(16), jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), True, 16)
@@ -137,11 +172,13 @@ def test_division_stage_bit_exact(name, Sq, Sk, kw):
 
 
 @pytest.mark.parametrize("n,variant", [(8, "srt_r4_cs_of_fr"), (32, "srt_r4_cs_of_fr"),
-                                       (32, "srt_r4_scaled")])
+                                       (32, "srt_r4_scaled")]
+                         + [(64, v) for v in POSIT64_PLANS])
 def test_division_stage_bit_exact_posit8_posit32(n, variant):
     """The twin's o / l is the reference's ``divide_floats_block`` on the
     twin's own (acc, l), bit for bit, at posit8 and posit32 (its two-word
-    plan too): the decode case, one fully masked slot."""
+    plan too), and at posit64's nrd, srt_r2_cs and srt_r4_cs: the decode
+    case, one fully masked slot."""
     _, Sq, Sk, kw = CASES[2]
     q, k, v = (torch.from_numpy(x) for x in _inputs(3, Sq, Sk))
     tkw = {a: torch.tensor(x, dtype=torch.int32) for a, x in kw.items()}

@@ -95,7 +95,8 @@ def test_fwd_twin_matches_reference(ref_kernels, causal, window, seq):
 
 
 # the reference's sweep (tests/test_flash_attn_kernel.py), plus posit8;
-# posit32 srt_r4_scaled and posit64 run K1's two-word frame
+# posit32 srt_r4_scaled and posit64 (radix 4, and srt_r2: 63 non-redundant
+# iterations) run K1's two-word frame
 BWD_CASES = [  # (fmt_n, variant, causal, window, q_offset)
     (16, "srt_r4_cs_of_fr", True, 0, 0),
     (16, "srt_r4_cs_of_fr", False, 0, 0),
@@ -106,9 +107,10 @@ BWD_CASES = [  # (fmt_n, variant, causal, window, q_offset)
     (64, "srt_r4_cs_of_fr", True, 0, 0),
     (32, "srt_r4_scaled", True, 0, 0),
     (8, "srt_r4_cs_of_fr", True, 0, 0),
+    (64, "srt_r2", True, 0, 0),
 ]
 BWD_IDS = ["causal", "bidirectional", "windowed", "suffix_block", "radix2", "posit32",
-           "posit64", "posit32_scaled", "posit8"]
+           "posit64", "posit32_scaled", "posit8", "posit64_radix2"]
 
 
 def _ste_grads(fmt_n, variant, causal, window, q_offset, seed, bwd_impl="fused"):

@@ -162,6 +162,20 @@ def test_softmax_posit8_posit32_twin_matches_reference_kernel(ref_kernels, n, va
     assert (got[1] == got[1, 0]).all()
 
 
+@pytest.mark.parametrize("variant", ["srt_r2_cs_of_fr", "nrd"])
+def test_softmax_posit64_radix2_twin_matches_reference_kernel(ref_kernels, variant):
+    """K9's twin at two posit64 radix-2 plans (the NRD baseline, 63
+    non-restoring iterations on the two-word frame, and srt_r2_cs_of_fr)
+    against the reference's kernel at the router's width: the same bits in
+    every row but the NaN one."""
+    x = _exp_agreeing_rows((8, 64))
+    ref = np.asarray(JO.posit_softmax_fused(JFmt(64), jnp.asarray(x), variant=variant))
+    got = TO.posit_softmax_fused(PositFormat(64), torch.from_numpy(x), variant).numpy()
+    nan_rows = np.isnan(ref).any(-1)
+    assert nan_rows.tolist() == np.isnan(got).any(-1).tolist() == [i == 2 for i in range(8)]
+    np.testing.assert_array_equal(bits(ref[~nan_rows]), bits(got[~nan_rows]))
+
+
 def test_softmax_moves_other_axes():
     _, tcfg = _cfgs()
     x = torch.from_numpy(RNG.standard_normal((4, 6, 5)).astype(np.float32))

@@ -87,8 +87,8 @@ def test_cuda_posit10_plan_table_matches_plan():
 @pytest.mark.parametrize("fmt", [PositFormat(64), PositFormat(32)])
 def test_two_word_plans_raise_not_implemented(fmt):
     """The two-word plans run on the twin.  The flash kernels are built for
-    posit32 srt_r4_scaled and posit64 srt_r4_cs_of_fr (and srt_r4_cs_of) in
-    every layout, the other posit64 plans in none: those raise, naming
+    posit32 srt_r4_scaled and every posit64 plan in every layout; what
+    stays refused is posit10 (only K11 divides it), which raises, naming
     ROADMAP.md, before any device is looked at."""
     from repro_torch.kernels import posit_flash_attn as F
 
@@ -97,13 +97,13 @@ def test_two_word_plans_raise_not_implemented(fmt):
     assert plan.words == 2
     q = torch.ones(1, 1, 1, 4)
     layouts = ("dense", "paged", "packed", "backward")
-    assert F.kernel_built(plan)
-    if fmt.n == 64:
-        assert F.kernel_built(TD.kernel_datapath_plan(fmt, "srt_r4_cs_of"))
-    for layout in layouts:     # past the plan check, on to the device check
-        with pytest.raises(ValueError, match="device"):
-            F._check_kernel_inputs(plan, q, q, q, 4, layout)
-    plan = TD.kernel_datapath_plan(PositFormat(64), "srt_r2_cs_of_fr")
+    plans = [p for _, _, p in TD.planned_pairs((fmt,)) if p.words == 2]
+    assert plan in plans and all(F.kernel_built(p) for p in plans)
+    for p in plans:
+        for layout in layouts:     # past the plan check, on to the device check
+            with pytest.raises(ValueError, match="device"):
+                F._check_kernel_inputs(p, q, q, q, 4, layout)
+    plan = TD.kernel_datapath_plan(PositFormat(10), variant)
     assert not F.kernel_built(plan)
     for layout in layouts:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -215,6 +215,13 @@ extern "C" int host_model_plan(int n, int radix, int red, int otf, int scaled, i
   });
   return built;
 }
+extern "C" int host_library_part(int n, int radix, int red, int otf, int scaled, int nonrest,
+                                 int it, int shift, int gbits) {
+  int part = -1;
+  posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits,
+                       [&](auto plan) { part = posit::kLibraryPart<decltype(plan)>; });
+  return part;
+}
 extern "C" int host_rowwise(int n, int radix, int red, int otf, int scaled, int nonrest,
                             int it, int shift, int gbits, const float* a, const float* b,
                             float* out, int R, int C) {
@@ -295,7 +302,7 @@ def host_k1(tmp_path_factory):
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(lib))
     for name in ("host_rowwise", "host_elementwise", "host_div_bits", "host_cast",
-                 "host_model_plan"):
+                 "host_model_plan", "host_library_part"):
         getattr(lib, name).restype = ctypes.c_int
     lib.host_cast64.restype = None
     return lib
@@ -304,16 +311,24 @@ def host_k1(tmp_path_factory):
 def test_cuda_model_plans_mirrored_by_kernel_built(host_k1):
     """``posit::kModelPlan`` (the plans K3-K9 are instantiated for) names
     what ``kernel_built`` names, row by row of both plan tables: every
-    posit8, posit16 and posit32 plan, posit64 srt_r4_cs_of(_fr), no posit10
-    plan."""
+    posit8, posit16, posit32 and posit64 plan, no posit10 plan; and
+    ``posit::kLibraryPart`` puts each plan in the library
+    ``_build.part_of`` names (posit64 in three: radix 4, radix 2
+    non-redundant, radix 2 carry-save)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.posit_flash_attn import kernel_built
 
     pairs = list(TD.planned_pairs()) + TD.one_word_pairs((PositFormat(10),))
     for fmt, variant, plan in pairs:
         want = kernel_built(plan)
         assert host_k1.host_model_plan(*plan_args(plan)) == int(want), (fmt.n, variant)
-        assert want == (fmt.n in (8, 16, 32) or (
-            fmt.n == 64 and variant in ("srt_r4_cs_of", "srt_r4_cs_of_fr")))
+        assert want == (fmt.n in (8, 16, 32, 64))
+    for fmt, variant, plan in TD.planned_pairs():
+        parts = _build.FORMAT_PARTS.get(fmt.n, ("",))
+        assert parts[host_k1.host_library_part(*plan_args(plan))] == _build.part_of(plan), \
+            (fmt.n, variant)
+    assert [_build.part_of(p) for _, _, p in TD.planned_pairs((PositFormat(64),))] == [
+        "r2", "r2", "r2cs", "r2cs", "r2cs", "r4", "r4", "r4"]
 
 
 @pytest.mark.parametrize("n", [8, 16, 32, 64])

@@ -6,8 +6,9 @@ allowed only where the reference's top-2 margin is within the model test's
 logit bound.  At ``div_format="posit64"`` (every RMSNorm and attention
 divide on the two-word datapath) and at ``"posit32"`` the prefill and
 decode logits are within that bound of the reference's fused forward and
-the greedy tokens are the reference engine's (by the same rule); the paged
-and packed paths refuse the posit64 plans no K4 / K5 is built for.
+the greedy tokens are the reference engine's (by the same rule); at
+posit64 another plan's paged and packed engines serve the dense engine's
+tokens.
 """
 
 import jax
@@ -181,14 +182,17 @@ def test_posit64_matches_reference(posit64, check):
         _assert_logits_match(cfg, jl, tl)
         return
     _assert_tokens_match(jcfg, jp, P64_STREAM, ref, got, 32)
-    # K4 / K5 are built for posit64 srt_r4_cs_of_fr, not for posit64
-    # srt_r2_cs_of_fr: its paged and packed engines are refused on any device
+    # K4 / K5 are built for every posit64 plan: srt_r2_cs_of_fr serves from
+    # the paged pool and with packed admission, and its divides are exact,
+    # so its tokens are the default plan's dense engine's, bit for bit
     cfg_r2 = cfg.with_numerics(div_algo="srt_r2_cs_of_fr")
     for paged, packed in (("paged", False), ("dense", True)):
         sc = ServeConfig(max_batch=2, max_seq=32, kv_layout=paged, packed_prefill=packed)
         ServeEngine(cfg, tp, sc, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServeEngine(cfg_r2, tp, sc, device="cpu")
+        out = ServeEngine(cfg_r2, tp, sc, device="cpu").serve(
+            [Request(p, max_new=m) for p, m in P64_STREAM])
+        for a, b in zip(out, got):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("check", ["logits", "tokens"])
