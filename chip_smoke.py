@@ -192,14 +192,17 @@ power-limit line, and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or without the repository's ``src/`` beside it, it exits
 non-zero and prints no result.
 
-    python3 chip_smoke.py --time-kernels [--src DIR]
+    python3 chip_smoke.py --time-kernels [--src DIR] [--only K8,K9]
 
 only builds the package under ``DIR`` (default: this checkout's ``src``),
 every library at once, and prints each library's build seconds and ptxas
 report and the device times of K2-K9 (kernels a parent checkout of the
 port has too): run it on a parent checkout and on this one in
 turns (parent, change, change, parent) in one call, after any edit to a
-kernel source or to ``posit_srt.cuh``.
+kernel source or to ``posit_srt.cuh``.  ``--only`` (any of K7, K8, K9)
+builds just those kernels' libraries and times just their rows: an A/B of
+one kernel's design variants, each a copy of ``src`` with the kernel
+source changed.
 """
 
 from __future__ import annotations
@@ -238,6 +241,7 @@ DEFAULT_VARIANT = "srt_r4_cs_of_fr"   # NumericsConfig's default plan
 MOE_HEADS = (16, 16, 128)   # OLMoE-1B-7B: heads, kv heads, head_dim
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 # 32-bit integer operations of the posit datapath per element (a static
 # model of posit_srt.cuh), bounded at the f32 CUDA-core rate: DIV_OPS_FIXED
 # per pattern word for quantize, decode, encode and dequantize (posit64's
@@ -310,9 +314,13 @@ def div_ops(plan, elements: int) -> int:
                        + div_iteration_ops(plan) * plan.iterations)
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, tensor_ops: float = 0.0):
+    """The least time for the work: the larger of the bytes over the memory
+    rate, the operations over the f32 rate and the products' flops over the
+    TF32 tensor-core rate (a product bounds at that rate whatever unit a
+    kernel runs it on)."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / F32_OPS_PER_S * 1e3
+    to = max(ops / F32_OPS_PER_S, tensor_ops / TF32_OPS_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -2584,9 +2592,9 @@ def training_rows(torch, dev, fmt, kv_f32=False):
     plain_bwd = cuda_time_ms(lambda: F.flash_backward_plain(fmt, q, k, v, o, co, m, l,
                                                             True), iters=3)
 
-    def row(call, names, nbytes, ops_, plain_ms, library_ms):
+    def row(call, names, nbytes, ops_, plain_ms, library_ms, tensor_ops=0.0):
         dev_ms, src = device_kernel_ms(torch, call, names)
-        bms, by = bound_ms(nbytes, ops_)
+        bms, by = bound_ms(nbytes, ops_, tensor_ops)
         return {"shape": [B, S, S, H, KV, hd], "ms": dev_ms, "ms_from": src,
                 "call_ms": cuda_time_ms(call),
                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
@@ -2598,12 +2606,13 @@ def training_rows(torch, dev, fmt, kv_f32=False):
                   pairs * 4 * hd + div_ops(plan, B * S * H * hd),
                   cuda_time_ms(lambda: F.posit_flash_attention_fwd_plain(
                       fmt, q, k, v, True), iters=3), lib_fwd),
+        # K7 / K8: the products at the tensor cores' rate, the divisions at f32's
         "K7" + tag: row(lambda: F.flash_backward_dq(fmt, plan, *args),
                   ["flash_bwd_dq_kernel"], 3 * qo + 2 * kv + 3 * rowv,
-                  pairs * 6 * hd + div_ops(plan, pairs), plain_bwd, lib_bwd),
+                  div_ops(plan, pairs), plain_bwd, lib_bwd, pairs * 6 * hd),
         "K8" + tag: row(lambda: F.flash_backward_dkv(fmt, plan, *args),
                   ["flash_bwd_dkv_kernel"], 2 * qo + 2 * kv + 3 * rowv + 2 * 2 * kv,
-                  pairs * 8 * hd + div_ops(plan, pairs), plain_bwd, lib_bwd),
+                  div_ops(plan, pairs), plain_bwd, lib_bwd, pairs * 8 * hd),
     }
     return rows
 
@@ -2617,7 +2626,8 @@ def plan_table(torch, dev, pack):
     prefill at P=256, K5 on ``pack`` (the paged phase's most frequent
     shape), K6, K7 and K8 at B=8 x 256 and K9 at 4096 x 64, each beside its
     operation bound at that plan (div_ops: the datapath's iterations at its
-    own cost) and the paper's hardware model of the divider
+    own cost; K7 and K8's products at the TF32 tensor-core rate, as
+    bound_ms counts them) and the paper's hardware model of the divider
     (``core/costmodel.estimate(fmt, variant, pipelined=False)``)."""
     from repro_torch.core import costmodel
     from repro_torch.core.posit import PositFormat
@@ -2643,32 +2653,34 @@ def plan_table(torch, dev, pack):
             plan = F.datapath_plan(fmt, variant)
             o, m, l = F.posit_flash_attention_fwd(fmt, tq, tk, tv, True, variant=variant)
             args = backward_args(F, co, o, m, l, tq, tk, tv)
-            calls = {   # name: (call, elements divided, other operations)
-                "K2": (lambda: ops.posit_div_fused_rowwise(fmt, a, b, variant), 256 * 960, 0),
+            calls = {   # name: (call, elements divided, other operations, tensor-core flops)
+                "K2": (lambda: ops.posit_div_fused_rowwise(fmt, a, b, variant), 256 * 960, 0,
+                       0),
                 "K3": (lambda: F.posit_flash_attention(fmt, pq, pk, pv, True, kv_start=s56,
                                                        variant=variant),
-                       200 * H * hd, 4 * H * hd * 200 * 201 // 2),
+                       200 * H * hd, 4 * H * hd * 200 * 201 // 2, 0),
                 "K5": (lambda: F.posit_flash_attention(fmt, sq, sk, sv, True, variant=variant,
                                                        seg_q=seg_q, seg_kv=seg, seg_len=P),
-                       sum(lens) * H * hd, 4 * H * hd * pack_pairs),
+                       sum(lens) * H * hd, 4 * H * hd * pack_pairs, 0),
                 "K6": (lambda: F.posit_flash_attention_fwd(fmt, tq, tk, tv, True,
                                                            variant=variant),
-                       8 * 256 * H * hd, 4 * hd * pairs),
-                "K7": (lambda: F.flash_backward_dq(fmt, plan, *args), pairs, 6 * hd * pairs),
-                "K8": (lambda: F.flash_backward_dkv(fmt, plan, *args), pairs, 8 * hd * pairs),
-                "K9": (lambda: ops.posit_softmax_fused(fmt, x, variant), 4096 * 64, 0),
+                       8 * 256 * H * hd, 4 * hd * pairs, 0),
+                "K7": (lambda: F.flash_backward_dq(fmt, plan, *args), pairs, 0, 6 * hd * pairs),
+                "K8": (lambda: F.flash_backward_dkv(fmt, plan, *args), pairs, 0, 8 * hd * pairs),
+                "K9": (lambda: ops.posit_softmax_fused(fmt, x, variant), 4096 * 64, 0, 0),
             }
             cost = costmodel.estimate(fmt, variant, pipelined=False)
             row = {"format": f"posit{n}", "variant": variant, "iterations": plan.iterations,
                    "ops_per_iteration": div_iteration_ops(plan),
                    "div_ops": div_ops(plan, 1), "hw_delay_fo4": cost.delay_fo4,
                    "hw_area_ge": cost.area_ge, "hw_energy_au": cost.energy_au}
-            for name, (call, divides, other) in calls.items():
+            for name, (call, divides, other, tensor) in calls.items():
                 row[f"{name}_ms"] = cuda_time_ms(call, iters=10, warmup=2)
-                row[f"{name}_bound_ms"] = (other + div_ops(plan, divides)) / F32_OPS_PER_S * 1e3
+                row[f"{name}_bound_ms"] = bound_ms(0, other + div_ops(plan, divides), tensor)[0]
             table.append(row)
     names = ("K2", "K3", "K5", "K6", "K7", "K8", "K9")
-    print("plan table (CUDA events, ms per call; bound = operations / 67 TFLOP/s; hardware "
+    print("plan table (CUDA events, ms per call; bound = operations / 67 TFLOP/s, K7/K8's "
+          "products / 495 TFLOP/s; hardware "
           "model: delay FO4, area GE): " + "; ".join(
               f"{r['format']} {r['variant']} it {r['iterations']} x {r['ops_per_iteration']} "
               f"ops, hw {r['hw_delay_fo4']:.1f} FO4 {r['hw_area_ge']:.0f} GE: " + ", ".join(
@@ -2781,23 +2793,37 @@ def ptxas_kernels(log: str):
     return out
 
 
-def time_kernels(torch, dev, src: str, repeats: int = 3) -> None:
+# the libraries --time-kernels --only builds for each kernel it may time
+ONLY_LIBRARIES = {
+    "K7": ("posit_flash_attn_p16", "posit_flash_attn_p32", "posit_flash_attn_p64_r4",
+           "posit_flash_bwd_p16", "posit_flash_bwd_p32", "posit_flash_bwd_p64_r4"),
+    "K9": ("posit_softmax",),
+}
+ONLY_LIBRARIES["K8"] = ONLY_LIBRARIES["K7"]
+
+
+def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
     """An A/B of the kernels both packages have, from the package under
     ``src``: each library's build seconds (all built in parallel, as the
     main run builds them), its ptxas report (each posit16 kernel's
-    registers and spill stores), and the device time per launch of K3 (the
-    timing phase's decode and prefill rows), K4 (the paged decode), K5 (an
-    8 x 256 pack), K2 (1024 x 1024), K6-K8 (the training rows) and K9
-    (4096 x 64).  Run it from a parent checkout's ``src`` and from
-    this one, in turns, on one card, after an edit to a kernel source or
-    to the shared ``posit_srt.cuh``."""
-    from repro_torch.core.posit import POSIT16
+    registers and spill stores, and every K8 and K9 instantiation's), and
+    the device time per launch of K3 (the timing phase's decode and prefill
+    rows), K4 (the paged decode), K5 (an 8 x 256 pack), K2 (1024 x 1024),
+    K6-K8 (the training rows) and K9 (8 x 64 and 4096 x 64), and of K7, K8
+    and K9 at posit32 and posit64 too (the default plan).  Run it from a
+    parent checkout's ``src`` and from this one, in turns, on one card,
+    after an edit to a kernel source or to the shared ``posit_srt.cuh``.
+    ``only`` (kernel names among K7, K8 and K9): build just their libraries
+    and time just their rows, for an A/B of one kernel's design variants."""
+    from repro_torch.core.posit import POSIT16, POSIT32, POSIT64
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import posit_flash_attn as F
 
-    out = {"src": src, "build_s": {}, "ptxas": {}, "ptxas_posit16": {}}
+    out = {"src": src, "build_s": {}, "ptxas": {}, "ptxas_posit16": {}, "ptxas_k8_k9": {}}
     # every library at once, one nvcc each, as the main run builds them
     names = list(getattr(_build, "LIBRARIES", _build.SOURCES))
+    if only:
+        names = [n for n in names if any(n in ONLY_LIBRARIES[k] for k in only)]
     t0 = time.perf_counter()
     out["build_s"] = {n: round(t, 2) for n, t in _build.build(names).items()}
     out["build_wall_s"] = round(time.perf_counter() - t0, 2)
@@ -2808,6 +2834,9 @@ def time_kernels(torch, dev, src: str, repeats: int = 3) -> None:
                            "spill_store_bytes": sum(sp for _, _, sp in kernels)}
         out["ptxas_posit16"].update({k: [r, sp] for k, r, sp in kernels
                                      if k.split()[1] == "posit16"})
+        out["ptxas_k8_k9"].update({k: [r, sp] for k, r, sp in kernels
+                                   if k.split()[0] in ("flash_bwd_dkv_kernel", "softmax_kernel",
+                                                       "warp_softmax_kernel")})
     plan = F.datapath_plan(POSIT16, "srt_r4_cs_of_fr")
     H, KV, hd = 15, 5, 64
     q, k, v = flash_inputs(torch, dev, 8, 1, 512, H, KV, hd, 7)
@@ -2816,11 +2845,19 @@ def time_kernels(torch, dev, src: str, repeats: int = 3) -> None:
     qp, kp, vp = flash_inputs(torch, dev, 1, 256, 256, H, KV, hd, 7)
     s56 = torch.tensor([56], dtype=torch.int32, device=dev)
     tq, tk, tv, co = training_inputs(torch, dev, 8, 256, 9)
-    o, m, l = F.posit_flash_attention_fwd(POSIT16, tq, tk, tv, True)
-    args = backward_args(F, co, o, m, l, tq, tk, tv)
+    args_of = {}
+
+    def bwd(fmt):
+        """K7 / K8's inputs at ``fmt``, from its K6 forward (run once)."""
+        if fmt.n not in args_of:
+            o, m, l = F.posit_flash_attention_fwd(fmt, tq, tk, tv, True)
+            args_of[fmt.n] = backward_args(F, co, o, m, l, tq, tk, tv)
+        return args_of[fmt.n]
+
     a = torch.randn(1024, 1024, device=dev)
     b = torch.rand(1024, 1, device=dev) + 0.5
     x = torch.randn(4096, 64, device=dev) * 2
+    router = torch.randn(8, 64, device=dev) * 2
     gq, gk, gv, bt = paged_inputs(torch, dev, 8, 32, 16, H, KV, hd, 8)
     sq, sk, sv, seg_q, seg, _ = packed_inputs(torch, dev, pack_lens(8, 256), 256, 9,
                                               left=False)
@@ -2839,10 +2876,27 @@ def time_kernels(torch, dev, src: str, repeats: int = 3) -> None:
                          ["rowwise_kernel"]),
         "K6": (lambda: F.posit_flash_attention_fwd(POSIT16, tq, tk, tv, True),
                ["flash_kernel"]),
-        "K7": (lambda: F.flash_backward_dq(POSIT16, plan, *args), ["flash_bwd_dq_kernel"]),
-        "K8": (lambda: F.flash_backward_dkv(POSIT16, plan, *args), ["flash_bwd_dkv_kernel"]),
+        "K7": (lambda: F.flash_backward_dq(POSIT16, plan, *bwd(POSIT16)),
+               ["flash_bwd_dq_kernel"]),
+        "K8": (lambda: F.flash_backward_dkv(POSIT16, plan, *bwd(POSIT16)),
+               ["flash_bwd_dkv_kernel"]),
+        "K9 8x64": (lambda: ops.posit_softmax_fused(POSIT16, router), ["softmax_kernel"]),
         "K9 4096x64": (lambda: ops.posit_softmax_fused(POSIT16, x), ["softmax_kernel"]),
     }
+    for fmt in (POSIT32, POSIT64):
+        plan_n = F.datapath_plan(fmt, "srt_r4_cs_of_fr")
+        calls.update({
+            f"K7 posit{fmt.n}": (lambda f=fmt, p=plan_n: F.flash_backward_dq(f, p, *bwd(f)),
+                                 ["flash_bwd_dq_kernel"]),
+            f"K8 posit{fmt.n}": (lambda f=fmt, p=plan_n: F.flash_backward_dkv(f, p, *bwd(f)),
+                                 ["flash_bwd_dkv_kernel"]),
+            f"K9 8x64 posit{fmt.n}": (lambda f=fmt: ops.posit_softmax_fused(f, router),
+                                      ["softmax_kernel"]),
+            f"K9 4096x64 posit{fmt.n}": (lambda f=fmt: ops.posit_softmax_fused(f, x),
+                                         ["softmax_kernel"]),
+        })
+    if only:
+        calls = {name: call for name, call in calls.items() if name.split()[0] in only}
     out["ms"] = {name: [] for name in calls}
     out["from"] = []
     for _ in range(repeats):
@@ -2869,7 +2923,12 @@ def main() -> int:
     if ab_only:
         from repro_torch.models.transformer import resolve_device
 
-        time_kernels(torch, resolve_device("cuda:0"), src)
+        only = None
+        if "--only" in sys.argv[1:]:
+            only = sys.argv[sys.argv.index("--only") + 1].split(",")
+            check(only and set(only) <= set(ONLY_LIBRARIES),
+                  f"--only takes kernels among {sorted(ONLY_LIBRARIES)}")
+        time_kernels(torch, resolve_device("cuda:0"), src, only=only)
         print(gpu_line())
         return 0
     from repro_torch.core.posit import POSIT16, POSIT32, POSIT64

@@ -687,6 +687,91 @@ def test_softmax_kernel_refuses_and_counts(dev):
     assert ops.posit_softmax_fused.launches == before + 1
 
 
+# K9's geometries: one thread per column up to 1024 columns (a row over
+# several warps, several rows to a block), a strided loop past that, up to
+# the widest row it takes (None: posit_softmax_max_cols())
+SOFTMAX_COLS = (1, 31, 33, 1023, 1025, None)
+
+
+@pytest.mark.parametrize("R", [1, 5, 4097])
+@pytest.mark.parametrize("C", SOFTMAX_COLS, ids=lambda c: "max_cols" if c is None else str(c))
+def test_softmax_kernel_geometries(dev, R, C):
+    """K9 from one column to its widest row, at 1, 5 and 4097 rows: the
+    twin's bits (compared in row chunks: rows are independent), a NaN row
+    kept to itself, -1e30 entries beside larger ones 0."""
+    if C is None:
+        C = ops._softmax_fn()[1]
+    g = torch.Generator(device=dev).manual_seed(R + C)
+    x = torch.randn(R, C, generator=g, device=dev) * 2
+    if R >= 3:
+        x[0, ::3] = -1e30
+        x[1] = 0.75
+        x[2, C // 2] = math.nan
+    o = ops.posit_softmax_fused(POSIT16, x)
+    chunk = max(1, (1 << 24) // C)
+    for r in range(0, R, chunk):
+        p = ops.posit_softmax_plain(POSIT16, x[r:r + chunk])
+        assert torch.equal(bits(o[r:r + chunk]), bits(p)), r
+    assert torch.isnan(o).any(-1).cpu().tolist() == [i == 2 for i in range(R)]
+    if R >= 3 and C > 1:   # one column of -1e30 is its own row max
+        assert (o[0, ::3] == 0).all()
+
+
+def test_softmax_kernel_refuses_wider_rows(dev):
+    widest = ops._softmax_fn()[1]
+    assert widest >= 14848
+    with pytest.raises(ValueError, match="at most"):
+        ops.posit_softmax_fused(POSIT16, torch.zeros(1, widest + 1, device=dev))
+
+
+# K8's geometries, (B, Sq, Sk, H, KV, hd, causal, window, q_offset): head_dim
+# 30 (4-byte tile copies), 40, 64 and 128 (zero-padded to the MMA depth of
+# 8); G = 1, 3 and 8; Sk off the 64-key tile; Sq < Sk with q_offset > 0; a
+# window, with and without the causal mask; non-causal
+DKV_CASES = {
+    "hd30": (2, 70, 70, 6, 2, 30, True, 0, 0),
+    "hd40": (2, 100, 100, 6, 2, 40, True, 0, 0),
+    "hd64_G3": (2, 130, 130, 6, 2, 64, True, 0, 0),
+    "hd128_G1": (1, 96, 96, 4, 4, 128, True, 0, 0),
+    "G8": (1, 80, 80, 8, 1, 64, True, 0, 0),
+    "Sk200": (1, 200, 200, 3, 1, 64, True, 0, 0),
+    "q_offset": (2, 40, 150, 6, 2, 64, True, 0, 110),
+    "window": (2, 160, 160, 6, 2, 64, True, 48, 0),
+    "window_non_causal": (1, 100, 100, 4, 2, 64, False, 40, 0),
+    "non_causal": (2, 90, 120, 6, 2, 64, False, 0, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(DKV_CASES))
+def test_dkv_kernel_geometries_match_twin(dev, case):
+    """K8 (and K7 beside it) at each geometry: within BWD_TOL of the twin,
+    the same bits on a second run, and on f32 K/V holding bf16 values the
+    bf16 call's bits."""
+    B, Sq, Sk, H, KV, hd, causal, window, q_offset = DKV_CASES[case]
+    g = torch.Generator().manual_seed(hd + Sk)
+    q = torch.randn(B, Sq, H, hd, generator=g).to(torch.bfloat16).float().to(dev)
+    k = torch.randn(B, Sk, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    v = torch.randn(B, Sk, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    co = torch.randn(B, Sq, H, hd, generator=g).to(dev)
+    o, m, l = F.posit_flash_attention_fwd(POSIT16, q, k, v, causal, window, q_offset)
+    assert bool((l > 0).all())
+    plan = F.datapath_plan(POSIT16, "srt_r4_cs_of_fr")
+    scale = 1 / math.sqrt(hd)
+    args = lambda k_, v_: (q, k_, v_, co, m, l, F._row_sums(co, o), causal, window,
+                           q_offset, scale)
+    runs = [F.flash_backward_dkv(POSIT16, plan, *args(k, v)) for _ in range(2)]
+    from_f32 = F.flash_backward_dkv(POSIT16, plan, *args(k.float(), v.float()))
+    dq = F.flash_backward_dq(POSIT16, plan, *args(k, v))
+    twin = F.flash_backward_plain(POSIT16, q, k.float(), v.float(), o, co, m, l, causal,
+                                  window, q_offset, scale)
+    assert (dq - twin[0]).abs().max() <= BWD_TOL
+    for got, again, same, want in zip(runs[0], runs[1], from_f32, twin[1:]):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= BWD_TOL
+        assert torch.equal(bits(got), bits(again))
+        assert torch.equal(bits(got), bits(same))
+
+
 def test_flash_kernel_decode_hd128_mha(dev):
     """OLMoE's decode: head_dim 128, 16/16 heads, 8 slots with left pads
     (slot 7's only key lies before its start: fully masked)."""
