@@ -240,10 +240,17 @@ GRAD_REL_L2 = 2e-2
 DEFAULT_VARIANT = "srt_r4_cs_of_fr"   # NumericsConfig's default plan
 MOE_HEADS = (16, 16, 128)   # OLMoE-1B-7B: heads, kv heads, head_dim
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+# The operations model below counts 32-bit instructions, so it is bounded
+# at the rate an H100 SXM dispatches them: 4 schedulers x 32 lanes a clock on
+# each of 132 SMs at 1.98 GHz, 33.45e12 a second, whatever the mix (67e12,
+# the f32 FMA's flop rate, counts two flops per instruction).  The INT32
+# pipe alone takes half that, 64 lanes a clock per SM (16.7e12/s; CUDA C
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0): a bound for a datapath of integer instructions only.
+INSTR_PER_S = 4 * 32 * 132 * 1.98e9
 TF32_OPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 # 32-bit integer operations of the posit datapath per element (a static
-# model of posit_srt.cuh), bounded at the f32 CUDA-core rate: DIV_OPS_FIXED
+# model of posit_srt.cuh), bounded at the instruction rate: DIV_OPS_FIXED
 # per pattern word for quantize, decode, encode and dequantize (posit64's
 # patterns are two words), and per iteration of divide_fields' recurrence
 # (div_iteration_ops) a count taken from its code, W the residual's words
@@ -316,11 +323,11 @@ def div_ops(plan, elements: int) -> int:
 
 def bound_ms(nbytes: float, ops: float, tensor_ops: float = 0.0):
     """The least time for the work: the larger of the bytes over the memory
-    rate, the operations over the f32 rate and the products' flops over the
-    TF32 tensor-core rate (a product bounds at that rate whatever unit a
-    kernel runs it on)."""
+    rate, the operations over the instruction rate and the products' flops
+    over the TF32 tensor-core rate (a product bounds at that rate whatever
+    unit a kernel runs it on)."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = max(ops / F32_OPS_PER_S, tensor_ops / TF32_OPS_PER_S) * 1e3
+    to = max(ops / INSTR_PER_S, tensor_ops / TF32_OPS_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -2278,6 +2285,23 @@ def device_kernel_ms(torch, fn, names, iters=20):
     return cuda_time_ms(fn, iters), "CUDA events"
 
 
+def device_call_ms(torch, fn, iters=20):
+    """Device time per call of ``fn()`` that launches several kernels (a
+    library call's forward or backward): each kernel's mean launch time from
+    torch.profiler times its launches per call, summed, so a trace that kept
+    only part of the launches still counts each call whole; CUDA events
+    around the calls where no trace shows a kernel.  Host gaps make the
+    events' time of such a call spread: SDPA's backward at the training
+    shape took 0.64 to 1.14 ms so in runs on an H100."""
+    for _ in range(3):
+        fn()
+    counts = {}
+    times, _ = profiled(torch, lambda: [fn() for _ in range(iters)], [""], counts)
+    if times:
+        return sum(t / counts[k] * max(1, round(counts[k] / iters)) for k, t in times.items())
+    return cuda_time_ms(fn, iters)
+
+
 def phase_timing(torch, dev):
     from repro_torch.core.posit import POSIT8, POSIT16, POSIT32, POSIT64
     from repro_torch.kernels import ops
@@ -2294,11 +2318,14 @@ def phase_timing(torch, dev):
         dev_ms, src = device_kernel_ms(torch, call, ["rowwise_kernel"])
         bms, by = bound_ms(8 * R * C + 4 * R, div_ops(datapath_plan(fmt, DEFAULT_VARIANT),
                                                       R * C))
+        # the yardstick: the same row-broadcast division in f32, no posit
+        lib_ms, lib_src = device_kernel_ms(torch, lambda: torch.div(a, b), ["DivFunctor"])
         return {"shape": [R, C], "ms": dev_ms, "ms_from": src,
                 "call_ms": cuda_time_ms(call),
                 "plain_ms": cuda_time_ms(lambda: ops.posit_div_rowwise_plain(fmt, a, b),
                                          iters=5),
-                "bound_ms": bms, "bound_by": by, "library_ms": None}
+                "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                "library_from": lib_src}
 
     rows["K2 decode"] = rowwise_row(8, 960)
     rows["K2 prefill"] = rowwise_row(256, 960)
@@ -2477,15 +2504,23 @@ def division_rows(torch, dev):
                                lambda: ops.posit_dequantize_plain(POSIT16, wa)),
         }
         iters = 20 if size < CHUNK else 3
+        # K10's yardstick: the same elementwise division in f32, no posit;
+        # K11 (patterns in and out) and K12 (a cast to posit) have no torch
+        # call that computes their function
+        lib_ms, lib_src = device_kernel_ms(torch, lambda: torch.div(a, b), ["DivFunctor"],
+                                           iters=iters)
         for name, (call, names, per_elem, ops_, plain) in cases.items():
             dev_ms, src = device_kernel_ms(torch, call, names, iters=iters)
             bms, by = bound_ms(per_elem * size, ops_)
+            k10 = name.startswith("K10")
             rows[f"{name} {label}"] = {
                 "shape": [size], "ms": dev_ms, "ms_from": src,
                 "call_ms": cuda_time_ms(call, iters=iters),
                 "plain_ms": cuda_time_ms(plain, iters=5) if size < CHUNK else None,
-                "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "bound_ms": bms, "bound_by": by, "library_ms": lib_ms if k10 else None,
                 "per_s": size / (dev_ms * 1e-3)}
+            if k10:
+                rows[f"{name} {label}"]["library_from"] = lib_src
         del a, b, wa, wb, sa, sb
         torch.cuda.empty_cache()
     print_rows(rows)
@@ -2584,11 +2619,11 @@ def training_rows(torch, dev, fmt, kv_f32=False):
                   for t in (q, k, v))
     sdpa = lambda: Fn.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
                                                    enable_gqa=True)
-    lib_fwd = cuda_time_ms(lambda: sdpa().detach())
+    lib_fwd = device_call_ms(torch, lambda: sdpa().detach())
     out = sdpa()
     gs = co.transpose(1, 2).contiguous()
-    lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), gs,
-                                                       retain_graph=True))
+    lib_bwd = device_call_ms(torch, lambda: torch.autograd.grad(out, (qs, ks, vs), gs,
+                                                                retain_graph=True))
     plain_bwd = cuda_time_ms(lambda: F.flash_backward_plain(fmt, q, k, v, o, co, m, l,
                                                             True), iters=3)
 
@@ -2606,7 +2641,8 @@ def training_rows(torch, dev, fmt, kv_f32=False):
                   pairs * 4 * hd + div_ops(plan, B * S * H * hd),
                   cuda_time_ms(lambda: F.posit_flash_attention_fwd_plain(
                       fmt, q, k, v, True), iters=3), lib_fwd),
-        # K7 / K8: the products at the tensor cores' rate, the divisions at f32's
+        # K7 / K8: the products at the tensor cores' rate, the divisions at the
+        # instruction rate
         "K7" + tag: row(lambda: F.flash_backward_dq(fmt, plan, *args),
                   ["flash_bwd_dq_kernel"], 3 * qo + 2 * kv + 3 * rowv,
                   div_ops(plan, pairs), plain_bwd, lib_bwd, pairs * 6 * hd),
@@ -2679,9 +2715,8 @@ def plan_table(torch, dev, pack):
                 row[f"{name}_bound_ms"] = bound_ms(0, other + div_ops(plan, divides), tensor)[0]
             table.append(row)
     names = ("K2", "K3", "K5", "K6", "K7", "K8", "K9")
-    print("plan table (CUDA events, ms per call; bound = operations / 67 TFLOP/s, K7/K8's "
-          "products / 495 TFLOP/s; hardware "
-          "model: delay FO4, area GE): " + "; ".join(
+    print("plan table (CUDA events, ms per call; bound = operations / 33.45e12 a second, "
+          "K7/K8's products / 495 TFLOP/s; hardware model: delay FO4, area GE): " + "; ".join(
               f"{r['format']} {r['variant']} it {r['iterations']} x {r['ops_per_iteration']} "
               f"ops, hw {r['hw_delay_fo4']:.1f} FO4 {r['hw_area_ge']:.0f} GE: " + ", ".join(
                   f"{k} {r[k + '_ms']:.4f} (bound {r[k + '_bound_ms']:.4f})" for k in names)
@@ -2768,28 +2803,59 @@ def plan_name(fields) -> str:
     return f"posit{n} srt_r{radix}" + ("_cs" if red else "") + ("_of" if otf else "")
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's mangled name as its function, plan and (for the flash
+    forward) layout, as "flash_kernel posit64 srt_r4_cs_of paged"."""
+    fn = re.search(r"\d([a-z][a-z_]*_kernel)I", mangled)
+    plan = re.search(r"PlanI((?:L[ib]\d+E)+)E", mangled)
+    layout = re.search(r"EELi(\d)EEEv", mangled)
+    fields = [int(x) for x in re.findall(r"L[ib](\d+)E", plan.group(1))] if plan else []
+    width = re.search(r"_kernelILi(\d+)E", mangled)   # K12's casts: the format only
+    what = (plan_name(fields) if fields else
+            f"posit{width.group(1)}" if width else "posit?")
+    name = f"{fn.group(1) if fn else mangled} {what}"
+    if layout:
+        name += f" {LAYOUT_NAMES[int(layout.group(1))]}"
+    return name
+
+
 def ptxas_kernels(log: str):
     """``(kernel, registers, spill store bytes)`` for each kernel that
-    ``-Xptxas -v`` reported, the kernel named by its function, plan and (for
-    the flash forward) layout, as "flash_kernel posit64 srt_r4_cs_of
-    paged"."""
+    ``-Xptxas -v`` reported, the kernel named by ``kernel_name``."""
     out = []
     for block in log.split("Compiling entry function '")[1:]:
-        mangled = block.split("'", 1)[0]
-        fn = re.search(r"\d([a-z][a-z_]*_kernel)I", mangled)
-        plan = re.search(r"PlanI((?:L[ib]\d+E)+)E", mangled)
-        layout = re.search(r"EELi(\d)EEEv", mangled)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
-        fields = [int(x) for x in re.findall(r"L[ib](\d+)E", plan.group(1))] if plan else []
-        width = re.search(r"_kernelILi(\d+)E", mangled)   # K12's casts: the format only
-        what = (plan_name(fields) if fields else
-                f"posit{width.group(1)}" if width else "posit?")
-        name = f"{fn.group(1) if fn else mangled} {what}"
-        if layout:
-            name += f" {LAYOUT_NAMES[int(layout.group(1))]}"
-        out.append((name, int(regs.group(1)) if regs else 0,
+        out.append((kernel_name(block.split("'", 1)[0]), int(regs.group(1)) if regs else 0,
                     int(spill.group(1)) if spill else 0))
+    return out
+
+
+# the libraries whose posit16 kernels --time-kernels disassembles, and the
+# opcodes it counts in each: compares and selects (the digit selection),
+# constant, global and local loads (a table looked up in memory, spills),
+# shared loads, and the tensor cores' HMMA
+SASS_LIBRARIES = ("posit_flash_bwd_p16", "posit_fused_div")
+SASS_OPCODES = ("ISETP", "SEL", "LOP3", "IADD3", "SHF", "PRMT", "LDC", "LDG", "LDL", "STL",
+                "LDS", "HMMA")
+
+
+def sass_counts(build, name: str):
+    """``{kernel: {"instructions": n, opcode: n, ...}}``: the static SASS
+    of every posit16 kernel of the built library ``name`` (``cuobjdump
+    -sass``, beside ``nvcc``), its instructions counted in all and by
+    SASS_OPCODES."""
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    dump = subprocess.run([cuobjdump, "-sass", str(build._lib_path(name))], check=True,
+                          capture_output=True, text=True, timeout=600).stdout
+    out = {}
+    for block in dump.split("Function : ")[1:]:
+        name = kernel_name(block.split(None, 1)[0])
+        if name.split()[1] != "posit16":
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)", block)
+        counts = collections.Counter(ops)
+        out[name] = {"instructions": len(ops), **{o: counts.get(o, 0) for o in SASS_OPCODES}}
     return out
 
 
@@ -2806,7 +2872,9 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
     """An A/B of the kernels both packages have, from the package under
     ``src``: each library's build seconds (all built in parallel, as the
     main run builds them), its ptxas report (each posit16 kernel's
-    registers and spill stores, and every K8 and K9 instantiation's), and
+    registers and spill stores, and every K7, K8 and K9 instantiation's), the
+    static SASS of the posit16 K2, K7, K8 and K10 kernels (``sass_counts``),
+    and
     the device time per launch of K3 (the timing phase's decode and prefill
     rows), K4 (the paged decode), K5 (an 8 x 256 pack), K2 (1024 x 1024),
     K6-K8 (the training rows) and K9 (8 x 64 and 4096 x 64), and of K7, K8
@@ -2819,7 +2887,7 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import posit_flash_attn as F
 
-    out = {"src": src, "build_s": {}, "ptxas": {}, "ptxas_posit16": {}, "ptxas_k8_k9": {}}
+    out = {"src": src, "build_s": {}, "ptxas": {}, "ptxas_posit16": {}, "ptxas_k7_k9": {}}
     # every library at once, one nvcc each, as the main run builds them
     names = list(getattr(_build, "LIBRARIES", _build.SOURCES))
     if only:
@@ -2827,15 +2895,19 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
     t0 = time.perf_counter()
     out["build_s"] = {n: round(t, 2) for n, t in _build.build(names).items()}
     out["build_wall_s"] = round(time.perf_counter() - t0, 2)
+    out["sass"] = {}
     for n in names:
+        if n in SASS_LIBRARIES:
+            out["sass"].update(sass_counts(_build, n))
         kernels = ptxas_kernels(_build.ptxas_log(n))
         out["ptxas"][n] = {"kernels": len(kernels),
                            "max_registers": max((r for _, r, _ in kernels), default=0),
                            "spill_store_bytes": sum(sp for _, _, sp in kernels)}
         out["ptxas_posit16"].update({k: [r, sp] for k, r, sp in kernels
                                      if k.split()[1] == "posit16"})
-        out["ptxas_k8_k9"].update({k: [r, sp] for k, r, sp in kernels
-                                   if k.split()[0] in ("flash_bwd_dkv_kernel", "softmax_kernel",
+        out["ptxas_k7_k9"].update({k: [r, sp] for k, r, sp in kernels
+                                   if k.split()[0] in ("flash_bwd_dq_kernel",
+                                                       "flash_bwd_dkv_kernel", "softmax_kernel",
                                                        "warp_softmax_kernel")})
     plan = F.datapath_plan(POSIT16, "srt_r4_cs_of_fr")
     H, KV, hd = 15, 5, 64

@@ -89,7 +89,7 @@ enum Layout { kDense = 0, kPaged = 1, kPacked = 2 };
 
 template <class P>
 size_t smem_bytes(int bq, int hd, int layout) {
-  // the divisors first (28 bytes each, 48 on the two-word frame: a multiple
+  // the divisors first (32 bytes each, 48 on the two-word frame: a multiple
   // of their 4- or 8-byte alignment, so the floats after them stay aligned
   // at any bq); the pointers in flash_kernel follow this order exactly
   const size_t bytes = sizeof(posit::DivisorOf<P>) * bq    // per-row divisor

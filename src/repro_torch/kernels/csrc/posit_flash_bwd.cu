@@ -23,16 +23,42 @@
 // bytes (they read q, dO, k, v and the row vectors once per tile) and not
 // by the products, a small share of the work at the tensor cores' rate.
 //
-// K7 (simple and correct first): one block per (q tile of kBQ rows,
-// b*H + h); a loop over key tiles of kBKq keys accumulates dq += ds k,
-// scaled by `scale` at the end.  Each row's divisor is quantized and
-// decoded once per q tile into shared memory (as K2 does); the score step
-// (tile_p_ds) is inlined once, its loop not unrolled, to keep the build time
-// short; s is computed in the forward kernel's order (one f32 FMA chain over
-// head_dim, then a separately rounded multiply by scale), so a recomputed e
-// is the forward's e.  Its products run on CUDA cores in f32; tensor cores
-// are left for a later version.
-//
+// K7: one block of four warps per (q tile of kQRows = 16 rows, b*H + h),
+// the heaviest q tile first under the causal mask (blockIdx.y = 0 is the
+// last tile, which attends the most keys); a loop over key steps of kQKeys
+// = 32 keys accumulates dq += ds k, scaled by `scale` at the end.  Like K8,
+// it is bound by its divides, so the design keeps every warp dividing and
+// divides only pairs the mask can reach:
+//   * the q rows are fixed for the block: q and dO are staged once (f32,
+//     zero-padded to the MMA depth), and lane (g, t) holds rows g and g + 8
+//     of the tile, so it prepares those two rows' divisors (and m, D) once
+//     per block, in registers;
+//   * each step, warp w computes s = Q K^T and dp = dO V^T for keys
+//     [8w, 8w + 8) of the step on the tensor cores (mma.sync m16n8k8 TF32
+//     in 3xTF32, each three-product sum started from zero and added in f32,
+//     as K8) and divides its C fragments in place: lane (g, t)'s four pairs
+//     (rows g, g + 8; keys 2t, 2t + 1), two side by side per row so that
+//     their SRT chains overlap; ds goes to a shared (rows, keys) tile;
+//   * after a barrier warp w accumulates dq += ds K over the step's 32 keys
+//     for a quarter of the head's columns on the tensor cores (ds as A
+//     fragments, the k-step's keys in the order (0, 2, 4, 6, 1, 3, 5, 7) as
+//     in K8), so each dq element is one warp's sum in a fixed order: no
+//     atomics, no reduction across warps;
+//   * key steps outside the block's causal / window range are not visited,
+//     and a warp whose 8 keys no row of the tile attends writes ds = 0
+//     without products or divides (masked pairs have p = 0 exactly);
+//   * K/V arrive as bf16 or f32 and are copied as they are (cp.async of 16
+//     or 4 bytes, zeros past Sk) into one staging buffer, then widened to
+//     f32 tiles; the next step's copy is in flight while a step computes.
+//     So f32 K/V holding bf16 values give the bf16 call's bits.  Rows whose
+//     bytes are not a multiple of 4 are read straight from the tensors.
+// s is no longer the forward's FMA order, so e may differ from the forward's
+// by an f32 ulp and p by one posit step (within BWD_TOL, as K8).  Measured
+// on an H100 (PERF.md section 6): 64-key steps (16 keys a warp) were 14%
+// slower at posit16, and with its four divides a step side by side 19%; the
+// two-word plans are built for three blocks an SM, since at four ptxas
+// spilled posit64 nrd's two side-by-side 63-iteration chains (428 bytes).
+
 // K8: one block of four warps per (key tile of kKeys = 16 keys, b*KVH + kv
 // head).  What bounds it is the divisions: with them replaced by a multiply
 // an earlier form of it ran several times faster, so its time is set by how
@@ -90,58 +116,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kHdMax = 128;  // largest head_dim the kernels take
-constexpr int kBQ = 16;      // query rows per q tile of K7
-constexpr int kBKq = 64;     // keys per key tile of K7
-
-// p and ds for a (kBQ, bk) score tile: query rows [0, rows) at positions
-// qp0 + r against keys [k0, k0 + bk) (those at or past Sk are masked).
-// sK/sV rows have stride hd + 1; sP may be null (K7 needs ds only).
-template <class P>
-__device__ void tile_p_ds(const float* sQ, const float* sG, const float* sK, const float* sV,
-                          const posit::DivisorOf<P>* sDiv, const float* sM, const float* sD,
-                          float* sP, float* sDS, int rows, int bk, int hd, int qp0, int k0,
-                          int Sk, float scale, int causal, int window) {
-#pragma unroll 1
-  for (int i = threadIdx.x; i < kBQ * bk; i += kThreads) {
-    const int r = i / bk, j = i % bk;
-    const int qp = qp0 + r, kp = k0 + j;
-    bool valid = r < rows && kp < Sk;
-    if (causal) valid = valid && qp >= kp;
-    if (window) valid = valid && qp - kp < window;
-    float s = 0.f, dp = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      s += sQ[r * hd + d] * sK[j * (hd + 1) + d];
-      dp += sG[r * hd + d] * sV[j * (hd + 1) + d];
-    }
-    const float e = valid ? expf(__fmul_rn(s, scale) - sM[r]) : 0.f;
-    const float p = posit::divide_float<P>(e, sDiv[r]);
-    if (sP != nullptr) sP[i] = p;
-    sDS[i] = p * (dp - sD[r]);
-  }
-}
-
-// Rows [q0, q0 + rows) of head bh's q and dO into sQ / sG, and their m, D
-// and prepared divisors (zero rows, minpos divisor past the edge).
-template <class P>
-__device__ void load_q_tile(const float* q, const float* g, const float* m, const float* l,
-                            const float* D, float* sQ, float* sG, float* sM, float* sD,
-                            posit::DivisorOf<P>* sDiv, int b, int h, int bh, int q0, int rows,
-                            int Sq, int H, int hd, float eps) {
-  for (int i = threadIdx.x; i < kBQ * hd; i += kThreads) {
-    const int r = i / hd, d = i % hd;
-    const size_t off = ((static_cast<size_t>(b) * Sq + q0 + r) * H + h) * hd + d;
-    sQ[i] = r < rows ? q[off] : 0.f;
-    sG[i] = r < rows ? g[off] : 0.f;
-  }
-  if (threadIdx.x < kBQ) {
-    const int r = threadIdx.x;
-    const size_t row = static_cast<size_t>(bh) * Sq + q0 + r;
-    const float lv = r < rows ? l[row] : 0.f;
-    sM[r] = r < rows ? m[row] : 0.f;
-    sD[r] = r < rows ? D[row] : 0.f;
-    sDiv[r] = posit::prep_divisor<P>(lv > 0.f ? lv : eps);
-  }
-}
+constexpr int kWarps = kThreads / 32;
+constexpr int kNtPart = kHdMax / 8 / kWarps;  // n-tiles of a warp's part of the head's columns
 
 // One K/V element as f32: from the f32 tensor where the call gave f32 K/V
 // (f not null, the same in every block), else from the bf16 one, upcast
@@ -152,95 +128,10 @@ __device__ __forceinline__ float kv_at(const __nv_bfloat16* b, const float* f, s
   return f != nullptr ? f[off] : __bfloat162float(b[off]);
 }
 
-// Keys [k0, k0 + bk) of kv head kvh into sK / sV (stride hd + 1), as f32.
-__device__ void load_kv_tile(const __nv_bfloat16* k, const __nv_bfloat16* v, const float* kf,
-                             const float* vf, float* sK, float* sV, int b, int kvh, int k0,
-                             int bk, int Sk, int KVH, int hd) {
-  for (int i = threadIdx.x; i < bk * hd; i += kThreads) {
-    const int j = i / hd, d = i % hd;
-    const int kp = k0 + j;
-    const bool in = kp < Sk;
-    const size_t off = ((static_cast<size_t>(b) * Sk + (in ? kp : 0)) * KVH + kvh) * hd + d;
-    sK[j * (hd + 1) + d] = in ? kv_at(k, kf, off) : 0.f;
-    sV[j * (hd + 1) + d] = in ? kv_at(v, vf, off) : 0.f;
-  }
-}
+// Rows have stride hdp = hd8 + 4 (hd8: head_dim rounded up to 8, the MMA
+// depth), so every fragment load below hits 32 distinct banks.
+__host__ __device__ inline int dkv_hdp(int hd) { return ((hd + 7) & ~7) + 4; }
 
-// The per-row divisors first (28 bytes each, 48 on the two-word frame: the
-// floats after them stay aligned), then the float tiles.
-template <class P>
-size_t smem_bytes(int bk, int hd) {
-  return sizeof(posit::DivisorOf<P>) * kBQ +
-         sizeof(float) * (2 * kBQ * hd + 2 * bk * (hd + 1) + 2 * kBQ * bk + 2 * kBQ);
-}
-
-template <class P>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ kf,
-                        const float* __restrict__ vf, const float* __restrict__ g,
-                        const float* __restrict__ m, const float* __restrict__ l,
-                        const float* __restrict__ D, float* __restrict__ dq, int Sq, int Sk,
-                        int H, int KVH, int hd, float scale, int causal, int window,
-                        int q_offset, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  posit::DivisorOf<P>* sDiv = reinterpret_cast<posit::DivisorOf<P>*>(smem);
-  float* sQ = reinterpret_cast<float*>(sDiv + kBQ);
-  float* sG = sQ + kBQ * hd;
-  float* sK = sG + kBQ * hd;
-  float* sV = sK + kBKq * (hd + 1);
-  float* sDS = sV + kBKq * (hd + 1);
-  float* sM = sDS + kBQ * kBKq;
-  float* sD = sM + kBQ;
-
-  constexpr int kAcc = kBQ * kHdMax / kThreads;
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int kvh = h / (H / KVH);
-  const int q0 = blockIdx.y * kBQ;
-  const int rows = min(kBQ, Sq - q0);
-  const int qp0 = q_offset + q0;
-
-  load_q_tile<P>(q, g, m, l, D, sQ, sG, sM, sD, sDiv, b, h, bh, q0, rows, Sq, H, hd, eps);
-  float acc[kAcc];
-#pragma unroll
-  for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
-
-  int kv_end = Sk;
-  if (causal) kv_end = min(kv_end, qp0 + rows);  // last row's position + 1
-  const int ntiles = kv_end > 0 ? (kv_end + kBKq - 1) / kBKq : 0;
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * kBKq;
-    __syncthreads();
-    load_kv_tile(k, v, kf, vf, sK, sV, b, kvh, k0, kBKq, Sk, KVH, hd);
-    __syncthreads();
-    tile_p_ds<P>(sQ, sG, sK, sV, sDiv, sM, sD, nullptr, sDS, rows, kBKq, hd, qp0, k0, Sk, scale,
-                 causal, window);
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < kAcc; ++a) {
-      const int i = tid + a * kThreads;
-      if (i < kBQ * hd) {
-        const int r = i / hd, d = i % hd;
-        float s = 0.f;
-        for (int j = 0; j < kBKq; ++j) s += sDS[r * kBKq + j] * sK[j * (hd + 1) + d];
-        acc[a] += s;
-      }
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < kAcc; ++a) {
-    const int i = tid + a * kThreads;
-    if (i < rows * hd) {
-      const int r = i / hd, d = i % hd;
-      dq[((static_cast<size_t>(b) * Sq + q0 + r) * H + h) * hd + d] = acc[a] * scale;
-    }
-  }
-}
-
-// ------------------------------------------------------------------- K8
-//
 // Tensor-core helpers (mma.sync m16n8k8, TF32 operands, f32 accumulate).
 // Fragment layouts (PTX ISA, m16n8k8 .tf32), g = lane / 4, t = lane % 4:
 //   A (16 x 8): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
@@ -250,13 +141,6 @@ __global__ void __launch_bounds__(kThreads)
 // (x - hi is exact), and a b takes hi*hi + hi*lo + lo*hi, about f32's
 // accuracy.  K and V staged from bf16 have lo = 0.
 
-constexpr int kKeys = 16;                // keys per K8 block: one m16 row block
-constexpr int kRows = 32;                // query rows per K8 q tile
-constexpr int kWarps = kThreads / 32;
-constexpr int kWarpRows = kRows / kWarps;  // a warp's rows of a tile in the score step
-constexpr int kScr = kRows + 8;          // row stride of the (kKeys, kRows) scratch tiles
-constexpr int kNtPart = kHdMax / 8 / kWarps;  // n-tiles of a warp's part of dk / dv's columns
-constexpr int kDivUnroll = 2;            // pairs a lane divides side by side
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -317,14 +201,14 @@ __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB&
   for (int i = 0; i < 4; ++i) d[i] += t[i];
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(src),
                "r"(valid ? 4 : 0)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
                "r"(valid ? 16 : 0)
@@ -339,16 +223,272 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
+// ------------------------------------------------------------------- K7
+
+constexpr int kQRows = 16;           // query rows per K7 block: one m16 row block
+constexpr int kQKeys = 32;           // keys per K7 step: 8 a warp
+constexpr int kQScr = kQKeys + 8;    // row stride of K7's (kQRows, kQKeys) ds tile
+
+// K7's shared memory: q and dO (kQRows rows), the f32 K and V tiles (kQKeys
+// rows), the ds tile, then the staging buffer of the raw K and V rows
+// (kQKeys rows of hd elements each of raw_elt bytes; none where the rows are
+// read straight from the tensors).
+__host__ __device__ inline size_t dq_smem_bytes(int hd, int raw_elt) {
+  const int hdp = dkv_hdp(hd);
+  return sizeof(float) * (2 * kQRows * hdp + 2 * kQKeys * hdp + kQRows * kQScr) +
+         static_cast<size_t>(2) * kQKeys * hd * raw_elt;
+}
+
+// Starts the copy of keys [k0, k0 + kQKeys) of kv head kvh, as they arrive
+// (elt bytes an element), into the staging buffer (rows of hd elements,
+// zeros past Sk), in chunks of `chunk` bytes, and commits it as one group.
+__device__ void start_kv_copy(const unsigned char* k, const unsigned char* v, unsigned char* rK,
+                             unsigned char* rV, int b, int kvh, int k0, int Sk, int KVH, int hd,
+                             int elt, int chunk) {
+  const int row = hd * elt, per_row = row / chunk;
+  for (int i = threadIdx.x; i < kQKeys * per_row; i += kThreads) {
+    const int j = i / per_row, c = (i % per_row) * chunk;
+    const int kp = k0 + j;
+    const bool in = kp < Sk;
+    const size_t off = ((static_cast<size_t>(b) * Sk + (in ? kp : 0)) * KVH + kvh) * row + c;
+    if (chunk == 16) {
+      cp_async16(rK + j * row + c, k + off, in);
+      cp_async16(rV + j * row + c, v + off, in);
+    } else {
+      cp_async4(rK + j * row + c, k + off, in);
+      cp_async4(rV + j * row + c, v + off, in);
+    }
+  }
+  cp_async_commit();
+}
+
+// Keys [k0, k0 + kQKeys) as f32 tiles sK / sV (zeros past Sk and in the
+// columns [hd, hd8)): from the staging buffer, or (raw null) straight from
+// the tensors.
+__device__ void widen_kv(const unsigned char* raw, const __nv_bfloat16* k,
+                         const __nv_bfloat16* v, const float* kf, const float* vf, float* sK,
+                         float* sV, int b, int kvh, int k0, int Sk, int KVH, int hd, int hdp) {
+  const int hd8 = hdp - 4;
+  const float* rKf = reinterpret_cast<const float*>(raw);
+  const __nv_bfloat16* rKb = reinterpret_cast<const __nv_bfloat16*>(raw);
+  const int half = kQKeys * hd;   // elements of the K rows, then the V rows
+  for (int i = threadIdx.x; i < kQKeys * hd8; i += kThreads) {
+    const int j = i / hd8, d = i % hd8;
+    float kx = 0.f, vx = 0.f;
+    if (d < hd) {
+      if (raw != nullptr) {
+        const int e = j * hd + d;
+        kx = kf != nullptr ? rKf[e] : __bfloat162float(rKb[e]);
+        vx = kf != nullptr ? rKf[half + e] : __bfloat162float(rKb[half + e]);
+      } else if (k0 + j < Sk) {
+        const size_t off = ((static_cast<size_t>(b) * Sk + k0 + j) * KVH + kvh) * hd + d;
+        kx = kv_at(k, kf, off);
+        vx = kv_at(v, vf, off);
+      }
+    }
+    sK[j * hdp + d] = kx;
+    sV[j * hdp + d] = vx;
+  }
+}
+
+// The warp's s = Q K^T and dp = dO V^T (16 rows, the 8 keys at sK / sV rows
+// [key0, key0 + 8)) as C fragments: lane (g, t) holds rows g, g + 8 and
+// keys 2t, 2t + 1.
+__device__ __forceinline__ void dq_score_tile(const float* sQ, const float* sG, const float* sK,
+                                              const float* sV, int hdp, int key0, int lane,
+                                              float (&s)[4], float (&dp)[4]) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] = dp[i] = 0.f;
+  const float* qr = sQ + g * hdp + t;
+  const float* gr = sG + g * hdp + t;
+  const float* kr = sK + (key0 + g) * hdp + t;
+  const float* vr = sV + (key0 + g) * hdp + t;
+  const int depth = hdp - 4;
+#pragma unroll 1
+  for (int c = 0; c < depth; c += 8) {
+    const FragA qa = frag_a(qr[c], qr[8 * hdp + c], qr[c + 4], qr[8 * hdp + c + 4]);
+    const FragA ga = frag_a(gr[c], gr[8 * hdp + c], gr[c + 4], gr[8 * hdp + c + 4]);
+    mma3(s, qa, frag_b(kr[c], kr[c + 4]));
+    mma3(dp, ga, frag_b(vr[c], vr[c + 4]));
+  }
+}
+
+// dq += ds K over the step's kQKeys keys for the warp's n-tiles [nd0, nd0 +
+// ndn) of the head's columns.  Each k-step of 8 keys is taken in the order
+// (0, 2, 4, 6, 1, 3, 5, 7): lane (g, t) holds A = ds's (g, 2t), (g + 8, 2t),
+// (g, 2t + 1), (g + 8, 2t + 1) and B's key rows 2t and 2t + 1.
+__device__ __forceinline__ void accumulate_dq(const float* sDS, const float* sK, int hdp,
+                                              int nd0, int ndn, int lane,
+                                              float (&acc)[kNtPart][4]) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < kQKeys; kk += 8) {
+    const float2 a0 = *reinterpret_cast<const float2*>(sDS + g * kQScr + kk + 2 * t);
+    const float2 a1 = *reinterpret_cast<const float2*>(sDS + (g + 8) * kQScr + kk + 2 * t);
+    const FragA da = frag_a(a0.x, a1.x, a0.y, a1.y);
+    const float* kr = sK + (kk + 2 * t) * hdp + nd0 * 8 + g;
+#pragma unroll
+    for (int nd = 0; nd < kNtPart; ++nd)
+      if (nd < ndn) mma3(acc[nd], da, frag_b(kr[nd * 8], kr[hdp + nd * 8]));
+  }
+}
+
+// One block of four warps per (q tile of kQRows rows, b*H + h): see the
+// note at the top.  chunk: the staging copies' size in bytes (16 or 4), or 0
+// where K/V rows are read straight from the tensors.
+template <class P>
+__global__ void __launch_bounds__(kThreads, P::words == 1 ? 4 : 3)
+    flash_bwd_dq_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ kf,
+                        const float* __restrict__ vf, const float* __restrict__ g,
+                        const float* __restrict__ m, const float* __restrict__ l,
+                        const float* __restrict__ D, float* __restrict__ dq, int Sq, int Sk,
+                        int H, int KVH, int hd, float scale, int causal, int window,
+                        int q_offset, float eps, int chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hdp = dkv_hdp(hd), hd8 = hdp - 4;
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sG = sQ + kQRows * hdp;
+  float* sK = sG + kQRows * hdp;
+  float* sV = sK + kQKeys * hdp;
+  float* sDS = sV + kQKeys * hdp;
+  unsigned char* raw = chunk ? reinterpret_cast<unsigned char*>(sDS + kQRows * kQScr) : nullptr;
+  const int elt = kf != nullptr ? 4 : 2;
+  const unsigned char* kraw = kf != nullptr ? reinterpret_cast<const unsigned char*>(kf)
+                                            : reinterpret_cast<const unsigned char*>(k);
+  const unsigned char* vraw = kf != nullptr ? reinterpret_cast<const unsigned char*>(vf)
+                                            : reinterpret_cast<const unsigned char*>(v);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int kvh = h / (H / KVH);
+  // under the causal mask the last q tile attends the most keys: it goes
+  // first, so the last blocks to start are the lightest
+  const int nq = (Sq + kQRows - 1) / kQRows;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.y)) * kQRows;
+  const int rows = min(kQRows, Sq - q0);
+  const int qp0 = q_offset + q0;
+  // the keys some row of the tile attends: [k_lo, k_hi)
+  int k_hi = Sk;
+  if (causal) k_hi = min(k_hi, qp0 + rows);   // the last row's position + 1
+  int k_lo = 0;
+  if (window) k_lo = max(0, qp0 - window + 1);  // the first row's first key
+  const int t0 = k_lo / kQKeys;
+  const int t1 = k_hi > k_lo ? (k_hi + kQKeys - 1) / kQKeys : t0;
+  if (raw != nullptr && t0 < t1)
+    start_kv_copy(kraw, vraw, raw, raw + kQKeys * hd * elt, b, kvh, t0 * kQKeys, Sk, KVH, hd,
+                 elt, chunk);
+
+  // the tile's q and dO rows (zeros past Sq and in the columns [hd, hd8))
+  for (int i = threadIdx.x; i < kQRows * hd8; i += kThreads) {
+    const int r = i / hd8, d = i % hd8;
+    const bool in = r < rows && d < hd;
+    const size_t off = ((static_cast<size_t>(b) * Sq + q0 + (in ? r : 0)) * H + h) * hd +
+                       (in ? d : 0);
+    sQ[r * hdp + d] = in ? q[off] : 0.f;
+    sG[r * hdp + d] = in ? g[off] : 0.f;
+  }
+  // rows gq and gq + 8: m, D and the divisor l_safe, once per block
+  float mr[2], Dr[2], lr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = gq + 8 * i;
+    const size_t row = static_cast<size_t>(bh) * Sq + q0 + (r < rows ? r : 0);
+    mr[i] = r < rows ? m[row] : 0.f;
+    Dr[i] = r < rows ? D[row] : 0.f;
+    lr[i] = r < rows ? l[row] : 0.f;
+  }
+  const posit::DivisorOf<P> div0 = posit::prep_divisor<P>(lr[0] > 0.f ? lr[0] : eps);
+  const posit::DivisorOf<P> div1 = posit::prep_divisor<P>(lr[1] > 0.f ? lr[1] : eps);
+
+  // the warp's n-tiles of the head's columns: a quarter of them
+  const int nts = hd8 / 8;
+  const int nd0 = warp * nts / kWarps, ndn = (warp + 1) * nts / kWarps - nd0;
+  float acc[kNtPart][4];
+#pragma unroll
+  for (int nd = 0; nd < kNtPart; ++nd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nd][i] = 0.f;
+
+  for (int st = t0; st < t1; ++st) {
+    const int k0 = st * kQKeys;
+    cp_async_wait_all();
+    __syncthreads();   // the step's rows have landed; every warp is done with the last step
+    widen_kv(raw, k, v, kf, vf, sK, sV, b, kvh, k0, Sk, KVH, hd, hdp);
+    __syncthreads();
+    if (raw != nullptr && st + 1 < t1)
+      start_kv_copy(kraw, vraw, raw, raw + kQKeys * hd * elt, b, kvh, k0 + kQKeys, Sk, KVH, hd,
+                   elt, chunk);
+    const int kw = k0 + 8 * warp;   // the warp's first key
+    float2* ds0 = reinterpret_cast<float2*>(sDS + gq * kQScr + 8 * warp + 2 * t);
+    float2* ds1 = reinterpret_cast<float2*>(sDS + (gq + 8) * kQScr + 8 * warp + 2 * t);
+    if (kw >= k_hi || kw + 8 <= k_lo) {
+      // no row of the tile attends the warp's keys: p = 0 and ds = 0
+      *ds0 = *ds1 = make_float2(0.f, 0.f);
+    } else {
+      float s[4], dp[4];
+      dq_score_tile(sQ, sG, sK, sV, hdp, 8 * warp, lane, s, dp);
+      // p = e / l_safe per pair through K1, ds = p (dp - D): masked and
+      // past-edge pairs have e = 0 exactly, so p = 0.  Row gq, then row gq
+      // + 8, each with its two keys side by side.
+#pragma unroll 1
+      for (int i = 0; i < 2; ++i) {
+        const int r = gq + 8 * i;
+        const int qp = qp0 + r;
+        const float sa = i ? s[2] : s[0], sb = i ? s[3] : s[1];
+        const float da = i ? dp[2] : dp[0], db = i ? dp[3] : dp[1];
+        const float mi = i ? mr[1] : mr[0], Di = i ? Dr[1] : Dr[0];
+        const posit::DivisorOf<P> dl = i ? div1 : div0;
+        const int ka = kw + 2 * t, kb = ka + 1;
+        bool va = r < rows && ka < Sk, vb = r < rows && kb < Sk;
+        if (causal) {
+          va = va && qp >= ka;
+          vb = vb && qp >= kb;
+        }
+        if (window) {
+          va = va && qp - ka < window;
+          vb = vb && qp - kb < window;
+        }
+        const float ea = va ? expf(__fmul_rn(sa, scale) - mi) : 0.f;
+        const float eb = vb ? expf(__fmul_rn(sb, scale) - mi) : 0.f;
+        const float pa = posit::divide_float<P>(ea, dl);
+        const float pb = posit::divide_float<P>(eb, dl);
+        *(i ? ds1 : ds0) = make_float2(pa * (da - Di), pb * (db - Di));
+      }
+    }
+    __syncthreads();   // every warp's ds is in the tile
+    accumulate_dq(sDS, sK, hdp, nd0, ndn, lane, acc);
+  }
+
+#pragma unroll
+  for (int nd = 0; nd < kNtPart; ++nd) {
+    if (nd < ndn) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = gq + (i >= 2 ? 8 : 0);
+        const int d = (nd0 + nd) * 8 + 2 * t + (i & 1);
+        if (r < rows && d < hd)
+          dq[((static_cast<size_t>(b) * Sq + q0 + r) * H + h) * hd + d] = acc[nd][i] * scale;
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------- K8
+
+constexpr int kKeys = 16;                // keys per K8 block: one m16 row block
+constexpr int kRows = 32;                // query rows per K8 q tile
+constexpr int kWarpRows = kRows / kWarps;  // a warp's rows of a tile in the score step
+constexpr int kScr = kRows + 8;          // row stride of the (kKeys, kRows) scratch tiles
+constexpr int kDivUnroll = 2;            // pairs a lane divides side by side
+
 // K8's shared memory, in floats: K and V tiles (kKeys rows), two q / dO tile
 // buffers (kRows rows), the row vectors m, l, D of both buffers, and two
-// (kKeys, kRows) scratch tiles.  Rows have stride hdp = hd8 + 4
-// (hd8: head_dim rounded up to 8, the MMA depth), so every fragment load
-// below hits 32 distinct banks.
+// (kKeys, kRows) scratch tiles; rows have stride hdp.
 struct DkvSmem {
   float *k, *v, *q, *g, *m, *l, *d, *scratch;
 };
-
-__host__ __device__ inline int dkv_hdp(int hd) { return ((hd + 7) & ~7) + 4; }
 
 __host__ __device__ inline size_t dkv_smem_floats(int hd) {
   const int hdp = dkv_hdp(hd);
@@ -686,11 +826,17 @@ extern "C" int posit_flash_bwd_dq(int n, int radix, int red, int otf, int scaled
     using P = decltype(plan);
     if constexpr (posit::kLibraryPlan<P>) {
       auto kern = flash_bwd_dq_kernel<P>;
-      const size_t bytes = smem_bytes<P>(kBKq, hd);
+      // K/V rows staged by cp.async where each row's bytes (and the bases)
+      // take 16- or 4-byte copies, else read straight from the tensors
+      const int elt = kv_f32 ? 4 : 2, row = hd * elt;
+      const uintptr_t base = reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
+      const int chunk = row % 16 == 0 && base % 16 == 0 ? 16 : row % 4 == 0 && base % 4 == 0 ? 4
+                                                                                           : 0;
+      const size_t bytes = dq_smem_bytes(hd, chunk ? elt : 0);
       rc = prepare(kern, bytes);
       if (rc != 0) return;
       const long long heads = static_cast<long long>(B) * H;
-      const int tiles = (Sq + kBQ - 1) / kBQ;
+      const int tiles = (Sq + kQRows - 1) / kQRows;
       if (heads > 0x7FFFFFFFLL || tiles > 65535) {
         rc = -2;
         return;
@@ -698,7 +844,8 @@ extern "C" int posit_flash_bwd_dq(int n, int radix, int red, int otf, int scaled
       const dim3 grid(static_cast<unsigned>(heads), tiles);
       const KV kv = kv_of(k, v, kv_f32);
       kern<<<grid, kThreads, bytes, s>>>(q, kv.k, kv.v, kv.kf, kv.vf, g, m, l, D, dq, Sq, Sk,
-                                         H, KVH, hd, scale, causal, window, q_offset, eps);
+                                         H, KVH, hd, scale, causal, window, q_offset, eps,
+                                         chunk);
       rc = static_cast<int>(cudaGetLastError());
     }
   });

@@ -332,28 +332,48 @@ struct Plan {
   using Pat = typename Fmt<N>::U;                  // a pattern / significand
 };
 
-// 8-entry lookup as a compare ladder (no memory).
-PHD int lut8(int i, int t0, int t1, int t2, int t3, int t4, int t5, int t6, int t7) {
-  return i == 0 ? t0 : i == 1 ? t1 : i == 2 ? t2 : i == 3 ? t3
-       : i == 4 ? t4 : i == 5 ? t5 : i == 6 ? t6 : t7;
+// An 8-entry table of small signed values packed one byte an entry into a
+// 64-bit constant: looking entry i up is a shift and a sign extension, with
+// no memory and no compare ladder.
+constexpr uint64_t pack8(int t0, int t1, int t2, int t3, int t4, int t5, int t6, int t7) {
+  return uint64_t(uint8_t(t0)) | uint64_t(uint8_t(t1)) << 8 | uint64_t(uint8_t(t2)) << 16 |
+         uint64_t(uint8_t(t3)) << 24 | uint64_t(uint8_t(t4)) << 32 |
+         uint64_t(uint8_t(t5)) << 40 | uint64_t(uint8_t(t6)) << 48 |
+         uint64_t(uint8_t(t7)) << 56;
 }
+
+PHD int entry8(uint64_t table, int i) {
+  return static_cast<int8_t>(static_cast<uint8_t>(table >> (8 * i)));
+}
+
+// seltables.py by divisor interval didx: RADIX4_M2 / M1 / M0 / MM1 (Eq 28)
+// and SCALING_SHIFTS (s2 = 0: no second term).
+constexpr uint64_t kRadix4M2 = pack8(12, 14, 15, 16, 18, 19, 20, 22);
+constexpr uint64_t kRadix4M1 = pack8(3, 4, 4, 4, 5, 5, 5, 6);
+constexpr uint64_t kRadix4M0 = pack8(-5, -6, -6, -7, -8, -8, -9, -10);
+constexpr uint64_t kRadix4MM1 = pack8(-13, -15, -16, -18, -20, -21, -23, -25);
+constexpr uint64_t kScaleS1 = pack8(1, 2, 1, 1, 2, 2, 3, 3);
+constexpr uint64_t kScaleS2 = pack8(1, 1, 3, 0, 3, 0, 0, 0);
+// Eq 29: the scaled plans' thresholds, divisor-independent
+constexpr int kScaledM2 = 12, kScaledM1 = 4, kScaledM0 = -4, kScaledMM1 = -13;
 
 // seltables.py SCALING_SHIFTS: M*v = v + (v >> s1) + (v >> s2), on a
-// residual word of either width
+// residual word of either width, with the divisor's shifts
 template <class W>
-PHD W scale_operand(W v, int didx) {
-  const W c1 = v >> 1, c2 = v >> 2, c3 = v >> 3;
-  const int s1 = lut8(didx, 1, 2, 1, 1, 2, 2, 3, 3);
-  const int s2 = lut8(didx, 1, 1, 3, 0, 3, 0, 0, 0);
-  const W t1 = s1 == 1 ? c1 : (s1 == 2 ? c2 : c3);
-  const W t2 = s2 == 1 ? c1 : (s2 == 3 ? c3 : W(0));
-  return v + t1 + t2;
+PHD W scale_operand(W v, int s1, int s2) {
+  return v + (v >> s1) + (s2 != 0 ? v >> s2 : W(0));
 }
 
+// The four radix-4 selection thresholds of one divisor, unpacked.
+struct Thresholds {
+  int m2, m1, m0, mm1;
+};
+
 // Quotient-digit selection (Section III-D) on the truncated estimate, read
-// from the top bits of the residual register (the reference's top word).
+// from the top bits of the residual register (the reference's top word),
+// against the divisor's thresholds (decided once, in prep_divisor_bits).
 template <class P>
-PHD int select_digit(typename P::Word rws, typename P::Word rwc, int didx) {
+PHD int select_digit(typename P::Word rws, typename P::Word rwc, const Thresholds& m) {
   using W = typename P::Word;
   constexpr int top = 32 * P::words - 1;
   if (P::nonrestoring) return ((rws >> top) & W(1)) != W(0) ? -1 : 1;
@@ -363,31 +383,36 @@ PHD int select_digit(typename P::Word rws, typename P::Word rwc, int didx) {
   const int est = static_cast<int>(t) - (((t >> (tb - 1)) & 1u) ? (1 << tb) : 0);
   if (!P::redundant) return est >= 1 ? 1 : (est >= -1 ? 0 : -1);   // Eq 26
   if (P::radix == 2) return est >= 0 ? 1 : (est == -1 ? 0 : -1);   // Eq 27
-  int m2, m1, m0, mm1;
-  if (P::scaled) {  // Eq 29, divisor-independent
-    m2 = 12; m1 = 4; m0 = -4; mm1 = -13;
-  } else {          // Eq 28, seltables.RADIX4_* by divisor interval
-    m2 = lut8(didx, 12, 14, 15, 16, 18, 19, 20, 22);
-    m1 = lut8(didx, 3, 4, 4, 4, 5, 5, 5, 6);
-    m0 = lut8(didx, -5, -6, -6, -7, -8, -8, -9, -10);
-    mm1 = lut8(didx, -13, -15, -16, -18, -20, -21, -23, -25);
-  }
-  return est >= m2 ? 2 : est >= m1 ? 1 : est >= m0 ? 0 : est >= mm1 ? -1 : -2;
+  if (P::scaled)  // Eq 29, immediates
+    return est >= kScaledM2 ? 2 : est >= kScaledM1 ? 1 : est >= kScaledM0 ? 0
+         : est >= kScaledMM1 ? -1 : -2;
+  return est >= m.m2 ? 2 : est >= m.m1 ? 1 : est >= m.m0 ? 0 : est >= m.mm1 ? -1 : -2;
 }
 
 // Divisor-side work, done once per row by the rowwise kernels (once per
-// element by the elementwise ones).  W is the plan's residual word: a
-// two-word plan's divisor takes 48 bytes where a one-word one takes 28.
+// element by the elementwise ones).  W is the plan's residual word.  Every
+// quantity the recurrence reads of the divisor is here, so no iteration
+// looks anything up by the divisor's interval: the radix-4 plans' four
+// selection thresholds (Eq 28 by interval, Eq 29's constants for the scaled
+// plan) as signed bytes, m2 lowest, and the scaled plans' shifts s1 | s2 <<
+// 8.  32 bytes at W = 1, 48 at W = 2 (the bytes fill what was padding).
 template <class W>
 struct DivisorT {
   W d_al, nd_al, d2, nd2;
-  int didx;
+  int thr;
+  int shifts;
   int scale;
   bool sign, zero, nar;
 };
 using Divisor = DivisorT<uint32_t>;
 template <class P>
 using DivisorOf = DivisorT<typename P::Word>;
+
+template <class W>
+PHD Thresholds thresholds(const DivisorT<W>& d) {
+  return {static_cast<int8_t>(d.thr), static_cast<int8_t>(d.thr >> 8),
+          static_cast<int8_t>(d.thr >> 16), static_cast<int8_t>(d.thr >> 24)};
+}
 
 // The plans the model-path kernels instantiate (flash attention K3-K8 in
 // every layout, softmax K9): every planned row of posit8, posit16, posit32
@@ -429,10 +454,22 @@ PHD DivisorOf<P> prep_divisor_bits(typename P::Pat pd) {
   using W = typename P::Word;
   DivisorOf<P> d;
   const auto dd = decode<P::n>(pd);
-  if constexpr (P::frac >= 4) d.didx = static_cast<int>((dd.sig >> (P::frac - 4)) & 7u);
-  else d.didx = static_cast<int>((dd.sig << (4 - P::frac)) & 7u);
+  int didx;  // the divisor's interval: the 3 fraction bits below the hidden bit
+  if constexpr (P::frac >= 4) didx = static_cast<int>((dd.sig >> (P::frac - 4)) & 7u);
+  else didx = static_cast<int>((dd.sig << (4 - P::frac)) & 7u);
+  d.thr = 0;
+  if (P::radix == 4 && P::redundant) {
+    const Thresholds m =
+        P::scaled ? Thresholds{kScaledM2, kScaledM1, kScaledM0, kScaledMM1}
+                  : Thresholds{entry8(kRadix4M2, didx), entry8(kRadix4M1, didx),
+                               entry8(kRadix4M0, didx), entry8(kRadix4MM1, didx)};
+    d.thr = static_cast<int>(uint32_t(uint8_t(m.m2)) | uint32_t(uint8_t(m.m1)) << 8 |
+                             uint32_t(uint8_t(m.m0)) << 16 | uint32_t(uint8_t(m.mm1)) << 24);
+  }
+  const int s1 = entry8(kScaleS1, didx), s2 = entry8(kScaleS2, didx);
+  d.shifts = P::scaled ? s1 | s2 << 8 : 0;
   W d_al = static_cast<W>(dd.sig) << P::shift;
-  if (P::scaled) d_al = scale_operand(d_al, d.didx);
+  if (P::scaled) d_al = scale_operand(d_al, s1, s2);
   d.d_al = d_al;
   d.nd_al = ~d_al;
   d.d2 = d_al << 1;
@@ -497,11 +534,12 @@ PHD QuotientFields<typename P::Pat> divide_fields(typename P::Pat xsig, const Di
   using U = typename P::Pat;
   constexpr int R = P::radix, LR = P::lr, FP = P::fp, F = P::F;
   constexpr int top = 32 * P::words - 1;
+  const Thresholds m = thresholds(d);  // unpacked once a divide
   W x_al = static_cast<W>(xsig) << P::shift;
-  if (P::scaled) x_al = scale_operand(x_al, d.didx);
+  if (P::scaled) x_al = scale_operand(x_al, d.shifts & 0xFF, d.shifts >> 8);
 
   // Iteration 1 folded: y_1 = r*w(0) = x exactly.
-  int digit = select_digit<P>(x_al, W(0), d.didx);
+  int digit = select_digit<P>(x_al, W(0), m);
   W a = addend<P>(digit, d);
   W cin = digit > 0 ? W(1) : W(0);
   W ws, wc;
@@ -521,13 +559,13 @@ PHD QuotientFields<typename P::Pat> divide_fields(typename P::Pat xsig, const Di
     const W rws = ws << LR;
     if (P::redundant) {
       const W rwc = wc << LR;
-      digit = select_digit<P>(rws, rwc, d.didx);
+      digit = select_digit<P>(rws, rwc, m);
       a = addend<P>(digit, d);
       cin = digit > 0 ? W(1) : W(0);
       ws = rws ^ rwc ^ a;
       wc = (((rws & rwc) | (rws & a) | (rwc & a)) << 1) | cin;
     } else {
-      digit = select_digit<P>(rws, W(0), d.didx);
+      digit = select_digit<P>(rws, W(0), m);
       a = addend<P>(digit, d);
       cin = digit > 0 ? W(1) : W(0);
       ws = rws + a + cin;

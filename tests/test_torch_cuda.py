@@ -772,6 +772,57 @@ def test_dkv_kernel_geometries_match_twin(dev, case):
         assert torch.equal(bits(got), bits(same))
 
 
+# K7's geometries, (B, Sq, Sk, H, KV, hd, causal, window, q_offset): Sq off
+# the 16-row q tile; head_dim 30 (K/V staged in 4-byte copies), 33 (bf16
+# rows of 66 bytes, read straight from the tensors; f32 rows in 4-byte
+# copies), 40 and 128 (zero-padded to the MMA depth of 8); SmolLM's GQA 15/5
+# and OLMoE's 16/16 x 128; a window, with and without the causal mask; Sq <
+# Sk with q_offset > 0; q_offset < 0, so the first 20 rows attend nothing
+# (l = 0); non-causal
+DQ_CASES = {
+    "Sq70_hd30": (2, 70, 70, 6, 2, 30, True, 0, 0),
+    "hd33": (1, 45, 45, 4, 2, 33, True, 0, 0),
+    "hd40": (2, 100, 100, 6, 2, 40, True, 0, 0),
+    "gqa_15_5": (2, 130, 130, 15, 5, 64, True, 0, 0),
+    "mha_16_16_hd128": (1, 96, 96, 16, 16, 128, True, 0, 0),
+    "window": (2, 160, 160, 6, 2, 64, True, 48, 0),
+    "window_non_causal": (1, 100, 100, 4, 2, 64, False, 40, 0),
+    "q_offset": (2, 40, 150, 6, 2, 64, True, 0, 110),
+    "masked_rows": (2, 50, 50, 6, 2, 64, True, 0, -20),
+    "non_causal": (2, 90, 120, 6, 2, 64, False, 0, 0),
+}
+
+
+@pytest.mark.parametrize("fmt", [POSIT8, POSIT16, POSIT32, POSIT64], ids=lambda f: f"posit{f.n}")
+@pytest.mark.parametrize("case", list(DQ_CASES))
+def test_dq_kernel_geometries_match_twin(dev, case, fmt):
+    """K7 at each geometry and each format's model plan (srt_r4_cs_of_fr):
+    within BWD_TOL of the twin (posit8: ``_close_grad``), the same bits on a
+    second run, on f32 K/V holding bf16 values the bf16 call's bits, and
+    rows that attend no key exactly 0."""
+    B, Sq, Sk, H, KV, hd, causal, window, q_offset = DQ_CASES[case]
+    g = torch.Generator().manual_seed(hd + Sq + Sk)
+    q = torch.randn(B, Sq, H, hd, generator=g).to(torch.bfloat16).float().to(dev)
+    k = torch.randn(B, Sk, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    v = torch.randn(B, Sk, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    co = torch.randn(B, Sq, H, hd, generator=g).to(dev)
+    o, m, l = F.posit_flash_attention_fwd(fmt, q, k, v, causal, window, q_offset)
+    plan = F.datapath_plan(fmt, "srt_r4_cs_of_fr")
+    scale = 1 / math.sqrt(hd)
+    args = lambda k_, v_: (q, k_, v_, co, m, l, F._row_sums(co, o), causal, window,
+                           q_offset, scale)
+    runs = [F.flash_backward_dq(fmt, plan, *args(k, v)) for _ in range(2)]
+    from_f32 = F.flash_backward_dq(fmt, plan, *args(k.float(), v.float()))
+    twin = F.flash_backward_plain(fmt, q, k.float(), v.float(), o, co, m, l, causal, window,
+                                  q_offset, scale)[0]
+    _close_grad(fmt, runs[0], twin)
+    assert torch.equal(bits(runs[0]), bits(runs[1]))
+    assert torch.equal(bits(runs[0]), bits(from_f32))
+    empty = (l == 0).reshape(B, H, Sq).transpose(1, 2)   # (B, Sq, H): rows with no key
+    assert bool(empty.any()) == (q_offset < 0)
+    assert (runs[0][empty] == 0).all()
+
+
 def test_flash_kernel_decode_hd128_mha(dev):
     """OLMoE's decode: head_dim 128, 16/16 heads, 8 slots with left pads
     (slot 7's only key lies before its start: fully masked)."""

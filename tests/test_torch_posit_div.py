@@ -261,6 +261,32 @@ extern "C" int host_div_bits(int n, int radix, int red, int otf, int scaled, int
     });
   return ok ? 0 : -1;
 }
+extern "C" int host_divisor_fields(int n, int radix, int red, int otf, int scaled, int nonrest,
+                                   int it, int shift, int gbits, float b, int* out) {
+  bool ok = posit::dispatch_plan<true>(n, radix, red, otf, scaled, nonrest, it, shift, gbits,
+    [&](auto plan) {
+      using P = decltype(plan);
+      const auto d = posit::prep_divisor<P>(b);
+      const posit::Thresholds m = posit::thresholds(d);
+      const int got[6] = {m.m2, m.m1, m.m0, m.mm1, d.shifts & 0xFF, d.shifts >> 8};
+      for (int i = 0; i < 6; ++i) out[i] = got[i];
+    });
+  return ok ? 0 : -1;
+}
+extern "C" int host_select(int n, int radix, int red, int otf, int scaled, int nonrest, int it,
+                           int shift, int gbits, float b, const uint32_t* ws,
+                           const uint32_t* wc, int* out, int count) {
+  bool ok = posit::dispatch_plan<true>(n, radix, red, otf, scaled, nonrest, it, shift, gbits,
+    [&](auto plan) {
+      using P = decltype(plan);
+      using W = typename P::Word;
+      const posit::Thresholds m = posit::thresholds(posit::prep_divisor<P>(b));
+      constexpr int low = 32 * (P::words - 1);   // the top word's place in the register
+      for (int i = 0; i < count; ++i)
+        out[i] = posit::select_digit<P>(W(ws[i]) << low, W(wc[i]) << low, m);
+    });
+  return ok ? 0 : -1;
+}
 template <int N>
 void cast(const float* x, uint32_t* p, const uint32_t* q, float* y, int count) {
   for (int i = 0; i < count; ++i) {
@@ -302,7 +328,7 @@ def host_k1(tmp_path_factory):
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(lib))
     for name in ("host_rowwise", "host_elementwise", "host_div_bits", "host_cast",
-                 "host_model_plan", "host_library_part"):
+                 "host_model_plan", "host_library_part", "host_divisor_fields", "host_select"):
         getattr(lib, name).restype = ctypes.c_int
     lib.host_cast64.restype = None
     return lib
@@ -443,3 +469,64 @@ def test_cuda_wide_casts_match_twin(host_k1):
     np.testing.assert_array_equal(p, wide.from_words(wide.float_to_posit_wide(
         fmt, torch.from_numpy(x))))
     np.testing.assert_array_equal(bits(y), bits(wide.posit_wide_to_float(fmt, wide.to_words(q))))
+
+
+SELECT_FORMATS = [PositFormat(n) for n in (8, 10, 16, 32, 64)]
+
+
+def _didx_divisors():
+    """Divisors in each of the 8 intervals: 1 + i/8 (every format holds it),
+    of either sign and at three scales (posit8 holds three fraction bits at
+    each)."""
+    return [(i, sign * (1 + i / 8) * 2.0 ** e) for i in range(8) for sign in (1, -1)
+            for e in (-3, 0, 2)]
+
+
+@pytest.mark.parametrize("fmt", SELECT_FORMATS, ids=lambda f: f"posit{f.n}")
+def test_cuda_divisor_carries_thresholds_and_shifts(host_k1, fmt):
+    """K1 decides a divisor's selection thresholds and scaling shifts once,
+    in prep_divisor_bits: a radix-4 plan's prepared divisor holds
+    seltables.RADIX4_M2/M1/M0/MM1 of its interval (Eq 28; the scaled plan
+    Eq 29's constants), and a scaled plan's the interval's SCALING_SHIFTS."""
+    from repro_torch.core import seltables as S
+
+    out = np.zeros(6, np.int32)
+    radix4 = [(v, p) for _, v, p in TD.planned_pairs((fmt,)) if p.radix == 4 and p.redundant]
+    assert radix4
+    for variant, plan in radix4:
+        for didx, b in _didx_divisors():
+            assert host_k1.host_divisor_fields(*plan_args(plan), ctypes.c_float(b),
+                                               _ptr(out)) == 0
+            if plan.scaled:
+                thr = (S.SCALED_M2, S.SCALED_M1, S.SCALED_M0, S.SCALED_MM1)
+                s1, s2 = S.SCALING_SHIFTS[didx]
+                shifts = (s1, s2 or 0)
+            else:
+                thr = (S.RADIX4_M2[didx], S.RADIX4_M1[didx], S.RADIX4_M0[didx],
+                       S.RADIX4_MM1[didx])
+                shifts = (0, 0)
+            assert tuple(out) == thr + shifts, (variant, didx, b)
+
+
+@pytest.mark.parametrize("fmt", SELECT_FORMATS, ids=lambda f: f"posit{f.n}")
+def test_cuda_select_digit_exhaustive(host_k1, fmt):
+    """select_digit against the twin's _select on every estimate of the
+    plan's 3 + gbits bits, for a divisor of each of the 8 intervals and every
+    plan: the estimate in the sum word's top bits, and split between the sum
+    and carry words, with random bits below it."""
+    rng = np.random.default_rng(11)
+    for variant, plan in ((v, p) for _, v, p in TD.planned_pairs((fmt,))):
+        tb = 3 + plan.gbits
+        sh = 32 - tb
+        t = np.arange(1 << tb, dtype=np.uint64)
+        u = rng.integers(0, 1 << tb, t.size, dtype=np.uint64)
+        lo = rng.integers(0, 1 << sh, (4, t.size), dtype=np.uint64)
+        ws = np.concatenate([t << sh | lo[0], ((t - u) % (1 << tb)) << sh | lo[1]])
+        wc = np.concatenate([lo[2], u << sh | lo[3]])
+        ws, wc = ws.astype(np.uint32), wc.astype(np.uint32)
+        got = np.zeros(ws.size, np.int32)
+        for didx, b in _didx_divisors()[::6]:
+            assert host_k1.host_select(*plan_args(plan), ctypes.c_float(b), _ptr(ws), _ptr(wc),
+                                       _ptr(got), ws.size) == 0
+            want = TD._select(plan, _t(ws), _t(wc), torch.full((ws.size,), didx))
+            np.testing.assert_array_equal(got, want.numpy(), err_msg=f"{variant} {didx}")
