@@ -54,7 +54,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               for every variant and its 2^20-pair space the same under all 9;
               the whole posit16 pair space (2^32 pairs, chunks of 2^28 made
               on the card) the same under all 9 (a difference prints the
-              first pairs with the goldens' answers); 2^20 random posit16
+              first pairs with the goldens' answers), and K10 on the pairs'
+              f32 images the f32 images of their quotients; 2^20 random posit16
               and posit32 pairs the twin's bits for every plan, posit32's
               zero, NaR, +-minpos, +-maxpos among them, the goldens' on 4096.
    K12      — the casts: every posit8/16 pattern and 2^20 posit32 ones
@@ -67,6 +68,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               K12 and to its twin for every one-word (format, variant), on
               the reference benchmark's 64 x 1024 uniform(0.1, 10) and 2^20
               random f32 pairs with the specials; 1 launch against 4.
+              Every f32 bit pattern (2^32) as x / 1.0: at posit8, posit16
+              and posit32 the bits of K12's quantize then dequantize, at
+              posit64 the rule ``identity64`` states (held against the
+              twin on a CPU sample first).
    two-word — K11 at posit32 srt_r4_scaled on 2^24 random pattern pairs
               and every pair of the special patterns: the twin's bits, the
               goldens' on 10^4 of them, srt_r4_cs_of_fr's on all; K10 at
@@ -196,13 +201,13 @@ non-zero and prints no result.
 
 only builds the package under ``DIR`` (default: this checkout's ``src``),
 every library at once, and prints each library's build seconds and ptxas
-report and the device times of K2-K9 (kernels a parent checkout of the
+report and the device times of K2-K10 (kernels a parent checkout of the
 port has too): run it on a parent checkout and on this one in
 turns (parent, change, change, parent) in one call, after any edit to a
-kernel source or to ``posit_srt.cuh``.  ``--only`` (any of K7, K8, K9)
-builds just those kernels' libraries and times just their rows: an A/B of
-one kernel's design variants, each a copy of ``src`` with the kernel
-source changed.
+kernel source or to ``posit_srt.cuh``.  ``--only`` (any of K2, K7, K8,
+K9, K10) builds just those kernels' libraries and times just their rows:
+an A/B of one kernel's design variants, each a copy of ``src`` with the
+kernel source changed.
 """
 
 from __future__ import annotations
@@ -898,6 +903,7 @@ def phase_pattern_div(torch, dev):
             disagreement(torch, f"K11 posit10/{v} against {DEFAULT_VARIANT}", px, pd, ref, k, 10)
     # posit16: the whole pair space, generated on the card a chunk at a time
     P16 = PositFormat(16)
+    k10 = 0
     t0 = time.perf_counter()
     for c in range(PAIRS16 // CHUNK):
         idx = torch.arange(c * CHUNK, (c + 1) * CHUNK, device=dev)
@@ -910,7 +916,16 @@ def phase_pattern_div(torch, dev):
                 disagreement(torch, f"K11 posit16/{v} against {DEFAULT_VARIANT}", px, pd, ref,
                              k, 16)
             del k
-        del ref, px, pd
+        # K10 on the pairs' f32 images (posit16 -> f32 is exact): the f32
+        # image of K11's quotient, bit for bit
+        k = bits(ops.posit_div_fused(P16, ops.posit_dequantize(P16, px),
+                                     ops.posit_dequantize(P16, pd)))
+        want = bits(ops.posit_dequantize(P16, ref))
+        if not torch.equal(k, want):
+            disagreement(torch, "K10 posit16 on the f32 images against K11", px, pd, want, k,
+                         16)
+        k10 += 1
+        del ref, px, pd, k, want
     torch.cuda.synchronize()
     sweep = time.perf_counter() - t0
     torch.cuda.empty_cache()
@@ -940,10 +955,11 @@ def phase_pattern_div(torch, dev):
     print(f"K11: bit-identical to its twin and the goldens on every posit8 pair (9 variants); "
           f"Table III right for every variant; the posit10 pair space (2^20) and the whole "
           f"posit16 pair space ({PAIRS16} pairs, {PAIRS16 // CHUNK} chunks of {CHUNK}, {sweep:.1f} s) "
-          f"the same bits under all 9 variants; {n_sampled} posit16/32 plans the twin's bits on "
+          f"the same bits under all 9 variants, and K10 on its f32 images ({k10} launches) "
+          f"the f32 images of its quotients; {n_sampled} posit16/32 plans the twin's bits on "
           f"2^20 random pairs (posit32 with zero, NaR, +-minpos, +-maxpos, and the goldens' "
           f"on 4096); {launches} launches")
-    return {"launches": launches, "sweep_s": sweep}
+    return {"launches": launches, "sweep_s": sweep, "K10": k10}
 
 
 def f32_specials(torch):
@@ -1045,6 +1061,62 @@ def phase_fused_chained(torch, dev):
           f"(format, variant) on 64 x 1024 uniform(0.1, 10) and 2^20 random f32 pairs with "
           f"the specials; launches 1 against 4 a division ({k10} against {q + k11 + dq})")
     return {"K10": k10, "K11": k11, "K12q": q, "K12dq": dq}
+
+
+def identity64(torch, u):
+    """The f32 bits of x / 1.0 through posit64 for the f32 bit patterns
+    ``u`` (int32): x for a normal f32, +0 for a zero, a zero of x's sign for
+    a subnormal (posit64 holds it, its conversion back flushes below
+    2^-126), the canonical NaN for inf and NaN."""
+    e, m = (u >> 23) & 0xFF, u & 0x7FFFFF
+    out = torch.where(e == 255, torch.full_like(u, 0x7FC00000), u)
+    out = torch.where((e == 0) & (m == 0), torch.zeros_like(u), out)
+    return torch.where((e == 0) & (m != 0), u & torch.full_like(u, -2 ** 31), out)
+
+
+def phase_f32_sweep(torch, dev):
+    """K10 on every f32 bit pattern as x / 1.0, default plan: at posit8,
+    posit16 and posit32 the bits of K12's quantize then dequantize (the
+    pattern casts K10 no longer calls); at posit64 ``identity64``, the rule
+    first held against K10's twin on a CPU sample."""
+    from repro_torch.core.posit import POSIT8, POSIT16, POSIT32, POSIT64
+    from repro_torch.kernels import ops
+
+    g = torch.Generator().manual_seed(37)
+    u = torch.cat([f32_specials(torch).view(torch.int32),
+                   torch.randint(-2 ** 31, 2 ** 31, (1 << 14,), generator=g).to(torch.int32)])
+    twin = bits(ops.posit_div_fused_plain(POSIT64, u.view(torch.float32),
+                                          torch.ones(len(u))))
+    check(torch.equal(twin, identity64(torch, u)),
+          f"K10 posit64 x / 1.0: the twin leaves the stated rule on "
+          f"{int((twin != identity64(torch, u)).sum())} of {len(u)} CPU samples")
+    ones = torch.ones(CHUNK, device=dev)
+    launches = 0
+    t0 = time.perf_counter()
+    for c in range((1 << 32) // CHUNK):
+        u = (torch.arange(c * CHUNK, (c + 1) * CHUNK, device=dev) - 2 ** 31).to(torch.int32)
+        x = u.view(torch.float32)
+        for fmt in (POSIT8, POSIT16, POSIT32, POSIT64):
+            k = bits(ops.posit_div_fused(fmt, x, ones))
+            want = (identity64(torch, u) if fmt is POSIT64 else
+                    bits(ops.posit_round_value(fmt, x)))
+            if not torch.equal(k, want):
+                bad = (k != want).nonzero()[:6, 0]
+                fail(f"K10 {fmt} x / 1.0: {int((k != want).sum())} f32 patterns differ; "
+                     f"first (x, want, got): " + ", ".join(
+                         f"({int(u[i]) & 0xFFFFFFFF:#010x}, {int(want[i]) & 0xFFFFFFFF:#010x}, "
+                         f"{int(k[i]) & 0xFFFFFFFF:#010x})" for i in bad.tolist()))
+            launches += 1
+            del k, want
+        del u, x
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print(f"K10: every f32 bit pattern (2^32) as x / 1.0 the bits of K12's round trip at "
+          f"posit8, posit16 and posit32, and at posit64 x for every normal f32, +0 for a "
+          f"zero, a signed zero for a subnormal, NaN for inf and NaN (the rule the twin's "
+          f"on {len(twin)} CPU samples); {launches} launches, {took:.1f} s")
+    return launches
 
 
 TWO_WORD_PAIRS = 1 << 24       # random posit32 srt_r4_scaled pattern pairs for K11
@@ -2420,7 +2492,7 @@ def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64), fmt=No
             "call_ms": cuda_time_ms(call),
             "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(
                 fmt, q, k, v, True, **kw), iters=3),
-            "bound_ms": bms, "bound_by": by, "library_ms": cuda_time_ms(lib)}
+            "bound_ms": bms, "bound_by": by, "library_ms": device_call_ms(torch, lib)}
 
 
 def moe_rows(torch, dev):
@@ -2567,7 +2639,7 @@ def layout_rows(torch, dev, fmt, pack):
         "call_ms": cuda_time_ms(call),
         "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(fmt, q, pk, pv, True,
                                                                      **kw), iters=3),
-        "bound_ms": bms, "bound_by": by, "library_ms": cuda_time_ms(lib)}
+        "bound_ms": bms, "bound_by": by, "library_ms": device_call_ms(torch, lib)}
 
     N, P, lens = pack
     q, k, v, seg_q, seg, segs = packed_inputs(torch, dev, lens, P, 9, left=False)
@@ -2590,7 +2662,7 @@ def layout_rows(torch, dev, fmt, pack):
         "call_ms": cuda_time_ms(call),
         "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(fmt, q, k, v, True,
                                                                      **kw), iters=3),
-        "bound_ms": bms, "bound_by": by, "library_ms": cuda_time_ms(lib)}
+        "bound_ms": bms, "bound_by": by, "library_ms": device_call_ms(torch, lib)}
     return rows
 
 
@@ -2831,27 +2903,31 @@ def ptxas_kernels(log: str):
     return out
 
 
-# the libraries whose posit16 kernels --time-kernels disassembles, and the
-# opcodes it counts in each: compares and selects (the digit selection),
+# the libraries whose posit16 kernels --time-kernels disassembles (and
+# posit_fused_div's posit64 ones), and the opcodes it counts in each: the
+# integer pipe's (compares, selects, logic, adds, shifts, byte permutes),
+# IMAD and MOV, the conversions and f32 multiplies the casts may use,
 # constant, global and local loads (a table looked up in memory, spills),
 # shared loads, and the tensor cores' HMMA
-SASS_LIBRARIES = ("posit_flash_bwd_p16", "posit_fused_div")
-SASS_OPCODES = ("ISETP", "SEL", "LOP3", "IADD3", "SHF", "PRMT", "LDC", "LDG", "LDL", "STL",
-                "LDS", "HMMA")
+SASS_LIBRARIES = ("posit_flash_bwd_p16", "posit_fused_div", "posit_cast")
+SASS_OPCODES = ("ISETP", "SEL", "LOP3", "IADD3", "SHF", "PRMT", "IMAD", "MOV", "FLO", "I2F",
+                "F2I", "FMUL", "FFMA", "FSETP", "LDC", "LDG", "LDL", "STL", "LDS", "SHFL",
+                "HMMA")
 
 
 def sass_counts(build, name: str):
     """``{kernel: {"instructions": n, opcode: n, ...}}``: the static SASS
-    of every posit16 kernel of the built library ``name`` (``cuobjdump
-    -sass``, beside ``nvcc``), its instructions counted in all and by
-    SASS_OPCODES."""
+    of every posit16 kernel of the built library ``name`` (and, of
+    posit_fused_div, every posit64 one) (``cuobjdump -sass``, beside
+    ``nvcc``), its instructions counted in all and by SASS_OPCODES."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     dump = subprocess.run([cuobjdump, "-sass", str(build._lib_path(name))], check=True,
                           capture_output=True, text=True, timeout=600).stdout
+    formats = ("posit16", "posit64") if name == "posit_fused_div" else ("posit16",)
     out = {}
     for block in dump.split("Function : ")[1:]:
         name = kernel_name(block.split(None, 1)[0])
-        if name.split()[1] != "posit16":
+        if name.split()[1] not in formats:
             continue
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)", block)
         counts = collections.Counter(ops)
@@ -2860,12 +2936,20 @@ def sass_counts(build, name: str):
 
 
 # the libraries --time-kernels --only builds for each kernel it may time
+# (K10's: K12's too, whose cast kernels' SASS gives the old casts' cost)
 ONLY_LIBRARIES = {
+    "K2": ("posit_fused_div",),
     "K7": ("posit_flash_attn_p16", "posit_flash_attn_p32", "posit_flash_attn_p64_r4",
            "posit_flash_bwd_p16", "posit_flash_bwd_p32", "posit_flash_bwd_p64_r4"),
     "K9": ("posit_softmax",),
+    "K10": ("posit_fused_div", "posit_cast"),
 }
 ONLY_LIBRARIES["K8"] = ONLY_LIBRARIES["K7"]
+# --time-kernels' K2 and K10 shapes: decode, prefill and the training
+# step's RMSNorm rows, 1024 x 1024; the reference benchmark's 64 x 1024 and
+# 2^24 and 2^28 elements
+K2_SHAPES = ((8, 960), (256, 960), (2048, 960), (1024, 1024), (8, 2048))
+K10_SIZES = ((64 * 1024, "64x1024"), (1 << 24, "2^24"), (1 << 28, "2^28"))
 
 
 def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
@@ -2873,16 +2957,18 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
     ``src``: each library's build seconds (all built in parallel, as the
     main run builds them), its ptxas report (each posit16 kernel's
     registers and spill stores, and every K7, K8 and K9 instantiation's), the
-    static SASS of the posit16 K2, K7, K8 and K10 kernels (``sass_counts``),
-    and
-    the device time per launch of K3 (the timing phase's decode and prefill
-    rows), K4 (the paged decode), K5 (an 8 x 256 pack), K2 (1024 x 1024),
-    K6-K8 (the training rows) and K9 (8 x 64 and 4096 x 64), and of K7, K8
-    and K9 at posit32 and posit64 too (the default plan).  Run it from a
-    parent checkout's ``src`` and from this one, in turns, on one card,
-    after an edit to a kernel source or to the shared ``posit_srt.cuh``.
-    ``only`` (kernel names among K7, K8 and K9): build just their libraries
-    and time just their rows, for an A/B of one kernel's design variants."""
+    static SASS of the posit16 K2, K7, K8, K10 and K12 kernels and the
+    posit64 K2 and K10 ones (``sass_counts``), and the device time per
+    launch of K3 (the timing phase's decode and prefill rows), K4 (the
+    paged decode), K5 (an 8 x 256 pack), K6-K8 (the training rows), K9 (8 x
+    64 and 4096 x 64), K7, K8 and K9 at posit32 and posit64 too, K2 at
+    K2_SHAPES (posit16 and posit64) and K10 at K10_SIZES (posit16, posit32
+    and posit64), all at the default plan; K2 and K10 per call too.  Run it
+    from a parent checkout's ``src`` and from this one, in turns, on one
+    card, after an edit to a kernel source or to the shared
+    ``posit_srt.cuh``.  ``only`` (kernel names among ONLY_LIBRARIES'): build
+    just their libraries and time just their rows, for an A/B of one
+    kernel's design variants."""
     from repro_torch.core.posit import POSIT16, POSIT32, POSIT64
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import posit_flash_attn as F
@@ -2926,8 +3012,6 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
             args_of[fmt.n] = backward_args(F, co, o, m, l, tq, tk, tv)
         return args_of[fmt.n]
 
-    a = torch.randn(1024, 1024, device=dev)
-    b = torch.rand(1024, 1, device=dev) + 0.5
     x = torch.randn(4096, 64, device=dev) * 2
     router = torch.randn(8, 64, device=dev) * 2
     gq, gk, gv, bt = paged_inputs(torch, dev, 8, 32, 16, H, KV, hd, 8)
@@ -2944,8 +3028,6 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
                                                      seg_kv=seg, seg_len=256), ["flash_kernel"]),
         "K3 prefill": (lambda: F.posit_flash_attention(POSIT16, qp, kp, vp, True,
                                                        kv_start=s56), ["flash_kernel"]),
-        "K2 1024x1024": (lambda: ops.posit_div_fused_rowwise(POSIT16, a, b),
-                         ["rowwise_kernel"]),
         "K6": (lambda: F.posit_flash_attention_fwd(POSIT16, tq, tk, tv, True),
                ["flash_kernel"]),
         "K7": (lambda: F.flash_backward_dq(POSIT16, plan, *bwd(POSIT16)),
@@ -2967,15 +3049,41 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
             f"K9 4096x64 posit{fmt.n}": (lambda f=fmt: ops.posit_softmax_fused(f, x),
                                          ["softmax_kernel"]),
         })
+    # K2 at posit16 (posit64 at decode and prefill), K10 at posit16, posit32
+    # and posit64; each also timed per call (CUDA events: the wrapper's host
+    # time where it exceeds the kernel's)
+    per_call = []
+    for fmt in (POSIT16, POSIT64):
+        for R, C in K2_SHAPES:
+            a2 = torch.randn(R, C, device=dev)
+            b2 = torch.rand(R, 1, device=dev) + 0.5
+            tag = "" if fmt is POSIT16 else f" posit{fmt.n}"
+            calls[f"K2 {R}x{C}{tag}"] = (
+                lambda f=fmt, a2=a2, b2=b2: ops.posit_div_fused_rowwise(f, a2, b2),
+                ["rowwise_kernel"])
+            per_call.append(f"K2 {R}x{C}{tag}")
+    for size, label in K10_SIZES:
+        a1 = torch.rand(size, device=dev) * 9.9 + 0.1
+        b1 = torch.rand(size, device=dev) * 9.9 + 0.1
+        for fmt in (POSIT16, POSIT32, POSIT64):
+            tag = "" if fmt is POSIT16 else f" posit{fmt.n}"
+            calls[f"K10 {label}{tag}"] = (
+                lambda f=fmt, a1=a1, b1=b1: ops.posit_div_fused(f, a1, b1),
+                ["elementwise_kernel"])
+            per_call.append(f"K10 {label}{tag}")
     if only:
         calls = {name: call for name, call in calls.items() if name.split()[0] in only}
     out["ms"] = {name: [] for name in calls}
+    out["call_ms"] = {name: [] for name in per_call if name in calls}
     out["from"] = []
     for _ in range(repeats):
         for name, (fn, names) in calls.items():
-            ms, how = device_kernel_ms(torch, fn, names)
+            iters = 5 if "2^28" in name else 20
+            ms, how = device_kernel_ms(torch, fn, names, iters=iters)
             out["ms"][name].append(ms)
             out["from"].append(how)
+            if name in out["call_ms"]:   # many calls: the host's time is noisy
+                out["call_ms"][name].append(cuda_time_ms(fn, iters=iters if iters < 20 else 200))
     print(json.dumps({"kernel_timing": out}))
 
 
@@ -3049,6 +3157,7 @@ def main() -> int:
     k11 = timed("K11", phase_pattern_div, torch, dev)
     cast_err = timed("K12", phase_casts, torch, dev)
     fused = timed("K10", phase_fused_chained, torch, dev)
+    fused["K10"] += timed("K10", phase_f32_sweep, torch, dev)
     two = timed("two-word", phase_two_word, torch, dev)
     grid = timed("grid", phase_grid, torch, dev)
     timed("model", phase_model_small, torch, dev)
@@ -3187,7 +3296,8 @@ def main() -> int:
         entry("K1 posit SRT datapath, one-word and two-word frames (inlined in K2-K11)",
               csrc + "posit_srt.cuh", "src/repro/kernels/posit_div.py:433",
               sum(launches(n) for n in ("rowwise", "K3", "K4", "K5", "K6", "K7", "K8", "K9"))
-              + fused["K10"] + k11["launches"] + fused["K11"] + two["K10"] + two["K11"],
+              + fused["K10"] + k11["launches"] + k11["K10"] + fused["K11"] + two["K10"]
+              + two["K11"],
               div_err, rows["K1"]),
         entry("K2 rowwise fused posit divide", csrc + "posit_fused_div.cu",
               "src/repro/kernels/posit_fused_div.py:149", launches("rowwise"), div_err,
@@ -3214,7 +3324,8 @@ def main() -> int:
               "src/repro/kernels/posit_fused_div.py:210", launches("K9"), softmax_err,
               rows["K9 router"]),
         entry("K10 elementwise fused posit divide", csrc + "posit_fused_div.cu",
-              "src/repro/kernels/posit_fused_div.py:103", fused["K10"] + two["K10"], 0.0,
+              "src/repro/kernels/posit_fused_div.py:103", fused["K10"] + two["K10"] + k11["K10"],
+              0.0,
               rows["K10 64x1024"]),
         entry("K11 posit divide on bit patterns", csrc + "posit_div.cu",
               "src/repro/kernels/posit_div.py:652", k11["launches"] + fused["K11"] + two["K11"],

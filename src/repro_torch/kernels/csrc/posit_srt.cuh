@@ -301,6 +301,72 @@ PHD float posit_to_float(typename Fmt<N>::U p) {
   return val;
 }
 
+// ------------------------------------------------------- straight casts
+//
+// K2 and K10 cast between f32 and posit fields directly, where
+// decode(float_to_posit(x)) and posit_to_float(encode(...)) build a pattern
+// only to take it apart again.  round_fields is encode's rounding done on
+// fields, giving what decode would: RNE to the fraction width the regime
+// leaves with the carry into the scale, the deep-regime rule, saturation.
+
+// The posit<N> nearest sig * 2^(scale - H) (sig's hidden bit at bit H > F;
+// sticky: nonzero bits below sig), as decode<N>(encode<N>(...)) gives its
+// scale and significand.
+template <int N, int H, class S>
+PHD FieldsT<typename Fmt<N>::U> round_fields(bool sign, int scale, S sig, bool sticky) {
+  using U = typename Fmt<N>::U;
+  constexpr int F = Fmt<N>::F;
+  static_assert(F < H && H + 1 < 8 * int(sizeof(S)), "sig holds a hidden bit above F bits");
+  const int k = scale >> 2;  // floor(scale / 4), es = 2
+  const int fb = N - 3 - (k >= 0 ? k + 2 : 1 - k);  // fraction bits the regime leaves
+  // fb >= 0: RNE to fb fraction bits, a tie to the pattern's even last bit
+  // (at fb = 0 the last exponent bit); rounding up to 2 carries into the
+  // scale.  drop lies in [H - F, H] for fb in [0, F], and is clamped to H
+  // for the fb < 0 it does not serve, so both shifts stay inside S.
+  const int drop = imin(H - fb, H);
+  const S half = S(1) << (drop - 1);
+  const uint32_t last = fb > 0 ? static_cast<uint32_t>(sig >> drop) & 1u
+                               : static_cast<uint32_t>(scale) & 1u;
+  const S kept = (sig + (half - S(1)) + S(last | (sticky ? 1u : 0u))) & ~(half + half - S(1));
+  const bool carry = (kept >> (H + 1)) != S(0);
+  const U rsig = carry ? U(1) << F : static_cast<U>(kept >> (H - F));
+  // fb = -1, -2: one or no exponent bit left, so encode rounds by value to
+  // 2^lo or 2^(lo + g), g = 2 or 4: up past the midpoint (1 + 2^-g) 2^(lo + g
+  // - 1), a tie to the pattern's even last bit
+  const int g = fb == -1 ? 2 : 4;
+  const int e = static_cast<int>(static_cast<uint32_t>(scale) & static_cast<uint32_t>(g - 1));
+  const S thr = fb == -1 ? S(1) << (H - 2) : S(1) << (H - 4);
+  const uint32_t dlast = fb == -1 ? (static_cast<uint32_t>(scale) >> 1) & 1u : (k < 0 ? 1u : 0u);
+  const bool up = e == g - 1 && (sig & ((S(1) << H) - S(1))) + S(dlast | (sticky ? 1u : 0u)) > thr;
+  FieldsT<U> r;
+  r.sign = sign;
+  r.scale = fb >= 0 ? scale + (carry ? 1 : 0)
+          : fb >= -2 ? scale - e + (up ? g : 0)
+          : (k > 0 ? 4 * (N - 2) : -4 * (N - 2));  // fb <= -3: maxpos, minpos
+  r.sig = fb >= 0 ? rsig : U(1) << F;
+  r.zero = false;
+  r.nar = false;
+  return r;
+}
+
+// decode<N>(float_to_posit<N>(x)) with no pattern built; where zero or nar
+// is set, the other fields are left unspecified.
+template <int N>
+PHD FieldsT<typename Fmt<N>::U> float_to_fields(float x) {
+  using U = typename Fmt<N>::U;
+  constexpr int F = Fmt<N>::F;
+  const FloatFields f = float_decompose(x);
+  FieldsT<U> r;
+  if constexpr (F < 24) {
+    r = round_fields<N, 24>(f.sign, f.scale, f.ti, false);
+  } else {  // posit32, posit64: f32's 24 bits fit; the hidden bit goes above F
+    r = round_fields<N, F + 1>(f.sign, f.scale, U(f.ti) << (F + 1 - 24), false);
+  }
+  r.zero = f.zero;
+  r.nar = f.nar;
+  return r;
+}
+
 // ---------------------------------------------------------------- plan
 
 // One row of kernel_datapath_plan (kernels/posit_div.py).  The frame holds
@@ -481,6 +547,40 @@ PHD DivisorOf<P> prep_divisor_bits(typename P::Pat pd) {
   return d;
 }
 
+// prep_divisor_bits on the divisor's fields (K2, K10: float_to_fields').
+// The two stay separate texts: K3-K9 and K11 reach prep_divisor_bits, and
+// routing it through this function changed K7's SASS.
+template <class P>
+PHD DivisorOf<P> prep_divisor_fields(const FieldsT<typename P::Pat>& dd) {
+  using W = typename P::Word;
+  DivisorOf<P> d;
+  int didx;  // the divisor's interval: the 3 fraction bits below the hidden bit
+  if constexpr (P::frac >= 4) didx = static_cast<int>((dd.sig >> (P::frac - 4)) & 7u);
+  else didx = static_cast<int>((dd.sig << (4 - P::frac)) & 7u);
+  d.thr = 0;
+  if (P::radix == 4 && P::redundant) {
+    const Thresholds m =
+        P::scaled ? Thresholds{kScaledM2, kScaledM1, kScaledM0, kScaledMM1}
+                  : Thresholds{entry8(kRadix4M2, didx), entry8(kRadix4M1, didx),
+                               entry8(kRadix4M0, didx), entry8(kRadix4MM1, didx)};
+    d.thr = static_cast<int>(uint32_t(uint8_t(m.m2)) | uint32_t(uint8_t(m.m1)) << 8 |
+                             uint32_t(uint8_t(m.m0)) << 16 | uint32_t(uint8_t(m.mm1)) << 24);
+  }
+  const int s1 = entry8(kScaleS1, didx), s2 = entry8(kScaleS2, didx);
+  d.shifts = P::scaled ? s1 | s2 << 8 : 0;
+  W d_al = static_cast<W>(dd.sig) << P::shift;
+  if (P::scaled) d_al = scale_operand(d_al, s1, s2);
+  d.d_al = d_al;
+  d.nd_al = ~d_al;
+  d.d2 = d_al << 1;
+  d.nd2 = ~(d_al << 1);
+  d.scale = dd.scale;
+  d.sign = dd.sign;
+  d.zero = dd.zero;
+  d.nar = dd.nar;
+  return d;
+}
+
 template <class P>
 PHD DivisorOf<P> prep_divisor(float b) {
   return prep_divisor_bits<P>(float_to_posit<P::n>(b));
@@ -611,6 +711,44 @@ PHD typename P::Pat divide_bits(typename P::Pat px, const DivisorOf<P>& d) {
 template <class P>
 PHD float divide_float(float a, const DivisorOf<P>& d) {
   return posit_to_float<P::n>(divide_bits<P>(float_to_posit<P::n>(a), d));
+}
+
+// posit_to_float<N>(encode<N>(sign, scale, q.frac, q.round_bit, q.sticky,
+// zero, nar)) with no pattern built: the posit rounding on fields, then the
+// f32.
+template <int N>
+PHD float quotient_to_float(bool sign, int scale, const QuotientFields<typename Fmt<N>::U>& q,
+                            bool zero, bool nar) {
+  using U = typename Fmt<N>::U;
+  constexpr int F = Fmt<N>::F;
+  const U sig = (U(1) << (F + 1)) | (q.frac << 1) | U(q.round_bit & 1u);
+  const auto r = round_fields<N, F + 1>(sign, scale, sig, q.sticky);
+  // the conversion is posit_to_float's rounding of the significand to 24
+  // bits (RNE; posit64's G/R/S), exact for posit8 and posit16
+  const float m = static_cast<float>(r.sig);
+  float val;
+  if constexpr (N > 32) {
+    float mag = ldexp_f32(m, r.scale - F);
+    if (mag < 1.17549435e-38f) mag = 0.0f;  // 2^-126
+    val = sign ? -mag : mag;
+  } else {  // 2^-120 <= |value| < 2^121: the scale goes straight into the exponent
+    val = u2f((f2u(m) + (static_cast<uint32_t>(r.scale - F) << 23)) |
+              (sign ? 0x80000000u : 0u));
+  }
+  if (zero) val = 0.0f;
+  if (nar) val = u2f(0x7FC00000u);  // the canonical quiet NaN
+  return val;
+}
+
+// divide_float's f32 quotient from the dividend's fields (float_to_fields)
+// and a prepared divisor: K2's and K10's element.
+template <class P>
+PHD float divide_to_float(const FieldsT<typename P::Pat>& dx, const DivisorOf<P>& d) {
+  const auto q = divide_fields<P>(dx.sig, d);
+  const bool out_nar = dx.nar || d.nar || d.zero;
+  const bool out_zero = dx.zero && !out_nar;
+  return quotient_to_float<P::n>(dx.sign != d.sign, dx.scale - d.scale + q.t_adj, q, out_zero,
+                                 out_nar);
 }
 
 // Calls f(P{}) with the Plan type matching the runtime plan fields; false

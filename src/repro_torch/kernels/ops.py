@@ -33,7 +33,6 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from repro_torch.core.posit import PositFormat
@@ -71,7 +70,8 @@ def fused_variant_supported(fmt: PositFormat, variant: str) -> bool:
 
 def _pair(a, b, what: str, dtype):
     """``a`` and ``b`` (moved to ``a``'s device) of one shape, as ``dtype``."""
-    b = torch.as_tensor(b, device=a.device)
+    if not (isinstance(b, torch.Tensor) and b.device == a.device):
+        b = torch.as_tensor(b, device=a.device)
     if tuple(a.shape) != tuple(b.shape):
         raise ValueError(f"{what} takes operands of one shape; got {tuple(a.shape)} and "
                          f"{tuple(b.shape)} (numerics.posit_div_values broadcasts)")
@@ -86,6 +86,18 @@ def _flat_fn(lib: str, sym: str):
     return fn
 
 
+_plan_args = functools.lru_cache(maxsize=None)(plan_args)
+
+
+def _on_device(device: torch.device, fn, *args):
+    """``fn(*args)`` with ``device`` current (a launch goes to the current
+    device), entering its context only when another device is current."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
+
+
 def _launch_flat(fn, what: str, fmt: PositFormat, variant: str, a, b, out):
     """One launch of an elementwise kernel over contiguous ``a``, ``b``.
 
@@ -94,9 +106,8 @@ def _launch_flat(fn, what: str, fmt: PositFormat, variant: str, a, b, out):
     falls back to the twin)."""
     plan = datapath_plan(fmt, variant)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    with torch.cuda.device(a.device):
-        rc = fn(*plan_args(plan), a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
-                stream)
+    rc = _on_device(a.device, fn, *_plan_args(plan), a.data_ptr(), b.data_ptr(),
+                    out.data_ptr(), a.numel(), stream)
     if rc == -1:
         raise NotImplementedError(f"{what}: no kernel is built for {fmt} {variant}; the twin "
                                   "runs on CPU tensors only")
@@ -254,11 +265,8 @@ def rowwise_applicable(a_shape, b_shape) -> bool:
         return False
     if b_shape and b_shape[-1] != 1:
         return False
-    try:
-        out = np.broadcast_shapes(a_shape, b_shape)
-    except ValueError:
-        return False
-    return out == a_shape
+    # b broadcasts to a's shape: each of its axes is 1 or a's
+    return all(d in (1, ad) for d, ad in zip(b_shape, a_shape[len(a_shape) - len(b_shape):]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -274,15 +282,14 @@ def _launch_rowwise(plan: DatapathPlan, a2: torch.Tensor, bcol: torch.Tensor):
     R, C = a2.shape
     out = torch.empty_like(a2)
     stream = torch.cuda.current_stream(a2.device).cuda_stream
-    with torch.cuda.device(a2.device):
-        rc = _rowwise_fn()(*plan_args(plan), a2.data_ptr(), bcol.data_ptr(),
-                           out.data_ptr(), R, C, stream)
+    rc = _on_device(a2.device, _rowwise_fn(), *_plan_args(plan), a2.data_ptr(),
+                    bcol.data_ptr(), out.data_ptr(), R, C, stream)
     if rc == -1:
         raise NotImplementedError(f"posit_fused_div_rowwise: no kernel is built for "
                                   f"posit{plan.n} {plan.variant}")
     if rc != 0:
         raise RuntimeError(f"posit_fused_div_rowwise launch failed ({rc}): "
-                           + ("more than 2^31 - 1 row tiles of 4 or 65535 column tiles of 128"
+                           + ("more than 2^31 - 1 rows or 65535 column tiles of 128"
                               if rc == -2 else
                               f"cudaError {rc}"))
     return out
@@ -292,9 +299,12 @@ def _as_rows(a, b):
     shape = tuple(a.shape)
     C = shape[-1]
     a2 = a.to(torch.float32).reshape(-1, C).contiguous()
-    bcol = torch.as_tensor(b, dtype=torch.float32, device=a.device)
-    bcol = bcol.broadcast_to(shape[:-1] + (1,)).reshape(-1, 1).contiguous()
-    return shape, a2, bcol
+    rows = shape[:-1] + (1,)
+    if not (isinstance(b, torch.Tensor) and b.dtype == torch.float32 and b.device == a.device
+            and tuple(b.shape) == rows and b.is_contiguous()):
+        b = torch.as_tensor(b, dtype=torch.float32, device=a.device)
+        b = b.broadcast_to(rows).contiguous()
+    return shape, a2, b.reshape(-1, 1)
 
 
 def _check(fmt: PositFormat, a, b, variant: str) -> DatapathPlan:

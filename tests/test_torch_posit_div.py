@@ -229,8 +229,10 @@ extern "C" int host_rowwise(int n, int radix, int red, int otf, int scaled, int 
     [&](auto plan) {
       using P = decltype(plan);
       for (int r = 0; r < R; ++r) {
-        const auto d = posit::prep_divisor<P>(b[r]);
-        for (int c = 0; c < C; ++c) out[r * C + c] = posit::divide_float<P>(a[r * C + c], d);
+        const auto d = posit::prep_divisor_fields<P>(posit::float_to_fields<P::n>(b[r]));
+        for (int c = 0; c < C; ++c)
+          out[r * C + c] = posit::divide_to_float<P>(posit::float_to_fields<P::n>(a[r * C + c]),
+                                                     d);
       }
     });
   return ok ? 0 : -1;
@@ -242,7 +244,9 @@ extern "C" int host_elementwise(int n, int radix, int red, int otf, int scaled, 
     [&](auto plan) {
       using P = decltype(plan);
       for (int i = 0; i < count; ++i)
-        out[i] = posit::divide_float<P>(a[i], posit::prep_divisor<P>(b[i]));
+        out[i] = posit::divide_to_float<P>(
+            posit::float_to_fields<P::n>(a[i]),
+            posit::prep_divisor_fields<P>(posit::float_to_fields<P::n>(b[i])));
     });
   return ok ? 0 : -1;
 }
@@ -263,6 +267,7 @@ extern "C" int host_div_bits(int n, int radix, int red, int otf, int scaled, int
 }
 extern "C" int host_divisor_fields(int n, int radix, int red, int otf, int scaled, int nonrest,
                                    int it, int shift, int gbits, float b, int* out) {
+  bool same = false;
   bool ok = posit::dispatch_plan<true>(n, radix, red, otf, scaled, nonrest, it, shift, gbits,
     [&](auto plan) {
       using P = decltype(plan);
@@ -270,8 +275,13 @@ extern "C" int host_divisor_fields(int n, int radix, int red, int otf, int scale
       const posit::Thresholds m = posit::thresholds(d);
       const int got[6] = {m.m2, m.m1, m.m0, m.mm1, d.shifts & 0xFF, d.shifts >> 8};
       for (int i = 0; i < 6; ++i) out[i] = got[i];
+      // K2's and K10's divisor, from float_to_fields: the same in every field
+      const auto f = posit::prep_divisor_fields<P>(posit::float_to_fields<P::n>(b));
+      same = f.d_al == d.d_al && f.nd_al == d.nd_al && f.d2 == d.d2 && f.nd2 == d.nd2 &&
+             f.thr == d.thr && f.shifts == d.shifts && f.scale == d.scale &&
+             f.sign == d.sign && f.zero == d.zero && f.nar == d.nar;
     });
-  return ok ? 0 : -1;
+  return ok ? (same ? 0 : -2) : -1;
 }
 extern "C" int host_select(int n, int radix, int red, int otf, int scaled, int nonrest, int it,
                            int shift, int gbits, float b, const uint32_t* ws,
@@ -310,6 +320,73 @@ extern "C" void host_cast64(const float* x, uint64_t* p, const uint64_t* q, floa
     y[i] = posit::posit_to_float<64>(q[i]);
   }
 }
+template <int N>
+int fields_differ(const float* x, uint8_t* bad, int count) {
+  int n_bad = 0;
+  for (int i = 0; i < count; ++i) {
+    const auto got = posit::float_to_fields<N>(x[i]);
+    const auto want = posit::decode<N>(posit::float_to_posit<N>(x[i]));
+    bad[i] = got.zero != want.zero || got.nar != want.nar ||
+             (!want.zero && !want.nar &&
+              (got.sign != want.sign || got.scale != want.scale || got.sig != want.sig));
+    n_bad += bad[i];
+  }
+  return n_bad;
+}
+extern "C" int host_fields_differ(int n, const float* x, uint8_t* bad, int count) {
+  switch (n) {
+    case 8: return fields_differ<8>(x, bad, count);
+    case 16: return fields_differ<16>(x, bad, count);
+    case 32: return fields_differ<32>(x, bad, count);
+    case 64: return fields_differ<64>(x, bad, count);
+    default: return -1;
+  }
+}
+template <int N>
+bool quotient_differs(int sign, int scale, uint64_t frac, int rs, int flag) {
+  using U = typename posit::Fmt<N>::U;
+  const posit::QuotientFields<U> q{static_cast<U>(frac), 0, static_cast<uint32_t>(rs >> 1),
+                                   (rs & 1) != 0};
+  const bool zero = flag == 1, nar = flag == 2;
+  const float got = posit::quotient_to_float<N>(sign != 0, scale, q, zero, nar);
+  const float want = posit::posit_to_float<N>(
+      posit::encode<N>(sign != 0, scale, q.frac, q.round_bit, q.sticky, zero, nar));
+  return posit::f2u(got) != posit::f2u(want);
+}
+// Every (sign, scale in [lo, hi], fraction, round, sticky) of posit<n>:
+// the count where quotient_to_float leaves posit_to_float(encode(...)).
+template <int N>
+long long quotient_sweep(int lo, int hi) {
+  long long n_bad = 0;
+  for (int scale = lo; scale <= hi; ++scale)
+    for (uint64_t f = 0; f < (1ull << posit::Fmt<N>::F); ++f)
+      for (int rs = 0; rs < 4; ++rs)
+        for (int sign = 0; sign < 2; ++sign) n_bad += quotient_differs<N>(sign, scale, f, rs, 0);
+  return n_bad;
+}
+extern "C" long long host_quotient_sweep(int n, int lo, int hi) {
+  switch (n) {
+    case 8: return quotient_sweep<8>(lo, hi);
+    case 16: return quotient_sweep<16>(lo, hi);
+    default: return -1;
+  }
+}
+extern "C" int host_quotient_differ(int n, const int* sign, const int* scale,
+                                    const uint64_t* frac, const int* rs, const int* flag,
+                                    uint8_t* bad, int count) {
+  int n_bad = 0;
+  for (int i = 0; i < count; ++i) {
+    switch (n) {
+      case 8: bad[i] = quotient_differs<8>(sign[i], scale[i], frac[i], rs[i], flag[i]); break;
+      case 16: bad[i] = quotient_differs<16>(sign[i], scale[i], frac[i], rs[i], flag[i]); break;
+      case 32: bad[i] = quotient_differs<32>(sign[i], scale[i], frac[i], rs[i], flag[i]); break;
+      case 64: bad[i] = quotient_differs<64>(sign[i], scale[i], frac[i], rs[i], flag[i]); break;
+      default: return -1;
+    }
+    n_bad += bad[i];
+  }
+  return n_bad;
+}
 """
 
 
@@ -328,9 +405,11 @@ def host_k1(tmp_path_factory):
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(lib))
     for name in ("host_rowwise", "host_elementwise", "host_div_bits", "host_cast",
-                 "host_model_plan", "host_library_part", "host_divisor_fields", "host_select"):
+                 "host_model_plan", "host_library_part", "host_divisor_fields", "host_select",
+                 "host_fields_differ", "host_quotient_differ"):
         getattr(lib, name).restype = ctypes.c_int
     lib.host_cast64.restype = None
+    lib.host_quotient_sweep.restype = ctypes.c_longlong
     return lib
 
 
@@ -471,6 +550,96 @@ def test_cuda_wide_casts_match_twin(host_k1):
     np.testing.assert_array_equal(bits(y), bits(wide.posit_wide_to_float(fmt, wide.to_words(q))))
 
 
+def _cut_patterns(width, rng):
+    """``width``-bit values at and beside every rounding cut: for each guard
+    position c, the bits above it (0, 1, all ones, random), the guard bit and
+    the bits below it (0, 1, all ones)."""
+    out = []
+    for c in range(width):
+        hi = (1 << (width - 1 - c)) - 1
+        for j in {0, 1 & hi, hi, int(rng.integers(0, hi + 1))}:
+            for g in (0, 1):
+                for low in {0, 1 & ((1 << c) - 1), (1 << c) - 1}:
+                    out.append((j << (c + 1)) | (g << c) | low)
+    return np.array(sorted(set(out)), np.uint64)
+
+
+def _boundary_floats():
+    """Every f32 exponent (subnormals included) with mantissas at and beside
+    every rounding cut and at the deep regime's thresholds 1/4 and 1/16, both
+    signs; then 2^20 random bit patterns and the specials."""
+    rng = np.random.default_rng(23)
+    mant = np.concatenate([_cut_patterns(23, rng),
+                           np.array([1 << 21, (1 << 21) - 1, (1 << 21) + 1, 1 << 19,
+                                     (1 << 19) - 1, (1 << 19) + 1], np.uint64)])
+    exps = np.arange(256, dtype=np.uint64)
+    u = ((exps[:, None] << 23) | mant[None, :]).ravel()
+    u = np.concatenate([u, u | (1 << 31),
+                        rng.integers(0, 1 << 32, 1 << 20, dtype=np.uint64)])
+    return np.concatenate([u.astype(np.uint32).view(np.float32), SPECIALS])
+
+
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+def test_cuda_float_to_fields_matches_cast_then_decode(host_k1, n):
+    """K2's and K10's straight cast, float_to_fields, against the pattern
+    round trip it replaces, decode(float_to_posit(x)): flags everywhere,
+    sign, scale and significand wherever the value is a number."""
+    x = _boundary_floats()
+    bad = np.zeros(len(x), np.uint8)
+    n_bad = host_k1.host_fields_differ(n, _ptr(x), _ptr(bad), len(x))
+    assert n_bad == 0, x[bad.astype(bool)][:8].view(np.uint32)
+
+
+def _quotient_fields(n):
+    """posit``n`` quotient fields at every scale a quotient can take (and
+    one past each end): fractions at and beside the posit rounding's cut for
+    that scale and the f32 conversion's, the deep regime's thresholds and
+    random ones; every round and sticky bit, both signs; zero and NaR flags
+    on some."""
+    rng = np.random.default_rng(n)
+    F = n - 5
+    sign, scale, frac = [], [], []
+    for sc in range(-8 * (n - 2) - 2, 8 * (n - 2) + 3):
+        k = sc >> 2
+        fb = n - 3 - (k + 2 if k >= 0 else 1 - k)
+        fr = [0, (1 << F) - 1] + [t + d for t in (1 << (F - 2), 1 << max(F - 4, 0))
+                                  for d in (-1, 0, 1)]
+        fr += [int(v) for v in rng.integers(0, 1 << F, 8, dtype=np.uint64)]
+        for c in ({F - fb - 1} if 0 <= fb < F else set()) | ({F - 24} if F > 23 else set()):
+            hi = (1 << (F - c - 1)) - 1
+            for j in {0, 1 & hi, hi, int(rng.integers(0, hi + 1))}:
+                for low in {0, 1 & ((1 << c) - 1), (1 << c) - 1}:
+                    fr += [(j << (c + 1)) | (g << c) | low for g in (0, 1)]
+        fr = sorted(set(fr))
+        sign += [0, 1] * len(fr)
+        scale += [sc] * 2 * len(fr)
+        frac += [f for f in fr for _ in (0, 1)]
+    m = len(frac)
+    sign, scale, frac = (np.repeat(np.array(v, t), 4) for v, t in
+                         ((sign, np.int32), (scale, np.int32), (frac, np.uint64)))
+    rs = np.tile(np.arange(4, dtype=np.int32), m)
+    flag = np.zeros(4 * m, np.int32)
+    flag[::97], flag[1::89] = 1, 2
+    return sign, scale, frac, rs, flag
+
+
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+def test_cuda_quotient_to_float_matches_encode_then_cast(host_k1, n):
+    """K2's and K10's straight quotient cast, quotient_to_float, against the
+    pattern it replaces, posit_to_float(encode(...)), bit for bit: posit8 and
+    posit16 on every (sign, scale, fraction, round, sticky) a quotient can
+    take, posit32 and posit64 at every scale on the fractions beside each
+    rounding cut; zero and NaR flagged on a sample."""
+    if n <= 16:
+        assert host_k1.host_quotient_sweep(n, -8 * (n - 2) - 2, 8 * (n - 2) + 2) == 0
+    sign, scale, frac, rs, flag = _quotient_fields(n)
+    bad = np.zeros(len(sign), np.uint8)
+    n_bad = host_k1.host_quotient_differ(n, _ptr(sign), _ptr(scale), _ptr(frac), _ptr(rs),
+                                         _ptr(flag), _ptr(bad), len(sign))
+    first = np.flatnonzero(bad)[:4]
+    assert n_bad == 0, [(sign[i], scale[i], hex(frac[i]), rs[i], flag[i]) for i in first]
+
+
 SELECT_FORMATS = [PositFormat(n) for n in (8, 10, 16, 32, 64)]
 
 
@@ -487,7 +656,9 @@ def test_cuda_divisor_carries_thresholds_and_shifts(host_k1, fmt):
     """K1 decides a divisor's selection thresholds and scaling shifts once,
     in prep_divisor_bits: a radix-4 plan's prepared divisor holds
     seltables.RADIX4_M2/M1/M0/MM1 of its interval (Eq 28; the scaled plan
-    Eq 29's constants), and a scaled plan's the interval's SCALING_SHIFTS."""
+    Eq 29's constants), and a scaled plan's the interval's SCALING_SHIFTS;
+    K2's and K10's divisor (prep_divisor_fields on float_to_fields) the
+    same in every field."""
     from repro_torch.core import seltables as S
 
     out = np.zeros(6, np.int32)
