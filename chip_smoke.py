@@ -43,6 +43,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               prefix, MODEL_PLANS (every posit8, posit32 and posit64 plan
               on two packs): every segment the same bits as a solo K3
               prefill of it, the twin's gate.
+   K3 suffix — 1- and 17-token suffix prefills (q_offset, the prefix's
+              keys cached) at SmolLM's 15/5 x 64 and OLMoE's 16/16 x 128
+              heads, MODEL_PLANS: the bits of the whole prefill's rows (every
+              prefill takes the tile loop, whatever its length).
    K9       — the fused posit softmax against its twin at the router's
               shapes (8 x 64, 1 x 64), 4096 x 64 and 37 x 1000,
               MODEL_PLANS (every posit16, posit8, posit32 and posit64 plan
@@ -182,8 +186,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               down by kernel class; K2-K9 (K4 decode, K5 on the paged
               phase's most frequent pack, K6-K8 at the training shape, K9
               at 8 x 64 and 4096 x 64) at posit64 and K3-K9 at posit32 (K3
-              at posit8 too), K10 at posit64 and K11 at posit32
-              srt_r4_scaled beside their posit16 rows; the posit8 flips'
+              at posit8 too), K3 prefill and K4-K8 at posit64 nrd, K10 at
+              posit64 and K11 at posit32 srt_r4_scaled beside their posit16
+              rows; the posit8 flips'
               share against the twins; the plan table: K2, K3 prefill, K5,
               K6-K8 and K9 at every plan of posit16, posit32 and posit64
               (CUDA events) beside each plan's operation bound and the
@@ -204,10 +209,10 @@ every library at once, and prints each library's build seconds and ptxas
 report and the device times of K2-K10 (kernels a parent checkout of the
 port has too): run it on a parent checkout and on this one in
 turns (parent, change, change, parent) in one call, after any edit to a
-kernel source or to ``posit_srt.cuh``.  ``--only`` (any of K2, K7, K8,
-K9, K10) builds just those kernels' libraries and times just their rows:
-an A/B of one kernel's design variants, each a copy of ``src`` with the
-kernel source changed.
+kernel source or to ``posit_srt.cuh``.  ``--only`` (any of K2, K3, K4,
+K5, K6, K7, K8, K9, K10) builds just those kernels' libraries and times
+just their rows: an A/B of one kernel's design variants, each a copy of
+``src`` with the kernel source changed.
 """
 
 from __future__ import annotations
@@ -771,6 +776,58 @@ def phase_packed_kernel(torch, dev):
           f"posit32 and posit64 plan at {', '.join(f'{N} x {P}' for N, P in PACKS_EVERY_PLAN)}"
           ", one answer per format")
     return max(worst.values()), {(N, P) for N, P, _ in held}
+
+
+# suffix prefills (layers.prefill_suffix_attention after a shared prefix):
+# their lengths, each held at the prompt's end and in its middle
+SUFFIX_LENS = (1, 17)
+
+
+def phase_suffix(torch, dev):
+    """A prefix-sharing suffix prefill gives its rows the bits of the same
+    rows of the whole prompt's prefill: the wrapper routes every prefill to
+    the tile loop, whatever its length (``flash_loop``), and a row's bits do
+    not depend on its tile.  At full width: SmolLM's attention (15/5 heads
+    of 64) on a 200-token prompt left-padded to 256 and OLMoE's (16/16
+    heads of 128) on 120 tokens, 1- and 17-token suffixes, every plan of
+    MODEL_PLANS.  Returns the worst error against the twin."""
+    from repro_torch.core.posit import PositFormat
+    from repro_torch.kernels.posit_flash_attn import (
+        posit_flash_attention,
+        posit_flash_attention_plain,
+    )
+
+    held, worst = 0, collections.defaultdict(float)
+    for heads, P, pad in (((15, 5, 64), 256, 56), (MOE_HEADS, 120, 0)):
+        q, k, v = flash_inputs(torch, dev, 2, P, P, *heads, 61)
+        start = torch.tensor([pad, 0], dtype=torch.int32, device=dev)
+        for n, variant in MODEL_PLANS:
+            fmt = PositFormat(n)
+            whole = posit_flash_attention(fmt, q, k, v, True, variant=variant, kv_start=start)
+            plain = posit_flash_attention_plain(fmt, q, k, v, True, variant=variant,
+                                                kv_start=start)
+            torch.cuda.synchronize()
+            worst[n] = max(worst[n], gate("K3", f"posit{n} {variant} prefill {heads}", fmt,
+                                          whole, plain))
+            for m in SUFFIX_LENS:
+                for t0 in (P - m, pad + (P - pad) // 2):
+                    end = t0 + m
+                    part = posit_flash_attention(fmt, q[:, t0:end], k[:, :end], v[:, :end],
+                                                 True, q_offset=t0, variant=variant,
+                                                 kv_start=start)
+                    torch.cuda.synchronize()
+                    diff = int((bits(part) != bits(whole[:, t0:end])).sum())
+                    check(diff == 0, f"K3 suffix posit{n} {variant} heads {heads}: the "
+                                     f"{m}-token suffix at {t0} differs from the whole "
+                                     f"prefill's rows in {diff} elements")
+                    held += 1
+    print(f"K3 suffix: {held} suffix prefills ({', '.join(map(str, SUFFIX_LENS))} tokens, at "
+          "the prompt's end and middle) give the bits of the whole prefill's rows, at SmolLM's "
+          "15/5 heads of 64 (200 tokens left-padded to 256) and OLMoE's 16/16 of 128 (120), "
+          f"{', '.join(f'posit{n} {v}' for n, v in MODEL_PLANS)}; the whole prefills within "
+          f"{FLASH_TOL} of the twin (max|diff| posit16 {worst[16]:.3g}, posit64 "
+          f"{worst[64]:.3g}, posit32 {worst[32]:.3g})")
+    return max(v for n, v in worst.items() if n != 8)
 
 
 # K9 at the router's shapes (a decode step's or scan step's 8 rows, one
@@ -1607,12 +1664,13 @@ def phase_main(torch, dev, cfg, params, label="main"):
     torch.cuda.synchronize()
 
     ops.posit_div_fused_rowwise.launches = 0
-    posit_flash_attention.launches = 0
+    posit_flash_attention.launches = posit_flash_attention.tile_launches = 0
     t0 = time.perf_counter()
     outs = eng.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k2, k3 = ops.posit_div_fused_rowwise.launches, posit_flash_attention.launches
+    k3t = posit_flash_attention.tile_launches
 
     stats = eng.last_serve_stats
     forwards = stats["admissions"] + stats["decode_steps"]
@@ -1620,6 +1678,10 @@ def phase_main(torch, dev, cfg, params, label="main"):
     check(k2 == (2 * L + 1) * forwards,
           f"K2 launched {k2} times, the path implies {(2 * L + 1) * forwards}")
     check(k3 == L * forwards, f"K3 launched {k3} times, the path implies {L * forwards}")
+    # the prefills through the tile loop, the decode steps through the one-row loop
+    check(k3t == L * stats["admissions"],
+          f"K3 took the tile loop {k3t} times, the path's prefills imply "
+          f"{L * stats['admissions']}")
     for r in eng.last_results:
         check(r.finish is FinishReason.MAX_NEW and len(r.tokens) == 32,
               f"request {r.rid} finished {r.finish} with {len(r.tokens)} tokens "
@@ -1632,13 +1694,13 @@ def phase_main(torch, dev, cfg, params, label="main"):
           f"tokens, 32 new each) on {eng.sc.max_batch} slots: {n_tok} tokens in "
           f"{wall:.2f} s = {n_tok / wall:.1f} tokens/s; {stats['admissions']} "
           f"prefills + {stats['decode_steps']} decode steps; K2 {k2} launches, "
-          f"K3 {k3} launches")
+          f"K3 {k3} launches ({k3t} prefill launches through the tile loop)")
     for i in (0, 7):
         solo = eng.serve([reqs[i]])[0]
         check(np.array_equal(solo, outs[i]),
               f"request {i}: solo tokens differ from the batched run")
     print(f"{label}: requests 0 and 7 bit-identical solo and batched")
-    return {"rowwise": k2, "K3": k3, "tokens_per_s": n_tok / wall,
+    return {"rowwise": k2, "K3": k3, "K3 tile": k3t, "tokens_per_s": n_tok / wall,
             "forwards": forwards, "outs": outs}
 
 
@@ -1699,13 +1761,14 @@ def phase_paged(torch, dev, cfg, params, packs_held, label="paged", dense_outs=N
 
     eng._prefill_pack = recorded
     ops.posit_div_fused_rowwise.launches = 0
-    F.launches = F.paged_launches = F.packed_launches = 0
+    F.launches = F.tile_launches = F.paged_launches = F.packed_launches = 0
     t0 = time.perf_counter()
     outs = eng.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k2, k3, k4, k5 = (ops.posit_div_fused_rowwise.launches, F.launches, F.paged_launches,
                       F.packed_launches)
+    k3t = F.tile_launches
     st = eng.last_serve_stats
     L = cfg.n_layers
     solo = st["admissions"] - st["packed_segments"]
@@ -1717,6 +1780,7 @@ def phase_paged(torch, dev, cfg, params, packs_held, label="paged", dense_outs=N
           f"{L * st['packed_packs']}")
     check(k3 == L * solo, f"{label}: K3 launched {k3} times, {solo} solo (prefix-shared) "
                           f"admissions imply {L * solo} (none in decode)")
+    check(k3t == k3, f"{label}: {k3 - k3t} of K3's {k3} suffix prefills took the one-row loop")
     forwards = st["decode_steps"] + st["packed_packs"] + solo
     check(k2 == (2 * L + 1) * forwards,
           f"{label}: K2 launched {k2} times, the path implies {(2 * L + 1) * forwards}")
@@ -1775,7 +1839,8 @@ def phase_paged(torch, dev, cfg, params, packs_held, label="paged", dense_outs=N
     # the timing phase times K5 on the path's most frequent pack shape
     N, W = max(shapes, key=lambda nw: (shapes[nw], nw[0] * nw[1]))
     pack = next(p for p in packs if p[:2] == (N, W))
-    return {"rowwise": k2, "K3": k3, "K4": k4, "K5": k5, "tokens_per_s": n_tok / wall,
+    return {"rowwise": k2, "K3": k3, "K3 tile": k3t, "K4": k4, "K5": k5,
+            "tokens_per_s": n_tok / wall,
             "differ": len(differ), "stats": st, "pack": pack, "outs": outs}
 
 
@@ -2116,10 +2181,10 @@ def phase_train_main(torch, dev, div_format="posit16", div_algo=DEFAULT_VARIANT,
         trainer.state, metrics = trainer.step_fn(trainer.state, batch)
         float(metrics["loss"])
 
-    times, traced = profiled(torch, step, ["flash_kernel", "flash_bwd"])
+    times, traced = profiled(torch, step, [*FLASH_FWD, "flash_bwd"])
     by = by_class(times, (("K7 flash dq", "flash_bwd_dq_kernel"),
                           ("K8 flash dk/dv", "flash_bwd_dkv_kernel"),
-                          ("K6 flash fwd", "flash_kernel"), ("K2 rowwise", "rowwise_kernel")))
+                          ("K6 flash fwd", FLASH_FWD), ("K2 rowwise", "rowwise_kernel")))
     busy = sum(by.values()) if times else None
     if busy is None:
         print(f"training step (traced): wall {traced:.1f} ms; torch.profiler showed no "
@@ -2287,6 +2352,10 @@ def moe_difference(torch, dev, cfg, params):
 
 PROFILE_TRIES = 3
 MATMUL_NAMES = ("gemm", "gemv", "cutlass", "nvjet", "xmma", "sm90")
+# the flash forward's kernels (csrc/posit_flash_attn.cu): the one-row loop
+# (decode: K3 with q_pos, K4) and the tile loop (K3 prefill, K5, K6); a
+# parent checkout of the port before the tile loop has the first alone
+FLASH_FWD = ["flash_kernel", "flash_tile_kernel"]
 
 
 def profiled(torch, fn, want, counts=None):
@@ -2322,12 +2391,14 @@ def profiled(torch, fn, want, counts=None):
 
 
 def by_class(times, classes):
-    """Sum ``times`` into the named classes (the first whose substring the
-    kernel's name holds), then matmul and other."""
+    """Sum ``times`` into the named classes (the first whose substring, or
+    one of whose substrings, the kernel's name holds), then matmul and
+    other."""
     by = dict.fromkeys([c for c, _ in classes] + ["matmul", "other"], 0.0)
+    subs = lambda sub: [sub] if isinstance(sub, str) else sub
     for key, t in times.items():
         k = key.lower()
-        cls = next((c for c, sub in classes if sub in k), None)
+        cls = next((c for c, sub in classes if any(x in k for x in subs(sub))), None)
         if cls is None:
             cls = "matmul" if any(w in k for w in MATMUL_NAMES) else "other"
         by[cls] += t
@@ -2447,9 +2518,9 @@ def print_rows(rows):
 
 def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64), fmt=None,
               kv_f32=False):
-    """K3's timing row: decode (Sq == 1, one query at ``pos``) or a causal
-    prefill, keys from ``start``, SDPA on the same masks as the yardstick;
-    ``kv_f32``: K/V in f32 (bf16 values upcast)."""
+    """K3's timing row at ``plan``: decode (Sq == 1, one query at ``pos``)
+    or a causal prefill, keys from ``start``, SDPA on the same masks as the
+    yardstick; ``kv_f32``: K/V in f32 (bf16 values upcast)."""
     import torch.nn.functional as Fn
 
     from repro_torch.core.posit import POSIT16
@@ -2475,13 +2546,14 @@ def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64), fmt=No
         real = sum(max(0, Sq - s) for s in start)
         qp = torch.arange(Sq, device=dev)[None, :].expand(B, Sq)
     fmt = fmt or POSIT16
+    kw["variant"] = plan.variant
     call = lambda: posit_flash_attention(fmt, q, k, v, True, **kw)
-    dev_ms, src = device_kernel_ms(torch, call, ["flash_kernel"])
+    dev_ms, src = device_kernel_ms(torch, call, FLASH_FWD)
     # q of the real rows read, every output row written, the keys read
     nbytes = 4 * (real + B * Sq) * H * hd + 2 * k.element_size() * sum(
         min(Sk, p + 1) - s if Sq == 1 else Sk - s for p, s in zip(pos, start)) * KV * hd
-    ops_ = 4 * H * keys * hd + div_ops(plan, real * H * hd)
-    bms, by = bound_ms(nbytes, ops_)
+    # the products at the tensor cores' rate, the divisions at the instruction rate
+    bms, by = bound_ms(nbytes, div_ops(plan, real * H * hd), 4 * H * keys * hd)
     # library yardstick: one SDPA call with the same masks, f32 inputs
     kp = torch.arange(Sk, device=dev)
     mask = (kp[None, None, :] <= qp[:, :, None]) & (kp[None, None, :] >= start_t[:, None, None])
@@ -2599,11 +2671,11 @@ def division_rows(torch, dev):
     return rows
 
 
-def layout_rows(torch, dev, fmt, pack):
+def layout_rows(torch, dev, fmt, pack, variant=DEFAULT_VARIANT):
     """K4 at the paged decode's shapes (8 slots, max_seq 512 in pages of 16,
     paged admissions at start 0) and K5 on a pack of the paged phase's most
     frequent shape, ``pack`` = (N, width, segment lengths), right-padded, at
-    ``fmt`` with the default plan."""
+    ``fmt`` and ``variant``."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels.posit_div import datapath_plan
@@ -2614,21 +2686,22 @@ def layout_rows(torch, dev, fmt, pack):
     )
 
     H, KV, hd, bs = 15, 5, 64, PAGED_BLOCK
-    plan = datapath_plan(fmt, DEFAULT_VARIANT)
-    tag = "" if fmt.n == 16 else f" posit{fmt.n}"
+    plan = datapath_plan(fmt, variant)
+    tag = ("" if fmt.n == 16 else f" posit{fmt.n}") + ("" if variant == DEFAULT_VARIANT
+                                                      else f" {variant}")
     rows = {}
     q, pk, pv, bt = paged_inputs(torch, dev, 8, 512 // bs, bs, H, KV, hd, 8)
     pos_l, start_l = [47, 63, 92, 120, 151, 178, 199, 231], [0] * 8
     pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
     kw = dict(kv_start=torch.tensor(start_l, dtype=torch.int32, device=dev),
-              kv_len=pos + 1, q_pos=pos, block_tables=bt)
+              kv_len=pos + 1, q_pos=pos, block_tables=bt, variant=variant)
     call = lambda: posit_flash_attention(fmt, q, pk, pv, True, **kw)
-    dev_ms, src = device_kernel_ms(torch, call, ["flash_kernel"])
+    dev_ms, src = device_kernel_ms(torch, call, FLASH_FWD)
     # the keys each slot attends, and one table entry per page they touch
     keys = sum(p + 1 - s for p, s in zip(pos_l, start_l))
     pages = sum(p // bs - s // bs + 1 for p, s in zip(pos_l, start_l))
     nbytes = 2 * 4 * 8 * H * hd + 2 * 2 * keys * KV * hd + 4 * pages + 3 * 4 * 8
-    bms, by = bound_ms(nbytes, 4 * H * keys * hd + div_ops(plan, 8 * H * hd))
+    bms, by = bound_ms(nbytes, div_ops(plan, 8 * H * hd), 4 * H * keys * hd)
     kd, vd = gather_pages(pk, bt), gather_pages(pv, bt)
     kp = torch.arange(kd.shape[1], device=dev)
     mask = (kp[None, :] <= pos[:, None])[:, None, None, :]
@@ -2643,14 +2716,14 @@ def layout_rows(torch, dev, fmt, pack):
 
     N, P, lens = pack
     q, k, v, seg_q, seg, segs = packed_inputs(torch, dev, lens, P, 9, left=False)
-    kw = dict(seg_q=seg_q, seg_kv=seg)
+    kw = dict(seg_q=seg_q, seg_kv=seg, variant=variant)
     call = lambda: posit_flash_attention(fmt, q, k, v, True, seg_len=P, **kw)
-    dev_ms, src = device_kernel_ms(torch, call, ["flash_kernel"])
+    dev_ms, src = device_kernel_ms(torch, call, FLASH_FWD)
     pairs = sum(n * (n + 1) // 2 for _, n in segs)        # block-diagonal causal pairs
     S, real = N * P, sum(lens)
     # q and K/V of the real rows read, every output row written, both id rows
     nbytes = 4 * (real + S) * H * hd + 2 * 2 * real * KV * hd + 2 * 4 * S
-    bms, by = bound_ms(nbytes, 4 * H * pairs * hd + div_ops(plan, real * H * hd))
+    bms, by = bound_ms(nbytes, div_ops(plan, real * H * hd), 4 * H * pairs * hd)
     ids = torch.arange(S, device=dev)
     mask = ((seg[0][None, :] == seg_q[0][:, None]) & (ids[None, :] <= ids[:, None]))
     mask = mask | (seg_q[0] < 0)[:, None]   # SDPA's fully masked rows are NaN: let pads attend
@@ -2666,20 +2739,21 @@ def layout_rows(torch, dev, fmt, pack):
     return rows
 
 
-def training_rows(torch, dev, fmt, kv_f32=False):
+def training_rows(torch, dev, fmt, kv_f32=False, variant=DEFAULT_VARIANT):
     """K6, K7 and K8 at the training path's shapes (B=8, S=256, causal), at
-    ``fmt`` with the default plan; ``kv_f32``: K/V in f32."""
+    ``fmt`` and ``variant``; ``kv_f32``: K/V in f32."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels import posit_flash_attn as F
 
     B, S, H, KV, hd = 8, 256, 15, 5, 64
-    plan = F.datapath_plan(fmt, DEFAULT_VARIANT)
-    tag = ("" if fmt.n == 16 else f" posit{fmt.n}") + (" f32 K/V" if kv_f32 else "")
+    plan = F.datapath_plan(fmt, variant)
+    tag = (("" if fmt.n == 16 else f" posit{fmt.n}") + (" f32 K/V" if kv_f32 else "")
+           + ("" if variant == DEFAULT_VARIANT else f" {variant}"))
     q, k, v, co = training_inputs(torch, dev, B, S, 9)
     if kv_f32:
         k, v = k.float(), v.float()
-    o, m, l = F.posit_flash_attention_fwd(fmt, q, k, v, True)
+    o, m, l = F.posit_flash_attention_fwd(fmt, q, k, v, True, variant=variant)
     args = backward_args(F, co, o, m, l, q, k, v)
     pairs = B * H * S * (S + 1) // 2            # attended (row, key) pairs
     qo = B * S * H * hd * 4                     # one f32 (B, S, H, hd) tensor
@@ -2697,7 +2771,7 @@ def training_rows(torch, dev, fmt, kv_f32=False):
     lib_bwd = device_call_ms(torch, lambda: torch.autograd.grad(out, (qs, ks, vs), gs,
                                                                 retain_graph=True))
     plain_bwd = cuda_time_ms(lambda: F.flash_backward_plain(fmt, q, k, v, o, co, m, l,
-                                                            True), iters=3)
+                                                            True, variant=variant), iters=3)
 
     def row(call, names, nbytes, ops_, plain_ms, library_ms, tensor_ops=0.0):
         dev_ms, src = device_kernel_ms(torch, call, names)
@@ -2708,12 +2782,12 @@ def training_rows(torch, dev, fmt, kv_f32=False):
                 "library_ms": library_ms}
 
     rows = {
-        "K6" + tag: row(lambda: F.posit_flash_attention_fwd(fmt, q, k, v, True),
-                  ["flash_kernel"], 2 * qo + 2 * kv + 2 * rowv,
-                  pairs * 4 * hd + div_ops(plan, B * S * H * hd),
+        "K6" + tag: row(lambda: F.posit_flash_attention_fwd(fmt, q, k, v, True,
+                                                             variant=variant),
+                  FLASH_FWD, 2 * qo + 2 * kv + 2 * rowv, div_ops(plan, B * S * H * hd),
                   cuda_time_ms(lambda: F.posit_flash_attention_fwd_plain(
-                      fmt, q, k, v, True), iters=3), lib_fwd),
-        # K7 / K8: the products at the tensor cores' rate, the divisions at the
+                      fmt, q, k, v, True, variant=variant), iters=3), lib_fwd, pairs * 4 * hd),
+        # K6-K8: the products at the tensor cores' rate, the divisions at the
         # instruction rate
         "K7" + tag: row(lambda: F.flash_backward_dq(fmt, plan, *args),
                   ["flash_bwd_dq_kernel"], 3 * qo + 2 * kv + 3 * rowv,
@@ -2734,7 +2808,7 @@ def plan_table(torch, dev, pack):
     prefill at P=256, K5 on ``pack`` (the paged phase's most frequent
     shape), K6, K7 and K8 at B=8 x 256 and K9 at 4096 x 64, each beside its
     operation bound at that plan (div_ops: the datapath's iterations at its
-    own cost; K7 and K8's products at the TF32 tensor-core rate, as
+    own cost; K3-K8's products at the TF32 tensor-core rate, as
     bound_ms counts them) and the paper's hardware model of the divider
     (``core/costmodel.estimate(fmt, variant, pipelined=False)``)."""
     from repro_torch.core import costmodel
@@ -2766,13 +2840,13 @@ def plan_table(torch, dev, pack):
                        0),
                 "K3": (lambda: F.posit_flash_attention(fmt, pq, pk, pv, True, kv_start=s56,
                                                        variant=variant),
-                       200 * H * hd, 4 * H * hd * 200 * 201 // 2, 0),
+                       200 * H * hd, 0, 4 * H * hd * 200 * 201 // 2),
                 "K5": (lambda: F.posit_flash_attention(fmt, sq, sk, sv, True, variant=variant,
                                                        seg_q=seg_q, seg_kv=seg, seg_len=P),
-                       sum(lens) * H * hd, 4 * H * hd * pack_pairs, 0),
+                       sum(lens) * H * hd, 0, 4 * H * hd * pack_pairs),
                 "K6": (lambda: F.posit_flash_attention_fwd(fmt, tq, tk, tv, True,
                                                            variant=variant),
-                       8 * 256 * H * hd, 4 * hd * pairs, 0),
+                       8 * 256 * H * hd, 0, 4 * hd * pairs),
                 "K7": (lambda: F.flash_backward_dq(fmt, plan, *args), pairs, 0, 6 * hd * pairs),
                 "K8": (lambda: F.flash_backward_dkv(fmt, plan, *args), pairs, 0, 8 * hd * pairs),
                 "K9": (lambda: ops.posit_softmax_fused(fmt, x, variant), 4096 * 64, 0, 0),
@@ -2788,7 +2862,7 @@ def plan_table(torch, dev, pack):
             table.append(row)
     names = ("K2", "K3", "K5", "K6", "K7", "K8", "K9")
     print("plan table (CUDA events, ms per call; bound = operations / 33.45e12 a second, "
-          "K7/K8's products / 495 TFLOP/s; hardware model: delay FO4, area GE): " + "; ".join(
+          "K3-K8's products / 495 TFLOP/s; hardware model: delay FO4, area GE): " + "; ".join(
               f"{r['format']} {r['variant']} it {r['iterations']} x {r['ops_per_iteration']} "
               f"ops, hw {r['hw_delay_fo4']:.1f} FO4 {r['hw_area_ge']:.0f} GE: " + ", ".join(
                   f"{k} {r[k + '_ms']:.4f} (bound {r[k + '_bound_ms']:.4f})" for k in names)
@@ -2832,9 +2906,9 @@ def decode_breakdown(torch, dev, cfg, params, paged: bool = False):
             for _ in range(n):
                 step()
 
-        times, wall = profiled(torch, steps, ["flash_kernel", "rowwise_kernel"])
+        times, wall = profiled(torch, steps, [*FLASH_FWD, "rowwise_kernel"])
     classes = (("K2 rowwise", "rowwise_kernel"),
-               (("K4 flash, paged" if paged else "K3 flash"), "flash_kernel"))
+               (("K4 flash, paged" if paged else "K3 flash"), FLASH_FWD))
     if cfg.family == "moe":
         classes += (("K9 softmax", "softmax_kernel"),)
     if cfg.numerics.kv_cache_format:
@@ -2904,12 +2978,15 @@ def ptxas_kernels(log: str):
 
 
 # the libraries whose posit16 kernels --time-kernels disassembles (and
-# posit_fused_div's posit64 ones), and the opcodes it counts in each: the
+# posit_fused_div's posit64 ones, and the forward's posit32 ones, whose tile
+# loop runs on the tensor cores), and the opcodes it counts in each: the
 # integer pipe's (compares, selects, logic, adds, shifts, byte permutes),
 # IMAD and MOV, the conversions and f32 multiplies the casts may use,
 # constant, global and local loads (a table looked up in memory, spills),
 # shared loads, and the tensor cores' HMMA
-SASS_LIBRARIES = ("posit_flash_bwd_p16", "posit_fused_div", "posit_cast")
+SASS_LIBRARIES = ("posit_flash_attn_p16", "posit_flash_attn_p32", "posit_flash_bwd_p16",
+                  "posit_fused_div", "posit_cast")
+SASS_FORMATS = {"posit_fused_div": ("posit16", "posit64"), "posit_flash_attn_p32": ("posit32",)}
 SASS_OPCODES = ("ISETP", "SEL", "LOP3", "IADD3", "SHF", "PRMT", "IMAD", "MOV", "FLO", "I2F",
                 "F2I", "FMUL", "FFMA", "FSETP", "LDC", "LDG", "LDL", "STL", "LDS", "SHFL",
                 "HMMA")
@@ -2917,13 +2994,13 @@ SASS_OPCODES = ("ISETP", "SEL", "LOP3", "IADD3", "SHF", "PRMT", "IMAD", "MOV", "
 
 def sass_counts(build, name: str):
     """``{kernel: {"instructions": n, opcode: n, ...}}``: the static SASS
-    of every posit16 kernel of the built library ``name`` (and, of
-    posit_fused_div, every posit64 one) (``cuobjdump -sass``, beside
+    of every posit16 kernel of the built library ``name`` (or the formats
+    SASS_FORMATS names for it) (``cuobjdump -sass``, beside
     ``nvcc``), its instructions counted in all and by SASS_OPCODES."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     dump = subprocess.run([cuobjdump, "-sass", str(build._lib_path(name))], check=True,
                           capture_output=True, text=True, timeout=600).stdout
-    formats = ("posit16", "posit64") if name == "posit_fused_div" else ("posit16",)
+    formats = SASS_FORMATS.get(name, ("posit16",))
     out = {}
     for block in dump.split("Function : ")[1:]:
         name = kernel_name(block.split(None, 1)[0])
@@ -2937,13 +3014,16 @@ def sass_counts(build, name: str):
 
 # the libraries --time-kernels --only builds for each kernel it may time
 # (K10's: K12's too, whose cast kernels' SASS gives the old casts' cost)
+FLASH_FWD_LIBRARIES = ("posit_flash_attn_p16", "posit_flash_attn_p32", "posit_flash_attn_p64_r4")
 ONLY_LIBRARIES = {
     "K2": ("posit_fused_div",),
-    "K7": ("posit_flash_attn_p16", "posit_flash_attn_p32", "posit_flash_attn_p64_r4",
-           "posit_flash_bwd_p16", "posit_flash_bwd_p32", "posit_flash_bwd_p64_r4"),
+    "K3": FLASH_FWD_LIBRARIES,
+    "K7": FLASH_FWD_LIBRARIES + ("posit_flash_bwd_p16", "posit_flash_bwd_p32",
+                                 "posit_flash_bwd_p64_r4"),
     "K9": ("posit_softmax",),
     "K10": ("posit_fused_div", "posit_cast"),
 }
+ONLY_LIBRARIES["K4"] = ONLY_LIBRARIES["K5"] = ONLY_LIBRARIES["K6"] = ONLY_LIBRARIES["K3"]
 ONLY_LIBRARIES["K8"] = ONLY_LIBRARIES["K7"]
 # --time-kernels' K2 and K10 shapes: decode, prefill and the training
 # step's RMSNorm rows, 1024 x 1024; the reference benchmark's 64 x 1024 and
@@ -2956,12 +3036,13 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
     """An A/B of the kernels both packages have, from the package under
     ``src``: each library's build seconds (all built in parallel, as the
     main run builds them), its ptxas report (each posit16 kernel's
-    registers and spill stores, and every K7, K8 and K9 instantiation's), the
-    static SASS of the posit16 K2, K7, K8, K10 and K12 kernels and the
-    posit64 K2 and K10 ones (``sass_counts``), and the device time per
-    launch of K3 (the timing phase's decode and prefill rows), K4 (the
-    paged decode), K5 (an 8 x 256 pack), K6-K8 (the training rows), K9 (8 x
-    64 and 4096 x 64), K7, K8 and K9 at posit32 and posit64 too, K2 at
+    registers and spill stores, and every K7, K8, K9 and tile-loop
+    instantiation's), the static SASS of the posit16 K2-K8, K10 and K12
+    kernels and the posit64 K2 and K10 ones (``sass_counts``), and the
+    device time per launch of K3 (the timing phase's decode and prefill
+    rows), K4 (the paged decode), K5 (an 8 x 256 pack), K6-K8 (the training
+    rows), K9 (8 x 64 and 4096 x 64), K3 prefill, K5-K9 at posit32 and
+    posit64 too, K2 at
     K2_SHAPES (posit16 and posit64) and K10 at K10_SIZES (posit16, posit32
     and posit64), all at the default plan; K2 and K10 per call too.  Run it
     from a parent checkout's ``src`` and from this one, in turns, on one
@@ -2973,7 +3054,8 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import posit_flash_attn as F
 
-    out = {"src": src, "build_s": {}, "ptxas": {}, "ptxas_posit16": {}, "ptxas_k7_k9": {}}
+    out = {"src": src, "build_s": {}, "ptxas": {}, "ptxas_posit16": {}, "ptxas_k7_k9": {},
+           "ptxas_tile": {}}
     # every library at once, one nvcc each, as the main run builds them
     names = list(getattr(_build, "LIBRARIES", _build.SOURCES))
     if only:
@@ -2995,6 +3077,8 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
                                    if k.split()[0] in ("flash_bwd_dq_kernel",
                                                        "flash_bwd_dkv_kernel", "softmax_kernel",
                                                        "warp_softmax_kernel")})
+        out["ptxas_tile"].update({k: [r, sp] for k, r, sp in kernels
+                                  if k.split()[0] == "flash_tile_kernel"})
     plan = F.datapath_plan(POSIT16, "srt_r4_cs_of_fr")
     H, KV, hd = 15, 5, 64
     q, k, v = flash_inputs(torch, dev, 8, 1, 512, H, KV, hd, 7)
@@ -3019,17 +3103,9 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
                                               left=False)
     calls = {
         "K3 decode": (lambda: F.posit_flash_attention(POSIT16, q, k, v, True, kv_start=start,
-                                                      kv_len=pos + 1, q_pos=pos),
-                      ["flash_kernel"]),
+                                                      kv_len=pos + 1, q_pos=pos), FLASH_FWD),
         "K4 decode": (lambda: F.posit_flash_attention(POSIT16, gq, gk, gv, True, kv_len=pos + 1,
-                                                      q_pos=pos, block_tables=bt),
-                      ["flash_kernel"]),
-        "K5 8x256": (lambda: F.posit_flash_attention(POSIT16, sq, sk, sv, True, seg_q=seg_q,
-                                                     seg_kv=seg, seg_len=256), ["flash_kernel"]),
-        "K3 prefill": (lambda: F.posit_flash_attention(POSIT16, qp, kp, vp, True,
-                                                       kv_start=s56), ["flash_kernel"]),
-        "K6": (lambda: F.posit_flash_attention_fwd(POSIT16, tq, tk, tv, True),
-               ["flash_kernel"]),
+                                                      q_pos=pos, block_tables=bt), FLASH_FWD),
         "K7": (lambda: F.flash_backward_dq(POSIT16, plan, *bwd(POSIT16)),
                ["flash_bwd_dq_kernel"]),
         "K8": (lambda: F.flash_backward_dkv(POSIT16, plan, *bwd(POSIT16)),
@@ -3037,6 +3113,17 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
         "K9 8x64": (lambda: ops.posit_softmax_fused(POSIT16, router), ["softmax_kernel"]),
         "K9 4096x64": (lambda: ops.posit_softmax_fused(POSIT16, x), ["softmax_kernel"]),
     }
+    # the tile loop (K3 prefill, K5, K6) in every format
+    for fmt in (POSIT16, POSIT32, POSIT64):
+        tag = "" if fmt is POSIT16 else f" posit{fmt.n}"
+        calls.update({
+            f"K3 prefill{tag}": (lambda f=fmt: F.posit_flash_attention(f, qp, kp, vp, True,
+                                                                       kv_start=s56), FLASH_FWD),
+            f"K5 8x256{tag}": (lambda f=fmt: F.posit_flash_attention(
+                f, sq, sk, sv, True, seg_q=seg_q, seg_kv=seg, seg_len=256), FLASH_FWD),
+            f"K6{tag}": (lambda f=fmt: F.posit_flash_attention_fwd(f, tq, tk, tv, True),
+                         FLASH_FWD),
+        })
     for fmt in (POSIT32, POSIT64):
         plan_n = F.datapath_plan(fmt, "srt_r4_cs_of_fr")
         calls.update({
@@ -3113,6 +3200,7 @@ def main() -> int:
         return 0
     from repro_torch.core.posit import POSIT16, POSIT32, POSIT64
     from repro_torch.kernels import _build
+    from repro_torch.kernels.posit_div import datapath_plan
     from repro_torch.models.transformer import resolve_device
 
     # the port's entry points resolve their device here, which keeps bf16
@@ -3153,6 +3241,7 @@ def main() -> int:
     flash_err = timed("K3", phase_flash, torch, dev)
     paged_err = timed("K4", phase_paged_kernel, torch, dev)
     packed_err, packs_held = timed("K5", phase_packed_kernel, torch, dev)
+    suffix_err = timed("K3 suffix", phase_suffix, torch, dev)
     softmax_err = timed("K9", phase_softmax, torch, dev)
     k11 = timed("K11", phase_pattern_div, torch, dev)
     cast_err = timed("K12", phase_casts, torch, dev)
@@ -3224,7 +3313,14 @@ def main() -> int:
         rows.update(timed("timing", layout_rows, torch, dev, fmt, pg["pack"]))
         rows.update(timed("timing", training_rows, torch, dev, fmt))
     rows.update(timed("timing", training_rows, torch, dev, POSIT16, kv_f32=True))
-    print_rows({k: v for k, v in rows.items() if k[:2] in ("K4", "K5", "K6", "K7", "K8")})
+    # posit64 nrd, the longest datapath: the forward's tile loop and K7/K8
+    nrd64 = datapath_plan(POSIT64, "nrd")
+    rows["K3 posit64 nrd prefill"] = timed("timing", flash_row, torch, dev, nrd64, 1, 256, 256,
+                                           [0], [56], fmt=POSIT64)
+    rows.update(timed("timing", layout_rows, torch, dev, POSIT64, paged64["pack"], "nrd"))
+    rows.update(timed("timing", training_rows, torch, dev, POSIT64, variant="nrd"))
+    print_rows({k: v for k, v in rows.items()
+                if k[:2] in ("K4", "K5", "K6", "K7", "K8") or k == "K3 posit64 nrd prefill"})
     timed("plan table", plan_table, torch, dev, paged["pack"])
     rows.update(timed("timing", division_rows, torch, dev))
     timed("timing", decode_breakdown, torch, dev, cfg, params)
@@ -3302,9 +3398,14 @@ def main() -> int:
         entry("K2 rowwise fused posit divide", csrc + "posit_fused_div.cu",
               "src/repro/kernels/posit_fused_div.py:149", launches("rowwise"), div_err,
               rows["K2 decode"]),
-        entry("K3 posit flash attention, dense", csrc + "posit_flash_attn.cu",
-              "src/repro/kernels/posit_flash_attn.py:330", launches("K3"),
+        entry("K3 posit flash attention, dense decode (the one-row loop, flash_kernel)",
+              csrc + "posit_flash_attn.cu", "src/repro/kernels/posit_flash_attn.py:330",
+              launches("K3") - launches("K3 tile"),
               max(flash_err, grid["K3"], f32_err["K3"]), rows["K3 decode"]),
+        entry("K3 posit flash attention, dense prefill (the tile loop, flash_tile_kernel; "
+              "K5 and K6 run it too)", csrc + "posit_flash_attn.cu",
+              "src/repro/kernels/posit_flash_attn.py:330", launches("K3 tile"),
+              max(flash_err, suffix_err, f32_err["K3"]), rows["K3 prefill"]),
         entry("K4 posit flash attention, paged decode", csrc + "posit_flash_attn.cu",
               "src/repro/kernels/posit_flash_attn.py:330", launches("K4"),
               max(paged_err, f32_err["K4"]), rows["K4 decode"]),

@@ -16,7 +16,12 @@ For CUDA tensors :func:`posit_flash_attention` launches
 twin :func:`posit_flash_attention_plain`.  Both scan kv tiles of
 :data:`BLOCK_K` keys anchored at each sequence's ``kv_start``, so a row's
 result does not depend on its left-pad length: serving stays bit-identical
-solo, batched and mid-flight.  Both differ from the reference (whose tiles
+solo, batched and mid-flight.  The kernel source has two loops, and
+:func:`flash_loop` picks one by the kind of call: the one-row loop for the
+decode calls (K3 with ``q_pos``, K4), the tile loop (16-row tiles) for
+every other call (K3 prefill and suffix prefill, K5, K6), whatever its
+``Sq``.  The two share their arithmetic, so a row has the same bits in every
+launch that carries it.  Both differ from the reference (whose tiles
 start at key 0 and are ``min(128, round_up(Sk, 8))`` wide) only in where the
 online-softmax rescaling happens and in summation order; the tests bound it.
 
@@ -267,6 +272,22 @@ def posit_flash_attention_fwd_plain(fmt: PositFormat, q, k, v, causal: bool = Tr
 
 
 _DENSE, _PAGED, _PACKED = 0, 1, 2   # csrc/posit_flash_attn.cu Layout
+ROW_LOOP, TILE_LOOP = 0, 1           # csrc/posit_flash_attn.cu Loop
+
+
+def flash_loop(q_pos=None, block_tables=None) -> int:
+    """The loop of ``csrc/posit_flash_attn.cu`` a forward call takes:
+    :data:`ROW_LOOP` (one query row a block) for the decode calls, those
+    that pass ``q_pos`` (``layers.decode_attention``) or a block table (K4,
+    ``layers.decode_attention_paged``); :data:`TILE_LOOP` (16-row tiles)
+    for every other call: a whole or suffix prefill (K3), a pack (K5) and
+    the training forward (K6).
+
+    The rule keys on the kind of call, never on ``Sq``: a one-token suffix
+    prefill must give its row the bits of the same row of the whole
+    prompt's prefill, and a packed segment those of its solo prefill, so
+    every prefill row goes through the same loop."""
+    return ROW_LOOP if q_pos is not None or block_tables is not None else TILE_LOOP
 
 
 @functools.lru_cache(maxsize=None)
@@ -274,7 +295,7 @@ def _flash_fn(name: str):
     """``posit_flash_attn`` of the library ``name`` (one per format, posit64
     in parts: ``_build.library_of``)."""
     fn = _build.load(name).posit_flash_attn
-    fn.argtypes = (PLAN_ARGTYPES + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
+    fn.argtypes = (PLAN_ARGTYPES + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 12
                    + [ctypes.c_int] * 9 + [ctypes.c_float] + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -330,7 +351,7 @@ def _launch(fmt: PositFormat, plan, q, k, v, causal, window, q_offset, scale, kv
     ``m``, ``l`` (B*H, Sq) when ``residuals`` (K6), else None.  The kv side
     is dense (K3, K6), a block pool read through ``block_tables`` (K4) or a
     packed sequence with segment ids ``seg_q``/``seg_kv`` and ``bq`` query
-    rows per block (K5)."""
+    rows per block (K5); the loop is :func:`flash_loop`'s."""
     B, Sq, H, hd = q.shape
     _check_kernel_inputs(plan, q, k, v, hd, "paged" if block_tables is not None else
                          "packed" if seg_q is not None else "dense")
@@ -362,7 +383,7 @@ def _launch(fmt: PositFormat, plan, q, k, v, causal, window, q_offset, scale, kv
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = _flash_fn(_build.library_of("posit_flash_attn", plan))(
-            *plan_args(plan), layout, kv_f32,
+            *plan_args(plan), layout, flash_loop(q_pos, block_tables), kv_f32,
             *(None if t is None else t.data_ptr() for t in ptrs),
             B, Sq, Sk, H, KV, hd, NB, bs, mb, float(scale), int(bool(causal)), int(window),
             int(q_offset), minpos_eps(fmt), int(bq), stream)
@@ -396,7 +417,8 @@ def posit_flash_attention(fmt: PositFormat, q, k, v, causal: bool = True,
     prompt.
 
     CUDA tensors launch the hand-written kernel, counted per layout in
-    ``posit_flash_attention.launches`` (K3), ``.paged_launches`` (K4) and
+    ``posit_flash_attention.launches`` (K3; of them ``.tile_launches`` the
+    prefills, which take the tile loop), ``.paged_launches`` (K4) and
     ``.packed_launches`` (K5); it takes bf16 or f32 k/v (f16 upcast to f32;
     all exact) and the plans :func:`kernel_built` names (every posit8,
     posit16, posit32 and posit64 plan), and raises for anything else.  CPU
@@ -427,10 +449,13 @@ def posit_flash_attention(fmt: PositFormat, q, k, v, causal: bool = True,
         posit_flash_attention.packed_launches += 1
     else:
         posit_flash_attention.launches += 1
+        if flash_loop(q_pos) == TILE_LOOP:
+            posit_flash_attention.tile_launches += 1
     return out
 
 
 posit_flash_attention.launches = 0
+posit_flash_attention.tile_launches = 0   # of .launches: K3 through the tile loop (prefill)
 posit_flash_attention.paged_launches = 0
 posit_flash_attention.packed_launches = 0
 
@@ -444,8 +469,9 @@ def posit_flash_attention_fwd(fmt: PositFormat, q, k, v, causal: bool = True,
     returns (B*H, Sq_padded)).  ``m + log(l)`` is the row logsumexp of the
     masked scores; a fully masked row has ``l == 0``.
 
-    CUDA tensors launch the K3 kernel with its residual outputs (counted in
-    ``posit_flash_attention_fwd.launches``), CPU tensors run the plain twin.
+    CUDA tensors launch the tile loop of K3's source with its residual
+    outputs (counted in ``posit_flash_attention_fwd.launches``), CPU tensors
+    run the plain twin.
     """
     plan = datapath_plan(fmt, variant)
     _check_shapes(q, k, v)

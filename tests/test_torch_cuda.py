@@ -823,6 +823,137 @@ def test_dq_kernel_geometries_match_twin(dev, case, fmt):
     assert (runs[0][empty] == 0).all()
 
 
+# The tile loop's geometries (K3 prefill; K5 and K6 run the same loop),
+# (B, Sq, Sk, H, KV, hd, causal, window, kv_start): head_dim 8, 40, 64, 72
+# and 128 (zero-padded to a multiple of 8), Sq off the 16-row tile,
+# kv_start > 0, a window, non-causal with Sq < Sk
+TILE_CASES = {
+    "hd8": (2, 37, 37, 4, 2, 8, True, 0, [0, 5]),
+    "hd40": (2, 77, 77, 6, 2, 40, True, 0, [0, 30]),
+    "hd64_start56": (1, 256, 256, 15, 5, 64, True, 0, [56]),
+    "hd72": (2, 50, 50, 6, 3, 72, True, 0, [3, 0]),
+    "hd128": (1, 96, 96, 16, 16, 128, True, 0, [10]),
+    "window": (2, 160, 160, 6, 2, 64, True, 48, [0, 20]),
+    "non_causal": (2, 90, 120, 6, 2, 64, False, 0, [0, 7]),
+}
+
+
+@pytest.mark.parametrize("fmt", [POSIT16, POSIT32, POSIT64], ids=lambda f: f"posit{f.n}")
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_tile_loop_geometries_match_twin(dev, case, fmt):
+    """K3 prefill (the tile loop) at each geometry: within FLASH_TOL of its
+    twin, the same bits on a second run, on f32 K/V holding bf16 values the
+    bf16 call's bits, on f32 K/V bf16 cannot hold within FLASH_TOL, and rows
+    before their kv_start exactly 0."""
+    B, Sq, Sk, H, KV, hd, causal, window, start = TILE_CASES[case]
+    g = torch.Generator().manual_seed(hd + Sq)
+    q = torch.randn(B, Sq, H, hd, generator=g).to(dev)
+    k = torch.randn(B, Sk, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    v = torch.randn(B, Sk, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    kw = dict(window=window, kv_start=torch.tensor(start, dtype=torch.int32, device=dev))
+    runs = [posit_flash_attention(fmt, q, k, v, causal, **kw) for _ in range(2)]
+    _close(fmt, runs[0], posit_flash_attention_plain(fmt, q, k, v, causal, **kw))
+    assert torch.equal(bits(runs[0]), bits(runs[1]))
+    same = posit_flash_attention(fmt, q, k.float(), v.float(), causal, **kw)
+    assert torch.equal(bits(runs[0]), bits(same))
+    kf, vf = _f32_twin(k, g), _f32_twin(v, g)
+    _close(fmt, posit_flash_attention(fmt, q, kf, vf, causal, **kw),
+           posit_flash_attention_plain(fmt, q, kf, vf, causal, **kw))
+    if causal:
+        for b, s in enumerate(start):
+            assert (runs[0][b, :s] == 0).all()
+
+
+@pytest.mark.parametrize("fmt", [POSIT16, POSIT32, POSIT64], ids=lambda f: f"posit{f.n}")
+@pytest.mark.parametrize("suffix", [1, 17])
+def test_suffix_prefill_rows_are_whole_prefill_rows(dev, suffix, fmt):
+    """A prefix-sharing suffix prefill (``layers.prefill_suffix_attention``:
+    the suffix's queries at q_offset t0 over the cache's rows [0, t0 + n))
+    gives its rows the bits of the same rows of the whole prompt's prefill,
+    for a 1-token and a 17-token suffix: every prefill takes the tile loop,
+    whatever its length, and a row's bits do not depend on its tile."""
+    g = torch.Generator().manual_seed(suffix)
+    P = 150
+    q = torch.randn(2, P, 15, 64, generator=g).to(dev)
+    k = torch.randn(2, P, 5, 64, generator=g).to(torch.bfloat16).to(dev)
+    v = torch.randn(2, P, 5, 64, generator=g).to(torch.bfloat16).to(dev)
+    start = torch.tensor([0, 6], dtype=torch.int32, device=dev)
+    whole = posit_flash_attention(fmt, q, k, v, True, kv_start=start)
+    for t0 in (P - suffix, 70):
+        end = t0 + suffix
+        part = posit_flash_attention(fmt, q[:, t0:end], k[:, :end], v[:, :end], True,
+                                     q_offset=t0, kv_start=start)
+        assert torch.equal(bits(part), bits(whole[:, t0:end])), t0
+
+
+@pytest.mark.parametrize("fmt", [POSIT8, POSIT16, POSIT32, POSIT64], ids=lambda f: f"posit{f.n}")
+@pytest.mark.parametrize("case", ["hd64_start56", "hd40", "window"])
+def test_tile_loop_is_row_loop_bits(dev, case, fmt):
+    """At posit8 and posit16 the tile loop (K3 prefill, K5, K6) keeps the
+    one-row loop's arithmetic: a prefill's rows, and K6's m and l, are the
+    bits the one-row loop gives the same rows (reached here with q_pos = 0,
+    which routes a call there and shifts no position).  Posit32 and posit64
+    run the tile loop's products on the tensor cores: there the two loops'
+    outputs agree within FLASH_TOL and their lse = m + log l within
+    LSE_TOL, the twin's gates."""
+    B, Sq, Sk, H, KV, hd, causal, window, start = TILE_CASES[case]
+    g = torch.Generator().manual_seed(hd + Sq + 1)
+    q = torch.randn(B, Sq, H, hd, generator=g).to(dev)
+    k = torch.randn(B, Sk, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    v = torch.randn(B, Sk, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    plan = F.datapath_plan(fmt, "srt_r4_cs_of_fr")
+    ks = torch.tensor(start, dtype=torch.int32, device=dev)
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    args = (fmt, plan, q, k, v, causal, window, 0, 0.0, ks, None)
+    tile = F._launch(*args, None, residuals=True)
+    rows = F._launch(*args, zero, residuals=True)
+    if fmt.n < 32:
+        for a, b in zip(tile, rows):
+            assert torch.equal(bits(a), bits(b))
+        return
+    _close(fmt, tile[0], rows[0])
+    live = rows[2] > 0
+    lse = [(m + torch.log(l))[live] for _, m, l in (tile, rows)]
+    assert (lse[0] - lse[1]).abs().max() <= LSE_TOL
+
+
+@pytest.mark.parametrize("fmt", [POSIT32, POSIT64], ids=lambda f: f"posit{f.n}")
+def test_forward_row_max_is_dq_kernels_row_max(dev, fmt):
+    """K6's m against the largest of K7's scaled scores on the same inputs.
+    K7 reads them back through its dq: with dO = 0, D = -1 and l = 1 its ds
+    is p = exp(s * scale - m) through K1, and with q zero in head dims [64,
+    128) and key j one-hot there (k[j, 64 + j] = 1), dq[i, 64 + j] = scale *
+    p_ij, so a row's peak there is scale * exp(max_j s_ij * scale - m_i).
+    At posit32 and posit64 K6 computes s by K7's own 3xTF32 code, scaled
+    at the same point, so the two maxima are the same float: the peak is
+    exp(0) = 1 exactly, and its log 0.  The bound below (2^-20 of the row's
+    largest sum of |q_d k_d| times the scale) is what an f32 FMA forward
+    would have to meet; posit16 would round p to 1 and show nothing."""
+    B, S, H, KV, hd = 2, 64, 4, 2, 128
+    g = torch.Generator().manual_seed(23)
+    q = torch.randn(B, S, H, hd, generator=g).to(torch.bfloat16).float()
+    q[..., 64:] = 0
+    k = torch.randn(B, S, KV, hd, generator=g)
+    k[..., 64:] = 0
+    k[:, torch.arange(S), :, 64 + torch.arange(S)] = 1.0
+    k = k.to(torch.bfloat16)
+    v = torch.randn(B, S, KV, hd, generator=g).to(torch.bfloat16)
+    scale = 0.125
+    kh = k.float()[:, :, torch.arange(H) // (H // KV)]            # (B, S, H, hd)
+    mag = torch.einsum("bihd,bjhd->bihj", q.double().abs(), kh.double().abs())
+    causal = torch.ones(S, S, dtype=torch.bool).tril()[None, :, None, :]
+    tol = (mag.masked_fill(~causal, 0).amax(-1) * scale * 2.0 ** -20).to(dev)
+    q, k, v = q.to(dev), k.to(dev), v.to(dev)
+    _, m, l = F.posit_flash_attention_fwd(fmt, q, k, v, True, 0, 0, scale)
+    ones = torch.ones_like(l)
+    plan = F.datapath_plan(fmt, "srt_r4_cs_of_fr")
+    dq = F.flash_backward_dq(fmt, plan, q, k, v, torch.zeros_like(q), m, ones, -ones, True, 0,
+                             0, scale)
+    gap = torch.log(dq[..., 64:].amax(-1).double() / scale)       # max_j s_ij * scale - m_i
+    assert bool((gap.abs() <= tol).all())
+    assert bool((gap == 0).all())
+
+
 def test_flash_kernel_decode_hd128_mha(dev):
     """OLMoE's decode: head_dim 128, 16/16 heads, 8 slots with left pads
     (slot 7's only key lies before its start: fully masked)."""
@@ -1030,8 +1161,13 @@ def test_rowwise_kernel_past_the_old_grid(dev):
 
 
 def test_flash_kernels_past_the_old_grid(dev):
-    """K3 at B*H = 65536 and K7/K8 at B*KV = 65536 (gridDim.y took 65535),
-    within their bounds of the twins."""
+    """K3 decode and K6 (the tile loop) at B*H = 65536 and K7/K8 at B*KV =
+    65536 (gridDim.y took 65535), within their bounds of the twins (K6 at
+    posit32: o within FLASH_TOL, lse = m + log l within LSE_TOL), and K6's
+    rows past head 65535 the bits a small launch gives them, at posit16
+    and posit32.  (At posit16 the twin on the card sums in cuBLAS's order:
+    over these 6.7e7 outputs some came out 2^-10 off, past FLASH_TOL, as
+    posit16's two roundings allow.)"""
     g = torch.Generator(device=dev).manual_seed(1)
     B, H, hd = 4096, 16, 64
     q = torch.randn(B, 1, H, hd, generator=g, device=dev)
@@ -1042,6 +1178,18 @@ def test_flash_kernels_past_the_old_grid(dev):
     p = posit_flash_attention_plain(POSIT16, q, k, v, True, kv_len=pos + 1, q_pos=pos)
     assert (o - p).abs().max() <= FLASH_TOL
     q, k, v, co = _train_inputs(dev, B=B, S=16, H=H, KV=H, hd=hd)
+    # K6's tile loop past the old grid: in its MMA form (posit32) within the
+    # twin's bounds; in both forms the last 16 sequences' rows (heads past
+    # 65535) the bits a launch of those 16 alone gives them
+    res = F.posit_flash_attention_fwd(POSIT32, q, k, v, True)
+    twin = F.posit_flash_attention_fwd_plain(POSIT32, q, k, v, True)
+    assert (res[0] - twin[0]).abs().max() <= FLASH_TOL
+    assert ((res[1] + torch.log(res[2])) - (twin[1] + torch.log(twin[2]))).abs().max() <= LSE_TOL
+    for fmt in (POSIT16, POSIT32):
+        whole = F.posit_flash_attention_fwd(fmt, q, k, v, True)
+        tail = F.posit_flash_attention_fwd(fmt, q[-16:], k[-16:], v[-16:], True)
+        for a, b in zip(whole, tail):
+            assert torch.equal(bits(a[-b.shape[0]:]), bits(b))
     o, m, l = F.posit_flash_attention_fwd(POSIT16, q, k, v, True)
     plan = F.datapath_plan(POSIT16, "srt_r4_cs_of_fr")
     args = (q, k, v, co, m, l, F._row_sums(co, o), True, 0, 0, 1 / 8)
