@@ -33,7 +33,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               exactly 0.
    K4       — paged decode attention (B=8, max_seq 512 in pages of 16,
               a shuffled table with shared pages and a parked all-zero
-              row, kv_start 0 and above 0, MODEL_PLANS; every posit16,
+              row, kv_start 0 and above 0, MODEL_PLANS, at SmolLM's 15/5
+              heads of 64 and OLMoE's 16/16 of 128; every posit16,
               posit8, posit32 and posit64 plan at B=4): the same bits as
               K3 on the gathered dense cache, the twin's gate, fully
               masked rows exactly 0.
@@ -207,9 +208,10 @@ non-zero and prints no result.
 only builds the package under ``DIR`` (default: this checkout's ``src``),
 every library at once, and prints each library's build seconds and ptxas
 report and the device times of K2-K10 (kernels a parent checkout of the
-port has too): run it on a parent checkout and on this one in
-turns (parent, change, change, parent) in one call, after any edit to a
-kernel source or to ``posit_srt.cuh``.  ``--only`` (any of K2, K3, K4,
+port has too), and, with K3 or K4, a digest of each decode output's bits
+on fixed inputs (``DIGEST_CASES``): run it on a parent checkout and on
+this one in turns (parent, change, change, parent) in one call, after any
+edit to a kernel source or to ``posit_srt.cuh``.  ``--only`` (any of K2, K3, K4,
 K5, K6, K7, K8, K9, K10) builds just those kernels' libraries and times
 just their rows: an A/B of one kernel's design variants, each a copy of
 ``src`` with the kernel source changed.
@@ -220,6 +222,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import gc
+import hashlib
 import json
 import math
 import os
@@ -345,6 +348,16 @@ def bits(t):
     import torch
 
     return t.contiguous().view(torch.int32)
+
+
+def digest(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes: two runs
+    (of this tree and of a parent's) print the same digest exactly when
+    their outputs have the same bits."""
+    import torch
+
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
 
 
 def max_abs_err(k, p) -> float:
@@ -652,10 +665,14 @@ def phase_paged_kernel(torch, dev):
     # decode: 8 slots, max_seq 512 in pages of 16, 15/5 heads, hd 64
     big = paged_inputs(torch, dev, 8, 32, 16, 15, 5, 64, 31)
     pos = torch.tensor([511, 0, 17, 130, 255, 64, 300, 40], dtype=torch.int32, device=dev)
+    # and OLMoE's 16/16 heads of 128
+    wide = paged_inputs(torch, dev, 8, 32, 16, *MOE_HEADS, 33)
     for n, variant in MODEL_PLANS:
         compare("decode start 0", *big, pos, [0] * 8, variant, n)
         o = compare("decode left pads", *big, pos, [0, 0, 5, 100, 250, 64, 0, 41], variant, n)
         check(bool((o[7] == 0).all()), f"K4 posit{n} decode: fully masked row is not 0")
+        o = compare("decode hd128", *wide, pos, [0, 0, 5, 100, 250, 64, 0, 41], variant, n)
+        check(bool((o[7] == 0).all()), f"K4 posit{n} decode hd128: fully masked row is not 0")
     small = paged_inputs(torch, dev, 4, 8, 16, 15, 5, 64, 32)
     pos = torch.tensor([127, 40, 77, 60], dtype=torch.int32, device=dev)
     for n in PLAN_FORMATS:
@@ -666,7 +683,8 @@ def phase_paged_kernel(torch, dev):
           f"twin (max|diff| posit16 {worst[16]:.3g}, posit64 {worst[64]:.3g}, posit32 "
           f"{worst[32]:.3g}; posit8 {flips} of {elems} outputs one step off): decode B=8 x "
           "512 in pages of 16, shuffled shared pages and a parked row, kv_start 0 and "
-          f"above, {', '.join(f'posit{n} {v}' for n, v in MODEL_PLANS)}; every plan of "
+          "above, 15/5 heads of 64 and 16/16 of 128, "
+          f"{', '.join(f'posit{n} {v}' for n, v in MODEL_PLANS)}; every plan of "
           "posit16, posit32, posit8 and posit64 at B=4, one answer per format")
     return max(worst.values())
 
@@ -2352,10 +2370,12 @@ def moe_difference(torch, dev, cfg, params):
 
 PROFILE_TRIES = 3
 MATMUL_NAMES = ("gemm", "gemv", "cutlass", "nvjet", "xmma", "sm90")
-# the flash forward's kernels (csrc/posit_flash_attn.cu): the one-row loop
-# (decode: K3 with q_pos, K4) and the tile loop (K3 prefill, K5, K6); a
-# parent checkout of the port before the tile loop has the first alone
-FLASH_FWD = ["flash_kernel", "flash_tile_kernel"]
+# the flash forward's kernels (csrc/posit_flash_attn.cu): the decode loop
+# (K3 with q_pos, K4) and the tile loop (K3 prefill, K5, K6); a parent
+# checkout of the port before the decode loop has the one-row loop
+# (flash_kernel) in its place.  A name missing here leaves a row's device
+# time to CUDA events.
+FLASH_FWD = ["flash_decode_kernel", "flash_kernel", "flash_tile_kernel"]
 
 
 def profiled(torch, fn, want, counts=None):
@@ -2478,6 +2498,12 @@ def phase_timing(torch, dev):
     rows["K3 prefill"] = flash_row(torch, dev, plan, 1, 256, 256, [0], [56])
     rows["K3 f32 K/V decode"] = flash_row(torch, dev, plan, 8, 1, 512, DECODE_POS,
                                           [0, 0, 5, 3, 9, 0, 14, 31], kv_f32=True)
+    # OLMoE's decode (16/16 heads of 128), dense and paged, timed here and
+    # not after the MoE phase: there the profiler's sessions have come back
+    # without device records, which left the row to CUDA events
+    rows["K3 decode hd128"] = flash_row(torch, dev, plan, 8, 1, 512, DECODE_POS,
+                                        [0, 0, 5, 3, 9, 0, 14, 31], MOE_HEADS)
+    rows["K4 decode hd128"] = paged_row(torch, dev, POSIT16, DEFAULT_VARIANT, MOE_HEADS)
     rows["K3 f32 K/V prefill"] = flash_row(torch, dev, plan, 1, 256, 256, [0], [56],
                                            kv_f32=True)
     # the two-word frame on the model path: posit64 at the same shapes
@@ -2511,9 +2537,10 @@ def print_rows(rows):
         lib = r["library_ms"]
         if "library_from" in r:
             lib = f"{lib} ms ({r['library_from']})"
+        dig = f", output digest {r['digest']}" if "digest" in r else ""
         print(f"timing {name} {r['shape']}{lens}: device {r['ms']} ms ({r['ms_from']}), per call "
               f"{r['call_ms']:.4f} ms{rate}, plain {plain}, bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']}), library {lib}")
+              f"({r['bound_by']}), library {lib}{dig}")
 
 
 def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64), fmt=None,
@@ -2560,17 +2587,19 @@ def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64), fmt=No
     qs, ks, vs = (t.float().transpose(1, 2).contiguous() for t in (q, k, v))
     lib = lambda: Fn.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask[:, None],
                                                    enable_gqa=True)
-    return {"shape": [B, Sq, Sk, H, KV, hd], "ms": dev_ms, "ms_from": src,
-            "call_ms": cuda_time_ms(call),
-            "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(
-                fmt, q, k, v, True, **kw), iters=3),
-            "bound_ms": bms, "bound_by": by, "library_ms": device_call_ms(torch, lib)}
+    row = {"shape": [B, Sq, Sk, H, KV, hd], "ms": dev_ms, "ms_from": src,
+           "call_ms": cuda_time_ms(call),
+           "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(
+               fmt, q, k, v, True, **kw), iters=3),
+           "bound_ms": bms, "bound_by": by, "library_ms": device_call_ms(torch, lib)}
+    if Sq == 1:
+        row["digest"] = digest(call())
+    return row
 
 
 def moe_rows(torch, dev):
     """K9 at the router's shape (8 rows of 64 experts) and at 4096 rows,
-    posit16, posit64 and posit32, with torch.softmax as the yardstick; K3 at
-    OLMoE's decode shape."""
+    posit16, posit64 and posit32, with torch.softmax as the yardstick."""
     from repro_torch.core.posit import POSIT16, POSIT32, POSIT64
     from repro_torch.kernels import ops
     from repro_torch.kernels.posit_div import datapath_plan
@@ -2594,8 +2623,6 @@ def moe_rows(torch, dev):
                                                iters=5),
                       "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
                       "library_from": lib_src}
-    rows["K3 decode hd128"] = flash_row(torch, dev, plan, 8, 1, 512, DECODE_POS,
-                                        [0, 0, 5, 3, 9, 0, 14, 31], MOE_HEADS)
     print_rows(rows)
     return rows
 
@@ -2671,11 +2698,10 @@ def division_rows(torch, dev):
     return rows
 
 
-def layout_rows(torch, dev, fmt, pack, variant=DEFAULT_VARIANT):
-    """K4 at the paged decode's shapes (8 slots, max_seq 512 in pages of 16,
-    paged admissions at start 0) and K5 on a pack of the paged phase's most
-    frequent shape, ``pack`` = (N, width, segment lengths), right-padded, at
-    ``fmt`` and ``variant``."""
+def paged_row(torch, dev, fmt, variant=DEFAULT_VARIANT, heads=(15, 5, 64)):
+    """K4's timing row at the paged decode's shapes (8 slots, max_seq 512
+    in pages of 16, paged admissions at start 0, ``heads`` = (H, KV, hd)),
+    at ``fmt`` and ``variant``, SDPA on the gathered K/V as the yardstick."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels.posit_div import datapath_plan
@@ -2685,13 +2711,11 @@ def layout_rows(torch, dev, fmt, pack, variant=DEFAULT_VARIANT):
         posit_flash_attention_plain,
     )
 
-    H, KV, hd, bs = 15, 5, 64, PAGED_BLOCK
+    H, KV, hd = heads
+    bs = PAGED_BLOCK
     plan = datapath_plan(fmt, variant)
-    tag = ("" if fmt.n == 16 else f" posit{fmt.n}") + ("" if variant == DEFAULT_VARIANT
-                                                      else f" {variant}")
-    rows = {}
     q, pk, pv, bt = paged_inputs(torch, dev, 8, 512 // bs, bs, H, KV, hd, 8)
-    pos_l, start_l = [47, 63, 92, 120, 151, 178, 199, 231], [0] * 8
+    pos_l, start_l = DECODE_POS, [0] * 8
     pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
     kw = dict(kv_start=torch.tensor(start_l, dtype=torch.int32, device=dev),
               kv_len=pos + 1, q_pos=pos, block_tables=bt, variant=variant)
@@ -2707,12 +2731,31 @@ def layout_rows(torch, dev, fmt, pack, variant=DEFAULT_VARIANT):
     mask = (kp[None, :] <= pos[:, None])[:, None, None, :]
     qs, ks, vs = (t.float().transpose(1, 2).contiguous() for t in (q, kd, vd))
     lib = lambda: Fn.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
-    rows[f"K4{tag} decode"] = {
-        "shape": [8, 1, 512, H, KV, hd], "ms": dev_ms, "ms_from": src,
-        "call_ms": cuda_time_ms(call),
-        "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(fmt, q, pk, pv, True,
-                                                                     **kw), iters=3),
-        "bound_ms": bms, "bound_by": by, "library_ms": device_call_ms(torch, lib)}
+    return {"shape": [8, 1, 512, H, KV, hd], "ms": dev_ms, "ms_from": src,
+            "call_ms": cuda_time_ms(call),
+            "plain_ms": cuda_time_ms(lambda: posit_flash_attention_plain(fmt, q, pk, pv, True,
+                                                                         **kw), iters=3),
+            "bound_ms": bms, "bound_by": by, "library_ms": device_call_ms(torch, lib),
+            "digest": digest(call())}
+
+
+def layout_rows(torch, dev, fmt, pack, variant=DEFAULT_VARIANT):
+    """K4 at the paged decode's shapes (``paged_row``) and K5 on a pack of
+    the paged phase's most frequent shape, ``pack`` = (N, width, segment
+    lengths), right-padded, at ``fmt`` and ``variant``."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.posit_div import datapath_plan
+    from repro_torch.kernels.posit_flash_attn import (
+        posit_flash_attention,
+        posit_flash_attention_plain,
+    )
+
+    H, KV, hd = 15, 5, 64
+    plan = datapath_plan(fmt, variant)
+    tag = ("" if fmt.n == 16 else f" posit{fmt.n}") + ("" if variant == DEFAULT_VARIANT
+                                                      else f" {variant}")
+    rows = {f"K4{tag} decode": paged_row(torch, dev, fmt, variant)}
 
     N, P, lens = pack
     q, k, v, seg_q, seg, segs = packed_inputs(torch, dev, lens, P, 9, left=False)
@@ -3015,6 +3058,8 @@ def sass_counts(build, name: str):
 # the libraries --time-kernels --only builds for each kernel it may time
 # (K10's: K12's too, whose cast kernels' SASS gives the old casts' cost)
 FLASH_FWD_LIBRARIES = ("posit_flash_attn_p16", "posit_flash_attn_p32", "posit_flash_attn_p64_r4")
+# K3 and K4's digests take every format and posit64's nrd too
+DECODE_LIBRARIES = FLASH_FWD_LIBRARIES + ("posit_flash_attn_p8", "posit_flash_attn_p64_r2")
 ONLY_LIBRARIES = {
     "K2": ("posit_fused_div",),
     "K3": FLASH_FWD_LIBRARIES,
@@ -3023,13 +3068,41 @@ ONLY_LIBRARIES = {
     "K9": ("posit_softmax",),
     "K10": ("posit_fused_div", "posit_cast"),
 }
-ONLY_LIBRARIES["K4"] = ONLY_LIBRARIES["K5"] = ONLY_LIBRARIES["K6"] = ONLY_LIBRARIES["K3"]
+ONLY_LIBRARIES["K5"] = ONLY_LIBRARIES["K6"] = ONLY_LIBRARIES["K3"]
+ONLY_LIBRARIES["K3"] = ONLY_LIBRARIES["K4"] = DECODE_LIBRARIES
 ONLY_LIBRARIES["K8"] = ONLY_LIBRARIES["K7"]
 # --time-kernels' K2 and K10 shapes: decode, prefill and the training
 # step's RMSNorm rows, 1024 x 1024; the reference benchmark's 64 x 1024 and
 # 2^24 and 2^28 elements
 K2_SHAPES = ((8, 960), (256, 960), (2048, 960), (1024, 1024), (8, 2048))
 K10_SIZES = ((64 * 1024, "64x1024"), (1 << 24, "2^24"), (1 << 28, "2^28"))
+
+
+def decode_digests(torch, dev, F, dense_in, paged_in, pos):
+    """The digest of K3 decode's and K4's outputs on ``--time-kernels``'
+    decode inputs (``dense_in`` = q, k, v, kv_start; ``paged_in`` = q, the
+    pools and the table; the slots at ``pos``) in every format at the
+    default plan and ``nrd``, on bf16 K/V and on f32 K/V holding values bf16
+    cannot (``f32_values``): a parent checkout's run prints the same
+    digests where the two give the same bits."""
+    from repro_torch.core.posit import PositFormat
+
+    q, k, v, start = dense_in
+    gq, gk, gv, bt = paged_in
+    kf, vf, gkf, gvf = (f32_values(torch, t, 40 + i) for i, t in enumerate((k, v, gk, gv)))
+    out = {}
+    for n in (8, 16, 32, 64):
+        for variant in (DEFAULT_VARIANT, "nrd"):
+            fmt = PositFormat(n)
+            for kv, kd, vd, pk, pv in (("bf16", k, v, gk, gv), ("f32", kf, vf, gkf, gvf)):
+                tag = f"posit{n} {variant} {kv} K/V"
+                out[f"K3 decode {tag}"] = digest(F.posit_flash_attention(
+                    fmt, q, kd, vd, True, kv_start=start, kv_len=pos + 1, q_pos=pos,
+                    variant=variant))
+                out[f"K4 decode {tag}"] = digest(F.posit_flash_attention(
+                    fmt, gq, pk, pv, True, kv_len=pos + 1, q_pos=pos, block_tables=bt,
+                    variant=variant))
+    return out
 
 
 def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
@@ -3040,11 +3113,13 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
     instantiation's), the static SASS of the posit16 K2-K8, K10 and K12
     kernels and the posit64 K2 and K10 ones (``sass_counts``), and the
     device time per launch of K3 (the timing phase's decode and prefill
-    rows), K4 (the paged decode), K5 (an 8 x 256 pack), K6-K8 (the training
-    rows), K9 (8 x 64 and 4096 x 64), K3 prefill, K5-K9 at posit32 and
-    posit64 too, K2 at
+    rows; decode at OLMoE's 16/16 heads of 128 and on f32 K/V too), K4 (the
+    paged decode; at 16/16 x 128 and at posit64 nrd too), K5 (an 8 x 256
+    pack), K6-K8 (the training rows), K9 (8 x 64 and 4096 x 64), K3, K4,
+    K5-K9 at posit32 and posit64 too, K2 at
     K2_SHAPES (posit16 and posit64) and K10 at K10_SIZES (posit16, posit32
-    and posit64), all at the default plan; K2 and K10 per call too.  Run it
+    and posit64), all at the default plan; K2 and K10 per call too; with K3
+    or K4, the digests of ``decode_digests``.  Run it
     from a parent checkout's ``src`` and from this one, in turns, on one
     card, after an edit to a kernel source or to the shared
     ``posit_srt.cuh``.  ``only`` (kernel names among ONLY_LIBRARIES'): build
@@ -3055,7 +3130,7 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
     from repro_torch.kernels import posit_flash_attn as F
 
     out = {"src": src, "build_s": {}, "ptxas": {}, "ptxas_posit16": {}, "ptxas_k7_k9": {},
-           "ptxas_tile": {}}
+           "ptxas_tile": {}, "ptxas_decode": {}}
     # every library at once, one nvcc each, as the main run builds them
     names = list(getattr(_build, "LIBRARIES", _build.SOURCES))
     if only:
@@ -3079,6 +3154,8 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
                                                        "warp_softmax_kernel")})
         out["ptxas_tile"].update({k: [r, sp] for k, r, sp in kernels
                                   if k.split()[0] == "flash_tile_kernel"})
+        out["ptxas_decode"].update({k: [r, sp] for k, r, sp in kernels
+                                    if k.split()[0] in ("flash_decode_kernel", "flash_kernel")})
     plan = F.datapath_plan(POSIT16, "srt_r4_cs_of_fr")
     H, KV, hd = 15, 5, 64
     q, k, v = flash_inputs(torch, dev, 8, 1, 512, H, KV, hd, 7)
@@ -3101,11 +3178,23 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
     gq, gk, gv, bt = paged_inputs(torch, dev, 8, 32, 16, H, KV, hd, 8)
     sq, sk, sv, seg_q, seg, _ = packed_inputs(torch, dev, pack_lens(8, 256), 256, 9,
                                               left=False)
+    wq, wk, wv = flash_inputs(torch, dev, 8, 1, 512, *MOE_HEADS, 7)
+    wgq, wgk, wgv, wbt = paged_inputs(torch, dev, 8, 32, 16, *MOE_HEADS, 8)
+    dense = lambda f, k_, v_, q_=q, variant=DEFAULT_VARIANT: F.posit_flash_attention(
+        f, q_, k_, v_, True, kv_start=start, kv_len=pos + 1, q_pos=pos, variant=variant)
+    paged = lambda f, q_, k_, v_, bt_, variant=DEFAULT_VARIANT: F.posit_flash_attention(
+        f, q_, k_, v_, True, kv_len=pos + 1, q_pos=pos, block_tables=bt_, variant=variant)
     calls = {
-        "K3 decode": (lambda: F.posit_flash_attention(POSIT16, q, k, v, True, kv_start=start,
-                                                      kv_len=pos + 1, q_pos=pos), FLASH_FWD),
-        "K4 decode": (lambda: F.posit_flash_attention(POSIT16, gq, gk, gv, True, kv_len=pos + 1,
-                                                      q_pos=pos, block_tables=bt), FLASH_FWD),
+        "K3 decode": (lambda: dense(POSIT16, k, v), FLASH_FWD),
+        "K3 decode hd128": (lambda: dense(POSIT16, wk, wv, wq), FLASH_FWD),
+        "K3 decode f32 K/V": (lambda: dense(POSIT16, k.float(), v.float()), FLASH_FWD),
+        "K3 decode posit32": (lambda: dense(POSIT32, k, v), FLASH_FWD),
+        "K3 decode posit64": (lambda: dense(POSIT64, k, v), FLASH_FWD),
+        "K4 decode": (lambda: paged(POSIT16, gq, gk, gv, bt), FLASH_FWD),
+        "K4 decode hd128": (lambda: paged(POSIT16, wgq, wgk, wgv, wbt), FLASH_FWD),
+        "K4 decode posit32": (lambda: paged(POSIT32, gq, gk, gv, bt), FLASH_FWD),
+        "K4 decode posit64": (lambda: paged(POSIT64, gq, gk, gv, bt), FLASH_FWD),
+        "K4 decode posit64 nrd": (lambda: paged(POSIT64, gq, gk, gv, bt, "nrd"), FLASH_FWD),
         "K7": (lambda: F.flash_backward_dq(POSIT16, plan, *bwd(POSIT16)),
                ["flash_bwd_dq_kernel"]),
         "K8": (lambda: F.flash_backward_dkv(POSIT16, plan, *bwd(POSIT16)),
@@ -3158,6 +3247,8 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
                 lambda f=fmt, a1=a1, b1=b1: ops.posit_div_fused(f, a1, b1),
                 ["elementwise_kernel"])
             per_call.append(f"K10 {label}{tag}")
+    if not only or {"K3", "K4"} & set(only):
+        out["digests"] = decode_digests(torch, dev, F, (q, k, v, start), (gq, gk, gv, bt), pos)
     if only:
         calls = {name: call for name, call in calls.items() if name.split()[0] in only}
     out["ms"] = {name: [] for name in calls}
@@ -3398,7 +3489,8 @@ def main() -> int:
         entry("K2 rowwise fused posit divide", csrc + "posit_fused_div.cu",
               "src/repro/kernels/posit_fused_div.py:149", launches("rowwise"), div_err,
               rows["K2 decode"]),
-        entry("K3 posit flash attention, dense decode (the one-row loop, flash_kernel)",
+        entry("K3 posit flash attention, dense decode (the decode loop, flash_decode_kernel: "
+              "a row's kv tiles over the block's warps)",
               csrc + "posit_flash_attn.cu", "src/repro/kernels/posit_flash_attn.py:330",
               launches("K3") - launches("K3 tile"),
               max(flash_err, grid["K3"], f32_err["K3"]), rows["K3 decode"]),

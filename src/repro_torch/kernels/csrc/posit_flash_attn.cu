@@ -18,8 +18,8 @@
 // Two loops, one launch each; the wrapper picks one by the kind of call
 // (kernels/posit_flash_attn.py flash_loop), never by Sq, and passes it as
 // `loop`:
-//   * the one-row loop (flash_kernel): the decode calls, K3 with q_pos and
-//     K4, one query row a block;
+//   * the decode loop (flash_decode_kernel): the decode calls, K3 with
+//     q_pos and K4, one query row a block;
 //   * the tile loop (flash_tile_kernel): every other call, K3's whole and
 //     suffix prefills, K5 and K6, 16-row q tiles.
 // A row's result does not depend on the launch that carries it (its tile,
@@ -33,22 +33,35 @@
 // keys are exact no-ops (p = 0, corr = exp(0) = 1), and tiles wholly outside
 // a block's keys are skipped.
 //
-// The one-row loop (simple and correct first; K3 decode and K4 beat SDPA
-// with it, PERF.md section 6):
-//   * one block per (b*H + h, query row): b*H + h on gridDim.x (up to
-//     2^31 - 1; gridDim.y stopped it at 65535), the row on gridDim.y, offsets
-//     in 64 bits; the KV head is h / G, so K/V are read in place, never
-//     repeated;
-//   * a loop over kv tiles of kBK keys staged in shared memory as f32 (the
-//     bf16 K/V are upcast in registers, exactly), QK^T and PV as f32 FMA;
-//     every per-row reduction runs sequentially in key order;
-//   * K4 (paged) changes only the tile load: key kp of sequence b is pool
-//     row bt[b*max_blocks + kp/bs] (clamped to [0, NB)), offset kp % bs.
-//     Each tile's pool rows are looked up once into shared memory; keys
-//     outside [kv_start, kv_len) load as 0 (a page row past a sequence's
-//     end may hold a previous owner's values).  The tiles, the masks and
-//     every sum are K3's, so K4 gives K3 decode's bits on a dense cache that
-//     holds the same logical rows; block_size is free of the tile size.
+// The decode loop (flash_decode_kernel; K3 decode and K4):
+//   * one block of kDecWarps warps per (b*H + h, query row): b*H + h on
+//     gridDim.x (up to 2^31 - 1), the row on gridDim.y, offsets in 64 bits;
+//     the KV head is h / G, so K/V are read in place, never repeated;
+//   * the row's kv tiles go in chunks of kDecWarps tiles, one tile a warp.
+//     A tile's K and V rows are copied as they arrive (bf16 or f32) by
+//     cp.async into the warp's buffers, 16-byte copies where the rows and
+//     bases allow, the next chunk's copies in flight while a chunk computes;
+//   * the parent loop's sums are sequential over the tiles only through the
+//     running max m, and max is exact in any order.  So each warp takes its
+//     tile's scores (q . k over the head's columns in order, one f32 FMA
+//     each, then * scale) and their max; the block forms each tile's prefix
+//     max m_t; each warp then takes p = exp(s - m_t), the tile's p summed in
+//     key order from zero (one lane) and its p v summed over the keys in
+//     order from zero (the lanes across the head's columns); and the block
+//     combines the tiles in order, l = fma(l, corr_t, sum_t) and acc =
+//     fma(acc, corr_t, pv_t) with corr_t = exp(m_{t-1} - m_t).  Those are
+//     the operations of the one-tile-at-a-time scan on the same values in
+//     the same order: the same bits in every format;
+//   * K4 (paged) changes only the copies: key kp of sequence b is pool
+//     row bt[b*max_blocks + kp/bs] (clamped to [0, NB)), offset kp % bs,
+//     looked up once a key; keys outside [kv_start, kv_len) load as 0 (a
+//     page row past a sequence's end may hold a previous owner's values).
+//     The tiles, the masks and every sum are K3's, so K4 gives K3 decode's
+//     bits on a dense cache that holds the same logical rows; block_size
+//     is free of the tile size;
+//   * the epilogue divides o = acc / l in registers, a column a thread,
+//     through K1's straight casts (float_to_fields, prep_divisor_fields,
+//     divide_to_float: the bits of divide_float).
 // The layout is a template flag, so the dense instantiation holds none of
 // the paged code (its schedule is ptxas-sensitive, PERF.md section 6).
 //
@@ -65,7 +78,7 @@
 //     P V for a quarter of the head's columns, as K7 accumulates dq (p as
 //     A fragments, the k-step's keys in K7's order), so each acc element
 //     is one warp's sum in a fixed order.  Posit8 and posit16 run both as
-//     f32 FMAs in the one-row loop's order (the twin's), in 64-key steps
+//     f32 FMAs in the decode loop's order (the twin's), in 64-key steps
 //     (the twin's BLOCK_K, its rescaling): thread (rg, c) sums s = q . k in
 //     head-column order for rows rg and rg + 8 and keys c + 16 i (i < 4),
 //     and p v over the step's keys in order for four or eight columns, so
@@ -91,13 +104,13 @@
 //     divide_to_float, the bits of divide_float); K6 stores each row's final
 //     m and l, f32, (B*H, Sq).
 //
-// Instantiated for the plans posit::kModelPlan names (the one-row loop in the
+// Instantiated for the plans posit::kModelPlan names (the decode loop in the
 // dense and paged layouts, the tile loop in the dense and packed ones):
 // every posit8, posit16, posit32 and posit64 plan; posit32 srt_r4_scaled and
 // posit64 run o / l on K1's two-word frame with a 48-byte divisor per row.
 // K/V may be bf16 or f32 (the reference upcasts K/V to f32 before its
-// kernel), a flag of the call, not of the instantiation: the one-row loop
-// branches on it per tile (load_kv), the tile loop stages whatever arrives.
+// kernel), a flag of the call, not of the instantiation: both loops stage
+// whatever arrives, the decode loop's scores and P V read it by its type.
 // The source is built once per format (posit64: per part, -DPOSIT_MODEL_N,
 // -DPOSIT_MODEL_PART, posit::kLibraryPlan): a library returns -1 for another
 // library's plan.
@@ -118,25 +131,11 @@
 namespace {
 
 // kThreads, kHdMax and the staging helpers: flash_stage.cuh
-constexpr int kBK = 64;        // keys per kv tile of the one-row loop
-constexpr int kBQMax = 16;     // query rows per block, at most
+constexpr int kBK = 64;        // keys per kv tile (the twin's BLOCK_K)
 constexpr float kNegInf = -1e30f;
 
 enum Layout { kDense = 0, kPaged = 1, kPacked = 2 };
 enum Loop { kRowLoop = 0, kTileLoop = 1 };
-
-template <class P>
-size_t smem_bytes(int bq, int hd, int layout) {
-  // the divisors first (32 bytes each, 48 on the two-word frame: a multiple
-  // of their 4- or 8-byte alignment, so the floats after them stay aligned
-  // at any bq); the pointers in flash_kernel follow this order exactly
-  const size_t bytes = sizeof(posit::DivisorOf<P>) * bq    // per-row divisor
-                       + sizeof(float) * (bq * hd + kBK * (hd + 1) + kBK * hd + bq * kBK + 3 * bq)
-                       + bq * kBK;                          // mask bytes
-  if (layout == kDense) return bytes;
-  // paged: a tile's pool rows, after the mask bytes at int alignment
-  return (bytes + 3) / 4 * 4 + sizeof(int) * kBK;
-}
 
 // Where the paged layout finds its keys.  Sk is the virtual kv length
 // (max_blocks * bs).
@@ -145,179 +144,392 @@ struct KvIndex {
   int max_blocks, bs, NB;
 };
 
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(float x) { return x; }
+// ----------------------------------------------------------- the decode loop
 
-// One kv tile of kBK keys from base into sK (rows padded to hd + 1) and sV,
-// as f32 (bf16 upcast exactly); keys outside the sequence and the page
-// table's masked rows (sKey -1) load as 0.  The
-// kernel calls it for one element type or the other, by a branch that
-// every block takes the same way: the bf16 loop is the one the kernel had
-// before f32 K/V, so K3 decode kept its time on an H100, where one select
-// per element cost it 2% (PERF.md section 6).
-template <int kLayout, class T>
-__device__ __forceinline__ void load_kv(const T* __restrict__ k, const T* __restrict__ v,
-                                        float* sK, float* sV, const int* sKey, int base,
-                                        int b, int Sk, int KVH, int kvh, int hd) {
-  for (int i = threadIdx.x; i < kBK * hd; i += kThreads) {
-    const int j = i / hd, d = i % hd;
-    const int kp = base + j;
-    bool in;
-    size_t off;
+constexpr int kDecWarps = 4;                 // a chunk's tiles, one a warp
+constexpr int kDecThreads = 32 * kDecWarps;
+
+// A staged K or V row's stride in bytes: an odd number of 16-byte vectors,
+// at least one more than the row needs, so that eight lanes' 16-byte loads
+// of eight rows hit 32 banks, and a lane's loads past the row's end (zeros
+// in K, so the score loop reads whole vectors) stay inside its row.
+__host__ __device__ inline int dec_row_stride(int hd, int elt) {
+  return 16 * (((hd * elt + 15) / 16 + 1) | 1);
+}
+
+// The decode loop's shared memory: q (kHdMax floats, zeros past hd); each
+// tile's max, corr and sum of p (kDecWarps floats each, and a spare row);
+// each warp's p tile (kBK floats) and p v (kHdMax floats); each warp's
+// pool rows (kBK ints, paged); then each warp's K rows and, unless they
+// share K's buffer (kv_shared), its V rows: kBK rows of dec_row_stride
+// bytes each.  Every part is a multiple of 16 bytes.
+constexpr int kDecFixed = sizeof(float) * (kHdMax + 4 * kDecWarps + kDecWarps * (kBK + kHdMax)) +
+                          sizeof(int) * kDecWarps * kBK;
+
+__host__ __device__ inline size_t dec_smem_bytes(int hd, int elt, bool kv_shared) {
+  return kDecFixed + static_cast<size_t>(kv_shared ? 1 : 2) * kDecWarps * kBK *
+                         dec_row_stride(hd, elt);
+}
+constexpr size_t kDecSmemMax = 232448;   // an H100 block's dynamic shared memory, at most
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// A lane's share of a tile's copies.  A row is per = row_bytes / chunk
+// copies; where per <= 32 the warp takes kpi = 32 / per rows at a time and
+// lane l makes copy c0 = l % per of rows j0 + kpi i (j0 = l / per; lanes
+// past kpi * per idle), else lane l makes copies l, l + 32, ... of every
+// row.  chunk 0: plain loads and stores, two bytes at a time.
+struct DecCopy {
+  int row_bytes, rs, chunk, kpi, j0, c0;
+  bool active;
+};
+
+// The rows of keys [base, base + kBK) of one of K or V (src, raw bytes of
+// rows of row_bytes) into dst (rows of stride rs): by cp.async where
+// cc.chunk is 16 or 4 (the caller commits the group), else by plain loads
+// and stores.  Out-of-range keys (dense: outside [0, Sk); paged: keyrow
+// -1) load as 0.
+template <int kLayout>
+__device__ __forceinline__ void dec_stage(const unsigned char* __restrict__ src,
+                                          unsigned char* dst, const int* keyrow,
+                                          const DecCopy& cc, int base, int b, int Sk, int KVH,
+                                          int kvh, int lane) {
+  auto row_of = [&](int j, bool& in) {
+    size_t r;
     if constexpr (kLayout == kPaged) {
-      const int row = sKey[j];
-      in = row >= 0;
-      off = ((static_cast<size_t>(in ? row : 0)) * KVH + kvh) * hd + d;
+      const int pr = keyrow[j];
+      in = pr >= 0;
+      r = static_cast<size_t>(in ? pr : 0);
     } else {
+      const int kp = base + j;
       in = kp >= 0 && kp < Sk;
-      off = ((static_cast<size_t>(b) * Sk + (in ? kp : 0)) * KVH + kvh) * hd + d;
+      r = static_cast<size_t>(b) * Sk + (in ? kp : 0);
     }
-    sK[j * (hd + 1) + d] = in ? to_f32(k[off]) : 0.f;
-    sV[i] = in ? to_f32(v[off]) : 0.f;
+    return src + (r * KVH + kvh) * cc.row_bytes;
+  };
+  if (cc.chunk == 0) {
+    const int elt_words = cc.row_bytes / 2;   // 2-byte words of a row
+    for (int j = 0; j < kBK; ++j) {
+      bool in;
+      const auto* s = reinterpret_cast<const uint16_t*>(row_of(j, in));
+      auto* d = reinterpret_cast<uint16_t*>(dst + j * cc.rs);
+      for (int e = lane; e < elt_words; e += 32) d[e] = in ? s[e] : 0;
+    }
+    return;
+  }
+  if (!cc.active) return;
+  for (int j = cc.j0; j < kBK; j += cc.kpi) {
+    bool in;
+    const unsigned char* s = row_of(j, in);
+    unsigned char* d = dst + j * cc.rs;
+    for (int c = cc.c0 * cc.chunk; c < cc.row_bytes; c += 32 * cc.chunk) {
+      if (cc.chunk == 16) cp_async16(d + c, s + c, in);
+      else cp_async4(d + c, s + c, in);
+    }
   }
 }
 
-// The one-row loop.  bq is the number of query rows of a block's tile (the
-// C entry launches it with 1; a row's result does not depend on it).  K/V
-// come as bf16 (k, v) or, where kf is not null, as f32 (kf, vf).
-template <class P, int kLayout>
-__global__ void __launch_bounds__(kThreads)
-    flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const float* __restrict__ kf,
-                 const float* __restrict__ vf, float* __restrict__ out,
-                 float* __restrict__ m_out, float* __restrict__ l_out,
-                 const int* __restrict__ kv_start, const int* __restrict__ kv_len,
-                 const int* __restrict__ q_pos, int bq, int Sq, int Sk, int H, int KVH,
-                 int hd, float scale, int causal, int window, int q_offset, float eps,
-                 KvIndex ix) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  posit::DivisorOf<P>* sDiv = reinterpret_cast<posit::DivisorOf<P>*>(smem);
-  float* sQ = reinterpret_cast<float*>(sDiv + bq);
-  float* sK = sQ + bq * hd;
-  float* sV = sK + kBK * (hd + 1);  // K rows padded: no bank conflicts in QK^T
-  float* sS = sV + kBK * hd;
-  float* sM = sS + bq * kBK;
-  float* sL = sM + bq;
-  float* sC = sL + bq;
-  unsigned char* sMask = reinterpret_cast<unsigned char*>(sC + bq);
-  // paged only (smem_bytes reserves it for that layout): a tile's pool rows
-  int* sKey = reinterpret_cast<int*>(
-      (reinterpret_cast<uintptr_t>(sMask + bq * kBK) + 3) & ~uintptr_t(3));
+// The pool rows of keys [base, base + kBK) into keyrow (-1: a key outside
+// [ks, kl), loaded as 0 so that no stale page row reaches a sum).
+__device__ __forceinline__ void dec_lookup(int* keyrow, const KvIndex& ix, int base, int b,
+                                           int ks, int kl, int lane) {
+  for (int j = lane; j < kBK; j += 32) {
+    const int kp = base + j;
+    int row = -1;
+    if (kp >= ks && kp < kl) {
+      const int blk = ix.bt[static_cast<size_t>(b) * ix.max_blocks + kp / ix.bs];
+      row = min(max(blk, 0), ix.NB - 1) * ix.bs + kp % ix.bs;
+    }
+    keyrow[j] = row;
+  }
+}
 
-  constexpr int kAcc = (kBQMax * kHdMax + kThreads - 1) / kThreads;
-  const int tid = threadIdx.x;
+// A 16-byte vector of K as f32: eight bf16 (upcast exactly) or four f32.
+template <class T>
+__device__ __forceinline__ void dec_unpack(const uint4& w, float* x) {
+  if constexpr (std::is_same<T, float>::value) {
+    x[0] = __uint_as_float(w.x), x[1] = __uint_as_float(w.y);
+    x[2] = __uint_as_float(w.z), x[3] = __uint_as_float(w.w);
+  } else {
+    const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(u[i] << 16);
+      x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+  }
+}
+
+// The unscaled scores of keys lane and lane + 32 of the warp's K rows kb:
+// q . k over the head's columns in order, one f32 FMA each, from zero (q
+// and the rows' tails are zero past hd, so the padding's FMAs add zeros).
+template <class T>
+__device__ __forceinline__ void dec_scores(const float* sQ, const unsigned char* kb, int rs,
+                                           int hd, int lane, float& s0, float& s1) {
+  constexpr int kE = 16 / sizeof(T);    // elements of a 16-byte vector
+  const int nvec = (hd * static_cast<int>(sizeof(T)) + 15) / 16;
+  const unsigned char* k0 = kb + lane * rs;
+  const unsigned char* k1 = k0 + 32 * rs;
+  s0 = 0.f;
+  s1 = 0.f;
+#pragma unroll 2
+  for (int i = 0; i < nvec; ++i) {
+    float a[kE], c[kE];
+    dec_unpack<T>(*reinterpret_cast<const uint4*>(k0 + 16 * i), a);
+    dec_unpack<T>(*reinterpret_cast<const uint4*>(k1 + 16 * i), c);
+#pragma unroll
+    for (int e = 0; e < kE; e += 4) {
+      const float4 q4 = *reinterpret_cast<const float4*>(sQ + kE * i + e);
+      const float qv[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        s0 = fmaf(qv[f], a[e + f], s0);
+        s1 = fmaf(qv[f], c[e + f], s1);
+      }
+    }
+  }
+}
+
+// kC columns of a V row as f32, from the row's bytes at column d0.
+template <class T, int kC>
+__device__ __forceinline__ void dec_cols(const unsigned char* row, int d0, float (&x)[kC]) {
+  const T* r = reinterpret_cast<const T*>(row) + d0;
+  if constexpr (std::is_same<T, float>::value && kC == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(r);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else if constexpr (std::is_same<T, float>::value && kC == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(r);
+    x[0] = v.x, x[1] = v.y;
+  } else if constexpr (!std::is_same<T, float>::value && kC == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(r);
+    x[0] = __uint_as_float(v.x << 16), x[1] = __uint_as_float(v.x & 0xffff0000u);
+    x[2] = __uint_as_float(v.y << 16), x[3] = __uint_as_float(v.y & 0xffff0000u);
+  } else if constexpr (!std::is_same<T, float>::value && kC == 2) {
+    const unsigned v = *reinterpret_cast<const unsigned*>(r);
+    x[0] = __uint_as_float(v << 16), x[1] = __uint_as_float(v & 0xffff0000u);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      if constexpr (std::is_same<T, float>::value) x[c] = r[c];
+      else x[c] = __uint_as_float(static_cast<unsigned>(reinterpret_cast<const uint16_t*>(r)[c]) << 16);
+    }
+  }
+}
+
+// The tile's p v into pv: the lane's kC columns [kC lane, kC lane + kC),
+// each summed over the tile's keys in order from zero, one f32 FMA each.
+template <class T, int kC>
+__device__ __forceinline__ void dec_pv(const float* sPw, const unsigned char* vb, int rs, int hd,
+                                       int lane, float* pv) {
+  const int d0 = kC * lane;
+  if (d0 >= hd) return;
+  float o[kC];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) o[c] = 0.f;
+#pragma unroll 2
+  for (int j = 0; j < kBK; j += 4) {
+    const float4 p4 = *reinterpret_cast<const float4*>(sPw + j);
+    const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float x[kC];
+      dec_cols<T, kC>(vb + (j + jj) * rs, d0, x);
+#pragma unroll
+      for (int c = 0; c < kC; ++c) o[c] = fmaf(pj[jj], x[c], o[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kC; ++c)
+    if (d0 + c < hd) pv[d0 + c] = o[c];
+}
+
+template <class T>
+__device__ __forceinline__ void dec_pv_any(const float* sPw, const unsigned char* vb, int rs,
+                                           int hd, int lane, float* pv) {
+  if (hd <= 32) dec_pv<T, 1>(sPw, vb, rs, hd, lane, pv);
+  else if (hd <= 64) dec_pv<T, 2>(sPw, vb, rs, hd, lane, pv);
+  else if (hd <= 96) dec_pv<T, 3>(sPw, vb, rs, hd, lane, pv);
+  else dec_pv<T, 4>(sPw, vb, rs, hd, lane, pv);
+}
+
+// The decode loop (see the note at the top): one block of kDecWarps warps
+// per (b*H + h, query row).  K/V come as raw rows of elt bytes an element
+// (2: bf16, 4: f32); chunk: the copies' size (16 or 4 bytes, 0 for plain
+// loads); kv_shared: V is staged into K's buffer once the scores are done
+// (where two buffers would not fit).
+template <class P, int kLayout>
+__global__ void __launch_bounds__(kDecThreads)
+    flash_decode_kernel(const float* __restrict__ q, const unsigned char* __restrict__ k,
+                        const unsigned char* __restrict__ v, int elt, float* __restrict__ out,
+                        float* __restrict__ m_out, float* __restrict__ l_out,
+                        const int* __restrict__ kv_start, const int* __restrict__ kv_len,
+                        const int* __restrict__ q_pos, int Sq, int Sk, int H, int KVH, int hd,
+                        float scale, int causal, int window, int q_offset, float eps,
+                        KvIndex ix, int chunk, int kv_shared) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sMax = sQ + kHdMax;           // [kDecWarps] each tile's max
+  float* sCorr = sMax + kDecWarps;     // [kDecWarps] exp(m_{t-1} - m_t)
+  float* sSum = sCorr + kDecWarps;     // [kDecWarps] the tile's p summed
+  float* sP = sSum + 2 * kDecWarps;    // [kDecWarps][kBK]
+  float* sPV = sP + kDecWarps * kBK;   // [kDecWarps][kHdMax]
+  int* sKey = reinterpret_cast<int*>(sPV + kDecWarps * kHdMax);   // [kDecWarps][kBK]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rs = dec_row_stride(hd, elt);
+  unsigned char* sK = reinterpret_cast<unsigned char*>(sKey + kDecWarps * kBK) + warp * kBK * rs;
+  unsigned char* sV = kv_shared ? sK : sK + kDecWarps * kBK * rs;
+  float* sPw = sP + warp * kBK;
+  int* keyrow = sKey + warp * kBK;
+
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KVH);
-  const int q0 = blockIdx.y * bq;
-  const int rows = min(bq, Sq - q0);
+  const int row = blockIdx.y;
   const int ks = kv_start[b];
   const int kl = min(kv_len[b], Sk);
-  const int qp0 = q_pos[b] + q_offset + q0;
-  for (int i = tid; i < bq * hd; i += kThreads) {
-    const int r = i / hd, d = i % hd;
-    sQ[i] = r < rows ? q[((static_cast<size_t>(b) * Sq + q0 + r) * H + h) * hd + d] : 0.f;
-  }
-  if (tid < bq) {
-    sM[tid] = kNegInf;
-    sL[tid] = 0.f;
-  }
-  float acc[kAcc];
-#pragma unroll
-  for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
-
+  const int qp = q_pos[b] + q_offset + row;
   int kv_end = kl;
-  if (causal) kv_end = min(kv_end, qp0 + rows);  // last row's q_pos + 1
+  if (causal) kv_end = min(kv_end, qp + 1);
   const int ntiles = kv_end > ks ? (kv_end - ks + kBK - 1) / kBK : 0;
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int base = ks + t * kBK;
+  DecCopy cc;
+  cc.row_bytes = hd * elt, cc.rs = rs, cc.chunk = chunk;
+  const int per = chunk ? cc.row_bytes / chunk : 1;
+  cc.kpi = per <= 32 ? 32 / per : 1;
+  cc.j0 = per <= 32 ? lane / per : 0;
+  cc.c0 = per <= 32 ? lane % per : lane;
+  cc.active = per > 32 || lane < cc.kpi * per;
+
+  // the copies of tile t (K, then V unless it shares K's buffer)
+  int t = warp;
+  auto stage_k = [&](int tile) {
+    const int base = ks + tile * kBK;
     if constexpr (kLayout == kPaged) {
-      // this tile's pool rows (-1: a masked key, loaded as 0 so no stale
-      // page row reaches a sum); the previous tile's loads finished before
-      // its second barrier
-      if (tid < kBK) {
-        const int kp = base + tid;
-        int row = -1;
-        if (kp >= ks && kp < kl) {
-          const int blk = ix.bt[static_cast<size_t>(b) * ix.max_blocks + kp / ix.bs];
-          row = min(max(blk, 0), ix.NB - 1) * ix.bs + kp % ix.bs;
-        }
-        sKey[tid] = row;
-      }
+      dec_lookup(keyrow, ix, base, b, ks, kl, lane);
+      __syncwarp();
     }
-    __syncthreads();
-    if (kf != nullptr) load_kv<kLayout>(kf, vf, sK, sV, sKey, base, b, Sk, KVH, kvh, hd);
-    else load_kv<kLayout>(k, v, sK, sV, sKey, base, b, Sk, KVH, kvh, hd);
-    __syncthreads();
-    // scores s = (q . k) * scale, masked as the reference does
-    for (int i = tid; i < bq * kBK; i += kThreads) {
-      const int r = i / kBK, j = i % kBK;
-      const int kp = base + j, qp = qp0 + r;
-      bool valid = r < rows && kp >= ks && kp < kl;
-      if (causal) valid = valid && qp >= kp;
-      if (window) valid = valid && qp - kp < window;
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s += sQ[r * hd + d] * sK[j * (hd + 1) + d];
-      sS[i] = valid ? s * scale : kNegInf;
-      sMask[i] = valid;
-    }
-    __syncthreads();
-    // online-softmax statistics, one thread per row, keys in order
-    if (tid < bq) {
-      const int r = tid;
-      const float m = sM[r];
-      float m_new = m;
-      for (int j = 0; j < kBK; ++j) m_new = fmaxf(m_new, sS[r * kBK + j]);
-      float sum = 0.f;
-      for (int j = 0; j < kBK; ++j) {
-        const float p = sMask[r * kBK + j] ? expf(sS[r * kBK + j] - m_new) : 0.f;
-        sS[r * kBK + j] = p;
-        sum += p;
-      }
-      const float corr = expf(m - m_new);
-      sL[r] = sL[r] * corr + sum;
-      sM[r] = m_new;
-      sC[r] = corr;
-    }
-    __syncthreads();
-    // acc = acc * corr + p @ v
+    dec_stage<kLayout>(k, sK, keyrow, cc, base, b, Sk, KVH, kvh, lane);
+    cp_async_commit();
+  };
+  auto stage_v = [&](int tile) {
+    dec_stage<kLayout>(v, sV, keyrow, cc, ks + tile * kBK, b, Sk, KVH, kvh, lane);
+    cp_async_commit();
+  };
+  if (t < ntiles) {
+    stage_k(t);
+    if (!kv_shared) stage_v(t);
+  }
+  // q (zeros past hd) and, where a row's bytes are not a multiple of 16,
+  // zeros in the K rows' tails, which no copy writes
+  for (int d = tid; d < kHdMax; d += kDecThreads)
+    sQ[d] = d < hd ? q[((static_cast<size_t>(b) * Sq + row) * H + h) * hd + d] : 0.f;
+  const int tail = ((cc.row_bytes + 15) & ~15) - cc.row_bytes;
+  if (tail) {
+    for (int j = lane; j < kBK; j += 32)
+      for (int c = 0; c < tail; c += 2)
+        *reinterpret_cast<uint16_t*>(sK + j * rs + cc.row_bytes + c) = 0;
+  }
+  __syncthreads();   // q is in
+
+  float m_run = kNegInf, l = 0.f, acc = 0.f;
+  const int nchunks = (ntiles + kDecWarps - 1) / kDecWarps;
+  for (int ch = 0; ch < nchunks; ++ch, t += kDecWarps) {
+    const bool live = t < ntiles, next = t + kDecWarps < ntiles;
+    const int base = ks + t * kBK;
+    const int nact = min(kDecWarps, ntiles - ch * kDecWarps);
+    // scores s = (q . k) * scale, masked as the reference does, and the
+    // tile's max
+    float s[2] = {kNegInf, kNegInf};
+    bool valid[2] = {false, false};
+    if (live) {
+      if (kv_shared) cp_async_wait_all();
+      else cp_async_wait_one();
+      __syncwarp();
+      if (elt == 4) dec_scores<float>(sQ, sK, rs, hd, lane, s[0], s[1]);
+      else dec_scores<__nv_bfloat16>(sQ, sK, rs, hd, lane, s[0], s[1]);
+      float mx = kNegInf;
 #pragma unroll
-    for (int a = 0; a < kAcc; ++a) {
-      const int i = tid + a * kThreads;
-      if (i < bq * hd) {
-        const int r = i / hd, d = i % hd;
-        float s = 0.f;
-        for (int j = 0; j < kBK; ++j) s += sS[r * kBK + j] * sV[j * hd + d];
-        acc[a] = acc[a] * sC[r] + s;
+      for (int i = 0; i < 2; ++i) {
+        const int kp = base + lane + 32 * i;
+        bool ok = kp >= ks && kp < kl;
+        if (causal) ok = ok && qp >= kp;
+        if (window) ok = ok && qp - kp < window;
+        valid[i] = ok;
+        s[i] = ok ? __fmul_rn(s[i], scale) : kNegInf;
+        mx = fmaxf(mx, s[i]);
+      }
+#pragma unroll
+      for (int o = 1; o < 32; o *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      if (lane == 0) sMax[warp] = mx;
+    }
+    __syncthreads();   // every tile's max is in; every warp is done with its K rows
+    // the prefix max: m_t of this warp's tile, m_{t-1}, and the chunk's last
+    float m_prev = m_run, m_t = m_run, mc = m_run;
+    for (int i = 0; i < nact; ++i) {
+      const float mn = fmaxf(mc, sMax[i]);
+      if (i == warp) {
+        m_prev = mc;
+        m_t = mn;
+      }
+      mc = mn;
+    }
+    if (live) {
+      if (kv_shared) stage_v(t);
+      else if (next) stage_k(t + kDecWarps);
+      // p = exp(s - m_t) (masked keys exactly 0), corr_t = exp(m_{t-1} - m_t)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) sPw[lane + 32 * i] = valid[i] ? expf(s[i] - m_t) : 0.f;
+      if (lane == 0) sCorr[warp] = expf(m_prev - m_t);
+      if (kv_shared || !next) cp_async_wait_all();
+      else cp_async_wait_one();
+      __syncwarp();   // the p tile and the V rows are in
+      // the tile's p summed in key order from zero (lane 0), and its p v
+      if (lane == 0) {
+        float sum = 0.f;
+#pragma unroll 4
+        for (int j = 0; j < kBK; j += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(sPw + j);
+          sum += p4.x;
+          sum += p4.y;
+          sum += p4.z;
+          sum += p4.w;
+        }
+        sSum[warp] = sum;
+      }
+      float* pv = sPV + warp * kHdMax;
+      if (elt == 4) dec_pv_any<float>(sPw, sV, rs, hd, lane, pv);
+      else dec_pv_any<__nv_bfloat16>(sPw, sV, rs, hd, lane, pv);
+      __syncwarp();   // every lane is done with the V rows
+      if (next) {
+        if (kv_shared) stage_k(t + kDecWarps);
+        else stage_v(t + kDecWarps);
       }
     }
+    __syncthreads();   // every tile's sum, corr and p v are in
+    // the tiles in order: l = l * corr + sum, acc = acc * corr + p v
+    for (int i = 0; i < nact; ++i) {
+      const float corr = sCorr[i];
+      l = fmaf(l, corr, sSum[i]);
+      if (tid < hd) acc = fmaf(acc, corr, sPV[i * kHdMax + tid]);
+    }
+    m_run = mc;
   }
 
-  // epilogue: o = acc / l through K1, the row divisor prepared once per row;
-  // a fully masked row has l == 0 and divides 0 by minpos instead.  acc goes
-  // through shared memory (sQ is free now) so the divide is inlined once.
-  __syncthreads();
-#pragma unroll
-  for (int a = 0; a < kAcc; ++a) {
-    const int i = tid + a * kThreads;
-    if (i < bq * hd) sQ[i] = acc[a];
+  // epilogue: o = acc / l through K1 in registers, a column a thread; a
+  // fully masked row has l == 0 and divides 0 by minpos instead
+  if (tid < hd) {
+    const posit::DivisorOf<P> dl =
+        posit::prep_divisor_fields<P>(posit::float_to_fields<P::n>(l > 0.f ? l : eps));
+    out[((static_cast<size_t>(b) * Sq + row) * H + h) * hd + tid] =
+        posit::divide_to_float<P>(posit::float_to_fields<P::n>(acc), dl);
   }
-  if (tid < bq) sDiv[tid] = posit::prep_divisor<P>(sL[tid] > 0.f ? sL[tid] : eps);
-  __syncthreads();
-#pragma unroll 1
-  for (int i = tid; i < rows * hd; i += kThreads) {
-    const int r = i / hd, d = i % hd;
-    out[((static_cast<size_t>(b) * Sq + q0 + r) * H + h) * hd + d] =
-        posit::divide_float<P>(sQ[i], sDiv[r]);
-  }
-  // K6: each row's final m and l, stored last.  Stored before the output
-  // loop, the same store left K3 (null pointers) 5-11% slower on an H100:
-  // ptxas then scheduled the tile loop worse (PERF.md, section 6).
-  if (m_out != nullptr && tid < rows) {
-    const size_t row = static_cast<size_t>(bh) * Sq + q0 + tid;
-    m_out[row] = sM[tid];
-    l_out[row] = sL[tid];
+  // the row's final m and l, where the caller asks for them
+  if (m_out != nullptr && tid == 0) {
+    const size_t r = static_cast<size_t>(bh) * Sq + row;
+    m_out[r] = m_run;
+    l_out[r] = l;
   }
 }
 
@@ -569,7 +781,7 @@ __global__ void __launch_bounds__(kThreads, P::words == 1 ? 4 : 3)
       __syncthreads();
     }
     // s = q . k: on the tensor cores through the p tile, or over the head's
-    // columns in order, one f32 FMA each (the one-row loop's and the twin's
+    // columns in order, one f32 FMA each (the decode loop's and the twin's
     // order); then * scale, masked as the reference does
     float s[2][kSi];
 #pragma unroll
@@ -640,7 +852,7 @@ __global__ void __launch_bounds__(kThreads, P::words == 1 ? 4 : 3)
     }
     __syncthreads();   // the p tile and every row's corr are in
     // l = l * corr + the step's p summed in key order, one thread a row
-    // (threads 0-3 of each warp), as the one-row loop sums it
+    // (threads 0-3 of each warp), as the decode loop sums it
     if (tid % 32 < 4) {
       const int r = tid / 32 * 4 + tid % 32;
       const float* pr = sP + r * kPs;
@@ -656,7 +868,7 @@ __global__ void __launch_bounds__(kThreads, P::words == 1 ? 4 : 3)
       sL[r] = fmaf(sL[r], sC[r], sum);
     }
     // acc = acc * corr + p v, the step's p v summed from zero: on the tensor
-    // cores, or over its keys in order, one f32 FMA each (the one-row loop's
+    // cores, or over its keys in order, one f32 FMA each (the decode loop's
     // order)
     float pv[kNtPart][4];
     if constexpr (kTileMma<P>) {
@@ -782,12 +994,12 @@ struct Call {
   cudaStream_t stream;
 };
 
-// One launch of the one-row loop (flash_kernel) or, kTile, the tile loop
-// (flash_tile_kernel).
+// One launch of the decode loop (flash_decode_kernel, a query row a block)
+// or, kTile, the tile loop (flash_tile_kernel, c.bq rows a block).
 template <class P, int kLayout, bool kTile>
 int launch(const Call& c) {
   const long long heads = static_cast<long long>(c.B) * c.H;
-  const int q_tiles = (c.Sq + c.bq - 1) / c.bq;
+  const int q_tiles = kTile ? (c.Sq + c.bq - 1) / c.bq : c.Sq;
   if (heads > 0x7FFFFFFFLL || q_tiles > 65535) return -2;
   const dim3 grid(static_cast<unsigned>(heads), q_tiles);
   const auto* kb = static_cast<const __nv_bfloat16*>(c.kv_f32 ? nullptr : c.k);
@@ -811,12 +1023,19 @@ int launch(const Call& c) {
         c.seg_kv, c.bq, c.Sq, c.Sk, c.H, c.KVH, c.hd, c.scale, c.causal, c.window, c.q_offset,
         c.eps, chunk);
   } else {
-    const size_t bytes = smem_bytes<P>(c.bq, c.hd, kLayout);
-    const cudaError_t err = prepare(flash_kernel<P, kLayout>, bytes);
+    // K/V rows copied by cp.async where each row's bytes (and the bases)
+    // take 16- or 4-byte copies, else by plain loads; V shares K's buffer
+    // where two would not fit (f32 K/V past head_dim 104)
+    const int elt = c.kv_f32 ? 4 : 2;
+    const int chunk = kv_chunk(c.k, c.v, c.hd, elt);
+    const bool shared = dec_smem_bytes(c.hd, elt, false) > kDecSmemMax;
+    const size_t bytes = dec_smem_bytes(c.hd, elt, shared);
+    const cudaError_t err = prepare(flash_decode_kernel<P, kLayout>, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_kernel<P, kLayout><<<grid, kThreads, bytes, c.stream>>>(
-        c.q, kb, vb, kf, vf, c.out, c.m_out, c.l_out, c.kv_start, c.kv_len, c.q_pos, c.bq,
-        c.Sq, c.Sk, c.H, c.KVH, c.hd, c.scale, c.causal, c.window, c.q_offset, c.eps, c.ix);
+    flash_decode_kernel<P, kLayout><<<grid, kDecThreads, bytes, c.stream>>>(
+        c.q, static_cast<const unsigned char*>(c.k), static_cast<const unsigned char*>(c.v),
+        elt, c.out, c.m_out, c.l_out, c.kv_start, c.kv_len, c.q_pos, c.Sq, c.Sk, c.H, c.KVH,
+        c.hd, c.scale, c.causal, c.window, c.q_offset, c.eps, c.ix, chunk, shared);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -824,8 +1043,8 @@ int launch(const Call& c) {
 template <int kLayout, bool kTile>
 int dispatch(int n, int radix, int red, int otf, int scaled, int nonrest, int it, int shift,
              int gbits, const Call& c) {
-  if (c.hd > kHdMax || c.hd <= 0 || c.KVH <= 0 || c.H % c.KVH || c.bq < 1 || c.bq > kBQMax)
-    return -2;
+  if (c.hd > kHdMax || c.hd <= 0 || c.KVH <= 0 || c.H % c.KVH) return -2;
+  if (kTile && (c.bq < 1 || c.bq > kFRows)) return -2;
   if (c.B <= 0 || c.Sq <= 0) return 0;
   int rc = -1;
   posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits, [&](auto plan) {
@@ -839,7 +1058,7 @@ int dispatch(int n, int radix, int red, int otf, int scaled, int nonrest, int it
 
 }  // namespace
 
-// One launch of the flash forward.  loop 0 (the one-row loop: the decode
+// One launch of the flash forward.  loop 0 (the decode loop: the decode
 // calls, K3 with q_pos and K4) takes layout 0 (dense) or 1 (paged: K4);
 // loop 1 (the tile loop: K3 prefill, K5, K6) takes layout 0 (dense: K3, or
 // K6 with m_out / l_out) or 2 (packed: K5).  The caller routes
@@ -856,7 +1075,7 @@ int dispatch(int n, int radix, int red, int otf, int scaled, int nonrest, int it
 //   * packed: seg_q (B, Sq) and seg_kv (B, Sk) int32 segment ids (query pads
 //     -2, key pads -1) and bq query rows per block, chosen by the caller so
 //     that no block straddles two segments; each segment's first key takes
-//     the place of kv_start.  The other layouts ignore bq (the one-row loop
+//     the place of kv_start.  The other layouts ignore bq (the decode loop
 //     takes one-row blocks, the dense tile loop kFRows rows).
 // Returns 0, a cudaError_t, -1 when no instantiation matches the plan and
 // layout, -2 for a head_dim above kHdMax, a bad head split, a layout the
@@ -874,8 +1093,7 @@ extern "C" int posit_flash_attn(int n, int radix, int red, int otf, int scaled, 
     if (NB <= 0 || bs <= 0 || max_blocks <= 0) return -2;
     Sk = max_blocks * bs;
   }
-  if (loop == kRowLoop) bq = 1;
-  else if (layout != kPacked) bq = kFRows;
+  if (loop == kTileLoop && layout != kPacked) bq = kFRows;
   Call c{};
   c.q = q, c.k = k, c.v = v, c.kv_f32 = kv_f32, c.out = out, c.m_out = m_out, c.l_out = l_out;
   c.kv_start = kv_start, c.kv_len = kv_len, c.q_pos = q_pos;

@@ -17,7 +17,8 @@ twin :func:`posit_flash_attention_plain`.  Both scan kv tiles of
 :data:`BLOCK_K` keys anchored at each sequence's ``kv_start``, so a row's
 result does not depend on its left-pad length: serving stays bit-identical
 solo, batched and mid-flight.  The kernel source has two loops, and
-:func:`flash_loop` picks one by the kind of call: the one-row loop for the
+:func:`flash_loop` picks one by the kind of call: the decode loop (one
+query row a block, its kv tiles spread over the block's warps) for the
 decode calls (K3 with ``q_pos``, K4), the tile loop (16-row tiles) for
 every other call (K3 prefill and suffix prefill, K5, K6), whatever its
 ``Sq``.  The two share their arithmetic, so a row has the same bits in every
@@ -277,7 +278,8 @@ ROW_LOOP, TILE_LOOP = 0, 1           # csrc/posit_flash_attn.cu Loop
 
 def flash_loop(q_pos=None, block_tables=None) -> int:
     """The loop of ``csrc/posit_flash_attn.cu`` a forward call takes:
-    :data:`ROW_LOOP` (one query row a block) for the decode calls, those
+    :data:`ROW_LOOP` (the decode loop: one query row a block, its kv tiles
+    spread over the block's warps) for the decode calls, those
     that pass ``q_pos`` (``layers.decode_attention``) or a block table (K4,
     ``layers.decode_attention_paged``); :data:`TILE_LOOP` (16-row tiles)
     for every other call: a whole or suffix prefill (K3), a pack (K5) and

@@ -970,6 +970,78 @@ def test_flash_kernel_decode_hd128_mha(dev):
     assert (o[7] == 0).all()
 
 
+# The decode loop's geometries (K3 decode, K4), (B, Sk, H, KV, hd, window,
+# positions, kv_start): head_dim 8, 40, 64, 72 and 128; G = H / KV of 1, 3
+# and 8; rows of up to 1100 keys (five 256-key chunks), ending on and
+# across tile and chunk edges; kv_start above 0; a fully masked slot
+# (position before kv_start); a window; head_dim 7, whose rows take plain
+# loads (bf16: 14 bytes) and 4-byte copies (f32: 28 bytes), where the rest
+# take 16-byte copies (and f32 at 128, V staged into K's buffer)
+DECODE_CASES = {
+    "hd7_g2": (2, 200, 4, 2, 7, 0, [150, 64], [0, 2]),
+    "hd8_g2": (2, 300, 4, 2, 8, 0, [70, 299], [0, 5]),
+    "hd40_g3": (3, 520, 6, 2, 40, 0, [255, 256, 511], [0, 30, 1]),
+    "hd64_g3_long": (4, 1100, 15, 5, 64, 0, [1099, 1023, 64, 3], [0, 1, 0, 10]),
+    "hd72_g3": (2, 300, 6, 2, 72, 0, [257, 63], [3, 0]),
+    "hd128_g1": (3, 700, 4, 4, 128, 0, [511, 65, 699], [10, 66, 0]),
+    "hd64_g8_window": (2, 600, 8, 1, 64, 48, [500, 200], [0, 20]),
+}
+
+
+@pytest.mark.parametrize("fmt", [POSIT16, POSIT32, POSIT64], ids=lambda f: f"posit{f.n}")
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_decode_loop_geometries_match_twin(dev, case, fmt):
+    """K3 decode (the decode loop) at each geometry: within FLASH_TOL of
+    its twin, the same bits on a second run, K4 on the same rows paged its
+    bits, on f32 K/V holding bf16 values the bf16 call's bits, on f32 K/V
+    bf16 cannot hold within FLASH_TOL of the twin, a fully masked slot
+    exactly 0."""
+    B, Sk, H, KV, hd, window, pos, start = DECODE_CASES[case]
+    g = torch.Generator().manual_seed(hd + Sk)
+    q = torch.randn(B, 1, H, hd, generator=g).to(dev)
+    k = torch.randn(B, Sk, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    v = torch.randn(B, Sk, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kw = dict(window=window, kv_start=torch.tensor(start, dtype=torch.int32, device=dev),
+              kv_len=pos_t + 1, q_pos=pos_t)
+    runs = [posit_flash_attention(fmt, q, k, v, True, **kw) for _ in range(2)]
+    _close(fmt, runs[0], posit_flash_attention_plain(fmt, q, k, v, True, **kw))
+    assert torch.equal(bits(runs[0]), bits(runs[1]))
+    same = posit_flash_attention(fmt, q, k.float(), v.float(), True, **kw)
+    assert torch.equal(bits(runs[0]), bits(same))
+    # the same rows from a paged pool: pages of 16, in reversed order
+    bs = 16
+    nb = -(-Sk // bs)
+    pad = nb * bs - Sk
+    pool = [torch.cat([t, t.new_zeros(B, pad, KV, hd)], 1).reshape(B * nb, bs, KV, hd).flip(0)
+            for t in (k, v)]
+    bt = (B * nb - 1 - torch.arange(B * nb, device=dev)).reshape(B, nb).to(torch.int32)
+    paged = posit_flash_attention(fmt, q, *pool, True, block_tables=bt, **kw)
+    assert torch.equal(bits(runs[0]), bits(paged))
+    kf, vf = _f32_twin(k, g), _f32_twin(v, g)
+    _close(fmt, posit_flash_attention(fmt, q, kf, vf, True, **kw),
+           posit_flash_attention_plain(fmt, q, kf, vf, True, **kw))
+    for b, (p, s) in enumerate(zip(pos, start)):
+        if p < s:
+            assert (runs[0][b] == 0).all()
+
+
+def test_paged_kernel_olmoe_heads_is_dense_kernel(dev):
+    """K4 at OLMoE's 16/16 heads of 128 (8 slots, pages of 16, shuffled
+    shared pages, a parked row): K3's bits on the gathered cache, within
+    FLASH_TOL of its twin, at every posit16 plan and posit64's default."""
+    q, pk, pv, bt = _paged_case(dev, B=8, max_blocks=32, H=16, KV=16, hd=128, seed=9)
+    pos = torch.tensor([511, 0, 17, 130, 255, 64, 300, 40], dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 0, 5, 100, 250, 64, 0, 41], dtype=torch.int32, device=dev)
+    kd, vd = F.gather_pages(pk, bt), F.gather_pages(pv, bt)
+    for fmt, variant in [(POSIT16, v) for v in KERNEL_VARIANTS] + [(POSIT64, "srt_r4_cs_of_fr")]:
+        kw = dict(kv_start=start, kv_len=pos + 1, q_pos=pos, variant=variant)
+        o = posit_flash_attention(fmt, q, pk, pv, True, block_tables=bt, **kw)
+        assert torch.equal(bits(o), bits(posit_flash_attention(fmt, q, kd, vd, True, **kw)))
+        _close(fmt, o, posit_flash_attention_plain(fmt, q, pk, pv, True, block_tables=bt, **kw))
+        assert (o[7] == 0).all()
+
+
 # ------------------------------------------------- the division API: K10-K12
 
 

@@ -1,5 +1,6 @@
 """Which loop of ``csrc/posit_flash_attn.cu`` each kind of forward call
-takes (``kernels/posit_flash_attn.flash_loop``): the one-row loop for the
+takes (``kernels/posit_flash_attn.flash_loop``): the decode loop (one
+query row a block, its kv tiles spread over the block's warps) for the
 decode calls (``q_pos``, K4's block table), the tile loop for every other
 call (a whole or suffix prefill of any length, a pack, the training
 forward).  Each kind of call runs through its layer on the CPU at the smoke

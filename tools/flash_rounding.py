@@ -17,7 +17,7 @@ differ from the twin's and those past FLASH_TOL.  ``--arith`` takes
 ``scores:pv`` pairs, each one of:
 
   * ``fma``: f32 FMAs in sequence over the depth (the twin's CPU product's
-    order); as P V, the one-row loop's and the tile loop's whole step: p v
+    order); as P V, the decode loop's and the tile loop's whole step: p v
     summed from zero, acc = fma(acc, corr, p v), l = fma(l, corr, the
     step's p summed in key order);
   * ``3xtf32``: tf32 hi/lo splits, hi*hi + hi*lo + lo*hi summed 8 at a time
