@@ -64,17 +64,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               and posit32 pairs the twin's bits for every plan, posit32's
               zero, NaR, +-minpos, +-maxpos among them, the goldens' on 4096.
    K12      — the casts: every posit8/16 pattern and 2^20 posit32 ones
-              dequantized, 2^26 random f32 bit patterns and the specials
-              (+-0, inf, NaN, every subnormal class, +-2^e and neighbours)
+              dequantized (int64 lanes, int32 words, packed uint16 and
+              uint8), 2^26 random f32 bit patterns and the specials (+-0,
+              inf, NaN, every subnormal class, +-2^e and neighbours)
               quantized, the twin's bits; quantize o dequantize the
-              identity on every posit8/16 pattern; the posit-KV path's
-              rounding of every bf16 bit pattern (as f32) the twin's bits.
+              identity on every posit8/16 pattern; the round kernel (the
+              posit-KV path's K and V in one launch) on every bf16 bit
+              pattern in bf16 and as f32, and on the f32 samples: the bits
+              of quantize -> dequantize -> .to(dtype) on the card.
    K10      — the elementwise fused divide bit-identical to K12 -> K11 ->
               K12 and to its twin for every one-word (format, variant), on
               the reference benchmark's 64 x 1024 uniform(0.1, 10) and 2^20
               random f32 pairs with the specials; 1 launch against 4.
               Every f32 bit pattern (2^32) as x / 1.0: at posit8, posit16
-              and posit32 the bits of K12's quantize then dequantize, at
+              and posit32 the bits of K12's quantize then dequantize (and
+              of K12's round kernel), at
               posit64 the rule ``identity64`` states (held against the
               twin on a CPU sample first).
    two-word — K11 at posit32 srt_r4_scaled on 2^24 random pattern pairs
@@ -143,9 +147,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    posit-KV — the same model and weights with kv_cache_format="posit16":
               the main mix from dense slots, the paged mix from the paged
               pool (pages of 16, packed); then "posit8" from dense slots.
-              Every K/V row is rounded through K12: per forward step 2L
-              quantize and 2L dequantize launches on top of the unchanged
-              K2-K5 counts; every rounding, in every layer of every
+              Every K/V row is rounded through K12: per forward step L
+              launches of its round kernel (K and V of a layer in one) and
+              no quantize or dequantize, on top of the unchanged K2-K5
+              counts; every rounding, in every layer of every
               prefill, packed prefill and decode step, the bits of K12's
               plain twin on the same rows; logits finite (the engine's
               health probe faults none); paged = dense tokens with no
@@ -180,7 +185,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 5. timing   — each kernel, its plain twin and a library yardstick at the
               main paths' shapes (the kernel's device time from
               torch.profiler, as the yardstick's for K9; per-call times from
-              CUDA events; K10-K12 also at a 2^28 chunk), and one
+              CUDA events; K10-K12 also at a 2^28 chunk, K12's round kernel
+              on a decode step's K and V and on 2^27 + 2^27), and one
               full-width decode step, SmolLM dense (bf16 and posit16 KV
               cache, posit64 and posit32 division) and paged (posit16,
               posit64, posit32) and OLMoE dense (posit16, posit64), broken
@@ -207,14 +213,17 @@ non-zero and prints no result.
 
 only builds the package under ``DIR`` (default: this checkout's ``src``),
 every library at once, and prints each library's build seconds and ptxas
-report and the device times of K2-K10 (kernels a parent checkout of the
-port has too), and, with K3 or K4, a digest of each decode output's bits
-on fixed inputs (``DIGEST_CASES``): run it on a parent checkout and on
-this one in turns (parent, change, change, parent) in one call, after any
-edit to a kernel source or to ``posit_srt.cuh``.  ``--only`` (any of K2, K3, K4,
-K5, K6, K7, K8, K9, K10) builds just those kernels' libraries and times
-just their rows: an A/B of one kernel's design variants, each a copy of
-``src`` with the kernel source changed.
+report, the static SASS of some libraries' kernels (opcode counts and a
+digest), and the device times of K2-K12 and of the posit-KV rounding
+(kernels a parent checkout of the port has too), and, with K3 or K4, a
+digest of each decode output's bits on fixed inputs (``decode_digests``),
+with K11 or K12 of each division, cast and rounding output's
+(``division_digests``): run it on a parent checkout and on this one in
+turns (parent, change, change, parent) in one call, after any edit to a
+kernel source or to ``posit_srt.cuh``.  ``--only`` (any of K2, K3, K4,
+K5, K6, K7, K8, K9, K10, K11, K12) builds just those kernels' libraries
+and times just their rows: an A/B of one kernel's design variants, each a
+copy of ``src`` with the kernel source changed.
 """
 
 from __future__ import annotations
@@ -1051,15 +1060,21 @@ def f32_specials(torch):
 
 
 def phase_casts(torch, dev):
-    """K12: dequantize every posit8/16 pattern and 2^20 posit32 patterns,
-    quantize 2^26 random f32 bit patterns and the specials: the twin's bits;
-    quantize o dequantize the identity on every posit8/16 pattern; the
-    rounding the posit-KV path makes (``posit_round_value``) on every bf16
-    bit pattern widened to f32: the twin's bits."""
+    """K12: dequantize every posit8/16 pattern and 2^20 posit32 patterns
+    (int64 lanes, and int32 words and packed uint16 / uint8 where they hold
+    them), quantize 2^26 random f32 bit patterns and the specials: the
+    twin's bits; quantize o dequantize the identity on every posit8/16
+    pattern; the round kernel as the posit-KV path calls it
+    (``posit_round_kv``, K and V in one launch) on every bf16 bit pattern
+    and on the f32 samples, and as ``posit_round_value`` on every bf16 bit
+    pattern widened to f32: the bits of the chain it replaces, quantize ->
+    dequantize -> ``.to(dtype)`` on the card (a bf16 NaN's bits torch's CUDA
+    conversion's)."""
     from repro_torch.core.posit import PositFormat
     from repro_torch.kernels import ops
 
     ops.posit_quantize.launches = ops.posit_dequantize.launches = 0
+    ops.posit_round_kv.launches = ops.posit_round_value.launches = 0
     g = torch.Generator(device=dev).manual_seed(17)
     specials = f32_specials(torch).to(dev)
     bf16 = (torch.arange(1 << 16, dtype=torch.int32, device=dev) << 16).view(torch.float32)
@@ -1071,6 +1086,9 @@ def phase_casts(torch, dev):
         d = ops.posit_dequantize(fmt, p)
         check(torch.equal(bits(d), bits(ops.posit_dequantize_plain(fmt, p))),
               f"K12 dequantize {fmt}: differs from its twin")
+        for dt in (torch.int32, torch.uint16, torch.uint8)[:{8: 3, 16: 2, 32: 1}[n]]:
+            check(torch.equal(bits(ops.posit_dequantize(fmt, p.to(dt))), bits(d)),
+                  f"K12 dequantize {fmt}: {dt} words differ from int64 lanes")
         if n < 32:
             check(torch.equal(ops.posit_quantize(fmt, d), p),
                   f"K12 {fmt}: quantize o dequantize is not the identity")
@@ -1079,7 +1097,20 @@ def phase_casts(torch, dev):
         q = ops.posit_quantize(fmt, x)
         check(torch.equal(q, ops.posit_quantize_plain(fmt, x)),
               f"K12 quantize {fmt}: differs from its twin")
-        del x, q
+        # the round kernel: bf16 K (every pattern), and an f32 and a bf16
+        # pair large enough for its vectorized path, each against the chain
+        # on the card and its twin
+        xb = x[: 1 << 22].to(torch.bfloat16)
+        for k, v in ((bf16.to(torch.bfloat16), bf16[:4099].flip(0).to(torch.bfloat16)),
+                     (x, x[4:(1 << 20) + 3]), (xb, xb[8:])):
+            for t, r in zip((k, v), ops.posit_round_kv(fmt, k, v)):
+                chain = ops.posit_dequantize(fmt, ops.posit_quantize(fmt, t)).to(t.dtype)
+                view = torch.int32 if t.dtype == torch.float32 else torch.int16
+                check(torch.equal(r.view(view), chain.view(view)),
+                      f"K12 round {fmt} {t.dtype}: differs from quantize -> dequantize -> .to "
+                      f"in {int((r.view(view) != chain.view(view)).sum())} of {t.numel()}")
+                err = max(err, max_abs_err(r.float(), ops.posit_round_plain(fmt, t).float()))
+        del x, q, xb
         r = ops.posit_round_value(fmt, bf16)
         twin = ops.posit_dequantize_plain(fmt, ops.posit_quantize_plain(fmt, bf16))
         err = max(err, max_abs_err(r, twin), max_abs_err(d, ops.posit_dequantize_plain(fmt, p)))
@@ -1087,12 +1118,15 @@ def phase_casts(torch, dev):
               f"K12 {fmt}: rounding bf16 patterns differs from its twin in "
               f"{int((bits(r) != bits(twin)).sum())} of {bf16.numel()}")
     torch.cuda.empty_cache()
-    launches = (ops.posit_quantize.launches, ops.posit_dequantize.launches)
-    print(f"K12: the twin's bits dequantizing every posit8/16 pattern and 2^20 posit32 ones, "
-          f"quantizing {CAST_SAMPLES} random f32 bit patterns and {specials.numel()} specials (+-0, inf, "
-          f"NaN, every subnormal class, +-2^e and neighbours) for posit8/16/32, and rounding "
-          f"every bf16 bit pattern (quantize then dequantize, as the posit-KV path does); "
-          f"quantize o dequantize the identity on every posit8/16 pattern; launches {launches}")
+    launches = (ops.posit_quantize.launches, ops.posit_dequantize.launches,
+                ops.posit_round_kv.launches + ops.posit_round_value.launches)
+    print(f"K12: the twin's bits dequantizing every posit8/16 pattern (int64, int32, uint16, "
+          f"uint8 words) and 2^20 posit32 ones, quantizing {CAST_SAMPLES} random f32 bit "
+          f"patterns and {specials.numel()} specials (+-0, inf, NaN, every subnormal class, "
+          f"+-2^e and neighbours) for posit8/16/32; the round kernel the chain's bits on every "
+          f"bf16 pattern (bf16 in and out, NaNs as torch's CUDA conversion gives them; f32 in and "
+          f"out) and on the f32 samples; quantize o dequantize the identity on every posit8/16 "
+          f"pattern; launches quantize, dequantize, round {launches}")
     return err
 
 
@@ -1152,8 +1186,9 @@ def identity64(torch, u):
 def phase_f32_sweep(torch, dev):
     """K10 on every f32 bit pattern as x / 1.0, default plan: at posit8,
     posit16 and posit32 the bits of K12's quantize then dequantize (the
-    pattern casts K10 no longer calls); at posit64 ``identity64``, the rule
-    first held against K10's twin on a CPU sample."""
+    pattern casts K10 no longer calls), and so K12's round kernel
+    (``posit_round_value``); at posit64 ``identity64``, the rule first held
+    against K10's twin on a CPU sample."""
     from repro_torch.core.posit import POSIT8, POSIT16, POSIT32, POSIT64
     from repro_torch.kernels import ops
 
@@ -1174,7 +1209,13 @@ def phase_f32_sweep(torch, dev):
         for fmt in (POSIT8, POSIT16, POSIT32, POSIT64):
             k = bits(ops.posit_div_fused(fmt, x, ones))
             want = (identity64(torch, u) if fmt is POSIT64 else
-                    bits(ops.posit_round_value(fmt, x)))
+                    bits(ops.posit_dequantize(fmt, ops.posit_quantize(fmt, x))))
+            if fmt is not POSIT64:
+                r = bits(ops.posit_round_value(fmt, x))
+                check(torch.equal(r, want),
+                      f"K12 round {fmt}: {int((r != want).sum())} f32 patterns differ from "
+                      "quantize -> dequantize")
+                del r
             if not torch.equal(k, want):
                 bad = (k != want).nonzero()[:6, 0]
                 fail(f"K10 {fmt} x / 1.0: {int((k != want).sum())} f32 patterns differ; "
@@ -1188,7 +1229,8 @@ def phase_f32_sweep(torch, dev):
     took = time.perf_counter() - t0
     torch.cuda.empty_cache()
     print(f"K10: every f32 bit pattern (2^32) as x / 1.0 the bits of K12's round trip at "
-          f"posit8, posit16 and posit32, and at posit64 x for every normal f32, +0 for a "
+          f"posit8, posit16 and posit32 (and of K12's round kernel), and at posit64 x for "
+          f"every normal f32, +0 for a "
           f"zero, a signed zero for a subnormal, NaN for inf and NaN (the rule the twin's "
           f"on {len(twin)} CPU samples); {launches} launches, {took:.1f} s")
     return launches
@@ -1990,8 +2032,9 @@ def phase_posit_kv(torch, dev, cfg, params, packs_held, main_outs):
     """Full-width SmolLM-360M served from a posit KV cache (every K/V row
     rounded through K12 before it is cached or attended): posit16 from
     dense slots (the main mix) and from the paged pool with packed prefill
-    (the paged mix), posit8 from dense slots.  Per forward step 2L K12
-    quantize and 2L dequantize launches over the unchanged K2-K5 counts;
+    (the paged mix), posit8 from dense slots.  Per forward step L launches
+    of K12's round kernel (K and V of a layer in one), no quantize or
+    dequantize, over the unchanged K2-K5 counts;
     every rounding of every layer and step (prefill, packed prefill,
     decode) the bits of K12's plain twin on the same rows; finite logits
     (the engine's health probe on, no fault); paged = dense tokens, no
@@ -2006,8 +2049,9 @@ def phase_posit_kv(torch, dev, cfg, params, packs_held, main_outs):
     from repro_torch.serve import FinishReason, ServeConfig, ServeEngine
 
     L = cfg.n_layers
-    counters = (ops.posit_quantize, ops.posit_dequantize, ops.posit_div_fused_rowwise)
-    out = {"K12q": 0, "K12dq": 0, "err": 0.0}
+    counters = (ops.posit_round_kv, ops.posit_quantize, ops.posit_dequantize,
+                ops.posit_div_fused_rowwise)
+    out = {"K12r": 0, "err": 0.0}
 
     def run(name, eng, reqs, fmt):
         check(eng.sc.health_checks, f"{name}: the engine's logits health probe is off")
@@ -2019,12 +2063,12 @@ def phase_posit_kv(torch, dev, cfg, params, packs_held, main_outs):
             outs, cache = served_with_cache(eng, reqs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        q, dq, k2 = (c.launches for c in counters)
+        rk, q, dq, k2 = (c.launches for c in counters)
         st = eng.last_serve_stats
         solo = st["admissions"] - st["packed_segments"]
         forwards = st["decode_steps"] + st["packed_packs"] + solo
-        for kname, got, want in (("K12 quantize", q, 2 * L * forwards),
-                                 ("K12 dequantize", dq, 2 * L * forwards),
+        for kname, got, want in (("K12 round", rk, L * forwards),
+                                 ("K12 quantize", q, 0), ("K12 dequantize", dq, 0),
                                  ("K2", k2, (2 * L + 1) * forwards),
                                  ("K3", F.launches, L * (solo if eng._paged else forwards)),
                                  ("K4", F.paged_launches,
@@ -2041,10 +2085,9 @@ def phase_posit_kv(torch, dev, cfg, params, packs_held, main_outs):
                   f"{name}: request {r.rid} finished {r.finish} with {len(r.tokens)} tokens")
             check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()),
                   f"{name}: request {r.rid}: token out of the vocabulary")
-        out["K12q"] += q
-        out["K12dq"] += dq
+        out["K12r"] += rk
         n_tok = sum(len(o) for o in outs)
-        return outs, cache, st, forwards, n_tok / wall, (q, dq), moved
+        return outs, cache, st, forwards, n_tok / wall, rk, moved
 
     def fixed_point(name, fmt, cache):
         for part in ("k", "v"):
@@ -2082,7 +2125,7 @@ def phase_posit_kv(torch, dev, cfg, params, packs_held, main_outs):
             check(np.array_equal(alone, outs[i]),
                   f"posit-KV {fmt_name}: request {i} solo differs from batched")
         lines.append(f"{fmt_name} dense: {tps:.1f} tokens/s (checked), {fw} forward steps, "
-                     f"launches K12 {k12[0]} + {k12[1]} (2L + 2L a step); {differ} of "
+                     f"K12 round launches {k12} (L a step); {differ} of "
                      f"{len(mix)} requests' tokens differ from the bf16 cache's; the "
                      f"rounding moved {moved:.4f} of the K/V entries")
     # posit16 from the paged pool, packed: the dense run's tokens, no sharing
@@ -2114,7 +2157,7 @@ def phase_posit_kv(torch, dev, cfg, params, packs_held, main_outs):
     check(not differ, f"posit-KV paged: requests {differ} differ from the dense posit16 run")
     lines.append(f"posit16 paged (pages of {PAGED_BLOCK}, packed): {len(pmix)} requests, "
                  f"{tps:.1f} tokens/s (checked), {fw} forward steps ({st['packed_packs']} packs of "
-                 f"{st['packed_segments']}), launches K12 {k12[0]} + {k12[1]}, prefix hit "
+                 f"{st['packed_segments']}), K12 round launches {k12}, prefix hit "
                  f"rate {st['prefix_hit_rate']}, tokens the dense posit16 run's "
                  f"({len(main_pos)} of the main mix, {len(chat_pos)} chat)")
     print("posit-KV (tokens/s with every rounding checked: not a throughput): "
@@ -2448,21 +2491,29 @@ def device_kernel_ms(torch, fn, names, iters=20):
     return cuda_time_ms(fn, iters), "CUDA events"
 
 
-def device_call_ms(torch, fn, iters=20):
-    """Device time per call of ``fn()`` that launches several kernels (a
-    library call's forward or backward): each kernel's mean launch time from
-    torch.profiler times its launches per call, summed, so a trace that kept
-    only part of the launches still counts each call whole; CUDA events
-    around the calls where no trace shows a kernel.  Host gaps make the
-    events' time of such a call spread: SDPA's backward at the training
-    shape took 0.64 to 1.14 ms so in runs on an H100."""
+def device_call_launches(torch, fn, iters=20):
+    """``(device ms, launches)`` per call of ``fn()`` that launches several
+    kernels (a library call's forward or backward, the posit-KV rounding):
+    each kernel's mean launch time from torch.profiler times its launches
+    per call, summed, so a trace that kept only part of the launches still
+    counts each call whole; CUDA events around the calls (launches None)
+    where no trace shows a kernel.  Host gaps make the events' time of such
+    a call spread: SDPA's backward at the training shape took 0.64 to 1.14
+    ms so in runs on an H100."""
     for _ in range(3):
         fn()
     counts = {}
     times, _ = profiled(torch, lambda: [fn() for _ in range(iters)], [""], counts)
     if times:
-        return sum(t / counts[k] * max(1, round(counts[k] / iters)) for k, t in times.items())
-    return cuda_time_ms(fn, iters)
+        per_call = {k: max(1, round(counts[k] / iters)) for k in times}
+        return (sum(t / counts[k] * per_call[k] for k, t in times.items()),
+                sum(per_call.values()))
+    return cuda_time_ms(fn, iters), None
+
+
+def device_call_ms(torch, fn, iters=20):
+    """The device ms of ``device_call_launches``."""
+    return device_call_launches(torch, fn, iters)[0]
 
 
 def phase_timing(torch, dev):
@@ -2630,9 +2681,14 @@ def moe_rows(torch, dev):
 # Integer operations of a cast per element, counted from posit_srt.cuh
 # (each guarded shift as a compare, a shift and a select): float_to_posit is
 # float_decompose (22), the field split (6) and encode (~100); posit_to_float
-# is decode (~30) and ldexp_f32 with the sign and special selects (~20).
+# is decode (~30) and ldexp_f32 with the sign and special selects (~20);
+# round_value is float_decompose (22), round_fields (~35) and the f32 built
+# from the fields with the special selects (~8), bf16's widening and
+# conversion (~5).
 QUANTIZE_OPS = 130
 DEQUANTIZE_OPS = 50
+ROUND_OPS = 70
+KV_DECODE = (8, 1, 5, 64)      # a SmolLM decode step's K (and V) of one layer
 
 
 def division_rows(torch, dev):
@@ -2642,7 +2698,9 @@ def division_rows(torch, dev):
     chunk of the pair sweep: device time (torch.profiler), per-call time
     (CUDA events), the bound, the elements a second, and the twin's time at
     64 x 1024.  K11 and the dequantize take int32 words, as the sweep gives
-    them."""
+    them (K11 writes int64 lanes).  Then K12's round kernel as the posit-KV
+    path calls it, posit16 on bf16 K and V of a decode step's layer
+    (KV_DECODE each) and of 2^27 elements each."""
     from repro_torch.core.posit import POSIT16, POSIT32, POSIT64
     from repro_torch.kernels import ops
     from repro_torch.kernels.posit_div import datapath_plan
@@ -2661,14 +2719,14 @@ def division_rows(torch, dev):
                             12, div_ops(plan64, size),
                             lambda: ops.posit_div_fused_plain(POSIT64, a, b)),
             "K11 posit32 srt_r4_scaled": (
-                lambda: ops.posit_div(POSIT32, sa, sb, "srt_r4_scaled"), ["div_kernel"], 12,
+                lambda: ops.posit_div(POSIT32, sa, sb, "srt_r4_scaled"), ["div_kernel"], 16,
                 div_ops(scaled32, size),
                 lambda: ops.posit_div_plain(POSIT32, sa, sb, "srt_r4_scaled")),
             "K10": (lambda: ops.posit_div_fused(POSIT16, a, b), ["elementwise_kernel"],
                     12, div_ops(plan, size), lambda: ops.posit_div_fused_plain(POSIT16, a, b)),
-            "K11": (lambda: ops.posit_div(POSIT16, wa, wb), ["div_kernel"], 12,
+            "K11": (lambda: ops.posit_div(POSIT16, wa, wb), ["div_kernel"], 16,
                     div_ops(plan, size), lambda: ops.posit_div_plain(POSIT16, wa, wb)),
-            "K12 quantize": (lambda: ops.posit_quantize(POSIT16, a), ["::quantize_kernel"], 8,
+            "K12 quantize": (lambda: ops.posit_quantize(POSIT16, a), ["::quantize_kernel"], 12,
                              QUANTIZE_OPS * size, lambda: ops.posit_quantize_plain(POSIT16, a)),
             "K12 dequantize": (lambda: ops.posit_dequantize(POSIT16, wa), ["dequantize_kernel"],
                                8, DEQUANTIZE_OPS * size,
@@ -2694,6 +2752,22 @@ def division_rows(torch, dev):
                 rows[f"{name} {label}"]["library_from"] = lib_src
         del a, b, wa, wb, sa, sb
         torch.cuda.empty_cache()
+    for shape, label in ((KV_DECODE, "decode"), ((1 << 27,), "2^27+2^27")):
+        k, v = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16) for _ in range(2))
+        call = lambda: ops.posit_round_kv(POSIT16, k, v)
+        size = 2 * k.numel()
+        iters = 20 if size < CHUNK else 3
+        dev_ms, src = device_kernel_ms(torch, call, ["posit_round_kernel"], iters=iters)
+        bms, by = bound_ms(4 * size, ROUND_OPS * size)
+        plain = lambda: [ops.posit_round_plain(POSIT16, t) for t in (k, v)]
+        rows[f"K12 round kv {label}"] = {
+            "shape": [2, *shape], "ms": dev_ms, "ms_from": src,
+            "call_ms": cuda_time_ms(call, iters=iters),
+            "plain_ms": cuda_time_ms(plain, iters=5) if size < CHUNK else None,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "per_s": size / (dev_ms * 1e-3)}
+        del k, v
+    torch.cuda.empty_cache()
     print_rows(rows)
     return rows
 
@@ -2955,7 +3029,8 @@ def decode_breakdown(torch, dev, cfg, params, paged: bool = False):
     if cfg.family == "moe":
         classes += (("K9 softmax", "softmax_kernel"),)
     if cfg.numerics.kv_cache_format:
-        classes += (("K12 casts", "quantize_kernel"),)   # both directions
+        # the round kernel (a parent checkout's quantize and dequantize)
+        classes += (("K12 casts", ("posit_round_kernel", "quantize_kernel")),)
     by = by_class({k: t / n for k, t in times.items()}, classes)
     busy = sum(by.values()) if times else None
     # every decode step reads all layer weights and the head once
@@ -2992,19 +3067,34 @@ def plan_name(fields) -> str:
     return f"posit{n} srt_r{radix}" + ("_cs" if red else "") + ("_of" if otf else "")
 
 
+# K11's and K12's element types in a mangled name, by the kernel
+WORD_NAMES = {"l": "int64", "j": "int32", "t": "uint16", "h": "uint8", "f": "f32"}
+
+
 def kernel_name(mangled: str) -> str:
     """A kernel's mangled name as its function, plan and (for the flash
-    forward) layout, as "flash_kernel posit64 srt_r4_cs_of paged"."""
+    forward) layout, as "flash_kernel posit64 srt_r4_cs_of paged"; K11's and
+    K12's with their element type and, past one, their elements a thread,
+    as "dequantize_kernel posit16 int32 x4"."""
     fn = re.search(r"\d([a-z][a-z_]*_kernel)I", mangled)
     plan = re.search(r"PlanI((?:L[ib]\d+E)+)E", mangled)
-    layout = re.search(r"EELi(\d)EEEv", mangled)
     fields = [int(x) for x in re.findall(r"L[ib](\d+)E", plan.group(1))] if plan else []
-    width = re.search(r"_kernelILi(\d+)E", mangled)   # K12's casts: the format only
+    width = re.search(r"_kernelILi(\d+)E", mangled)   # K12's casts: the format first
     what = (plan_name(fields) if fields else
             f"posit{width.group(1)}" if width else "posit?")
     name = f"{fn.group(1) if fn else mangled} {what}"
-    if layout:
-        name += f" {LAYOUT_NAMES[int(layout.group(1))]}"
+    if fn and fn.group(1).startswith("flash"):
+        layout = re.search(r"EELi(\d)EEEv", mangled)
+        if layout:
+            name += f" {LAYOUT_NAMES[int(layout.group(1))]}"
+    elif fn:
+        extra = re.search(r"E([a-z]?)Li(\d)EEEv", mangled)   # <..., type, V>
+        if extra:
+            word = WORD_NAMES.get(extra.group(1), "")
+            if fn.group(1) == "posit_round_kernel" and word == "uint16":
+                word = "bf16"
+            name += (f" {word}" if word else "") + (
+                f" x{extra.group(2)}" if extra.group(2) != "1" else "")
     return name
 
 
@@ -3023,23 +3113,25 @@ def ptxas_kernels(log: str):
 # the libraries whose posit16 kernels --time-kernels disassembles (and
 # posit_fused_div's posit64 ones, and the forward's posit32 ones, whose tile
 # loop runs on the tensor cores), and the opcodes it counts in each: the
-# integer pipe's (compares, selects, logic, adds, shifts, byte permutes),
-# IMAD and MOV, the conversions and f32 multiplies the casts may use,
+# integer pipe's (compares, selects, branches, logic, adds, shifts, byte
+# permutes), IMAD and MOV, the conversions and f32 multiplies the casts use,
 # constant, global and local loads (a table looked up in memory, spills),
 # shared loads, and the tensor cores' HMMA
 SASS_LIBRARIES = ("posit_flash_attn_p16", "posit_flash_attn_p32", "posit_flash_bwd_p16",
-                  "posit_fused_div", "posit_cast")
+                  "posit_fused_div", "posit_softmax", "posit_div", "posit_cast")
 SASS_FORMATS = {"posit_fused_div": ("posit16", "posit64"), "posit_flash_attn_p32": ("posit32",)}
-SASS_OPCODES = ("ISETP", "SEL", "LOP3", "IADD3", "SHF", "PRMT", "IMAD", "MOV", "FLO", "I2F",
+SASS_OPCODES = ("ISETP", "SEL", "BRA", "LOP3", "IADD3", "SHF", "PRMT", "IMAD", "MOV", "FLO", "I2F",
                 "F2I", "FMUL", "FFMA", "FSETP", "LDC", "LDG", "LDL", "STL", "LDS", "SHFL",
                 "HMMA")
 
 
 def sass_counts(build, name: str):
-    """``{kernel: {"instructions": n, opcode: n, ...}}``: the static SASS
-    of every posit16 kernel of the built library ``name`` (or the formats
-    SASS_FORMATS names for it) (``cuobjdump -sass``, beside
-    ``nvcc``), its instructions counted in all and by SASS_OPCODES."""
+    """``{kernel: {"instructions": n, opcode: n, ..., "digest": d}}``: the
+    static SASS of every posit16 kernel of the built library ``name`` (or
+    the formats SASS_FORMATS names for it) (``cuobjdump -sass``, beside
+    ``nvcc``), its instructions counted in all and by SASS_OPCODES, and the
+    sha256 prefix of its instructions' text without addresses (a parent
+    checkout's kernel prints the same digest where its SASS is the same)."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     dump = subprocess.run([cuobjdump, "-sass", str(build._lib_path(name))], check=True,
                           capture_output=True, text=True, timeout=600).stdout
@@ -3050,8 +3142,10 @@ def sass_counts(build, name: str):
         if name.split()[1] not in formats:
             continue
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)", block)
+        text = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", block)
         counts = collections.Counter(ops)
-        out[name] = {"instructions": len(ops), **{o: counts.get(o, 0) for o in SASS_OPCODES}}
+        out[name] = {"instructions": len(ops), **{o: counts.get(o, 0) for o in SASS_OPCODES},
+                     "digest": hashlib.sha256("\n".join(text).encode()).hexdigest()[:16]}
     return out
 
 
@@ -3067,6 +3161,8 @@ ONLY_LIBRARIES = {
                                  "posit_flash_bwd_p64_r4"),
     "K9": ("posit_softmax",),
     "K10": ("posit_fused_div", "posit_cast"),
+    "K11": ("posit_div",),
+    "K12": ("posit_cast",),
 }
 ONLY_LIBRARIES["K5"] = ONLY_LIBRARIES["K6"] = ONLY_LIBRARIES["K3"]
 ONLY_LIBRARIES["K3"] = ONLY_LIBRARIES["K4"] = DECODE_LIBRARIES
@@ -3105,6 +3201,56 @@ def decode_digests(torch, dev, F, dense_in, paged_in, pos):
     return out
 
 
+def division_digests(torch, dev):
+    """The digests of K11's, K12's and the posit-KV rounding's outputs on
+    fixed inputs: K11 at every plan it is built for (posit8 and posit10 on
+    every pair, posit16 and posit32 on 2^20 random pairs, int64 lanes in);
+    K12's quantize of 2^20 random f32 bit patterns and the specials, its
+    dequantize of every posit8/16 pattern (2^20 random posit32 ones) as
+    int64 lanes and int32 words; ``layers._kv_round`` at posit8, posit16
+    and posit32 on bf16 K holding every bf16 bit pattern (NaNs, infs,
+    subnormals) and on f32 K holding the f32 samples, V random, both a
+    decode step's layout.  A parent checkout's run prints the same digests
+    where the bits are the same."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.posit import PositFormat
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posit_div import one_word_pairs, planned_pairs
+    from repro_torch.models import layers
+
+    g = torch.Generator().manual_seed(41)
+    out = {}
+    plans = [(f, v) for f, v, _ in planned_pairs() if f.n <= 32] + [
+        (f, v) for f, v, _ in one_word_pairs((PositFormat(10),))]
+    rand = {n: [torch.randint(0, 1 << n, (1 << 20,), generator=g).to(dev) for _ in range(2)]
+            for n in (16, 32)}
+    for fmt, variant in plans:
+        n = fmt.n
+        px, pd = rand[n] if n in rand else (
+            m.reshape(-1).to(dev) for m in torch.meshgrid(torch.arange(1 << n),
+                                                          torch.arange(1 << n), indexing="ij"))
+        out[f"K11 posit{n} {variant}"] = digest(ops.posit_div(fmt, px, pd, variant))
+    x = torch.randint(-2 ** 31, 2 ** 31, (1 << 20,), generator=g).to(torch.int32)
+    x = torch.cat([f32_specials(torch), x.view(torch.float32)]).to(dev)
+    cfg = get_config("smollm_360m", smoke=True)
+    for n in (8, 16, 32):
+        fmt = PositFormat(n)
+        p = torch.arange(1 << n, device=dev) if n < 32 else rand[32][0]
+        out[f"K12 quantize posit{n}"] = digest(ops.posit_quantize(fmt, x))
+        out[f"K12 dequantize posit{n}"] = digest(ops.posit_dequantize(fmt, p))
+        out[f"K12 dequantize posit{n} int32"] = digest(ops.posit_dequantize(fmt, p.to(torch.int32)))
+        kcfg = cfg.with_numerics(kv_cache_format=f"posit{n}")
+        kb = (torch.arange(1 << 16, dtype=torch.int32) << 16).view(torch.float32)
+        kb = kb.to(torch.bfloat16).reshape(-1, 1, 4, 64).to(dev)
+        kf = x[: (x.numel() // 256) * 256].reshape(-1, 1, 4, 64)
+        for k in (kb, kf):
+            v = torch.randn(KV_DECODE, generator=g).to(k.dtype).to(dev)
+            rk, rv = layers._kv_round(k, v, kcfg)
+            out[f"K12 _kv_round posit{n} {str(k.dtype)[6:]}"] = digest(
+                torch.cat([rk.reshape(-1), rv.reshape(-1)]))
+    return out
+
+
 def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
     """An A/B of the kernels both packages have, from the package under
     ``src``: each library's build seconds (all built in parallel, as the
@@ -3118,8 +3264,13 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
     pack), K6-K8 (the training rows), K9 (8 x 64 and 4096 x 64), K3, K4,
     K5-K9 at posit32 and posit64 too, K2 at
     K2_SHAPES (posit16 and posit64) and K10 at K10_SIZES (posit16, posit32
-    and posit64), all at the default plan; K2 and K10 per call too; with K3
-    or K4, the digests of ``decode_digests``.  Run it
+    and posit64), all at the default plan; K2 and K10 per call too; K11
+    (posit16, posit32 srt_r4_scaled) and K12 (quantize, dequantize) at the
+    division rows' 64 x 1024 and 2^28, ``layers._kv_round`` at posit16 on a
+    decode step's bf16 K and V (KV_DECODE) and on 2^27 + 2^27 (its device
+    time the sum of every kernel it launches, its launches a call beside
+    it), all per call too; with K3 or K4, the digests of
+    ``decode_digests``, with K11 or K12 those of ``division_digests``.  Run it
     from a parent checkout's ``src`` and from this one, in turns, on one
     card, after an edit to a kernel source or to the shared
     ``posit_srt.cuh``.  ``only`` (kernel names among ONLY_LIBRARIES'): build
@@ -3247,17 +3398,54 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
                 lambda f=fmt, a1=a1, b1=b1: ops.posit_div_fused(f, a1, b1),
                 ["elementwise_kernel"])
             per_call.append(f"K10 {label}{tag}")
+    # K11 and K12 at the division rows' sizes (int32 words in, as the pair
+    # sweep gives them), posit16 and K11 at posit32 srt_r4_scaled; the
+    # posit-KV rounding as the model calls it (None: every kernel it launches)
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    gd = torch.Generator(device=dev).manual_seed(23)
+    for size, label in (K10_SIZES[0], K10_SIZES[2]):
+        a1, b1 = (torch.rand(size, device=dev, generator=gd) * 9.9 + 0.1 for _ in range(2))
+        wa, wb = (ops.posit_quantize(POSIT16, t).to(torch.int32) for t in (a1, b1))
+        sa, sb = (ops.posit_quantize(POSIT32, t).to(torch.int32) for t in (a1, b1))
+        calls.update({
+            f"K11 {label}": (lambda wa=wa, wb=wb: ops.posit_div(POSIT16, wa, wb), ["div_kernel"]),
+            f"K11 {label} posit32 srt_r4_scaled": (
+                lambda sa=sa, sb=sb: ops.posit_div(POSIT32, sa, sb, "srt_r4_scaled"),
+                ["div_kernel"]),
+            f"K12 quantize {label}": (lambda a1=a1: ops.posit_quantize(POSIT16, a1),
+                                      ["::quantize_kernel"]),
+            f"K12 dequantize {label}": (lambda wa=wa: ops.posit_dequantize(POSIT16, wa),
+                                        ["dequantize_kernel"])})
+        per_call += [f"K11 {label}", f"K11 {label} posit32 srt_r4_scaled",
+                     f"K12 quantize {label}", f"K12 dequantize {label}"]
+    kcfg = get_config("smollm_360m", smoke=True).with_numerics(kv_cache_format="posit16")
+    for shape, label in ((KV_DECODE, "decode"), ((1 << 27,), "2^27+2^27")):
+        kk, kv_ = (torch.randn(shape, device=dev, generator=gd).to(torch.bfloat16)
+                   for _ in range(2))
+        calls[f"K12 _kv_round {label}"] = (lambda kk=kk, kv_=kv_: layers._kv_round(kk, kv_, kcfg),
+                                           None)
+        per_call.append(f"K12 _kv_round {label}")
     if not only or {"K3", "K4"} & set(only):
         out["digests"] = decode_digests(torch, dev, F, (q, k, v, start), (gq, gk, gv, bt), pos)
+    if not only or {"K11", "K12"} & set(only):
+        out.setdefault("digests", {}).update(division_digests(torch, dev))
     if only:
         calls = {name: call for name, call in calls.items() if name.split()[0] in only}
     out["ms"] = {name: [] for name in calls}
     out["call_ms"] = {name: [] for name in per_call if name in calls}
+    out["launches"] = {}
     out["from"] = []
     for _ in range(repeats):
         for name, (fn, names) in calls.items():
-            iters = 5 if "2^28" in name else 20
-            ms, how = device_kernel_ms(torch, fn, names, iters=iters)
+            iters = 5 if "2^28" in name or "2^27" in name else 20
+            if names is None:   # every kernel the call launches
+                ms, launches = device_call_launches(torch, fn, iters=iters)
+                out["launches"][name] = launches
+                how = "torch.profiler, every kernel" if launches else "CUDA events"
+            else:
+                ms, how = device_kernel_ms(torch, fn, names, iters=iters)
             out["ms"][name].append(ms)
             out["from"].append(how)
             if name in out["call_ms"]:   # many calls: the host's time is noisy
@@ -3524,11 +3712,15 @@ def main() -> int:
               "src/repro/kernels/posit_div.py:652", k11["launches"] + fused["K11"] + two["K11"],
               0.0, rows["K11 64x1024"]),
         entry("K12 f32 -> posit quantize", csrc + "posit_cast.cu",
-              "src/repro/kernels/posit_cast.py:43", kv["K12q"], max(cast_err, kv["err"]),
+              "src/repro/kernels/posit_cast.py:43", fused["K12q"], cast_err,
               rows["K12 quantize 64x1024"]),
         entry("K12 posit -> f32 dequantize", csrc + "posit_cast.cu",
-              "src/repro/kernels/posit_cast.py:65", kv["K12dq"], max(cast_err, kv["err"]),
+              "src/repro/kernels/posit_cast.py:65", fused["K12dq"], cast_err,
               rows["K12 dequantize 64x1024"]),
+        entry("K12 round to the posit grid, K and V of a layer in one launch (the posit-KV "
+              "path; the reference rounds with its jnp codec, no Pallas kernel)",
+              csrc + "posit_cast.cu", "src/repro/kernels/posit_cast.py:43, :65", kv["K12r"],
+              max(cast_err, kv["err"]), rows["K12 round kv decode"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

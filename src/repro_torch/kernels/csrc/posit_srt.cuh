@@ -367,6 +367,43 @@ PHD FieldsT<typename Fmt<N>::U> float_to_fields(float x) {
   return r;
 }
 
+// posit_to_float<N>(float_to_posit<N>(x)) with no pattern built (K12's
+// round kernel): float_to_fields, then the f32 from the fields, as
+// quotient_to_float's N <= 32 branch builds it.  Zero (-0.0 too) gives
+// +0.0; inf and NaN (NaR) the canonical quiet NaN.
+template <int N>
+PHD float round_value(float x) {
+  static_assert(N <= 32, "K12 rounds to posit8, posit16 and posit32");
+  constexpr int F = Fmt<N>::F;
+  const auto r = float_to_fields<N>(x);
+  uint32_t u;
+  if constexpr (F <= 23) {  // posit8, posit16: the fraction fits f32's, placed as it is
+    u = (static_cast<uint32_t>(r.scale + 127) << 23) | ((r.sig & ((1u << F) - 1u)) << (23 - F));
+  } else {  // posit32: the significand rounded to 24 bits (RNE), as posit_to_float
+    u = f2u(static_cast<float>(r.sig)) + (static_cast<uint32_t>(r.scale - F) << 23);
+  }
+  u |= r.sign ? 0x80000000u : 0u;
+  if (r.zero) u = 0u;
+  if (r.nar) u = 0x7FC00000u;
+  return u2f(u);
+}
+
+// The bfloat16 bits of x, as torch's .to(torch.bfloat16) gives them on the
+// card: the card's own conversion (cvt.rn.bf16.f32: round to nearest even,
+// any NaN to 0x7FFF); on the host the same rule written out.  torch's CPU
+// conversion gives another NaN (0xFFFF), so a NaN's bits are the card's.
+PHD uint16_t bf16_bits(float x) {
+#ifdef __CUDA_ARCH__
+  uint16_t h;
+  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(h) : "f"(x));
+  return h;
+#else
+  const uint32_t u = f2u(x);
+  if ((u & 0x7FFFFFFFu) > 0x7F800000u) return 0x7FFFu;
+  return static_cast<uint16_t>((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
+#endif
+}
+
 // ---------------------------------------------------------------- plan
 
 // One row of kernel_datapath_plan (kernels/posit_div.py).  The frame holds
@@ -435,10 +472,18 @@ struct Thresholds {
   int m2, m1, m0, mm1;
 };
 
+// How a radix-4 plan picks its digit from the estimate: down a compare
+// ladder (K2-K10; K11 at four elements a thread), or by counting the
+// thresholds the estimate reaches (K11 at one element a thread): the
+// thresholds fall strictly (m2 > m1 > m0 > mm1), so the count less 2 is the
+// ladder's digit for every estimate, with no path to branch on.  Radix 2 and
+// the non-redundant plans keep their forms.
+enum class Selection { ladder, count };
+
 // Quotient-digit selection (Section III-D) on the truncated estimate, read
 // from the top bits of the residual register (the reference's top word),
 // against the divisor's thresholds (decided once, in prep_divisor_bits).
-template <class P>
+template <class P, Selection S = Selection::ladder>
 PHD int select_digit(typename P::Word rws, typename P::Word rwc, const Thresholds& m) {
   using W = typename P::Word;
   constexpr int top = 32 * P::words - 1;
@@ -449,6 +494,12 @@ PHD int select_digit(typename P::Word rws, typename P::Word rwc, const Threshold
   const int est = static_cast<int>(t) - (((t >> (tb - 1)) & 1u) ? (1 << tb) : 0);
   if (!P::redundant) return est >= 1 ? 1 : (est >= -1 ? 0 : -1);   // Eq 26
   if (P::radix == 2) return est >= 0 ? 1 : (est == -1 ? 0 : -1);   // Eq 27
+  if constexpr (S == Selection::count) {
+    if (P::scaled)  // Eq 29, immediates
+      return (est >= kScaledM2) + (est >= kScaledM1) + (est >= kScaledM0) +
+             (est >= kScaledMM1) - 2;
+    return (est >= m.m2) + (est >= m.m1) + (est >= m.m0) + (est >= m.mm1) - 2;
+  }
   if (P::scaled)  // Eq 29, immediates
     return est >= kScaledM2 ? 2 : est >= kScaledM1 ? 1 : est >= kScaledM0 ? 0
          : est >= kScaledMM1 ? -1 : -2;
@@ -627,7 +678,7 @@ struct QuotientFields {
 // posit_div.py _divide_fields: the recurrence on significands, on one
 // residual register per carry-save word (uint32_t at W = 1, uint64_t at
 // W = 2) and a quotient register pair of the plan's width.
-template <class P>
+template <class P, Selection S = Selection::ladder>
 PHD QuotientFields<typename P::Pat> divide_fields(typename P::Pat xsig, const DivisorOf<P>& d) {
   using W = typename P::Word;
   using Q = typename P::QWord;
@@ -639,7 +690,7 @@ PHD QuotientFields<typename P::Pat> divide_fields(typename P::Pat xsig, const Di
   if (P::scaled) x_al = scale_operand(x_al, d.shifts & 0xFF, d.shifts >> 8);
 
   // Iteration 1 folded: y_1 = r*w(0) = x exactly.
-  int digit = select_digit<P>(x_al, W(0), m);
+  int digit = select_digit<P, S>(x_al, W(0), m);
   W a = addend<P>(digit, d);
   W cin = digit > 0 ? W(1) : W(0);
   W ws, wc;
@@ -659,13 +710,13 @@ PHD QuotientFields<typename P::Pat> divide_fields(typename P::Pat xsig, const Di
     const W rws = ws << LR;
     if (P::redundant) {
       const W rwc = wc << LR;
-      digit = select_digit<P>(rws, rwc, m);
+      digit = select_digit<P, S>(rws, rwc, m);
       a = addend<P>(digit, d);
       cin = digit > 0 ? W(1) : W(0);
       ws = rws ^ rwc ^ a;
       wc = (((rws & rwc) | (rws & a) | (rwc & a)) << 1) | cin;
     } else {
-      digit = select_digit<P>(rws, W(0), m);
+      digit = select_digit<P, S>(rws, W(0), m);
       a = addend<P>(digit, d);
       cin = digit > 0 ? W(1) : W(0);
       ws = rws + a + cin;
@@ -696,14 +747,21 @@ PHD QuotientFields<typename P::Pat> divide_fields(typename P::Pat xsig, const Di
 
 // posit_div.py _divide_block for one element: the quotient's pattern from
 // the dividend's pattern and a prepared divisor.
-template <class P>
+template <class P, Selection S = Selection::ladder>
 PHD typename P::Pat divide_bits(typename P::Pat px, const DivisorOf<P>& d) {
   const auto dx = decode<P::n>(px);
-  const auto q = divide_fields<P>(dx.sig, d);
+  const auto q = divide_fields<P, S>(dx.sig, d);
   const bool out_nar = dx.nar || d.nar || d.zero;
   const bool out_zero = dx.zero && !out_nar;
   return encode<P::n>(dx.sign != d.sign, dx.scale - d.scale + q.t_adj, q.frac, q.round_bit,
                       q.sticky, out_zero, out_nar);
+}
+
+// K11's element: the quotient's pattern from the two patterns, the divisor
+// prepared for this element alone, the digit selected as S says.
+template <class P, Selection S = Selection::count>
+PHD typename P::Pat divide_patterns(typename P::Pat px, typename P::Pat pd) {
+  return divide_bits<P, S>(px, prep_divisor_bits<P>(pd));
 }
 
 // posit_div.py divide_floats_block for one element against a prepared

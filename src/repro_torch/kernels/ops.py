@@ -9,6 +9,9 @@ Port of the reference package's ``kernels/ops.py``:
   float operands in one launch, bit-identical to the chained
   ``posit_quantize -> posit_div -> posit_dequantize``;
 * ``posit_quantize`` / ``posit_dequantize`` — the storage casts;
+  ``posit_round_value`` / ``posit_round_kv`` — the rounding to the posit
+  grid in one pass (the straight-through quantizer; the posit-KV cache's K
+  and V, both in one launch);
 * ``a[..., C] / b[..., 1]`` where ``b`` broadcasts into ``a`` with a size-1
   (or absent) last axis — the RMSNorm reciprocal and every per-row
   normalizer.  The divisor stays an O(rows) column end to end.
@@ -23,9 +26,11 @@ or raises where no kernel is compiled for the plan or format: it never runs
 the twin instead.  For a CPU tensor it runs the plain twin
 (``*_plain``).  Patterns are int64 lanes holding the unsigned 32-bit value
 (``core/posit.py``); ``posit_div`` and ``posit_dequantize`` also take
-int32 words or packed uint8/uint16 patterns.  The reference's ``block``
-and ``interpret`` arguments and its padding have no counterpart: the
-kernels mask their ragged end, and any shape, zero-size included, is taken.
+int32 words or packed uint8/uint16 patterns, which their kernels read as
+they are (``posit_div`` packed ones after a cast to int64).  The
+reference's ``block`` and ``interpret`` arguments and its padding have no
+counterpart: the kernels mask their ragged end, and any shape, zero-size
+included, is taken.
 """
 
 from __future__ import annotations
@@ -108,11 +113,7 @@ def _launch_flat(fn, what: str, fmt: PositFormat, variant: str, a, b, out):
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = _on_device(a.device, fn, *_plan_args(plan), a.data_ptr(), b.data_ptr(),
                     out.data_ptr(), a.numel(), stream)
-    if rc == -1:
-        raise NotImplementedError(f"{what}: no kernel is built for {fmt} {variant}; the twin "
-                                  "runs on CPU tensors only")
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+    _check_launch(rc, what, fmt, variant)
     return out
 
 
@@ -120,7 +121,26 @@ def _unsupported_device(what: str, t):
     return ValueError(f"no {what} for device {t.device}")
 
 
+def _check_launch(rc: int, what: str, fmt: PositFormat, variant: str):
+    """Raise for a launch's return code: -1 when the kernel's own plan table
+    has no row for (fmt, variant) (never the twin instead), a cudaError."""
+    if rc == -1:
+        raise NotImplementedError(f"{what}: no kernel is built for {fmt} {variant}; the twin "
+                                  "runs on CPU tensors only")
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+
 # ------------------------------------------------------------- K11: patterns
+
+
+@functools.lru_cache(maxsize=None)
+def _pattern_fn():
+    fn = _build.load("posit_div").posit_div
+    fn.argtypes = PLAN_ARGTYPES + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                                            ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _pattern_plan(fmt: PositFormat, variant: str) -> DatapathPlan:
@@ -145,13 +165,17 @@ def posit_div(fmt: PositFormat, px, pd, variant: str = DEFAULT_DIV_VARIANT):
     CUDA tensors launch K11 (counted in ``posit_div.launches``); CPU tensors
     run the plain twin.  Bit-identical to the reference's ``ops.posit_div``.
     """
-    _pattern_plan(fmt, variant)
+    plan = _pattern_plan(fmt, variant)
     if px.device.type == "cuda":
-        wx, wd = (_cast.to_words(t) for t in _pair(px, pd, "posit_div", px.dtype))
-        out = _launch_flat(_flat_fn("posit_div", "posit_div"), "posit_div", fmt, variant, wx,
-                           wd, torch.empty_like(wx))
+        dtype = px.dtype if px.dtype in (torch.int64, torch.int32) else torch.int64
+        wx, wd = (t.contiguous() for t in _pair(px, pd, "posit_div", dtype))
+        out = torch.empty(wx.shape, dtype=torch.int64, device=wx.device)
+        rc = _on_device(wx.device, _pattern_fn(), *_plan_args(plan), wx.data_ptr(),
+                        wd.data_ptr(), out.data_ptr(), wx.numel(), int(dtype == torch.int64),
+                        torch.cuda.current_stream(wx.device).cuda_stream)
+        _check_launch(rc, "posit_div", fmt, variant)
         posit_div.launches += 1
-        return _cast.from_words(out)
+        return out
     if px.device.type == "cpu":
         return posit_div_plain(fmt, px, pd, variant)
     raise _unsupported_device("posit divide", px)
@@ -199,23 +223,20 @@ posit_div_fused.launches = 0
 
 posit_quantize_plain = _cast.quantize_plain
 posit_dequantize_plain = _cast.dequantize_plain
-
-
-def _quantize_words(fmt: PositFormat, x):
-    """One counted launch of K12's quantize kernel: int32 words out."""
-    out = _cast.launch_quantize(fmt, x)
-    posit_quantize.launches += 1
-    return out
+posit_round_plain = _cast.round_plain
 
 
 def posit_quantize(fmt: PositFormat, x):
     """float32 -> posit patterns (int64 lanes; RNE, saturating), any shape.
 
     CUDA tensors launch K12's quantize kernel (posit8/16/32, counted in
-    ``posit_quantize.launches``); CPU tensors run the plain twin."""
+    ``posit_quantize.launches``), which writes the lanes itself; CPU tensors
+    run the plain twin."""
     _cast.check_format(fmt)
     if x.device.type == "cuda":
-        return _cast.from_words(_quantize_words(fmt, x))
+        out = _cast.launch_quantize(fmt, x)
+        posit_quantize.launches += 1
+        return out
     if x.device.type == "cpu":
         return _cast.quantize_plain(fmt, x)
     raise _unsupported_device("posit cast", x)
@@ -224,7 +245,8 @@ def posit_quantize(fmt: PositFormat, x):
 def posit_dequantize(fmt: PositFormat, p):
     """posit patterns (int64 lanes, int32 words or packed) -> float32, any
     shape.  CUDA tensors launch K12's dequantize kernel (posit8/16/32,
-    counted in ``posit_dequantize.launches``); CPU tensors run the twin."""
+    counted in ``posit_dequantize.launches``), which reads the patterns as
+    they are; CPU tensors run the twin."""
     _cast.check_format(fmt)
     if p.device.type == "cuda":
         out = _cast.launch_dequantize(fmt, p)
@@ -240,16 +262,51 @@ posit_dequantize.launches = 0
 
 
 def posit_round_value(fmt: PositFormat, x):
-    """``x`` rounded to the nearest posit value, float32 out.
+    """``x`` rounded to the nearest posit value, float32 out: the bits of
+    ``posit_dequantize(posit_quantize(x))``.
 
-    CUDA tensors launch K12's quantize then its dequantize kernel (each
-    counted as above) on one int32 word buffer; CPU tensors run the twins."""
+    CUDA tensors launch K12's round kernel once (f32 in and out; counted in
+    ``posit_round_value.launches``); CPU tensors run the twins."""
     _cast.check_format(fmt)
     if x.device.type == "cuda":
-        return posit_dequantize(fmt, _quantize_words(fmt, x))
+        (out,) = _cast.launch_round(fmt, x.to(torch.float32))
+        posit_round_value.launches += 1
+        return out
     if x.device.type == "cpu":
         return _cast.dequantize_plain(fmt, _cast.quantize_plain(fmt, x))
     raise _unsupported_device("posit cast", x)
+
+
+posit_round_value.launches = 0
+
+
+def posit_round_kv(fmt: PositFormat, k, v):
+    """K and V rounded to the posit grid ``fmt`` in their own dtype (bf16 or
+    f32), as the posit-KV cache stores them: each element's
+    ``posit_round_value`` cast back to the dtype (bf16 as the card's
+    conversion rounds: ``csrc/posit_srt.cuh`` ``bf16_bits``).
+
+    CUDA tensors launch K12's round kernel once for both (counted in
+    ``posit_round_kv.launches``), with no copy to f32 and back; CPU tensors
+    run the twin chain (quantize, dequantize, cast).  posit8/16/32 only
+    (the formats the kernel is built for), on any device."""
+    _cast.check_format(fmt)
+    if fmt.n not in _cast.ROUND_FORMATS:
+        raise NotImplementedError(f"posit_round_kv: no kernel is built for {fmt}")
+    if k.dtype not in _cast.ROUND_DTYPES or v.dtype != k.dtype or v.device != k.device:
+        raise ValueError(f"posit_round_kv takes K and V of one dtype among "
+                         f"{list(_cast.ROUND_DTYPES)} on one device; got {k.dtype} on "
+                         f"{k.device} and {v.dtype} on {v.device}")
+    if k.device.type == "cuda":
+        out = tuple(_cast.launch_round(fmt, k, v))
+        posit_round_kv.launches += 1
+        return out
+    if k.device.type == "cpu":
+        return _cast.round_plain(fmt, k), _cast.round_plain(fmt, v)
+    raise _unsupported_device("posit cast", k)
+
+
+posit_round_kv.launches = 0
 
 
 def rowwise_applicable(a_shape, b_shape) -> bool:

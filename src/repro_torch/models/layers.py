@@ -16,7 +16,8 @@ The divisions (RMSNorm's ``x / rms``, attention's ``o / l``, the MoE
 router's softmax and its top-k renormalization) run on the posit SRT
 kernels (K2, and K9 for the router softmax); under
 ``numerics.kv_cache_format`` the serving paths round every K/V row to the
-posit grid through K12 before caching it; attention runs on the posit
+posit grid through K12 (one launch a layer for K and V) before caching
+it; attention runs on the posit
 flash kernels: K3 when serving
 from a dense cache (and for a prefix-sharing suffix prefill), K4 when
 decoding from a paged block pool, K5 for a packed multi-prompt prefill, and
@@ -37,6 +38,7 @@ import math
 import torch
 import torch.nn.functional as Fn
 
+from repro_torch.kernels.ops import posit_round_kv
 from repro_torch.kernels.posit_flash_attn import (
     posit_flash_attention,
     posit_flash_attention_ste,
@@ -47,7 +49,6 @@ from repro_torch.numerics.posit_ops import (
     posit_router_norm,
     posit_softmax,
 )
-from repro_torch.numerics.quant import posit_round_value
 from .config import ModelConfig
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -90,16 +91,14 @@ def _qkv(p, x, cfg: ModelConfig, positions):
 
 def _kv_round(k, v, cfg: ModelConfig):
     """Under ``numerics.kv_cache_format``, K/V rounded to that posit grid
-    before they are cached or attended (f32, then back to their dtype), as
-    the reference rounds at insertion; the cache keeps the compute dtype
-    and holds posit-grid values.  On a CUDA tensor each rounding is one
-    quantize and one dequantize launch of K12."""
+    before they are cached or attended (in f32, then back to their dtype),
+    as the reference rounds at insertion; the cache keeps the compute dtype
+    and holds posit-grid values.  On CUDA tensors one launch of K12's round
+    kernel rounds K and V in their dtype."""
     name = cfg.numerics.kv_cache_format
     if not name:
         return k, v
-    pf = resolve_format(name)
-    return (posit_round_value(pf, k.to(torch.float32)).to(k.dtype),
-            posit_round_value(pf, v.to(torch.float32)).to(v.dtype))
+    return posit_round_kv(resolve_format(name), k, v)
 
 
 def wo_project(o, wo):

@@ -1,10 +1,10 @@
 """Tensor quantization to posit formats with straight-through gradients.
 
 Port of the reference package's ``numerics/quant.py``.  The casts run on
-K12 for a CUDA tensor (one quantize and one dequantize launch on one
-int32 word buffer for ``posit_round_value``, which rounds to the posit
-grid) and on its plain twin for a CPU tensor (``kernels/ops.posit_quantize``
-/ ``posit_dequantize`` / ``posit_round_value``).  Patterns are
+K12 for a CUDA tensor (one launch of its round kernel for
+``posit_round_value``, which rounds to the posit grid) and on its plain
+twin for a CPU tensor (``kernels/ops.posit_quantize`` /
+``posit_dequantize`` / ``posit_round_value``).  Patterns are
 int64 lanes holding the unsigned value; the ``pack_*`` wire formats are
 uint16 / uint8.
 """

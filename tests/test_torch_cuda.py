@@ -1103,9 +1103,14 @@ def test_cast_kernels_match_twin(dev, n):
     assert torch.equal(q.cpu(), ops.posit_quantize_plain(fmt, x))
     d = ops.posit_dequantize(fmt, p.to(dev))
     assert torch.equal(bits(d.cpu()), bits(ops.posit_dequantize_plain(fmt, p)))
-    # int32 words (a posit32 negative's top bit set) give the same values
-    w = ops.posit_dequantize(fmt, p.to(torch.int32).to(dev))
-    assert torch.equal(bits(w), bits(d))
+    # int32 words (a posit32 negative's top bit set) and, where they hold
+    # the pattern, packed uint16 / uint8 words give the same values, read
+    # as they are; a misaligned view takes the one-element path
+    words = [torch.int32] + [t for t, b in ((torch.uint16, 16), (torch.uint8, 8)) if n <= b]
+    for dt in words:
+        w = p.to(dt).to(dev)
+        assert torch.equal(bits(ops.posit_dequantize(fmt, w)), bits(d))
+        assert torch.equal(bits(ops.posit_dequantize(fmt, w[1:])), bits(d[1:]))
     if n < 32:   # every pattern is its own image under quantize o dequantize
         assert torch.equal(ops.posit_quantize(fmt, d), p.to(dev))
 
@@ -1120,10 +1125,69 @@ def test_round_value_bf16_patterns_match_twin(dev, n):
     fmt = PositFormat(n)
     x = (torch.arange(1 << 16, dtype=torch.int32) << 16).view(torch.float32)
     ops.posit_quantize.launches = ops.posit_dequantize.launches = 0
+    ops.posit_round_value.launches = 0
     r = ops.posit_round_value(fmt, x.to(dev))
-    assert (ops.posit_quantize.launches, ops.posit_dequantize.launches) == (1, 1)
+    assert ops.posit_round_value.launches == 1
+    assert (ops.posit_quantize.launches, ops.posit_dequantize.launches) == (0, 0)
     twin = ops.posit_dequantize_plain(fmt, ops.posit_quantize_plain(fmt, x))
     assert torch.equal(bits(r.cpu()), bits(twin))
+
+
+def _bits16(t):
+    return t.contiguous().view(torch.int16)
+
+
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_round_kv_kernel_matches_chain(dev, n):
+    """K12's round kernel as the posit-KV path calls it (``posit_round_kv``,
+    one launch for K and V of unequal sizes) against the chain it replaces
+    on the card, quantize -> dequantize -> ``.to(dtype)``: every bf16 bit
+    pattern (NaN classes included: the kernel's conversion is torch's CUDA
+    one), 2^20 random f32 bit patterns with the specials (the vectorized
+    path; a misaligned view the one-element one), a zero-size V, a
+    non-contiguous K."""
+    from repro_torch.core.posit import PositFormat
+
+    fmt = PositFormat(n)
+    chain = lambda t: ops.posit_dequantize(fmt, ops.posit_quantize(fmt, t)).to(t.dtype)
+    g = torch.Generator().manual_seed(n + 5)
+    kb = (torch.arange(1 << 16, dtype=torch.int32) << 16).view(torch.float32)
+    kb = kb.to(torch.bfloat16).reshape(256, 4, 64).to(dev)
+    kf = torch.randint(-2 ** 31, 2 ** 31, (1 << 20,), generator=g).to(torch.int32)
+    kf = torch.cat([kf.view(torch.float32), SPECIALS]).to(dev)
+    ops.posit_round_kv.launches = 0
+    for k, v in ((kb, kb[:77].flip(0)), (kf, kf[: 1 << 17]), (kb, kb[:0]),
+                 (kb.transpose(0, 2), kb[:3]), (kf[1:], kf[:1001])):
+        rk, rv = ops.posit_round_kv(fmt, k, v)
+        for r, t in ((rk, k), (rv, v)):
+            assert r.shape == t.shape and r.dtype == t.dtype
+            b = bits if t.dtype == torch.float32 else _bits16
+            assert torch.equal(b(r), b(chain(t.contiguous())))
+    assert ops.posit_round_kv.launches == 5
+    # the host rule's NaN (posit_srt.cuh bf16_bits) is torch's CUDA conversion's
+    nan = torch.tensor([math.nan, -math.nan], device=dev).to(torch.bfloat16)
+    assert _bits16(nan).tolist() == [0x7FFF, 0x7FFF]
+
+
+def test_pattern_and_dequantize_kernels_read_every_word(dev):
+    """K11 and K12's dequantize on int64 lanes, int32 words and packed
+    uint16 / uint8 patterns give the same bits; K11 writes int64 lanes
+    (a posit32 quotient's top bit set comes back unsigned), at sizes on
+    both sides of the vectorized path's threshold."""
+    g = torch.Generator().manual_seed(3)
+    for fmt, words in ((POSIT8, (torch.int32, torch.uint16, torch.uint8)),
+                       (POSIT16, (torch.int32, torch.uint16)), (POSIT32, (torch.int32,))):
+        for size in (4099, (1 << 20) + 5):
+            px, pd = (torch.randint(0, 1 << fmt.n, (size,), generator=g) for _ in range(2))
+            want = ops.posit_div_plain(fmt, px, pd)
+            k = ops.posit_div(fmt, px.to(dev), pd.to(dev))
+            assert k.dtype == torch.int64 and torch.equal(k.cpu(), want)
+            d = ops.posit_dequantize(fmt, px.to(dev))
+            for dt in words:
+                a, b = px.to(dt).to(dev), pd.to(dt).to(dev)
+                assert torch.equal(ops.posit_div(fmt, a, b), k), (fmt, dt)
+                assert torch.equal(ops.posit_div(fmt, a[1:], b[1:]), k[1:]), (fmt, dt)
+                assert torch.equal(bits(ops.posit_dequantize(fmt, a)), bits(d)), (fmt, dt)
 
 
 def test_division_api_counts_and_refuses(dev):
@@ -1167,8 +1231,9 @@ def test_division_api_counts_and_refuses(dev):
 
 
 def test_kv_rounding_launches_k12(dev):
-    """A posit-KV decode step rounds K and V in every layer: 2L quantize and
-    2L dequantize launches, the cache holding posit-grid values."""
+    """A posit-KV decode step rounds K and V in every layer: L launches of
+    K12's round kernel (one a layer for both) and no quantize or
+    dequantize, the cache holding posit-grid values."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1181,10 +1246,12 @@ def test_kv_rounding_launches_k12(dev):
     toks = torch.from_numpy(np.arange(20, dtype=np.int64).reshape(2, 10) + 3).to(dev)
     T.prefill(params, cfg, toks, cache)
     ops.posit_quantize.launches = ops.posit_dequantize.launches = 0
+    ops.posit_round_kv.launches = 0
     pos = torch.full((2,), 10, dtype=torch.int32, device=dev)
     lg, cache = T.decode_step(params, cfg, cache, toks[:, :1], pos)
     L = cfg.n_layers
-    assert (ops.posit_quantize.launches, ops.posit_dequantize.launches) == (2 * L, 2 * L)
+    assert ops.posit_round_kv.launches == L
+    assert (ops.posit_quantize.launches, ops.posit_dequantize.launches) == (0, 0)
     rows = cache["k"][:, :, :11].float()
     assert torch.equal(bits(posit_round_value(POSIT8, rows)), bits(rows))
     twin = ops.posit_dequantize_plain(POSIT8, ops.posit_quantize_plain(POSIT8, rows.cpu()))

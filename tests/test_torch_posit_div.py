@@ -285,7 +285,7 @@ extern "C" int host_divisor_fields(int n, int radix, int red, int otf, int scale
 }
 extern "C" int host_select(int n, int radix, int red, int otf, int scaled, int nonrest, int it,
                            int shift, int gbits, float b, const uint32_t* ws,
-                           const uint32_t* wc, int* out, int count) {
+                           const uint32_t* wc, int* out, int count, int by_count) {
   bool ok = posit::dispatch_plan<true>(n, radix, red, otf, scaled, nonrest, it, shift, gbits,
     [&](auto plan) {
       using P = decltype(plan);
@@ -293,9 +293,47 @@ extern "C" int host_select(int n, int radix, int red, int otf, int scaled, int n
       const posit::Thresholds m = posit::thresholds(posit::prep_divisor<P>(b));
       constexpr int low = 32 * (P::words - 1);   // the top word's place in the register
       for (int i = 0; i < count; ++i)
-        out[i] = posit::select_digit<P>(W(ws[i]) << low, W(wc[i]) << low, m);
+        out[i] = by_count
+            ? posit::select_digit<P, posit::Selection::count>(W(ws[i]) << low, W(wc[i]) << low, m)
+            : posit::select_digit<P>(W(ws[i]) << low, W(wc[i]) << low, m);
     });
   return ok ? 0 : -1;
+}
+extern "C" int host_div_patterns(int n, int radix, int red, int otf, int scaled, int nonrest,
+                                 int it, int shift, int gbits, const uint32_t* px,
+                                 const uint32_t* pd, uint32_t* out, int count) {
+  bool ok = false;
+  posit::dispatch_plan<true>(n, radix, red, otf, scaled, nonrest, it, shift, gbits,
+    [&](auto plan) {
+      using P = decltype(plan);
+      if constexpr (P::n <= 32) {
+        for (int i = 0; i < count; ++i) out[i] = posit::divide_patterns<P>(px[i], pd[i]);
+        ok = true;
+      }
+    });
+  return ok ? 0 : -1;
+}
+template <int N>
+int round_differs(const float* x, uint8_t* bad, int count) {
+  int n_bad = 0;
+  for (int i = 0; i < count; ++i) {
+    const float got = posit::round_value<N>(x[i]);
+    const float want = posit::posit_to_float<N>(posit::float_to_posit<N>(x[i]));
+    bad[i] = posit::f2u(got) != posit::f2u(want);
+    n_bad += bad[i];
+  }
+  return n_bad;
+}
+extern "C" int host_round_differs(int n, const float* x, uint8_t* bad, int count) {
+  switch (n) {
+    case 8: return round_differs<8>(x, bad, count);
+    case 16: return round_differs<16>(x, bad, count);
+    case 32: return round_differs<32>(x, bad, count);
+    default: return -1;
+  }
+}
+extern "C" void host_bf16_bits(const float* x, uint16_t* out, int count) {
+  for (int i = 0; i < count; ++i) out[i] = posit::bf16_bits(x[i]);
 }
 template <int N>
 void cast(const float* x, uint32_t* p, const uint32_t* q, float* y, int count) {
@@ -406,9 +444,11 @@ def host_k1(tmp_path_factory):
     lib = ctypes.CDLL(str(lib))
     for name in ("host_rowwise", "host_elementwise", "host_div_bits", "host_cast",
                  "host_model_plan", "host_library_part", "host_divisor_fields", "host_select",
-                 "host_fields_differ", "host_quotient_differ"):
+                 "host_fields_differ", "host_quotient_differ", "host_div_patterns",
+                 "host_round_differs"):
         getattr(lib, name).restype = ctypes.c_int
     lib.host_cast64.restype = None
+    lib.host_bf16_bits.restype = None
     lib.host_quotient_sweep.restype = ctypes.c_longlong
     return lib
 
@@ -698,6 +738,104 @@ def test_cuda_select_digit_exhaustive(host_k1, fmt):
         got = np.zeros(ws.size, np.int32)
         for didx, b in _didx_divisors()[::6]:
             assert host_k1.host_select(*plan_args(plan), ctypes.c_float(b), _ptr(ws), _ptr(wc),
-                                       _ptr(got), ws.size) == 0
+                                       _ptr(got), ws.size, 0) == 0
             want = TD._select(plan, _t(ws), _t(wc), torch.full((ws.size,), didx))
             np.testing.assert_array_equal(got, want.numpy(), err_msg=f"{variant} {didx}")
+
+
+@pytest.mark.parametrize("fmt", SELECT_FORMATS, ids=lambda f: f"posit{f.n}")
+def test_cuda_counted_selection_is_the_ladder(host_k1, fmt):
+    """K11's selection, the count of the thresholds the estimate reaches,
+    against the ladder (select_digit's default) and the twin's _select: every
+    estimate of the plan's 3 + gbits bits, a divisor of each of the 8
+    intervals (of either sign, at three scales), every plan (the scaled and
+    posit10 rows among them; radix 2 and the non-redundant plans keep their
+    forms under either policy)."""
+    rng = np.random.default_rng(12)
+    for variant, plan in ((v, p) for _, v, p in TD.planned_pairs((fmt,))):
+        sh = 32 - (3 + plan.gbits)
+        t = np.arange(1 << (3 + plan.gbits), dtype=np.uint64)
+        ws = (t << sh | rng.integers(0, 1 << sh, t.size, dtype=np.uint64)).astype(np.uint32)
+        wc = rng.integers(0, 1 << sh, t.size, dtype=np.uint64).astype(np.uint32)
+        count, ladder = np.zeros(ws.size, np.int32), np.zeros(ws.size, np.int32)
+        for didx, b in _didx_divisors():
+            for by_count, got in ((1, count), (0, ladder)):
+                assert host_k1.host_select(*plan_args(plan), ctypes.c_float(b), _ptr(ws),
+                                           _ptr(wc), _ptr(got), ws.size, by_count) == 0
+            np.testing.assert_array_equal(count, ladder, err_msg=f"{variant} {didx} {b}")
+            want = TD._select(plan, _t(ws), _t(wc), torch.full((ws.size,), didx))
+            np.testing.assert_array_equal(count, want.numpy(), err_msg=f"{variant} {didx}")
+
+
+@pytest.mark.parametrize("n", [8, 10, 16, 32])
+def test_cuda_pattern_element_is_divide_bits(host_k1, n):
+    """K11's element (divide_patterns: the divisor prepared per element, the
+    counted selection) against divide_bits with the ladder and the twin:
+    posit8 and posit10 every pair, posit16 and posit32 sampled with the
+    edges, every plan K11 is built for."""
+    fmt = PositFormat(n)
+    if n <= 10:
+        px, pd = (m.ravel().astype(np.uint32)
+                  for m in np.meshgrid(np.arange(1 << n), np.arange(1 << n)))
+    else:
+        e = _edges(n)
+        ea, eb = (m.ravel() for m in np.meshgrid(e, e))
+        r = RNG.integers(0, 1 << n, (2, 20000), dtype=np.uint64).astype(np.uint32)
+        px, pd = np.concatenate([r[0], ea]), np.concatenate([r[1], eb])
+    for _, variant, plan in TD.planned_pairs((fmt,)):
+        got, ladder = np.zeros_like(px), np.zeros_like(px)
+        assert host_k1.host_div_patterns(*plan_args(plan), _ptr(px), _ptr(pd), _ptr(got),
+                                         len(px)) == 0
+        assert host_k1.host_div_bits(*plan_args(plan), _ptr(px), _ptr(pd), _ptr(ladder),
+                                     len(px)) == 0
+        np.testing.assert_array_equal(got, ladder, err_msg=variant)
+        want = TD._divide_block(fmt, _t(px), _t(pd), variant).numpy()
+        np.testing.assert_array_equal(got.astype(np.int64), want, err_msg=variant)
+
+
+def _round_inputs():
+    """Every bf16 bit pattern widened to f32, 2^20 random f32 patterns, the
+    f32 boundary values and the specials; then posit8/16/32's minpos and
+    maxpos with their f32 neighbours (each format's, of either sign)."""
+    rng = np.random.default_rng(29)
+    u = np.concatenate([np.arange(1 << 16, dtype=np.uint32) << 16,
+                        rng.integers(0, 1 << 32, 1 << 20, dtype=np.uint64).astype(np.uint32)])
+    edges = []
+    for n in (8, 16, 32):
+        for e in (-4 * (n - 2), 4 * (n - 2)):
+            m = np.float32(2.0 ** e).view(np.uint32)
+            edges += [m - 1, m, m + 1, m | (1 << 31), (m - 1) | (1 << 31), (m + 1) | (1 << 31)]
+    u = np.concatenate([u, np.array(edges, np.uint32)])
+    return np.concatenate([u.view(np.float32), _boundary_floats(), SPECIALS])
+
+
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_cuda_round_value_is_cast_round_trip(host_k1, n):
+    """K12's round kernel's element, round_value (float_to_fields, the f32
+    built from the fields), against posit_to_float(float_to_posit(x)), bit
+    for bit: zeros to +0, inf and NaN to the canonical NaN."""
+    x = _round_inputs()
+    bad = np.zeros(len(x), np.uint8)
+    n_bad = host_k1.host_round_differs(n, _ptr(x), _ptr(bad), len(x))
+    assert n_bad == 0, x[bad.astype(bool)][:8].view(np.uint32)
+
+
+def test_cuda_bf16_rounding_is_torch_conversion(host_k1):
+    """The round kernel's bf16 store, bf16_bits, against torch's
+    ``.to(torch.bfloat16)`` on the same f32 values: round to nearest even,
+    the carry into the exponent and to inf included; a NaN is the card's
+    0x7FFF (torch's CPU conversion gives 0xFFFF; the card tests hold the
+    kernel against torch's CUDA one, NaNs included)."""
+    from repro_torch.core.posit import float_to_posit, posit_to_float
+
+    x = _round_inputs()
+    # every value the rounding can give: the posit grid's values
+    grid = [posit_to_float(PositFormat(n), float_to_posit(PositFormat(n), torch.from_numpy(x)))
+            for n in (8, 16, 32)]
+    x = np.concatenate([x] + [t.numpy() for t in grid])
+    got = np.zeros(len(x), np.uint16)
+    host_k1.host_bf16_bits(_ptr(x), _ptr(got), len(x))
+    want = torch.from_numpy(x).to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    nan = np.isnan(x)
+    np.testing.assert_array_equal(got[~nan], want[~nan])
+    assert nan.any() and (got[nan] == 0x7FFF).all()

@@ -121,3 +121,43 @@ def test_divider_config_matches_reference():
                                                             ref.rho_is_one)
         for n in (8, 10, 16, 32, 64):
             assert cfg.iterations(PositFormat(n)) == ref.iterations(JFmt(n))
+
+
+@pytest.mark.parametrize("n", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_round_kv_on_cpu_is_the_reference_rounding(n, dtype):
+    """``ops.posit_round_kv`` (the posit-KV path's one call a layer) on CPU
+    tensors: K and V each the reference's ``posit_round_value`` cast back
+    to their dtype, bit for bit (bf16: every bf16 bit pattern; f32: values
+    over the whole range and the specials), in their shapes."""
+    from repro_torch.kernels import ops
+
+    if dtype == torch.bfloat16:
+        k = (torch.arange(1 << 16, dtype=torch.int32) << 16).view(torch.float32)
+        k = k.to(dtype).reshape(64, 4, 4, 64)
+    else:
+        k = torch.from_numpy(_floats(4085)).reshape(-1, 5, 3, 91)
+    v = k.flatten()[: 7 * (k.numel() // 21)].flip(0).reshape(-1, 1, 1, 7)
+    got = ops.posit_round_kv(PositFormat(n), k, v)
+    for t, r in zip((k, v), got):
+        want = JQ.posit_round_value(JFmt(n), jnp.asarray(t.float().numpy()))
+        want = torch.from_numpy(np.array(want)).to(dtype)
+        assert r.dtype == dtype and r.shape == t.shape
+        assert torch.equal(r.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                           want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+def test_round_kv_refuses_what_its_kernel_does_not_take():
+    """posit64 (no 32-bit pattern), posit10 (no kernel built) and K/V that
+    are not bf16 or f32 (or not of one dtype) raise on any device."""
+    from repro_torch.core.posit import POSIT16, POSIT64
+    from repro_torch.kernels import ops
+
+    x = torch.ones(2, 3)
+    with pytest.raises(ValueError, match="n <= 32"):
+        ops.posit_round_kv(POSIT64, x, x)
+    with pytest.raises(NotImplementedError, match="no kernel is built for Posit10"):
+        ops.posit_round_kv(PositFormat(10), x, x)
+    for k, v in ((x.long(), x.long()), (x.half(), x.half()), (x, x.to(torch.bfloat16))):
+        with pytest.raises(ValueError, match="one dtype"):
+            ops.posit_round_kv(POSIT16, k, v)
