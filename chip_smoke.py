@@ -108,8 +108,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               bits; on values it cannot hold, the twins' bounds.
    train    — one train step of the smoke config on the card against the
               same f32 weights and batch on the CPU, posit16, posit64,
-              posit32 and posit8: loss within LOSS_RTOL, every gradient
-              leaf within GRAD_REL_L2 relative L2.
+              posit32 and posit8, and OLMoE's smoke config (the moe block,
+              K9's and K2's straight-through backwards): loss within
+              LOSS_RTOL, every gradient leaf within GRAD_REL_L2 relative L2.
 4. main     — SmolLM-360M at full width (all 32 layers, random weights from
               a seed) served by ``ServeEngine`` (8 slots, max_seq 512): 16
               greedy requests, prompts of 16-200 tokens, 32 new tokens each.
@@ -182,6 +183,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               posit64 srt_r4_cs (the default plan's tokens, bit for bit)
               and the first 8 at "posit32": the same checks; printed: the
               requests whose tokens leave posit16's.
+   moe paged — the same model and weights served from the paged pool (pages
+              of 16, packed admission: batch-axis packs of right-padded rows
+              at start 0, ``prefill_batch_ragged``): the mix's first 8
+              requests and 4 that share a 128-token prefix.  Per forward
+              step L K9 and 3L+1 K2 launches, L K3 per scan step (into the
+              dense mini cache), L K4 per decode step, no K5; prefix hits
+              and packs; every request's tokens those of a dense-slot
+              packed run, bit for bit (else ``moe_difference`` and a fail).
+   training moe — (after OLMoE's serving state is released) OLMoE-1B-7B at
+              full width and 4 of its 16 layers trained by ``Trainer`` for
+              4 steps (8 x 256, f32 masters, remat "full", lr 1e-3, warmup
+              1, seed 0): finite losses, the last below the first, per step
+              K2 6L+1, K6 2L, K9 2L, K7 L, K8 L launches and no K3; one
+              more step traced (busy time, idle share, the expert products
+              as their own class); peak device memory.
 5. timing   — each kernel, its plain twin and a library yardstick at the
               main paths' shapes (the kernel's device time from
               torch.profiler, as the yardstick's for K9; per-call times from
@@ -189,8 +205,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               on a decode step's K and V and on 2^27 + 2^27), and one
               full-width decode step, SmolLM dense (bf16 and posit16 KV
               cache, posit64 and posit32 division) and paged (posit16,
-              posit64, posit32) and OLMoE dense (posit16, posit64), broken
-              down by kernel class; K2-K9 (K4 decode, K5 on the paged
+              posit64, posit32) and OLMoE dense (posit16, posit64) and paged
+              (posit16), broken down by kernel class; K6-K8 at OLMoE's
+              training shape (16/16 heads of 128) and K9 at its 2048 router
+              rows; K2-K9 (K4 decode, K5 on the paged
               phase's most frequent pack, K6-K8 at the training shape, K9
               at 8 x 64 and 4096 x 64) at posit64 and K3-K9 at posit32 (K3
               at posit8 too), K3 prefill and K4-K8 at posit64 nrd, K10 at
@@ -858,8 +876,9 @@ def phase_suffix(torch, dev):
 
 
 # K9 at the router's shapes (a decode step's or scan step's 8 rows, one
-# row) and wider: 4096 rows, and a ragged 37 x 1000
-SOFTMAX_SHAPES = ((8, 64), (1, 64), (4096, 64), (37, 1000))
+# row, OLMoE's training step's 8 x 256 tokens) and wider: 4096 rows, and a
+# ragged 37 x 1000
+SOFTMAX_SHAPES = ((8, 64), (1, 64), (2048, 64), (4096, 64), (37, 1000))
 
 
 def softmax_inputs(torch, dev, R, C, seed):
@@ -1461,10 +1480,11 @@ def backward_args(F, co, o, m, l, q, k, v):
 def phase_flash_train(torch, dev):
     """K6, K7 and K8 against their twins (``gate``, ``gate_grad``): every
     plan of MODEL_PLANS at the training path's shapes (B=8, S=256, 15/5
-    heads), every posit16, posit8, posit32 and posit64 plan at B=2, S=256
-    (one answer per format: o, m, l, dq, dk, dv), and posit64
-    srt_r4_cs_of_fr at B*KV = 65536 (the grid past gridDim.y's 65535); the same bits on a
-    second run; zero gradients for fully masked rows."""
+    heads; the default plan at OLMoE's 16/16 heads of 128 too), every
+    posit16, posit8, posit32 and posit64 plan at B=2, S=256 (one answer per
+    format: o, m, l, dq, dk, dv), and posit64 srt_r4_cs_of_fr at B*KV =
+    65536 (the grid past gridDim.y's 65535); the same bits on a second run;
+    zero gradients for fully masked rows."""
     from repro_torch.core.posit import PositFormat
     from repro_torch.kernels import posit_flash_attn as F
 
@@ -1498,6 +1518,9 @@ def phase_flash_train(torch, dev):
     inputs = training_inputs(torch, dev, 8, 256, 22)
     for n, variant in MODEL_PLANS:
         compare(variant, n, *inputs)
+    # OLMoE's training step: B=8 sequences of 256, 16/16 heads of 128
+    compare(DEFAULT_VARIANT, 16, *training_inputs(torch, dev, 8, 256, 23, *MOE_HEADS))
+    del inputs
     small = training_inputs(torch, dev, 2, 256, 21)
     for n in PLAN_FORMATS:
         one_answer("K6-K8", f"posit{n} B=2", {v: compare(v, n, *small)
@@ -1521,10 +1544,11 @@ def phase_flash_train(torch, dev):
     flips = {k: FLIPS8[k] for k in ("K6", "K7", "K8")}
     print(f"K6-K8: K6 within {FLASH_TOL} (o) and {LSE_TOL} (lse, max|diff| "
           f"{worst['lse']:.3g}) of its twin, K7/K8 within {BWD_TOL}, bit-identical run to "
-          f"run, at {', '.join(f'posit{n} {v}' for n, v in MODEL_PLANS)} (B=8 x 256), every "
-          "plan of posit16, posit8, posit32 and posit64 at B=2 x 256 (one "
-          "answer per format), posit64 at B*KV = 65536 (4096 x 16, 16/16 heads); fully "
-          "masked rows give zero gradients. max|diff| " + "; ".join(
+          f"run, at {', '.join(f'posit{n} {v}' for n, v in MODEL_PLANS)} (B=8 x 256; posit16 "
+          f"{DEFAULT_VARIANT} at OLMoE's 16/16 x 128 too), every plan of posit16, posit8, "
+          "posit32 and posit64 at B=2 x 256 (one answer per format), posit64 at B*KV = "
+          "65536 (4096 x 16, 16/16 heads); fully masked rows give zero gradients. "
+          "max|diff| " + "; ".join(
               f"{kern} posit{n} {worst[f'{kern} posit{n}']:.3g}" for n in (16, 32, 64)
               for kern in ("K6", "K7", "K8")) +
           f"; posit8 K6 {flips['K6'][0]} of {flips['K6'][1]} outputs one step off, K7/K8 "
@@ -1630,12 +1654,15 @@ def phase_f32_kv(torch, dev):
     return worst
 
 
-def phase_train_small(torch, dev, div_format="posit16"):
-    """One train step of the smoke config on the card against the CPU path."""
+def phase_train_small(torch, dev, div_format="posit16", arch="smollm_360m"):
+    """One train step of the smoke config on the card against the CPU path
+    (``olmoe_1b_7b``: the moe block, its router's K9 and K2 and their
+    straight-through backwards)."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.models.routes import NEAR_TIE, followed_routes, recorded_routes
     from repro_torch.optim.tree import tree_items, tree_leaves, tree_map
     from repro_torch.train.trainer import (
         TrainConfig,
@@ -1644,17 +1671,34 @@ def phase_train_small(torch, dev, div_format="posit16"):
         make_train_step,
     )
 
-    cfg = get_config("smollm_360m", smoke=True).with_numerics(div_format=div_format)
+    cfg = get_config(arch, smoke=True).with_numerics(div_format=div_format)
     tc = TrainConfig(steps=4, lr=1e-3, warmup=1)
     cpu = init_train_state(cfg, tc, device="cpu")
     gpu = tree_map(lambda t: t.to(dev), cpu)
     batch = SyntheticLMDataset(DataConfig(2, 64), cfg).batch_at(0)
-    runs = {}
-    for name, state, d in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+    runs, routes, flips = {}, [], []
+    # the card's run first: a moe model's CPU run follows its routes
+    for name, state, d in (("gpu", gpu, dev), ("cpu", cpu, "cpu")):
         b = {n: torch.from_numpy(np.asarray(x)).to(d) for n, x in batch.items()}
-        (loss, _), grads = loss_and_grads(state["params"], cfg, b)
+        with (recorded_routes(routes) if name == "gpu" else followed_routes(routes, flips)):
+            (loss, _), grads = loss_and_grads(state["params"], cfg, b)
         new_state, metrics = make_train_step(cfg, tc)(state, b)
         runs[name] = (float(loss), grads, float(metrics["loss"]), new_state)
+    routing = ""
+    if cfg.family == "moe":
+        L = cfg.n_layers
+        # remat "full": the forward's L routes, then the recompute's in reverse
+        check(len(routes) == 2 * L and all(torch.equal(routes[j], routes[2 * L - 1 - j])
+                                           for j in range(L)),
+            f"smoke train: the card's recompute routed other than its forward "
+            f"({len(routes)} routes)")
+        worst_tie = max((gap for _, _, gap in flips), default=0.0)
+        check(worst_tie <= NEAR_TIE, f"smoke train: the CPU's own experts leave the card's "
+                                     f"at {flips[:3]} (gap > {NEAR_TIE})")
+        routing = (f"; the card's recompute routed as its forward; the CPU followed the card's "
+                   f"routes, its own experts differing at {len(flips)} of "
+                   f"{routes[0].shape[0] * routes[0].shape[1] * L} (token, layer) pairs "
+                   f"(largest relative probability gap {worst_tie:.3g}, bound {NEAR_TIE})")
     c_loss, c_grads, _, _ = runs["cpu"]
     g_loss, g_grads, g_step_loss, g_state = runs["gpu"]
     rel = abs(g_loss - c_loss) / abs(c_loss)
@@ -1673,10 +1717,11 @@ def phase_train_small(torch, dev, div_format="posit16"):
     rest = max(v for k, v in errs.items() if k != "tok")
     check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(g_state)),
           "smoke train: non-finite state after the step")
-    print(f"train: smoke step on the card ({div_format}): loss {g_loss:.6f} vs CPU "
+    print(f"train: {arch} smoke step on the card ({div_format}): loss {g_loss:.6f} vs CPU "
           f"{c_loss:.6f} (rel "
           f"{rel:.3g}, bound {LOSS_RTOL}); worst gradient leaf {worst_key} rel L2 "
-          f"{worst:.3g} (bound {GRAD_REL_L2}); worst leaf other than tok {rest:.3g}")
+          f"{worst:.3g} (bound {GRAD_REL_L2}); worst leaf other than tok {rest:.3g}"
+          + routing)
 
 
 # --------------------------------------------------------------- phase 4
@@ -2408,6 +2453,196 @@ def moe_difference(torch, dev, cfg, params):
           f"{', '.join(lost) if lost else 'none'}")
 
 
+MOE_CHAT = 4                # requests of the moe paged mix sharing one prefix
+
+
+def moe_paged_mix(cfg):
+    """The MoE mix's first 8 requests plus MOE_CHAT that share one
+    128-token prefix followed by 16-64 tokens of their own, interleaved so
+    that later ones find the prefix registered (as ``paged_mix`` does)."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab, PREFIX_LEN)
+    chat = [Request(np.concatenate([prefix, rng.integers(0, cfg.vocab, n)]).astype(np.int32),
+                    max_new=MOE_NEW) for n in rng.integers(16, 65, MOE_CHAT)]
+    mix = moe_mix(cfg)[:2 * MOE_CHAT]
+    out = []
+    for i in range(MOE_CHAT):
+        out += [chat[i]] + mix[2 * i:2 * i + 2]
+    return out
+
+
+def phase_moe_paged(torch, dev, cfg, params):
+    """Full-width OLMoE-1B-7B served from the paged, prefix-shared pool
+    (pages of 16, packed admission: batch-axis packs of right-padded rows,
+    ``T.prefill_batch_ragged``): per forward step L K9 and 3L+1 K2
+    launches; L K3 launches per scan step (into a dense mini cache) and L
+    K4 per decode step, no K5; prefix hits and packs; the tokens of a
+    dense-slot packed run of the same requests, bit for bit (else the
+    script names the bf16 product that lost a row's bits and fails)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posit_flash_attn import posit_flash_attention as F
+    from repro_torch.serve import FinishReason, Request, ServeConfig, ServeEngine
+
+    label = "moe paged"
+    reqs = moe_paged_mix(cfg)
+    sc = ServeConfig.from_model(cfg, kv_layout="paged", block_size=PAGED_BLOCK,
+                                packed_prefill=True)
+    eng = ServeEngine(cfg, params, sc, device=dev)
+    eng.serve([Request(reqs[1].tokens[:8], max_new=2)])   # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.posit_softmax_fused.launches = ops.posit_div_fused_rowwise.launches = 0
+    F.launches = F.tile_launches = F.paged_launches = F.packed_launches = 0
+    t0 = time.perf_counter()
+    outs = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k9, k2 = ops.posit_softmax_fused.launches, ops.posit_div_fused_rowwise.launches
+    k3, k4, k5 = F.launches, F.paged_launches, F.packed_launches
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.last_serve_stats
+    L = cfg.n_layers
+    forwards = st["prefill_forwards"] + st["decode_steps"]
+    for name, got, want in (("K9", k9, L * forwards), ("K2", k2, (3 * L + 1) * forwards),
+                            ("K3", k3, L * st["prefill_forwards"]),
+                            ("K3 through the tile loop", F.tile_launches, 0),
+                            ("K4", k4, L * st["decode_steps"]), ("K5", k5, 0)):
+        check(got == want, f"{label}: {name} launched {got} times, the path implies {want} "
+                           f"({st['prefill_forwards']} scan steps, {st['decode_steps']} "
+                           "decode steps)")
+    check(st["prefix_hit_tokens"] > 0 and st["packed_packs"] > 0,
+          f"{label}: no prefix hit or no pack: {st}")
+    check(st["faults"] == 0 and st["shed"] == 0, f"{label}: faults or sheds: {st}")
+    for r in eng.last_results:
+        check(r.finish is FinishReason.MAX_NEW and len(r.tokens) == MOE_NEW,
+              f"{label}: request {r.rid} finished {r.finish} with {len(r.tokens)} tokens")
+        check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()),
+              f"{label}: request {r.rid}: token out of the vocabulary")
+    n_tok = sum(len(o) for o in outs)
+    solo = st["admissions"] - st["packed_segments"]
+    print(f"{label}: served {len(reqs)} requests ({cfg.numerics.div_format} "
+          f"{cfg.numerics.div_algo}; {len(reqs) - MOE_CHAT} of the MoE mix, {MOE_CHAT} sharing "
+          f"a {PREFIX_LEN}-token prefix) on {sc.max_batch} slots, pages of {PAGED_BLOCK}: "
+          f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.2f} tokens/s; {forwards} forward "
+          f"steps ({st['prefill_forwards']} scan steps in {st['packed_packs']} packs of "
+          f"{st['packed_segments']} requests with {st['packed_dummies']} dummy rows and {solo} "
+          f"prefix-shared solo admissions, {st['decode_steps']} decode steps); prefix hit rate "
+          f"{st['prefix_hit_rate']:.4f} ({st['prefix_hit_tokens']} of {st['prompt_tokens']} "
+          f"prompt tokens); peak {st['peak_blocks_in_use']} blocks = "
+          f"{st['peak_blocks_in_use'] * PAGED_BLOCK} rows against the dense layout's "
+          f"{sc.max_batch * sc.max_seq}; launches K9 {k9}, K2 {k2}, K3 {k3}, K4 {k4}, K5 {k5}; "
+          f"peak device memory {peak / 2**30:.2f} GiB")
+    dense = ServeEngine(cfg, params, ServeConfig.from_model(cfg, packed_prefill=True),
+                        device=dev)
+    ref = dense.serve(reqs)
+    off = [i for i, (a, b) in enumerate(zip(ref, outs)) if not np.array_equal(a, b)]
+    if off:
+        moe_difference(torch, dev, cfg, params)
+        fail(f"{label}: requests {off} differ from the dense-slot run (first: paged "
+             f"{outs[off[0]].tolist()}, dense {ref[off[0]].tolist()})")
+    print(f"{label}: tokens bit-identical to a dense-slot packed run of the same "
+          f"{len(reqs)} requests")
+    return {"K9": k9, "rowwise": k2, "K3": k3, "K3 tile": F.tile_launches, "K4": k4,
+            "tokens_per_s": n_tok / wall, "stats": st, "peak_bytes": peak, "outs": outs}
+
+
+MOE_TRAIN_LAYERS = 4        # of OLMoE's 16: f32 masters, gradients and AdamW fit one card
+
+
+def phase_train_moe(torch, dev):
+    """OLMoE-1B-7B at full width and depth MOE_TRAIN_LAYERS trained by
+    ``Trainer`` for 4 steps (global batch 8 x 256, f32 masters, remat
+    "full", lr 1e-3, warmup 1, seed 0).
+
+    Launches per step, from the code: each block's forward runs its two
+    RMSNorms and the router's renormalization on K2, attention on K6 and
+    the router's softmax on K9; remat "full" runs each block's forward
+    again in the backward (up to its last saved tensor, the experts'
+    combine), and the backward runs K7 and K8 once a block; the final
+    RMSNorm runs once; the softmax's and the divides' backwards are plain
+    torch.  So K2 6L+1, K6 2L, K9 2L, K7 L, K8 L and K3 0.  One more step
+    is traced: device busy time, idle share, and the kernel classes, with
+    the expert products (the batched products of ``aten::bmm``) a class of
+    their own."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import posit_flash_attn as F
+    from repro_torch.train import TrainConfig, Trainer
+
+    label = "training moe"
+    cfg = get_config("olmoe_1b_7b").replace(n_layers=MOE_TRAIN_LAYERS)
+    B, S, steps = 8, 256, 4
+    tc = TrainConfig(steps=steps, lr=1e-3, warmup=1, log_every=1, seed=0)
+    ds = SyntheticLMDataset(DataConfig(B, S, seed=0), cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, tc, ds, device=dev)
+    n_params = sum(t.numel() for t in [trainer.state["params"]["tok"],
+                                       trainer.state["params"]["head"]]
+                   + [w for lay in trainer.state["params"]["layers"] for w in lay.values()])
+    counters = (ops.posit_div_fused_rowwise, F.posit_flash_attention,
+                F.posit_flash_attention_fwd, F.flash_backward_dq, F.flash_backward_dkv,
+                ops.posit_softmax_fused)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2, k3, k6, k7, k8, k9 = (c.launches for c in counters)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    losses = [h["loss"] for h in res["history"]]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"{label}: losses {losses}")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+    for name, got, per_step in (("K2", k2, 6 * L + 1), ("K6", k6, 2 * L), ("K9", k9, 2 * L),
+                                ("K7", k7, L), ("K8", k8, L), ("K3", k3, 0)):
+        check(got == per_step * steps,
+              f"{label}: {name} launched {got} times, the path implies {per_step * steps}")
+    secs = [h["sec"] for h in res["history"]]
+    print(f"{label}: OLMoE-1B-7B at full width, {L} of 16 layers ({n_params / 1e9:.3f} B "
+          f"parameters; {cfg.numerics.div_format} {cfg.numerics.div_algo}, f32 masters, remat "
+          f"full), {steps} steps of {B}x{S} tokens in {wall:.2f} s; losses "
+          f"{[round(x, 4) for x in losses]}; step wall times {[round(x, 3) for x in secs]} s; "
+          f"{B * S / min(secs):.1f} tokens/s at the fastest step; launches K2 {k2} (6L+1 a "
+          f"step), K6 {k6} (2L), K9 {k9} (2L), K7 {k7} (L), K8 {k8} (L), K3 {k3}; peak device "
+          f"memory {peak / 2**30:.2f} GiB")
+
+    batch = {n: torch.from_numpy(x).to(dev) for n, x in ds.batch_at(steps).items()}
+
+    def step():
+        trainer.state, metrics = trainer.step_fn(trainer.state, batch)
+        float(metrics["loss"])
+
+    op_ms = {"aten::bmm": 0.0}
+    times, traced = profiled(torch, step, [*FLASH_FWD, "flash_bwd"], op_ms=op_ms)
+    by = by_class(times, (("K7 flash dq", "flash_bwd_dq_kernel"),
+                          ("K8 flash dk/dv", "flash_bwd_dkv_kernel"),
+                          ("K6 flash fwd", FLASH_FWD), ("K2 rowwise", "rowwise_kernel"),
+                          ("K9 softmax", "softmax_kernel")))
+    busy = sum(by.values()) if times else None
+    if busy is None:
+        print(f"{label} step (traced): wall {traced:.1f} ms; torch.profiler showed no device "
+              f"records in {PROFILE_TRIES} tries: busy and idle share not measured")
+    else:
+        experts = min(op_ms["aten::bmm"], by["matmul"])
+        by["matmul"] -= experts
+        by = {"expert products (aten::bmm)": experts, **by}
+        print("%s step (traced): wall %.1f ms, device busy %.1f ms, idle share %.3f; %s" % (
+            label, traced, busy, 1 - busy / traced,
+            ", ".join(f"{k} {v:.2f} ms" for k, v in by.items())))
+    return {"rowwise": k2, "K6": k6, "K7": k7, "K8": k8, "K9": k9, "losses": losses,
+            "step_s": secs, "peak_bytes": peak, "busy_ms": busy, "traced_ms": traced}
+
+
 # --------------------------------------------------------------- phase 5
 
 
@@ -2421,10 +2656,11 @@ MATMUL_NAMES = ("gemm", "gemv", "cutlass", "nvjet", "xmma", "sm90")
 FLASH_FWD = ["flash_decode_kernel", "flash_kernel", "flash_tile_kernel"]
 
 
-def profiled(torch, fn, want, counts=None):
+def profiled(torch, fn, want, counts=None, op_ms=None):
     """Run ``fn()`` under torch.profiler; return ``({kernel: device ms}, wall
     ms)`` over the CUDA kernels the trace shows (and fill ``counts`` with
-    the launches it recorded of each).  A trace that shows none of the
+    the launches it recorded of each, ``op_ms`` with the device ms of the
+    kernels launched by each aten op it names, e.g. ``aten::bmm``).  A trace that shows none of the
     kernels named in ``want`` is taken again, up to PROFILE_TRIES times:
     on the card a session has come back without the device records of
     kernels that did run.  The dict is empty when every try came back so."""
@@ -2440,6 +2676,10 @@ def profiled(torch, fn, want, counts=None):
         times, events = {}, 0
         if counts is not None:
             counts.clear()
+        if op_ms is not None:
+            for name in op_ms:
+                op_ms[name] = sum(e.device_time_total for e in prof.events()
+                                  if e.name == name) / 1e3
         for e in prof.key_averages():
             events += 1
             if str(getattr(e, "device_type", "")).endswith("CUDA") and e.self_device_time_total:
@@ -2650,17 +2890,18 @@ def flash_row(torch, dev, plan, B, Sq, Sk, pos, start, heads=(15, 5, 64), fmt=No
 
 def moe_rows(torch, dev):
     """K9 at the router's shape (8 rows of 64 experts) and at 4096 rows,
-    posit16, posit64 and posit32, with torch.softmax as the yardstick."""
+    posit16, posit64 and posit32, and at a training step's 2048 rows
+    (posit16), with torch.softmax as the yardstick."""
     from repro_torch.core.posit import POSIT16, POSIT32, POSIT64
     from repro_torch.kernels import ops
     from repro_torch.kernels.posit_div import datapath_plan
 
     plan = datapath_plan(POSIT16, "srt_r4_cs_of_fr")
     rows = {}
-    for fmt, name, (R, C) in [(f, n + ("" if f is POSIT16 else f" posit{f.n}"), shape)
-                              for f in (POSIT16, POSIT64, POSIT32)
-                              for n, shape in (("K9 router", (8, 64)),
-                                               ("K9 4096 rows", (4096, 64)))]:
+    cases = [(f, n + ("" if f is POSIT16 else f" posit{f.n}"), shape)
+             for f in (POSIT16, POSIT64, POSIT32)
+             for n, shape in (("K9 router", (8, 64)), ("K9 4096 rows", (4096, 64)))]
+    for fmt, name, (R, C) in cases + [(POSIT16, "K9 training 2048 rows", (2048, 64))]:
         x = (torch.randn(R, C, generator=torch.Generator().manual_seed(17)) * 2).to(dev)
         call = lambda: ops.posit_softmax_fused(fmt, x)
         dev_ms, src = device_kernel_ms(torch, call, ["softmax_kernel"])
@@ -2856,18 +3097,22 @@ def layout_rows(torch, dev, fmt, pack, variant=DEFAULT_VARIANT):
     return rows
 
 
-def training_rows(torch, dev, fmt, kv_f32=False, variant=DEFAULT_VARIANT):
+def training_rows(torch, dev, fmt, kv_f32=False, variant=DEFAULT_VARIANT,
+                  heads=(15, 5, 64)):
     """K6, K7 and K8 at the training path's shapes (B=8, S=256, causal), at
-    ``fmt`` and ``variant``; ``kv_f32``: K/V in f32."""
+    ``fmt`` and ``variant``; ``kv_f32``: K/V in f32; ``heads``: (H, KV,
+    head_dim), SmolLM's unless given (OLMoE's: MOE_HEADS)."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels import posit_flash_attn as F
 
-    B, S, H, KV, hd = 8, 256, 15, 5, 64
+    B, S = 8, 256
+    H, KV, hd = heads
     plan = F.datapath_plan(fmt, variant)
     tag = (("" if fmt.n == 16 else f" posit{fmt.n}") + (" f32 K/V" if kv_f32 else "")
-           + ("" if variant == DEFAULT_VARIANT else f" {variant}"))
-    q, k, v, co = training_inputs(torch, dev, B, S, 9)
+           + ("" if variant == DEFAULT_VARIANT else f" {variant}")
+           + ("" if heads == (15, 5, 64) else f" {H}/{KV} x {hd}"))
+    q, k, v, co = training_inputs(torch, dev, B, S, 9, H, KV, hd)
     if kv_f32:
         k, v = k.float(), v.float()
     o, m, l = F.posit_flash_attention_fwd(fmt, q, k, v, True, variant=variant)
@@ -3536,6 +3781,7 @@ def main() -> int:
     f32_err = timed("f32 K/V", phase_f32_kv, torch, dev)
     for div_format in ("posit16", "posit64", "posit32", "posit8"):
         timed("train", phase_train_small, torch, dev, div_format)
+    timed("train", phase_train_small, torch, dev, "posit16", "olmoe_1b_7b")
     cfg, params = timed("main", full_model, torch, dev)
     path = timed("main", phase_main, torch, dev, cfg, params)
     cfg64 = cfg.with_numerics(div_format="posit64")
@@ -3617,6 +3863,8 @@ def main() -> int:
     mcfg, mparams = timed("moe", moe_model, torch, dev)
     moe = timed("moe", phase_moe, torch, dev, mcfg, mparams)
     timed("timing", decode_breakdown, torch, dev, mcfg, mparams)
+    moe_paged = timed("moe paged", phase_moe_paged, torch, dev, mcfg, mparams)
+    timed("timing", decode_breakdown, torch, dev, mcfg, mparams, paged=True)
     # posit64 division through the router (K9, K2) and attention (K3 at hd
     # 128): the mix's first MOE64_REQUESTS requests, for the script's time
     mcfg64 = mcfg.with_numerics(div_format="posit64")
@@ -3644,7 +3892,16 @@ def main() -> int:
     print(f"moe posit32: {differ} of {MOE64_REQUESTS} requests' tokens differ from the "
           f"posit16 run's; {moe32['tokens_per_s']:.2f} tokens/s against "
           f"{moe['tokens_per_s']:.2f}")
+    # OLMoE's serving state goes before its training state (about 53 GB at
+    # the AdamW update: 7 f32 trees of 1.88 B parameters) comes in
+    del mcfg, mcfg64, mcfg32, mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_moe = timed("training moe", phase_train_moe, torch, dev)
     rows.update(timed("timing", moe_rows, torch, dev))
+    moe_train_rows = timed("timing", training_rows, torch, dev, POSIT16, heads=MOE_HEADS)
+    print_rows(moe_train_rows)
+    rows.update(moe_train_rows)
     print("posit8: one-step flips against the twins (K3-K6: outputs one posit8 step "
           f"off; K7/K8: gradients beyond {BWD_TOL}), gate share {POSIT8_FLIP_SHARE}: " +
           ", ".join(f"{k} {f} of {e} ({f / max(e, 1):.2e})"
@@ -3661,7 +3918,8 @@ def main() -> int:
 
     csrc = "src/repro_torch/kernels/csrc/"
     runs = (path, path64, paged, paged64, train, train64, moe, moe64, train32, moe32,
-            *paths.values(), *pageds.values(), paged64nrd, train64r2, moe64r4)
+            *paths.values(), *pageds.values(), paged64nrd, train64r2, moe64r4, moe_paged,
+            train_moe)
 
     def launches(name):
         """``name``'s launches over every main path's run."""

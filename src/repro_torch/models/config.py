@@ -5,9 +5,9 @@ Port of the reference package's ``models/config.py``, cut to what the
 fused-posit paths read: attention always runs on the posit flash kernel
 (the reference's ``attn_backend="fused"``) and the divisions on the fused
 SRT kernels, and its backward is always the recompute flash backward (the
-reference's ``attn_bwd="fused"``).  The moe family serves (dense KV slots);
-its training and paged serving, the other families (ssm, hybrid, encdec,
-vlm), tensor parallelism and ``remat="dots"`` come with later slices
+reference's ``attn_bwd="fused"``).  Both families serve (dense KV slots or
+the paged pool) and train; the other families (ssm, hybrid, encdec, vlm),
+tensor parallelism and ``remat="dots"`` come with later slices
 (``ROADMAP.md``).
 """
 

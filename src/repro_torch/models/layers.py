@@ -1,5 +1,5 @@
 """Layers of the serving and training paths: RMSNorm, RoPE, GQA attention,
-MLP, and the MoE block of the moe family (serving).
+MLP, and the MoE block of the moe family.
 
 Port of the dense and MoE pieces of the reference package's
 ``models/layers.py``.
@@ -241,33 +241,44 @@ def top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def router_gates(logits, cfg: ModelConfig):
+def router_gates(logits, cfg: ModelConfig, eid=None):
     """``(gate, eid)`` of f32 router logits (..., E): the posit softmax (K9),
-    top-k with lax's tie rule, the posit router norm (K2)."""
-    gate, eid = top_k(_softmax(logits, cfg), cfg.experts_per_token)
+    top-k with lax's tie rule, the posit router norm (K2).  Given ``eid``
+    (..., k), the gates are taken at those experts instead of the top k
+    (a run that follows another run's routes: :mod:`.routes`)."""
+    probs = _softmax(logits, cfg)
+    if eid is None:
+        gate, eid = top_k(probs, cfg.experts_per_token)
+    else:
+        gate = torch.gather(probs, -1, eid)
     return posit_router_norm(gate, cfg.numerics), eid
+
+
+def moe_dispatch(eid, cfg: ModelConfig):
+    """``(keep, dest, C)`` of the experts ``eid`` (B, S, k) chosen in each
+    batch row: capacity ``C = ceil(S * k / E * capacity_factor)``; each
+    (token, choice) ranks within its expert in token-major order, is kept
+    when its rank is below ``C`` and goes to row ``eid * C + rank`` of the
+    dispatch buffer, a dropped one to the sink row ``E * C``."""
+    B, S, k = eid.shape
+    E = cfg.n_experts
+    C = max(int(math.ceil(S * k / E * cfg.capacity_factor)), 1)
+    onehot = Fn.one_hot(eid, E)                                 # (B, S, k, E)
+    flat = onehot.reshape(B, S * k, E)
+    rank = ((torch.cumsum(flat, dim=1) - flat).reshape(B, S, k, E) * onehot).sum(-1)
+    keep = rank < C
+    dest = torch.where(keep, eid * C + rank, E * C)
+    return keep, dest, C
 
 
 def moe_route(p, x, cfg: ModelConfig):
     """The router of :func:`moe_block`: ``(gate, eid, keep, dest, C)``.
 
     Router logits in the activations' dtype cast to f32, then
-    :func:`router_gates`.  Capacity ``C = ceil(S * k / E *
-    capacity_factor)`` per batch row; each (token, choice) ranks within its
-    expert in token-major order, is kept when its rank is below ``C`` and
-    goes to row ``eid * C + rank`` of the dispatch buffer, a dropped one to
-    the sink row ``E * C``."""
-    B, S, _ = x.shape
-    E, k = cfg.n_experts, cfg.experts_per_token
-    C = max(int(math.ceil(S * k / E * cfg.capacity_factor)), 1)
+    :func:`router_gates` and :func:`moe_dispatch`."""
     logits = torch.matmul(x, p["router"].to(x.dtype)).to(torch.float32)
     gate, eid = router_gates(logits, cfg)                       # (B, S, k)
-    onehot = Fn.one_hot(eid, E)                                 # (B, S, k, E)
-    flat = onehot.reshape(B, S * k, E)
-    rank = ((torch.cumsum(flat, dim=1) - flat).reshape(B, S, k, E) * onehot).sum(-1)
-    keep = rank < C
-    dest = torch.where(keep, eid * C + rank, E * C)
-    return gate, eid, keep, dest, C
+    return (gate, eid, *moe_dispatch(eid, cfg))
 
 
 def moe_block(p, x, cfg: ModelConfig):
@@ -276,7 +287,10 @@ def moe_block(p, x, cfg: ModelConfig):
     kept row receives exactly one token, so a plain indexed write is exact;
     the sink row is discarded), the experts run as three batched bf16
     products over (E, B * C) rows, and each token gathers its k outputs back,
-    weighted by its gate, in a bf16 sum over k."""
+    weighted by its gate, in a bf16 sum over k.  Under autograd each (token,
+    choice) takes its row's gradient, zero at the sink, as the reference's
+    ``.at[].add`` dispatch: a dropped choice adds nothing to the experts'
+    gradients."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     dt = x.dtype

@@ -2,10 +2,11 @@
 prefill, decode.
 
 Port of the dense- and moe-family entry points of the reference package's
-``models/transformer.py``.  The dense family serves (dense slots or a paged
-pool, solo or packed prefill) and trains; the moe family serves from dense
-slots (training, the paged cache and ``prefill_packed`` raise; the moe
-family packs on the batch axis instead):
+``models/transformer.py``.  Both families serve (dense slots or a paged
+pool, solo or packed prefill) and train.  The moe family's prefill is a
+scan of decode steps, so it packs on the batch axis (``prefill`` on N
+left-padded rows into dense slots, :func:`prefill_batch_ragged` on N
+right-padded rows into the pool); ``prefill_packed`` raises for it:
 
   init_params(cfg, generator, device, dtype)  -> params (random, from a seed)
   params_from_numpy(tree, cfg, device, dtype) -> params from the reference's
@@ -19,6 +20,8 @@ family packs on the batch axis instead):
       (moe: one decode_step per prompt position, the reference's scan)
   prefill_packed(params, cfg, tokens, cache, positions, seg_ids, last_idx,
                  seg_len)                  -> ((N, 1, V) logits, cache)
+  prefill_batch_ragged(params, cfg, tokens, cache, start, last_idx)
+                                           -> ((N, 1, V) logits, cache)
   decode_step(params, cfg, cache, token, pos, start, block_tables,
               with_health)
   write_cache_slot(cfg, cache, mini, slot) -> cache
@@ -78,13 +81,6 @@ def resolve_device(device) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
-
-
-def _require(cfg: ModelConfig, what: str) -> None:
-    """Raise for an entry point ported for the dense family only."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{what} is not ported for family {cfg.family!r} "
-                                  "(ROADMAP.md)")
 
 
 def _tensor(w, device, dtype):
@@ -157,11 +153,16 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
             "ln_f": _tensor(tree["ln_f"], device, torch.float32), "layers": layers}
 
 
+def _ffn(p, h, cfg: ModelConfig):
+    """The block's feed-forward: the experts of a moe layer, else the MLP."""
+    return L.moe_block(p, h, cfg) if cfg.family == "moe" else L.mlp_block(p, h)
+
+
 def _dense_block(p, x, cfg: ModelConfig, positions):
     h = L.rmsnorm(x, p["ln1"], cfg)
     x = x + L.attention_block(p, h, cfg, positions)
     h = L.rmsnorm(x, p["ln2"], cfg)
-    return x + L.mlp_block(p, h)
+    return x + _ffn(p, h, cfg)
 
 
 def forward(params: Params, cfg: ModelConfig, batch):
@@ -170,9 +171,10 @@ def forward(params: Params, cfg: ModelConfig, batch):
     With ``cfg.remat == "full"`` each block runs under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
     after the forward and recomputed in the backward, the reference's
-    ``jax.checkpoint`` per block.
+    ``jax.checkpoint`` per block.  The recompute of a moe block routes
+    every token as its forward did: K9, the top-k's tie rule and the
+    fixed-order sums give the same bits on the same inputs.
     """
-    _require(cfg, "training (forward)")
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = L.embed(params["tok"], tokens)
@@ -221,7 +223,6 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device=
                      dtype=torch.bfloat16):
     """Paged decode cache: per layer one block pool of ``num_blocks`` pages
     of ``block_size`` rows shared by every slot, stacked over layers."""
-    _require(cfg, "the paged cache")
     device = resolve_device(device)
     shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -309,11 +310,16 @@ def scatter_dense_to_pool(cfg: ModelConfig, cache, dense, block_tables):
 
 
 def scatter_segments_to_pool(cfg: ModelConfig, cache, mini, block_ids, seg_len: int):
-    """Write each segment of a packed batch=1 ``mini`` cache (L, 1, N *
-    seg_len, KV, hd) blockwise into the pool: ``block_ids`` (N, seg_len //
-    block_size) names the page of segment i's block j, with block 0 (the
-    sink) wherever the segment owns no page (shared prefix blocks, blocks
-    past its prompt, a faulted segment), so shared pages are never written."""
+    """Write each segment of a packed mini cache blockwise into the pool.
+
+    The mini cache is the dense family's concatenated pack, batch=1 (L, 1,
+    N * seg_len, KV, hd), or the moe family's batch-axis pack (L, N,
+    seg_len, KV, hd) of :func:`prefill_batch_ragged`: both lay segment i's
+    block j at flat block ``i * (seg_len // block_size) + j``.
+    ``block_ids`` (N, seg_len // block_size) names the page of segment i's
+    block j, with block 0 (the sink) wherever the segment owns no page
+    (shared prefix blocks, blocks past its prompt, a faulted segment), so
+    shared pages are never written."""
     ids = torch.as_tensor(block_ids, dtype=torch.long, device=cache["k"].device)
     keep = ids.reshape(-1) > 0
     for name in ("k", "v"):
@@ -363,17 +369,23 @@ def prefill(params: Params, cfg: ModelConfig, tokens, cache, start=None, t0: int
     return L.logits(params["head"], x), cache
 
 
-def _prefill_scan(params: Params, cfg: ModelConfig, tokens, cache, start, t0: int):
+def _prefill_scan(params: Params, cfg: ModelConfig, tokens, cache, start, t0: int,
+                  last_idx=None):
     """Prefill as ``S - t0`` decode steps, one position each (all rows at
-    position ``i``, pads masked by ``start``); the last step's logits."""
+    position ``i``, pads masked by ``start``); the last step's logits, or
+    given ``last_idx`` (B,), row b's logits from its own step
+    ``last_idx[b]``."""
     B, S = tokens.shape
     if S <= t0:
         raise ValueError(f"nothing to prefill: t0={t0} >= {S} tokens")
     pos = torch.arange(t0, S, dtype=torch.int32, device=tokens.device)
     pos = pos[:, None].expand(S - t0, B).contiguous()
+    last = None if last_idx is None else torch.as_tensor(last_idx, device=tokens.device)
     lg = None
     for i in range(t0, S):
-        lg, cache = decode_step(params, cfg, cache, tokens[:, i:i + 1], pos[i - t0], start)
+        step, cache = decode_step(params, cfg, cache, tokens[:, i:i + 1], pos[i - t0], start)
+        lg = step if lg is None or last is None else torch.where(
+            (last == i)[:, None, None], step, lg)
     return lg, cache
 
 
@@ -389,7 +401,10 @@ def prefill_packed(params: Params, cfg: ModelConfig, tokens, cache, positions, s
     batch=1 ``cache`` (L, 1, N * seg_len, KV, hd), are those of a solo
     prefill of width ``seg_len``.  ``last_idx`` (N,) names each segment's
     last real position; returns ``((N, 1, V) logits, cache)``."""
-    _require(cfg, "prefill_packed (the moe family packs on the batch axis)")
+    if cfg.family != "dense":
+        raise NotImplementedError(f"prefill_packed serves the dense family only, not "
+                                  f"{cfg.family!r}: the moe family packs on the batch "
+                                  "axis (prefill, prefill_batch_ragged)")
     seg_q = torch.where(seg_ids < 0, torch.full_like(seg_ids, -2), seg_ids)
     x = L.embed(params["tok"], tokens)
     for i, p in enumerate(params["layers"]):
@@ -401,6 +416,22 @@ def prefill_packed(params: Params, cfg: ModelConfig, tokens, cache, positions, s
     idx = torch.as_tensor(last_idx, dtype=torch.long, device=x.device)
     x = L.rmsnorm(x[:, idx], params["ln_f"], cfg)             # (1, N, D)
     return L.logits(params["head"], x).transpose(0, 1), cache
+
+
+def prefill_batch_ragged(params: Params, cfg: ModelConfig, tokens, cache, start,
+                         last_idx):
+    """The moe family's packed admission into the paged pool: N RIGHT-padded
+    rows of one width W, all at start 0, in one scan.
+
+    :func:`_prefill_scan` runs :func:`decode_step` over positions ``[0,
+    W)``, and row i keeps the logits of its own last real step
+    ``last_idx[i]`` (its prompt length less one), so its first token comes
+    from the logits its solo prefill returns.  The pad steps of
+    a short row only write cache rows past its prompt (in its last owned
+    page at most, which decode overwrites and masks).  ``cache`` is a dense
+    (L, N, W, KV, hd) mini cache; returns ``((N, 1, V) logits, cache)``, as
+    the reference's ``prefill_batch_ragged``."""
+    return _prefill_scan(params, cfg, tokens, cache, start, 0, last_idx)
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache, token, pos,
@@ -415,8 +446,6 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token, pos,
     Returns ``(logits, cache)``, plus the (B,) :func:`logits_health` probe
     when ``with_health``.
     """
-    if block_tables is not None:
-        _require(cfg, "paged decode")
     x = L.embed(params["tok"], token)
     for i, p in enumerate(params["layers"]):
         a = L.rmsnorm(x, p["ln1"], cfg)
@@ -427,7 +456,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token, pos,
                                          pos, cfg, start)
         x = x + o
         a = L.rmsnorm(x, p["ln2"], cfg)
-        x = x + (L.moe_block(p, a, cfg) if cfg.family == "moe" else L.mlp_block(p, a))
+        x = x + _ffn(p, a, cfg)
     x = L.rmsnorm(x, params["ln_f"], cfg)
     lg = L.logits(params["head"], x)
     if with_health:

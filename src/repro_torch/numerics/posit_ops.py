@@ -8,8 +8,10 @@ for any other broadcast, or of the fused softmax kernel (K9).  Gradients of
 the division flow straight through the quantization (the posit division is
 a fake-quant of the true one), as the reference's custom_vjps: ``ga = g /
 b`` and ``gb = -g * out / b`` (summed over the row for the rowwise one),
-in plain torch.  The softmax serves only (its straight-through backward
-comes with MoE training, ``ROADMAP.md``).  Every planned (format, variant)
+in plain torch.  The softmax's backward is the reference's
+``_softmax_bwd``: ``dx = p * (g - sum(g * y))`` with ``p`` the float
+softmax of ``x`` recomputed in f32, also in plain torch (the reference
+computes it in XLA, outside any kernel).  Every planned (format, variant)
 runs, posit64 and posit32 ``srt_r4_scaled`` on the two-word datapath (on
 CUDA tensors the softmax's K9 is built for every posit8, posit16, posit32
 and posit64 plan).
@@ -84,19 +86,37 @@ def posit_rmsnorm_div(x, rms, cfg: NumericsConfig):
     return posit_div_values(x, rms, cfg)
 
 
+class _SoftmaxSTE(torch.autograd.Function):
+    """Last-axis softmax on K9, straight-through gradient (reference
+    ``_softmax_bwd``): the posit divide's STE chained through ``e = exp(x -
+    m)`` and ``s = sum(e)`` collapses to ``dx = p * (g - sum(g * y))``."""
+
+    @staticmethod
+    def forward(ctx, x, fmt, variant):
+        y = posit_softmax_fused(fmt, x, variant)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        xf = x.to(torch.float32)
+        e = torch.exp(xf - torch.amax(xf, dim=-1, keepdim=True))
+        p = e / torch.sum(e, dim=-1, keepdim=True)
+        dx = p * (g - torch.sum(g * y, dim=-1, keepdim=True))
+        return dx.to(x.dtype), None, None
+
+
 def posit_softmax(x, cfg: NumericsConfig, axis: int = -1):
     """Numerically stable softmax along ``axis`` with a posit-divided
     normalizer: one launch of K9 (row max, exp, fixed-order row sum and the
-    SRT divide), float32 out.  No gradient: ``x`` must not require one."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError("the posit softmax has no backward yet: its "
-                                  "straight-through gradient comes with MoE training "
-                                  "(ROADMAP.md)")
+    SRT divide), float32 out, with the straight-through gradient of
+    :class:`_SoftmaxSTE`."""
     ax = axis % x.ndim
     if ax != x.ndim - 1:
-        out = posit_softmax_fused(cfg.div_fmt, torch.movedim(x, ax, -1), cfg.div_algo)
+        out = _SoftmaxSTE.apply(torch.movedim(x, ax, -1), cfg.div_fmt, cfg.div_algo)
         return torch.movedim(out, -1, ax)
-    return posit_softmax_fused(cfg.div_fmt, x, cfg.div_algo)
+    return _SoftmaxSTE.apply(x, cfg.div_fmt, cfg.div_algo)
 
 
 def posit_router_norm(weights, cfg: NumericsConfig, axis: int = -1):

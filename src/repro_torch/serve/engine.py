@@ -57,17 +57,19 @@ generator of their own (seeded from ``ServeConfig.seed`` and the request's
 key id), once per token, so their stream does not depend on the slot, the
 pack or the step.
 
-The moe family serves from dense slots only (``kv_layout="paged"``
-raises); every planned numerics serves from either layout, with solo or
-packed admission.  The moe family's prefill is the reference's scan: one
-decode step per prompt position, so that expert capacity stays per token.
-Its packs lie on the batch axis: N left-padded rows of one width
+Both families serve from either layout, with solo or packed admission,
+at every planned numerics.  The moe family's prefill is the reference's
+scan: one decode step per prompt position, so that expert capacity stays
+per token (a paged solo admission scans from ``t0``).  Its packs lie on
+the batch axis: in the dense layout N left-padded rows of one width
 prefilled together (the dummy rows, all-zero prompts at start 0, first),
-each row copied into its slot.
+each row copied into its slot; in the paged layout N right-padded rows at
+start 0 (``T.prefill_batch_ragged``, each row's logits from its own last
+step), each row's owned blocks scattered to their pages.
 
 Not ported yet (``ROADMAP.md``): streaming (``submit``/``serve_stream``),
-deadlines, backpressure, snapshot/restore, ``warmup``, the paged layout of
-the moe family, tensor-parallel meshes.
+deadlines, backpressure, snapshot/restore, ``warmup``, tensor-parallel
+meshes.
 ``FinishReason`` carries EOS, MAX_NEW, SHED, FAULT.
 """
 
@@ -399,9 +401,8 @@ class _ServeState:
 
 class ServeEngine:
     """Greedy / temperature serving of a dense or moe model on ``device``,
-    over dense slots or (dense family) a paged block pool
-    (``ServeConfig.kv_layout``), with solo or packed admission
-    (``ServeConfig.packed_prefill``)."""
+    over dense slots or a paged block pool (``ServeConfig.kv_layout``), with
+    solo or packed admission (``ServeConfig.packed_prefill``)."""
 
     def __init__(self, cfg: ModelConfig, params, sc: Optional[ServeConfig] = None,
                  device="cuda"):
@@ -419,9 +420,6 @@ class ServeEngine:
         # tokens; under kv_cache_format the cache holds rounded rows, so the
         # pool pages without sharing, as the reference's engine does
         self._share = not cfg.numerics.kv_cache_format
-        if self._paged and cfg.family != "dense":
-            raise NotImplementedError(f"kv_layout='paged' is not ported for family "
-                                      f"{cfg.family!r} (ROADMAP.md); use 'dense'")
         if self._paged:
             bs = sc.block_size
             if bs < 8 or bs > 128 or bs & (bs - 1):
@@ -733,8 +731,9 @@ class ServeEngine:
         """Solo paged admission; False (nothing changed) when the pool
         cannot supply the blocks.  The shared prefix (and a partly shared
         copy-on-write source block) is gathered into a dense mini cache, the
-        suffix from ``t0`` prefilled (K3 with ``q_offset = t0``), the owned
-        blocks written to their pages and the chain registered."""
+        suffix from ``t0`` prefilled (K3 with ``q_offset = t0``; the moe
+        family scans positions ``[t0, plen)``), the owned blocks written to
+        their pages and the chain registered."""
         m = self._map_blocks(st, rid)
         if m is None:
             return False
@@ -750,7 +749,7 @@ class ServeEngine:
         lg, mini = T.prefill(self.params, self.cfg, toks, mini,
                              torch.zeros(1, dtype=torch.int32, device=dev), t0)
         st.stats["admissions"] += 1
-        st.stats["prefill_forwards"] += 1
+        st.stats["prefill_forwards"] += self._prefill_forwards(plen - t0)
         if not self._healthy(lg)[0]:
             self._drop_blocks(st, owned, gathered[:s_blk])
             self._fault(st, rid)
@@ -838,6 +837,14 @@ class ServeEngine:
         return T.prefill_packed(self.params, self.cfg, t(toks), mini, t(pos), t(segs),
                                 t(last), W)
 
+    def _prefill_ragged(self, toks, last):
+        dev = self.device
+        mini = T.init_cache(self.cfg, toks.shape[0], toks.shape[1], device=dev)
+        t = lambda a: torch.as_tensor(a, device=dev)
+        return T.prefill_batch_ragged(self.params, self.cfg, t(toks), mini,
+                                      torch.zeros(toks.shape[0], dtype=torch.int32,
+                                                  device=dev), t(last))
+
     def _admit_packed_dense(self, st: _ServeState, slots: List[int], rids: List[int],
                             P: int) -> None:
         """Dense-layout packed admission: the left-padded segments
@@ -907,9 +914,12 @@ class ServeEngine:
         mapped FIFO until the pool runs short (the rest stay queued).  Each
         segment is right-padded to the block-aligned width ``W`` at start 0
         and recomputed whole (its shared prefix blocks are mapped, never
-        written); the owned blocks go to their pages in one scatter, a
-        faulted segment's to the block-0 sink, and each healthy segment's
-        chain is registered after the health probe, as a solo admission's."""
+        written): the dense family's segments concatenated into one K5
+        prefill, the moe family's as the rows of one
+        ``T.prefill_batch_ragged`` scan of W steps.  The owned blocks go to
+        their pages in one scatter, a faulted segment's to the block-0 sink,
+        and each healthy segment's chain is registered after the health
+        probe, as a solo admission's."""
         bs = self.sc.block_size
         maps = []
         for rid in rids:
@@ -921,14 +931,23 @@ class ServeEngine:
             return []
         N = _pow2_ceil(len(maps))
         nd = N - len(maps)
-        toks, segs, pos, last = self._pack_inputs(N, W)
-        for j, (rid, *_) in enumerate(maps):
-            i, tk = nd + j, st.reqs[rid].tokens
-            toks[0, i * W:i * W + len(tk)] = tk
-            segs[0, i * W:i * W + len(tk)] = i
-            last[i] = i * W + len(tk) - 1
-        lg, mini = self._prefill_pack(toks, segs, pos, last, W)
-        st.stats["prefill_forwards"] += 1
+        if self.cfg.family == "dense":
+            toks, segs, pos, last = self._pack_inputs(N, W)
+            for j, (rid, *_) in enumerate(maps):
+                i, tk = nd + j, st.reqs[rid].tokens
+                toks[0, i * W:i * W + len(tk)] = tk
+                segs[0, i * W:i * W + len(tk)] = i
+                last[i] = i * W + len(tk) - 1
+            lg, mini = self._prefill_pack(toks, segs, pos, last, W)
+        else:
+            toks = np.zeros((N, W), np.int32)
+            last = np.zeros(N, np.int32)
+            for j, (rid, *_) in enumerate(maps):
+                tk = st.reqs[rid].tokens
+                toks[nd + j, :len(tk)] = tk
+                last[nd + j] = len(tk) - 1
+            lg, mini = self._prefill_ragged(toks, last)
+        st.stats["prefill_forwards"] += self._prefill_forwards(W)
         healthy = self._healthy(lg)
         bids = np.zeros((N, W // bs), np.int32)          # 0: the sink
         for j, (rid, gathered, owned, t0, total) in enumerate(maps):

@@ -1347,3 +1347,123 @@ def test_scaled_two_word_pattern_kernel_edges(dev):
     px, pd = (t.reshape(-1) for t in torch.meshgrid(sp, sp, indexing="ij"))
     k = ops.posit_div(POSIT32, px.to(dev), pd.to(dev), "srt_r4_scaled")
     assert torch.equal(k.cpu(), ops.posit_div_plain(POSIT32, px, pd, "srt_r4_scaled"))
+
+
+# ------------------------------------------------------- the MoE family
+
+
+def test_softmax_ste_gradient_on_card_matches_cpu(dev):
+    """K9's straight-through gradient at a training step's router shape
+    (2048 rows of 64 experts) on the card against the CPU path's, on rows
+    whose exp(x - max) the card's torch gives the CPU's bits (each row's max
+    0, the other entries drawn from values whose exp the two devices round
+    alike; row 0 with -1e30 entries): the forward the CPU's bits (K9 is its
+    twin's bits on the card), the backward exactly the reference formula
+    on the card's own forward, and within 1e-5 relative L2 of the CPU's
+    gradient (the two devices' row sums of ``e`` round apart)."""
+    from repro_torch.numerics.formats import NumericsConfig
+    from repro_torch.numerics.posit_ops import posit_softmax
+
+    nm = NumericsConfig()
+    g = torch.Generator().manual_seed(26)
+    pool = -(torch.randn(8192, generator=g) * 4).abs()
+    pool = pool[bits(torch.exp(pool.to(dev)).cpu()) == bits(torch.exp(pool))]
+    x = pool[torch.randint(0, pool.numel(), (2048, 64), generator=g)]
+    x[:, 0] = 0.0
+    x[0, 1::5] = -1e30
+    ct = torch.randn(2048, 64, generator=g)
+    out = {}
+    for d in ("cpu", dev):
+        xd = x.to(d).requires_grad_()
+        y = posit_softmax(xd, nm)
+        (dx,) = torch.autograd.grad(y, xd, ct.to(d))
+        out[torch.device(d).type] = (y.detach(), dx)
+    (yc, dxc), (yg, dxg) = out["cpu"], out["cuda"]
+    xg, cg = x.to(dev), ct.to(dev)
+    e = torch.exp(xg - xg.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    assert torch.equal(bits(dxg), bits(p * (cg - (cg * yg).sum(-1, keepdim=True))))
+    assert torch.equal(bits(yg.cpu()), bits(yc))
+    err = float(torch.linalg.vector_norm(dxg.cpu() - dxc) / torch.linalg.vector_norm(dxc))
+    assert err <= 1e-5
+    assert float(dxg[0, 1::5].abs().max()) == 0.0
+
+
+def _moe_smoke(dtype=torch.bfloat16):
+    """The smoke OLMoE config and its weights on the CPU, from seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("olmoe_1b_7b", smoke=True)
+    return cfg, T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=dtype)
+
+
+def test_moe_paged_engine_on_card_is_dense_engine(dev):
+    """A smoke OLMoE served from the page pool on the card, solo and with
+    batch-axis packs into the pool, against its dense-slot engine on the
+    card (solo, and packed): the same tokens bit for bit, a prefix hit in
+    both paged runs, L K4 launches a decode step and no K3 there."""
+    import numpy as np
+
+    from repro_torch.optim.tree import tree_map
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    cfg, cpu = _moe_smoke()
+    params = tree_map(lambda t: t.to(dev), cpu)
+    rng = np.random.default_rng(26)
+    prefix = rng.integers(0, cfg.vocab, 32)
+    chat = [np.concatenate([prefix, rng.integers(0, cfg.vocab, n)]) for n in (5, 11, 3)]
+    own = [rng.integers(0, cfg.vocab, n) for n in (9, 20, 40, 4)]
+    prompts = [chat[0], own[0], own[1], chat[1], own[2], chat[2], own[3]]
+    reqs = lambda: [Request(p.astype(np.int32), max_new=6) for p in prompts]
+    for packed in (False, True):
+        sc = dict(max_batch=4, max_seq=128, packed_prefill=packed)
+        want = ServeEngine(cfg, params, ServeConfig(**sc), device=dev).serve(reqs())
+        eng = ServeEngine(cfg, params, ServeConfig(kv_layout="paged", block_size=16, **sc),
+                          device=dev)
+        F_ = posit_flash_attention
+        F_.launches = F_.paged_launches = 0
+        got = eng.serve(reqs())
+        st = eng.last_serve_stats
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert np.array_equal(a, b), (packed, i)
+        assert st["prefix_hit_tokens"] > 0 and st["faults"] == 0
+        assert st["packed_packs"] > 0 if packed else st["packed_packs"] == 0
+        assert F_.paged_launches == cfg.n_layers * st["decode_steps"]
+        assert F_.launches == cfg.n_layers * st["prefill_forwards"]
+
+
+def test_moe_train_loss_on_card_matches_cpu(dev):
+    """A smoke moe ``train_loss`` and its gradients (f32 masters, remat
+    "full", capacity drops) on the card against the same weights and batch
+    on the CPU.  The card's recompute routes as its forward; the CPU run
+    follows the card's routes (top-k is a step function, and a bf16 ulp on
+    the other device flips a near-tie), its own top-k differing only at
+    near-ties (probabilities within 2^-6 of each other); the loss within
+    1e-3 relative and every gradient leaf within 2e-2 relative L2."""
+    import numpy as np
+
+    from repro_torch.models.routes import NEAR_TIE, followed_routes, recorded_routes
+    from repro_torch.optim.tree import tree_items, tree_leaves, tree_map
+    from repro_torch.train.trainer import loss_and_grads
+
+    cfg, cpu = _moe_smoke(torch.float32)
+    cfg = cfg.replace(capacity_factor=0.5)
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    tokens = np.random.default_rng(11).integers(0, cfg.vocab, (2, 32)).astype(np.int32)
+    log, flips, runs = [], [], {}
+    for d, params in ((dev, gpu), ("cpu", cpu)):
+        batch = {"tokens": torch.from_numpy(tokens).to(d)}
+        with recorded_routes(log) if d == dev else followed_routes(log, flips):
+            (loss, _), grads = loss_and_grads(params, cfg, batch)
+        runs[torch.device(d).type] = (float(loss), grads)
+    L_ = cfg.n_layers
+    assert len(log) == 2 * L_
+    for j in range(L_):
+        assert torch.equal(log[j], log[2 * L_ - 1 - j])
+    assert max((gap for _, _, gap in flips), default=0.0) <= NEAR_TIE, flips[:3]
+    (c_loss, c_grads), (g_loss, g_grads) = runs["cpu"], runs["cuda"]
+    assert math.isfinite(g_loss) and abs(g_loss - c_loss) <= 1e-3 * abs(c_loss)
+    for (key, g), c in zip(tree_items(g_grads), tree_leaves(c_grads)):
+        err = float(torch.linalg.vector_norm(g.cpu() - c) / torch.linalg.vector_norm(c))
+        assert err <= 2e-2, key
