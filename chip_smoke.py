@@ -160,6 +160,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               moves some entries.  Printed: the share of entries each
               format moved, the requests whose tokens differ from the bf16
               cache's.
+   stream   — the live session on the same model and weights, from dense
+              slots (the main phase's engine and mix): 8 requests submitted
+              and 8 more from the consuming loop at request 0's first 8
+              tokens (the main phase's tokens; one FinishEvent per request,
+              its tokens its TokenEvents'; K2 2L+1, K3 L a forward step, L of
+              them through the tile loop a prefill), printing tokens/s and
+              TTFT and per-token latency p50/p99; the mix abandoned after
+              its 100th event, snapshot to host memory and restored on a
+              new engine (the live run's events, each once; the snapshot's
+              bytes, its and the restore's wall time); the first 4 requests
+              sampled at temperature 0.8, restored after event 40 (the
+              uninterrupted sampled run's tokens); request 3's K/V rows NaN
+              after event 40 (it finishes fault with a prefix of its
+              tokens, the others keep theirs, faults 1); request 5 with a
+              60 ms deadline on a clock the consumer moves 1 ms an event
+              (deadline with a prefix, the others unchanged); and
+              ``stream_async`` (serve_stream's events in order).
+   stream paged — the paged phase's engine and mix (pages of 16, packed):
+              12 requests submitted, 12 more at request 0's first tokens,
+              abandoned after event 100, snapshot and restored: the paged
+              phase's tokens, exact K2-K5 launches, every pack a shape the
+              K5 phase held, a prefix hit, no page mapped after the drain.
+   launcher — ``python -m repro_torch.launch.serve --arch smollm-360m
+              --stream --kv-layout paged --packed-prefill --shared-prefix 64
+              --requests 8 --batch 4 --max-new 16`` in a subprocess: exit 0,
+              a ``# slo:`` line and a ``# paged:`` line with prefix hits.
    training — SmolLM-360M at full width trained by ``Trainer`` for 4 steps
               (global batch 8 x 256, lr 1e-3, warmup 1, remat "full", seed
               0): finite losses, the last below the first, and per step K6
@@ -2213,6 +2239,428 @@ def phase_posit_kv(torch, dev, cfg, params, packs_held, main_outs):
     return out
 
 
+STREAM_SNAPSHOT_AT = 100    # events consumed before a stream is abandoned and snapshot
+STREAM_POISON_AT = 40       # events consumed before a slot's K/V rows are poisoned
+STREAM_DEADLINE_MS = 60.0   # one request's budget; the consumer's clock moves 1 ms an event
+SAMPLED = 4                 # the mix's first requests, sampled at temperature 0.8
+
+
+class EventClock:
+    """An injected engine clock (seconds) that the consumer moves."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def zero_launches():
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posit_flash_attn import posit_flash_attention as F
+
+    ops.posit_div_fused_rowwise.launches = 0
+    F.launches = F.tile_launches = F.paged_launches = F.packed_launches = 0
+
+
+def read_launches():
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posit_flash_attn import posit_flash_attention as F
+
+    return collections.Counter({"rowwise": ops.posit_div_fused_rowwise.launches,
+                                "K3": F.launches, "K3 tile": F.tile_launches,
+                                "K4": F.paged_launches, "K5": F.packed_launches})
+
+
+def exact_launches(label, cfg, st, c):
+    """The launches of a served session are the main and paged phases' per
+    forward step: K2 2L+1, L K3 (dense) or K4 (paged) a decode step, L K3
+    through the tile loop a solo prefill, L K5 a pack."""
+    L = cfg.n_layers
+    solo = st["admissions"] - st["packed_segments"]
+    forwards = st["decode_steps"] + st["packed_packs"] + solo
+    paged = st["kv_layout"] == "paged"
+    want = {"rowwise": (2 * L + 1) * forwards, "K3 tile": L * solo,
+            "K3": L * (solo if paged else solo + st["decode_steps"]),
+            "K4": L * st["decode_steps"] if paged else 0, "K5": L * st["packed_packs"]}
+    got = {k: c[k] for k in want}
+    check(got == want, f"{label}: launches {got}, the session's {forwards} forward steps "
+                       f"imply {want}")
+
+
+def drain(stream, on_event=None, events=None):
+    """Consume ``stream`` to its end (``on_event`` sees every event);
+    returns the events, appended to ``events``."""
+    events = [] if events is None else events
+    for ev in stream:
+        events.append(ev)
+        if on_event is not None:
+            on_event(ev)
+    return events
+
+
+def event_keys(events):
+    """Events as comparable tuples (a result's times are the run's own)."""
+    return [("token", ev.rid, int(ev.token)) if type(ev).__name__ == "TokenEvent"
+            else ("finish", ev.rid, ev.result.finish.value, tuple(ev.result.tokens.tolist()))
+            for ev in events]
+
+
+def stream_tokens(label, events, n):
+    """Each of requests 0..n-1 has exactly one FinishEvent whose tokens are
+    the concatenation of its TokenEvents; returns {rid: ServeResult}."""
+    import numpy as np
+
+    from repro_torch.serve import TokenEvent
+
+    toks, results = collections.defaultdict(list), {}
+    for ev in events:
+        if isinstance(ev, TokenEvent):
+            toks[ev.rid].append(ev.token)
+        else:
+            check(ev.rid not in results, f"{label}: request {ev.rid} finished twice")
+            results[ev.rid] = ev.result
+    check(sorted(results) == list(range(n)),
+          f"{label}: finish events for {sorted(results)}, want 0..{n - 1}")
+    for rid, res in results.items():
+        check(np.array_equal(np.asarray(toks[rid], np.int32), res.tokens),
+              f"{label}: request {rid}'s token events are not its result's tokens")
+    return results
+
+
+def same_tokens(label, results, want, skip=()):
+    import numpy as np
+
+    off = [i for i, w in enumerate(want) if i not in skip
+           and not np.array_equal(results[i].tokens, w)]
+    check(not off, f"{label}: requests {off} differ from the uninterrupted run's tokens")
+
+
+def is_prefix(label, res, clean, reason):
+    import numpy as np
+
+    n = len(res.tokens)
+    check(res.finish.value == reason and 0 < n < len(clean)
+          and np.array_equal(res.tokens, clean[:n]),
+          f"{label}: request {res.rid} finished {res.finish.value} with {n} tokens, want "
+          f"{reason} with a prefix of its {len(clean)} clean tokens")
+
+
+def poison_slot(torch, eng, slot):
+    """NaN into one slot's K/V rows of the engine's live dense cache."""
+    with torch.inference_mode():
+        for t in eng._st.cache.values():
+            t[:, slot] = float("nan")
+
+
+def snapshot_restore(torch, eng, make):
+    """Snapshot ``eng``'s session, drop it, restore on ``make()``; returns
+    (engine, snapshot bytes, snapshot s, restore s)."""
+    import pickle
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = eng.snapshot()
+    t_snap = time.perf_counter() - t0
+    nbytes = len(pickle.dumps(snap, protocol=pickle.HIGHEST_PROTOCOL))
+    del eng
+    eng2 = make()
+    t0 = time.perf_counter()
+    eng2.restore(snap)
+    torch.cuda.synchronize()
+    return eng2, snap, nbytes, t_snap, time.perf_counter() - t0
+
+
+def pct(xs, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else float("nan")
+
+
+def phase_stream(torch, dev, cfg, params, main_outs, card):
+    """The live session from dense slots (the main phase's engine and mix):
+    live admission, snapshot/restore (greedy and sampled), fault isolation,
+    a deadline cut mid-decode, and ``stream_async``; every run's tokens the
+    main phase's (or the stated prefixes), its launches exact."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.serve import FinishReason, ServeConfig, ServeEngine, TokenEvent
+    from repro_torch.serve import stream_async
+
+    reqs = request_mix(cfg)
+    n = len(reqs)
+    sc = ServeConfig.from_model(cfg)
+    make = lambda clock=None: ServeEngine(cfg, params, sc, device=dev, clock=clock)
+    total = collections.Counter()
+    lines = []
+
+    def counted(label, eng, c):
+        exact_launches(label, cfg, eng.last_serve_stats, c)
+        total.update(c)
+
+    # live admission: the second half submitted at request 0's first tokens
+    eng = make()
+    eng.serve([reqs[0].tokens[:16]], max_new=2)          # warm-up, not counted
+    torch.cuda.synchronize()
+    late = iter(reqs[8:])
+    zero_launches()
+    t0 = time.perf_counter()
+    for r in reqs[:8]:
+        eng.submit(r)
+
+    def submit_late(ev):
+        if isinstance(ev, TokenEvent) and ev.rid == 0:
+            nxt = next(late, None)
+            if nxt is not None:
+                eng.submit(nxt)
+    live = drain(eng.serve_stream(), submit_late)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = read_launches()
+    results = stream_tokens("stream", live, n)
+    same_tokens("stream", results, main_outs)
+    counted("stream", eng, c)
+    st = eng.last_serve_stats
+    n_tok = sum(len(r.tokens) for r in results.values())
+    ttft, lat = st["ttft_ms"], st["token_latency_ms"]
+    lines.append(f"live admission (8 submitted, 8 more at request 0's first 8 tokens): "
+                 f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s; TTFT ms p50 "
+                 f"{pct(ttft, 50):.2f} p99 {pct(ttft, 99):.2f}; per-token latency ms p50 "
+                 f"{pct(lat, 50):.2f} p99 {pct(lat, 99):.2f} ({card}); launches K2 "
+                 f"{c['rowwise']}, K3 {c['K3']} ({c['K3 tile']} prefill)")
+    out = {"tokens_per_s": n_tok / wall, "ttft_ms": (pct(ttft, 50), pct(ttft, 99)),
+           "token_latency_ms": (pct(lat, 50), pct(lat, 99))}
+    # snapshot after the STREAM_SNAPSHOT_AT-th event, restore on a new engine
+    eng = make()
+    zero_launches()
+    for r in reqs:
+        eng.submit(r)
+    first = []
+    for ev in eng.serve_stream():
+        first.append(ev)
+        if len(first) == STREAM_SNAPSHOT_AT:
+            break
+    eng, snap, nbytes, t_snap, t_rest = snapshot_restore(torch, eng, make)
+    rest = drain(eng.serve_stream())
+    c = read_launches()
+    results = stream_tokens("stream restore", first + rest, n)
+    same_tokens("stream restore", results, main_outs)
+    pending = event_keys(snap["pending"])
+    check(len(pending) > 0 and event_keys(rest[:len(pending)]) == pending,
+          f"stream restore: the {len(pending)} unconsumed events are not the restored "
+          "stream's first")
+    check(event_keys(first + rest) == event_keys(live),
+          "stream restore: the event sequence differs from the live run's")
+    counted("stream restore", eng, c)
+    lines.append(f"snapshot after event {STREAM_SNAPSHOT_AT} ({len(snap['queue'])} queued, "
+                 f"{len(snap['pending'])} unconsumed events): {nbytes} bytes pickled, "
+                 f"snapshot {t_snap * 1e3:.1f} ms, restore {t_rest * 1e3:.1f} ms; the live "
+                 "run's events, each once")
+    # sampled: the mix's first SAMPLED requests at temperature 0.8, seeds pinned
+    sampled = [dataclasses.replace(r, temperature=0.8, seed=i)
+               for i, r in enumerate(reqs[:SAMPLED])]
+    zero_launches()
+    eng = make()
+    want = eng.serve(sampled)
+    counted("stream sampled", eng, read_launches())
+    zero_launches()
+    eng = make()
+    for r in sampled:
+        eng.submit(r)
+    first = []
+    for ev in eng.serve_stream():
+        first.append(ev)
+        if len(first) == STREAM_POISON_AT:
+            break
+    eng, snap, _, _, _ = snapshot_restore(torch, eng, make)
+    results = stream_tokens("stream sampled restore", first + drain(eng.serve_stream()),
+                            SAMPLED)
+    same_tokens("stream sampled restore", results, want)
+    counted("stream sampled restore", eng, read_launches())
+    differ = sum(not np.array_equal(a, b) for a, b in zip(want, main_outs))
+    lines.append(f"sampled (first {SAMPLED} at temperature 0.8, snapshot after event "
+                 f"{STREAM_POISON_AT}, {len(snap['gen_state'])} generator states): the "
+                 f"uninterrupted sampled run's tokens ({differ} of {SAMPLED} leave greedy)")
+    # fault isolation: one active slot's K/V rows NaN after the STREAM_POISON_AT-th event
+    eng = make()
+    zero_launches()
+    for r in reqs:
+        eng.submit(r)
+    victim = 3
+    state = {"n": 0}
+
+    def poison(ev):
+        state["n"] += 1
+        if state["n"] == STREAM_POISON_AT:
+            slot = int(np.flatnonzero(eng._st.sched.slot_req == victim)[0])
+            poison_slot(torch, eng, slot)
+    results = stream_tokens("stream fault", drain(eng.serve_stream(), poison), n)
+    is_prefix("stream fault", results[victim], main_outs[victim], "fault")
+    same_tokens("stream fault", results, main_outs, skip=(victim,))
+    check(eng.last_serve_stats["faults"] == 1,
+          f"stream fault: {eng.last_serve_stats['faults']} faults, want 1")
+    counted("stream fault", eng, read_launches())
+    lines.append(f"fault: request {victim}'s K/V rows NaN after event {STREAM_POISON_AT}: it "
+                 f"finished fault with its first {len(results[victim].tokens)} clean tokens, "
+                 "the other 15 theirs, faults 1")
+    # deadline: the consumer's clock moves 1 ms an event
+    clock = EventClock()
+    eng = make(clock)
+    zero_launches()
+    cut = 5
+    for i, r in enumerate(reqs):
+        eng.submit(dataclasses.replace(r, deadline_ms=STREAM_DEADLINE_MS) if i == cut else r)
+
+    def tick(ev):
+        clock.t += 1e-3
+    results = stream_tokens("stream deadline", drain(eng.serve_stream(), tick), n)
+    is_prefix("stream deadline", results[cut], main_outs[cut], "deadline")
+    same_tokens("stream deadline", results, main_outs, skip=(cut,))
+    check(eng.last_serve_stats["deadline_evictions"] == 1,
+          f"stream deadline: {eng.last_serve_stats['deadline_evictions']} deadline "
+          "evictions, want 1")
+    counted("stream deadline", eng, read_launches())
+    lines.append(f"deadline: request {cut} at {STREAM_DEADLINE_MS} ms on a clock of 1 ms an "
+                 f"event finished deadline with its first {len(results[cut].tokens)} clean "
+                 "tokens, the other 15 theirs")
+    # stream_async: the worker thread's events are serve_stream's
+    eng = make()
+    zero_launches()
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    events = list(stream_async(eng))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(event_keys(events) == event_keys(live),
+          "stream_async: its event sequence differs from serve_stream's")
+    counted("stream_async", eng, read_launches())
+    lines.append(f"stream_async: serve_stream's {len(events)} events in order, "
+                 f"{n_tok / wall:.1f} tokens/s")
+    for line in lines:
+        print(f"stream: {line}")
+    out.update(total)
+    return out
+
+
+def phase_stream_paged(torch, dev, cfg, params, packs_held, paged_outs, card):
+    """The paged phase's engine and mix streamed: the second half submitted
+    mid-flight, a snapshot after the STREAM_SNAPSHOT_AT-th event restored
+    on a new engine; the paged phase's tokens, exact K2-K5 launches, every
+    pack a shape the K5 phase held, and no page left mapped after the
+    drain."""
+    from repro_torch.serve import ServeConfig, ServeEngine, TokenEvent
+
+    label = "stream paged"
+    reqs = paged_mix(cfg)
+    half = len(reqs) // 2
+    sc = ServeConfig.from_model(cfg, kv_layout="paged", block_size=PAGED_BLOCK,
+                                packed_prefill=True)
+    packs = []
+
+    def make():
+        eng = ServeEngine(cfg, params, sc, device=dev)
+        prefill_pack = eng._prefill_pack
+
+        def recorded(toks, segs, pos, last, W):
+            packs.append((len(last), W))
+            return prefill_pack(toks, segs, pos, last, W)
+
+        eng._prefill_pack = recorded
+        return eng
+
+    cur = {"eng": make()}
+    cur["eng"].serve([reqs[1]])                          # warm-up, not counted
+    torch.cuda.synchronize()
+    packs.clear()
+    late = iter(reqs[half:])
+    zero_launches()
+    t0 = time.perf_counter()
+    for r in reqs[:half]:
+        cur["eng"].submit(r)
+
+    def submit_late(ev):
+        if isinstance(ev, TokenEvent) and ev.rid == 0:
+            nxt = next(late, None)
+            if nxt is not None:
+                cur["eng"].submit(nxt)
+    events = []
+    for ev in cur["eng"].serve_stream():
+        events.append(ev)
+        submit_late(ev)
+        if len(events) == STREAM_SNAPSHOT_AT:
+            break
+    cur["eng"], snap, nbytes, t_snap, t_rest = snapshot_restore(torch, cur["eng"], make)
+    drain(cur["eng"].serve_stream(), submit_late, events)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(next(late, None) is None, f"{label}: not every late request was submitted")
+    c = read_launches()
+    eng = cur["eng"]
+    results = stream_tokens(label, events, len(reqs))
+    same_tokens(label, results, paged_outs)
+    st = eng.last_serve_stats
+    exact_launches(label, cfg, st, c)
+    check(len(packs) == st["packed_packs"] and set(packs) <= packs_held,
+          f"{label}: packs {collections.Counter(packs)} not all among those the K5 phase held")
+    solo = st["admissions"] - st["packed_segments"]
+    check(solo > 0 and st["prefix_hit_rate"] > 0,
+          f"{label}: {solo} prefix-shared solo admissions, hit rate {st['prefix_hit_rate']}")
+    alloc = eng._st.alloc
+    usable = set(range(1, alloc.num_blocks))
+    check(alloc.blocks_in_use() == 0 and int(alloc.refcount.sum()) == 0
+          and set(alloc.free) | set(alloc.cached) == usable
+          and set(alloc.cached) <= set(alloc.owner),
+          f"{label}: after the drain {alloc.blocks_in_use()} pages mapped, "
+          f"{len(usable - set(alloc.free) - set(alloc.cached))} unaccounted for")
+    n_tok = sum(len(r.tokens) for r in results.values())
+    ttft, lat = st["ttft_ms"], st["token_latency_ms"]
+    print(f"{label}: {len(reqs)} requests ({half} submitted, {len(reqs) - half} at request "
+          f"0's first tokens), snapshot after event {STREAM_SNAPSHOT_AT} ({nbytes} bytes "
+          f"pickled, snapshot {t_snap * 1e3:.1f} ms, restore {t_rest * 1e3:.1f} ms): the "
+          f"paged phase's tokens; {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s "
+          f"(the snapshot included); TTFT ms p50 {pct(ttft, 50):.2f} p99 {pct(ttft, 99):.2f}; "
+          f"per-token latency ms p50 {pct(lat, 50):.2f} p99 {pct(lat, 99):.2f} ({card}); "
+          f"{st['packed_packs']} packs, {solo} prefix-shared solo admissions, hit rate "
+          f"{st['prefix_hit_rate']:.4f}; after the drain no page mapped, "
+          f"{len(alloc.cached)} registered prefix pages parked; launches K2 {c['rowwise']}, "
+          f"K3 {c['K3']}, K4 {c['K4']}, K5 {c['K5']}")
+    out = dict(c)
+    out.update(tokens_per_s=n_tok / wall, ttft_ms=(pct(ttft, 50), pct(ttft, 99)),
+               token_latency_ms=(pct(lat, 50), pct(lat, 99)))
+    return out
+
+
+LAUNCHER_ARGS = ["--arch", "smollm-360m", "--stream", "--kv-layout", "paged",
+                 "--packed-prefill", "--shared-prefix", "64", "--requests", "8", "--batch", "4",
+                 "--max-new", "16"]
+
+
+def phase_launcher(src):
+    """``python -m repro_torch.launch.serve`` at full width on the card: exit 0,
+    an SLO line, a paged line with prefix hits."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *LAUNCHER_ARGS],
+                       capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    tail = (r.stdout + r.stderr)[-3000:]
+    check(r.returncode == 0, f"launcher: exit {r.returncode}:\n{tail}")
+    summary = [ln for ln in r.stdout.splitlines() if ln.startswith("# ")]
+    slo = [ln for ln in summary if ln.startswith("# slo:")]
+    paged = [ln for ln in summary if ln.startswith("# paged:")]
+    hits = re.search(r"\((\d+)/(\d+) prompt tokens", paged[0]) if paged else None
+    check(bool(slo) and hits is not None and int(hits.group(1)) > 0,
+          f"launcher: no '# slo:' line or no prefix hit on its '# paged:' line:\n{tail}")
+    print(f"launcher: python -m repro_torch.launch.serve {' '.join(LAUNCHER_ARGS)}: exit 0 "
+          f"in {wall:.1f} s")
+    for ln in summary:
+        print(f"launcher: {ln}")
+
+
 def phase_train_main(torch, dev, div_format="posit16", div_algo=DEFAULT_VARIANT,
                      record=False, profile=True):
     """SmolLM-360M at full width trained for 4 steps through K2, K6, K7, K8
@@ -3826,6 +4274,12 @@ def main() -> int:
         print(f"{label}: the posit16 paged run's launch counts ({counts}); {differ} of "
               f"{len(paged['outs'])} requests' tokens differ from the posit16 paged run's")
     kv = timed("posit-KV", phase_posit_kv, torch, dev, cfg, params, packs_held, path["outs"])
+    # the live session: submit / serve_stream, snapshot and restore, faults,
+    # deadlines, stream_async, and the serving launcher
+    stream = timed("stream", phase_stream, torch, dev, cfg, params, path["outs"], card)
+    stream_paged = timed("stream paged", phase_stream_paged, torch, dev, cfg, params,
+                         packs_held, paged["outs"], card)
+    timed("launcher", phase_launcher, src)
     train = timed("training", phase_train_main, torch, dev)
     train64 = timed("training posit64", phase_train_main, torch, dev, "posit64", record=True)
     label = "training posit64 srt_r2_cs"
@@ -3919,7 +4373,7 @@ def main() -> int:
     csrc = "src/repro_torch/kernels/csrc/"
     runs = (path, path64, paged, paged64, train, train64, moe, moe64, train32, moe32,
             *paths.values(), *pageds.values(), paged64nrd, train64r2, moe64r4, moe_paged,
-            train_moe)
+            train_moe, stream, stream_paged)
 
     def launches(name):
         """``name``'s launches over every main path's run."""

@@ -67,10 +67,30 @@ each row copied into its slot; in the paged layout N right-padded rows at
 start 0 (``T.prefill_batch_ragged``, each row's logits from its own last
 step), each row's owned blocks scattered to their pages.
 
-Not ported yet (``ROADMAP.md``): streaming (``submit``/``serve_stream``),
-deadlines, backpressure, snapshot/restore, ``warmup``, tensor-parallel
-meshes.
-``FinishReason`` carries EOS, MAX_NEW, SHED, FAULT.
+The live session.  ``submit`` queues a request at any time, also while a
+``serve_stream`` is being consumed; ``serve_stream`` drives the session and
+yields a :class:`TokenEvent` per token and one :class:`FinishEvent` per
+request, only at step boundaries (after the step's bookkeeping), so a
+consumer may stop at any event and :meth:`ServeEngine.snapshot` there.
+``serve`` is ``submit`` for each request and the stream drained.  Every
+request ends with one :class:`ServeResult`: ``EOS``, ``MAX_NEW``,
+``DEADLINE`` (``Request.deadline_ms`` from submission, or
+``ServeConfig.max_queue_wait_ms`` while queued: checked once an admission
+sweep and once a decode step, against the engine's injectable ``clock``),
+``SHED`` (an invalid request, a submit past ``ServeConfig.max_queue``, a
+paged request the pool can never hold; ``strict`` raises instead) or
+``FAULT`` (the health probe found non-finite logits in its row, at
+admission or mid-decode, before its token is recorded; a paged slot's
+pages leave the prefix table).  Rows are independent, so a faulted or
+expired request leaves every other request's tokens as they were.
+``snapshot`` copies the session to host memory as one picklable dict (the
+cache, the scheduler, the allocator, the mirrors, the per-request records,
+the pending events and the state of every live request's generator);
+``restore`` on an engine with the same model, weights and ServeConfig
+finishes the stream with the same tokens.  Deadline clocks are kept as
+elapsed time and rebased on restore.
+
+Not ported yet (``ROADMAP.md``): ``warmup``, tensor-parallel meshes.
 """
 
 from __future__ import annotations
@@ -78,7 +98,8 @@ from __future__ import annotations
 import collections
 import dataclasses
 import enum
-from typing import Dict, List, Optional, Sequence, Union
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -123,16 +144,29 @@ class FinishReason(str, enum.Enum):
 
     EOS = "eos"            # sampled its eos_id
     MAX_NEW = "max_new"    # token budget exhausted
-    SHED = "shed"          # refused at admission (invalid)
+    DEADLINE = "deadline"  # deadline_ms / max_queue_wait_ms expired
+    SHED = "shed"          # refused at admission (overflow / invalid)
     FAULT = "fault"        # non-finite logits quarantined
 
 
 @dataclasses.dataclass
 class ServeResult:
+    """One request's terminal record: its (possibly empty or partial)
+    tokens, and wall-clock milliseconds on the engine's clock from its
+    submission (``ttft_ms`` None when it produced no token)."""
+
     rid: int
     tokens: np.ndarray
     finish: FinishReason
     detail: str = ""
+    queue_wait_ms: float = 0.0
+    ttft_ms: Optional[float] = None
+    latency_ms: float = 0.0
+
+
+#: The events :meth:`ServeEngine.serve_stream` yields.
+TokenEvent = collections.namedtuple("TokenEvent", ("rid", "token"))
+FinishEvent = collections.namedtuple("FinishEvent", ("rid", "result"))
 
 
 @dataclasses.dataclass
@@ -150,7 +184,9 @@ class ServeConfig:
     block_size: int = 16                 # pool page rows (power of two, 8..128)
     num_blocks: Optional[int] = None     # pool size; None = worst case + sink
     packed_prefill: bool = False         # pack each admission sweep
-    strict: bool = False                 # raise on invalid requests
+    max_queue: Optional[int] = None      # submit() backpressure bound
+    max_queue_wait_ms: Optional[float] = None  # queue-wait deadline for all
+    strict: bool = False                 # raise where a request would shed
     health_checks: bool = True           # non-finite logits quarantine
 
     @classmethod
@@ -163,13 +199,16 @@ class ServeConfig:
 @dataclasses.dataclass
 class Request:
     """One generation request; ``None`` fields take the ServeConfig value,
-    ``seed`` pins the sampling-key id (default: the request's index)."""
+    ``seed`` pins the sampling-key id (default: the request's index), and
+    ``deadline_ms`` is a budget in milliseconds from submission (None: no
+    deadline)."""
 
     tokens: np.ndarray
     max_new: int = 32
     temperature: Optional[float] = None
     eos_id: Optional[int] = None
     seed: Optional[int] = None
+    deadline_ms: Optional[float] = None
 
 
 class BlockAllocator:
@@ -365,17 +404,30 @@ class Scheduler:
 
 
 class _ServeState:
-    """One ``serve`` call: the caches, the per-slot mirrors shipped to the
-    device each step, the allocator and the counters."""
+    """The engine's live session: everything it mutates between the first
+    ``submit`` and the last ``FinishEvent``.  A submit to an idle (drained)
+    engine starts a fresh one, so rids, and with them the default sampling
+    key ids, start at 0 in each session.  ``init_cache=False`` leaves the
+    big cache to :meth:`ServeEngine.restore`."""
 
-    def __init__(self, eng: "ServeEngine", reqs: List[Request], plans: Dict[int, tuple],
-                 temp: List[float], eos: List[int], gens: Dict[int, torch.Generator]):
+    def __init__(self, eng: "ServeEngine", init_cache: bool = True):
         sc, dev = eng.sc, eng.device
         B = sc.max_batch
-        self.reqs, self.plans = reqs, plans
-        self.req_temp, self.req_eos, self.req_gen = temp, eos, gens
-        self.results: Dict[int, ServeResult] = {}
+        # per request (index = rid)
+        self.reqs: List[Request] = []
+        self.plans: List[Optional[tuple]] = []   # (P, start, budget) | None
+        self.req_temp: List[float] = []
+        self.req_eos: List[int] = []
+        self.req_gen: Dict[int, torch.Generator] = {}
         self.queue: collections.deque = collections.deque()
+        self.pending: List = []                  # events awaiting the stream
+        self.results: Dict[int, ServeResult] = {}
+        self.t_submit: Dict[int, float] = {}     # ms on the engine's clock
+        self.t_admit: Dict[int, float] = {}
+        self.ttft: Dict[int, float] = {}         # ms durations
+        self.ttfts: List[float] = []
+        self.token_lats: List[float] = []
+        # per slot: the host mirrors shipped to the device each step
         self.sched = Scheduler(B, 1)
         self.pos = np.zeros(B, np.int32)
         self.start = np.zeros(B, np.int32)
@@ -383,20 +435,25 @@ class _ServeState:
         self.temps = np.zeros(B, np.float32)
         self.eos = np.full(B, -1, np.int32)
         self.gens: list = [None] * B
+        self.last_tok_ms = np.zeros(B, np.float64)
         self.stats = collections.Counter()
+        self.cache = None
         if eng._paged:
-            self.cache = T.init_paged_cache(eng.cfg, eng._num_blocks, sc.block_size,
-                                            device=dev)
+            if init_cache:
+                self.cache = T.init_paged_cache(eng.cfg, eng._num_blocks, sc.block_size,
+                                                device=dev)
             self.alloc = BlockAllocator(eng._num_blocks, sc.block_size)
             self.bt_host = np.zeros((B, eng._max_blocks), np.int32)
             self.slot_blocks: List[List[int]] = [[] for _ in range(B)]
             self.peak_blocks = 0
         else:
-            self.cache = T.init_cache(eng.cfg, B, sc.max_seq, device=dev)
+            if init_cache:
+                self.cache = T.init_cache(eng.cfg, B, sc.max_seq, device=dev)
             self.mini = T.init_cache(eng.cfg, 1, sc.max_seq, device=dev)
 
-    def finish(self, rid: int, tokens, reason: FinishReason, detail: str = "") -> None:
-        self.results[rid] = ServeResult(rid, np.asarray(tokens, np.int32), reason, detail)
+    @property
+    def drained(self) -> bool:
+        return not (self.pending or self.queue or self.sched.any_active)
 
 
 class ServeEngine:
@@ -405,11 +462,15 @@ class ServeEngine:
     solo or packed admission (``ServeConfig.packed_prefill``)."""
 
     def __init__(self, cfg: ModelConfig, params, sc: Optional[ServeConfig] = None,
-                 device="cuda"):
+                 device="cuda", clock: Optional[Callable[[], float]] = None):
         self.cfg = cfg
         self.params = params
         self.sc = sc = sc if sc is not None else ServeConfig.from_model(cfg)
         self.device = T.resolve_device(device)
+        # an injectable clock in seconds, so that deadlines can be driven
+        # without sleeping
+        self._clock = time.monotonic if clock is None else clock
+        self._st: Optional[_ServeState] = None
         self.last_results: Optional[List[ServeResult]] = None
         self.last_serve_stats: Optional[dict] = None
         if sc.kv_layout not in ("dense", "paged"):
@@ -452,6 +513,9 @@ class ServeEngine:
             probs = torch.softmax(lg[i] / max(float(temps[i]), 1e-6), dim=-1)
             tok[i] = torch.multinomial(probs, 1, generator=gens[i])[0]
         return tok.cpu().numpy()
+
+    def _now_ms(self) -> float:
+        return self._clock() * 1e3
 
     # ------------------------------------------------------------- generate
 
@@ -551,6 +615,29 @@ class ServeEngine:
         self.last_results = res
         return outs
 
+    def serve_static(self, requests: Sequence, max_new: int = 32) -> List[np.ndarray]:
+        """The static-batch baseline: requests in arrival order in groups of
+        ``max_batch``, each group served by :meth:`generate` with the group's
+        largest budget (a request stops early only at its own ``eos_id``).
+        Per-request ``temperature``, ``eos_id`` and ``seed`` hold; per-request
+        ``max_new`` does not."""
+        reqs = [r if isinstance(r, Request)
+                else Request(np.asarray(r, np.int32), max_new=max_new)
+                for r in requests]
+        n = len(reqs)
+        def_temp = _broadcast(self.sc.temperature, n, np.float32, "temperature")
+        def_eos = _broadcast(self.sc.eos_id, n, np.int32, "eos_id")
+        outs: List[np.ndarray] = []
+        for i in range(0, n, self.sc.max_batch):
+            group = list(enumerate(reqs[i:i + self.sc.max_batch], start=i))
+            outs += self.generate(
+                [r.tokens for _, r in group], max_new=max(r.max_new for _, r in group),
+                temperature=[r.temperature if r.temperature is not None else def_temp[j]
+                             for j, r in group],
+                eos_id=[r.eos_id if r.eos_id is not None else def_eos[j] for j, r in group],
+                seeds=[r.seed if r.seed is not None else j for j, r in group])
+        return outs
+
     # --------------------------------------------------- continuous batching
 
     def _plan(self, r: Request) -> tuple:
@@ -574,12 +661,84 @@ class ServeEngine:
             P = plen
         return P, P - plen, budget
 
+    @staticmethod
+    def _scalar_default(value, what: str, dtype):
+        arr = np.asarray(value)
+        if arr.ndim != 0:
+            raise ValueError(f"a per-request ServeConfig {what} (a sequence) is resolved "
+                             f"by stream index in serve(); submit() needs Request.{what} "
+                             "or a scalar default")
+        return dtype(arr)
+
+    def _register(self, st: _ServeState, r: Request) -> int:
+        """Append a request's records to the session; returns its rid."""
+        rid = len(st.reqs)
+        st.reqs.append(r)
+        st.plans.append(None)
+        st.req_temp.append(float(r.temperature) if r.temperature is not None
+                           else self._scalar_default(self.sc.temperature, "temperature",
+                                                     float))
+        st.req_eos.append(int(r.eos_id) if r.eos_id is not None
+                          else self._scalar_default(self.sc.eos_id, "eos_id", int))
+        st.t_submit[rid] = self._now_ms()
+        return rid
+
+    def _finish(self, st: _ServeState, rid: int, tokens, reason: FinishReason,
+                detail: str, now: float) -> ServeResult:
+        t_sub = st.t_submit.get(rid, now)
+        res = ServeResult(rid, np.asarray(tokens, np.int32), reason, detail,
+                          queue_wait_ms=max(0.0, st.t_admit.get(rid, now) - t_sub),
+                          ttft_ms=st.ttft.get(rid), latency_ms=max(0.0, now - t_sub))
+        st.results[rid] = res
+        return res
+
+    def _shed(self, st: _ServeState, rid: int, detail: str) -> None:
+        st.stats["shed"] += 1
+        res = self._finish(st, rid, np.zeros(0, np.int32), FinishReason.SHED, detail,
+                           self._now_ms())
+        st.pending.append(FinishEvent(rid, res))
+
+    def submit(self, request, max_new: int = 32, strict: Optional[bool] = None,
+               _bounded: bool = True) -> int:
+        """Queue one request on the live session and return its rid; also
+        while a :meth:`serve_stream` is being consumed (it is admitted into
+        the next free slot).  A submit to an idle engine starts a fresh
+        session, with rids from 0.  An invalid request, or one past
+        ``ServeConfig.max_queue`` queued requests, raises under ``strict``
+        and is SHED otherwise (its FinishEvent comes out of the stream)."""
+        sc = self.sc
+        strict = sc.strict if strict is None else strict
+        r = (request if isinstance(request, Request)
+             else Request(np.asarray(request, np.int32), max_new=max_new))
+        if self._st is None or self._st.drained:
+            self._st = _ServeState(self)
+        st = self._st
+        try:
+            plan = self._plan(r)
+            if _bounded and sc.max_queue is not None and len(st.queue) >= sc.max_queue:
+                raise ValueError(f"queue overflow: {len(st.queue)} requests already queued "
+                                 f"(max_queue={sc.max_queue})")
+        except ValueError as e:
+            if strict:
+                raise
+            rid = self._register(st, r)
+            self._shed(st, rid, str(e))
+            return rid
+        rid = self._register(st, r)
+        st.plans[rid] = plan
+        st.req_gen[rid] = self._generator(r.seed if r.seed is not None else rid)
+        st.queue.append(rid)
+        return rid
+
     def serve(self, requests: Sequence, max_new: int = 32,
               strict: Optional[bool] = None) -> List[np.ndarray]:
         """Serve a request stream with continuous batching on the engine's
-        ``max_batch`` slots.  Returns outputs in request order;
-        ``self.last_results`` carries a :class:`ServeResult` per request and
-        ``self.last_serve_stats`` the scheduler's (and the pool's) counters."""
+        ``max_batch`` slots: :meth:`submit` for each request (exempt from
+        ``max_queue``), then :meth:`serve_stream` drained.  Returns outputs
+        in request order; ``self.last_results`` carries a
+        :class:`ServeResult` per request and ``self.last_serve_stats`` the
+        session's counters.  Sequence-valued ServeConfig defaults are
+        resolved by stream index."""
         sc = self.sc
         strict = sc.strict if strict is None else strict
         reqs = [r if isinstance(r, Request)
@@ -590,52 +749,109 @@ class ServeEngine:
             return []
         def_temp = _broadcast(sc.temperature, n, np.float32, "temperature")
         def_eos = _broadcast(sc.eos_id, n, np.int32, "eos_id")
-        shed, plans = {}, {}
-        for rid, r in enumerate(reqs):
-            try:
-                plans[rid] = self._plan(r)
-            except ValueError as e:
-                if strict:
-                    raise ValueError(f"request {rid}: {e}") from None
-                shed[rid] = str(e)
-        temp = [float(r.temperature) if r.temperature is not None else float(def_temp[i])
+        reqs = [dataclasses.replace(
+                    r, temperature=(r.temperature if r.temperature is not None
+                                    else float(def_temp[i])),
+                    eos_id=r.eos_id if r.eos_id is not None else int(def_eos[i]))
                 for i, r in enumerate(reqs)]
-        eos_r = [int(r.eos_id) if r.eos_id is not None else int(def_eos[i])
-                 for i, r in enumerate(reqs)]
-        gens = {rid: self._generator(reqs[rid].seed if reqs[rid].seed is not None
-                                     else rid) for rid in plans}
-        st = _ServeState(self, reqs, plans, temp, eos_r, gens)
-        for rid, detail in shed.items():
-            st.finish(rid, np.zeros(0, np.int32), FinishReason.SHED, detail)
-        st.queue.extend(plans)
-        with torch.inference_mode():
-            while st.queue or st.sched.any_active:
-                if self._packed and st.queue:
-                    self._admit_packed_sweep(st)
-                for slot in st.sched.free_slots():
-                    if not st.queue:
-                        break
-                    if self._paged:
-                        if not self._admit_paged(st, int(slot), st.queue[0]):
-                            if st.sched.any_active:
-                                break        # deferred until an eviction frees blocks
-                            rid = st.queue.popleft()
-                            msg = (f"request {rid} needs more KV blocks than the pool "
-                                   f"can ever free (num_blocks={self._num_blocks}); "
-                                   "raise ServeConfig.num_blocks")
-                            if strict:
-                                raise ValueError(msg)
-                            st.stats["shed"] += 1
-                            st.finish(rid, np.zeros(0, np.int32), FinishReason.SHED, msg)
-                            continue
-                        st.queue.popleft()
-                    else:
-                        self._admit_dense(st, int(slot), st.queue.popleft())
-                if st.sched.any_active:
-                    self._decode(st)
+        if strict:
+            for i, r in enumerate(reqs):       # the whole batch before any work
+                try:
+                    self._plan(r)
+                except ValueError as e:
+                    raise ValueError(f"request {i}: {e}") from None
+        rids = [self.submit(r, strict=False, _bounded=False) for r in reqs]
+        st = self._st
+        for _ in self.serve_stream(strict=strict):
+            pass
+        self.last_results = [st.results[rid] for rid in rids]
+        return [st.results[rid].tokens for rid in rids]
+
+    def serve_stream(self, strict: Optional[bool] = None):
+        """Drive the live session until it is drained, yielding
+        :class:`TokenEvent` and :class:`FinishEvent` as they happen.
+
+        Events are yielded only at step boundaries, after the step's
+        bookkeeping (records, evictions, block releases); events a consumer
+        never took stay in the session's ``pending`` buffer, so a snapshot
+        taken at any yield re-delivers them.  Requests submitted between
+        events are admitted into freed slots.  One consumer at a time; at
+        the end ``self.last_serve_stats`` is set.
+
+        Each pass: queued requests past their queue limit expire, then the
+        packed admission sweep, then solo admission (a paged request that
+        the pool can never hold sheds), then one decode step for all slots
+        (the health quarantine before the step's tokens are recorded, the
+        deadline sweep after)."""
+        strict = self.sc.strict if strict is None else strict
+        st = self._st
+        if st is None:
+            return
+        while not st.drained:
+            while st.pending:
+                yield st.pending.pop(0)
+            if st.drained:
+                break
+            with torch.inference_mode():
+                self._expire_queued(st)
+                self._admit(st, strict)
+            while st.pending:
+                yield st.pending.pop(0)
+            if not st.sched.any_active:
+                continue           # admitted requests may finish at their first token
+            with torch.inference_mode():
+                self._decode(st)
+            while st.pending:
+                yield st.pending.pop(0)
         self._finalize_stats(st)
-        self.last_results = [st.results[rid] for rid in range(n)]
-        return [st.results[rid].tokens for rid in range(n)]
+
+    def _queue_limit(self, st: _ServeState, rid: int) -> Optional[float]:
+        limits = [x for x in (st.reqs[rid].deadline_ms, self.sc.max_queue_wait_ms)
+                  if x is not None]
+        return min(limits) if limits else None
+
+    def _expire_queued(self, st: _ServeState) -> None:
+        """A queued request past its deadline or the queue-wait cap finishes
+        DEADLINE without a slot."""
+        if not st.queue:
+            return
+        now = self._now_ms()
+        kept: collections.deque = collections.deque()
+        for rid in st.queue:
+            lim = self._queue_limit(st, rid)
+            if lim is not None and now - st.t_submit[rid] > lim:
+                st.stats["deadline_evictions"] += 1
+                res = self._finish(st, rid, np.zeros(0, np.int32), FinishReason.DEADLINE,
+                                   "expired while queued", now)
+                st.pending.append(FinishEvent(rid, res))
+            else:
+                kept.append(rid)
+        st.queue = kept
+
+    def _admit(self, st: _ServeState, strict: bool) -> None:
+        """The packed sweep, then solo admission into the free slots (FIFO;
+        a paged admission waits on pool starvation for an eviction)."""
+        if self._packed and st.queue:
+            st.pending.extend(self._admit_packed_sweep(st))
+        for slot in st.sched.free_slots():
+            if not st.queue:
+                break
+            if not self._paged:
+                st.pending.extend(self._admit_dense(st, int(slot), st.queue.popleft()))
+                continue
+            events = self._admit_paged(st, int(slot), st.queue[0])
+            if events is not None:
+                st.queue.popleft()
+                st.pending.extend(events)
+                continue
+            if st.sched.any_active:
+                break                  # deferred until an eviction frees blocks
+            rid = st.queue.popleft()
+            msg = (f"request {rid} needs more KV blocks than the pool can ever free "
+                   f"(num_blocks={self._num_blocks}); raise ServeConfig.num_blocks")
+            if strict:
+                raise ValueError(msg)
+            self._shed(st, rid, msg)
 
     # ----------------------------------------------------------- admission
 
@@ -651,12 +867,16 @@ class ServeEngine:
         scan."""
         return 1 if self.cfg.family == "dense" else width
 
-    def _fault(self, st: _ServeState, rid: int) -> None:
+    def _fault(self, st: _ServeState, rid: int) -> List:
+        """An admission whose prefill logits are not finite: FAULT, no token."""
+        now = self._now_ms()
+        st.t_admit[rid] = now
         st.stats["faults"] += 1
-        st.finish(rid, np.zeros(0, np.int32), FinishReason.FAULT,
-                  "non-finite prefill logits quarantined")
+        res = self._finish(st, rid, np.zeros(0, np.int32), FinishReason.FAULT,
+                           "non-finite prefill logits quarantined", now)
+        return [FinishEvent(rid, res)]
 
-    def _admit_dense(self, st: _ServeState, slot: int, rid: int) -> None:
+    def _admit_dense(self, st: _ServeState, slot: int, rid: int) -> List:
         """Solo admission into a dense slot: prefill the left-padded prompt
         into the zeroed batch=1 cache, copy it into the slot."""
         P, s0, budget = st.plans[rid]
@@ -670,12 +890,11 @@ class ServeEngine:
         st.stats["admissions"] += 1
         st.stats["prefill_forwards"] += self._prefill_forwards(P)
         if not self._healthy(lg)[0]:
-            self._fault(st, rid)
-            return
+            return self._fault(st, rid)
         T.write_cache_slot(self.cfg, st.cache, st.mini, slot)
         tok = int(self._sample(lg, np.asarray([st.req_temp[rid]], np.float32),
                                [st.req_gen[rid]])[0])
-        self._arm_slot(st, slot, rid, tok, P, s0, budget)
+        return self._arm_slot(st, slot, rid, tok, P, s0, budget)
 
     def _map_blocks(self, st: _ServeState, rid: int):
         """The paged admission plan of one request: ``(shared, owned, t0,
@@ -727,16 +946,16 @@ class ServeEngine:
             st.alloc.decref(b)
             st.alloc.quarantine(b)
 
-    def _admit_paged(self, st: _ServeState, slot: int, rid: int) -> bool:
-        """Solo paged admission; False (nothing changed) when the pool
-        cannot supply the blocks.  The shared prefix (and a partly shared
-        copy-on-write source block) is gathered into a dense mini cache, the
-        suffix from ``t0`` prefilled (K3 with ``q_offset = t0``; the moe
-        family scans positions ``[t0, plen)``), the owned blocks written to
-        their pages and the chain registered."""
+    def _admit_paged(self, st: _ServeState, slot: int, rid: int) -> Optional[List]:
+        """Solo paged admission; its events, or None (nothing changed) when
+        the pool cannot supply the blocks.  The shared prefix (and a partly
+        shared copy-on-write source block) is gathered into a dense mini
+        cache, the suffix from ``t0`` prefilled (K3 with ``q_offset = t0``;
+        the moe family scans positions ``[t0, plen)``), the owned blocks
+        written to their pages and the chain registered."""
         m = self._map_blocks(st, rid)
         if m is None:
-            return False
+            return None
         gathered, owned, t0, total = m
         plen, _, budget = st.plans[rid]
         dev, bs = self.device, self.sc.block_size
@@ -752,26 +971,32 @@ class ServeEngine:
         st.stats["prefill_forwards"] += self._prefill_forwards(plen - t0)
         if not self._healthy(lg)[0]:
             self._drop_blocks(st, owned, gathered[:s_blk])
-            self._fault(st, rid)
-            return True
+            return self._fault(st, rid)
         T.write_cache_blocks(self.cfg, st.cache, mini, owned, s_blk)
         self._map_slot(st, slot, rid, gathered[:s_blk] + owned, len(owned), t0)
         tok = int(self._sample(lg, np.asarray([st.req_temp[rid]], np.float32),
                                [st.req_gen[rid]])[0])
-        self._arm_slot(st, slot, rid, tok, plen, 0, budget)
-        return True
+        return self._arm_slot(st, slot, rid, tok, plen, 0, budget)
 
     def _arm_slot(self, st: _ServeState, slot: int, rid: int, tok: int, P: int, s0: int,
-                  budget: int) -> None:
-        """Arm a slot with its already-sampled first token (evicting it at
-        once if that finishes the request)."""
+                  budget: int) -> List:
+        """Arm a slot with its already-sampled first token: the mirrors, the
+        admission time and time to first token, the first TokenEvent (and
+        the FinishEvent at once if that token finishes the request)."""
         st.pos[slot], st.start[slot], st.cur[slot] = P, s0, tok
         st.temps[slot], st.eos[slot] = st.req_temp[rid], st.req_eos[rid]
         st.gens[slot] = st.req_gen[rid]
         st.sched.admit(slot, rid, budget)
+        now = self._now_ms()
+        st.t_admit.setdefault(rid, now)
+        st.ttft[rid] = now - st.t_submit.get(rid, now)
+        st.ttfts.append(st.ttft[rid])
+        st.last_tok_ms[slot] = now
+        events: List = [TokenEvent(rid, tok)]
         if st.sched.record_one(slot, tok, st.req_eos[rid]):
-            self._evict(st, slot, FinishReason.EOS if tok == st.req_eos[rid]
-                        else FinishReason.MAX_NEW)
+            reason = FinishReason.EOS if tok == st.req_eos[rid] else FinishReason.MAX_NEW
+            events.append(FinishEvent(rid, self._evict(st, slot, reason, "", now)))
+        return events
 
     # ----------------------------------------------------- packed admission
 
@@ -791,34 +1016,38 @@ class ServeEngine:
         P = st.plans[rid][0]
         return None if P & (P - 1) else P
 
-    def _admit_packed_sweep(self, st: _ServeState) -> None:
+    def _admit_packed_sweep(self, st: _ServeState) -> List:
         """One packed admission sweep over the queue head (one entry per
-        free slot); unpackable entries, and those behind a pool starvation,
-        stay queued for the solo loop or a later sweep."""
+        free slot); returns its events.  Unpackable entries, and those
+        behind a pool starvation, stay queued for the solo loop or a later
+        sweep."""
         free = st.sched.free_slots()
         n = min(len(free), len(st.queue))
         if n == 0:
-            return
+            return []
         head = [(rid, self._pack_key(st, rid)) for rid in list(st.queue)[:n]]
         packs, _ = Scheduler.plan_packs(head)
+        events: List = []
         admitted: set = set()
         si = 0
         for P, rids in packs:
             slots = [int(s) for s in free[si:si + len(rids)]]
             if self._paged:
-                done = self._admit_packed_paged(st, slots, rids, P)
+                done, evs = self._admit_packed_paged(st, slots, rids, P)
             elif self.cfg.family == "dense":
-                self._admit_packed_dense(st, slots, rids, P)
+                evs = self._admit_packed_dense(st, slots, rids, P)
                 done = rids
             else:
-                self._admit_packed_batch(st, slots, rids, P)
+                evs = self._admit_packed_batch(st, slots, rids, P)
                 done = rids
             admitted.update(done)
+            events.extend(evs)
             si += len(done)
             if len(done) < len(rids):
                 break                # pool starvation: defer the rest
         if admitted:
             st.queue = collections.deque(r for r in st.queue if r not in admitted)
+        return events
 
     def _pack_inputs(self, N: int, W: int):
         """Zeroed (1, N * W) token, segment-id (pads -1) and position arrays
@@ -846,7 +1075,7 @@ class ServeEngine:
                                                   device=dev), t(last))
 
     def _admit_packed_dense(self, st: _ServeState, slots: List[int], rids: List[int],
-                            P: int) -> None:
+                            P: int) -> List:
         """Dense-layout packed admission: the left-padded segments
         concatenated into one (1, N * P) sequence (N a power of two; the
         dummy segments come first and write the first real slot, which its
@@ -866,10 +1095,10 @@ class ServeEngine:
         # a faulted segment's rows land in a slot that stays free; the next
         # admission there overwrites them all
         T.write_cache_slot_segments(self.cfg, st.cache, mini, slot_of, P)
-        self._finish_pack(st, slots, rids, nd, lg, 1)
+        return self._finish_pack(st, slots, rids, nd, lg, 1)
 
     def _admit_packed_batch(self, st: _ServeState, slots: List[int], rids: List[int],
-                            P: int) -> None:
+                            P: int) -> List:
         """Batch-axis packed admission (the moe family, dense layout): the
         N left-padded prompts as the N rows of one (N, P) prefill (N a power
         of two; the dummy rows, all-zero prompts at start 0, come first and
@@ -890,32 +1119,34 @@ class ServeEngine:
         lg, mini = T.prefill(self.params, self.cfg, torch.as_tensor(toks, device=dev), mini,
                              torch.as_tensor(starts, device=dev))
         T.write_cache_slots(self.cfg, st.cache, mini, slot_of)
-        self._finish_pack(st, slots, rids, nd, lg, self._prefill_forwards(P))
+        return self._finish_pack(st, slots, rids, nd, lg, self._prefill_forwards(P))
 
     def _finish_pack(self, st: _ServeState, slots: List[int], rids: List[int], nd: int,
-                     lg, forwards: int) -> None:
+                     lg, forwards: int) -> List:
         """Dense-layout pack tail: per-row health probe, one sample for the
-        pack, each healthy request armed in its slot."""
+        pack, each healthy request armed in its slot; returns the events."""
         healthy = self._healthy(lg)
         toks_s = self._sample_pack(st, rids, nd, lg)
         self._count_pack(st, len(rids), nd)
         st.stats["prefill_forwards"] += forwards
+        events: List = []
         for j, rid in enumerate(rids):
             st.stats["admissions"] += 1
             if not healthy[nd + j]:
-                self._fault(st, rid)
+                events += self._fault(st, rid)
                 continue
             P_, s0, budget = st.plans[rid]
-            self._arm_slot(st, slots[j], rid, int(toks_s[nd + j]), P_, s0, budget)
+            events += self._arm_slot(st, slots[j], rid, int(toks_s[nd + j]), P_, s0, budget)
+        return events
 
     def _admit_packed_paged(self, st: _ServeState, slots: List[int], rids: List[int],
-                            W: int) -> List[int]:
-        """Paged packed admission; returns the admitted rids.  Blocks are
-        mapped FIFO until the pool runs short (the rest stay queued).  Each
-        segment is right-padded to the block-aligned width ``W`` at start 0
-        and recomputed whole (its shared prefix blocks are mapped, never
-        written): the dense family's segments concatenated into one K5
-        prefill, the moe family's as the rows of one
+                            W: int):
+        """Paged packed admission; returns ``(admitted rids, events)``.
+        Blocks are mapped FIFO until the pool runs short (the rest stay
+        queued).  Each segment is right-padded to the block-aligned width
+        ``W`` at start 0 and recomputed whole (its shared prefix blocks are
+        mapped, never written): the dense family's segments concatenated
+        into one K5 prefill, the moe family's as the rows of one
         ``T.prefill_batch_ragged`` scan of W steps.  The owned blocks go to
         their pages in one scatter, a faulted segment's to the block-0 sink,
         and each healthy segment's chain is registered after the health
@@ -928,7 +1159,7 @@ class ServeEngine:
                 break
             maps.append((rid,) + m)
         if not maps:
-            return []
+            return [], []
         N = _pow2_ceil(len(maps))
         nd = N - len(maps)
         if self.cfg.family == "dense":
@@ -956,17 +1187,18 @@ class ServeEngine:
         T.scatter_segments_to_pool(self.cfg, st.cache, mini, bids, W)
         toks_s = self._sample_pack(st, [m[0] for m in maps], nd, lg)
         self._count_pack(st, len(maps), nd)
+        events: List = []
         for j, (rid, gathered, owned, t0, total) in enumerate(maps):
             st.stats["admissions"] += 1
             s_blk = t0 // bs
             if not healthy[nd + j]:
                 self._drop_blocks(st, owned, gathered[:s_blk])
-                self._fault(st, rid)
+                events += self._fault(st, rid)
                 continue
             self._map_slot(st, slots[j], rid, gathered[:s_blk] + owned, len(owned), t0)
             plen, _, budget = st.plans[rid]
-            self._arm_slot(st, slots[j], rid, int(toks_s[nd + j]), plen, 0, budget)
-        return [m[0] for m in maps]
+            events += self._arm_slot(st, slots[j], rid, int(toks_s[nd + j]), plen, 0, budget)
+        return [m[0] for m in maps], events
 
     def _sample_pack(self, st: _ServeState, rids: List[int], nd: int, lg) -> np.ndarray:
         """One first-token sample for a whole pack: row ``nd + j`` with
@@ -987,13 +1219,17 @@ class ServeEngine:
 
     # --------------------------------------------------------------- decode
 
-    def _evict(self, st: _ServeState, slot: int, reason: FinishReason,
-               detail: str = "") -> None:
+    def _evict(self, st: _ServeState, slot: int, reason: FinishReason, detail: str,
+               now: float) -> ServeResult:
+        """Free a slot whose request finished; returns its result.  A FAULT
+        also takes the slot's pages out of the prefix table."""
         rid = int(st.sched.slot_req[slot])
-        st.finish(rid, st.sched.evict(slot), reason, detail)
+        out = st.sched.evict(slot)
         st.temps[slot] = 0.0
+        st.gens[slot] = None
         if self._paged:
             self._release_blocks(st, slot, quarantine=reason is FinishReason.FAULT)
+        return self._finish(st, rid, out, reason, detail, now)
 
     def _release_blocks(self, st: _ServeState, slot: int, quarantine: bool = False) -> None:
         """Drop an evicted slot's block references (a registered prefix block
@@ -1010,7 +1246,11 @@ class ServeEngine:
         st.bt_host[slot, :] = 0
 
     def _decode(self, st: _ServeState) -> None:
-        """ONE decode step for all slots at their own positions."""
+        """ONE decode step for all slots at their own positions; its events
+        go to ``st.pending``: the slots quarantined by the health probe
+        (before their token is recorded), the step's tokens, the requests
+        it finished, then those past their deadline (after the record, so
+        the step's token is part of the partial output)."""
         sc, dev, sched = self.sc, self.device, st.sched
         st.stats["decode_steps"] += 1
         st.stats["active_slot_steps"] += int(sched.active.sum())
@@ -1034,23 +1274,46 @@ class ServeEngine:
         healthy = health.cpu().numpy()
         np.minimum(st.pos + 1, sc.max_seq - 1, out=st.pos)
         st.cur = tok.copy()
+        now = self._now_ms()
+        emit = st.pending.append
         if sc.health_checks:
             for slot in np.flatnonzero(sched.active & ~healthy):
+                rid = int(sched.slot_req[slot])
                 st.stats["faults"] += 1
-                self._evict(st, int(slot), FinishReason.FAULT,
-                            "non-finite logits quarantined mid-decode")
-        for slot in sched.record(tok, st.eos):
-            self._evict(st, int(slot), FinishReason.EOS if tok[slot] == st.eos[slot]
-                        else FinishReason.MAX_NEW)
+                emit(FinishEvent(rid, self._evict(st, int(slot), FinishReason.FAULT,
+                                                  "non-finite logits quarantined mid-decode",
+                                                  now)))
+        act = np.flatnonzero(sched.active)
+        finished = sched.record(tok, st.eos)
+        for slot in act:
+            if st.last_tok_ms[slot] > 0:
+                st.token_lats.append(now - st.last_tok_ms[slot])
+            st.last_tok_ms[slot] = now
+            emit(TokenEvent(int(sched.slot_req[slot]), int(tok[slot])))
+        for slot in finished:
+            rid = int(sched.slot_req[slot])
+            reason = FinishReason.EOS if tok[slot] == st.eos[slot] else FinishReason.MAX_NEW
+            emit(FinishEvent(rid, self._evict(st, int(slot), reason, "", now)))
+        for slot in np.flatnonzero(sched.active):
+            rid = int(sched.slot_req[slot])
+            dl = st.reqs[rid].deadline_ms
+            if dl is not None and now - st.t_submit[rid] > dl:
+                st.stats["deadline_evictions"] += 1
+                emit(FinishEvent(rid, self._evict(st, int(slot), FinishReason.DEADLINE,
+                                                  "deadline exceeded mid-decode", now)))
 
     def _finalize_stats(self, st: _ServeState) -> None:
         sc = self.sc
         stats = {k: st.stats[k] for k in ("admissions", "prefill_forwards", "decode_steps",
                                           "active_slot_steps", "faults", "shed",
-                                          "packed_packs", "packed_segments",
-                                          "packed_dummies")}
+                                          "deadline_evictions", "packed_packs",
+                                          "packed_segments", "packed_dummies")}
         stats.update(slot_steps=stats["decode_steps"] * sc.max_batch,
-                     kv_layout=sc.kv_layout, packed_prefill=self._packed)
+                     kv_layout=sc.kv_layout, packed_prefill=self._packed,
+                     requests=len(st.reqs),
+                     finish_reasons=collections.Counter(r.finish.value
+                                                        for r in st.results.values()),
+                     ttft_ms=list(st.ttfts), token_latency_ms=list(st.token_lats))
         if self._paged:
             prompt = st.stats["prompt_tokens"]
             stats.update({
@@ -1067,3 +1330,120 @@ class ServeEngine:
                 "prefix_matches": st.alloc.hits,
             })
         self.last_serve_stats = stats
+
+    # --------------------------------------------------- snapshot / restore
+
+    _MIRRORS = ("pos", "start", "cur", "temps", "eos")
+    _SCHED = ("active", "slot_req", "out_buf", "out_len", "budget")
+
+    def snapshot(self) -> dict:
+        """The live session as one picklable dict, in host memory: the cache,
+        the scheduler, the allocator, the per-slot mirrors, the per-request
+        records, the pending events and ``get_state()`` of every queued or
+        active request's generator.  Times are kept as elapsed milliseconds,
+        so :meth:`restore` rebases them on its engine's clock."""
+        st = self._st
+        if st is None:
+            raise ValueError("no serve session to snapshot")
+        sc, sched = self.sc, st.sched
+        now = self._now_ms()
+        live = list(st.queue) + [int(r) for r in sched.slot_req[sched.active]]
+        snap = {
+            "version": 1,
+            "kv_layout": sc.kv_layout,
+            "packed_prefill": self._packed,
+            "max_batch": sc.max_batch,
+            "max_seq": sc.max_seq,
+            "device_type": self.device.type,
+            "reqs": [dataclasses.replace(r, tokens=np.array(r.tokens, np.int32))
+                     for r in st.reqs],
+            "plans": list(st.plans),
+            "req_temp": list(st.req_temp),
+            "req_eos": list(st.req_eos),
+            "gen_state": {rid: st.req_gen[rid].get_state() for rid in live},
+            "queue": list(st.queue),
+            "pending": list(st.pending),
+            "results": dict(st.results),
+            "submit_elapsed_ms": {r: now - t for r, t in st.t_submit.items()},
+            "admit_elapsed_ms": {r: now - t for r, t in st.t_admit.items()},
+            "ttft": dict(st.ttft),
+            "ttfts": list(st.ttfts),
+            "token_lats": list(st.token_lats),
+            "sched": {k: getattr(sched, k).copy() for k in self._SCHED},
+            "mirrors": {k: getattr(st, k).copy() for k in self._MIRRORS},
+            "last_tok_elapsed_ms": np.where(st.last_tok_ms > 0, now - st.last_tok_ms, 0.0),
+            "counters": dict(st.stats),
+            "cache": {k: v.to("cpu", copy=True) for k, v in st.cache.items()},
+        }
+        if self._paged:
+            a = st.alloc
+            snap["bt_host"] = st.bt_host.copy()
+            snap["slot_blocks"] = [list(b) for b in st.slot_blocks]
+            snap["peak_blocks"] = st.peak_blocks
+            snap["alloc"] = {"refcount": a.refcount.copy(), "free": list(a.free),
+                             "cached": list(a.cached), "owner": dict(a.owner),
+                             "table": {h: list(v) for h, v in a.table.items()},
+                             "hits": a.hits, "lookups": a.lookups}
+        return snap
+
+    def restore(self, snap: dict) -> None:
+        """Rebuild the session of :meth:`snapshot` on this engine, which must
+        have the snapshotting engine's model, weights and ServeConfig (the
+        caller's contract; a different layout, ``max_batch`` or ``max_seq``
+        is refused, as is a snapshot from another device type, whose
+        generators draw other streams).  The rest of the stream then gives
+        the uninterrupted stream's tokens."""
+        sc = self.sc
+        if (snap.get("kv_layout"), snap.get("max_batch"), snap.get("max_seq")) != (
+                sc.kv_layout, sc.max_batch, sc.max_seq):
+            raise ValueError(
+                f"snapshot layout ({snap.get('kv_layout')}, max_batch="
+                f"{snap.get('max_batch')}, max_seq={snap.get('max_seq')}) does not match "
+                f"this engine ({sc.kv_layout}, max_batch={sc.max_batch}, "
+                f"max_seq={sc.max_seq})")
+        if snap.get("device_type") != self.device.type:
+            raise ValueError(f"snapshot taken on a {snap.get('device_type')} device does not "
+                             f"match this engine's {self.device.type} device: their sampling "
+                             "generators draw different streams")
+        st = _ServeState(self, init_cache=False)
+        now = self._now_ms()
+        st.reqs = list(snap["reqs"])
+        st.plans = list(snap["plans"])
+        st.req_temp = list(snap["req_temp"])
+        st.req_eos = list(snap["req_eos"])
+        for rid, state in snap["gen_state"].items():
+            g = torch.Generator(device=self.device)
+            g.set_state(state)
+            st.req_gen[rid] = g
+        st.queue = collections.deque(snap["queue"])
+        st.pending = list(snap["pending"])
+        st.results = dict(snap["results"])
+        st.t_submit = {r: now - e for r, e in snap["submit_elapsed_ms"].items()}
+        st.t_admit = {r: now - e for r, e in snap["admit_elapsed_ms"].items()}
+        st.ttft = dict(snap["ttft"])
+        st.ttfts = list(snap["ttfts"])
+        st.token_lats = list(snap["token_lats"])
+        sd = snap["sched"]
+        st.sched = Scheduler(sc.max_batch, sd["out_buf"].shape[1])
+        for k in self._SCHED:
+            setattr(st.sched, k, sd[k].copy())
+        for k in self._MIRRORS:
+            setattr(st, k, snap["mirrors"][k].copy())
+        for slot in np.flatnonzero(st.sched.active):
+            st.gens[slot] = st.req_gen[int(st.sched.slot_req[slot])]
+        el = np.asarray(snap["last_tok_elapsed_ms"], np.float64)
+        st.last_tok_ms = np.where(el > 0, now - el, 0.0)
+        st.stats = collections.Counter(snap["counters"])
+        st.cache = {k: v.to(self.device, copy=True) for k, v in snap["cache"].items()}
+        if self._paged:
+            st.bt_host = snap["bt_host"].copy()
+            st.slot_blocks = [list(b) for b in snap["slot_blocks"]]
+            st.peak_blocks = snap["peak_blocks"]
+            sa, a = snap["alloc"], st.alloc
+            a.refcount = sa["refcount"].copy()
+            a.free = collections.deque(sa["free"])
+            a.cached = collections.OrderedDict((b, None) for b in sa["cached"])
+            a.table = {h: list(v) for h, v in sa["table"].items()}
+            a.owner = dict(sa["owner"])
+            a.hits, a.lookups = sa["hits"], sa["lookups"]
+        self._st = st

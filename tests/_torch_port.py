@@ -16,6 +16,7 @@ from __future__ import annotations
 import contextlib
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 from jax.experimental import pallas as pl
@@ -40,6 +41,30 @@ def reference_kernels():
 def ref_kernels():
     with reference_kernels():
         yield
+
+
+LOGIT_ULPS = 8      # engine logits against the reference's, as tests/test_torch_model.py
+
+
+def _assert_tokens_match(jcfg, jp, stream, ref, got, max_seq):
+    """Each request's greedy tokens are the reference engine's, or first
+    differ where the reference's top-2 margin is within the logit bound.
+    ``stream`` holds (prompt, max_new) pairs, ``jp`` the reference's
+    parameters."""
+    from repro.models import transformer as JT
+
+    for (p, _), r, g in zip(stream, ref, got):
+        if np.array_equal(r, g):
+            continue
+        j = int(np.flatnonzero(r != g)[0])      # first differing token
+        with reference_kernels():
+            seq = jnp.asarray(np.concatenate([p, r[:j]])[None])
+            lg, _ = JT.prefill(jp, jcfg, {"tokens": seq},
+                               JT.init_cache(jcfg, 1, max_seq))
+        row = np.asarray(lg[0, -1, :jcfg.vocab].astype(jnp.float32))
+        top2 = np.sort(row)[-2:]
+        print(f"token {j} differs; reference top-2 margin {top2[1] - top2[0]:.4g}")
+        assert top2[1] - top2[0] <= LOGIT_ULPS * bf16_ulp(np.abs(row).max())
 
 
 def bits(x) -> np.ndarray:

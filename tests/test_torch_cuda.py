@@ -1467,3 +1467,44 @@ def test_moe_train_loss_on_card_matches_cpu(dev):
     for (key, g), c in zip(tree_items(g_grads), tree_leaves(c_grads)):
         err = float(torch.linalg.vector_norm(g.cpu() - c) / torch.linalg.vector_norm(c))
         assert err <= 2e-2, key
+
+
+def test_stream_snapshot_restore_on_card_is_uninterrupted_run(dev):
+    """A smoke SmolLM dense stream on the card, stopped after its 7th event
+    (slots busy, requests queued), snapshot to host memory, restored on a
+    fresh engine and drained: every request the uninterrupted run's tokens,
+    greedy and sampled (the CUDA generators' states carried over)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, ServeConfig, ServeEngine, TokenEvent
+
+    cfg = get_config("smollm_360m", smoke=True)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(27)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (5, 30, 9, 17, 3)]
+    sc = ServeConfig(max_batch=2, max_seq=64)
+    for temperature in (0.0, 0.8):
+        reqs = lambda: [Request(p, max_new=6, temperature=temperature, seed=i)
+                        for i, p in enumerate(prompts)]
+        want = ServeEngine(cfg, params, sc, device=dev).serve(reqs())
+        eng = ServeEngine(cfg, params, sc, device=dev)
+        for r in reqs():
+            eng.submit(r)
+        toks = {}
+        for n, ev in enumerate(eng.serve_stream()):
+            if isinstance(ev, TokenEvent):
+                toks.setdefault(ev.rid, []).append(ev.token)
+            if n == 6:
+                break
+        snap = eng.snapshot()
+        assert snap["queue"] and snap["cache"]["k"].device.type == "cpu"
+        del eng
+        eng2 = ServeEngine(cfg, params, sc, device=dev)
+        eng2.restore(snap)
+        for ev in eng2.serve_stream():
+            if isinstance(ev, TokenEvent):
+                toks.setdefault(ev.rid, []).append(ev.token)
+        for i, w in enumerate(want):
+            assert np.array_equal(np.asarray(toks[i], np.int32), w), (temperature, i)

@@ -46,7 +46,7 @@ def test_port_has_every_slice_module():
                 "kernels/posit_cast.py", "kernels/csrc/posit_div.cu",
                 "kernels/csrc/posit_cast.cu", "kernels/csrc/posit10_plans.inc",
                 "numerics/quant.py", "core/goldens.py", "core/costmodel.py",
-                "core/wide.py"):
+                "core/wide.py", "serve/emit.py", "data/tokenizer.py", "launch/serve.py"):
         assert (pkg / rel).is_file(), rel
 
 

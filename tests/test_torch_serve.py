@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import bf16_ulp, reference_kernels
+from _torch_port import LOGIT_ULPS, _assert_tokens_match, bf16_ulp, reference_kernels
 from repro.configs import get_config as jget
 from repro.models import transformer as JT
 from repro.serve import Request as JRequest
@@ -27,7 +27,6 @@ from repro_torch.configs import get_config as tget
 from repro_torch.models import transformer as TT
 from repro_torch.serve import FinishReason, Request, ServeConfig, ServeEngine
 
-LOGIT_ULPS = 8      # as tests/test_torch_model.py
 RNG = np.random.default_rng(3)
 STREAM = [(RNG.integers(0, 512, n).astype(np.int32), m)
           for n, m in [(3, 6), (7, 2), (12, 4), (5, 5), (9, 3)]]
@@ -58,23 +57,6 @@ def test_solo_static_and_midflight_bit_identical(setup):
     static = eng.generate([STREAM[0][0], STREAM[2][0]], max_new=4)
     np.testing.assert_array_equal(static[0], mid[0][:4])
     np.testing.assert_array_equal(static[1], mid[2][:4])
-
-
-def _assert_tokens_match(jcfg, jp, stream, ref, got, max_seq):
-    """Each request's tokens are the reference engine's, or first differ
-    where the reference's top-2 margin is within the logit bound."""
-    for (p, _), r, g in zip(stream, ref, got):
-        if np.array_equal(r, g):
-            continue
-        j = int(np.flatnonzero(r != g)[0])      # first differing token
-        with reference_kernels():
-            seq = jnp.asarray(np.concatenate([p, r[:j]])[None])
-            lg, _ = JT.prefill(jp, jcfg, {"tokens": seq},
-                               JT.init_cache(jcfg, 1, max_seq))
-        row = np.asarray(lg[0, -1, :jcfg.vocab].astype(jnp.float32))
-        top2 = np.sort(row)[-2:]
-        print(f"token {j} differs; reference top-2 margin {top2[1] - top2[0]:.4g}")
-        assert top2[1] - top2[0] <= LOGIT_ULPS * bf16_ulp(np.abs(row).max())
 
 
 def test_matches_reference_engine(setup):
