@@ -91,11 +91,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    grid     — K2 at 262144 rows of 960 (the twin's bits), K3 at B*H = 65536
               and K7/K8 at B*KV = 65536 (within their bounds), past the
               65535 that gridDim.y took.
-   model    — the smoke configs (SmolLM and OLMoE) on the card (kernels)
-              against the same weights on the CPU (plain twins, which the
-              CPU tests hold against the reference): logits within
-              LOGIT_ULPS bf16 ulps; SmolLM at posit64, posit32 and posit8
-              too.
+   model    — the smoke configs (SmolLM, OLMoE and RecurrentGemma) on the
+              card (kernels) against the same weights on the CPU (plain
+              twins, which the CPU tests hold against the reference):
+              logits within LOGIT_ULPS bf16 ulps (RecurrentGemma's
+              whole-sequence forward past its 64-key window too); SmolLM at
+              posit64, posit32 and posit8 too.
    K6-K8    — the training forward (K6) and the recompute backward (K7 dq,
               K8 dk/dv) against their twins at the training path's shapes
               (B=8, S=256, 15/5 heads, hd 64) for MODEL_PLANS, at B=2 for
@@ -204,10 +205,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               L K9, L K3 and 3L+1 K2 launches; requests 0 and 7 the same
               tokens alone on a solo-admission engine (else the script
               names the bf16 product that lost a row's bits and fails).
-              Then the mix's first 8 requests at div_format="posit64" (K9,
-              K2 and K3 at hd 128 on the two-word frame), its first 2 at
+              Then the mix's first 4 requests at div_format="posit64" (K9,
+              K2 and K3 at hd 128 on the two-word frame), its first 1 at
               posit64 srt_r4_cs (the default plan's tokens, bit for bit)
-              and the first 8 at "posit32": the same checks; printed: the
+              and the first 4 at "posit32": the same checks; printed: the
               requests whose tokens leave posit16's.
    moe paged — the same model and weights served from the paged pool (pages
               of 16, packed admission: batch-axis packs of right-padded rows
@@ -224,15 +225,41 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               K2 6L+1, K6 2L, K9 2L, K7 L, K8 L launches and no K3; one
               more step traced (busy time, idle share, the expert products
               as their own class); peak device memory.
+   hybrid   — (after OLMoE's training state is released) RecurrentGemma-2B
+              at full width and depth (26 layers, every third local
+              attention over 2048 keys, 10/1 heads of 256; random weights
+              from seed 0) served from dense slots with batch-axis packed
+              admission: the main mix (16 requests, 32 new each, 8 slots,
+              max_seq 512), 8 submitted and 8 more at request 0's tokens
+              (mid-flight).  Per forward step (a scan step, a decode step)
+              exactly 2L+1 = 53 K2 launches and no flash launch (the ring
+              buffer's softmax is float, as the reference's); the shortest
+              request of each wave (the second submitted mid-flight) the
+              same tokens alone on a solo-admission engine as packed; K2
+              at 8 x 2560 the bits of its twin.
+   hybrid wrap — the same weights at 3 of the 26 layers (one attention
+              layer), max_seq 2304: a 2040-token prompt decodes 48 tokens
+              past the 2048-key window (its ring wraps from the first
+              decode step): the same tokens alone and beside a short
+              request.
+   hybrid forward — the whole-sequence forward on 1 x 4096 tokens: exactly
+              8 K6 launches (one an attention layer, window 2048) and 2L+1
+              K2, finite states; K6 and K3 prefill at 10/1 x 256 with the
+              window against their twins at posit16, posit32, posit64
+              (FLASH_TOL) and posit8 (its patterns), bf16 K/V and (posit16,
+              posit64) f32, the division stage bit-exact on the kernel's
+              own acc and l (q = 0 and integer V make both exact); then a
+              decode step's breakdown and the K6 / K3 timing rows at that
+              shape (SDPA with the window as a boolean mask).
 5. timing   — each kernel, its plain twin and a library yardstick at the
               main paths' shapes (the kernel's device time from
               torch.profiler, as the yardstick's for K9; per-call times from
               CUDA events; K10-K12 also at a 2^28 chunk, K12's round kernel
               on a decode step's K and V and on 2^27 + 2^27), and one
               full-width decode step, SmolLM dense (bf16 and posit16 KV
-              cache, posit64 and posit32 division) and paged (posit16,
-              posit64, posit32) and OLMoE dense (posit16, posit64) and paged
-              (posit16), broken down by kernel class; K6-K8 at OLMoE's
+              cache, posit64 division) and paged (posit16, posit64), OLMoE
+              dense (posit16, posit64) and paged (posit16) and
+              RecurrentGemma dense (posit16), broken down by kernel class; K6-K8 at OLMoE's
               training shape (16/16 heads of 128) and K9 at its 2048 router
               rows; K2-K9 (K4 decode, K5 on the paged
               phase's most frequent pack, K6-K8 at the training shape, K9
@@ -395,6 +422,25 @@ def bound_ms(nbytes: float, ops: float, tensor_ops: float = 0.0):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = max(ops / INSTR_PER_S, tensor_ops / TF32_OPS_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def tensors_of(tree):
+    """The tensors of a nested dict / list of tensors (a model's parameters:
+    the hybrid family nests each recurrent layer's RG-LRU under ``rec``)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensors_of(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tensors_of(v)]
+    return [tree]
+
+
+def tree_to(tree, dev):
+    """A nested dict / list of tensors with every tensor moved to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, dev) for v in tree]
+    return tree.to(dev)
 
 
 def bits(t):
@@ -1459,9 +1505,7 @@ def phase_model_small(torch, dev, arch="smollm_360m", div_format="posit16"):
 
     cfg = get_config(arch, smoke=True, fused=True).with_numerics(div_format=div_format)
     cpu = T.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
-    gpu = {k: (v.to(dev) if torch.is_tensor(v) else
-               [{n: w.to(dev) for n, w in lay.items()} for lay in v])
-           for k, v in cpu.items()}
+    gpu = tree_to(cpu, dev)
     rng = np.random.default_rng(3)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 20)))
     forced = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 2, 1)))
@@ -1484,8 +1528,24 @@ def phase_model_small(torch, dev, arch="smollm_360m", div_format="posit16"):
         check(bool(torch.isfinite(g).all()) and err <= bound,
               f"smoke model: card vs CPU logits differ by {err} > {bound}")
         worst = max(worst, err / bound)
+    what = "prefill + 3 decode steps"
+    if cfg.family == "hybrid":
+        # the whole-sequence forward past the local window: K6 with the
+        # window (its twin on the CPU) and the RG-LRU scan
+        from repro_torch.models import layers as Lyr
+
+        seq = torch.from_numpy(rng.integers(0, cfg.vocab, (2, cfg.local_window + 16)))
+        lgs = [Lyr.logits(p["head"], T.forward(p, cfg, {"tokens": seq.to(d)})).float().cpu()
+               for p, d in ((cpu, "cpu"), (gpu, dev))]
+        c, g = (x[..., :cfg.vocab] for x in lgs)
+        bound = LOGIT_ULPS * 2.0 ** (math.floor(math.log2(float(c.abs().max()))) - 7)
+        err = float((c - g).abs().max())
+        check(bool(torch.isfinite(g).all()) and err <= bound,
+              f"smoke model: card vs CPU forward logits differ by {err} > {bound}")
+        worst = max(worst, err / bound)
+        what += f", forward of {seq.shape[1]} tokens past the {cfg.local_window}-key window"
     print(f"model: {arch} smoke config ({div_format}) on the card within {worst:.2f} of the "
-          f"{LOGIT_ULPS}-ulp bound of the CPU path (prefill + 3 decode steps)")
+          f"{LOGIT_ULPS}-ulp bound of the CPU path ({what})")
 
 
 def training_inputs(torch, dev, B, S, seed, H=15, KV=5, hd=64):
@@ -2768,7 +2828,7 @@ def same_training(label, got, want):
 
 MOE_REQUESTS = 16
 MOE_NEW = 16
-MOE64_REQUESTS = 8          # the posit64 OLMoE run serves the mix's first 8
+MOE64_REQUESTS = 4          # the posit64 and posit32 OLMoE runs serve the mix's first 4
 
 
 def moe_model(torch, dev):
@@ -2780,8 +2840,7 @@ def moe_model(torch, dev):
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     torch.cuda.synchronize()
-    n = sum(t.numel() for t in [params["tok"], params["head"]]
-            + [w for lay in params["layers"] for w in lay.values()])
+    n = sum(t.numel() for t in tensors_of(params) if t.dim() > 1)
     print(f"moe: OLMoE-1B-7B ({cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.n_experts} experts "
           f"top-{cfg.experts_per_token}, d_ff {cfg.d_ff}, vocab {cfg.vocab}): {n / 1e9:.3f} B "
@@ -2855,14 +2914,14 @@ def phase_moe(torch, dev, cfg, params, n_requests=MOE_REQUESTS, label="moe"):
           f"{st['decode_steps']} decode steps); launches K9 {k9}, K3 {k3}, K2 {k2} (L, L, "
           f"3L+1 a forward step); peak device memory {peak / 2**30:.2f} GiB")
     solo = ServeEngine(cfg, params, ServeConfig.from_model(cfg), device=dev)
-    probes = (0, min(7, len(reqs) - 1))
+    probes = sorted({0, min(7, len(reqs) - 1)})
     for i in probes:
         alone = solo.serve([reqs[i]])[0]
         if not np.array_equal(alone, outs[i]):
             moe_difference(torch, dev, cfg, params)
             fail(f"{label}: request {i} alone gave {alone.tolist()}, packed {outs[i].tolist()}")
-    print(f"{label}: requests {probes[0]} and {probes[1]} alone on a solo-admission engine: "
-          "the same tokens as packed")
+    print(f"{label}: requests {probes} alone on a solo-admission engine: the same tokens as "
+          "packed")
     return {"K9": k9, "K3": k3, "rowwise": k2, "tokens_per_s": n_tok / wall,
             "forwards": forwards, "peak_bytes": peak, "outs": outs}
 
@@ -3089,6 +3148,335 @@ def phase_train_moe(torch, dev):
             ", ".join(f"{k} {v:.2f} ms" for k, v in by.items())))
     return {"rowwise": k2, "K6": k6, "K7": k7, "K8": k8, "K9": k9, "losses": losses,
             "step_s": secs, "peak_bytes": peak, "busy_ms": busy, "traced_ms": traced}
+
+
+HYBRID_NEW = 32             # new tokens a request of the hybrid mix
+HYBRID_WRAP_LAYERS = 3      # of RecurrentGemma's 26 in the wrap phase: layer 2 attends
+HYBRID_WRAP_SEQ = 2304      # the wrap phase's max_seq: the 2048-key window and 256 rows
+HYBRID_WRAP_PROMPT = 2040   # its long prompt, left-padded to 2048 rows
+HYBRID_WRAP_NEW = 48        # its new tokens: the ring wraps at the first decode step
+HYBRID_FWD_SEQ = 4096       # tokens of the whole-sequence forward
+HYBRID_HEADS = (10, 1, 256)  # RecurrentGemma-2B: heads, kv heads, head_dim
+
+
+def hybrid_model(torch, dev):
+    """RecurrentGemma-2B at full width and depth, random bf16 weights from
+    seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("recurrentgemma_2b", fused=True)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tensors_of(params))
+    print(f"hybrid: RecurrentGemma-2B ({cfg.n_layers} layers, one in {cfg.attn_period} local "
+          f"attention over {cfg.local_window} keys, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, RG-LRU width "
+          f"{cfg.lru_width}, d_ff {cfg.d_ff}, vocab {cfg.vocab}): {n / 1e9:.3f} B random "
+          f"parameters in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    return cfg, params
+
+
+def zero_hybrid_launches():
+    from repro_torch.kernels import posit_flash_attn as F
+
+    zero_launches()
+    F.posit_flash_attention_fwd.launches = 0
+
+
+def hybrid_launches():
+    """K2's launches and every flash forward's (K3-K6) since the last zero."""
+    from repro_torch.kernels import posit_flash_attn as F
+
+    c = read_launches()
+    flash = c["K3"] + c["K4"] + c["K5"] + F.posit_flash_attention_fwd.launches
+    return c["rowwise"], flash
+
+
+def products_difference(torch, dev, cfg, params):
+    """Which bf16 products of layer 0 and 2 (a recurrent and an attention
+    layer) and of the head give a row other bits when more rows ride along:
+    a pack's scan steps run them at M = N rows, a solo admission at M = 1,
+    a decode step at M = 8."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x = torch.randn(8, 1, cfg.d_model, generator=g).to(dev, torch.bfloat16)
+    rec, att = params["layers"][0], params["layers"][2]
+    prods = {f"rec {n}": (lambda a, w=rec["rec"][n]: torch.matmul(a, w))
+             for n in ("in_x", "in_gate")}
+    prods.update({f"attn {n}": (lambda a, w=att[n]: torch.matmul(a, w))
+                  for n in ("wq", "wk", "wv")})
+    prods.update({"mlp w1": lambda a: torch.matmul(a, rec["w1"]),
+                  "head": lambda a: torch.matmul(a, params["head"])})
+    lost = []
+    for name, f in prods.items():
+        one = f(x[:1])
+        for M in (2, 4, 8):
+            if not torch.equal(f(x[:M])[:1], one):
+                lost.append(f"{name} (M=1 vs {M})")
+                break
+    print(f"hybrid: products whose row 0 loses its bits when more rows ride along: "
+          f"{', '.join(lost) if lost else 'none'}")
+
+
+def phase_hybrid(torch, dev, cfg, params):
+    """Full-width RecurrentGemma-2B served from dense slots with batch-axis
+    packed admission: the main mix (16 greedy requests, prompts of 16-200
+    tokens, 32 new each, 8 slots, max_seq 512), its first 8 submitted and
+    the other 8 from the consuming loop at request 0's tokens (mid-flight);
+    per forward step (a scan step of a prefill, a decode step) exactly 2L +
+    1 K2 launches and no flash launch (the ring buffer's softmax is float,
+    as the reference's); the shortest request of each wave (the second
+    submitted mid-flight) the same tokens alone on a solo-admission engine;
+    K2 at 8 x 2560 the bits of its twin."""
+    import numpy as np
+
+    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels import ops
+    from repro_torch.serve import FinishReason, Request, ServeConfig, ServeEngine, TokenEvent
+
+    reqs = request_mix(cfg)
+    lens = np.array([len(r.tokens) for r in reqs])
+    sc = ServeConfig.from_model(cfg, packed_prefill=True)
+    eng = ServeEngine(cfg, params, sc, device=dev)
+    eng.serve([Request(reqs[0].tokens[:8], max_new=2)])   # warm-up, not counted
+    torch.cuda.synchronize()
+    late = iter(reqs[8:])
+
+    def submit_late(ev):
+        if isinstance(ev, TokenEvent) and ev.rid == 0:
+            nxt = next(late, None)
+            if nxt is not None:
+                eng.submit(nxt)
+    zero_hybrid_launches()
+    t0 = time.perf_counter()
+    for r in reqs[:8]:
+        eng.submit(r)
+    events = drain(eng.serve_stream(), submit_late)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2, flash = hybrid_launches()
+    results = {ev.rid: ev.result for ev in events if type(ev).__name__ == "FinishEvent"}
+    check(sorted(results) == list(range(len(reqs))),
+          f"hybrid: finished {sorted(results)}, submitted {len(reqs)}")
+    outs = [results[i].tokens for i in range(len(reqs))]
+    st = eng.last_serve_stats
+    L = cfg.n_layers
+    forwards = st["prefill_forwards"] + st["decode_steps"]
+    check(k2 == (2 * L + 1) * forwards,
+          f"hybrid: K2 launched {k2} times, {forwards} forward steps imply "
+          f"{(2 * L + 1) * forwards}")
+    check(flash == 0, f"hybrid: {flash} flash launches; the ring buffer attends without one")
+    check(st["faults"] == 0 and st["shed"] == 0 and st["packed_packs"] > 0,
+          f"hybrid: faults, sheds or no pack: {st}")
+    for rid, r in results.items():
+        check(r.finish is FinishReason.MAX_NEW and len(r.tokens) == HYBRID_NEW,
+              f"hybrid: request {rid} finished {r.finish} with {len(r.tokens)} tokens")
+        check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()),
+              f"hybrid: request {rid}: token out of the vocabulary")
+    n_tok = sum(len(o) for o in outs)
+    print(f"hybrid: served {len(reqs)} requests ({cfg.numerics.div_format} "
+          f"{cfg.numerics.div_algo}; prompts {lens.min()}-{lens.max()} tokens, {HYBRID_NEW} "
+          f"new each; 8 submitted, 8 more at request 0's tokens) on {sc.max_batch} slots, "
+          f"batch-axis packed admission: {n_tok} tokens in {wall:.2f} s = "
+          f"{n_tok / wall:.2f} tokens/s; {forwards} forward steps ({st['prefill_forwards']} "
+          f"scan steps in {st['packed_packs']} packs of {st['packed_segments']} requests with "
+          f"{st['packed_dummies']} dummy rows and {st['admissions'] - st['packed_segments']} "
+          f"solo admissions, {st['decode_steps']} decode steps); K2 {k2} launches (2L+1 = "
+          f"{2 * L + 1} a forward step), no flash launch")
+    # the shortest prompt of each wave, alone (a solo prefill scans its bucket)
+    probes = [min(range(0, 8), key=lambda i: lens[i]), min(range(8, 16), key=lambda i: lens[i])]
+    solo = ServeEngine(cfg, params, ServeConfig.from_model(cfg), device=dev)
+    for i in probes:
+        alone = solo.serve([reqs[i]])[0]
+        if not np.array_equal(alone, outs[i]):
+            products_difference(torch, dev, cfg, params)
+            fail(f"hybrid: request {i} alone gave {alone.tolist()}, packed {outs[i].tolist()}")
+    print(f"hybrid: requests {probes[0]} (first wave) and {probes[1]} (submitted mid-flight) "
+          "alone on a solo-admission engine the same tokens as packed")
+    # K2 at the decode step's RMSNorm rows, the bits of its twin
+    g = torch.Generator(device="cpu").manual_seed(8)
+    a = torch.randn(8, cfg.d_model, generator=g).to(dev)
+    b = (torch.rand(8, 1, generator=g) + 0.5).to(dev)
+    got = ops.posit_div_fused_rowwise(POSIT16, a, b)
+    want = ops.posit_div_rowwise_plain(POSIT16, a, b)
+    torch.cuda.synchronize()
+    check(torch.equal(bits(got), bits(want)), "hybrid: K2 at 8 x 2560 differs from its twin")
+    print(f"hybrid: K2 at 8 x {cfg.d_model} bit-identical to its twin")
+    return {"rowwise": k2, "tokens_per_s": n_tok / wall, "forwards": forwards, "outs": outs}
+
+
+def phase_hybrid_wrap(torch, dev, cfg, params):
+    """RecurrentGemma-2B at full width and HYBRID_WRAP_LAYERS of its layers
+    (one attention layer), max_seq HYBRID_WRAP_SEQ: a prompt of
+    HYBRID_WRAP_PROMPT tokens (left-padded to 2048 rows) decodes past the
+    2048-key window, its ring wrapping from the first decode step; its
+    tokens alone are the bits of its tokens beside a short request (the
+    reference's ``test_hybrid_ring_wrap_batch_invariance``)."""
+    import numpy as np
+
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    L = HYBRID_WRAP_LAYERS
+    cut = cfg.replace(n_layers=L)
+    check(sum(cut.is_attn_layer(i) for i in range(L)) == 1,
+          "hybrid wrap: the cut model must keep one attention layer")
+    sub = dict(params, layers=params["layers"][:L])
+    rng = np.random.default_rng(4)
+    long = Request(rng.integers(0, cfg.vocab, HYBRID_WRAP_PROMPT).astype(np.int32),
+                   max_new=HYBRID_WRAP_NEW)
+    short = Request(rng.integers(0, cfg.vocab, 20).astype(np.int32), max_new=16)
+    eng = ServeEngine(cut, sub, ServeConfig(max_batch=2, max_seq=HYBRID_WRAP_SEQ), device=dev)
+    zero_hybrid_launches()
+    t0 = time.perf_counter()
+    alone = eng.serve([long])[0]
+    st = eng.last_serve_stats
+    k2, flash = hybrid_launches()
+    forwards = st["prefill_forwards"] + st["decode_steps"]
+    check(k2 == (2 * L + 1) * forwards and flash == 0,
+          f"hybrid wrap: K2 {k2} (want {(2 * L + 1) * forwards}), flash {flash} (want 0)")
+    both = eng.serve([long, short])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    W = min(cut.local_window, HYBRID_WRAP_SEQ)
+    rows = st["prefill_forwards"] + len(alone) - 1   # rows written, pads included
+    check(rows > W, f"hybrid wrap: {rows} rows do not pass the {W}-row ring")
+    check(len(alone) == HYBRID_WRAP_NEW and np.array_equal(alone, both[0]),
+          f"hybrid wrap: the long request alone {alone.tolist()} and beside a short one "
+          f"{both[0].tolist()} differ")
+    print(f"hybrid wrap: {L} of {cfg.n_layers} layers (one attention layer, a {W}-row ring), "
+          f"a {HYBRID_WRAP_PROMPT}-token prompt in {st['prefill_forwards']} scan steps, "
+          f"{HYBRID_WRAP_NEW} new tokens, its ring wrapped {rows - W} rows: the same tokens "
+          f"alone and beside a 20-token request ({wall:.1f} s); K2 {k2} launches alone "
+          f"(2L+1 a forward step), no flash launch")
+    return {"rowwise": k2}
+
+
+def phase_hybrid_forward(torch, dev, cfg, params):
+    """The whole-sequence forward of full-width RecurrentGemma-2B on 1 x
+    HYBRID_FWD_SEQ tokens: exactly one K6 launch an attention layer (8),
+    2L + 1 K2 launches, finite states of the expected shape; then K6 and K3
+    prefill at its attention shape (10/1 heads of 256, window 2048) against
+    their twins at posit16, posit32, posit64 (FLASH_TOL) and posit8 (its
+    patterns), bf16 K/V and, posit16 and posit64, f32 K/V; the division
+    stage bit-exact on the kernel's own acc and l (q = 0 makes every p
+    exactly 1 and integer V makes acc and l exact integers, whatever the
+    order of the sums)."""
+    import numpy as np
+
+    from repro_torch.core.posit import PositFormat
+    from repro_torch.kernels import posit_flash_attn as F
+    from repro_torch.kernels.posit_div import divide_floats_block
+    from repro_torch.models import transformer as T
+
+    L = cfg.n_layers
+    attn = sum(cfg.is_attn_layer(i) for i in range(L))
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab, (1, HYBRID_FWD_SEQ)))
+    fcfg = cfg.replace(remat="none")
+    with torch.inference_mode():
+        T.forward(params, fcfg, {"tokens": toks[:, :256].to(dev)})   # warm-up, not counted
+        torch.cuda.synchronize()
+        zero_hybrid_launches()
+        t0 = time.perf_counter()
+        h = T.forward(params, fcfg, {"tokens": toks.to(dev)})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    k6 = F.posit_flash_attention_fwd.launches
+    k2, flash = hybrid_launches()
+    check(k6 == attn and flash == k6, f"hybrid forward: K6 launched {k6} times, {flash} flash "
+                                      f"launches in all; {attn} attention layers imply {attn}")
+    check(k2 == 2 * L + 1, f"hybrid forward: K2 launched {k2} times, want {2 * L + 1}")
+    check(tuple(h.shape) == (1, HYBRID_FWD_SEQ, cfg.d_model) and bool(torch.isfinite(h).all()),
+          f"hybrid forward: states {tuple(h.shape)}, finite {bool(torch.isfinite(h).all())}")
+    print(f"hybrid forward: 1 x {HYBRID_FWD_SEQ} tokens through {L} layers in {wall * 1e3:.1f} "
+          f"ms ({HYBRID_FWD_SEQ / wall:.0f} tokens/s): K6 {k6} launches (one an attention "
+          f"layer, window {cfg.local_window}), K2 {k2}, finite states")
+    del h
+    # the kernels at the forward's attention shape against their twins
+    H, KV, hd = HYBRID_HEADS
+    S, win = HYBRID_FWD_SEQ, cfg.local_window
+    q, k, v = flash_inputs(torch, dev, 1, S, S, H, KV, hd, 31)
+    worst = collections.defaultdict(float)
+    i = torch.arange(S, device=dev)
+    keep = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < win)
+    vi = torch.randint(-8, 9, (1, S, KV, hd), generator=torch.Generator().manual_seed(6))
+    acc = torch.einsum("qk,kd->qd", keep.double(), vi[0, :, 0].double().to(dev)).float()
+    cnt = keep.sum(-1).float()
+    for n in (16, 32, 64, 8):
+        fmt = PositFormat(n)
+        for kv_dt in ((torch.bfloat16, torch.float32) if n in (16, 64) else (torch.bfloat16,)):
+            kk, vv = k.to(kv_dt), v.to(kv_dt)
+            where = f"posit{n} hd {hd} window {win} {str(kv_dt)[6:]} K/V"
+            o, m, l = F.posit_flash_attention_fwd(fmt, q, kk, vv, True, win)
+            po, pm, pl = F.posit_flash_attention_fwd_plain(fmt, q, kk, vv, True, win)
+            torch.cuda.synchronize()
+            worst[f"K6 posit{n}"] = max(worst[f"K6 posit{n}"], gate("K6", where, fmt, o, po))
+            lse = float((m + torch.log(l) - pm - torch.log(pl)).abs().max())
+            check(lse <= LSE_TOL, f"K6 {where}: max|lse diff| {lse} > {LSE_TOL}")
+            del o, m, l, po, pm, pl
+            s0 = torch.tensor([0], dtype=torch.int32, device=dev)
+            o = F.posit_flash_attention(fmt, q, kk, vv, True, win, kv_start=s0)
+            po = F.posit_flash_attention_plain(fmt, q, kk, vv, True, win, kv_start=s0)
+            torch.cuda.synchronize()
+            worst[f"K3 posit{n}"] = max(worst[f"K3 posit{n}"], gate("K3", where, fmt, o, po))
+            del o, po
+            # the division stage on the kernel's own acc and l
+            oz, _, lz = F.posit_flash_attention_fwd(fmt, torch.zeros_like(q), kk,
+                                                    vi.to(dev, kv_dt), True, win)
+            want = divide_floats_block(fmt, acc, cnt[:, None], DEFAULT_VARIANT)
+            torch.cuda.synchronize()
+            same = all(torch.equal(bits(oz[0, :, h_]), bits(want)) for h_ in range(H))
+            check(same and torch.equal(lz.reshape(H, S)[0], cnt),
+                  f"K6 {where}: the division stage differs from the twin's divide of the "
+                  "kernel's own acc and l")
+    print(f"hybrid forward: K6 and K3 prefill at 1 x {S}, {H}/{KV} heads of {hd}, window {win} "
+          f"within {FLASH_TOL} of their twins (max|diff| " + ", ".join(
+              f"{kern} posit{n} {worst[f'{kern} posit{n}']:.3g}" for n in (16, 32, 64)
+              for kern in ("K6", "K3")) + "; posit8 by its patterns; bf16 K/V, and f32 at "
+          "posit16 and posit64); the division stage bit-exact on the kernel's own acc and l")
+    return {"K6": k6, "rowwise": k2, "err": max(worst.values())}
+
+
+def hybrid_rows(torch, dev):
+    """K6 and K3 prefill at RecurrentGemma's attention shape (1 x 4096, 10/1
+    heads of 256, window 2048, posit16): device and call time, the plain
+    twin's, the bound and SDPA with the window as a boolean mask."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels import posit_flash_attn as F
+    from repro_torch.kernels.posit_div import datapath_plan
+
+    H, KV, hd = HYBRID_HEADS
+    S, win = HYBRID_FWD_SEQ, 2048
+    plan = datapath_plan(POSIT16, DEFAULT_VARIANT)
+    q, k, v = flash_inputs(torch, dev, 1, S, S, H, KV, hd, 32)
+    keys = sum(min(i + 1, win) for i in range(S))          # attended (row, key) pairs
+    i = torch.arange(S, device=dev)
+    mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < win)
+    qs, ks, vs = (t.float().transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = lambda: Fn.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    lib_ms = device_call_ms(torch, lib, iters=5)
+    s0 = torch.tensor([0], dtype=torch.int32, device=dev)
+    rows = {}
+    for name, call, plain, extra in (
+            ("K6 hd256 window", lambda: F.posit_flash_attention_fwd(POSIT16, q, k, v, True, win),
+             lambda: F.posit_flash_attention_fwd_plain(POSIT16, q, k, v, True, win), 8 * S * H),
+            ("K3 hd256 window prefill",
+             lambda: F.posit_flash_attention(POSIT16, q, k, v, True, win, kv_start=s0),
+             lambda: F.posit_flash_attention_plain(POSIT16, q, k, v, True, win, kv_start=s0),
+             0)):
+        dev_ms, src = device_kernel_ms(torch, call, FLASH_FWD, iters=5)
+        # q read, o written (and m, l for K6), K and V read once
+        nbytes = 8 * S * H * hd + extra + 2 * k.element_size() * S * KV * hd
+        bms, by = bound_ms(nbytes, div_ops(plan, S * H * hd), 4 * H * keys * hd)
+        rows[name] = {"shape": [1, S, S, H, KV, hd], "ms": dev_ms, "ms_from": src,
+                      "call_ms": cuda_time_ms(call, iters=5),
+                      "plain_ms": cuda_time_ms(plain, iters=2, warmup=1),
+                      "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+    print_rows(rows)
+    return rows
 
 
 # --------------------------------------------------------------- phase 5
@@ -3727,8 +4115,8 @@ def decode_breakdown(torch, dev, cfg, params, paged: bool = False):
     by = by_class({k: t / n for k, t in times.items()}, classes)
     busy = sum(by.values()) if times else None
     # every decode step reads all layer weights and the head once
-    weight_bytes = sum(w.numel() * w.element_size() for lay in params["layers"]
-                       for w in lay.values()) + params["head"].numel() * 2
+    weight_bytes = sum(w.numel() * w.element_size() for w in tensors_of(params["layers"])) \
+        + params["head"].numel() * 2
     if busy is None:
         device = (f"torch.profiler showed no device records in {PROFILE_TRIES} tries: "
                   "busy and idle share not measured")
@@ -3777,9 +4165,11 @@ def kernel_name(mangled: str) -> str:
             f"posit{width.group(1)}" if width else "posit?")
     name = f"{fn.group(1) if fn else mangled} {what}"
     if fn and fn.group(1).startswith("flash"):
-        layout = re.search(r"EELi(\d)EEEv", mangled)
+        layout = re.search(r"EELi(\d)E(?:Li(\d+)E)?EEv", mangled)
         if layout:
             name += f" {LAYOUT_NAMES[int(layout.group(1))]}"
+            if layout.group(2) and layout.group(2) != "128":   # the tile loop's class
+                name += f" hd{layout.group(2)}"
     elif fn:
         extra = re.search(r"E([a-z]?)Li(\d)EEEv", mangled)   # <..., type, V>
         if extra:
@@ -3891,6 +4281,37 @@ def decode_digests(torch, dev, F, dense_in, paged_in, pos):
                 out[f"K4 decode {tag}"] = digest(F.posit_flash_attention(
                     fmt, gq, pk, pv, True, kv_len=pos + 1, q_pos=pos, block_tables=bt,
                     variant=variant))
+    return out
+
+
+def tile_digests(torch, dev, F, formats):
+    """The digests of the tile loop's outputs at head_dim <= 128 (K3
+    prefill at 1 x 256, 15/5 heads of 64, kv_start 56, and at 1 x 96, 16/16
+    heads of 128 with a 48-key window; K6's o, m and l at 2 x 256, 15/5
+    heads of 64) in ``formats`` at the default plan, on bf16 K/V and on f32
+    K/V bf16 cannot hold: a parent checkout's run prints the same digests
+    where its tile loop gives the same bits."""
+    from repro_torch.core.posit import PositFormat
+
+    s56 = torch.tensor([56], dtype=torch.int32, device=dev)
+    cases = {"K3 prefill hd64": (flash_inputs(torch, dev, 1, 256, 256, 15, 5, 64, 61),
+                                 dict(kv_start=s56)),
+             "K3 prefill hd128 window": (flash_inputs(torch, dev, 1, 96, 96, 16, 16, 128, 62),
+                                         dict(window=48))}
+    tq, tk, tv, _ = training_inputs(torch, dev, 2, 256, 63)
+    out = {}
+    for n in formats:
+        fmt = PositFormat(n)
+        for kv in ("bf16", "f32"):
+            for name, ((q, k, v), kw) in cases.items():
+                if kv == "f32":
+                    k, v = f32_values(torch, k, 64), f32_values(torch, v, 65)
+                out[f"{name} posit{n} {kv} K/V"] = digest(F.posit_flash_attention(
+                    fmt, q, k, v, True, **kw))
+            k6k, k6v = (tk, tv) if kv == "bf16" else (f32_values(torch, tk, 66),
+                                                      f32_values(torch, tv, 67))
+            o, m, l = F.posit_flash_attention_fwd(fmt, tq, k6k, k6v, True)
+            out[f"K6 posit{n} {kv} K/V"] = "/".join(digest(t) for t in (o, m, l))
     return out
 
 
@@ -4122,6 +4543,10 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
         per_call.append(f"K12 _kv_round {label}")
     if not only or {"K3", "K4"} & set(only):
         out["digests"] = decode_digests(torch, dev, F, (q, k, v, start), (gq, gk, gv, bt), pos)
+    if not only or {"K3", "K5", "K6"} & set(only):
+        fmts = [n for n in (8, 16, 32, 64) if f"posit_flash_attn_p{n}" in names
+                or f"posit_flash_attn_p{n}_r4" in names]
+        out.setdefault("digests", {}).update(tile_digests(torch, dev, F, fmts))
     if not only or {"K11", "K12"} & set(only):
         out.setdefault("digests", {}).update(division_digests(torch, dev))
     if only:
@@ -4225,6 +4650,7 @@ def main() -> int:
     for div_format in ("posit64", "posit32", "posit8"):
         timed("model", phase_model_small, torch, dev, "smollm_360m", div_format)
     timed("model", phase_model_small, torch, dev, "olmoe_1b_7b")
+    timed("model", phase_model_small, torch, dev, "recurrentgemma_2b")
     train_err = timed("K6-K8", phase_flash_train, torch, dev)
     f32_err = timed("f32 K/V", phase_f32_kv, torch, dev)
     for div_format in ("posit16", "posit64", "posit32", "posit8"):
@@ -4308,8 +4734,6 @@ def main() -> int:
     timed("timing", decode_breakdown, torch, dev, cfg.with_numerics(kv_cache_format="posit16"),
           params)
     timed("timing", decode_breakdown, torch, dev, cfg64, params)
-    timed("timing", decode_breakdown, torch, dev, cfgs[32], params)
-    timed("timing", decode_breakdown, torch, dev, cfgs[32], params, paged=True)
     # the SmolLM state goes before OLMoE's 13.8 GB of weights come in
     del cfg, cfg64, cfgs, params
     gc.collect()
@@ -4330,15 +4754,15 @@ def main() -> int:
           f"{moe['tokens_per_s']:.2f}")
     timed("timing", decode_breakdown, torch, dev, mcfg64, mparams)
     # posit64 srt_r4_cs (radix 4 without on-the-fly conversion): the mix's
-    # first 2 requests, the default plan's tokens
+    # first request, the default plan's tokens
     label = "moe posit64 srt_r4_cs"
     moe64r4 = timed(label, phase_moe, torch, dev, mcfg64.with_numerics(div_algo="srt_r4_cs"),
-                    mparams, 2, label)
+                    mparams, 1, label)
     off = [i for i, (a, b) in enumerate(zip(moe64r4["outs"], moe64["outs"]))
            if not np.array_equal(a, b)]
     check(not off, f"{label}: requests {off} differ from the default plan's posit64 run")
-    print(f"{label}: requests 0 and 1 the default plan's posit64 tokens, bit for bit")
-    # posit32 (K9, K2, K3 on the one-word residual), the same 8 requests
+    print(f"{label}: request 0 the default plan's posit64 tokens, bit for bit")
+    # posit32 (K9, K2, K3 on the one-word residual), the same 4 requests
     mcfg32 = mcfg.with_numerics(div_format="posit32")
     moe32 = timed("moe posit32", phase_moe, torch, dev, mcfg32, mparams, MOE64_REQUESTS,
                   "moe posit32")
@@ -4356,6 +4780,18 @@ def main() -> int:
     moe_train_rows = timed("timing", training_rows, torch, dev, POSIT16, heads=MOE_HEADS)
     print_rows(moe_train_rows)
     rows.update(moe_train_rows)
+    # the hybrid family: RecurrentGemma-2B served (ring buffers, RG-LRU
+    # state), its ring wrapped at 3 of 26 layers, and its whole-sequence
+    # forward through the tile loop at head_dim 256
+    hcfg, hparams = timed("hybrid", hybrid_model, torch, dev)
+    hybrid = timed("hybrid", phase_hybrid, torch, dev, hcfg, hparams)
+    hybrid_wrap = timed("hybrid wrap", phase_hybrid_wrap, torch, dev, hcfg, hparams)
+    hybrid_fwd = timed("hybrid forward", phase_hybrid_forward, torch, dev, hcfg, hparams)
+    timed("timing", decode_breakdown, torch, dev, hcfg, hparams)
+    del hcfg, hparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.update(timed("timing", hybrid_rows, torch, dev))
     print("posit8: one-step flips against the twins (K3-K6: outputs one posit8 step "
           f"off; K7/K8: gradients beyond {BWD_TOL}), gate share {POSIT8_FLIP_SHARE}: " +
           ", ".join(f"{k} {f} of {e} ({f / max(e, 1):.2e})"
@@ -4373,7 +4809,7 @@ def main() -> int:
     csrc = "src/repro_torch/kernels/csrc/"
     runs = (path, path64, paged, paged64, train, train64, moe, moe64, train32, moe32,
             *paths.values(), *pageds.values(), paged64nrd, train64r2, moe64r4, moe_paged,
-            train_moe, stream, stream_paged)
+            train_moe, stream, stream_paged, hybrid, hybrid_wrap, hybrid_fwd)
 
     def launches(name):
         """``name``'s launches over every main path's run."""
@@ -4397,7 +4833,7 @@ def main() -> int:
         entry("K3 posit flash attention, dense prefill (the tile loop, flash_tile_kernel; "
               "K5 and K6 run it too)", csrc + "posit_flash_attn.cu",
               "src/repro/kernels/posit_flash_attn.py:330", launches("K3 tile"),
-              max(flash_err, suffix_err, f32_err["K3"]), rows["K3 prefill"]),
+              max(flash_err, suffix_err, f32_err["K3"], hybrid_fwd["err"]), rows["K3 prefill"]),
         entry("K4 posit flash attention, paged decode", csrc + "posit_flash_attn.cu",
               "src/repro/kernels/posit_flash_attn.py:330", launches("K4"),
               max(paged_err, f32_err["K4"]), rows["K4 decode"]),
@@ -4405,8 +4841,12 @@ def main() -> int:
               "src/repro/kernels/posit_flash_attn.py:330", launches("K5"),
               max(packed_err, f32_err["K5"]), rows["K5 packed prefill"]),
         entry("K6 posit flash attention forward saving (m, l)", csrc + "posit_flash_attn.cu",
-              "src/repro/kernels/posit_flash_attn.py:330", launches("K6"),
+              "src/repro/kernels/posit_flash_attn.py:330", launches("K6") - hybrid_fwd["K6"],
               max(train_err["K6"], f32_err["K6"]), rows["K6"]),
+        entry("K6 at head_dim 256 with a 2048-key window (the tile loop's kTileHdMax class: "
+              "RecurrentGemma-2B's whole-sequence forward)", csrc + "posit_flash_attn.cu",
+              "src/repro/kernels/posit_flash_attn.py:330", hybrid_fwd["K6"], hybrid_fwd["err"],
+              rows["K6 hd256 window"]),
         entry("K7 posit flash attention backward, dq", csrc + "posit_flash_bwd.cu",
               "src/repro/kernels/posit_flash_attn.py:601", launches("K7"),
               max(train_err["K7"], f32_err["K7"]), rows["K7"]),

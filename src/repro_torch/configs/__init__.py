@@ -2,8 +2,9 @@
 
 from importlib import import_module
 
-ARCH_IDS = ("smollm_360m", "olmoe_1b_7b")
-ALIASES = {"smollm-360m": "smollm_360m", "olmoe-1b-7b": "olmoe_1b_7b"}
+ARCH_IDS = ("smollm_360m", "olmoe_1b_7b", "recurrentgemma_2b")
+ALIASES = {"smollm-360m": "smollm_360m", "olmoe-1b-7b": "olmoe_1b_7b",
+           "recurrentgemma-2b": "recurrentgemma_2b"}
 
 
 def get_config(name: str, smoke: bool = False, fused: bool = True,
@@ -23,7 +24,7 @@ def get_config(name: str, smoke: bool = False, fused: bool = True,
             "the chunked attention are not ported (ROADMAP.md)")
     mod_name = ALIASES.get(name, name)
     if mod_name not in ARCH_IDS:
-        raise KeyError(f"arch {name!r} is not ported; have {sorted(ALIASES)}")
+        raise KeyError(f"arch {name!r} is not ported; have {sorted(set(ALIASES) | set(ARCH_IDS))}")
     mod = import_module(f"repro_torch.configs.{mod_name}")
     cfg = mod.SMOKE if smoke else mod.CONFIG
     serve_kw = {}

@@ -12,7 +12,8 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kHdMax = 128;  // largest head_dim the kernels take
+constexpr int kHdMax = 128;      // largest head_dim the decode loop and the backward take
+constexpr int kTileHdMax = 256;  // largest head_dim the tile loop takes (dense layout)
 constexpr int kQKeys = 32;   // keys a staging call copies (start_kv_copy, widen_kv): a K7 step
 
 // One K/V element as f32: from the f32 tensor where the call gave f32 K/V
@@ -30,7 +31,10 @@ __device__ __forceinline__ float kv_at(const __nv_bfloat16* b, const float* f, s
 __host__ __device__ inline int dkv_hdp(int hd) { return ((hd + 7) & ~7) + 4; }
 
 constexpr int kWarps = kThreads / 32;
-constexpr int kNtPart = kHdMax / 8 / kWarps;  // n-tiles of a warp's part of the head's columns
+// n-tiles of a warp's part of the head's columns, for head_dim up to kHd
+template <int kHd>
+constexpr int kNtPartOf = kHd / 8 / kWarps;
+constexpr int kNtPart = kNtPartOf<kHdMax>;
 
 // Tensor-core helpers (mma.sync m16n8k8, TF32 operands, f32 accumulate).
 // Fragment layouts (PTX ISA, m16n8k8 .tf32), g = lane / 4, t = lane % 4:

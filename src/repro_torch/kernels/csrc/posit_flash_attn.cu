@@ -91,8 +91,11 @@
 //   * K/V are copied by cp.async as they arrive (bf16 or f32) into a staging
 //     buffer and widened to f32 tiles, the next step's copy in flight while
 //     a step computes: f32 K/V holding bf16 values give the bf16 call's
-//     bits; head_dim up to 128, zero-padded to a multiple of 8 (the padding's
-//     FMAs add zeros: exact), rows of stride hd8 + 4;
+//     bits; head_dim up to 128, and in the dense layout (K3 prefill, K6) up
+//     to 256 (kTileHdMax: the head-dim class is a template parameter, so the
+//     register arrays of the hd <= 128 instantiations keep their size),
+//     zero-padded to a multiple of 8 (the padding's FMAs add zeros: exact),
+//     rows of stride hd8 + 4;
 //   * K5 (packed) takes per-position segment ids seg_q (B, Sq) and seg_kv
 //     (B, Sk); each block takes its segment from its rows (query pads
 //     carry -2 and attend nothing), anchors its steps at the segment's first
@@ -170,7 +173,7 @@ __host__ __device__ inline size_t dec_smem_bytes(int hd, int elt, bool kv_shared
   return kDecFixed + static_cast<size_t>(kv_shared ? 1 : 2) * kDecWarps * kBK *
                          dec_row_stride(hd, elt);
 }
-constexpr size_t kDecSmemMax = 232448;   // an H100 block's dynamic shared memory, at most
+constexpr size_t kSmemMax = 232448;   // an H100 block's dynamic shared memory, at most
 
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;" ::: "memory");
@@ -536,7 +539,9 @@ __global__ void __launch_bounds__(kDecThreads)
 // ------------------------------------------------------------- the tile loop
 
 constexpr int kFRows = 16;                 // query rows of a tile block
-constexpr int kFCols = kHdMax / 64;        // a thread's 4-column chunks of acc, at most
+// a thread's 4-column chunks of acc, at most, for head_dim up to kHd
+template <int kHd>
+constexpr int kFColsOf = kHd / 64;
 
 // The tile loop's shared memory for steps of `keys` keys: q (kFRows rows),
 // the f32 K and V tiles (`keys` rows), rows of stride hdp; the p tile (row
@@ -613,9 +618,10 @@ __device__ __forceinline__ void tile_scores_mma(const float* sQ, const float* sK
 // the p tile as A fragments, each k-step's 8 keys in the order (0, 2, 4, 6,
 // 1, 3, 5, 7) (lane (g, t) holds p's (g, 2t), (g + 8, 2t), (g, 2t + 1),
 // (g + 8, 2t + 1) and V's key rows 2t and 2t + 1), 3xTF32.
-template <int kKeys>
+template <int kKeys, int kHd>
 __device__ __forceinline__ void tile_pv_mma(const float* sP, const float* sV, int hdp, int nd0,
-                                            int ndn, int lane, float (&pv)[kNtPart][4]) {
+                                            int ndn, int lane, float (&pv)[kNtPartOf<kHd>][4]) {
+  constexpr int kNtPart = kNtPartOf<kHd>;
   constexpr int kPs = kKeys + 4;
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
@@ -642,9 +648,13 @@ __device__ __forceinline__ void tile_pv_mma(const float* sP, const float* sV, in
 // row's scores live in one half-warp, and in the FMA layout their acc in
 // the columns [4 c + 64 i, 4 c + 64 i + 4) (i < kFCols).  chunk: the staging copies' size in
 // bytes (16 or 4), or 0 where K/V rows are read straight from the tensors.
-// seg_q / seg_kv: K5's segment ids (packed layout only).
-template <class P, int kLayout>
-__global__ void __launch_bounds__(kThreads, P::words == 1 ? 4 : 3)
+// seg_q / seg_kv: K5's segment ids (packed layout only).  kHd, the
+// head-dim class (kHdMax or kTileHdMax), sizes the register arrays: a
+// thread holds 16 acc elements at kHdMax, 32 at kTileHdMax (one block an SM
+// there: its shared memory is 151-220 KB), so the kHdMax instantiations keep
+// their code.
+template <class P, int kLayout, int kHd>
+__global__ void __launch_bounds__(kThreads, kHd > kHdMax ? 1 : P::words == 1 ? 4 : 3)
     flash_tile_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, const float* __restrict__ kf,
                       const float* __restrict__ vf, float* __restrict__ out,
@@ -658,6 +668,8 @@ __global__ void __launch_bounds__(kThreads, P::words == 1 ? 4 : 3)
   constexpr int kParts = kKeys / kQKeys;  // staging calls per step
   constexpr int kPs = kKeys + 4;          // row stride of the (kFRows, kKeys) p tile
   constexpr int kSi = kKeys / 16;         // a thread's keys of a step in the FMA layout
+  constexpr int kNtPart = kNtPartOf<kHd>;
+  constexpr int kFCols = kFColsOf<kHd>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int hdp = dkv_hdp(hd), hd8 = hdp - 4;
   float* sQ = reinterpret_cast<float*>(smem);
@@ -748,7 +760,7 @@ __global__ void __launch_bounds__(kThreads, P::words == 1 ? 4 : 3)
   // acc: in the FMA layout acc[r kFCols + i] holds row rg + 8 r's columns
   // [4 c + 64 i, 4 c + 64 i + 4); in the MMA layout acc[nd] is n-tile nd0 +
   // nd's C fragment (rows g, g + 8)
-  static_assert(2 * kFCols == kNtPart, "both layouts hold 16 acc elements a thread");
+  static_assert(2 * kFCols == kNtPart, "both layouts hold as many acc elements a thread");
   float acc[kNtPart][4];
 #pragma unroll
   for (int i = 0; i < kNtPart; ++i)
@@ -872,7 +884,7 @@ __global__ void __launch_bounds__(kThreads, P::words == 1 ? 4 : 3)
     // order)
     float pv[kNtPart][4];
     if constexpr (kTileMma<P>) {
-      tile_pv_mma<kKeys>(sP, sV, hdp, nd0, ndn, lane, pv);
+      tile_pv_mma<kKeys, kHd>(sP, sV, hdp, nd0, ndn, lane, pv);
       const float cg[2] = {sC[g], sC[g + 8]};
 #pragma unroll
       for (int nd = 0; nd < kNtPart; ++nd)
@@ -994,8 +1006,32 @@ struct Call {
   cudaStream_t stream;
 };
 
+// One launch of the tile loop at head-dim class kHd: K/V rows staged by
+// cp.async where each row's bytes (and the bases) take 16- or 4-byte copies
+// and the staging buffer fits beside the tiles, else read straight from the
+// tensors (posit8/16 f32 K/V from head_dim 207: the same values, the same
+// bits).
+template <class P, int kLayout, int kHd>
+int launch_tile(const Call& c, const dim3& grid, const __nv_bfloat16* kb,
+                const __nv_bfloat16* vb, const float* kf, const float* vf) {
+  const int elt = c.kv_f32 ? 4 : 2;
+  int chunk = kv_chunk(c.k, c.v, c.hd, elt);
+  if (tile_smem_bytes(c.hd, chunk ? elt : 0, kStepKeys<P>) > kSmemMax) chunk = 0;
+  const size_t bytes = tile_smem_bytes(c.hd, chunk ? elt : 0, kStepKeys<P>);
+  const cudaError_t err = cudaFuncSetAttribute(flash_tile_kernel<P, kLayout, kHd>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_tile_kernel<P, kLayout, kHd><<<grid, kThreads, bytes, c.stream>>>(
+      c.q, kb, vb, kf, vf, c.out, c.m_out, c.l_out, c.kv_start, c.kv_len, c.q_pos, c.seg_q,
+      c.seg_kv, c.bq, c.Sq, c.Sk, c.H, c.KVH, c.hd, c.scale, c.causal, c.window, c.q_offset,
+      c.eps, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // One launch of the decode loop (flash_decode_kernel, a query row a block)
-// or, kTile, the tile loop (flash_tile_kernel, c.bq rows a block).
+// or, kTile, the tile loop (flash_tile_kernel, c.bq rows a block; its
+// kTileHdMax class, dense layout only, past head_dim kHdMax).
 template <class P, int kLayout, bool kTile>
 int launch(const Call& c) {
   const long long heads = static_cast<long long>(c.B) * c.H;
@@ -1011,24 +1047,18 @@ int launch(const Call& c) {
                                 static_cast<int>(bytes));
   };
   if constexpr (kTile) {
-    // K/V rows staged by cp.async where each row's bytes (and the bases)
-    // take 16- or 4-byte copies, else read straight from the tensors
-    const int elt = c.kv_f32 ? 4 : 2;
-    const int chunk = kv_chunk(c.k, c.v, c.hd, elt);
-    const size_t bytes = tile_smem_bytes(c.hd, chunk ? elt : 0, kStepKeys<P>);
-    const cudaError_t err = prepare(flash_tile_kernel<P, kLayout>, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_tile_kernel<P, kLayout><<<grid, kThreads, bytes, c.stream>>>(
-        c.q, kb, vb, kf, vf, c.out, c.m_out, c.l_out, c.kv_start, c.kv_len, c.q_pos, c.seg_q,
-        c.seg_kv, c.bq, c.Sq, c.Sk, c.H, c.KVH, c.hd, c.scale, c.causal, c.window, c.q_offset,
-        c.eps, chunk);
+    if (c.hd <= kHdMax) return launch_tile<P, kLayout, kHdMax>(c, grid, kb, vb, kf, vf);
+    if constexpr (kLayout == kDense) {
+      return launch_tile<P, kLayout, kTileHdMax>(c, grid, kb, vb, kf, vf);
+    }
+    return -2;
   } else {
     // K/V rows copied by cp.async where each row's bytes (and the bases)
     // take 16- or 4-byte copies, else by plain loads; V shares K's buffer
     // where two would not fit (f32 K/V past head_dim 104)
     const int elt = c.kv_f32 ? 4 : 2;
     const int chunk = kv_chunk(c.k, c.v, c.hd, elt);
-    const bool shared = dec_smem_bytes(c.hd, elt, false) > kDecSmemMax;
+    const bool shared = dec_smem_bytes(c.hd, elt, false) > kSmemMax;
     const size_t bytes = dec_smem_bytes(c.hd, elt, shared);
     const cudaError_t err = prepare(flash_decode_kernel<P, kLayout>, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1043,7 +1073,8 @@ int launch(const Call& c) {
 template <int kLayout, bool kTile>
 int dispatch(int n, int radix, int red, int otf, int scaled, int nonrest, int it, int shift,
              int gbits, const Call& c) {
-  if (c.hd > kHdMax || c.hd <= 0 || c.KVH <= 0 || c.H % c.KVH) return -2;
+  const int hd_max = kTile && kLayout == kDense ? kTileHdMax : kHdMax;
+  if (c.hd > hd_max || c.hd <= 0 || c.KVH <= 0 || c.H % c.KVH) return -2;
   if (kTile && (c.bq < 1 || c.bq > kFRows)) return -2;
   if (c.B <= 0 || c.Sq <= 0) return 0;
   int rc = -1;
@@ -1078,7 +1109,8 @@ int dispatch(int n, int radix, int red, int otf, int scaled, int nonrest, int it
 //     the place of kv_start.  The other layouts ignore bq (the decode loop
 //     takes one-row blocks, the dense tile loop kFRows rows).
 // Returns 0, a cudaError_t, -1 when no instantiation matches the plan and
-// layout, -2 for a head_dim above kHdMax, a bad head split, a layout the
+// layout, -2 for a head_dim above kHdMax (the dense tile loop: above
+// kTileHdMax), a bad head split, a layout the
 // loop does not take, B*H past 2^31 - 1 or more than 65535 q tiles.
 extern "C" int posit_flash_attn(int n, int radix, int red, int otf, int scaled, int nonrest,
                                 int it, int shift, int gbits, int layout, int loop, int kv_f32,

@@ -61,7 +61,11 @@ from .ops import PLAN_ARGTYPES, plan_args
 from .posit_div import DEFAULT_KERNEL_VARIANT, datapath_plan, divide_floats_block
 
 BLOCK_K = 64        # keys per kv tile (csrc/posit_flash_attn.cu kBK)
-HEAD_DIM_MAX = 128  # csrc/posit_flash_attn.cu kHdMax
+# the largest head_dim of the decode loop (K3 decode, K4), the packed layout
+# (K5) and the backward (K7, K8): csrc/flash_stage.cuh kHdMax; and of the
+# tile loop in the dense layout (K3 prefill, K6): kTileHdMax
+HEAD_DIM_MAX = 128
+TILE_HEAD_DIM_MAX = 256
 _NEG_INF = -1e30    # the reference's mask fill
 
 
@@ -319,16 +323,31 @@ def kernel_built(plan) -> bool:
 _KV_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _check_kernel_inputs(plan, q, k, v, hd: int, layout: str) -> None:
-    """What the hand-written kernels take; raises for anything else."""
+def head_dim_max(layout: str, loop: int = ROW_LOOP) -> int:
+    """The largest head_dim the kernels take for a call in ``layout``
+    ("dense", "paged", "packed" or "backward") through ``loop``: the dense
+    tile loop (K3 prefill, K6) takes :data:`TILE_HEAD_DIM_MAX`, the others
+    :data:`HEAD_DIM_MAX`."""
+    return TILE_HEAD_DIM_MAX if layout == "dense" and loop == TILE_LOOP else HEAD_DIM_MAX
+
+
+def _check_kernel_inputs(plan, q, k, v, hd: int, layout: str, loop: int = ROW_LOOP) -> None:
+    """What the hand-written kernels take; raises for anything else, before
+    any launch (a head_dim past :func:`head_dim_max` raises ValueError: no
+    kernel takes it, and the twin runs on CPU tensors only)."""
     if not kernel_built(plan):
         raise NotImplementedError(
             f"no flash kernel is built for posit{plan.n} {plan.variant} in the {layout} "
             "layout; the twin runs on CPU tensors only (ROADMAP.md)")
+    limit = head_dim_max(layout, loop)
+    if hd > limit:
+        what = ("the decode loop (K3 decode, K4)" if loop == ROW_LOOP and layout != "backward"
+                else "the packed layout (K5)" if layout == "packed"
+                else "the backward (K7, K8)" if layout == "backward" else "the tile loop")
+        raise ValueError(f"head_dim {hd} > {limit}: {what} takes head_dim up to {limit} "
+                         "(ROADMAP.md section 2 item 1)")
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for device {q.device}")
-    if hd > HEAD_DIM_MAX:
-        raise ValueError(f"head_dim {hd} > {HEAD_DIM_MAX}")
     if k.dtype != v.dtype or k.dtype not in _KV_DTYPES + (torch.float16,):
         raise NotImplementedError(
             f"the flash kernels read bfloat16, float16 or float32 k/v of one dtype, not "
@@ -356,7 +375,8 @@ def _launch(fmt: PositFormat, plan, q, k, v, causal, window, q_offset, scale, kv
     rows per block (K5); the loop is :func:`flash_loop`'s."""
     B, Sq, H, hd = q.shape
     _check_kernel_inputs(plan, q, k, v, hd, "paged" if block_tables is not None else
-                         "packed" if seg_q is not None else "dense")
+                         "packed" if seg_q is not None else "dense",
+                         flash_loop(q_pos, block_tables))
     if scale <= 0.0:
         scale = 1.0 / math.sqrt(hd)
     dev = q.device
@@ -423,9 +443,10 @@ def posit_flash_attention(fmt: PositFormat, q, k, v, causal: bool = True,
     prefills, which take the tile loop), ``.paged_launches`` (K4) and
     ``.packed_launches`` (K5); it takes bf16 or f32 k/v (f16 upcast to f32;
     all exact) and the plans :func:`kernel_built` names (every posit8,
-    posit16, posit32 and posit64 plan), and raises for anything else.  CPU
-    tensors run the plain twin, for every planned (format, variant) and k/v
-    dtype.
+    posit16, posit32 and posit64 plan) at head_dim up to :func:`head_dim_max`
+    (256 for the prefills, 128 for the decode calls and K5), and raises for
+    anything else.  CPU tensors run the plain twin, for every planned
+    (format, variant), k/v dtype and head_dim.
     """
     plan = datapath_plan(fmt, variant)
     if block_tables is not None and seg_q is not None:

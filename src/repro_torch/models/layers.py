@@ -1,8 +1,10 @@
 """Layers of the serving and training paths: RMSNorm, RoPE, GQA attention,
-MLP, and the MoE block of the moe family.
+MLP, the MoE block of the moe family, and the hybrid family's ring-buffer
+decode attention.
 
 Port of the dense and MoE pieces of the reference package's
-``models/layers.py``.
+``models/layers.py``, and of ``_ring_decode_attention`` from its
+``models/transformer.py``.
 Compute dtype is bf16 (``COMPUTE_DTYPE``); the projections, the MLP and the
 logits are plain bf16 ``torch.matmul`` products, as the reference leaves
 its einsums to XLA.  Every weight is cast to the activations' dtype at its
@@ -167,8 +169,7 @@ def prefill_suffix_attention(p, x, cache_k, cache_v, cfg: ModelConfig, positions
 
 
 def _decode_qkv(p, x, pos, start, cfg: ModelConfig):
-    positions = pos[:, None] if start is None else (pos - start)[:, None]
-    q, k, v = _qkv(p, x, cfg, positions)
+    q, k, v = _decode_qkv_raw(p, x, pos, start, cfg)
     return (q,) + _kv_round(k, v, cfg)
 
 
@@ -220,6 +221,50 @@ def decode_attention_paged(p, x, pool_k, pool_v, block_tables, pos, cfg: ModelCo
                               variant=nm.div_algo, kv_start=start,
                               kv_len=pos + 1, q_pos=pos, block_tables=block_tables)
     return wo_project(o.to(dt), p["wo"])
+
+
+def ring_decode_attention(p, x, ring_k, ring_v, pos, cfg: ModelConfig, start=None):
+    """Single-token local attention against a window-sized ring buffer
+    (B, W, KV, hd), the hybrid family's decode (the reference's
+    ``_ring_decode_attention``).
+
+    Slot b ropes at ``pos[b] - start[b]``, writes its K/V at ring row
+    ``min(pos[b] % W, W - 1)`` in place and attends the ring in age order,
+    oldest to newest: column j holds the row of absolute position ``pos[b] -
+    (W - 1) + j``, masked where that is negative or before ``start[b]``.  A
+    row's scores are then laid out by its offset from ``start`` alone, so its
+    bits are the same solo, batched or admitted mid-flight, past a wrap of
+    the window too.  The softmax is float (``torch.softmax``), with no posit
+    divide, as the reference's; scores are bf16 products, as its einsums."""
+    dt = x.dtype
+    B, W, KV, hd = ring_k.shape
+    G = cfg.n_heads // KV
+    q, k, v = _decode_qkv_raw(p, x, pos, start, cfg)
+    bidx = torch.arange(B, device=x.device)
+    ring = torch.clamp(torch.remainder(pos, W), max=W - 1).long()
+    ring_k[bidx, ring] = k[:, 0].to(ring_k.dtype)
+    ring_v[bidx, ring] = v[:, 0].to(ring_v.dtype)
+    slot = torch.arange(W, device=x.device)
+    order = torch.remainder(ring[:, None] + 1 + slot[None, :], W)          # (B, W)
+    slot_pos = pos[:, None].long() - (W - 1) + slot[None, :]
+    valid = slot_pos >= 0     # never-written columns hold zeros: masked
+    if start is not None:
+        valid = valid & (slot_pos >= start[:, None].long())
+    ck = ring_k[bidx[:, None], order].to(dt)                                # (B, W, KV, hd)
+    cv = ring_v[bidx[:, None], order].to(dt)
+    qg = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, ck).to(torch.float32) / math.sqrt(hd)
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, -1e30))
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", pr.to(dt), cv).reshape(B, 1, cfg.n_heads, hd)
+    return wo_project(o.to(dt), p["wo"])
+
+
+def _decode_qkv_raw(p, x, pos, start, cfg: ModelConfig):
+    """A decode step's q, k, v at RoPE phase ``pos - start``, unrounded (the
+    ring buffer keeps the compute dtype, as the reference's)."""
+    positions = pos[:, None] if start is None else (pos - start)[:, None]
+    return _qkv(p, x, cfg, positions)
 
 
 def mlp_block(p, x):

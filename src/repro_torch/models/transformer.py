@@ -1,19 +1,26 @@
-"""Decoder LMs, dense and MoE: parameters, training loss, KV cache,
+"""Decoder LMs, dense, MoE and hybrid: parameters, training loss, KV cache,
 prefill, decode.
 
-Port of the dense- and moe-family entry points of the reference package's
-``models/transformer.py``.  Both families serve (dense slots or a paged
-pool, solo or packed prefill) and train.  The moe family's prefill is a
-scan of decode steps, so it packs on the batch axis (``prefill`` on N
-left-padded rows into dense slots, :func:`prefill_batch_ragged` on N
-right-padded rows into the pool); ``prefill_packed`` raises for it:
+Port of the dense-, moe- and hybrid-family entry points of the reference
+package's ``models/transformer.py``.  The dense and moe families serve
+(dense slots or a paged pool, solo or packed prefill) and train.  The moe
+and hybrid families' prefill is a scan of decode steps, so they pack on the
+batch axis (``prefill`` on N left-padded rows into dense slots,
+:func:`prefill_batch_ragged` on N right-padded rows at start 0);
+``prefill_packed`` raises for them.  The hybrid family (RecurrentGemma:
+RG-LRU blocks, and local attention every ``attn_period``-th layer) keeps
+O(window) state a slot, so it has no paged layout; its ``forward`` attends
+through K6 with ``window=cfg.local_window``, and its decode attends a ring
+buffer of ``min(local_window, seq_len)`` rows with a float softmax (no posit
+divide), as the reference's:
 
   init_params(cfg, generator, device, dtype)  -> params (random, from a seed)
   params_from_numpy(tree, cfg, device, dtype) -> params from the reference's
                                                  ``T.init_params`` pytree
   forward(params, cfg, batch)              -> final-norm hidden states
   train_loss(params, cfg, batch)           -> (loss, metrics)
-  init_cache(cfg, batch, seq_len, device)  -> {"k", "v"}: (L, B, S, KV, hd)
+  init_cache(cfg, batch, seq_len, device)  -> {"k", "v"}: (L, B, S, KV, hd);
+                                              hybrid: {"layers_list": [...]}
   init_paged_cache(cfg, num_blocks, block_size, device)
                                            -> {"k", "v"}: (L, NB, bs, KV, hd)
   prefill(params, cfg, tokens, cache, start, t0) -> (logits, cache)
@@ -38,8 +45,10 @@ padded_vocab), ``ln_f`` (D,) f32, and ``layers``, a list of per-layer dicts
 of matrices (``wq`` (D, H*hd), ``wk``/``wv`` (D, KV*hd), ``wo`` (H*hd, D),
 ``w1``/``w3`` (D, d_ff), ``w2`` (d_ff, D)) and f32 ``ln1``/``ln2``; a moe
 layer holds ``router`` (D, E), ``w1``/``w3`` (E, D, d_ff) and ``w2`` (E,
-d_ff, D) in place of the MLP's matrices.  The
-matrices are bf16 for serving (the default ``dtype``) and f32 masters for
+d_ff, D) in place of the MLP's matrices, and a hybrid recurrent layer
+holds ``rec`` (:mod:`.rglru`'s ``in_x``, ``in_gate``, ``conv_w``,
+``conv_b``, ``wa``, ``wx``, ``lam``, ``out``) in place of the attention's.
+The matrices are bf16 for serving (the default ``dtype``) and f32 masters for
 training; layers cast them to the compute dtype at use.  The cache is
 updated in place and also returned.
 
@@ -61,6 +70,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import ModelConfig
+from .rglru import init_rglru_block, init_rglru_state, rglru_block
 
 Params = Dict[str, Any]
 
@@ -87,16 +97,23 @@ def _tensor(w, device, dtype):
     return torch.from_numpy(np.array(w)).to(device=device, dtype=dtype)
 
 
-def _layer_from(blk, i: int, device, dtype):
-    """Layer ``i`` of the reference's stacked ``blocks`` pytree."""
-    mat = lambda w: _tensor(w[i], device, dtype)
-    f32 = lambda w: _tensor(w[i], device, torch.float32)
-    attn = blk["attn"]
-    D = attn["wq"].shape[1]
+def _layer_from(blk, i, device, dtype):
+    """Layer ``i`` of the reference's stacked ``blocks`` pytree, or (``i``
+    None) the reference's block ``blk`` of the hybrid family's
+    ``blocks_list``."""
+    pick = (lambda w: w) if i is None else (lambda w: w[i])
+    mat = lambda w: _tensor(pick(w), device, dtype)
+    f32 = lambda w: _tensor(pick(w), device, torch.float32)
+    lay = {"ln1": f32(blk["ln1"]), "ln2": f32(blk["ln2"])}
+    if "rec" in blk:
+        lay["rec"] = {name: (f32 if name in ("conv_b", "lam") else mat)(w)
+                      for name, w in blk["rec"].items()}
+    else:
+        attn = blk["attn"]
+        D = attn["wq"].shape[-3]
+        lay.update({"wq": mat(attn["wq"]).reshape(D, -1), "wk": mat(attn["wk"]).reshape(D, -1),
+                    "wv": mat(attn["wv"]).reshape(D, -1), "wo": mat(attn["wo"]).reshape(-1, D)})
     ffn = blk["moe"] if "moe" in blk else blk["mlp"]
-    lay = {"ln1": f32(blk["ln1"]), "ln2": f32(blk["ln2"]),
-           "wq": mat(attn["wq"]).reshape(D, -1), "wk": mat(attn["wk"]).reshape(D, -1),
-           "wv": mat(attn["wv"]).reshape(D, -1), "wo": mat(attn["wo"]).reshape(-1, D)}
     lay.update({name: mat(w) for name, w in ffn.items()})
     return lay
 
@@ -122,13 +139,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     zeros = lambda: torch.zeros(D, dtype=torch.float32, device=device)
     E = cfg.n_experts
     layers = []
-    for _ in range(cfg.n_layers):
-        lay = {
-            "ln1": zeros(), "ln2": zeros(),
-            "wq": mat(rnd((D, H * hd))), "wk": mat(rnd((D, KV * hd))),
-            "wv": mat(rnd((D, KV * hd))),
-            "wo": mat(rnd((H * hd, D), scale=1.0 / math.sqrt(H * hd))),
-        }
+    for i in range(cfg.n_layers):
+        lay = {"ln1": zeros(), "ln2": zeros()}
+        if cfg.is_attn_layer(i):
+            lay.update(wq=mat(rnd((D, H * hd))), wk=mat(rnd((D, KV * hd))),
+                       wv=mat(rnd((D, KV * hd))),
+                       wo=mat(rnd((H * hd, D), scale=1.0 / math.sqrt(H * hd))))
+        else:
+            lay["rec"] = init_rglru_block(cfg, generator, device, dtype)
         if cfg.family == "moe":
             lay.update(router=mat(rnd((D, E), scale=0.02)), w1=mat(rnd((E, D, F))),
                        w3=mat(rnd((E, D, F))), w2=mat(rnd((E, F, D))))
@@ -146,7 +164,10 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
     as numpy arrays (``jax.tree.map(np.asarray, params)``); matrices in
     ``dtype``."""
     device = resolve_device(device)
-    layers = [_layer_from(tree["blocks"], i, device, dtype) for i in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        layers = [_layer_from(blk, None, device, dtype) for blk in tree["blocks_list"]]
+    else:
+        layers = [_layer_from(tree["blocks"], i, device, dtype) for i in range(cfg.n_layers)]
     emb = tree["embed"]
     return {"tok": _tensor(emb["tok"], device, dtype),
             "head": _tensor(emb["head"], device, dtype),
@@ -158,9 +179,18 @@ def _ffn(p, h, cfg: ModelConfig):
     return L.moe_block(p, h, cfg) if cfg.family == "moe" else L.mlp_block(p, h)
 
 
-def _dense_block(p, x, cfg: ModelConfig, positions):
+def _dense_block(p, x, cfg: ModelConfig, positions, window: int = 0):
     h = L.rmsnorm(x, p["ln1"], cfg)
-    x = x + L.attention_block(p, h, cfg, positions)
+    x = x + L.attention_block(p, h, cfg, positions, window=window)
+    h = L.rmsnorm(x, p["ln2"], cfg)
+    return x + _ffn(p, h, cfg)
+
+
+def _rec_block(p, x, cfg: ModelConfig, positions, window: int = 0):
+    """The hybrid family's recurrent block: RMSNorm, RG-LRU, RMSNorm, MLP
+    (the recurrence takes no positions and no window)."""
+    h = L.rmsnorm(x, p["ln1"], cfg)
+    x = x + rglru_block(p["rec"], h, cfg)
     h = L.rmsnorm(x, p["ln2"], cfg)
     return x + _ffn(p, h, cfg)
 
@@ -174,16 +204,21 @@ def forward(params: Params, cfg: ModelConfig, batch):
     ``jax.checkpoint`` per block.  The recompute of a moe block routes
     every token as its forward did: K9, the top-k's tie rule and the
     fixed-order sums give the same bits on the same inputs.
+
+    The hybrid family's attention layers attend a ``cfg.local_window``-key
+    window (K6 with ``window``), its other layers run the RG-LRU scan.
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = L.embed(params["tok"], tokens)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-    for p in params["layers"]:
+    window = cfg.local_window if cfg.family == "hybrid" else 0
+    for i, p in enumerate(params["layers"]):
+        block = _dense_block if cfg.is_attn_layer(i) else _rec_block
         if cfg.remat == "full":
-            x = checkpoint(_dense_block, p, x, cfg, positions, use_reentrant=False)
+            x = checkpoint(block, p, x, cfg, positions, window, use_reentrant=False)
         else:
-            x = _dense_block(p, x, cfg, positions)
+            x = block(p, x, cfg, positions, window)
     return L.rmsnorm(x, params["ln_f"], cfg)
 
 
@@ -212,17 +247,58 @@ def train_loss(params: Params, cfg: ModelConfig, batch):
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cuda",
                dtype=torch.bfloat16):
-    """Decode cache of ``batch`` persistent slots of ``seq_len`` rows."""
+    """Decode cache of ``batch`` persistent slots of ``seq_len`` rows.
+
+    The hybrid family's is ``{"layers_list": [...]}``, one entry a layer: a
+    ring buffer ``{"k", "v"}`` (B, W, KV, hd) of ``W = min(local_window,
+    seq_len)`` rows for an attention layer, the RG-LRU state ``{"conv",
+    "h"}`` for a recurrent one; every leaf has the batch on axis 0."""
     device = resolve_device(device)
+    if cfg.family == "hybrid":
+        W = min(cfg.local_window, seq_len)
+        ring = (batch, W, cfg.n_kv_heads, cfg.head_dim)
+        caches = []
+        for i in range(cfg.n_layers):
+            if cfg.is_attn_layer(i):
+                caches.append({"k": torch.zeros(ring, dtype=dtype, device=device),
+                               "v": torch.zeros(ring, dtype=dtype, device=device)})
+            else:
+                conv, h = init_rglru_state(cfg, batch, device, dtype)
+                caches.append({"conv": conv, "h": h})
+        return {"layers_list": caches}
     shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def cache_leaves(cache):
+    """The tensors of a cache, in a fixed order (the dense and paged caches'
+    ``k``, ``v``; the hybrid list's leaves layer by layer)."""
+    if "layers_list" in cache:
+        return [t for c in cache["layers_list"] for t in c.values()]
+    return list(cache.values())
+
+
+def map_cache(fn, cache):
+    """A cache of the same structure with ``fn`` applied to every leaf."""
+    if "layers_list" in cache:
+        return {"layers_list": [{k: fn(t) for k, t in c.items()}
+                                for c in cache["layers_list"]]}
+    return {k: fn(t) for k, t in cache.items()}
+
+
+def _no_pages(cfg: ModelConfig, what: str) -> None:
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"family {cfg.family!r} has no {what} (its recurrent state "
+                         "and ring buffer are O(window) a slot); use init_cache")
+
+
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device="cuda",
                      dtype=torch.bfloat16):
     """Paged decode cache: per layer one block pool of ``num_blocks`` pages
-    of ``block_size`` rows shared by every slot, stacked over layers."""
+    of ``block_size`` rows shared by every slot, stacked over layers (the
+    dense and moe families only)."""
+    _no_pages(cfg, "pageable KV cache")
     device = resolve_device(device)
     shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -231,9 +307,7 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device=
 
 def write_cache_slot(cfg: ModelConfig, cache, mini, slot: int):
     """Copy a batch=1 ``mini`` cache into batch slot ``slot`` (admission)."""
-    for name in ("k", "v"):
-        cache[name][:, slot] = mini[name][:, 0]
-    return cache
+    return write_cache_slots(cfg, cache, mini, [slot])
 
 
 def write_cache_slot_segments(cfg: ModelConfig, cache, mini, slots, seg_len: int):
@@ -242,6 +316,8 @@ def write_cache_slot_segments(cfg: ModelConfig, cache, mini, slots, seg_len: int
     segment zeroed (as a solo admission's fresh mini cache leaves them).
     Writes go in pack order, so a later segment wins a shared slot (the
     engine points dummy segments at a real segment's slot, first)."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"family {cfg.family!r} has no packed-segment cache layout")
     for i, slot in enumerate(slots):
         for name in ("k", "v"):
             c = cache[name]
@@ -288,10 +364,12 @@ def write_cache_slots(cfg: ModelConfig, cache, mini, slots):
     slot ``slots[i]`` (the moe family's batch-axis packed admission; rows
     span the whole slot, so nothing of a previous occupant survives).
     Writes go in pack order, so a later row wins a shared slot (the engine
-    points dummy rows at a real row's slot, first)."""
+    points dummy rows at a real row's slot, first).  The stacked caches
+    hold the batch on axis 1, the hybrid list's leaves on axis 0."""
+    axis = 0 if cfg.family == "hybrid" else 1
     for i, slot in enumerate(slots):
-        for name in ("k", "v"):
-            cache[name][:, slot] = mini[name][:, i]
+        for c, m in zip(cache_leaves(cache), cache_leaves(mini)):
+            c.select(axis, slot).copy_(m.select(axis, i))
     return cache
 
 
@@ -347,10 +425,13 @@ def prefill(params: Params, cfg: ModelConfig, tokens, cache, start=None, t0: int
     (:func:`mini_cache_with_prefix`); the suffix's logits are those of the
     full prefill.  Returns ``(logits at the last position, cache)``.
 
-    The moe family runs one :func:`decode_step` per position instead, as the
-    reference scans: its expert capacity ``ceil(S * k / E * cf)`` depends on
-    the number of tokens a forward sees, so one token per forward keeps a
-    prompt's routing the same alone, batched or left-padded.
+    The moe and hybrid families run one :func:`decode_step` per position
+    instead, as the reference scans: the moe family's expert capacity
+    ``ceil(S * k / E * cf)`` depends on the number of tokens a forward sees,
+    so one token per forward keeps a prompt's routing the same alone,
+    batched or left-padded; the hybrid family's recurrent state stays at
+    its init until ``pos >= start`` (:func:`_gate_state`), so left pads never
+    enter it.
     """
     if cfg.family != "dense":
         return _prefill_scan(params, cfg, tokens, cache, start, t0)
@@ -420,8 +501,9 @@ def prefill_packed(params: Params, cfg: ModelConfig, tokens, cache, positions, s
 
 def prefill_batch_ragged(params: Params, cfg: ModelConfig, tokens, cache, start,
                          last_idx):
-    """The moe family's packed admission into the paged pool: N RIGHT-padded
-    rows of one width W, all at start 0, in one scan.
+    """The scanned families' packed admission of N RIGHT-padded rows of one
+    width W, all at start 0, in one scan (the moe family's into the paged
+    pool).
 
     :func:`_prefill_scan` runs :func:`decode_step` over positions ``[0,
     W)``, and row i keeps the logits of its own last real step
@@ -429,8 +511,10 @@ def prefill_batch_ragged(params: Params, cfg: ModelConfig, tokens, cache, start,
     from the logits its solo prefill returns.  The pad steps of
     a short row only write cache rows past its prompt (in its last owned
     page at most, which decode overwrites and masks).  ``cache`` is a dense
-    (L, N, W, KV, hd) mini cache; returns ``((N, 1, V) logits, cache)``, as
-    the reference's ``prefill_batch_ragged``."""
+    (L, N, W, KV, hd) mini cache (the hybrid family's :func:`init_cache`
+    of N rows, whose state the pad steps then advance past the prompt:
+    admission takes only the logits from it); returns ``((N, 1, V) logits,
+    cache)``, as the reference's ``prefill_batch_ragged``."""
     return _prefill_scan(params, cfg, tokens, cache, start, 0, last_idx)
 
 
@@ -443,13 +527,22 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token, pos,
     layout of :func:`init_paged_cache` (K4 reads the pages in place); the
     logits are those of the dense layout holding the same rows.
 
+    The hybrid family's attention layers write ring row ``min(pos % W, W -
+    1)`` and attend their ring in age order (:func:`layers.ring_decode_attention`),
+    its recurrent layers advance their ``(conv, h)`` state, kept at its old
+    value for slots whose prompt has not started (``pos < start``).
+
     Returns ``(logits, cache)``, plus the (B,) :func:`logits_health` probe
     when ``with_health``.
     """
+    if block_tables is not None:
+        _no_pages(cfg, "paged KV cache layout")
     x = L.embed(params["tok"], token)
     for i, p in enumerate(params["layers"]):
         a = L.rmsnorm(x, p["ln1"], cfg)
-        if block_tables is None:
+        if cfg.family == "hybrid":
+            o = _hybrid_decode(p, a, cache["layers_list"][i], i, pos, start, cfg)
+        elif block_tables is None:
             o = L.decode_attention(p, a, cache["k"][i], cache["v"][i], pos, cfg, start)
         else:
             o = L.decode_attention_paged(p, a, cache["k"][i], cache["v"][i], block_tables,
@@ -462,3 +555,24 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token, pos,
     if with_health:
         return lg, cache, logits_health(cfg, lg)
     return lg, cache
+
+
+def _gate_state(new, old, pos, start):
+    """Recurrent state frozen for slots whose prompt has not started: a
+    left-padded row keeps its init state until ``pos >= start``, so its
+    decode is the same alone or batched with longer prompts."""
+    if start is None:
+        return new
+    act = pos >= start
+    return {k: torch.where(act.reshape((-1,) + (1,) * (n.dim() - 1)), n, old[k])
+            for k, n in new.items()}
+
+
+def _hybrid_decode(p, x, c, i: int, pos, start, cfg: ModelConfig):
+    """Layer ``i``'s token mixer in a hybrid decode step: the ring buffer's
+    attention, or the RG-LRU advancing the layer's state ``c`` in place."""
+    if cfg.is_attn_layer(i):
+        return L.ring_decode_attention(p, x, c["k"], c["v"], pos, cfg, start)
+    o, (conv, h) = rglru_block(p["rec"], x, cfg, (c["conv"], c["h"]), decode=True)
+    c.update(_gate_state({"conv": conv, "h": h}, c, pos, start))
+    return o

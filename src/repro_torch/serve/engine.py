@@ -57,15 +57,24 @@ generator of their own (seeded from ``ServeConfig.seed`` and the request's
 key id), once per token, so their stream does not depend on the slot, the
 pack or the step.
 
-Both families serve from either layout, with solo or packed admission,
-at every planned numerics.  The moe family's prefill is the reference's
-scan: one decode step per prompt position, so that expert capacity stays
-per token (a paged solo admission scans from ``t0``).  Its packs lie on
-the batch axis: in the dense layout N left-padded rows of one width
+The dense and moe families serve from either layout, with solo or packed
+admission, at every planned numerics.  The moe family's prefill is the
+reference's scan: one decode step per prompt position, so that expert
+capacity stays per token (a paged solo admission scans from ``t0``).  Its
+packs lie on the batch axis: in the dense layout N left-padded rows of one width
 prefilled together (the dummy rows, all-zero prompts at start 0, first),
 each row copied into its slot; in the paged layout N right-padded rows at
 start 0 (``T.prefill_batch_ragged``, each row's logits from its own last
 step), each row's owned blocks scattered to their pages.
+
+The hybrid family (RecurrentGemma) keeps a ring buffer of the local window
+per attention layer and the RG-LRU state ``(conv, h)`` per recurrent layer
+in each slot, so it has nothing to page: under ``kv_layout="paged"`` it
+serves from dense slots, as the reference's engine does.  Its prefill is
+the scan, and its packs lie on the batch axis as the moe family's in the
+dense layout; a left-padded row's recurrent state stays at its init until
+its prompt starts (``start``), so its tokens are those of its solo
+admission.
 
 The live session.  ``submit`` queues a request at any time, also while a
 ``serve_stream`` is being consumed; ``serve_stream`` drives the session and
@@ -457,9 +466,10 @@ class _ServeState:
 
 
 class ServeEngine:
-    """Greedy / temperature serving of a dense or moe model on ``device``,
-    over dense slots or a paged block pool (``ServeConfig.kv_layout``), with
-    solo or packed admission (``ServeConfig.packed_prefill``)."""
+    """Greedy / temperature serving of a dense, moe or hybrid model on
+    ``device``, over dense slots or a paged block pool
+    (``ServeConfig.kv_layout``; the hybrid family always from dense slots),
+    with solo or packed admission (``ServeConfig.packed_prefill``)."""
 
     def __init__(self, cfg: ModelConfig, params, sc: Optional[ServeConfig] = None,
                  device="cuda", clock: Optional[Callable[[], float]] = None):
@@ -475,7 +485,9 @@ class ServeEngine:
         self.last_serve_stats: Optional[dict] = None
         if sc.kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got {sc.kv_layout!r}")
-        self._paged = sc.kv_layout == "paged"
+        # the hybrid family keeps O(window) state a slot: nothing to page, so
+        # it serves from dense slots under either layout, as the reference's
+        self._paged = sc.kv_layout == "paged" and cfg.family != "hybrid"
         self._packed = bool(sc.packed_prefill)
         # prefix sharing needs a prefix's pages to be a pure function of its
         # tokens; under kv_cache_format the cache holds rounded rows, so the
@@ -863,8 +875,8 @@ class ServeEngine:
 
     def _prefill_forwards(self, width: int) -> int:
         """Forward passes of one prefill of prompts ``width`` positions wide:
-        one for the dense family, one per position for the moe family's
-        scan."""
+        one for the dense family, one per position for the moe and hybrid
+        families' scan."""
         return 1 if self.cfg.family == "dense" else width
 
     def _fault(self, st: _ServeState, rid: int) -> List:
@@ -883,7 +895,7 @@ class ServeEngine:
         dev = self.device
         toks = np.zeros((1, P), np.int32)
         toks[0, s0:] = st.reqs[rid].tokens
-        for t in st.mini.values():
+        for t in T.cache_leaves(st.mini):
             t.zero_()
         lg, st.mini = T.prefill(self.params, self.cfg, torch.as_tensor(toks, device=dev),
                                 st.mini, torch.tensor([s0], dtype=torch.int32, device=dev))
@@ -1309,7 +1321,8 @@ class ServeEngine:
                                           "deadline_evictions", "packed_packs",
                                           "packed_segments", "packed_dummies")}
         stats.update(slot_steps=stats["decode_steps"] * sc.max_batch,
-                     kv_layout=sc.kv_layout, packed_prefill=self._packed,
+                     kv_layout="paged" if self._paged else "dense",
+                     packed_prefill=self._packed,
                      requests=len(st.reqs),
                      finish_reasons=collections.Counter(r.finish.value
                                                         for r in st.results.values()),
@@ -1373,7 +1386,7 @@ class ServeEngine:
             "mirrors": {k: getattr(st, k).copy() for k in self._MIRRORS},
             "last_tok_elapsed_ms": np.where(st.last_tok_ms > 0, now - st.last_tok_ms, 0.0),
             "counters": dict(st.stats),
-            "cache": {k: v.to("cpu", copy=True) for k, v in st.cache.items()},
+            "cache": T.map_cache(lambda v: v.to("cpu", copy=True), st.cache),
         }
         if self._paged:
             a = st.alloc
@@ -1434,7 +1447,7 @@ class ServeEngine:
         el = np.asarray(snap["last_tok_elapsed_ms"], np.float64)
         st.last_tok_ms = np.where(el > 0, now - el, 0.0)
         st.stats = collections.Counter(snap["counters"])
-        st.cache = {k: v.to(self.device, copy=True) for k, v in snap["cache"].items()}
+        st.cache = T.map_cache(lambda v: v.to(self.device, copy=True), snap["cache"])
         if self._paged:
             st.bt_host = snap["bt_host"].copy()
             st.slot_blocks = [list(b) for b in snap["slot_blocks"]]

@@ -43,6 +43,23 @@ def ref_kernels():
         yield
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one thread for the module that uses it, restored
+    after.  The suite runs six workers on one host, each with torch's
+    default pool of a thread a core: a module of many small ops (a CPU
+    training loop, a scanned prefill) then waits on the other workers'
+    threads, 20x slower than alone (``test_loss_decreases``: 30 s alone,
+    613 s in the suite), where one thread a worker is 1.3x slower alone.
+    Every comparison in such a module runs at the one thread count."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LOGIT_ULPS = 8      # engine logits against the reference's, as tests/test_torch_model.py
 
 

@@ -172,8 +172,10 @@ def _check_decode_and_prefill(dev, fmt, variant):
 
 
 def test_flash_kernel_refuses_what_it_is_not_built_for(dev):
-    """What stays refused: head_dim past 128, posit10 (only K11 divides
-    it) and a float64 k/v (it would have to be rounded)."""
+    """What stays refused: head_dim past 128 in a decode call (past 256 in
+    a prefill: the tile loop takes up to 256 since the hybrid family),
+    posit10 (only K11 divides it) and a float64 k/v (it would have to be
+    rounded)."""
     q = torch.randn(1, 1, 3, 32, device=dev)
     k = torch.randn(1, 8, 1, 32, device=dev, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="float64"):
@@ -184,8 +186,13 @@ def test_flash_kernel_refuses_what_it_is_not_built_for(dev):
         posit_flash_attention(PositFormat(10), q, k, k, True,
                               block_tables=torch.zeros(1, 1, dtype=torch.int32, device=dev))
     wide = torch.randn(1, 1, 1, 256, device=dev)
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         posit_flash_attention(POSIT64, wide, wide.bfloat16(), wide.bfloat16(), True,
+                              variant="nrd", q_pos=pos, kv_len=pos + 1)
+    wider = torch.randn(1, 1, 1, 264, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        posit_flash_attention(POSIT64, wider, wider.bfloat16(), wider.bfloat16(), True,
                               variant="nrd")
     with pytest.raises(NotImplementedError, match="posit10"):
         ops.posit_softmax_fused(PositFormat(10), q[0, 0])
@@ -862,6 +869,103 @@ def test_tile_loop_geometries_match_twin(dev, case, fmt):
     if causal:
         for b, s in enumerate(start):
             assert (runs[0][b, :s] == 0).all()
+
+
+# The tile loop past head_dim 128 (its kTileHdMax class: K3 prefill and K6,
+# the dense layout), (B, Sq, H, KV, hd, window, kv_start): head_dim 136 and
+# 200 (16-byte staging copies), 250 (4-byte copies; a row's bytes are not a
+# multiple of 16) and 256 (RecurrentGemma's; posit8/16 f32 K/V past head_dim
+# 206 read their rows straight, the staging buffer would not fit), each with
+# a window
+WIDE_TILE_CASES = {
+    "hd136": (2, 70, 2, 1, 136, 24, [0, 9]),
+    "hd200": (1, 130, 4, 2, 200, 0, [17]),
+    "hd250": (2, 45, 2, 2, 250, 16, [3, 0]),
+    "hd256": (1, 150, 2, 1, 256, 64, [0]),
+}
+
+
+@pytest.mark.parametrize("kv", ["bf16", "f32"])
+@pytest.mark.parametrize("fmt", [POSIT8, POSIT16, POSIT32, POSIT64], ids=lambda f: f"posit{f.n}")
+@pytest.mark.parametrize("case", list(WIDE_TILE_CASES))
+def test_tile_loop_wide_head_dim_matches_twin(dev, case, fmt, kv):
+    """K3 prefill and K6 at head_dim 136-256 with a window: within FLASH_TOL
+    of their twins (posit8 by its patterns), K6's lse within LSE_TOL, the
+    same bits on a second run, and on bf16 K/V the bits of the same values
+    in f32 (staged or read straight)."""
+    B, Sq, H, KV, hd, window, start = WIDE_TILE_CASES[case]
+    g = torch.Generator().manual_seed(hd + Sq + fmt.n)
+    q = torch.randn(B, Sq, H, hd, generator=g).to(dev)
+    k = torch.randn(B, Sq, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    v = torch.randn(B, Sq, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    if kv == "f32":
+        k, v = _f32_twin(k, g), _f32_twin(v, g)
+    kw = dict(window=window, kv_start=torch.tensor(start, dtype=torch.int32, device=dev))
+    runs = [posit_flash_attention(fmt, q, k, v, True, **kw) for _ in range(2)]
+    _close(fmt, runs[0], posit_flash_attention_plain(fmt, q, k, v, True, **kw))
+    assert torch.equal(bits(runs[0]), bits(runs[1]))
+    if kv == "bf16":
+        assert torch.equal(bits(runs[0]), bits(posit_flash_attention(
+            fmt, q, k.float(), v.float(), True, **kw)))
+    o, m, l = F.posit_flash_attention_fwd(fmt, q, k, v, True, window)
+    po, pm, pl = F.posit_flash_attention_fwd_plain(fmt, q, k, v, True, window)
+    _close(fmt, o, po)
+    assert (m + torch.log(l) - pm - torch.log(pl)).abs().max() <= LSE_TOL
+
+
+@pytest.mark.parametrize("fmt", [POSIT8, POSIT16, POSIT32, POSIT64], ids=lambda f: f"posit{f.n}")
+def test_tile_loop_wide_head_dim_division_stage_bit_exact(dev, fmt):
+    """The division stage at head_dim 256 on the kernel's own acc and l: q =
+    0 makes every p exactly 1 and integer V makes acc and l exact integers
+    whatever the order of the sums, so K6's o must be the twin's divide of
+    them bit for bit, on bf16 and f32 K/V."""
+    from repro_torch.kernels.posit_div import divide_floats_block
+
+    S, H, hd, window = 300, 2, 256, 100
+    g = torch.Generator().manual_seed(fmt.n)
+    k = torch.randn(1, S, 1, hd, generator=g).to(dev)
+    vi = torch.randint(-8, 9, (1, S, 1, hd), generator=g).float().to(dev)
+    i = torch.arange(S, device=dev)
+    keep = ((i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)).double()
+    acc = (keep @ vi[0, :, 0].double()).float()
+    cnt = keep.sum(-1).float()
+    want = divide_floats_block(fmt, acc, cnt[:, None], "srt_r4_cs_of_fr")
+    for dt in (torch.bfloat16, torch.float32):
+        o, _, l = F.posit_flash_attention_fwd(fmt, torch.zeros(1, S, H, hd, device=dev),
+                                              k.to(dt), vi.to(dt), True, window)
+        assert torch.equal(l.reshape(H, S)[1], cnt)
+        for h in range(H):
+            assert torch.equal(bits(o[0, :, h]), bits(want))
+
+
+def test_decode_loop_packed_and_backward_refuse_wide_head_dim(dev):
+    """Past head_dim 128 the decode loop (K3 decode, K4), the packed layout
+    (K5) and the backward (K7, K8) raise ValueError naming ROADMAP before
+    any launch: no kernel runs and no twin stands in."""
+    fmt = POSIT16
+    q = torch.randn(2, 1, 2, 256, device=dev)
+    kv = torch.randn(2, 64, 1, 256, device=dev).to(torch.bfloat16)
+    pos = torch.tensor([5, 40], dtype=torch.int32, device=dev)
+    before = (posit_flash_attention.launches, posit_flash_attention.paged_launches,
+              posit_flash_attention.packed_launches, F.flash_backward_dq.launches,
+              F.flash_backward_dkv.launches)
+    with pytest.raises(ValueError, match="decode loop.*ROADMAP"):
+        posit_flash_attention(fmt, q, kv, kv, True, q_pos=pos, kv_len=pos + 1)
+    with pytest.raises(ValueError, match="decode loop.*ROADMAP"):
+        posit_flash_attention(fmt, q, kv[:1, :32].reshape(2, 16, 1, 256),
+                              kv[:1, :32].reshape(2, 16, 1, 256), True, q_pos=pos,
+                              kv_len=pos + 1, block_tables=torch.ones(2, 4, dtype=torch.int32,
+                                                                      device=dev))
+    qs, ks = torch.randn(1, 16, 2, 256, device=dev), kv[:1, :16]
+    seg = torch.zeros(1, 16, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="packed.*ROADMAP"):
+        posit_flash_attention(fmt, qs, ks, ks, True, seg_q=seg, seg_kv=seg, seg_len=16)
+    o, m, l = F.posit_flash_attention_fwd(fmt, qs, ks, ks, True)
+    with pytest.raises(ValueError, match="backward.*ROADMAP"):
+        F.flash_backward(fmt, qs, ks, ks, o, torch.randn_like(o), m, l)
+    assert before == (posit_flash_attention.launches, posit_flash_attention.paged_launches,
+                      posit_flash_attention.packed_launches, F.flash_backward_dq.launches,
+                      F.flash_backward_dkv.launches)
 
 
 @pytest.mark.parametrize("fmt", [POSIT16, POSIT32, POSIT64], ids=lambda f: f"posit{f.n}")
