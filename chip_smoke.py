@@ -146,7 +146,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               run's launch counts and the posit64 default plan's paged
               tokens, bit for bit.  Then the same at posit8 and posit32,
               whose launch counts must also equal the posit16 paged run's.
-   posit-KV — the same model and weights with kv_cache_format="posit16":
+   posit-KV — the same model and weights, cut to 16 of its 32 layers,
+              with kv_cache_format="posit16" (against the cut's bf16 cache):
               the main mix from dense slots, the paged mix from the paged
               pool (pages of 16, packed); then "posit8" from dense slots.
               Every K/V row is rounded through K12: per forward step L
@@ -198,7 +199,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               the first step and tensor that differ are named), and at
               "posit32".
    moe      — (after the SmolLM state is released) OLMoE-1B-7B at full
-              width and depth (random weights from a seed) served with
+              width and 8 of its 16 layers (random weights from a seed;
+              every OLMoE serving phase below at that depth) served with
               batch-axis packed admission (8 slots, max_seq 512): 16 greedy
               requests, prompts of 16-120 tokens, 16 new tokens each.  Per
               forward step (each scan step of a prefill, each decode step)
@@ -226,13 +228,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               more step traced (busy time, idle share, the expert products
               as their own class); peak device memory.
    hybrid   — (after OLMoE's training state is released) RecurrentGemma-2B
-              at full width and depth (26 layers, every third local
+              at full width and 13 of its 26 layers (every third local
               attention over 2048 keys, 10/1 heads of 256; random weights
               from seed 0) served from dense slots with batch-axis packed
               admission: the main mix (16 requests, 32 new each, 8 slots,
               max_seq 512), 8 submitted and 8 more at request 0's tokens
               (mid-flight).  Per forward step (a scan step, a decode step)
-              exactly 2L+1 = 53 K2 launches and no flash launch (the ring
+              exactly 2L+1 = 27 K2 launches and no flash launch (the ring
               buffer's softmax is float, as the reference's); the shortest
               request of each wave (the second submitted mid-flight) the
               same tokens alone on a solo-admission engine as packed; K2
@@ -251,6 +253,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
               own acc and l (q = 0 and integer V make both exact); then a
               decode step's breakdown and the K6 / K3 timing rows at that
               shape (SDPA with the window as a boolean mask).
+   training hybrid — (after the hybrid serving state is released) K7 and
+              K8 at 10/1 x 256 with the 2048-key window (1 x 2560) against
+              their twins at posit16, posit32, posit64 (BWD_TOL) and posit8
+              (its gate), bf16 K/V and (posit16, posit64) f32; then
+              RecurrentGemma-2B at full width and 6 of its 26 layers (4
+              RG-LRU, 2 local attention) trained by ``Trainer`` for 4
+              steps of 1 x 4096 (f32 masters, remat "full", lr 1e-3,
+              warmup 1, seed 0): falling finite losses, exactly K6 4, K7 2,
+              K8 2, K2 4L+1 = 25 a step and no K3, K4, K5 or K9; one more
+              step traced (busy time, idle share, kernel classes); 2 steps
+              at remat "dots" from the same state, every loss and
+              parameter the "full" run's bits; 2 steps with
+              grad_compress_format="posit16", one K12 round launch a
+              gradient leaf, step 1's rounded gradients the twin's bits;
+              each run's peak device memory; the K7 / K8 timing rows at
+              1 x 4096 (SDPA's backward with the window as a boolean mask).
 5. timing   — each kernel, its plain twin and a library yardstick at the
               main paths' shapes (the kernel's device time from
               torch.profiler, as the yardstick's for K9; per-call times from
@@ -288,6 +306,8 @@ report, the static SASS of some libraries' kernels (opcode counts and a
 digest), and the device times of K2-K12 and of the posit-KV rounding
 (kernels a parent checkout of the port has too), and, with K3 or K4, a
 digest of each decode output's bits on fixed inputs (``decode_digests``),
+with K3, K5 or K6 of the tile loop's (``tile_digests``), with K7 or K8 of
+the backward's dq, dk and dv at head_dim 64 and 128 (``backward_digests``),
 with K11 or K12 of each division, cast and rounding output's
 (``division_digests``): run it on a parent checkout and on this one in
 turns (parent, change, change, parent) in one call, after any edit to a
@@ -2159,8 +2179,9 @@ def kv_verdict(name, tally, calls):
     return int(tally["moved"]) / max(tally["seen"], 1), float(tally["err"])
 
 
-def phase_posit_kv(torch, dev, cfg, params, packs_held, main_outs):
-    """Full-width SmolLM-360M served from a posit KV cache (every K/V row
+def phase_posit_kv(torch, dev, cfg, params, packs_held):
+    """Full-width SmolLM-360M (at the depth of ``cfg``: POSIT_KV_LAYERS)
+    served from a posit KV cache (every K/V row
     rounded through K12 before it is cached or attended): posit16 from
     dense slots (the main mix) and from the paged pool with packed prefill
     (the paged mix), posit8 from dense slots.  Per forward step L launches
@@ -2234,6 +2255,7 @@ def phase_posit_kv(torch, dev, cfg, params, packs_held, main_outs):
             del rows, again, twin
 
     mix, pmix = request_mix(cfg), paged_mix(cfg)
+    main_outs = ServeEngine(cfg, params, device=dev).serve(mix)   # the bf16 cache's tokens
     lines = []
     dense = {}
     for fmt_name in ("posit16", "posit8"):
@@ -2291,7 +2313,8 @@ def phase_posit_kv(torch, dev, cfg, params, packs_held, main_outs):
                  f"{st['packed_segments']}), K12 round launches {k12}, prefix hit "
                  f"rate {st['prefix_hit_rate']}, tokens the dense posit16 run's "
                  f"({len(main_pos)} of the main mix, {len(chat_pos)} chat)")
-    print("posit-KV (tokens/s with every rounding checked: not a throughput): "
+    print(f"posit-KV ({cfg.n_layers} of 32 layers; tokens/s with every rounding checked: not a "
+          "throughput): "
           + "; ".join(lines) + "; every K/V rounding of every layer and step "
           "(prefill, packed prefill, decode) the bits of K12's twin on the same rows "
           f"(max|diff| {out['err']}), logits finite, every cached row a fixed point of K12's "
@@ -2810,10 +2833,11 @@ def phase_train_main(torch, dev, div_format="posit16", div_algo=DEFAULT_VARIANT,
     return dict(out, busy_ms=busy, traced_ms=traced)
 
 
-def same_training(label, got, want):
-    """Two recorded training runs of one format at two plans: the divides
-    are exact, so every step's loss and every parameter after it must be
-    the same bits.  Names the first step and the first tensor that differ."""
+def same_training(label, got, want, what="the default plan's run"):
+    """Two recorded training runs of one format at two plans (or two remat
+    policies): the divides are exact, so every step's loss and every
+    parameter after it must be the same bits.  Names the first step and the
+    first tensor that differ."""
     for step, ((loss, params), (loss0, params0)) in enumerate(zip(got["prints"],
                                                                   want["prints"])):
         check(loss == loss0, f"{label}: step {step} loss {loss!r} against {loss0!r}")
@@ -2823,25 +2847,40 @@ def same_training(label, got, want):
                  f"{len(params0)} differ)")
     check(len(got["prints"]) == len(want["prints"]) > 0, f"{label}: steps not recorded")
     print(f"{label}: every step's loss and all {len(want['prints'][0][1])} parameters after "
-          f"it bit-identical to the default plan's run ({len(want['prints'])} steps)")
+          f"it bit-identical to {what} ({len(want['prints'])} steps)")
 
 
 MOE_REQUESTS = 16
 MOE_NEW = 16
 MOE64_REQUESTS = 4          # the posit64 and posit32 OLMoE runs serve the mix's first 4
+# Depth cuts for the script's time (its limit is 1200 s; the host-bound
+# serving phases run a forward a prompt position, about 2-3 ms of host time
+# a layer): OLMoE is served at 8 of its 16 layers, RecurrentGemma's `hybrid`
+# mix at 13 of its 26 (its forward, wrap and training phases keep theirs),
+# and the posit-KV phase runs SmolLM-360M at 16 of its 32 layers
+MOE_SERVE_LAYERS = 8
+HYBRID_SERVE_LAYERS = 13
+POSIT_KV_LAYERS = 16
+
+
+def cut_model(cfg, params, n_layers):
+    """The model's first ``n_layers`` layers (the weights shared, not
+    copied) at full width."""
+    return cfg.replace(n_layers=n_layers), dict(params, layers=params["layers"][:n_layers])
 
 
 def moe_model(torch, dev):
-    """OLMoE-1B-7B at full width and depth, random bf16 weights from seed 0."""
+    """OLMoE-1B-7B at full width and MOE_SERVE_LAYERS of its 16 layers,
+    random bf16 weights from seed 0."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
-    cfg = get_config("olmoe_1b_7b", fused=True)
+    cfg = get_config("olmoe_1b_7b", fused=True).replace(n_layers=MOE_SERVE_LAYERS)
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in tensors_of(params) if t.dim() > 1)
-    print(f"moe: OLMoE-1B-7B ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+    print(f"moe: OLMoE-1B-7B ({cfg.n_layers} of 16 layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.n_experts} experts "
           f"top-{cfg.experts_per_token}, d_ff {cfg.d_ff}, vocab {cfg.vocab}): {n / 1e9:.3f} B "
           f"random parameters in {time.perf_counter() - t0:.1f} s, "
@@ -3221,7 +3260,8 @@ def products_difference(torch, dev, cfg, params):
 
 
 def phase_hybrid(torch, dev, cfg, params):
-    """Full-width RecurrentGemma-2B served from dense slots with batch-axis
+    """Full-width RecurrentGemma-2B (at the depth of ``cfg``:
+    HYBRID_SERVE_LAYERS) served from dense slots with batch-axis
     packed admission: the main mix (16 greedy requests, prompts of 16-200
     tokens, 32 new each, 8 slots, max_seq 512), its first 8 submitted and
     the other 8 from the consuming loop at request 0's tokens (mid-flight);
@@ -3276,7 +3316,7 @@ def phase_hybrid(torch, dev, cfg, params):
         check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()),
               f"hybrid: request {rid}: token out of the vocabulary")
     n_tok = sum(len(o) for o in outs)
-    print(f"hybrid: served {len(reqs)} requests ({cfg.numerics.div_format} "
+    print(f"hybrid: {L} of 26 layers served {len(reqs)} requests ({cfg.numerics.div_format} "
           f"{cfg.numerics.div_algo}; prompts {lens.min()}-{lens.max()} tokens, {HYBRID_NEW} "
           f"new each; 8 submitted, 8 more at request 0's tokens) on {sc.max_batch} slots, "
           f"batch-axis packed admission: {n_tok} tokens in {wall:.2f} s = "
@@ -3438,10 +3478,243 @@ def phase_hybrid_forward(torch, dev, cfg, params):
     return {"K6": k6, "rowwise": k2, "err": max(worst.values())}
 
 
+HYBRID_TRAIN_LAYERS = 6     # of RecurrentGemma's 26: layers 2 and 5 attend
+HYBRID_BWD_SEQ = 2560       # the backward's gate: rows past the 2048-key window
+
+
+def hybrid_backward_gates(torch, dev):
+    """K7 and K8 at RecurrentGemma's attention shape (10/1 heads of 256,
+    window 2048) on 1 x HYBRID_BWD_SEQ rows, from K6's residuals, against
+    their twins: posit16, posit32 and posit64 within BWD_TOL, posit8 by its
+    gate (``gate_grad``), on bf16 K/V and, at posit16 and posit64, on f32
+    K/V bf16 cannot hold.  Returns the worst max|diff| of each kernel."""
+    from repro_torch.core.posit import PositFormat
+    from repro_torch.kernels import posit_flash_attn as F
+
+    H, KV, hd = HYBRID_HEADS
+    S, win = HYBRID_BWD_SEQ, 2048
+    q, k, v, co = training_inputs(torch, dev, 1, S, 36, H, KV, hd)
+    worst = collections.defaultdict(float)
+    for n in (16, 32, 64, 8):
+        fmt = PositFormat(n)
+        plan = F.datapath_plan(fmt, DEFAULT_VARIANT)
+        for kv in (("bf16", "f32") if n in (16, 64) else ("bf16",)):
+            kk, vv = (k, v) if kv == "bf16" else (f32_values(torch, k, 37),
+                                                  f32_values(torch, v, 38))
+            o, m, l = F.posit_flash_attention_fwd(fmt, q, kk, vv, True, win)
+            args = (q, kk, vv, co, m, l, F._row_sums(co, o), True, win, 0,
+                    1.0 / math.sqrt(hd))
+            got = (F.flash_backward_dq(fmt, plan, *args), *F.flash_backward_dkv(fmt, plan, *args))
+            twin = F.flash_backward_plain(fmt, q, kk.float(), vv.float(), o, co, m, l, True,
+                                          win)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("dq", "dk", "dv"), got, twin):
+                kern = "K7" if name == "dq" else "K8"
+                where = f"posit{n} hd {hd} window {win} {kv} K/V {name}"
+                worst[kern] = max(worst[kern], gate_grad(kern, where, fmt, g, w))
+            del o, m, l, got, twin
+    print(f"training hybrid: K7 and K8 at 1 x {S}, {H}/{KV} heads of {hd}, window {win} "
+          f"within {BWD_TOL} of their twins at posit16, posit32 and posit64 (max|diff| K7 "
+          f"{worst['K7']:.3g}, K8 {worst['K8']:.3g}), posit8 by its gate; bf16 K/V, and f32 "
+          "at posit16 and posit64")
+    return dict(worst)
+
+
+def hybrid_training_run(torch, dev, cfg, steps, label):
+    """``Trainer`` on ``cfg`` for ``steps`` steps of 1 x HYBRID_FWD_SEQ from
+    seed 0 (lr 1e-3, warmup 1, the schedule of 4 steps), each step's loss
+    and a bit-level fingerprint of every parameter after it recorded, with
+    every kernel's launches counted from 0.  Returns the trainer and the
+    run's record."""
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import posit_flash_attn as F
+    from repro_torch.optim.tree import tree_items
+    from repro_torch.train import TrainConfig, Trainer
+
+    tc = TrainConfig(steps=4, lr=1e-3, warmup=1, log_every=1, seed=0)
+    ds = SyntheticLMDataset(DataConfig(1, HYBRID_FWD_SEQ, seed=0), cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, tc, ds, device=dev)
+    prints = []
+    step_fn = trainer.step_fn
+
+    def recorded(state, batch):
+        state, metrics = step_fn(state, batch)
+        prints.append((float(metrics["loss"]), {
+            key: int(bits(t).to(torch.int64).sum()) for key, t in tree_items(state["params"])}))
+        return state, metrics
+
+    trainer.step_fn = recorded
+    counters = {"K2": ops.posit_div_fused_rowwise, "K6": F.posit_flash_attention_fwd,
+                "K7": F.flash_backward_dq, "K8": F.flash_backward_dkv,
+                "K9": ops.posit_softmax_fused, "K12r": ops.posit_round_value}
+    zero_launches()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = trainer.run(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trainer.step_fn = step_fn
+    got = {name: c.launches for name, c in counters.items()}
+    flash = read_launches()
+    got.update(K3=flash["K3"], K4=flash["K4"], K5=flash["K5"])
+    losses = [h["loss"] for h in res["history"]]
+    return trainer, {"label": label, "losses": losses, "prints": prints, "launches": got,
+                     "step_s": [h["sec"] for h in res["history"]], "wall": wall,
+                     "peak_bytes": torch.cuda.max_memory_allocated(), "ds": ds}
+
+
+def phase_train_hybrid(torch, dev):
+    """RecurrentGemma-2B at full width and HYBRID_TRAIN_LAYERS of its 26
+    layers (layers 0, 1, 3, 4 RG-LRU, 2 and 5 local attention over 2048
+    keys) trained by ``Trainer`` on 1 x HYBRID_FWD_SEQ tokens (f32
+    masters, lr 1e-3, warmup 1, seed 0).
+
+    Launches per step, from the code: every block (RG-LRU or attention)
+    runs its two RMSNorms on K2, remat "full" runs each block's forward
+    again in the backward, and the final RMSNorm runs once: K2 4L+1; each
+    attention layer runs K6 in its forward and its recompute and K7 and K8
+    once in the backward: K6 2 L_attn = 4, K7 = K8 = L_attn = 2; the RG-LRU
+    has no division, the loss no posit kernel: no K3, K4, K5 or K9.
+
+    Four steps at remat "full" (falling finite losses, the exact launches),
+    one more traced; two steps at "dots" from the same seed, whose losses
+    and parameters must be the "full" run's bits (the same launches: K6 is
+    recomputed, as the reference's custom_vjp under ``checkpoint_dots``);
+    two steps with ``grad_compress_format="posit16"``: one K12 round launch
+    a gradient leaf a step, and step 1's rounded gradients the bits of the
+    twin chain (quantize, dequantize) on the same gradients."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels import posit_cast as cast
+    from repro_torch.optim.tree import tree_items, tree_leaves
+    from repro_torch.train import trainer as trainer_mod
+
+    label = "training hybrid"
+    gates = hybrid_backward_gates(torch, dev)
+    torch.cuda.empty_cache()
+    cfg = get_config("recurrentgemma_2b").replace(n_layers=HYBRID_TRAIN_LAYERS)
+    L = cfg.n_layers
+    La = sum(cfg.is_attn_layer(i) for i in range(L))
+    steps = 4
+    trainer, full = hybrid_training_run(torch, dev, cfg, steps, "full")
+    params = trainer.state["params"]
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_leaves = len(tree_leaves(params))
+    losses = full["losses"]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"{label}: losses {losses}")
+    check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+    want = {"K2": 4 * L + 1, "K6": 2 * La, "K7": La, "K8": La, "K3": 0, "K4": 0, "K5": 0,
+            "K9": 0, "K12r": 0}
+    for name, per_step in want.items():
+        check(full["launches"][name] == per_step * steps,
+              f"{label}: {name} launched {full['launches'][name]} times, the path implies "
+              f"{per_step * steps}")
+    secs = full["step_s"]
+    print(f"{label}: RecurrentGemma-2B at full width, {L} of 26 layers ({La} local attention, "
+          f"{L - La} RG-LRU; {n_params / 1e9:.3f} B parameters, {n_leaves} leaves; "
+          f"{cfg.numerics.div_format} {cfg.numerics.div_algo}, f32 masters, remat full), "
+          f"{steps} steps of 1x{HYBRID_FWD_SEQ} tokens in {full['wall']:.2f} s; losses "
+          f"{[round(x, 4) for x in losses]}; step wall times {[round(x, 3) for x in secs]} s "
+          f"(each step's parameters fingerprinted, inside the step times); "
+          f"{HYBRID_FWD_SEQ / min(secs):.1f} tokens/s at the fastest step; launches a step "
+          + ", ".join(f"{k} {v // steps}" for k, v in full["launches"].items())
+          + f" (K2 4L+1, K6 2L_attn, K7 and K8 L_attn); peak device memory "
+          f"{full['peak_bytes'] / 2**30:.2f} GiB")
+
+    # one more step under the profiler (not counted above)
+    batch = {n: torch.from_numpy(x).to(dev) for n, x in full["ds"].batch_at(steps).items()}
+
+    def step():
+        trainer.state, metrics = trainer.step_fn(trainer.state, batch)
+        float(metrics["loss"])
+
+    times, traced = profiled(torch, step, [*FLASH_FWD, "flash_bwd"])
+    by = by_class(times, (("K7 flash dq", "flash_bwd_dq_kernel"),
+                          ("K8 flash dk/dv", "flash_bwd_dkv_kernel"),
+                          ("K6 flash fwd", FLASH_FWD), ("K2 rowwise", "rowwise_kernel")))
+    busy = sum(by.values()) if times else None
+    if busy is None:
+        print(f"{label} step (traced): wall {traced:.1f} ms; torch.profiler showed no device "
+              f"records in {PROFILE_TRIES} tries: busy and idle share not measured")
+    else:
+        print("%s step (traced): wall %.1f ms, device busy %.1f ms, idle share %.3f; %s" % (
+            label, traced, busy, 1 - busy / traced,
+            ", ".join(f"{k} {v:.2f} ms" for k, v in by.items())))
+    del trainer, params, batch
+    # remat "dots" from the same seed: the "full" run's bits, step by step
+    trainer, dots = hybrid_training_run(torch, dev, cfg.replace(remat="dots"), 2, "dots")
+    del trainer
+    for k, got in dots["launches"].items():
+        check(got == want[k] * 2, f"{label} dots: {k} launched {got} times, want {want[k] * 2}")
+    same_training(f"{label} dots", dots, {"prints": full["prints"][:2]}, "the remat full run's")
+    print(f"{label} dots: 2 steps, losses {[round(x, 4) for x in dots['losses']]}, every "
+          f"step's loss and parameters the remat full run's bits; peak device memory "
+          f"{dots['peak_bytes'] / 2**30:.2f} GiB (remat full: "
+          f"{full['peak_bytes'] / 2**30:.2f} GiB); step wall times "
+          f"{[round(x, 3) for x in dots['step_s']]} s")
+    # posit16 gradient compression: K12's round kernel once a leaf, step 1's
+    # rounded gradients the twin chain's bits
+    seen = {}
+    compress = trainer_mod.compress_gradients
+
+    def checked(grads, fmt_name):
+        out = compress(grads, fmt_name)
+        if not seen:
+            off = 0
+            for (key, g), r in zip(tree_items(grads), tree_leaves(out)):
+                gf, rf = g.reshape(-1), r.reshape(-1)
+                for i in range(0, gf.numel(), 1 << 24):
+                    twin = cast.dequantize_plain(POSIT16, cast.quantize_plain(
+                        POSIT16, gf[i:i + (1 << 24)]))
+                    got = rf[i:i + (1 << 24)]
+                    nan = torch.isnan(twin)
+                    bad = int((torch.isnan(got) != nan).sum()
+                              + (bits(got[~nan]) != bits(twin[~nan])).sum())
+                    check(bad == 0, f"{label} posit16: {key}: {bad} rounded gradients differ "
+                                    "from the twin's")
+                off += gf.numel()
+            seen["elements"] = off
+        return out
+
+    trainer_mod.compress_gradients = checked
+    try:
+        trainer, comp = hybrid_training_run(
+            torch, dev, cfg.with_numerics(grad_compress_format="posit16"), 2, "posit16")
+    finally:
+        trainer_mod.compress_gradients = compress
+    del trainer
+    check(comp["launches"]["K12r"] == n_leaves * 2,
+          f"{label} posit16: K12 round launched {comp['launches']['K12r']} times, want one a "
+          f"gradient leaf a step ({n_leaves * 2})")
+    check(all(math.isfinite(x) for x in comp["losses"]), f"{label} posit16: {comp['losses']}")
+    print(f"{label} posit16 gradients: 2 steps, losses {[round(x, 4) for x in comp['losses']]} "
+          f"(uncompressed {[round(x, 4) for x in losses[:2]]}); K12 round {comp['launches']['K12r']}"
+          f" launches (one a leaf a step, {n_leaves} leaves); step 1's {seen['elements']} "
+          f"rounded gradients the twin's bits; peak device memory "
+          f"{comp['peak_bytes'] / 2**30:.2f} GiB; step wall times "
+          f"{[round(x, 3) for x in comp['step_s']]} s")
+    out = {"K2": full["launches"]["K2"] + dots["launches"]["K2"] + comp["launches"]["K2"],
+           "err": gates, "losses": losses, "step_s": secs, "peak_bytes": full["peak_bytes"],
+           "dots_peak_bytes": dots["peak_bytes"], "busy_ms": busy, "traced_ms": traced,
+           "K12r": comp["launches"]["K12r"], "n_leaves": n_leaves}
+    for k in ("K6", "K7", "K8"):
+        out[k] = full["launches"][k] + dots["launches"][k] + comp["launches"][k]
+    out["rowwise"] = out["K2"]
+    return out
+
+
 def hybrid_rows(torch, dev):
-    """K6 and K3 prefill at RecurrentGemma's attention shape (1 x 4096, 10/1
-    heads of 256, window 2048, posit16): device and call time, the plain
-    twin's, the bound and SDPA with the window as a boolean mask."""
+    """K6, K3 prefill, K7 and K8 at RecurrentGemma's attention shape (1 x
+    4096, 10/1 heads of 256, window 2048, posit16): device and call time,
+    the plain twin's, the bound and SDPA (forward; backward for K7 and K8
+    together) with the window as a boolean mask."""
     import torch.nn.functional as Fn
 
     from repro_torch.core.posit import POSIT16
@@ -3475,6 +3748,43 @@ def hybrid_rows(torch, dev):
                       "call_ms": cuda_time_ms(call, iters=5),
                       "plain_ms": cuda_time_ms(plain, iters=2, warmup=1),
                       "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+    # the backward from K6's residuals; SDPA's backward on the same mask
+    co = torch.randn(q.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(35))
+    o, m, l = F.posit_flash_attention_fwd(POSIT16, q, k, v, True, win)
+    args = (q, k, v, co, m, l, F._row_sums(co, o), True, win, 0, 1.0 / math.sqrt(hd))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qs, ks, vs))
+    out = Fn.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, enable_gqa=True)
+    gs = co.transpose(1, 2).contiguous()
+    lib_bwd = device_call_ms(torch, lambda: torch.autograd.grad(out, (qg, kg, vg), gs,
+                                                                retain_graph=True), iters=5)
+    plain_bwd = cuda_time_ms(lambda: F.flash_backward_plain(POSIT16, q, k, v, o, co, m, l, True,
+                                                            win), iters=2, warmup=1)
+    qo, kv = 4 * S * H * hd, k.element_size() * S * KV * hd
+    rowv = 4 * H * S
+    pairs = H * keys
+    for name, call, kern, nbytes, flops in (
+            ("K7 hd256 window", lambda: F.flash_backward_dq(POSIT16, plan, *args),
+             "flash_bwd_dq_kernel", 3 * qo + 2 * kv + 3 * rowv, 6 * hd),
+            ("K8 hd256 window", lambda: F.flash_backward_dkv(POSIT16, plan, *args),
+             "flash_bwd_dkv_kernel", 2 * qo + 2 * kv + 3 * rowv + 2 * 2 * kv, 8 * hd)):
+        dev_ms, src = device_kernel_ms(torch, call, [kern], iters=5)
+        bms, by = bound_ms(nbytes, div_ops(plan, pairs), pairs * flops)
+        rows[name] = {"shape": [1, S, S, H, KV, hd], "ms": dev_ms, "ms_from": src,
+                      "call_ms": cuda_time_ms(call, iters=5), "plain_ms": plain_bwd,
+                      "bound_ms": bms, "bound_by": by, "library_ms": lib_bwd}
+    # gradient compression: K12's round kernel on one f32 gradient leaf (an
+    # MLP matrix, 2560 x 7680), posit16
+    from repro_torch.kernels import ops
+
+    grad = torch.randn(2560, 7680, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(39)) * 1e-3
+    call = lambda: ops.posit_round_value(POSIT16, grad)
+    dev_ms, src = device_kernel_ms(torch, call, ["posit_round_kernel"], iters=20)
+    bms, by = bound_ms(8 * grad.numel(), ROUND_OPS * grad.numel())
+    rows["K12 round gradient leaf"] = {
+        "shape": list(grad.shape), "ms": dev_ms, "ms_from": src, "call_ms": cuda_time_ms(call),
+        "plain_ms": cuda_time_ms(lambda: ops.posit_round_plain(POSIT16, grad), iters=5),
+        "bound_ms": bms, "bound_by": by, "library_ms": None}
     print_rows(rows)
     return rows
 
@@ -4154,7 +4464,8 @@ WORD_NAMES = {"l": "int64", "j": "int32", "t": "uint16", "h": "uint8", "f": "f32
 
 def kernel_name(mangled: str) -> str:
     """A kernel's mangled name as its function, plan and (for the flash
-    forward) layout, as "flash_kernel posit64 srt_r4_cs_of paged"; K11's and
+    forward) layout, as "flash_kernel posit64 srt_r4_cs_of paged", with
+    " hd256" where a flash kernel's head-dim class is not 128; K11's and
     K12's with their element type and, past one, their elements a thread,
     as "dequantize_kernel posit16 int32 x4"."""
     fn = re.search(r"\d([a-z][a-z_]*_kernel)I", mangled)
@@ -4164,7 +4475,11 @@ def kernel_name(mangled: str) -> str:
     what = (plan_name(fields) if fields else
             f"posit{width.group(1)}" if width else "posit?")
     name = f"{fn.group(1) if fn else mangled} {what}"
-    if fn and fn.group(1).startswith("flash"):
+    if fn and fn.group(1).startswith("flash_bwd"):
+        cls = re.search(r"EELi(\d+)EEEv", mangled)   # <P, kHd>: the head-dim class
+        if cls and cls.group(1) != "128":
+            name += f" hd{cls.group(1)}"
+    elif fn and fn.group(1).startswith("flash"):
         layout = re.search(r"EELi(\d)E(?:Li(\d+)E)?EEv", mangled)
         if layout:
             name += f" {LAYOUT_NAMES[int(layout.group(1))]}"
@@ -4315,6 +4630,34 @@ def tile_digests(torch, dev, F, formats):
     return out
 
 
+def backward_digests(torch, dev, F, formats):
+    """The digests of K7's dq and K8's dk, dv at head_dim <= 128 (2 x 256,
+    15/5 heads of 64, causal; 1 x 96, 16/16 heads of 128 with a 48-key
+    window), from K6's residuals, in ``formats`` at the default plan, on
+    bf16 K/V and on f32 K/V bf16 cannot hold: a parent checkout's run prints
+    the same digests where its backward gives the same bits."""
+    from repro_torch.core.posit import PositFormat
+
+    cases = {"hd64": (training_inputs(torch, dev, 2, 256, 68), 0),
+             "hd128 window": (training_inputs(torch, dev, 1, 96, 69, *MOE_HEADS), 48)}
+    out = {}
+    for n in formats:
+        fmt = PositFormat(n)
+        plan = F.datapath_plan(fmt, DEFAULT_VARIANT)
+        for kv in ("bf16", "f32"):
+            for name, ((q, k, v, co), win) in cases.items():
+                if kv == "f32":
+                    k, v = f32_values(torch, k, 70), f32_values(torch, v, 71)
+                o, m, l = F.posit_flash_attention_fwd(fmt, q, k, v, True, win)
+                args = (q, k, v, co, m, l, F._row_sums(co, o), True, win, 0,
+                        1.0 / math.sqrt(q.shape[-1]))
+                tag = f"{name} posit{n} {kv} K/V"
+                out[f"K7 {tag}"] = digest(F.flash_backward_dq(fmt, plan, *args))
+                out[f"K8 {tag}"] = "/".join(digest(t) for t in
+                                            F.flash_backward_dkv(fmt, plan, *args))
+    return out
+
+
 def division_digests(torch, dev):
     """The digests of K11's, K12's and the posit-KV rounding's outputs on
     fixed inputs: K11 at every plan it is built for (posit8 and posit10 on
@@ -4383,8 +4726,11 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
     division rows' 64 x 1024 and 2^28, ``layers._kv_round`` at posit16 on a
     decode step's bf16 K and V (KV_DECODE) and on 2^27 + 2^27 (its device
     time the sum of every kernel it launches, its launches a call beside
-    it), all per call too; with K3 or K4, the digests of
-    ``decode_digests``, with K11 or K12 those of ``division_digests``.  Run it
+    it), all per call too; K7 and K8 at RecurrentGemma's 10/1 heads of 256
+    with the window where the package's backward takes them; with K3 or K4,
+    the digests of ``decode_digests``, with K3, K5 or K6 those of
+    ``tile_digests``, with K7 or K8 those of ``backward_digests``, with K11
+    or K12 those of ``division_digests``.  Run it
     from a parent checkout's ``src`` and from this one, in turns, on one
     card, after an edit to a kernel source or to the shared
     ``posit_srt.cuh``.  ``only`` (kernel names among ONLY_LIBRARIES'): build
@@ -4490,6 +4836,21 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
             f"K9 4096x64 posit{fmt.n}": (lambda f=fmt: ops.posit_softmax_fused(f, x),
                                          ["softmax_kernel"]),
         })
+    # K7 and K8 at RecurrentGemma's 10/1 heads of 256 (1 x 4096, window
+    # 2048), where the package's backward takes head_dim 256
+    if F.head_dim_max("backward") >= 256:
+        hq, hk, hv = flash_inputs(torch, dev, 1, HYBRID_FWD_SEQ, HYBRID_FWD_SEQ,
+                                  *HYBRID_HEADS, 33)
+        hco = torch.randn(hq.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(34))
+        ho, hm, hl = F.posit_flash_attention_fwd(POSIT16, hq, hk, hv, True, 2048)
+        hargs = (hq, hk, hv, hco, hm, hl, F._row_sums(hco, ho), True, 2048, 0,
+                 1.0 / math.sqrt(HYBRID_HEADS[2]))
+        calls.update({
+            "K7 hd256 window": (lambda: F.flash_backward_dq(POSIT16, plan, *hargs),
+                                ["flash_bwd_dq_kernel"]),
+            "K8 hd256 window": (lambda: F.flash_backward_dkv(POSIT16, plan, *hargs),
+                                ["flash_bwd_dkv_kernel"])})
     # K2 at posit16 (posit64 at decode and prefill), K10 at posit16, posit32
     # and posit64; each also timed per call (CUDA events: the wrapper's host
     # time where it exceeds the kernel's)
@@ -4549,6 +4910,10 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
         out.setdefault("digests", {}).update(tile_digests(torch, dev, F, fmts))
     if not only or {"K11", "K12"} & set(only):
         out.setdefault("digests", {}).update(division_digests(torch, dev))
+    if not only or {"K7", "K8"} & set(only):
+        fmts = [n for n in (8, 16, 32, 64) if f"posit_flash_bwd_p{n}" in names
+                or f"posit_flash_bwd_p{n}_r4" in names]
+        out.setdefault("digests", {}).update(backward_digests(torch, dev, F, fmts))
     if only:
         calls = {name: call for name, call in calls.items() if name.split()[0] in only}
     out["ms"] = {name: [] for name in calls}
@@ -4699,7 +5064,8 @@ def main() -> int:
         differ = sum(not np.array_equal(a, b) for a, b in zip(paged["outs"], pageds[n]["outs"]))
         print(f"{label}: the posit16 paged run's launch counts ({counts}); {differ} of "
               f"{len(paged['outs'])} requests' tokens differ from the posit16 paged run's")
-    kv = timed("posit-KV", phase_posit_kv, torch, dev, cfg, params, packs_held, path["outs"])
+    kv = timed("posit-KV", phase_posit_kv, torch, dev, *cut_model(cfg, params, POSIT_KV_LAYERS),
+               packs_held)
     # the live session: submit / serve_stream, snapshot and restore, faults,
     # deadlines, stream_async, and the serving launcher
     stream = timed("stream", phase_stream, torch, dev, cfg, params, path["outs"], card)
@@ -4784,13 +5150,16 @@ def main() -> int:
     # state), its ring wrapped at 3 of 26 layers, and its whole-sequence
     # forward through the tile loop at head_dim 256
     hcfg, hparams = timed("hybrid", hybrid_model, torch, dev)
-    hybrid = timed("hybrid", phase_hybrid, torch, dev, hcfg, hparams)
+    hybrid = timed("hybrid", phase_hybrid, torch, dev,
+                   *cut_model(hcfg, hparams, HYBRID_SERVE_LAYERS))
     hybrid_wrap = timed("hybrid wrap", phase_hybrid_wrap, torch, dev, hcfg, hparams)
     hybrid_fwd = timed("hybrid forward", phase_hybrid_forward, torch, dev, hcfg, hparams)
     timed("timing", decode_breakdown, torch, dev, hcfg, hparams)
     del hcfg, hparams
     gc.collect()
     torch.cuda.empty_cache()
+    # hybrid training at 6 of 26 layers: K6-K8 at head_dim 256 with the window
+    train_hybrid = timed("training hybrid", phase_train_hybrid, torch, dev)
     rows.update(timed("timing", hybrid_rows, torch, dev))
     print("posit8: one-step flips against the twins (K3-K6: outputs one posit8 step "
           f"off; K7/K8: gradients beyond {BWD_TOL}), gate share {POSIT8_FLIP_SHARE}: " +
@@ -4809,7 +5178,7 @@ def main() -> int:
     csrc = "src/repro_torch/kernels/csrc/"
     runs = (path, path64, paged, paged64, train, train64, moe, moe64, train32, moe32,
             *paths.values(), *pageds.values(), paged64nrd, train64r2, moe64r4, moe_paged,
-            train_moe, stream, stream_paged, hybrid, hybrid_wrap, hybrid_fwd)
+            train_moe, stream, stream_paged, hybrid, hybrid_wrap, hybrid_fwd, train_hybrid)
 
     def launches(name):
         """``name``'s launches over every main path's run."""
@@ -4841,18 +5210,28 @@ def main() -> int:
               "src/repro/kernels/posit_flash_attn.py:330", launches("K5"),
               max(packed_err, f32_err["K5"]), rows["K5 packed prefill"]),
         entry("K6 posit flash attention forward saving (m, l)", csrc + "posit_flash_attn.cu",
-              "src/repro/kernels/posit_flash_attn.py:330", launches("K6") - hybrid_fwd["K6"],
+              "src/repro/kernels/posit_flash_attn.py:330",
+              launches("K6") - hybrid_fwd["K6"] - train_hybrid["K6"],
               max(train_err["K6"], f32_err["K6"]), rows["K6"]),
         entry("K6 at head_dim 256 with a 2048-key window (the tile loop's kTileHdMax class: "
-              "RecurrentGemma-2B's whole-sequence forward)", csrc + "posit_flash_attn.cu",
-              "src/repro/kernels/posit_flash_attn.py:330", hybrid_fwd["K6"], hybrid_fwd["err"],
+              "RecurrentGemma-2B's whole-sequence forward and training)",
+              csrc + "posit_flash_attn.cu", "src/repro/kernels/posit_flash_attn.py:330",
+              hybrid_fwd["K6"] + train_hybrid["K6"], hybrid_fwd["err"],
               rows["K6 hd256 window"]),
         entry("K7 posit flash attention backward, dq", csrc + "posit_flash_bwd.cu",
-              "src/repro/kernels/posit_flash_attn.py:601", launches("K7"),
+              "src/repro/kernels/posit_flash_attn.py:601", launches("K7") - train_hybrid["K7"],
               max(train_err["K7"], f32_err["K7"]), rows["K7"]),
+        entry("K7 at head_dim 256 with a 2048-key window (the backward's kBwdHdMax class: "
+              "RecurrentGemma-2B's training)", csrc + "posit_flash_bwd.cu",
+              "src/repro/kernels/posit_flash_attn.py:601", train_hybrid["K7"],
+              train_hybrid["err"]["K7"], rows["K7 hd256 window"]),
         entry("K8 posit flash attention backward, dk and dv", csrc + "posit_flash_bwd.cu",
-              "src/repro/kernels/posit_flash_attn.py:626", launches("K8"),
+              "src/repro/kernels/posit_flash_attn.py:626", launches("K8") - train_hybrid["K8"],
               max(train_err["K8"], grid["K8"], f32_err["K8"]), rows["K8"]),
+        entry("K8 at head_dim 256 with a 2048-key window (the backward's kBwdHdMax class: "
+              "RecurrentGemma-2B's training)", csrc + "posit_flash_bwd.cu",
+              "src/repro/kernels/posit_flash_attn.py:626", train_hybrid["K8"],
+              train_hybrid["err"]["K8"], rows["K8 hd256 window"]),
         entry("K9 fused posit softmax (MoE router)", csrc + "posit_softmax.cu",
               "src/repro/kernels/posit_fused_div.py:210", launches("K9"), softmax_err,
               rows["K9 router"]),
@@ -4873,6 +5252,10 @@ def main() -> int:
               "path; the reference rounds with its jnp codec, no Pallas kernel)",
               csrc + "posit_cast.cu", "src/repro/kernels/posit_cast.py:43, :65", kv["K12r"],
               max(cast_err, kv["err"]), rows["K12 round kv decode"]),
+        entry("K12 round to the posit grid, one gradient leaf a launch (gradient compression, "
+              "grad_compress_format; the reference rounds with its jnp codec, no Pallas "
+              "kernel)", csrc + "posit_cast.cu", "src/repro/kernels/posit_cast.py:43, :65",
+              train_hybrid["K12r"], 0.0, rows["K12 round gradient leaf"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

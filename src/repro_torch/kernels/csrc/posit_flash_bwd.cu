@@ -94,8 +94,12 @@
 //     block's keys skips the tile's products and divides;
 //   * K/V are staged once, as f32 whatever type arrives (bf16 upcast
 //     exactly), so f32 K/V holding bf16 values give the bf16 call's bits;
-//   * head_dim up to kHdMax, zero-padded to a multiple of 8 (the MMA depth);
-//     the tiles' row stride hd8 + 4 makes the fragment loads conflict-free.
+//   * head_dim up to kBwdHdMax (256), zero-padded to a multiple of 8 (the
+//     MMA depth); the tiles' row stride hd8 + 4 makes the fragment loads
+//     conflict-free.  The head-dim class is a template parameter of both
+//     kernels (kHdMax up to 128, kBwdHdMax past it): it sizes the
+//     accumulators a thread holds, so the hd <= 128 instantiations keep
+//     their code and the 256 class runs one block an SM.
 // The MMA, load and staging code are plain device functions (the MMA and
 // staging helpers, shared with the forward's tile loop, in flash_stage.cuh);
 // only the divide depends on the plan, to keep the build of the nine plans
@@ -159,9 +163,11 @@ __device__ __forceinline__ void dq_score_tile(const float* sQ, const float* sG, 
 // ndn) of the head's columns.  Each k-step of 8 keys is taken in the order
 // (0, 2, 4, 6, 1, 3, 5, 7): lane (g, t) holds A = ds's (g, 2t), (g + 8, 2t),
 // (g, 2t + 1), (g + 8, 2t + 1) and B's key rows 2t and 2t + 1.
+template <int kHd>
 __device__ __forceinline__ void accumulate_dq(const float* sDS, const float* sK, int hdp,
                                               int nd0, int ndn, int lane,
-                                              float (&acc)[kNtPart][4]) {
+                                              float (&acc)[kNtPartOf<kHd>][4]) {
+  constexpr int kNtPart = kNtPartOf<kHd>;
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int kk = 0; kk < kQKeys; kk += 8) {
@@ -177,9 +183,12 @@ __device__ __forceinline__ void accumulate_dq(const float* sDS, const float* sK,
 
 // One block of four warps per (q tile of kQRows rows, b*H + h): see the
 // note at the top.  chunk: the staging copies' size in bytes (16 or 4), or 0
-// where K/V rows are read straight from the tensors.
-template <class P>
-__global__ void __launch_bounds__(kThreads, P::words == 1 ? 4 : 3)
+// where K/V rows are read straight from the tensors.  kHd, the head-dim
+// class (kHdMax or kBwdHdMax), sizes acc: 16 floats a thread at kHdMax, 32
+// at kBwdHdMax, one block an SM there (its shared memory is 135-168 KB), so
+// the kHdMax instantiations keep their code.
+template <class P, int kHd>
+__global__ void __launch_bounds__(kThreads, kHd > kHdMax ? 1 : P::words == 1 ? 4 : 3)
     flash_bwd_dq_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v, const float* __restrict__ kf,
                         const float* __restrict__ vf, const float* __restrict__ g,
@@ -187,6 +196,7 @@ __global__ void __launch_bounds__(kThreads, P::words == 1 ? 4 : 3)
                         const float* __restrict__ D, float* __restrict__ dq, int Sq, int Sk,
                         int H, int KVH, int hd, float scale, int causal, int window,
                         int q_offset, float eps, int chunk) {
+  constexpr int kNtPart = kNtPartOf<kHd>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int hdp = dkv_hdp(hd), hd8 = hdp - 4;
   float* sQ = reinterpret_cast<float*>(smem);
@@ -299,7 +309,7 @@ __global__ void __launch_bounds__(kThreads, P::words == 1 ? 4 : 3)
       }
     }
     __syncthreads();   // every warp's ds is in the tile
-    accumulate_dq(sDS, sK, hdp, nd0, ndn, lane, acc);
+    accumulate_dq<kHd>(sDS, sK, hdp, nd0, ndn, lane, acc);
   }
 
 #pragma unroll
@@ -457,11 +467,13 @@ __device__ __forceinline__ void stage_tile(float* scr, const float (&c)[kWarpRow
 // of 8, each taken in the order (0, 2, 4, 6, 1, 3, 5, 7): lane (g, t) then
 // holds A = p^T's (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1), the C
 // fragment's own layout, and B's rows 2t and 2t + 1.
+template <int kHd>
 __device__ __forceinline__ void accumulate_dkv(const float* sP, const float* sDS,
                                                const float* sQ, const float* sG, int hdp,
                                                int nd0, int ndn, int lane,
-                                               float (&dk)[kNtPart][4],
-                                               float (&dv)[kNtPart][4]) {
+                                               float (&dk)[kNtPartOf<kHd>][4],
+                                               float (&dv)[kNtPartOf<kHd>][4]) {
+  constexpr int kNtPart = kNtPartOf<kHd>;
   const int g = lane / 4, t = lane % 4;
 #pragma unroll 1
   for (int kq = 0; kq < kRows; kq += 8) {
@@ -490,8 +502,12 @@ __device__ __forceinline__ void accumulate_dkv(const float* sP, const float* sDS
 // of the head's columns of the tile's dk and dv rows over all its rows.  So
 // each dk / dv element is one warp's sum: no reduction across warps, no
 // atomics; and every block keeps all four of the SM's schedulers busy.
-template <class P>
-__global__ void __launch_bounds__(kThreads, 4)
+// kHd, the head-dim class, sizes acc_k and acc_v: 32 floats a thread
+// together at kHdMax (four blocks an SM, 128 registers a thread), 64 at
+// kBwdHdMax, where the shared memory (172 KB at head_dim 256) leaves one
+// block an SM anyway and the bound lets a thread take 255 registers.
+template <class P, int kHd>
+__global__ void __launch_bounds__(kThreads, kHd > kHdMax ? 1 : 4)
     flash_bwd_dkv_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, const float* __restrict__ kf,
                          const float* __restrict__ vf, const float* __restrict__ g,
@@ -500,6 +516,7 @@ __global__ void __launch_bounds__(kThreads, 4)
                          float* __restrict__ dv, int Sq, int Sk, int H, int KVH, int hd,
                          float scale, int causal, int window, int q_offset, float eps,
                          int vec) {
+  constexpr int kNtPart = kNtPartOf<kHd>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int hdp = dkv_hdp(hd);
   const DkvSmem sm = dkv_smem(reinterpret_cast<float*>(smem), hdp);
@@ -604,7 +621,7 @@ __global__ void __launch_bounds__(kThreads, 4)
       }
     }
     __syncthreads();   // every row's p and ds are in the scratch tiles
-    if (!idle) accumulate_dkv(sP, sDS, sQ, sG, hdp, nd0, ndn, lane, acc_k, acc_v);
+    if (!idle) accumulate_dkv<kHd>(sP, sDS, sQ, sG, hdp, nd0, ndn, lane, acc_k, acc_v);
   }
 
   const int gq = lane / 4, t = lane % 4;
@@ -651,7 +668,9 @@ KV kv_of(const void* k, const void* v, int kv_f32) {
 // (B, Sk, KVH, hd) f32; m, l, D:
 // (B*H, Sq) f32.  Each returns 0, a cudaError_t, -1 when no plan compiled
 // into this library (posit::kLibraryPlan) matches, -2 for a head_dim above
-// kHdMax, a bad head split, B*H past 2^31 - 1 or more than 65535 tiles.
+// kBwdHdMax, a bad head split, B*H past 2^31 - 1 or more than 65535 tiles.
+// A head_dim up to kHdMax launches the kHdMax class, one past it the
+// kBwdHdMax class.
 extern "C" int posit_flash_bwd_dq(int n, int radix, int red, int otf, int scaled, int nonrest,
                                   int it, int shift, int gbits, int kv_f32, const float* q,
                                   const void* k,
@@ -659,14 +678,15 @@ extern "C" int posit_flash_bwd_dq(int n, int radix, int red, int otf, int scaled
                                   const float* D, float* dq, int B, int Sq, int Sk, int H,
                                   int KVH, int hd, float scale, int causal, int window,
                                   int q_offset, float eps, void* stream) {
-  if (hd > kHdMax || hd <= 0 || KVH <= 0 || H % KVH) return -2;
+  if (hd > kBwdHdMax || hd <= 0 || KVH <= 0 || H % KVH) return -2;
   if (B <= 0 || Sq <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = -1;
   posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits, [&](auto plan) {
     using P = decltype(plan);
     if constexpr (posit::kLibraryPlan<P>) {
-      auto kern = flash_bwd_dq_kernel<P>;
+      auto kern = hd <= kHdMax ? flash_bwd_dq_kernel<P, kHdMax>
+                               : flash_bwd_dq_kernel<P, kBwdHdMax>;
       // K/V rows staged by cp.async where each row's bytes (and the bases)
       // take 16- or 4-byte copies, else read straight from the tensors
       const int elt = kv_f32 ? 4 : 2;
@@ -698,14 +718,15 @@ extern "C" int posit_flash_bwd_dkv(int n, int radix, int red, int otf, int scale
                                    const float* D, float* dk, float* dv, int B, int Sq, int Sk,
                                    int H, int KVH, int hd, float scale, int causal, int window,
                                    int q_offset, float eps, void* stream) {
-  if (hd > kHdMax || hd <= 0 || KVH <= 0 || H % KVH) return -2;
+  if (hd > kBwdHdMax || hd <= 0 || KVH <= 0 || H % KVH) return -2;
   if (B <= 0 || Sk <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = -1;
   posit::dispatch_plan(n, radix, red, otf, scaled, nonrest, it, shift, gbits, [&](auto plan) {
     using P = decltype(plan);
     if constexpr (posit::kLibraryPlan<P>) {
-      auto kern = flash_bwd_dkv_kernel<P>;
+      auto kern = hd <= kHdMax ? flash_bwd_dkv_kernel<P, kHdMax>
+                               : flash_bwd_dkv_kernel<P, kBwdHdMax>;
       const size_t bytes = sizeof(float) * dkv_smem_floats(hd);
       rc = prepare(kern, bytes);
       if (rc != 0) return;

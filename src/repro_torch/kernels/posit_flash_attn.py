@@ -61,11 +61,13 @@ from .ops import PLAN_ARGTYPES, plan_args
 from .posit_div import DEFAULT_KERNEL_VARIANT, datapath_plan, divide_floats_block
 
 BLOCK_K = 64        # keys per kv tile (csrc/posit_flash_attn.cu kBK)
-# the largest head_dim of the decode loop (K3 decode, K4), the packed layout
-# (K5) and the backward (K7, K8): csrc/flash_stage.cuh kHdMax; and of the
-# tile loop in the dense layout (K3 prefill, K6): kTileHdMax
+# the largest head_dim of the decode loop (K3 decode, K4) and the packed
+# layout (K5): csrc/flash_stage.cuh kHdMax; of the tile loop in the dense
+# layout (K3 prefill, K6): kTileHdMax; and of the backward (K7, K8):
+# kBwdHdMax
 HEAD_DIM_MAX = 128
 TILE_HEAD_DIM_MAX = 256
+BWD_HEAD_DIM_MAX = 256
 _NEG_INF = -1e30    # the reference's mask fill
 
 
@@ -326,8 +328,10 @@ _KV_DTYPES = (torch.bfloat16, torch.float32)
 def head_dim_max(layout: str, loop: int = ROW_LOOP) -> int:
     """The largest head_dim the kernels take for a call in ``layout``
     ("dense", "paged", "packed" or "backward") through ``loop``: the dense
-    tile loop (K3 prefill, K6) takes :data:`TILE_HEAD_DIM_MAX`, the others
-    :data:`HEAD_DIM_MAX`."""
+    tile loop (K3 prefill, K6) takes :data:`TILE_HEAD_DIM_MAX`, the backward
+    (K7, K8) :data:`BWD_HEAD_DIM_MAX`, the others :data:`HEAD_DIM_MAX`."""
+    if layout == "backward":
+        return BWD_HEAD_DIM_MAX
     return TILE_HEAD_DIM_MAX if layout == "dense" and loop == TILE_LOOP else HEAD_DIM_MAX
 
 
@@ -341,9 +345,9 @@ def _check_kernel_inputs(plan, q, k, v, hd: int, layout: str, loop: int = ROW_LO
             "layout; the twin runs on CPU tensors only (ROADMAP.md)")
     limit = head_dim_max(layout, loop)
     if hd > limit:
-        what = ("the decode loop (K3 decode, K4)" if loop == ROW_LOOP and layout != "backward"
-                else "the packed layout (K5)" if layout == "packed"
-                else "the backward (K7, K8)" if layout == "backward" else "the tile loop")
+        what = ("the backward (K7, K8)" if layout == "backward"
+                else "the decode loop (K3 decode, K4)" if loop == ROW_LOOP
+                else "the packed layout (K5)" if layout == "packed" else "the tile loop")
         raise ValueError(f"head_dim {hd} > {limit}: {what} takes head_dim up to {limit} "
                          "(ROADMAP.md section 2 item 1)")
     if q.device.type != "cuda":
@@ -651,8 +655,9 @@ def flash_backward(fmt: PositFormat, q, k, v, o, g, m, l, causal: bool = True,
     ``o``, its cotangent ``g`` and the row residuals ``m``, ``l`` (B*H, Sq).
 
     CUDA tensors launch K7 (dq) and K8 (dk, dv), on bf16 or f32 k/v (f16
-    upcast to f32), dk and dv cast to k/v's dtype as the reference returns
-    them; CPU tensors run the plain twin :func:`flash_backward_plain`.
+    upcast to f32) at head_dim up to :data:`BWD_HEAD_DIM_MAX`, dk and dv
+    cast to k/v's dtype as the reference returns them; CPU tensors run the
+    plain twin :func:`flash_backward_plain`.
     """
     plan = datapath_plan(fmt, variant)
     B, Sq, H, hd, Sk, KV = _check_shapes(q, k, v)

@@ -8,8 +8,8 @@ SRT kernels, and its backward is always the recompute flash backward (the
 reference's ``attn_bwd="fused"``).  The dense and moe families serve (dense
 KV slots or the paged pool) and train; the hybrid family (RG-LRU blocks and
 local attention, one attention layer in ``attn_period``) serves from dense
-slots and runs its whole-sequence ``forward``.  The other families (ssm,
-encdec, vlm), tensor parallelism and ``remat="dots"`` come with later slices
+slots, runs its whole-sequence ``forward`` and trains.  The other families
+(ssm, encdec, vlm) and tensor parallelism come with later slices
 (``ROADMAP.md``).
 """
 
@@ -56,7 +56,8 @@ class ModelConfig:
     serve_max_batch: int = 8     # persistent decode slots in the engine
     serve_max_seq: int = 512     # per-slot KV-cache rows (prompt + new)
     remat: str = "full"          # full (recompute each block in the
-    #                              backward) | none
+    #                              backward) | dots (save the matrix
+    #                              products' outputs, recompute the rest) | none
 
     def __post_init__(self):
         if self.head_dim is None and self.n_heads:
@@ -71,10 +72,9 @@ class ModelConfig:
         if self.family == "hybrid" and (self.attn_period < 1 or self.local_window < 1):
             raise ValueError(f"hybrid needs attn_period >= 1 and local_window >= 1; got "
                              f"{self.attn_period} and {self.local_window}")
-        if self.remat == "dots":
-            raise NotImplementedError("remat='dots' is not ported (ROADMAP.md)")
-        if self.remat not in ("full", "none"):
-            raise ValueError(f"unknown remat {self.remat!r}; expected 'full' or 'none'")
+        if self.remat not in ("full", "dots", "none"):
+            raise ValueError(f"unknown remat {self.remat!r}; expected 'full', 'dots' or "
+                             "'none'")
 
     @property
     def padded_vocab(self) -> int:

@@ -61,18 +61,25 @@ parked slots and is never handed out (``serve.engine.BlockAllocator``).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from . import layers as L
 from .config import ModelConfig
 from .rglru import init_rglru_block, init_rglru_state, rglru_block
 
 Params = Dict[str, Any]
+
+# remat="dots": the outputs of the matrix products a block saves for its
+# backward (what torch.matmul, torch.einsum and linear lower to); every
+# other op is recomputed, as ``jax.checkpoint_policies.checkpoint_dots``
+_PRODUCTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default]
 
 
 def resolve_device(device) -> torch.device:
@@ -201,9 +208,16 @@ def forward(params: Params, cfg: ModelConfig, batch):
     With ``cfg.remat == "full"`` each block runs under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are dropped
     after the forward and recomputed in the backward, the reference's
-    ``jax.checkpoint`` per block.  The recompute of a moe block routes
-    every token as its forward did: K9, the top-k's tie rule and the
-    fixed-order sums give the same bits on the same inputs.
+    ``jax.checkpoint`` per block.  ``"dots"`` checkpoints each block with a
+    selective policy that saves the outputs of its matrix products
+    (``aten.mm``, ``bmm``, ``addmm``, ``baddbmm``) and recomputes the rest:
+    the reference's ``checkpoint_dots``.  The flash forward (K6) is not a
+    product, so it runs again in the backward under both, as the
+    reference's custom_vjp does.  The recompute of a moe block routes every
+    token as its forward did: K9, the top-k's tie rule and the fixed-order
+    sums give the same bits on the same inputs.  So ``"none"``, ``"full"``
+    and ``"dots"`` give the same loss and gradients, bit for bit; they
+    differ only in what the backward keeps and what it runs again.
 
     The hybrid family's attention layers attend a ``cfg.local_window``-key
     window (K6 with ``window``), its other layers run the RG-LRU scan.
@@ -217,6 +231,10 @@ def forward(params: Params, cfg: ModelConfig, batch):
         block = _dense_block if cfg.is_attn_layer(i) else _rec_block
         if cfg.remat == "full":
             x = checkpoint(block, p, x, cfg, positions, window, use_reentrant=False)
+        elif cfg.remat == "dots":
+            x = checkpoint(block, p, x, cfg, positions, window, use_reentrant=False,
+                           context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                        _PRODUCTS))
         else:
             x = block(p, x, cfg, positions, window)
     return L.rmsnorm(x, params["ln_f"], cfg)

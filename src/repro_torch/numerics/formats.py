@@ -34,12 +34,16 @@ class NumericsConfig:
     run through the digit-recurrence divider on the fused kernels.
 
     div_format / div_algo: which posit format + Table IV variant to use.
+    grad_compress_format: posit format every gradient leaf is rounded to
+        before the optimizer update (``optim.grad_compress``; None = the
+        f32 gradients as they are).
     kv_cache_format: posit format the KV cache's rows are rounded to at
         insertion (None = the compute dtype's values, unrounded).
     """
 
     div_format: str = "posit16"
     div_algo: str = "srt_r4_cs_of_fr"
+    grad_compress_format: Optional[str] = None
     kv_cache_format: Optional[str] = None
 
     @property
@@ -58,9 +62,10 @@ class NumericsConfig:
         # reference's kernel_plan_error names no datapath (posit64
         # srt_r4_scaled); every planned pair, two-word ones included, passes
         datapath_plan(self.div_fmt, self.div_algo)
-        name = self.kv_cache_format
-        if name and resolve_format(name).n > 32:
-            raise ValueError(
-                f"kv_cache_format={name!r} is a storage/wire format and must fit "
-                "a uint32 word (n <= 32); posit64 is division-only")
+        for field, name in (("grad_compress_format", self.grad_compress_format),
+                            ("kv_cache_format", self.kv_cache_format)):
+            if name and resolve_format(name).n > 32:
+                raise ValueError(
+                    f"{field}={name!r} is a storage/wire format and must fit "
+                    "a uint32 word (n <= 32); posit64 is division-only")
         return self

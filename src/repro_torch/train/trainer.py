@@ -3,12 +3,14 @@
 Port of the reference package's ``train/trainer.py``.  The train step:
   * splits the global batch into ``microbatches`` and accumulates float32
     gradients over them (bounds activation memory at large model scale),
+  * rounds the gradients to a posit grid when
+    ``cfg.numerics.grad_compress_format`` is set (``optim.grad_compress``),
   * applies AdamW (+ cosine schedule, clipping) on f32 master params.
 
 The host loop adds checkpoint/restore (atomic, resumable), straggler
 watermarks, deterministic data (any step regenerates its batch) and metric
-logging.  The reference's posit gradient compression and its sharded
-production mesh are not ported (``ROADMAP.md``).
+logging.  The reference's sharded production mesh, and the compressed
+all-reduce over it, are not ported (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.grad_compress import compress_gradients
 from repro_torch.optim.schedule import cosine_schedule
 from repro_torch.optim.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -97,6 +100,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
             grads = tree_map(lambda g: g / tc.microbatches, g_acc)
             loss = loss / tc.microbatches
             metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        if cfg.numerics.grad_compress_format:
+            grads = compress_gradients(grads, cfg.numerics.grad_compress_format)
         new_params, new_opt, opt_metrics = adamw_update(opt_cfg, params, grads, state["opt"])
         metrics = {**metrics, **opt_metrics, "loss": loss}
         return {"params": new_params, "opt": new_opt}, metrics

@@ -40,27 +40,28 @@ def smoke_cfg():
     return get_config("smollm-360m", smoke=True)
 
 
-def _batch(cfg, masked: bool, seed: int = 0):
+def _batch(cfg, masked: bool, seed: int = 0, seq: int = SEQ):
     rng = np.random.default_rng(11 + seed)
-    batch = {"tokens": rng.integers(0, cfg.vocab, (BATCH, SEQ)).astype(np.int32)}
+    batch = {"tokens": rng.integers(0, cfg.vocab, (BATCH, seq)).astype(np.int32)}
     if masked:
-        mask = np.ones((BATCH, SEQ), np.int32)
-        mask[1, : SEQ // 2] = 0
+        mask = np.ones((BATCH, seq), np.int32)
+        mask[1, : seq // 2] = 0
         batch["loss_mask"] = mask
     return batch
 
 
-def _vs_reference(remat, masked, seed=0, div_format="posit16", **cut):
+def _vs_reference(remat, masked, seed=0, div_format="posit16", arch="smollm_360m",
+                  seq=SEQ, **cut):
     """The port's ``train_loss`` and gradients against the reference's on
-    the reference's weights (``PRNGKey(seed)``) and one batch, with the
-    smoke config at ``div_format`` (``cut`` replaces config fields): returns
-    ``(rel, errs, metrics, grads)``, with the loss's relative error and each
-    gradient leaf's relative L2 error by key."""
-    jcfg = jget("smollm_360m", smoke=True, fused=True).replace(remat=remat, **cut)
-    cfg = get_config("smollm_360m", smoke=True).replace(remat=remat, **cut)
+    the reference's weights (``PRNGKey(seed)``) and one batch of ``seq``
+    tokens, with ``arch``'s smoke config at ``div_format`` (``cut`` replaces
+    config fields): returns ``(rel, errs, metrics, grads)``, with the loss's
+    relative error and each gradient leaf's relative L2 error by key."""
+    jcfg = jget(arch, smoke=True, fused=True).replace(remat=remat, **cut)
+    cfg = get_config(arch, smoke=True).replace(remat=remat, **cut)
     jcfg = jcfg.with_numerics(div_format=div_format)
     cfg = cfg.with_numerics(div_format=div_format)
-    batch = _batch(cfg, masked, seed)
+    batch = _batch(cfg, masked, seed, seq)
     with reference_kernels():
         jp = JT.init_params(jcfg, jax.random.PRNGKey(seed))
         (jloss, _), jgrad = jax.value_and_grad(JT.train_loss, has_aux=True)(
@@ -76,6 +77,6 @@ def _vs_reference(remat, masked, seed=0, div_format="posit16", **cut):
     for (key, g), r in zip(tree_items(grads), tree_leaves(ref_grads)):
         errs[key] = float(torch.linalg.vector_norm(g - r) / torch.linalg.vector_norm(r))
     worst = max(errs, key=errs.get)
-    print(f"{div_format} remat={remat} seed={seed}: loss rel error {rel:.3g}; worst "
+    print(f"{arch} {div_format} remat={remat} seed={seed}: loss rel error {rel:.3g}; worst "
           f"gradient leaf {worst} rel L2 {errs[worst]:.3g}")
     return rel, errs, metrics, grads

@@ -938,10 +938,80 @@ def test_tile_loop_wide_head_dim_division_stage_bit_exact(dev, fmt):
             assert torch.equal(bits(o[0, :, h]), bits(want))
 
 
+# The backward past head_dim 128 (its kBwdHdMax class: K7 and K8),
+# (B, Sq, H, KV, hd, window, q_offset): head_dim 136 and 200 (16-byte staging
+# copies), 250 (4-byte copies) and 256 (RecurrentGemma's 10/1 heads), each
+# with a window, the 256 case with Sq past it and a q_offset
+WIDE_BWD_CASES = {
+    "hd136": (2, 70, 2, 1, 136, 24, 0),
+    "hd200": (1, 130, 4, 2, 200, 0, 0),
+    "hd250": (2, 45, 2, 2, 250, 16, 0),
+    "hd256": (1, 300, 10, 1, 256, 96, 0),
+    "hd256_q_offset": (1, 120, 10, 1, 256, 64, 40),
+}
+
+
+@pytest.mark.parametrize("kv", ["bf16", "f32"])
+@pytest.mark.parametrize("fmt", [POSIT8, POSIT16, POSIT32, POSIT64], ids=lambda f: f"posit{f.n}")
+@pytest.mark.parametrize("case", list(WIDE_BWD_CASES))
+def test_backward_wide_head_dim_matches_twin(dev, case, fmt, kv):
+    """K7 and K8 at head_dim 136-256 with a window, from K6's residuals:
+    within BWD_TOL of the twin (posit8: ``_close_grad``), the same bits on a
+    second run, and on bf16 K/V the bits of the same values in f32."""
+    B, Sq, H, KV, hd, window, q_offset = WIDE_BWD_CASES[case]
+    Sk = Sq + q_offset
+    g = torch.Generator().manual_seed(hd + Sq + fmt.n)
+    q = torch.randn(B, Sq, H, hd, generator=g).to(torch.bfloat16).float().to(dev)
+    k = torch.randn(B, Sk, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    v = torch.randn(B, Sk, KV, hd, generator=g).to(torch.bfloat16).to(dev)
+    co = torch.randn(B, Sq, H, hd, generator=g).to(dev)
+    if kv == "f32":
+        k, v = _f32_twin(k, g), _f32_twin(v, g)
+    o, m, l = F.posit_flash_attention_fwd(fmt, q, k, v, True, window, q_offset)
+    plan = F.datapath_plan(fmt, "srt_r4_cs_of_fr")
+    scale = 1 / math.sqrt(hd)
+    args = lambda k_, v_: (q, k_, v_, co, m, l, F._row_sums(co, o), True, window, q_offset,
+                           scale)
+    runs = [(F.flash_backward_dq(fmt, plan, *args(k, v)),
+             *F.flash_backward_dkv(fmt, plan, *args(k, v))) for _ in range(2)]
+    twin = F.flash_backward_plain(fmt, q, k.float(), v.float(), o, co, m, l, True, window,
+                                  q_offset, scale)
+    for got, again, want in zip(runs[0], runs[1], twin):
+        _close_grad(fmt, got, want)
+        assert torch.equal(bits(got), bits(again))
+    if kv == "bf16":
+        same = (F.flash_backward_dq(fmt, plan, *args(k.float(), v.float())),
+                *F.flash_backward_dkv(fmt, plan, *args(k.float(), v.float())))
+        for got, want in zip(runs[0], same):
+            assert torch.equal(bits(got), bits(want))
+
+
+def test_backward_wide_head_dim_through_autograd(dev):
+    """``posit_flash_attention_ste`` at RecurrentGemma's attention shape cut
+    to 1 x 2304 (10/1 heads of 256, window 2048): one K6, one K7 and one K8
+    launch, and its gradients are ``flash_backward``'s."""
+    g = torch.Generator().manual_seed(29)
+    S, win = 2304, 2048
+    q = torch.randn(1, S, 10, 256, generator=g).to(dev)
+    k, v = (torch.randn(1, S, 1, 256, generator=g).to(torch.bfloat16).to(dev) for _ in "kv")
+    co = torch.randn(1, S, 10, 256, generator=g).to(dev)
+    before = (F.posit_flash_attention_fwd.launches, F.flash_backward_dq.launches,
+              F.flash_backward_dkv.launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = F.posit_flash_attention_ste(16, "srt_r4_cs_of_fr", True, win, 0, 0.0, *leaves)
+    grads = torch.autograd.grad((out * co).sum(), leaves)
+    assert (F.posit_flash_attention_fwd.launches, F.flash_backward_dq.launches,
+            F.flash_backward_dkv.launches) == tuple(n + 1 for n in before)
+    o, m, l = F.posit_flash_attention_fwd(POSIT16, q, k, v, True, win)
+    want = F.flash_backward(POSIT16, q, k, v, o, co, m, l, True, win)
+    for got, w in zip(grads, want):
+        assert torch.equal(got, w)
+
+
 def test_decode_loop_packed_and_backward_refuse_wide_head_dim(dev):
-    """Past head_dim 128 the decode loop (K3 decode, K4), the packed layout
-    (K5) and the backward (K7, K8) raise ValueError naming ROADMAP before
-    any launch: no kernel runs and no twin stands in."""
+    """Past head_dim 128 the decode loop (K3 decode, K4) and the packed
+    layout (K5), and past 256 the backward (K7, K8), raise ValueError naming
+    ROADMAP before any launch: no kernel runs and no twin stands in."""
     fmt = POSIT16
     q = torch.randn(2, 1, 2, 256, device=dev)
     kv = torch.randn(2, 64, 1, 256, device=dev).to(torch.bfloat16)
@@ -960,9 +1030,10 @@ def test_decode_loop_packed_and_backward_refuse_wide_head_dim(dev):
     seg = torch.zeros(1, 16, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="packed.*ROADMAP"):
         posit_flash_attention(fmt, qs, ks, ks, True, seg_q=seg, seg_kv=seg, seg_len=16)
-    o, m, l = F.posit_flash_attention_fwd(fmt, qs, ks, ks, True)
+    qw, kw = torch.randn(1, 16, 2, 264, device=dev), kv[:1, :16, :, :8].repeat(1, 1, 1, 33)
+    ml = torch.ones(2, 16, device=dev)
     with pytest.raises(ValueError, match="backward.*ROADMAP"):
-        F.flash_backward(fmt, qs, ks, ks, o, torch.randn_like(o), m, l)
+        F.flash_backward(fmt, qw, kw, kw, qw, torch.randn_like(qw), ml, ml)
     assert before == (posit_flash_attention.launches, posit_flash_attention.paged_launches,
                       posit_flash_attention.packed_launches, F.flash_backward_dq.launches,
                       F.flash_backward_dkv.launches)
@@ -1612,3 +1683,86 @@ def test_stream_snapshot_restore_on_card_is_uninterrupted_run(dev):
                 toks.setdefault(ev.rid, []).append(ev.token)
         for i, w in enumerate(want):
             assert np.array_equal(np.asarray(toks[i], np.int32), w), (temperature, i)
+
+
+def _hybrid_smoke(dtype=torch.float32, **cut):
+    from repro_torch.configs import get_config
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.trainer import init_train_state
+
+    cfg = get_config("recurrentgemma_2b", smoke=True).replace(**cut)
+    return cfg, init_train_state(cfg, TrainConfig(seed=0), device="cpu")["params"]
+
+
+def test_remat_policies_give_the_same_bits_on_card(dev):
+    """The hybrid smoke config on the card (K6, K7, K8 at the smoke shape,
+    the RG-LRU scan): remat "none", "full" and "dots" give the same loss
+    and gradients, bit for bit, with K6 twice an attention layer under
+    "full" and "dots"."""
+    import numpy as np
+
+    from repro_torch.optim.tree import tree_items, tree_leaves, tree_map
+    from repro_torch.train.trainer import loss_and_grads
+
+    cfg, cpu = _hybrid_smoke()
+    params = tree_map(lambda t: t.to(dev), cpu)
+    toks = np.random.default_rng(12).integers(0, cfg.vocab, (2, 96)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    runs = {}
+    for remat in ("none", "full", "dots"):
+        before = F.posit_flash_attention_fwd.launches
+        runs[remat] = loss_and_grads(params, cfg.replace(remat=remat), batch)
+        assert F.posit_flash_attention_fwd.launches - before == (1 if remat == "none" else 2)
+    (loss0, _), g0 = runs["none"]
+    for remat in ("full", "dots"):
+        (loss, _), g = runs[remat]
+        assert torch.equal(bits(loss), bits(loss0)), remat
+        for (key, a), b in zip(tree_items(g), tree_leaves(g0)):
+            assert torch.equal(bits(a), bits(b)), (remat, key)
+
+
+def test_compress_gradients_on_card_is_twin(dev):
+    """``compress_gradients`` on the card: one launch of K12's round kernel
+    a leaf, the CPU twin chain's bits (NaN by value: the card's and the
+    CPU's NaN bits differ), at posit8, posit16 and posit32."""
+    from repro_torch.optim import compress_gradients
+    from repro_torch.optim.tree import tree_items, tree_leaves, tree_map
+
+    g = torch.Generator().manual_seed(40)
+    tree = {"a": _wide(g, 300, 7), "b": [{"c": torch.cat([SPECIALS, _wide(g, 5000)])},
+                                         {"d": torch.zeros(4)}]}
+    for fmt in ("posit8", "posit16", "posit32"):
+        before = ops.posit_round_value.launches
+        got = compress_gradients(tree_map(lambda t: t.to(dev), tree), fmt)
+        assert ops.posit_round_value.launches - before == 3
+        want = compress_gradients(tree, fmt)
+        for (key, a), b in zip(tree_items(got), tree_leaves(want)):
+            a = a.cpu()
+            nan = torch.isnan(b)
+            assert torch.equal(torch.isnan(a), nan), (fmt, key)
+            assert torch.equal(bits(a[~nan]), bits(b[~nan])), (fmt, key)
+
+
+def test_hybrid_train_step_on_card_matches_cpu(dev):
+    """The loss and gradients of a train step of the hybrid smoke config cut to one RG-LRU and
+    one attention layer (2 x 96 tokens, past the 64-key window; f32
+    masters) on the card against the same weights and batch on the CPU:
+    the loss within 1e-3 relative and every gradient leaf within 2e-2
+    relative L2."""
+    import numpy as np
+
+    from repro_torch.optim.tree import tree_items, tree_leaves, tree_map
+    from repro_torch.train.trainer import loss_and_grads
+
+    cfg, cpu = _hybrid_smoke(n_layers=2, attn_period=2)
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    toks = np.random.default_rng(13).integers(0, cfg.vocab, (2, 96)).astype(np.int32)
+    runs = {}
+    for d, params in ((dev, gpu), ("cpu", cpu)):
+        (loss, _), grads = loss_and_grads(params, cfg, {"tokens": torch.from_numpy(toks).to(d)})
+        runs[torch.device(d).type] = (float(loss), grads)
+    (c_loss, c_grads), (g_loss, g_grads) = runs["cpu"], runs["cuda"]
+    assert math.isfinite(g_loss) and abs(g_loss - c_loss) <= 1e-3 * abs(c_loss)
+    for (key, g), c in zip(tree_items(g_grads), tree_leaves(c_grads)):
+        err = float(torch.linalg.vector_norm(g.cpu() - c) / torch.linalg.vector_norm(c))
+        assert err <= 2e-2, (key, err)

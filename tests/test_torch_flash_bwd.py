@@ -17,6 +17,8 @@ Bounds:
     boundaries are 2^8 times sparser than posit16's, so an f32 ulp of ``e``
     moves no ``p`` here) and to _POSIT8_FLOAT_BWD_TOL against its float
     backward (posit8's own rounding of ``p``);
+  * the same bound at head_dim 256 with a window (posit16, posit64,
+    posit8), the shape hybrid training gives K7/K8;
   * rowwise straight-through gradients within 1e-6 relative (the same f32
     formula on the same division output).
 """
@@ -154,6 +156,33 @@ def _check_grads(fmt_n, ref, got, tol=None):
         print(f"posit{fmt_n} {name}: max|port - reference| {err:.3g}")
         assert np.isfinite(g).all(), name
         assert err <= tol, f"posit{fmt_n} {name}: {err}"
+
+
+# head_dim 256 (RecurrentGemma's: 10/1 heads in the model, 2/1 here) with a
+# window the rows pass (Sq 80, window 48), the case K7/K8's kBwdHdMax class
+# takes on the card: (fmt_n, variant)
+WIDE_BWD_CASES = [(16, "srt_r4_cs_of_fr"), (64, "srt_r4_cs_of_fr"), (8, "srt_r4_cs_of_fr")]
+
+
+@pytest.mark.parametrize("fmt_n,variant", WIDE_BWD_CASES, ids=["posit16", "posit64", "posit8"])
+def test_backward_head_dim_256_windowed_matches_reference(ref_kernels, fmt_n, variant):
+    """The K6 + K7/K8 twins at head_dim 256 with a 48-key window over 80
+    rows against the reference's fused backward, within _BWD_TOL."""
+    rng = np.random.default_rng(29)
+    seq, window, hd = 80, 48, 256
+    q = rng.normal(0, 1, (1, seq, 2, hd)).astype(np.float32)
+    k, v = (rng.normal(0, 1, (1, seq, 1, hd)).astype(np.float32) for _ in "kv")
+    co = rng.normal(0, 1, (1, seq, 2, hd)).astype(np.float32)
+
+    def loss(q, k, v):
+        out = jste(fmt_n, variant, True, window, 0, 0.0, q, k, v, "fused")
+        return (out * jnp.asarray(co)).sum()
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = posit_flash_attention_ste(fmt_n, variant, True, window, 0, 0.0, *leaves)
+    got = torch.autograd.grad((out * torch.from_numpy(co)).sum(), leaves)
+    _check_grads(fmt_n, [np.asarray(r) for r in ref], [g.numpy() for g in got])
 
 
 def test_fully_masked_rows_give_zero_gradients():

@@ -12,8 +12,9 @@ window included (a difference allowed only where the reference's top-2
 margin is within that bound), and the tile loop's twin at head_dim 256
 with a window against the reference's flash kernel (FLASH_TOL).  In the port, solo,
 packed, mid-flight, ``kv_layout="paged"`` and snapshot-restored runs give
-the same tokens, and the decode loop and the backward refuse head_dim
-above 128 before any launch.
+the same tokens, and the decode loop and the packed layout refuse head_dim
+above 128 before any launch (the backward takes up to 256; hybrid training:
+tests/test_torch_hybrid_train.py).
 """
 
 import jax
@@ -290,10 +291,13 @@ def test_tile_loop_twin_at_head_dim_256_matches_reference(ref_kernels):
     assert float(l.max()) <= 40.0
 
 
-def test_decode_loop_and_backward_refuse_head_dim_above_128(monkeypatch):
+def test_decode_loop_and_packed_refuse_head_dim_above_128_backward_takes_256(monkeypatch):
     """On a tensor the kernels would take (here on the meta device, which
-    reaches the kernel path on this host), head_dim 256 raises ValueError
-    naming ROADMAP before any library is loaded: no launch, no twin."""
+    reaches the kernel path on this host), head_dim 256 in the decode loop
+    and the packed layout raises ValueError naming ROADMAP before any
+    library is loaded: no launch, no twin.  The backward (K7, K8) takes
+    head_dim 256: its check passes it on to the device test (the meta
+    device has no kernel), and refuses 264 naming ROADMAP."""
     def no_load(name):
         raise AssertionError(f"library {name} loaded")
 
@@ -310,10 +314,13 @@ def test_decode_loop_and_backward_refuse_head_dim_above_128(monkeypatch):
                                 block_tables=torch.ones(2, 4, dtype=torch.int32))
     qs, ks = meta(1, 16, 2, 256), meta(1, 16, 1, 256)
     ml = meta(2, 16)
-    with pytest.raises(ValueError, match="backward.*ROADMAP"):
+    with pytest.raises(ValueError, match="no flash attention for device meta"):
         F.flash_backward(fmt, qs, ks, ks, qs, qs, ml, ml)
+    qw, kw = meta(1, 16, 2, 264), meta(1, 16, 1, 264)
+    with pytest.raises(ValueError, match="head_dim 264 > 256: the backward.*ROADMAP"):
+        F.flash_backward(fmt, qw, kw, kw, qw, qw, ml, ml)
     seg = torch.zeros(1, 16, dtype=torch.int32)
     with pytest.raises(ValueError, match="packed.*ROADMAP"):
         F.posit_flash_attention(fmt, qs, ks, ks, True, seg_q=seg, seg_kv=seg, seg_len=16)
-    assert F.head_dim_max("dense", F.TILE_LOOP) == 256
-    assert F.head_dim_max("dense", F.ROW_LOOP) == F.head_dim_max("backward") == 128
+    assert F.head_dim_max("dense", F.TILE_LOOP) == F.head_dim_max("backward") == 256
+    assert F.head_dim_max("dense", F.ROW_LOOP) == F.head_dim_max("packed") == 128

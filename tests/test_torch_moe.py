@@ -385,9 +385,10 @@ def test_scanned_suffix_prefill_is_full_prefill(model):
 
 def test_unported_moe_paths_raise(model):
     """What the moe family still refuses: the concatenated pack (its packs
-    lie on the batch axis), and what no family has: the ssm family and
-    ``remat="dots"``.  The paged layout and training serve the moe family
-    (tests/test_torch_moe_paged.py, tests/test_torch_moe_train.py)."""
+    lie on the batch axis), and what no family has: the ssm family.  The
+    paged layout and training serve the moe family
+    (tests/test_torch_moe_paged.py, tests/test_torch_moe_train.py), and
+    ``remat="dots"`` trains it (tests/test_torch_hybrid_train.py)."""
     cfg, _, _, tp, toks, _, _, _ = model
     t = torch.from_numpy(toks)
     zeros = torch.zeros_like(t)
@@ -396,8 +397,7 @@ def test_unported_moe_paths_raise(model):
                           zeros, torch.tensor([S - 1]), S)
     with pytest.raises(NotImplementedError, match="family"):
         tget("smollm_360m", smoke=True).replace(family="ssm")
-    with pytest.raises(NotImplementedError, match="dots"):
-        cfg.replace(remat="dots")
+    assert cfg.replace(remat="dots").remat == "dots"
     assert TT.init_paged_cache(cfg, 4, 16, device="cpu")["k"].shape[:3] == (cfg.n_layers, 4, 16)
 
 

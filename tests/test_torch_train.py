@@ -22,8 +22,10 @@ from repro_torch.optim.tree import tree_leaves
 
 @pytest.mark.parametrize("remat,masked,div_format,cut",
                          [("full", False, "posit16", {}), ("none", True, "posit16", {}),
-                          ("full", False, "posit64", {"n_layers": 1})],
-                         ids=["remat_full", "remat_none_loss_mask", "remat_full_posit64"])
+                          ("full", False, "posit64", {"n_layers": 1}),
+                          ("dots", False, "posit16", {})],
+                         ids=["remat_full", "remat_none_loss_mask", "remat_full_posit64",
+                              "remat_dots"])
 def test_train_loss_and_grads_match_reference(remat, masked, div_format, cut):
     """The smoke config (2 layers, d_model 96, 3/1 heads of 32, d_ff 192,
     vocab 512, batch 2 x 16); the posit64 case at one layer (about 40 s on

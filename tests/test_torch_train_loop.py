@@ -113,6 +113,25 @@ def test_launcher_trains_on_the_cpu(capsys):
     assert "final: step 2" in capsys.readouterr().out
 
 
+def test_launcher_trains_the_hybrid_family_with_compressed_gradients(capsys):
+    res = launch_train.main(["--arch", "recurrentgemma-2b", "--smoke", "--device", "cpu",
+                             "--steps", "2", "--global-batch", "2", "--seq-len", "32",
+                             "--grad-compress", "posit16", "--posit-division",
+                             "--attn-backend", "fused"])
+    assert res["final_step"] == 2
+    assert np.isfinite([h["loss"] for h in res["history"]]).all()
+    assert "final: step 1" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags,needle", [(["--attn-backend", "xla"], "item 6"),
+                                          (["--distributed"], "item 5"),
+                                          (["--grad-compress", "posit64"], "invalid choice")])
+def test_launcher_refuses_what_is_not_ported(flags, needle, capsys):
+    with pytest.raises(SystemExit) as e:
+        launch_train.main(["--arch", "smollm-360m", "--smoke", "--device", "cpu"] + flags)
+    assert e.value.code != 0 and needle in capsys.readouterr().err
+
+
 def test_training_entry_points_default_to_cuda(smoke_cfg):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -125,8 +144,7 @@ def test_training_entry_points_default_to_cuda(smoke_cfg):
 
 def test_config_training_fields(smoke_cfg):
     assert smoke_cfg.remat == "full"
-    with pytest.raises(NotImplementedError, match="dots"):
-        smoke_cfg.replace(remat="dots")
+    assert smoke_cfg.replace(remat="dots").remat == "dots"
     with pytest.raises(ValueError, match="remat"):
         smoke_cfg.replace(remat="some")
     # one attention backward (the reference's attn_bwd="fused"): no A/B field
