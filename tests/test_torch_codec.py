@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import bits
+from _torch_port import bits, one_torch_thread  # noqa: F401  (fixture)
 from repro.core import posit as JP
 from repro_torch.core import posit as TP
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RNG = np.random.default_rng(21)
 SPECIALS = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 1e-45, -1e-45,

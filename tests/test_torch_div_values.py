@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import bits, ref_kernels  # noqa: F401
+from _torch_port import bits, one_torch_thread, ref_kernels  # noqa: F401
 from repro.numerics import NumericsConfig as JNumerics
 from repro.numerics.posit_ops import posit_div_values as j_div_values
 from repro_torch.numerics import NumericsConfig, posit_div_values
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RNG = np.random.default_rng(16)
 GRAD_RTOL = 1e-6

@@ -11,11 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import bits, ref_kernels  # noqa: F401
+from _torch_port import bits, one_torch_thread, ref_kernels  # noqa: F401
 from repro.core.posit import PositFormat as JFmt
 from repro_torch.core.posit import POSIT8, POSIT16, POSIT32, POSIT64, PositFormat
 from repro_torch.kernels import ops
 from repro_torch.kernels.posit_div import KERNEL_VARIANTS, planned_pairs
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 JO = importlib.import_module("repro.kernels.ops")
 RNG = np.random.default_rng(15)

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import bits, posit_steps, ref_kernels  # noqa: F401  (fixture)
+from _torch_port import bits, one_torch_thread, posit_steps, ref_kernels  # noqa: F401  (fixture)
 from repro.core.posit import PositFormat as JFmt
 from repro.kernels.posit_flash_attn import posit_flash_attention as jflash
 from repro_torch.core.posit import PositFormat
@@ -30,6 +30,8 @@ from repro_torch.kernels.posit_flash_attn import (
     minpos_eps,
     posit_flash_attention,
 )
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 JD = importlib.import_module("repro.kernels.posit_div")
 FLASH_TOL = 2e-3

@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import ref_kernels  # noqa: F401  (fixture)
+from _torch_port import one_torch_thread, ref_kernels  # noqa: F401  (fixture)
 from repro.core.posit import PositFormat as JFmt
 from repro.kernels.posit_flash_attn import (
     posit_flash_attention_fwd as jfwd,
@@ -44,6 +44,8 @@ from repro_torch.kernels.posit_flash_attn import (
     posit_flash_attention_ste,
 )
 from repro_torch.numerics import NumericsConfig, posit_div_values
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FLASH_TOL = 2e-3
 LSE_TOL = 1e-5

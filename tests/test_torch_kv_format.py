@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import bf16_ulp, bits, reference_kernels
+from _torch_port import bf16_ulp, bits, one_torch_thread, reference_kernels  # noqa: F401  (fixture)
 from repro.configs import get_config as jget
 from repro.models import transformer as JT
 from repro.numerics import NumericsConfig as JNumerics
@@ -34,6 +34,8 @@ from repro_torch.models import transformer as TT
 from repro_torch.numerics import NumericsConfig
 from repro_torch.numerics.quant import posit_round_value
 from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOGIT_ULPS = 8      # as tests/test_torch_model.py
 MAX_SEQ = 64

@@ -14,11 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import bf16_ulp, reference_kernels
+from _torch_port import bf16_ulp, one_torch_thread, reference_kernels  # noqa: F401  (fixture)
 from repro.configs import get_config as jget
 from repro.models import transformer as JT
 from repro_torch.configs import get_config as tget
 from repro_torch.models import transformer as TT
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOGIT_ULPS = 8
 B, S, MAX_SEQ = 2, 12, 32

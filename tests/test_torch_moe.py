@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import bf16_ulp, bits, ref_kernels, reference_kernels  # noqa: F401
+from _torch_port import (  # noqa: F401  (fixtures)
+    bf16_ulp, bits, one_torch_thread, ref_kernels, reference_kernels)
 from repro.configs import get_config as jget
 from repro.core.posit import PositFormat as JFmt
 from repro.core.quire import fixed_order_rowsum as j_rowsum
@@ -36,6 +37,8 @@ from repro_torch.kernels import ops as TO
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 JO = importlib.import_module("repro.kernels.ops")
 LOGIT_ULPS = 8          # as tests/test_torch_model.py

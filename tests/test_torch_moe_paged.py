@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import bf16_ulp, bits, reference_kernels
+from _torch_port import bf16_ulp, bits, one_torch_thread, reference_kernels  # noqa: F401  (fixture)
 from repro.configs import get_config as jget
 from repro.models import layers as JL
 from repro.models import transformer as JT
@@ -36,6 +36,8 @@ from repro_torch.configs import get_config as tget
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOGIT_ULPS = 8          # as tests/test_torch_moe.py
 MAX_SEQ, BS = 64, 8

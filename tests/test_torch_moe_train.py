@@ -39,7 +39,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import bits, ref_kernels, reference_kernels  # noqa: F401
+from _torch_port import bits, one_torch_thread, ref_kernels, reference_kernels  # noqa: F401
 from repro.configs import get_config as jget
 from repro.models import layers as JL
 from repro.models import transformer as JT
@@ -53,6 +53,8 @@ from repro_torch.numerics import posit_ops as TP
 from repro_torch.optim.tree import tree_items, tree_leaves
 from repro_torch.train import TrainConfig, Trainer
 from repro_torch.train.trainer import loss_and_grads
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOSS_RTOL = 1e-3
 GRAD_REL_L2 = 2e-2

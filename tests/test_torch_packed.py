@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import bf16_ulp, bits, ref_kernels, reference_kernels  # noqa: F401
+from _torch_port import (  # noqa: F401  (fixtures)
+    bf16_ulp, bits, one_torch_thread, ref_kernels, reference_kernels)
 from repro.configs import get_config as jget
 from repro.core.posit import PositFormat as JFmt
 from repro.kernels.posit_flash_attn import posit_flash_attention as jflash
@@ -27,6 +28,8 @@ from repro_torch.kernels.posit_flash_attn import posit_flash_attention
 from repro_torch.models import transformer as TT
 from repro_torch.serve import FinishReason, Request, Scheduler, ServeConfig, ServeEngine
 from repro_torch.serve.engine import _pow2_ceil
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FLASH_TOL = 2e-3    # K3's twin against the reference (test_torch_flash_attn.py)
 LOGIT_ULPS = 8      # as tests/test_torch_model.py

@@ -26,11 +26,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import bits
+from _torch_port import bits, one_torch_thread  # noqa: F401  (fixture)
 from repro.core.posit import PositFormat as JFmt
 from repro_torch.core.posit import PositFormat
 from repro_torch.kernels import posit_div as TD
 from repro_torch.kernels.ops import plan_args
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 JD = importlib.import_module("repro.kernels.posit_div")
 RNG = np.random.default_rng(7)

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import bits
+from _torch_port import bits, one_torch_thread  # noqa: F401  (fixture)
 from repro.core import costmodel as JC
 from repro.core import goldens as JG
 from repro.core.posit import PositFormat as JFmt
@@ -20,6 +20,8 @@ from repro_torch.core import goldens as TG
 from repro_torch.core.posit import PositFormat
 from repro_torch.kernels.posit_div import KERNEL_VARIANTS
 from repro_torch.numerics import quant as TQ
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RNG = np.random.default_rng(17)
 SPECIALS = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -3e-39, 1e38, -1.0, 0.75],

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import bits, bf16_ulp, ref_kernels  # noqa: F401  (fixture)
+from _torch_port import bf16_ulp, bits, one_torch_thread, ref_kernels  # noqa: F401  (fixture)
 from repro.configs import get_config as jget
 from repro.core.posit import PositFormat as JFmt
 from repro.models import layers as JL
@@ -18,6 +18,8 @@ from repro_torch.core.posit import PositFormat
 from repro_torch.kernels import ops as TO
 from repro_torch.models import layers as TL
 from repro_torch.numerics import NumericsConfig, posit_div_values
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 JO = importlib.import_module("repro.kernels.ops")
 RNG = np.random.default_rng(13)

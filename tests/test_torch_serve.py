@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import LOGIT_ULPS, _assert_tokens_match, bf16_ulp, reference_kernels
+from _torch_port import (  # noqa: F401  (fixtures)
+    LOGIT_ULPS, _assert_tokens_match, bf16_ulp, one_torch_thread, reference_kernels)
 from repro.configs import get_config as jget
 from repro.models import transformer as JT
 from repro.serve import Request as JRequest
@@ -26,6 +27,8 @@ from repro.serve import ServeEngine as JServeEngine
 from repro_torch.configs import get_config as tget
 from repro_torch.models import transformer as TT
 from repro_torch.serve import FinishReason, Request, ServeConfig, ServeEngine
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RNG = np.random.default_rng(3)
 STREAM = [(RNG.integers(0, 512, n).astype(np.int32), m)

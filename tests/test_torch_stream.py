@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import _assert_tokens_match, reference_kernels
+from _torch_port import (  # noqa: F401  (fixtures)
+    _assert_tokens_match, one_torch_thread, reference_kernels)
 from repro.configs import get_config as jget
 from repro.models import transformer as JT
 from repro.serve import Request as JRequest
@@ -26,6 +27,8 @@ from repro_torch.configs import get_config as tget
 from repro_torch.models import transformer as TT
 from repro_torch.serve import (FinishEvent, FinishReason, Request, ServeConfig, ServeEngine,
                                TokenEvent, stream_async)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RNG = np.random.default_rng(7)
 STREAM = [(RNG.integers(0, 512, n).astype(np.int32), m)

@@ -16,8 +16,11 @@ division; the bounds: tests/_torch_train.py).
 import pytest
 import torch
 
+from _torch_port import one_torch_thread  # noqa: F401  (fixture)
 from _torch_train import BATCH, GRAD_REL_L2, LOSS_RTOL, SEQ, _vs_reference
 from repro_torch.optim.tree import tree_leaves
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("remat,masked,div_format,cut",

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port import one_torch_thread  # noqa: F401  (fixture)
 from _torch_train import F32_GRAD_REL_L2, F32_LOSS_RTOL, _vs_reference, smoke_cfg  # noqa: F401
 from repro.configs import get_config as jget
 from repro.data import DataConfig as JDataConfig
@@ -26,6 +27,8 @@ from repro_torch.models import layers as L
 from repro_torch.optim import adamw as A
 from repro_torch.optim import schedule as S
 from repro_torch.optim.tree import tree_leaves
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

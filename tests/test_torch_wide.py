@@ -21,13 +21,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import bits, ref_kernels  # noqa: F401
+from _torch_port import bits, one_torch_thread, ref_kernels  # noqa: F401
 from repro.core import wide as JW
 from repro.core.bitvec import BitVec, bv_from_ints, bv_to_ints
 from repro.core.posit import PositFormat as JFmt
 from repro_torch.core import goldens, wide
 from repro_torch.core.posit import POSIT64
 from repro_torch.kernels.posit_div import divide_floats_block
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RNG = np.random.default_rng(64)
 J64 = JFmt(64)
