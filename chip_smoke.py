@@ -3272,8 +3272,6 @@ def phase_hybrid(torch, dev, cfg, params):
     K2 at 8 x 2560 the bits of its twin."""
     import numpy as np
 
-    from repro_torch.core.posit import POSIT16
-    from repro_torch.kernels import ops
     from repro_torch.serve import FinishReason, Request, ServeConfig, ServeEngine, TokenEvent
 
     reqs = request_mix(cfg)
@@ -3336,14 +3334,7 @@ def phase_hybrid(torch, dev, cfg, params):
     print(f"hybrid: requests {probes[0]} (first wave) and {probes[1]} (submitted mid-flight) "
           "alone on a solo-admission engine the same tokens as packed")
     # K2 at the decode step's RMSNorm rows, the bits of its twin
-    g = torch.Generator(device="cpu").manual_seed(8)
-    a = torch.randn(8, cfg.d_model, generator=g).to(dev)
-    b = (torch.rand(8, 1, generator=g) + 0.5).to(dev)
-    got = ops.posit_div_fused_rowwise(POSIT16, a, b)
-    want = ops.posit_div_rowwise_plain(POSIT16, a, b)
-    torch.cuda.synchronize()
-    check(torch.equal(bits(got), bits(want)), "hybrid: K2 at 8 x 2560 differs from its twin")
-    print(f"hybrid: K2 at 8 x {cfg.d_model} bit-identical to its twin")
+    k2_same_bits(torch, dev, "hybrid", ((8, cfg.d_model),), 8)
     return {"rowwise": k2, "tokens_per_s": n_tok / wall, "forwards": forwards, "outs": outs}
 
 
@@ -3789,6 +3780,282 @@ def hybrid_rows(torch, dev):
     return rows
 
 
+SSM_REQUESTS = 8            # requests of the ssm mix: 4 submitted, 4 more mid-flight
+SSM_NEW = 16                # new tokens a request of the ssm mix
+SSM_LONG_SEQ = 524288       # the long_500k cell's max_seq
+SSM_FWD_SEQ = 4096          # tokens of the whole-sequence forward
+SSM_CHECK_SEQ = 256         # the forward against the scanned prefill: tokens,
+SSM_CHECK_LAYERS = 4        # layers of 64 (f32 compute, as the CPU test)
+SSM_DECODE_RTOL = 2e-3      # tests/test_torch_ssm.py's decode-against-forward bound
+SSM_K2_SHAPES = ((8, 2560), (8, 5120), (4096, 5120))   # K2's rows: d_model, d_inner
+
+
+def ssm_model(torch, dev):
+    """Mamba2-2.7B at full width and depth, random bf16 weights from seed
+    0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("mamba2-2.7b")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tensors_of(params))
+    print(f"ssm: Mamba2-2.7B ({cfg.n_layers} layers, d_model {cfg.d_model}, d_inner "
+          f"{cfg.d_inner}, {cfg.ssm_heads} heads of {cfg.ssm_headdim}, state {cfg.ssm_state}, "
+          f"{cfg.ssm_groups} group, chunk {cfg.ssm_chunk}, conv width {cfg.conv_width}, vocab "
+          f"{cfg.vocab} padded to {cfg.padded_vocab}): {n / 1e9:.3f} B random parameters in "
+          f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          "on the card")
+    return cfg, params
+
+
+def ssm_mix(cfg):
+    """SSM_REQUESTS greedy requests, prompts of 16-64 tokens, SSM_NEW new
+    tokens each (seed 9)."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(9)
+    return [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), max_new=SSM_NEW)
+            for n in rng.integers(16, 65, SSM_REQUESTS)]
+
+
+def k2_same_bits(torch, dev, label, shapes, seed):
+    """K2 (posit16) at each (R, C) of ``shapes`` the bits of its twin."""
+    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    for R, C in shapes:
+        a = torch.randn(R, C, generator=g).to(dev)
+        b = (torch.rand(R, 1, generator=g) + 0.5).to(dev)
+        got = ops.posit_div_fused_rowwise(POSIT16, a, b)
+        want = ops.posit_div_rowwise_plain(POSIT16, a, b)
+        torch.cuda.synchronize()
+        check(torch.equal(bits(got), bits(want)), f"{label}: K2 at {R} x {C} differs from its twin")
+    print(f"{label}: K2 at " + ", ".join(f"{R} x {C}" for R, C in shapes)
+          + " bit-identical to its twin")
+
+
+def ssm_products_difference(torch, dev, cfg, params):
+    """Which bf16 products of layer 0 give row 0 other bits when more rows
+    ride along (a pack's scan steps run them at M = N rows, a solo
+    admission at M = 1)."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x = torch.randn(8, 1, cfg.d_model, generator=g).to(dev, torch.bfloat16)
+    y = torch.randn(8, 1, cfg.d_inner, generator=g).to(dev, torch.bfloat16)
+    p = params["layers"][0]["ssm"]
+    prods = {"in_proj": lambda M: torch.matmul(x[:M], p["in_proj"]),
+             "out_proj": lambda M: torch.matmul(y[:M], p["out_proj"]),
+             "head": lambda M: torch.matmul(x[:M], params["head"])}
+    lost = [f"{n} (M=1 vs {M})" for n, f in prods.items() for M in (2, 4, 8)
+            if not torch.equal(f(M)[:1], f(1))]
+    print(f"ssm: products whose row 0 loses its bits when more rows ride along: "
+          f"{', '.join(lost) if lost else 'none'}")
+
+
+def phase_ssm(torch, dev, cfg, params):
+    """Full-width Mamba2-2.7B at all its layers served from 8 dense slots
+    with batch-axis packed admission (posit16): the ssm mix, its first 4
+    requests submitted and the other 4 from the consuming loop at request
+    0's tokens (mid-flight); every request finishes with SSM_NEW tokens of
+    the vocabulary; per forward step (a scan step of a prefill, a decode
+    step) exactly 2L + 1 K2 launches and no flash launch; the shortest
+    request of each wave alone on a solo-admission engine its packed tokens,
+    and the second of them on a ``kv_layout="paged"`` engine, which serves
+    the family from dense slots (the reference's
+    ``test_paged_recurrent_families_fall_back``); K2 at the decode step's
+    rows against its twin; a traced decode step of 8 slots."""
+    import numpy as np
+
+    from repro_torch.serve import FinishReason, Request, ServeConfig, ServeEngine, TokenEvent
+
+    reqs = ssm_mix(cfg)
+    lens = np.array([len(r.tokens) for r in reqs])
+    sc = ServeConfig.from_model(cfg, packed_prefill=True)
+    eng = ServeEngine(cfg, params, sc, device=dev)
+    eng.serve([Request(reqs[0].tokens[:8], max_new=2)])   # warm-up, not counted
+    torch.cuda.synchronize()
+    half = SSM_REQUESTS // 2
+    late = iter(reqs[half:])
+
+    def submit_late(ev):
+        if isinstance(ev, TokenEvent) and ev.rid == 0:
+            nxt = next(late, None)
+            if nxt is not None:
+                eng.submit(nxt)
+    zero_hybrid_launches()
+    t0 = time.perf_counter()
+    for r in reqs[:half]:
+        eng.submit(r)
+    events = drain(eng.serve_stream(), submit_late)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2, flash = hybrid_launches()
+    results = {ev.rid: ev.result for ev in events if type(ev).__name__ == "FinishEvent"}
+    check(sorted(results) == list(range(len(reqs))),
+          f"ssm: finished {sorted(results)}, submitted {len(reqs)}")
+    outs = [results[i].tokens for i in range(len(reqs))]
+    st = eng.last_serve_stats
+    L = cfg.n_layers
+    forwards = st["prefill_forwards"] + st["decode_steps"]
+    check(k2 == (2 * L + 1) * forwards,
+          f"ssm: K2 launched {k2} times, {forwards} forward steps imply {(2 * L + 1) * forwards}")
+    check(flash == 0, f"ssm: {flash} flash launches; the family has no attention")
+    check(st["faults"] == 0 and st["shed"] == 0 and st["packed_packs"] > 0,
+          f"ssm: faults, sheds or no pack: {st}")
+    for rid, r in results.items():
+        check(r.finish is FinishReason.MAX_NEW and len(r.tokens) == SSM_NEW,
+              f"ssm: request {rid} finished {r.finish} with {len(r.tokens)} tokens")
+        check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()),
+              f"ssm: request {rid}: token out of the vocabulary")
+    n_tok = sum(len(o) for o in outs)
+    print(f"ssm: {L} layers served {len(reqs)} requests ({cfg.numerics.div_format} "
+          f"{cfg.numerics.div_algo}; prompts {lens.min()}-{lens.max()} tokens, {SSM_NEW} new "
+          f"each; {half} submitted, {len(reqs) - half} more at request 0's tokens) on "
+          f"{sc.max_batch} slots, batch-axis packed admission: {n_tok} tokens in {wall:.2f} s = "
+          f"{n_tok / wall:.2f} tokens/s; {forwards} forward steps ({st['prefill_forwards']} "
+          f"scan steps in {st['packed_packs']} packs of {st['packed_segments']} requests with "
+          f"{st['packed_dummies']} dummy rows and {st['admissions'] - st['packed_segments']} "
+          f"solo admissions, {st['decode_steps']} decode steps); K2 {k2} launches (2L+1 = "
+          f"{2 * L + 1} a forward step), no flash launch")
+    probes = [min(range(0, half), key=lambda i: lens[i]),
+              min(range(half, len(reqs)), key=lambda i: lens[i])]
+    solo = ServeEngine(cfg, params, ServeConfig.from_model(cfg), device=dev)
+    alone = {}
+    for i in probes:
+        alone[i] = solo.serve([reqs[i]])[0]
+        if not np.array_equal(alone[i], outs[i]):
+            ssm_products_difference(torch, dev, cfg, params)
+            fail(f"ssm: request {i} alone gave {alone[i].tolist()}, packed {outs[i].tolist()}")
+    paged = ServeEngine(cfg, params, ServeConfig.from_model(cfg, kv_layout="paged",
+                                                             packed_prefill=True), device=dev)
+    got = paged.serve([reqs[probes[1]]])[0]
+    check(not paged._paged and paged.last_serve_stats["kv_layout"] == "dense"
+          and np.array_equal(got, outs[probes[1]]),
+          f"ssm: kv_layout='paged' gave {got.tolist()} for request {probes[1]} "
+          f"({paged.last_serve_stats['kv_layout']} layout), packed {outs[probes[1]].tolist()}")
+    print(f"ssm: requests {probes[0]} (first wave) and {probes[1]} (submitted mid-flight) alone "
+          f"on a solo-admission engine the same tokens as packed; request {probes[1]} under "
+          "kv_layout='paged' served from dense slots, the same tokens")
+    k2_same_bits(torch, dev, "ssm", SSM_K2_SHAPES[:2], 8)
+    step = decode_breakdown(torch, dev, cfg, params)
+    return {"rowwise": k2, "tokens_per_s": n_tok / wall, "forwards": forwards, "outs": outs,
+            "alone": alone[probes[1]], "probe": reqs[probes[1]], "step": step}
+
+
+def phase_ssm_long(torch, dev, cfg, params, probe, alone):
+    """The long_500k property: the 8-slot decode cache at max_seq
+    SSM_LONG_SEQ has exactly the bytes it has at 512 (the SSD's conv window
+    and state, no rows a position), and an engine at that max_seq serves
+    ``probe`` with the tokens it had alone at max_seq 512, 2L + 1 K2
+    launches a forward step."""
+    import numpy as np
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    nbytes = lambda c: sum(t.numel() * t.element_size() for t in T.cache_leaves(c))
+    sizes = {}
+    for seq in (512, SSM_LONG_SEQ):
+        c = T.init_cache(cfg, 8, seq, device=dev)
+        sizes[seq] = nbytes(c)
+        del c
+    check(sizes[512] == sizes[SSM_LONG_SEQ],
+          f"ssm long: the decode cache holds {sizes[SSM_LONG_SEQ]} bytes at max_seq "
+          f"{SSM_LONG_SEQ}, {sizes[512]} at 512")
+    eng = ServeEngine(cfg, params, ServeConfig.from_model(cfg, max_seq=SSM_LONG_SEQ), device=dev)
+    zero_hybrid_launches()
+    t0 = time.perf_counter()
+    got = eng.serve([probe])[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k2, flash = hybrid_launches()
+    st = eng.last_serve_stats
+    forwards = st["prefill_forwards"] + st["decode_steps"]
+    L = cfg.n_layers
+    check(k2 == (2 * L + 1) * forwards and flash == 0,
+          f"ssm long: K2 {k2} (want {(2 * L + 1) * forwards}), flash {flash} (want 0)")
+    check(np.array_equal(got, alone), f"ssm long: max_seq {SSM_LONG_SEQ} gave {got.tolist()}, "
+                                      f"max_seq 512 {alone.tolist()}")
+    print(f"ssm long: the 8-slot decode cache holds {sizes[512] / 2**30:.3f} GiB at max_seq 512 "
+          f"and at {SSM_LONG_SEQ}; one request ({len(probe.tokens)}-token prompt, {len(got)} "
+          f"new) served at max_seq {SSM_LONG_SEQ} in {wall:.2f} s ({forwards} forward steps, "
+          f"K2 {k2} launches), the tokens it had at 512")
+    return {"rowwise": k2}
+
+
+def phase_ssm_forward(torch, dev, cfg, params):
+    """The whole-sequence forward of full-width Mamba2-2.7B on 1 x
+    SSM_FWD_SEQ tokens through all its layers (the chunked SSD, chunks of
+    256): exactly 2L + 1 K2 launches, no flash launch, finite states of the
+    expected shape; at SSM_CHECK_SEQ tokens and SSM_CHECK_LAYERS layers
+    with f32 compute, the forward's last-position logits against the
+    scanned prefill's (the recurrence a token at a time) within
+    SSM_DECODE_RTOL; K2 at every SSM_K2_SHAPES the bits of its twin."""
+    import numpy as np
+
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import transformer as T
+
+    L = cfg.n_layers
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab, (1, SSM_FWD_SEQ)))
+    fcfg = cfg.replace(remat="none")
+    with torch.inference_mode():
+        T.forward(params, fcfg, {"tokens": toks[:, :256].to(dev)})   # warm-up, not counted
+        torch.cuda.synchronize()
+        zero_hybrid_launches()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        h = T.forward(params, fcfg, {"tokens": toks.to(dev)})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+    k2, flash = hybrid_launches()
+    check(k2 == 2 * L + 1 and flash == 0,
+          f"ssm forward: K2 launched {k2} times (want {2 * L + 1}), flash {flash} (want 0)")
+    ok = tuple(h.shape) == (1, SSM_FWD_SEQ, cfg.d_model) and bool(torch.isfinite(h).all())
+    check(ok, f"ssm forward: states {tuple(h.shape)}, finite {bool(torch.isfinite(h).all())}")
+    print(f"ssm forward: 1 x {SSM_FWD_SEQ} tokens through {L} layers in {wall * 1e3:.1f} ms "
+          f"({SSM_FWD_SEQ / wall:.0f} tokens/s), {peak / 2**30:.2f} GiB above the weights at its "
+          f"peak: K2 {k2} launches (2L+1), no flash launch, finite states")
+    del h
+    # the chunked SSD against the recurrence, f32 compute at a cut depth
+    ccfg, cparams = cut_model(fcfg, params, SSM_CHECK_LAYERS)
+    x = toks[:, :SSM_CHECK_SEQ].to(dev)
+    keep = Lyr.COMPUTE_DTYPE
+    Lyr.COMPUTE_DTYPE = torch.float32
+    try:
+        with torch.inference_mode():
+            full = Lyr.logits(cparams["head"], T.forward(cparams, ccfg, {"tokens": x})[:, -1:])
+            cache = T.init_cache(ccfg, 1, SSM_CHECK_SEQ, device=dev, dtype=torch.float32)
+            lg, _ = T.prefill(cparams, ccfg, x, cache)
+    finally:
+        Lyr.COMPUTE_DTYPE = keep
+    full, lg = full.float()[..., :cfg.vocab], lg.float()[..., :cfg.vocab]
+    err = float((lg - full).abs().max() / full.abs().max())
+    check(bool(torch.isfinite(lg).all()) and err < SSM_DECODE_RTOL,
+          f"ssm forward: the scanned prefill's last logits {err:.3g} of max|logit| from the "
+          f"forward's (bound {SSM_DECODE_RTOL})")
+    print(f"ssm forward: at 1 x {SSM_CHECK_SEQ} and {SSM_CHECK_LAYERS} layers, f32 compute, the "
+          f"scanned prefill's last logits within {err:.3g} of max|logit| of the chunked "
+          f"forward's (bound {SSM_DECODE_RTOL})")
+    k2_same_bits(torch, dev, "ssm forward", SSM_K2_SHAPES, 9)
+    return {"rowwise": k2, "err": err, "wall_ms": wall * 1e3}
+
+
+def ssm_rows(torch, dev):
+    """K2 at Mamba2-2.7B's rows (SSM_K2_SHAPES, posit16): device and call
+    time, the twin's, the bound and torch.div's."""
+    g = torch.Generator(device="cpu").manual_seed(36)
+    rows = {f"K2 {R}x{C}": k2_row(torch, dev, g, R, C) for R, C in SSM_K2_SHAPES}
+    print_rows(rows)
+    return rows
+
+
 # --------------------------------------------------------------- phase 5
 
 
@@ -3902,30 +4169,36 @@ def device_call_ms(torch, fn, iters=20):
     return device_call_launches(torch, fn, iters)[0]
 
 
+def k2_row(torch, dev, g, R, C, fmt=None):
+    """K2's timing row at R x C (posit16 unless ``fmt``), inputs drawn from
+    ``g``: device and call time, the twin's, the bound and torch.div's."""
+    from repro_torch.core.posit import POSIT16
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posit_div import datapath_plan
+
+    fmt = fmt or POSIT16
+    a = torch.randn(R, C, generator=g).to(dev)
+    b = (torch.rand(R, 1, generator=g) + 0.5).to(dev)
+    call = lambda: ops.posit_div_fused_rowwise(fmt, a, b)
+    dev_ms, src = device_kernel_ms(torch, call, ["rowwise_kernel"])
+    bms, by = bound_ms(8 * R * C + 4 * R, div_ops(datapath_plan(fmt, DEFAULT_VARIANT), R * C))
+    # the yardstick: the same row-broadcast division in f32, no posit
+    lib_ms, lib_src = device_kernel_ms(torch, lambda: torch.div(a, b), ["DivFunctor"])
+    return {"shape": [R, C], "ms": dev_ms, "ms_from": src,
+            "call_ms": cuda_time_ms(call),
+            "plain_ms": cuda_time_ms(lambda: ops.posit_div_rowwise_plain(fmt, a, b), iters=5),
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, "library_from": lib_src}
+
+
 def phase_timing(torch, dev):
     from repro_torch.core.posit import POSIT8, POSIT16, POSIT32, POSIT64
-    from repro_torch.kernels import ops
     from repro_torch.kernels.posit_div import datapath_plan
 
     plan = datapath_plan(POSIT16, "srt_r4_cs_of_fr")
     g = torch.Generator(device="cpu").manual_seed(5)
     rows = {}
 
-    def rowwise_row(R, C, fmt=POSIT16):
-        a = torch.randn(R, C, generator=g).to(dev)
-        b = (torch.rand(R, 1, generator=g) + 0.5).to(dev)
-        call = lambda: ops.posit_div_fused_rowwise(fmt, a, b)
-        dev_ms, src = device_kernel_ms(torch, call, ["rowwise_kernel"])
-        bms, by = bound_ms(8 * R * C + 4 * R, div_ops(datapath_plan(fmt, DEFAULT_VARIANT),
-                                                      R * C))
-        # the yardstick: the same row-broadcast division in f32, no posit
-        lib_ms, lib_src = device_kernel_ms(torch, lambda: torch.div(a, b), ["DivFunctor"])
-        return {"shape": [R, C], "ms": dev_ms, "ms_from": src,
-                "call_ms": cuda_time_ms(call),
-                "plain_ms": cuda_time_ms(lambda: ops.posit_div_rowwise_plain(fmt, a, b),
-                                         iters=5),
-                "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-                "library_from": lib_src}
+    rowwise_row = lambda R, C, fmt=POSIT16: k2_row(torch, dev, g, R, C, fmt)
 
     rows["K2 decode"] = rowwise_row(8, 960)
     rows["K2 prefill"] = rowwise_row(256, 960)
@@ -4383,7 +4656,9 @@ def decode_breakdown(torch, dev, cfg, params, paged: bool = False):
     """Profile decode steps of the full model at 8 slots (dense slots, or a
     paged pool in pages of 16 on identity tables): device time by kernel
     class, wall time, and the device's idle share.  A moe model's steps
-    read every expert (the dispatch buffer is dense over the experts)."""
+    read every expert (the dispatch buffer is dense over the experts); an
+    ssm model's read and write its whole state (the SSD's conv window and
+    h), which its bound counts beside the weights."""
     import numpy as np
 
     from repro_torch.models import transformer as T
@@ -4415,8 +4690,9 @@ def decode_breakdown(torch, dev, cfg, params, paged: bool = False):
                 step()
 
         times, wall = profiled(torch, steps, [*FLASH_FWD, "rowwise_kernel"])
-    classes = (("K2 rowwise", "rowwise_kernel"),
-               (("K4 flash, paged" if paged else "K3 flash"), FLASH_FWD))
+    classes = (("K2 rowwise", "rowwise_kernel"),)
+    if cfg.family != "ssm":
+        classes += ((("K4 flash, paged" if paged else "K3 flash"), FLASH_FWD),)
     if cfg.family == "moe":
         classes += (("K9 softmax", "softmax_kernel"),)
     if cfg.numerics.kv_cache_format:
@@ -4427,6 +4703,8 @@ def decode_breakdown(torch, dev, cfg, params, paged: bool = False):
     # every decode step reads all layer weights and the head once
     weight_bytes = sum(w.numel() * w.element_size() for w in tensors_of(params["layers"])) \
         + params["head"].numel() * 2
+    state_bytes = 2 * sum(t.numel() * t.element_size() for t in T.cache_leaves(cache)) \
+        if cfg.family == "ssm" else 0
     if busy is None:
         device = (f"torch.profiler showed no device records in {PROFILE_TRIES} tries: "
                   "busy and idle share not measured")
@@ -4434,12 +4712,13 @@ def decode_breakdown(torch, dev, cfg, params, paged: bool = False):
         device = "device busy %.3f ms, idle share %.3f; %s" % (
             busy, 1 - busy / wall_plain, ", ".join(f"{k} {v:.3f} ms" for k, v in by.items()))
     kv = cfg.numerics.kv_cache_format
+    state = f", state read and written {state_bytes / 1e6:.1f} MB" if state_bytes else ""
     print("decode step (%s, %s, 8 slots, full width, %s%s): wall %.3f ms (%.3f ms traced), "
-          "%s; weights read %.1f MB, bound %.4f ms" % (
+          "%s; weights read %.1f MB%s, bound %.4f ms" % (
               cfg.name, cfg.numerics.div_format, "paged" if paged else "dense",
               f", {kv} KV cache" if kv else "",
               wall_plain, wall / n, device,
-              weight_bytes / 1e6, weight_bytes / HBM_BYTES_PER_S * 1e3))
+              weight_bytes / 1e6, state, (weight_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3))
     return {"wall_ms": wall_plain, "busy_ms": busy, **by}
 
 
@@ -4568,7 +4847,8 @@ ONLY_LIBRARIES["K8"] = ONLY_LIBRARIES["K7"]
 # --time-kernels' K2 and K10 shapes: decode, prefill and the training
 # step's RMSNorm rows, 1024 x 1024; the reference benchmark's 64 x 1024 and
 # 2^24 and 2^28 elements
-K2_SHAPES = ((8, 960), (256, 960), (2048, 960), (1024, 1024), (8, 2048))
+K2_SHAPES = ((8, 960), (256, 960), (2048, 960), (1024, 1024), (8, 2048), (8, 2560), (8, 5120),
+             (4096, 5120))
 K10_SIZES = ((64 * 1024, "64x1024"), (1 << 24, "2^24"), (1 << 28, "2^28"))
 
 
@@ -4855,6 +5135,7 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
     # and posit64; each also timed per call (CUDA events: the wrapper's host
     # time where it exceeds the kernel's)
     per_call = []
+    k2_inputs = {}
     for fmt in (POSIT16, POSIT64):
         for R, C in K2_SHAPES:
             a2 = torch.randn(R, C, device=dev)
@@ -4864,6 +5145,7 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
                 lambda f=fmt, a2=a2, b2=b2: ops.posit_div_fused_rowwise(f, a2, b2),
                 ["rowwise_kernel"])
             per_call.append(f"K2 {R}x{C}{tag}")
+            k2_inputs[f"K2 {R}x{C}{tag}"] = (fmt, a2, b2)
     for size, label in K10_SIZES:
         a1 = torch.rand(size, device=dev) * 9.9 + 0.1
         b1 = torch.rand(size, device=dev) * 9.9 + 0.1
@@ -4933,6 +5215,15 @@ def time_kernels(torch, dev, src: str, repeats: int = 3, only=None) -> None:
             out["from"].append(how)
             if name in out["call_ms"]:   # many calls: the host's time is noisy
                 out["call_ms"][name].append(cuda_time_ms(fn, iters=iters if iters < 20 else 200))
+    # K2's bound and the same row-broadcast division by torch.div (f32, no posit)
+    out["k2_bound_ms"], out["k2_torch_div_ms"] = {}, {}
+    for name, (fmt, a2, b2) in k2_inputs.items():
+        if name in calls:
+            R, C = a2.shape
+            out["k2_bound_ms"][name] = bound_ms(8 * R * C + 4 * R, div_ops(
+                F.datapath_plan(fmt, DEFAULT_VARIANT), R * C))[0]
+            out["k2_torch_div_ms"][name] = device_kernel_ms(
+                torch, lambda a2=a2, b2=b2: torch.div(a2, b2), ["DivFunctor"])[0]
     print(json.dumps({"kernel_timing": out}))
 
 
@@ -5161,6 +5452,18 @@ def main() -> int:
     # hybrid training at 6 of 26 layers: K6-K8 at head_dim 256 with the window
     train_hybrid = timed("training hybrid", phase_train_hybrid, torch, dev)
     rows.update(timed("timing", hybrid_rows, torch, dev))
+    # the ssm family: Mamba2-2.7B served at full width and depth (per-slot
+    # conv and SSM state), its decode state at long_500k's max_seq, and its
+    # whole-sequence forward through the chunked SSD
+    scfg, sparams = timed("ssm", ssm_model, torch, dev)
+    ssm = timed("ssm", phase_ssm, torch, dev, scfg, sparams)
+    ssm_long = timed("ssm long", phase_ssm_long, torch, dev, scfg, sparams, ssm["probe"],
+                     ssm["alone"])
+    ssm_fwd = timed("ssm forward", phase_ssm_forward, torch, dev, scfg, sparams)
+    del scfg, sparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.update(timed("timing", ssm_rows, torch, dev))
     print("posit8: one-step flips against the twins (K3-K6: outputs one posit8 step "
           f"off; K7/K8: gradients beyond {BWD_TOL}), gate share {POSIT8_FLIP_SHARE}: " +
           ", ".join(f"{k} {f} of {e} ({f / max(e, 1):.2e})"
@@ -5178,7 +5481,9 @@ def main() -> int:
     csrc = "src/repro_torch/kernels/csrc/"
     runs = (path, path64, paged, paged64, train, train64, moe, moe64, train32, moe32,
             *paths.values(), *pageds.values(), paged64nrd, train64r2, moe64r4, moe_paged,
-            train_moe, stream, stream_paged, hybrid, hybrid_wrap, hybrid_fwd, train_hybrid)
+            train_moe, stream, stream_paged, hybrid, hybrid_wrap, hybrid_fwd, train_hybrid,
+            ssm, ssm_long, ssm_fwd)
+    ssm_k2 = sum(r["rowwise"] for r in (ssm, ssm_long, ssm_fwd))
 
     def launches(name):
         """``name``'s launches over every main path's run."""
@@ -5192,8 +5497,12 @@ def main() -> int:
               + two["K11"],
               div_err, rows["K1"]),
         entry("K2 rowwise fused posit divide", csrc + "posit_fused_div.cu",
-              "src/repro/kernels/posit_fused_div.py:149", launches("rowwise"), div_err,
+              "src/repro/kernels/posit_fused_div.py:149", launches("rowwise") - ssm_k2, div_err,
               rows["K2 decode"]),
+        entry("K2 at Mamba2-2.7B's rows (the block and final RMSNorms at 2560 columns, the "
+              "gated norm at 5120; this line's times at a decode step's 8 x 5120)",
+              csrc + "posit_fused_div.cu", "src/repro/kernels/posit_fused_div.py:149", ssm_k2,
+              div_err, rows["K2 8x5120"]),
         entry("K3 posit flash attention, dense decode (the decode loop, flash_decode_kernel: "
               "a row's kv tiles over the block's warps)",
               csrc + "posit_flash_attn.cu", "src/repro/kernels/posit_flash_attn.py:330",

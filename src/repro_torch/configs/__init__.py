@@ -2,9 +2,9 @@
 
 from importlib import import_module
 
-ARCH_IDS = ("smollm_360m", "olmoe_1b_7b", "recurrentgemma_2b")
+ARCH_IDS = ("smollm_360m", "olmoe_1b_7b", "recurrentgemma_2b", "mamba2_2p7b")
 ALIASES = {"smollm-360m": "smollm_360m", "olmoe-1b-7b": "olmoe_1b_7b",
-           "recurrentgemma-2b": "recurrentgemma_2b"}
+           "recurrentgemma-2b": "recurrentgemma_2b", "mamba2-2.7b": "mamba2_2p7b"}
 
 
 def get_config(name: str, smoke: bool = False, fused: bool = True,

@@ -7,6 +7,11 @@ engine (or the static batch path with ``--static``) on one device.
         [--stream | --emit-async] [--deadline-ms MS] [--max-queue N] \\
         [--max-queue-wait-ms MS] [--strict] [--posit-kv posit16] [--device cuda]
 
+``--arch`` takes smollm-360m, olmoe-1b-7b, recurrentgemma-2b or
+mamba2-2.7b (the ssm family: Mamba2, served from dense slots of constant-size
+state; ``--kv-layout paged`` serves it from dense slots too, as the
+reference's engine does).
+
 ``--stream`` consumes the engine's live event stream (tokens print as they
 come), ``--emit-async`` drains it on a worker thread behind a bounded
 queue.  ``--deadline-ms``, ``--max-queue`` and ``--max-queue-wait-ms`` set
@@ -44,7 +49,8 @@ def _pct(xs, q):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="smollm-360m, olmoe-1b-7b, recurrentgemma-2b or mamba2-2.7b")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--requests", type=int, default=0,
                     help="requests in the stream (default 2x batch)")

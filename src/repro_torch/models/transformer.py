@@ -1,8 +1,8 @@
-"""Decoder LMs, dense, MoE and hybrid: parameters, training loss, KV cache,
-prefill, decode.
+"""Decoder LMs, dense, MoE, hybrid and SSM: parameters, training loss, KV
+cache, prefill, decode.
 
-Port of the dense-, moe- and hybrid-family entry points of the reference
-package's ``models/transformer.py``.  The dense and moe families serve
+Port of the dense-, moe-, hybrid- and ssm-family entry points of the
+reference package's ``models/transformer.py``.  The dense and moe families serve
 (dense slots or a paged pool, solo or packed prefill) and train.  The moe
 and hybrid families' prefill is a scan of decode steps, so they pack on the
 batch axis (``prefill`` on N left-padded rows into dense slots,
@@ -12,7 +12,11 @@ RG-LRU blocks, and local attention every ``attn_period``-th layer) keeps
 O(window) state a slot, so it has no paged layout; its ``forward`` attends
 through K6 with ``window=cfg.local_window``, and its decode attends a ring
 buffer of ``min(local_window, seq_len)`` rows with a float softmax (no posit
-divide), as the reference's:
+divide), as the reference's.  The ssm family (Mamba2: SSD blocks, no
+attention) keeps a constant-size state a slot, ``(conv, h)`` a layer, so it
+has no paged layout either; its ``forward`` runs the chunked SSD, its
+prefill the scan of decode steps, and it does not train yet (``train_loss``
+raises):
 
   init_params(cfg, generator, device, dtype)  -> params (random, from a seed)
   params_from_numpy(tree, cfg, device, dtype) -> params from the reference's
@@ -20,7 +24,8 @@ divide), as the reference's:
   forward(params, cfg, batch)              -> final-norm hidden states
   train_loss(params, cfg, batch)           -> (loss, metrics)
   init_cache(cfg, batch, seq_len, device)  -> {"k", "v"}: (L, B, S, KV, hd);
-                                              hybrid: {"layers_list": [...]}
+                                              hybrid: {"layers_list": [...]};
+                                              ssm: {"layers": {"conv", "h"}}
   init_paged_cache(cfg, num_blocks, block_size, device)
                                            -> {"k", "v"}: (L, NB, bs, KV, hd)
   prefill(params, cfg, tokens, cache, start, t0) -> (logits, cache)
@@ -47,7 +52,10 @@ of matrices (``wq`` (D, H*hd), ``wk``/``wv`` (D, KV*hd), ``wo`` (H*hd, D),
 layer holds ``router`` (D, E), ``w1``/``w3`` (E, D, d_ff) and ``w2`` (E,
 d_ff, D) in place of the MLP's matrices, and a hybrid recurrent layer
 holds ``rec`` (:mod:`.rglru`'s ``in_x``, ``in_gate``, ``conv_w``,
-``conv_b``, ``wa``, ``wx``, ``lam``, ``out``) in place of the attention's.
+``conv_b``, ``wa``, ``wx``, ``lam``, ``out``) in place of the attention's;
+an ssm layer holds only ``ln1`` and ``ssm`` (:mod:`.mamba2`'s ``in_proj``,
+``conv_w``, ``conv_b``, ``A_log``, ``dt_bias``, ``D``, ``norm_w``,
+``out_proj``).
 The matrices are bf16 for serving (the default ``dtype``) and f32 masters for
 training; layers cast them to the compute dtype at use.  The cache is
 updated in place and also returned.
@@ -71,9 +79,13 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 
 from . import layers as L
 from .config import ModelConfig
+from .mamba2 import init_mamba2_block, init_mamba2_state, mamba2_block
 from .rglru import init_rglru_block, init_rglru_state, rglru_block
 
 Params = Dict[str, Any]
+
+# the f32 leaves of a recurrent block (the rest are matrices)
+_F32_LEAVES = ("conv_b", "lam", "A_log", "dt_bias", "D", "norm_w")
 
 # remat="dots": the outputs of the matrix products a block saves for its
 # backward (what torch.matmul, torch.einsum and linear lower to); every
@@ -111,10 +123,13 @@ def _layer_from(blk, i, device, dtype):
     pick = (lambda w: w) if i is None else (lambda w: w[i])
     mat = lambda w: _tensor(pick(w), device, dtype)
     f32 = lambda w: _tensor(pick(w), device, torch.float32)
+    rec = lambda tree: {name: (f32 if name in _F32_LEAVES else mat)(w)
+                        for name, w in tree.items()}
+    if "ssm" in blk:
+        return {"ln1": f32(blk["ln1"]), "ssm": rec(blk["ssm"])}
     lay = {"ln1": f32(blk["ln1"]), "ln2": f32(blk["ln2"])}
     if "rec" in blk:
-        lay["rec"] = {name: (f32 if name in ("conv_b", "lam") else mat)(w)
-                      for name, w in blk["rec"].items()}
+        lay["rec"] = rec(blk["rec"])
     else:
         attn = blk["attn"]
         D = attn["wq"].shape[-3]
@@ -147,6 +162,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     E = cfg.n_experts
     layers = []
     for i in range(cfg.n_layers):
+        if cfg.family == "ssm":
+            layers.append({"ln1": zeros(),
+                           "ssm": init_mamba2_block(cfg, generator, device, dtype)})
+            continue
         lay = {"ln1": zeros(), "ln2": zeros()}
         if cfg.is_attn_layer(i):
             lay.update(wq=mat(rnd((D, H * hd))), wk=mat(rnd((D, KV * hd))),
@@ -202,6 +221,12 @@ def _rec_block(p, x, cfg: ModelConfig, positions, window: int = 0):
     return x + _ffn(p, h, cfg)
 
 
+def _ssm_block(p, x, cfg: ModelConfig, positions, window: int = 0):
+    """The ssm family's block: RMSNorm, then the SSD mixer (no MLP, no
+    positions)."""
+    return x + mamba2_block(p["ssm"], L.rmsnorm(x, p["ln1"], cfg), cfg)
+
+
 def forward(params: Params, cfg: ModelConfig, batch):
     """Final-norm hidden states (B, S, D) of ``batch["tokens"]`` (B, S).
 
@@ -220,7 +245,9 @@ def forward(params: Params, cfg: ModelConfig, batch):
     differ only in what the backward keeps and what it runs again.
 
     The hybrid family's attention layers attend a ``cfg.local_window``-key
-    window (K6 with ``window``), its other layers run the RG-LRU scan.
+    window (K6 with ``window``), its other layers run the RG-LRU scan; the
+    ssm family's layers run the chunked SSD (:mod:`.mamba2`), its
+    intra-chunk tensors one layer at a time.
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -228,7 +255,8 @@ def forward(params: Params, cfg: ModelConfig, batch):
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     window = cfg.local_window if cfg.family == "hybrid" else 0
     for i, p in enumerate(params["layers"]):
-        block = _dense_block if cfg.is_attn_layer(i) else _rec_block
+        block = (_ssm_block if cfg.family == "ssm" else
+                 _dense_block if cfg.is_attn_layer(i) else _rec_block)
         if cfg.remat == "full":
             x = checkpoint(block, p, x, cfg, positions, window, use_reentrant=False)
         elif cfg.remat == "dots":
@@ -244,7 +272,11 @@ def train_loss(params: Params, cfg: ModelConfig, batch):
     """Next-token cross-entropy plus a small z-loss, as the reference's
     ``train_loss``: returns ``(loss, metrics)`` with ``nll``, ``zloss``,
     ``tokens`` and ``acc``; an optional ``batch["loss_mask"]`` (B, S)
-    weights the targets."""
+    weights the targets.  The ssm family does not train yet (ROADMAP.md
+    §1 item 7)."""
+    if cfg.family == "ssm":
+        raise NotImplementedError("training the ssm family is not ported yet "
+                                  "(ROADMAP.md §1 item 7); it serves and runs forward")
     h = forward(params, cfg, batch)
     tokens = batch["tokens"]
     lg = L.logits(params["head"], h).to(torch.float32)
@@ -270,8 +302,15 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cuda",
     The hybrid family's is ``{"layers_list": [...]}``, one entry a layer: a
     ring buffer ``{"k", "v"}`` (B, W, KV, hd) of ``W = min(local_window,
     seq_len)`` rows for an attention layer, the RG-LRU state ``{"conv",
-    "h"}`` for a recurrent one; every leaf has the batch on axis 0."""
+    "h"}`` for a recurrent one; every leaf has the batch on axis 0.  The
+    ssm family's is ``{"layers": {"conv": (L, B, K - 1, d_inner + 2 G N)
+    in dtype, "h": (L, B, H, N, P) f32}}``, the same size at any
+    ``seq_len``."""
     device = resolve_device(device)
+    if cfg.family == "ssm":
+        conv, h = init_mamba2_state(cfg, cfg.n_layers * batch, device, dtype)
+        return {"layers": {"conv": conv.unflatten(0, (cfg.n_layers, batch)),
+                           "h": h.unflatten(0, (cfg.n_layers, batch))}}
     if cfg.family == "hybrid":
         W = min(cfg.local_window, seq_len)
         ring = (batch, W, cfg.n_kv_heads, cfg.head_dim)
@@ -291,9 +330,12 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cuda",
 
 def cache_leaves(cache):
     """The tensors of a cache, in a fixed order (the dense and paged caches'
-    ``k``, ``v``; the hybrid list's leaves layer by layer)."""
+    ``k``, ``v``; the hybrid list's leaves layer by layer; the ssm stack's
+    ``conv``, ``h``)."""
     if "layers_list" in cache:
         return [t for c in cache["layers_list"] for t in c.values()]
+    if "layers" in cache:
+        return list(cache["layers"].values())
     return list(cache.values())
 
 
@@ -302,20 +344,22 @@ def map_cache(fn, cache):
     if "layers_list" in cache:
         return {"layers_list": [{k: fn(t) for k, t in c.items()}
                                 for c in cache["layers_list"]]}
+    if "layers" in cache:
+        return {"layers": {k: fn(t) for k, t in cache["layers"].items()}}
     return {k: fn(t) for k, t in cache.items()}
 
 
 def _no_pages(cfg: ModelConfig, what: str) -> None:
     if cfg.family not in ("dense", "moe"):
         raise ValueError(f"family {cfg.family!r} has no {what} (its recurrent state "
-                         "and ring buffer are O(window) a slot); use init_cache")
+                         "and ring buffer do not grow with the context); use init_cache")
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, device="cuda",
                      dtype=torch.bfloat16):
     """Paged decode cache: per layer one block pool of ``num_blocks`` pages
     of ``block_size`` rows shared by every slot, stacked over layers (the
-    dense and moe families only)."""
+    dense and moe families only; the hybrid and ssm families raise)."""
     _no_pages(cfg, "pageable KV cache")
     device = resolve_device(device)
     shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads, cfg.head_dim)
@@ -383,7 +427,8 @@ def write_cache_slots(cfg: ModelConfig, cache, mini, slots):
     span the whole slot, so nothing of a previous occupant survives).
     Writes go in pack order, so a later row wins a shared slot (the engine
     points dummy rows at a real row's slot, first).  The stacked caches
-    hold the batch on axis 1, the hybrid list's leaves on axis 0."""
+    hold the batch on axis 1 (the ssm stack's too), the hybrid list's
+    leaves on axis 0."""
     axis = 0 if cfg.family == "hybrid" else 1
     for i, slot in enumerate(slots):
         for c, m in zip(cache_leaves(cache), cache_leaves(mini)):
@@ -443,12 +488,12 @@ def prefill(params: Params, cfg: ModelConfig, tokens, cache, start=None, t0: int
     (:func:`mini_cache_with_prefix`); the suffix's logits are those of the
     full prefill.  Returns ``(logits at the last position, cache)``.
 
-    The moe and hybrid families run one :func:`decode_step` per position
-    instead, as the reference scans: the moe family's expert capacity
+    The moe, hybrid and ssm families run one :func:`decode_step` per
+    position instead, as the reference scans: the moe family's expert capacity
     ``ceil(S * k / E * cf)`` depends on the number of tokens a forward sees,
     so one token per forward keeps a prompt's routing the same alone,
-    batched or left-padded; the hybrid family's recurrent state stays at
-    its init until ``pos >= start`` (:func:`_gate_state`), so left pads never
+    batched or left-padded; the hybrid and ssm families' recurrent state
+    stays at its init until ``pos >= start`` (:func:`_gate_state`), so left pads never
     enter it.
     """
     if cfg.family != "dense":
@@ -548,7 +593,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token, pos,
     The hybrid family's attention layers write ring row ``min(pos % W, W -
     1)`` and attend their ring in age order (:func:`layers.ring_decode_attention`),
     its recurrent layers advance their ``(conv, h)`` state, kept at its old
-    value for slots whose prompt has not started (``pos < start``).
+    value for slots whose prompt has not started (``pos < start``); so do
+    the ssm family's layers, each its rows of the stacked state in place.
 
     Returns ``(logits, cache)``, plus the (B,) :func:`logits_health` probe
     when ``with_health``.
@@ -558,6 +604,9 @@ def decode_step(params: Params, cfg: ModelConfig, cache, token, pos,
     x = L.embed(params["tok"], token)
     for i, p in enumerate(params["layers"]):
         a = L.rmsnorm(x, p["ln1"], cfg)
+        if cfg.family == "ssm":
+            x = x + _ssm_decode(p, a, cache["layers"], i, pos, start, cfg)
+            continue
         if cfg.family == "hybrid":
             o = _hybrid_decode(p, a, cache["layers_list"][i], i, pos, start, cfg)
         elif block_tables is None:
@@ -593,4 +642,14 @@ def _hybrid_decode(p, x, c, i: int, pos, start, cfg: ModelConfig):
         return L.ring_decode_attention(p, x, c["k"], c["v"], pos, cfg, start)
     o, (conv, h) = rglru_block(p["rec"], x, cfg, (c["conv"], c["h"]), decode=True)
     c.update(_gate_state({"conv": conv, "h": h}, c, pos, start))
+    return o
+
+
+def _ssm_decode(p, x, layers, i: int, pos, start, cfg: ModelConfig):
+    """Layer ``i``'s SSD decode step, advancing its rows of the stacked
+    state ``layers`` in place."""
+    old = {"conv": layers["conv"][i], "h": layers["h"][i]}
+    o, (conv, h) = mamba2_block(p["ssm"], x, cfg, (old["conv"], old["h"]), decode=True)
+    for k, t in _gate_state({"conv": conv, "h": h}, old, pos, start).items():
+        old[k].copy_(t)
     return o

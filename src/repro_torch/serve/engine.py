@@ -74,7 +74,10 @@ serves from dense slots, as the reference's engine does.  Its prefill is
 the scan, and its packs lie on the batch axis as the moe family's in the
 dense layout; a left-padded row's recurrent state stays at its init until
 its prompt starts (``start``), so its tokens are those of its solo
-admission.
+admission.  The ssm family (Mamba2) keeps the SSD's conv window and state
+``(conv, h)`` per layer in each slot, a constant size at any ``max_seq``,
+and serves as the hybrid family does: from dense slots under either
+layout, its prefill the scan, its packs on the batch axis.
 
 The live session.  ``submit`` queues a request at any time, also while a
 ``serve_stream`` is being consumed; ``serve_stream`` drives the session and
@@ -466,9 +469,10 @@ class _ServeState:
 
 
 class ServeEngine:
-    """Greedy / temperature serving of a dense, moe or hybrid model on
+    """Greedy / temperature serving of a dense, moe, hybrid or ssm model on
     ``device``, over dense slots or a paged block pool
-    (``ServeConfig.kv_layout``; the hybrid family always from dense slots),
+    (``ServeConfig.kv_layout``; the hybrid and ssm families always from
+    dense slots),
     with solo or packed admission (``ServeConfig.packed_prefill``)."""
 
     def __init__(self, cfg: ModelConfig, params, sc: Optional[ServeConfig] = None,
@@ -485,9 +489,10 @@ class ServeEngine:
         self.last_serve_stats: Optional[dict] = None
         if sc.kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got {sc.kv_layout!r}")
-        # the hybrid family keeps O(window) state a slot: nothing to page, so
-        # it serves from dense slots under either layout, as the reference's
-        self._paged = sc.kv_layout == "paged" and cfg.family != "hybrid"
+        # the recurrent families keep state that does not grow with the
+        # context: nothing to page, so they serve from dense slots under
+        # either layout, as the reference's
+        self._paged = sc.kv_layout == "paged" and cfg.family in ("dense", "moe")
         self._packed = bool(sc.packed_prefill)
         # prefix sharing needs a prefix's pages to be a pure function of its
         # tokens; under kv_cache_format the cache holds rounded rows, so the
@@ -875,8 +880,8 @@ class ServeEngine:
 
     def _prefill_forwards(self, width: int) -> int:
         """Forward passes of one prefill of prompts ``width`` positions wide:
-        one for the dense family, one per position for the moe and hybrid
-        families' scan."""
+        one for the dense family, one per position for the other families'
+        scan."""
         return 1 if self.cfg.family == "dense" else width
 
     def _fault(self, st: _ServeState, rid: int) -> List:
@@ -1111,7 +1116,7 @@ class ServeEngine:
 
     def _admit_packed_batch(self, st: _ServeState, slots: List[int], rids: List[int],
                             P: int) -> List:
-        """Batch-axis packed admission (the moe family, dense layout): the
+        """Batch-axis packed admission (the scanned families, dense layout): the
         N left-padded prompts as the N rows of one (N, P) prefill (N a power
         of two; the dummy rows, all-zero prompts at start 0, come first and
         write the first real slot, which its real row then overwrites), each

@@ -126,6 +126,19 @@ def test_rowwise_kernel_olmoe_rmsnorm_rows(dev, R, C):
     assert torch.equal(k.view(torch.int32), p.view(torch.int32))
 
 
+@pytest.mark.parametrize("R,C", [(8, 2560), (8, 5120), (4096, 5120)])
+def test_rowwise_kernel_mamba2_rows(dev, R, C):
+    """Mamba2-2.7B's K2 calls: the block and final RMSNorms at d_model 2560,
+    the gated norm at d_inner 5120 (40 column tiles), a decode step's 8
+    rows and a 4096-token forward's."""
+    g = torch.Generator().manual_seed(C + R)
+    a, b = torch.randn(R, C, generator=g), torch.rand(R, 1, generator=g) + 0.01
+    a, b = a.to(dev), b.to(dev)
+    k = ops.posit_div_fused_rowwise(POSIT16, a, b)
+    p = ops.posit_div_rowwise_plain(POSIT16, a, b)
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
 @pytest.mark.parametrize("R", [8, 1])
 def test_rowwise_kernel_router_norm_rows(dev, R):
     """The router norm's K2 call: top-8 gates over their fixed-order sum."""
@@ -1766,3 +1779,47 @@ def test_hybrid_train_step_on_card_matches_cpu(dev):
     for (key, g), c in zip(tree_items(g_grads), tree_leaves(c_grads)):
         err = float(torch.linalg.vector_norm(g.cpu() - c) / torch.linalg.vector_norm(c))
         assert err <= 2e-2, (key, err)
+
+
+def test_ssm_decode_and_forward_on_card_match_cpu(dev):
+    """The ssm smoke config (Mamba2: the chunked SSD, K2 at d_model and
+    d_inner) on the card against the same bf16 weights on the CPU: the
+    whole-sequence forward's logits (2 x 96, chunks of 48) and a scanned
+    prefill then three decode steps' logits within 8 bf16 ulps of the
+    largest logit, the state ``h`` within 1e-2 of its largest magnitude."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.tree import tree_map
+
+    cfg = get_config("mamba2-2.7b", smoke=True).replace(remat="none")
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    toks = torch.from_numpy(np.random.default_rng(14).integers(0, cfg.vocab, (2, 96)))
+    start = torch.tensor([0, 5], dtype=torch.int32)
+    runs = {}
+    for d, params in ((dev, gpu), ("cpu", cpu)):
+        before = ops.posit_div_fused_rowwise.launches
+        with torch.inference_mode():
+            h = T.forward(params, cfg, {"tokens": toks.to(d)})
+            fwd = L.logits(params["head"], h).float().cpu()
+            cache = T.init_cache(cfg, 2, 64, device=d)
+            lg, cache = T.prefill(params, cfg, toks[:, :12].to(d), cache, start.to(d))
+            steps = [lg.float().cpu()]
+            for i in range(12, 15):
+                lg, cache = T.decode_step(params, cfg, cache, toks[:, i:i + 1].to(d),
+                                          torch.full((2,), i, dtype=torch.int32, device=d),
+                                          start.to(d))
+                steps.append(lg.float().cpu())
+        if torch.device(d).type == "cuda":
+            # 2L + 1 a forward: the forward, 12 scan steps, 3 decode steps
+            assert ops.posit_div_fused_rowwise.launches - before == 16 * (2 * cfg.n_layers + 1)
+        runs[torch.device(d).type] = (fwd, torch.cat(steps, 1), cache["layers"]["h"].cpu())
+    (c_fwd, c_dec, c_h), (g_fwd, g_dec, g_h) = runs["cpu"], runs["cuda"]
+    for c, g in ((c_fwd, g_fwd), (c_dec, g_dec)):
+        c, g = c[..., :cfg.vocab], g[..., :cfg.vocab]
+        ulp = 2.0 ** (math.floor(math.log2(float(c.abs().max()))) - 7)
+        assert torch.isfinite(g).all() and float((g - c).abs().max()) <= 8 * ulp
+    assert float((g_h - c_h).abs().max()) <= 1e-2 * float(c_h.abs().max())

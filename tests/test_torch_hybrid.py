@@ -75,7 +75,7 @@ def test_config_and_registry():
     assert [i for i in range(26) if full.is_attn_layer(i)] == [2, 5, 8, 11, 14, 17, 20, 23]
     assert (cfg.n_layers, cfg.local_window, cfg.head_dim) == (3, 64, 32)
     with pytest.raises(KeyError, match="recurrentgemma-2b.*smollm_360m"):
-        tget("mamba2_2p7b")
+        tget("granite_8b")
 
 
 @pytest.fixture(scope="module")

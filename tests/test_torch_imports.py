@@ -48,7 +48,8 @@ def test_port_has_every_slice_module():
                 "numerics/quant.py", "core/goldens.py", "core/costmodel.py",
                 "core/wide.py", "serve/emit.py", "data/tokenizer.py", "launch/serve.py",
                 "models/rglru.py", "configs/recurrentgemma_2b.py",
-                "kernels/csrc/flash_stage.cuh", "optim/grad_compress.py"):
+                "kernels/csrc/flash_stage.cuh", "optim/grad_compress.py",
+                "models/mamba2.py", "configs/mamba2_2p7b.py"):
         assert (pkg / rel).is_file(), rel
 
 

@@ -388,7 +388,7 @@ def test_scanned_suffix_prefill_is_full_prefill(model):
 
 def test_unported_moe_paths_raise(model):
     """What the moe family still refuses: the concatenated pack (its packs
-    lie on the batch axis), and what no family has: the ssm family.  The
+    lie on the batch axis), and what no family has: the encdec family.  The
     paged layout and training serve the moe family
     (tests/test_torch_moe_paged.py, tests/test_torch_moe_train.py), and
     ``remat="dots"`` trains it (tests/test_torch_hybrid_train.py)."""
@@ -399,7 +399,7 @@ def test_unported_moe_paths_raise(model):
         TT.prefill_packed(tp, cfg, t, TT.init_cache(cfg, 1, 2 * S, device="cpu"), zeros,
                           zeros, torch.tensor([S - 1]), S)
     with pytest.raises(NotImplementedError, match="family"):
-        tget("smollm_360m", smoke=True).replace(family="ssm")
+        tget("smollm_360m", smoke=True).replace(family="encdec")
     assert cfg.replace(remat="dots").remat == "dots"
     assert TT.init_paged_cache(cfg, 4, 16, device="cpu")["k"].shape[:3] == (cfg.n_layers, 4, 16)
 
